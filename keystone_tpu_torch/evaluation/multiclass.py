@@ -1,0 +1,119 @@
+"""Multiclass classification evaluation.
+
+Counterpart of ``keystone_tpu/evaluation/multiclass.py`` (reference
+``evaluation/MulticlassClassifierEvaluator.scala:63-152``): one-pass
+confusion matrix, micro/macro precision/recall/F1, pretty-printable
+confusion matrix.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+
+from ..parallel.dataset import to_numpy
+
+
+@dataclass
+class MulticlassMetrics:
+    confusion: np.ndarray  # [actual, predicted]
+
+    @property
+    def num_classes(self) -> int:
+        return self.confusion.shape[0]
+
+    @property
+    def total(self) -> int:
+        return int(self.confusion.sum())
+
+    def class_metrics(self, c: int):
+        tp = self.confusion[c, c]
+        fp = self.confusion[:, c].sum() - tp
+        fn = self.confusion[c, :].sum() - tp
+        precision = tp / max(tp + fp, 1)
+        recall = tp / max(tp + fn, 1)
+        f1 = (
+            2 * precision * recall / (precision + recall)
+            if precision + recall > 0
+            else 0.0
+        )
+        return precision, recall, f1
+
+    @property
+    def total_accuracy(self) -> float:
+        return float(np.trace(self.confusion)) / max(self.total, 1)
+
+    @property
+    def total_error(self) -> float:
+        return 1.0 - self.total_accuracy
+
+    @property
+    def macro_precision(self) -> float:
+        return float(
+            np.mean([self.class_metrics(c)[0] for c in range(self.num_classes)])
+        )
+
+    @property
+    def macro_recall(self) -> float:
+        return float(
+            np.mean([self.class_metrics(c)[1] for c in range(self.num_classes)])
+        )
+
+    @property
+    def macro_f1(self) -> float:
+        return float(
+            np.mean([self.class_metrics(c)[2] for c in range(self.num_classes)])
+        )
+
+    # micro-averaged precision == recall == accuracy for single-label
+    @property
+    def micro_precision(self) -> float:
+        return self.total_accuracy
+
+    @property
+    def micro_recall(self) -> float:
+        return self.total_accuracy
+
+    @property
+    def micro_f1(self) -> float:
+        return self.total_accuracy
+
+    def summary(self) -> str:
+        lines = [
+            f"Total Accuracy: {self.total_accuracy:.4f}",
+            f"Total Error: {self.total_error:.4f}",
+            f"Macro Precision/Recall/F1: "
+            f"{self.macro_precision:.4f}/{self.macro_recall:.4f}/{self.macro_f1:.4f}",
+            "Confusion Matrix (rows=actual, cols=predicted):",
+        ]
+        lines.append(
+            "\n".join(
+                " ".join(f"{v:6d}" for v in row) for row in self.confusion
+            )
+        )
+        return "\n".join(lines)
+
+
+def _to_int_array(x: Any) -> np.ndarray:
+    return to_numpy(x, dtype=np.int64).ravel()
+
+
+def evaluate_multiclass(predictions: Any, labels: Any, num_classes: int) -> MulticlassMetrics:
+    """Build the confusion matrix from predicted and actual int labels."""
+    pred = _to_int_array(predictions)
+    actual = _to_int_array(labels)
+    assert pred.shape == actual.shape, (pred.shape, actual.shape)
+    conf = np.zeros((num_classes, num_classes), dtype=np.int64)
+    np.add.at(conf, (actual, pred), 1)
+    return MulticlassMetrics(conf)
+
+
+class MulticlassClassifierEvaluator:
+    """Callable-object API parity with the reference."""
+
+    def __init__(self, num_classes: int):
+        self.num_classes = num_classes
+
+    def __call__(self, predictions: Any, labels: Any) -> MulticlassMetrics:
+        return evaluate_multiclass(predictions, labels, self.num_classes)

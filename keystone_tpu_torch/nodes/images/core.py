@@ -1,0 +1,189 @@
+"""Image pipeline nodes.
+
+Counterpart of ``keystone_tpu/nodes/images/core.py`` (the reference's
+``nodes/images`` package). Images are (H, W, C) float tensors; batch
+forms work over a written-out leading batch dimension.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ...ops import image_ops
+from ...ops.kernels import fused_cifar_featurize
+from ...parallel.dataset import ArrayDataset, Dataset
+from ...workflow.transformer import Transformer
+
+
+def _on(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+class ImageVectorizer(Transformer):
+    """Flatten an image to a vector (reference ``images/ImageVectorizer``)."""
+
+    def apply(self, img):
+        return img.reshape(-1)
+
+    def apply_batch(self, imgs):
+        return imgs.reshape(imgs.shape[0], -1)
+
+
+class GrayScaler(Transformer):
+    """MATLAB-weight grayscale (reference ``images/GrayScaler``)."""
+
+    def apply(self, img):
+        return image_ops.to_grayscale(img)
+
+    def apply_batch(self, imgs):
+        return image_ops.to_grayscale(imgs)
+
+
+class SymmetricRectifier(Transformer):
+    """Channel-doubling rectifier [max(v, x-a), max(v, -x-a)]
+    (reference ``images/SymmetricRectifier.scala:12-30``)."""
+
+    def __init__(self, max_val: float = 0.0, alpha: float = 0.0):
+        self.max_val = float(max_val)
+        self.alpha = float(alpha)
+
+    def apply(self, img):
+        pos = torch.clamp_min(img - self.alpha, self.max_val)
+        neg = torch.clamp_min(-img - self.alpha, self.max_val)
+        return torch.cat([pos, neg], dim=-1)
+
+    def apply_batch(self, imgs):
+        return self.apply(imgs)
+
+
+class Pooler(Transformer):
+    """Strided spatial pooling (reference ``images/Pooler.scala:20-68``).
+    pixel_fn/pool_fn are named ('identity'|'abs'|'square',
+    'sum'|'max'|'mean') so node equality stays structural."""
+
+    def __init__(self, stride: int, pool_size: int,
+                 pixel_fn: str = "identity", pool_fn: str = "sum"):
+        self.stride = stride
+        self.pool_size = pool_size
+        self.pixel_fn = pixel_fn
+        self.pool_fn = pool_fn
+
+    def apply(self, img):
+        return image_ops.pool_image(
+            img, self.stride, self.pool_size, self.pixel_fn, self.pool_fn)
+
+    def apply_batch(self, imgs):
+        return self.apply(imgs)
+
+
+class Convolver(Transformer):
+    """Filter-bank convolution with optional per-patch normalization and
+    whitening fold-in (reference ``images/Convolver.scala:20-45``).
+
+    ``filters`` is (num_filters, conv_size^2 * channels) in (dy, dx, c)
+    feature order, pre-whitened by the caller exactly as in the reference
+    (filters_normalized @ whitener.T); the whitener's means are subtracted
+    from each normalized patch (``ops/image_ops.filter_bank_convolve``).
+    """
+
+    def __init__(self, filters: np.ndarray, img_height: int, img_width: int,
+                 img_channels: int, whitener=None,
+                 normalize_patches: bool = True, var_constant: float = 10.0):
+        self.filters = np.ascontiguousarray(filters, dtype=np.float32)
+        self.img_height = img_height
+        self.img_width = img_width
+        self.img_channels = img_channels
+        self.whitener_means = (None if whitener is None else
+                               np.asarray(whitener.means, np.float32))
+        self.normalize_patches = normalize_patches
+        self.var_constant = var_constant
+        self.conv_size = int(round(
+            (self.filters.shape[1] / img_channels) ** 0.5))
+
+    def apply_params(self, device):
+        return self._params_on(device, lambda d: (
+            _on(self.filters, d),
+            None if self.whitener_means is None
+            else _on(self.whitener_means, d)))
+
+    def apply_with_params(self, params, img):
+        filters, means = params
+        return image_ops.filter_bank_convolve(
+            img, filters, self.conv_size, self.img_channels,
+            self.normalize_patches, means, self.var_constant)
+
+    def apply(self, img):
+        return self.apply_with_params(self.apply_params(img.device), img)
+
+    def apply_batch(self, imgs):
+        return self.apply(imgs)
+
+
+class Windower(Transformer):
+    """Dense sliding-window patch extraction (reference
+    ``images/Windower.scala:14-55``). A 1->many node: each image yields
+    all its windows, so the output dataset has n * num_windows items,
+    image-major. Padding rows of the input map to trailing zero windows,
+    so the true count stays exact."""
+
+    def __init__(self, stride: int, window_size: int):
+        self.stride = stride
+        self.window_size = window_size
+
+    def apply(self, img):
+        w = image_ops.extract_windows(img, self.window_size, self.stride)
+        nH, nW, S, _, C = w.shape
+        return w.reshape(nH * nW, S, S, C)
+
+    def apply_dataset(self, ds: Dataset) -> Dataset:
+        assert isinstance(ds, ArrayDataset)
+        w = image_ops.extract_windows(ds.data, self.window_size, self.stride)
+        B, nH, nW = w.shape[:3]
+        flat = w.reshape((B * nH * nW,) + tuple(w.shape[3:]))
+        return ArrayDataset(flat, ds.n * nH * nW, ds.shards)
+
+
+class FusedConvRectifyPool(Transformer):
+    """Fused Convolver >> SymmetricRectifier >> Pooler(sum) >> vectorize
+    as one CUDA kernel (``ops/kernels.fused_cifar_featurize``): the
+    convolution and rectifier outputs never leave the chip. The batch
+    path and the datum path (a batch of one) both run the kernel on a
+    CUDA tensor and its plain version on a CPU tensor. Same contract as
+    Convolver: ``filters`` arrive pre-whitened by the caller; the
+    whitener contributes only its means, subtracted after
+    normalization."""
+
+    def __init__(self, filters, img_size: int, patch_size: int,
+                 channels: int = 3, pool_stride: int = 13,
+                 pool_size: int = 14, alpha: float = 0.25,
+                 whitener=None, var_constant: float = 10.0):
+        self.filters = np.ascontiguousarray(filters, np.float32)
+        self.whitener_means = None
+        if whitener is not None:
+            self.whitener_means = np.asarray(whitener.means, np.float32)
+        self.img_size = img_size
+        self.patch_size = patch_size
+        self.channels = channels
+        self.pool_stride = pool_stride
+        self.pool_size = pool_size
+        self.alpha = alpha
+        self.var_constant = var_constant
+
+    def apply_params(self, device):
+        return self._params_on(device, lambda d: (
+            _on(self.filters, d),
+            None if self.whitener_means is None
+            else _on(self.whitener_means, d)))
+
+    def apply_with_params(self, params, imgs):
+        filters, means = params
+        return fused_cifar_featurize(
+            imgs, filters, self.img_size, self.patch_size, self.channels,
+            self.pool_stride, self.pool_size, self.var_constant, self.alpha,
+            whitener_means=means)
+
+    def apply_batch(self, imgs):
+        return self.apply_with_params(self.apply_params(imgs.device), imgs)
+
+    def apply(self, img):
+        return self.apply_batch(img[None].contiguous())[0]

@@ -1,0 +1,186 @@
+"""Linear models and least-squares estimators, resident fits.
+
+Counterpart of ``keystone_tpu/nodes/learning/linear.py`` (reference
+``nodes/learning/LinearMapper.scala`` and ``BlockLinearMapper.scala``):
+mean-centered normal equations solved by Cholesky, and block coordinate
+descent over feature blocks. Streamed fits and quantized weights come in
+later slices.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ...ops import linalg
+from ...parallel.dataset import Dataset, ensure_array
+from ...workflow.label_estimator import LabelEstimator
+from ...workflow.operators import tensor_token
+from ...workflow.transformer import Transformer
+from ..stats import StandardScalerModel
+
+
+def _affine_params(W, mean, inv_std, b, device):
+    """(W, mean, inv_std, b) as float32 tensors on ``device``, with the
+    identity filled in for absent terms."""
+    def on(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+    Wd = on(W)
+    d, k = Wd.shape
+    return (
+        Wd,
+        torch.zeros(d, device=device) if mean is None else on(mean),
+        torch.ones(d, device=device) if inv_std is None else on(inv_std),
+        torch.zeros(k, device=device) if b is None else on(b),
+    )
+
+
+def _affine(params, x):
+    W, mean, inv_std, b = params
+    return ((x - mean) * inv_std) @ W + b
+
+
+class LinearMapper(Transformer):
+    """out = x_model^T in (+ b), with optional feature scaler
+    (reference ``LinearMapper.scala:18-62``)."""
+
+    def __init__(self, weights, intercept=None,
+                 feature_scaler: Optional[StandardScalerModel] = None):
+        self.weights = weights
+        self.intercept = intercept
+        self.feature_scaler = feature_scaler
+
+    def eq_key(self):
+        return (LinearMapper, tensor_token(self.weights),
+                tensor_token(self.intercept),
+                None if self.feature_scaler is None
+                else self.feature_scaler._cached_eq_key())
+
+    def apply(self, x):
+        if self.feature_scaler is not None:
+            x = self.feature_scaler.apply(x)
+        W, _, _, b = self.apply_params(x.device)
+        return x @ W + b
+
+    def apply_params(self, device):
+        def build(d):
+            s = self.feature_scaler
+            mean = None if s is None else s.mean
+            inv = (None if s is None or s.std is None
+                   else 1.0 / np.asarray(s.std))
+            return _affine_params(self.weights, mean, inv, self.intercept, d)
+        return self._params_on(device, build)
+
+    def apply_batch(self, X):
+        return _affine(self.apply_params(X.device), X)
+
+
+class LinearMapEstimator(LabelEstimator):
+    """OLS/ridge via normal equations on mean-centered features and
+    labels; intercept = label mean (reference ``LinearMapper.scala:71-98``)."""
+
+    def __init__(self, lam: Optional[float] = None):
+        self.lam = lam
+
+    def _fit(self, ds: Dataset, labels: Dataset) -> LinearMapper:
+        ds = ensure_array(ds)
+        labels = ensure_array(labels, ds.device)
+        n = ds.n
+        X, Y = ds.data.to(torch.float32), labels.data.to(torch.float32)
+        m = ds.mask[:, None].to(X.dtype)
+        x_mean = (X * m).sum(dim=0) / n
+        y_mean = (Y * m).sum(dim=0) / n
+        Xc = (X - x_mean) * m
+        Yc = (Y - y_mean) * m
+        W = linalg.ridge_cho_solve(linalg.gram(Xc), linalg.cross(Xc, Yc),
+                                   float(self.lam or 0.0))
+        return LinearMapper(W, intercept=y_mean,
+                            feature_scaler=StandardScalerModel(
+                                x_mean.cpu().numpy()))
+
+
+class BlockLinearMapper(Transformer):
+    """Block-partitioned linear model (reference
+    ``BlockLinearMapper.scala:22-73``). The blocks concatenate into one
+    weight matrix applied as one GEMM; the per-block view is kept for API
+    parity."""
+
+    def __init__(self, block_weights: Sequence, block_size: int,
+                 intercept=None, feature_means=None):
+        self.block_weights = list(block_weights)
+        self.block_size = block_size
+        self.intercept = intercept
+        self.feature_means = feature_means
+        if any(isinstance(w, torch.Tensor) for w in self.block_weights):
+            self.weights = torch.cat([torch.as_tensor(w)
+                                      for w in self.block_weights], dim=0)
+        else:
+            self.weights = np.concatenate(self.block_weights, axis=0)
+
+    def eq_key(self):
+        return (BlockLinearMapper, self.block_size,
+                tensor_token(self.weights), tensor_token(self.intercept),
+                tensor_token(self.feature_means))
+
+    def apply_params(self, device):
+        return self._params_on(device, lambda d: _affine_params(
+            self.weights, self.feature_means, None, self.intercept, d))
+
+    def apply(self, x):
+        W, mean, _, b = self.apply_params(x.device)
+        return (x - mean) @ W + b
+
+    def apply_batch(self, X):
+        return _affine(self.apply_params(X.device), X)
+
+    def __getstate__(self):
+        # device tensors pickle as host copies
+        d = super().__getstate__()
+        host = (lambda v: v.cpu() if isinstance(v, torch.Tensor) else v)
+        d["block_weights"] = [host(w) for w in self.block_weights]
+        for f in ("weights", "intercept", "feature_means"):
+            d[f] = host(d[f])
+        return d
+
+
+class BlockLeastSquaresEstimator(LabelEstimator):
+    """The workhorse solver (reference ``BlockLinearMapper.scala:196-257``):
+    per-block mean-centering, label mean-centering, block coordinate
+    descent with L2, intercept from the joint means."""
+
+    def __init__(self, block_size: int, num_iter: int, lam: float = 0.0):
+        self.block_size = block_size
+        self.num_iter = num_iter
+        self.lam = lam
+
+    def _fit(self, ds: Dataset, labels: Dataset) -> BlockLinearMapper:
+        ds = ensure_array(ds)
+        labels = ensure_array(labels, ds.device)
+        d = ds.data.shape[1]
+        bs = self.block_size
+        bounds = [(i, min(d, i + bs)) for i in range(0, d, bs)]
+        Ws, x_mean, y_mean = block_least_squares(
+            ds.data, labels.data, ds.n, float(self.lam), bounds,
+            self.num_iter, mask=ds.mask)
+        # apply() centers x by the means, so the intercept is y_mean
+        return BlockLinearMapper(Ws, bs, intercept=y_mean,
+                                 feature_means=x_mean)
+
+
+def block_least_squares(X, Y, n, lam, bounds, num_iter, mask=None):
+    """Column means over the true ``n`` rows + mean-centered block
+    coordinate descent. Returns ``(per-block weights, x_mean, y_mean)``;
+    prediction is ``(x - x_mean) @ concat(Ws) + y_mean``."""
+    X, Y = X.to(torch.float32), Y.to(torch.float32)
+    if mask is None:
+        mask = torch.ones(X.shape[0], dtype=torch.bool, device=X.device)
+    x_mean = linalg.distributed_mean(X, n)
+    y_mean = linalg.distributed_mean(Y, n)
+    m = mask[:, None].to(X.dtype)
+    Yc = (Y - y_mean) * m
+    blocks = [(X[:, lo:hi] - x_mean[lo:hi]) * m for lo, hi in bounds]
+    Ws = linalg.bcd_core(blocks, Yc, lam, num_passes=num_iter)
+    return Ws, x_mean, y_mean
+

@@ -1,0 +1,37 @@
+"""Utility nodes (reference ``nodes/util``).
+
+Counterpart of the label and classifier nodes of
+``keystone_tpu/nodes/util/__init__.py``.
+"""
+from __future__ import annotations
+
+import torch
+
+from ...workflow.transformer import Transformer
+
+
+class ClassLabelIndicatorsFromIntLabels(Transformer):
+    """int label -> +-1 one-hot vector
+    (reference ``util/ClassLabelIndicators.scala:15-34``)."""
+
+    def __init__(self, num_classes: int):
+        assert num_classes > 1, "numClasses must be > 1"
+        self.num_classes = num_classes
+
+    def apply_batch(self, labels):
+        idx = torch.arange(self.num_classes, device=labels.device)
+        hit = idx == labels.reshape(labels.shape + (1,))
+        return torch.where(hit, 1.0, -1.0).to(torch.float32)
+
+    def apply(self, label):
+        return self.apply_batch(label)
+
+
+class MaxClassifier(Transformer):
+    """argmax (reference ``util/MaxClassifier.scala:9-11``)."""
+
+    def apply(self, x):
+        return torch.argmax(x, dim=-1).to(torch.int32)
+
+    def apply_batch(self, X):
+        return self.apply(X)

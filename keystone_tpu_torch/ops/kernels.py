@@ -1,0 +1,232 @@
+"""Hand-written Hopper kernels, their builds, wrappers and plain versions.
+
+Each kernel is CUDA C++ under ``keystone_tpu_torch/csrc/``, compiled by
+``nvcc`` for ``sm_90a`` into a shared library with a plain C entry point
+and loaded with ``ctypes``. Libraries are built on first use into
+``build/keystone_tpu_torch/`` at the root of the checkout, named by a
+hash of their source, so a changed source is rebuilt. Nothing is built
+or imported at module import time: the CPU tests import this module on
+machines without ``nvcc``.
+
+Dispatch rule, per wrapper: a tensor on the CPU goes to the kernel's
+plain PyTorch version, which computes the same function step by step; a
+tensor on a CUDA device launches the kernel, or raises. There is no
+fallback from a failed build or launch, and a shape the kernel does not
+take raises.
+
+``LAUNCHES`` counts, per kernel, the launches its wrapper made; a run can
+reset it and read it back to show the path went through the kernels.
+
+Kernels (Pallas TPU kernel replaced -> file here):
+
+* ``fused_cifar_featurize`` (``keystone_tpu/ops/pallas_kernels.py::
+  fused_cifar_featurize``) -> ``csrc/fused_featurize.cu``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+import torch
+
+from .image_ops import patch_matrix, patch_stats, pool_image, pool_regions
+
+_PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = _PKG_DIR / "csrc"
+BUILD_DIR = _PKG_DIR.parent / "build" / "keystone_tpu_torch"
+
+#: kernel library name -> CUDA source under csrc/
+SOURCES = {"fused_featurize": "fused_featurize.cu"}
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: wrapper name -> launches made by that wrapper
+LAUNCHES: Dict[str, int] = {"fused_cifar_featurize": 0}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and Path(cand, "bin", "nvcc").exists():
+            return str(Path(cand, "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on "
+                           "first use and need the CUDA toolkit")
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    digest = hashlib.sha256(
+        (CSRC_DIR / SOURCES[name]).read_bytes()
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_kernels(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
+    """Compile the named kernel libraries that are not built yet, one
+    ``nvcc`` per source, all started together. Returns each compiled
+    library's compiler output (``-Xptxas -v``: registers, shared memory,
+    spills); raises if any build fails."""
+    names = list(SOURCES if names is None else names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        target = _lib_path(name)
+        if target.exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, target)
+    logs, failed = {}, []
+    for name, (proc, tmp, target) in procs.items():
+        out, _ = proc.communicate()
+        logs[name] = out
+        if proc.returncode != 0:
+            failed.append(f"{name} (exit {proc.returncode}):\n{out}")
+            os.unlink(tmp)
+        else:
+            os.replace(tmp, target)
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return logs
+
+
+def _library(name: str) -> ctypes.CDLL:
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = _lib_path(name)
+        if not path.exists():
+            build_kernels([name])
+        lib = ctypes.CDLL(str(path))
+        _declare(name, lib)
+        _LIBS[name] = lib
+    return lib
+
+
+def _declare(name: str, lib: ctypes.CDLL) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if name == "fused_featurize":
+        lib.fused_cifar_featurize_f32.argtypes = [
+            p, p, p, p, p, i, i, i, i, i, i, i, i, f, f, p]
+        lib.fused_cifar_featurize_f32.restype = i
+        lib.fused_featurize_smem_bytes.argtypes = [i, i, i, i]
+        lib.fused_featurize_smem_bytes.restype = i
+        lib.fused_featurize_max_regions.argtypes = []
+        lib.fused_featurize_max_regions.restype = i
+        lib.fused_featurize_supported.argtypes = [i, i]
+        lib.fused_featurize_supported.restype = i
+
+
+# -- fused CIFAR featurization ---------------------------------------------
+
+def _featurize_terms(filters, whitener_means):
+    """fsum[k] = sum_f filters[k, f] and bias[k] = filters[k] . means:
+    small per-filter vectors, computed outside the kernel."""
+    fsum = filters.sum(dim=1)
+    if whitener_means is None:
+        bias = torch.zeros_like(fsum)
+    else:
+        bias = filters @ whitener_means.to(filters)
+    return fsum, bias
+
+
+def fused_cifar_featurize_plain(imgs, filters, img_size=32, patch_size=6,
+                                channels=3, pool_stride=13, pool_size=14,
+                                var_constant=10.0, alpha=0.25,
+                                whitener_means=None):
+    """The plain PyTorch version of the fused kernel, step by step:
+    im2col (unfold), the patch-by-filter matmul, per-patch statistics,
+    symmetric rectification, then the region sums. Images (B, H, W, C),
+    filters (K, S*S*C) in (dy, dx, c) order -> (B, R*2K) features,
+    region-major, K pos then K neg values per region."""
+    B = imgs.shape[0]
+    S = patch_size
+    patches = patch_matrix(imgs, S)                    # (B, OH, OW, F)
+    raw = patches @ filters.T                          # (B, OH, OW, K)
+    m, sd = patch_stats(patches, var_constant)
+    fsum, bias = _featurize_terms(filters, whitener_means)
+    conv = (raw - m[..., None] * fsum) / sd[..., None] - bias
+    rect = torch.cat([torch.clamp_min(conv - alpha, 0.0),
+                      torch.clamp_min(-conv - alpha, 0.0)], dim=-1)
+    pooled = pool_image(rect, pool_stride, pool_size, "identity", "sum")
+    return pooled.reshape(B, -1)
+
+
+def fused_cifar_featurize(imgs, filters, img_size=32, patch_size=6,
+                          channels=3, pool_stride=13, pool_size=14,
+                          var_constant=10.0, alpha=0.25,
+                          whitener_means=None):
+    """Fused Convolver(normalize) >> SymmetricRectifier >> Pooler(sum) >>
+    vectorize over a batch of images (B, H, W, C) with filters
+    (K, S*S*C): CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    if imgs.device.type == "cpu":
+        return fused_cifar_featurize_plain(
+            imgs, filters, img_size, patch_size, channels, pool_stride,
+            pool_size, var_constant, alpha, whitener_means)
+    if imgs.device.type != "cuda":
+        raise ValueError(f"fused_cifar_featurize: unsupported device "
+                         f"{imgs.device}")
+    if imgs.dim() != 4 or tuple(imgs.shape[1:]) != (
+            img_size, img_size, channels):
+        raise ValueError(f"fused_cifar_featurize: images {tuple(imgs.shape)} "
+                         f"are not (B, {img_size}, {img_size}, {channels})")
+    F = patch_size * patch_size * channels
+    if filters.dim() != 2 or filters.shape[1] != F:
+        raise ValueError(f"fused_cifar_featurize: filters "
+                         f"{tuple(filters.shape)} are not (K, {F})")
+    for name, t in (("images", imgs), ("filters", filters)):
+        if t.dtype != torch.float32 or not t.is_contiguous() \
+                or t.device != imgs.device:
+            raise ValueError(f"fused_cifar_featurize: {name} must be "
+                             "contiguous float32 on the images' device")
+    lib = _library("fused_featurize")
+    if not lib.fused_featurize_supported(patch_size, channels):
+        raise ValueError(f"fused_cifar_featurize: the kernel is not compiled "
+                         f"for patch size {patch_size} with {channels} "
+                         "channels")
+    out_dim = img_size - patch_size + 1
+    R = len(pool_regions(out_dim, pool_stride, pool_size)) ** 2
+    if R > lib.fused_featurize_max_regions():
+        raise ValueError(f"fused_cifar_featurize: {R} pooling regions; the "
+                         f"kernel takes at most "
+                         f"{lib.fused_featurize_max_regions()}")
+    smem = lib.fused_featurize_smem_bytes(img_size, img_size, channels,
+                                          patch_size)
+    if smem > 232448:
+        raise ValueError(f"fused_cifar_featurize: needs {smem} bytes of "
+                         "shared memory, above the 227 KB a block may use")
+    B, K = imgs.shape[0], filters.shape[0]
+    out = torch.empty((B, R * 2 * K), dtype=torch.float32, device=imgs.device)
+    if B == 0 or K == 0:
+        return out
+    fsum, bias = _featurize_terms(filters, whitener_means)
+    fsum, bias = fsum.contiguous(), bias.contiguous()
+    with torch.cuda.device(imgs.device):
+        rc = lib.fused_cifar_featurize_f32(
+            imgs.data_ptr(), filters.data_ptr(), fsum.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), B, img_size, img_size,
+            channels, patch_size, K, pool_stride, pool_size,
+            float(var_constant), float(alpha),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_cifar_featurize: CUDA error {rc} at launch")
+    LAUNCHES["fused_cifar_featurize"] += 1
+    return out

@@ -1,0 +1,44 @@
+"""Lazy, memoized values flowing through the DAG executor.
+
+Mirrors ``workflow/graph/Expression.scala:20-44``: a Dataset / Datum /
+Transformer wrapped in call-by-name computation, memoized on first access.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Union
+
+_UNSET = object()
+
+
+class Expression:
+    """A lazily computed, memoized value."""
+
+    def __init__(self, thunk: Union[Callable[[], Any], Any], eager: bool = False):
+        if callable(thunk) and not eager:
+            self._thunk = thunk
+            self._value = _UNSET
+        else:
+            self._thunk = None
+            self._value = thunk() if callable(thunk) else thunk
+
+    def get(self) -> Any:
+        if self._value is _UNSET:
+            self._value = self._thunk()
+            self._thunk = None
+        return self._value
+
+    @property
+    def computed(self) -> bool:
+        return self._value is not _UNSET
+
+
+class DatasetExpression(Expression):
+    """Lazy distributed dataset (reference: ``DatasetExpression``)."""
+
+
+class DatumExpression(Expression):
+    """Lazy single item (reference: ``DatumExpression``)."""
+
+
+class TransformerExpression(Expression):
+    """Lazy fitted transformer-operator (reference: ``TransformerExpression``)."""

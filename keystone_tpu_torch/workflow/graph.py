@@ -1,0 +1,261 @@
+"""Immutable untyped DAG.
+
+Mirrors ``workflow/graph/Graph.scala:32-455``: a Graph is (sources,
+sink_dependencies, operators, dependencies) with mutation-by-copy
+operations, id-remapping union (``add_graph``), source-to-sink splicing
+(``connect_graph``), and DOT export. Analysis helpers mirror
+``workflow/graph/AnalysisUtils.scala``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field, replace
+from typing import Dict, FrozenSet, Mapping, Sequence, Tuple
+
+from .graph_ids import GraphId, NodeId, SinkId, SourceId
+from .operators import Operator
+
+
+@dataclass(frozen=True)
+class Graph:
+    sources: FrozenSet[SourceId] = frozenset()
+    sink_dependencies: Mapping[SinkId, GraphId] = field(default_factory=dict)
+    operators: Mapping[NodeId, Operator] = field(default_factory=dict)
+    dependencies: Mapping[NodeId, Tuple[GraphId, ...]] = field(default_factory=dict)
+
+    # -- accessors --------------------------------------------------------
+    @property
+    def nodes(self) -> FrozenSet[NodeId]:
+        return frozenset(self.operators.keys())
+
+    @property
+    def sinks(self) -> FrozenSet[SinkId]:
+        return frozenset(self.sink_dependencies.keys())
+
+    def get_operator(self, node: NodeId) -> Operator:
+        return self.operators[node]
+
+    def get_dependencies(self, node: NodeId) -> Tuple[GraphId, ...]:
+        return self.dependencies[node]
+
+    def get_sink_dependency(self, sink: SinkId) -> GraphId:
+        return self.sink_dependencies[sink]
+
+    def _max_id(self) -> int:
+        ids = (
+            [s.id for s in self.sources]
+            + [s.id for s in self.sink_dependencies]
+            + [n.id for n in self.operators]
+        )
+        return max(ids) if ids else 0
+
+    def _next_ids(self, count: int) -> range:
+        start = self._max_id() + 1
+        return range(start, start + count)
+
+    # -- mutation by copy (Graph.scala:115-248) ---------------------------
+    def add_node(self, op: Operator, deps: Sequence[GraphId]) -> Tuple["Graph", NodeId]:
+        nid = NodeId(self._max_id() + 1)
+        return (
+            replace(
+                self,
+                operators={**self.operators, nid: op},
+                dependencies={**self.dependencies, nid: tuple(deps)},
+            ),
+            nid,
+        )
+
+    def add_source(self) -> Tuple["Graph", SourceId]:
+        sid = SourceId(self._max_id() + 1)
+        return replace(self, sources=self.sources | {sid}), sid
+
+    def add_sink(self, dep: GraphId) -> Tuple["Graph", SinkId]:
+        kid = SinkId(self._max_id() + 1)
+        return (
+            replace(self, sink_dependencies={**self.sink_dependencies, kid: dep}),
+            kid,
+        )
+
+    def set_dependencies(self, node: NodeId, deps: Sequence[GraphId]) -> "Graph":
+        assert node in self.operators
+        return replace(self, dependencies={**self.dependencies, node: tuple(deps)})
+
+    def set_operator(self, node: NodeId, op: Operator) -> "Graph":
+        assert node in self.operators
+        return replace(self, operators={**self.operators, node: op})
+
+    def set_sink_dependency(self, sink: SinkId, dep: GraphId) -> "Graph":
+        assert sink in self.sink_dependencies
+        return replace(self, sink_dependencies={**self.sink_dependencies, sink: dep})
+
+    def remove_node(self, node: NodeId) -> "Graph":
+        """Remove a node (callers must have rerouted dependents first)."""
+        ops = {k: v for k, v in self.operators.items() if k != node}
+        deps = {k: v for k, v in self.dependencies.items() if k != node}
+        return replace(self, operators=ops, dependencies=deps)
+
+    def remove_sink(self, sink: SinkId) -> "Graph":
+        return replace(
+            self,
+            sink_dependencies={
+                k: v for k, v in self.sink_dependencies.items() if k != sink
+            },
+        )
+
+    def remove_source(self, source: SourceId) -> "Graph":
+        return replace(self, sources=self.sources - {source})
+
+    def replace_dependency(self, old: GraphId, new: GraphId) -> "Graph":
+        """Point every edge at ``old`` to ``new`` (Graph.scala:258-275)."""
+        deps = {
+            k: tuple(new if d == old else d for d in v)
+            for k, v in self.dependencies.items()
+        }
+        sdeps = {
+            k: (new if v == old else v) for k, v in self.sink_dependencies.items()
+        }
+        return replace(self, dependencies=deps, sink_dependencies=sdeps)
+
+    # -- graph composition (Graph.scala:290-431) --------------------------
+    def add_graph(
+        self, other: "Graph"
+    ) -> Tuple["Graph", Dict[SourceId, SourceId], Dict[SinkId, SinkId]]:
+        """Disjoint union, remapping the other graph's ids to fresh ones.
+        Returns (union, other_source->new_source, other_sink->new_sink)."""
+        other_ids = sorted(
+            [s.id for s in other.sources]
+            + [s.id for s in other.sink_dependencies]
+            + [n.id for n in other.operators]
+        )
+        fresh = self._next_ids(len(other_ids))
+        idmap = dict(zip(other_ids, fresh))
+
+        def rn(g: GraphId) -> GraphId:
+            return type(g)(idmap[g.id])
+
+        new_sources = self.sources | {SourceId(idmap[s.id]) for s in other.sources}
+        new_ops = {**self.operators}
+        new_deps = {**self.dependencies}
+        for n, op in other.operators.items():
+            new_ops[NodeId(idmap[n.id])] = op
+            new_deps[NodeId(idmap[n.id])] = tuple(rn(d) for d in other.dependencies[n])
+        new_sinks = {**self.sink_dependencies}
+        for s, d in other.sink_dependencies.items():
+            new_sinks[SinkId(idmap[s.id])] = rn(d)
+        union = Graph(new_sources, new_sinks, new_ops, new_deps)
+        smap = {s: SourceId(idmap[s.id]) for s in other.sources}
+        kmap = {k: SinkId(idmap[k.id]) for k in other.sink_dependencies}
+        return union, smap, kmap
+
+    def connect_graph(
+        self, other: "Graph", splice: Mapping[SourceId, SinkId]
+    ) -> Tuple["Graph", Dict[SourceId, SourceId], Dict[SinkId, SinkId]]:
+        """Union with ``other``, wiring each of other's sources in ``splice``
+        to the value feeding one of self's sinks; the consumed sinks are
+        removed (Graph.scala:340-364). ``splice`` keys are other's source
+        ids; values are self's sink ids."""
+        union, smap, kmap = self.add_graph(other)
+        for o_src, my_sink in splice.items():
+            new_src = smap.pop(o_src)
+            target = self.sink_dependencies[my_sink]
+            union = union.replace_dependency(new_src, target).remove_source(new_src)
+        for my_sink in set(splice.values()):
+            union = union.remove_sink(my_sink)
+        return union, smap, kmap
+
+    def induce(self, keep: FrozenSet[GraphId]) -> "Graph":
+        """Subgraph on ``keep`` (nodes/sources) plus sinks depending on it."""
+        ops = {n: op for n, op in self.operators.items() if n in keep}
+        deps = {n: self.dependencies[n] for n in ops}
+        sources = frozenset(s for s in self.sources if s in keep)
+        sinks = {
+            k: v for k, v in self.sink_dependencies.items() if v in keep
+        }
+        return Graph(sources, sinks, ops, deps)
+
+    # -- analysis (AnalysisUtils.scala) -----------------------------------
+    def get_children(self, gid: GraphId) -> FrozenSet[GraphId]:
+        out = set()
+        for n, deps in self.dependencies.items():
+            if gid in deps:
+                out.add(n)
+        for k, d in self.sink_dependencies.items():
+            if d == gid:
+                out.add(k)
+        return frozenset(out)
+
+    def get_descendants(self, gid: GraphId) -> FrozenSet[GraphId]:
+        seen: set = set()
+        stack = [gid]
+        while stack:
+            cur = stack.pop()
+            for c in self.get_children(cur):
+                if c not in seen:
+                    seen.add(c)
+                    stack.append(c)
+        return frozenset(seen)
+
+    def get_parents(self, gid: GraphId) -> Tuple[GraphId, ...]:
+        if isinstance(gid, SinkId):
+            return (self.sink_dependencies[gid],)
+        if isinstance(gid, NodeId):
+            return self.dependencies[gid]
+        return ()
+
+    def get_ancestors(self, gid: GraphId) -> FrozenSet[GraphId]:
+        seen: set = set()
+        stack = [gid]
+        while stack:
+            cur = stack.pop()
+            for p in self.get_parents(cur):
+                if p not in seen:
+                    seen.add(p)
+                    stack.append(p)
+        return frozenset(seen)
+
+    def linearize(self) -> Tuple[GraphId, ...]:
+        """Deterministic topological order over all ids
+        (AnalysisUtils.scala:88-121)."""
+        order: list = []
+        seen: set = set()
+
+        def visit(gid: GraphId) -> None:
+            if gid in seen:
+                return
+            seen.add(gid)
+            for p in sorted(self.get_parents(gid), key=lambda g: (g.id, type(g).__name__)):
+                visit(p)
+            order.append(gid)
+
+        for k in sorted(self.sink_dependencies, key=lambda g: g.id):
+            visit(k)
+        # cover nodes unreachable from any sink, deterministically
+        for n in sorted(self.operators, key=lambda g: g.id):
+            visit(n)
+        return tuple(order)
+
+    # -- export (Graph.scala:436-455) -------------------------------------
+    def source_descendants(self) -> FrozenSet[GraphId]:
+        """Every id reachable from any (unconnected/runtime) source."""
+        out: set = set()
+        for s in self.sources:
+            out.add(s)
+            out |= self.get_descendants(s)
+        return frozenset(out)
+
+    def to_dot(self, title: str = "pipeline") -> str:
+        lines = [f'digraph "{title}" {{', "  rankdir=LR;"]
+        for s in sorted(self.sources, key=lambda g: g.id):
+            lines.append(f'  "{s!r}" [shape=oval, label="source {s.id}"];')
+        for n in sorted(self.operators, key=lambda g: g.id):
+            lines.append(
+                f'  "{n!r}" [shape=box, label="{self.operators[n].label()}"];'
+            )
+        for k in sorted(self.sink_dependencies, key=lambda g: g.id):
+            lines.append(f'  "{k!r}" [shape=diamond, label="sink {k.id}"];')
+        for n, deps in sorted(self.dependencies.items(), key=lambda kv: kv[0].id):
+            for i, d in enumerate(deps):
+                lines.append(f'  "{d!r}" -> "{n!r}" [label="{i}"];')
+        for k, d in sorted(self.sink_dependencies.items(), key=lambda kv: kv[0].id):
+            lines.append(f'  "{d!r}" -> "{k!r}";')
+        lines.append("}")
+        return "\n".join(lines)

@@ -1,0 +1,224 @@
+"""Operator algebra: the untyped execution layer under the typed API.
+
+Counterpart of ``keystone_tpu/workflow/operators.py`` (reference
+``workflow/graph/Operator.scala``): each DAG node holds an Operator;
+``execute`` consumes the dependencies' lazy Expressions and returns a
+lazy Expression. A TransformerOperator takes its batch path iff any
+input is a dataset.
+
+Operator equality drives common-subexpression elimination and the prefix
+memo: two operators are equal iff their ``eq_key()`` match. The default
+key is the class plus all public ``__dict__`` entries made hashable, so
+parameterized nodes written as plain classes get structural equality.
+"""
+from __future__ import annotations
+
+import itertools
+from typing import Any, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..parallel.dataset import Dataset
+from .expression import (
+    DatasetExpression,
+    DatumExpression,
+    Expression,
+    TransformerExpression,
+)
+
+
+def tensor_token(t: Any) -> Any:
+    """Cheap content identity of a (possibly large, possibly on-device)
+    tensor for ``eq_key``: shape, dtype and three global moments, one
+    small device-to-host copy instead of the whole array. A collision
+    needs identical shape and identical float64 sum / sum of squares /
+    sum of absolute values; its only consequence is CSE merging two
+    indistinguishable models."""
+    if t is None:
+        return None
+    if not isinstance(t, torch.Tensor):
+        t = torch.as_tensor(np.asarray(t))
+    z = t.detach().to(torch.float64)
+    m = torch.stack([z.sum(), (z * z).sum(), z.abs().sum()]).cpu().tolist()
+    return (tuple(t.shape), str(t.dtype), *m)
+
+
+def _hashable(v: Any) -> Any:
+    """Best-effort conversion of a parameter value to a hashable token."""
+    if isinstance(v, np.ndarray):
+        return ("ndarray", v.shape, str(v.dtype), v.tobytes())
+    if isinstance(v, torch.Tensor):
+        return ("tensor",) + tensor_token(v)
+    if isinstance(v, (list, tuple)):
+        return tuple(_hashable(x) for x in v)
+    if isinstance(v, dict):
+        return tuple(sorted((k, _hashable(x)) for k, x in v.items()))
+    try:
+        hash(v)
+        return v
+    except TypeError:
+        return id(v)
+
+
+class Operator:
+    """A unit of computation stored at a graph node."""
+
+    def execute(self, deps: Sequence[Expression]) -> Expression:
+        raise NotImplementedError
+
+    def label(self) -> str:
+        return type(self).__name__
+
+    def eq_key(self) -> Tuple:
+        items = tuple(
+            (k, _hashable(v))
+            for k, v in sorted(self.__dict__.items())
+            if not k.startswith("_")
+        )
+        return (type(self),) + items
+
+    def _cached_eq_key(self) -> Tuple:
+        # Nodes are logically frozen after construction; caching avoids
+        # re-serializing large parameter arrays on every CSE comparison.
+        key = self.__dict__.get("_eq_key_val")
+        if key is None:
+            key = self.eq_key()
+            self.__dict__["_eq_key_val"] = key
+        return key
+
+    def __eq__(self, other: Any) -> bool:
+        return type(self) is type(other) and (
+            self._cached_eq_key() == other._cached_eq_key()
+        )
+
+    def __hash__(self) -> int:
+        return hash(self._cached_eq_key())
+
+
+#: Source of identity tokens for untagged data. Keying constant data by
+#: ``id()`` (as the JAX package does) lets a freed object's id be reused
+#: by a new one, which then hits the old object's entries in the prefix
+#: memo and is served a stale result.
+_DATA_TOKENS = itertools.count()
+
+
+def data_token(obj: Any) -> int:
+    """A token unique to ``obj`` for the life of the process."""
+    token = getattr(obj, "_keystone_token", None)
+    if token is None:
+        token = next(_DATA_TOKENS)
+        obj._keystone_token = token
+    return token
+
+
+class DatasetOperator(Operator):
+    """A constant dataset (reference ``DatasetOperator``)."""
+
+    def __init__(self, dataset: Dataset):
+        self.dataset = dataset
+
+    def eq_key(self) -> Tuple:
+        # a loader-provided tag (e.g. the source path) gives the dataset a
+        # stable identity, so prefixes survive across pipelines; untagged
+        # data falls back to a per-object token
+        tag = getattr(self.dataset, "tag", None)
+        if tag is not None:
+            return (DatasetOperator, "tag", tag)
+        return (DatasetOperator, data_token(self.dataset))
+
+    def execute(self, deps: Sequence[Expression]) -> Expression:
+        assert not deps
+        return DatasetExpression(self.dataset, eager=True)
+
+    def label(self) -> str:
+        return "Dataset"
+
+
+class DatumOperator(Operator):
+    """A constant single item (reference ``DatumOperator``)."""
+
+    def __init__(self, datum: Any):
+        self.datum = datum
+        self._token = next(_DATA_TOKENS)
+
+    def eq_key(self) -> Tuple:
+        return (DatumOperator, self._token)
+
+    def execute(self, deps: Sequence[Expression]) -> Expression:
+        assert not deps
+        return DatumExpression(self.datum, eager=True)
+
+    def label(self) -> str:
+        return "Datum"
+
+
+class TransformerOperator(Operator):
+    """An operator transforming data, with per-datum and batch paths
+    (reference ``TransformerOperator``, Operator.scala:66-100)."""
+
+    def single_transform(self, inputs: Sequence[Any]) -> Any:
+        raise NotImplementedError
+
+    def batch_transform(self, inputs: Sequence[Dataset]) -> Dataset:
+        raise NotImplementedError
+
+    def execute(self, deps: Sequence[Expression]) -> Expression:
+        if any(isinstance(d, DatasetExpression) for d in deps):
+            return DatasetExpression(
+                lambda: self.batch_transform([d.get() for d in deps])
+            )
+        return DatumExpression(
+            lambda: self.single_transform([d.get() for d in deps])
+        )
+
+
+class EstimatorOperator(Operator):
+    """Fits on datasets, yielding a TransformerOperator
+    (reference ``EstimatorOperator.fitRDDs``)."""
+
+    def fit_datasets(self, inputs: Sequence[Dataset]) -> TransformerOperator:
+        raise NotImplementedError
+
+    def execute(self, deps: Sequence[Expression]) -> Expression:
+        return TransformerExpression(
+            lambda: self.fit_datasets([d.get() for d in deps])
+        )
+
+
+class DelegatingOperator(Operator):
+    """Applies a fitted transformer produced upstream: dep 0 is the
+    TransformerExpression, the rest are data (reference
+    ``DelegatingOperator``)."""
+
+    def execute(self, deps: Sequence[Expression]) -> Expression:
+        assert deps, "delegating operator requires a transformer dependency"
+        t, data = deps[0], deps[1:]
+        assert isinstance(t, TransformerExpression)
+        if any(isinstance(d, DatasetExpression) for d in data):
+            return DatasetExpression(
+                lambda: t.get().batch_transform([d.get() for d in data])
+            )
+        return DatumExpression(
+            lambda: t.get().single_transform([d.get() for d in data])
+        )
+
+    def label(self) -> str:
+        return "Delegate"
+
+
+class ExpressionOperator(Operator):
+    """Wraps an already-computed Expression (saved state substituted by the
+    optimizer; reference ``ExpressionOperator``)."""
+
+    def __init__(self, expression: Expression):
+        self.expression = expression
+
+    def eq_key(self) -> Tuple:
+        return (ExpressionOperator, id(self.expression))
+
+    def execute(self, deps: Sequence[Expression]) -> Expression:
+        return self.expression
+
+    def label(self) -> str:
+        return "Saved"

@@ -1,0 +1,104 @@
+"""Transformer: the per-item pipeline stage.
+
+Counterpart of ``keystone_tpu/workflow/transformer.py`` (reference
+``workflow/Transformer.scala``): a Transformer is simultaneously an
+operator (executable node) and a one-node Pipeline. A node implements
+per-item ``apply`` on tensors; its batch form is ``apply_batch`` over a
+written-out leading batch dimension. Nodes that write no ``apply_batch``
+get a row-by-row map of ``apply``.
+
+Fitted-param protocol: a node holding fitted arrays returns them, staged
+on a device, from ``apply_params(device)`` and computes from them in
+``apply_with_params(params, x)``, so the datum path and the batch path
+read the same device copies. The copies are cached per device on the
+node and dropped when it is pickled.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Sequence
+
+import torch
+
+from ..parallel.dataset import ArrayDataset, Dataset, map_rows
+from .graph import Graph
+from .operators import TransformerOperator
+from .pipeline import Chainable, Pipeline
+
+
+class Transformer(TransformerOperator, Chainable):
+
+    def apply(self, x: Any) -> Any:
+        """Per-item transform on tensors."""
+        raise NotImplementedError
+
+    def apply_batch(self, X: Any) -> Any:
+        """Whole-batch transform over the leading dimension (padded rows
+        included). Default: ``apply`` row by row."""
+        return map_rows(self.apply, X)
+
+    # -- fitted-param protocol ---------------------------------------------
+    def apply_params(self, device: torch.device) -> Any:
+        """Fitted tensors consumed by ``apply_with_params``, staged on
+        ``device``, or None for stateless/config-only nodes."""
+        return None
+
+    def apply_with_params(self, params: Any, x: Any) -> Any:
+        """``apply(x)`` reading fitted tensors from ``params``."""
+        return self.apply(x)
+
+    def _params_on(self, device: torch.device,
+                   build: Callable[[torch.device], Any]) -> Any:
+        """Per-device cache behind ``apply_params``."""
+        cache = self.__dict__.setdefault("_params_cache", {})
+        key = str(device)
+        if key not in cache:
+            cache[key] = build(device)
+        return cache[key]
+
+    def apply_dataset(self, ds: Dataset) -> Dataset:
+        if isinstance(ds, ArrayDataset):
+            return ds.map_batch(self.apply_batch)
+        return ds.map(self.apply)
+
+    # -- operator plumbing -------------------------------------------------
+    def single_transform(self, inputs: Sequence[Any]) -> Any:
+        return self.apply(inputs[0])
+
+    def batch_transform(self, inputs: Sequence[Dataset]) -> Dataset:
+        return self.apply_dataset(inputs[0])
+
+    def to_pipeline(self) -> Pipeline:
+        g = Graph()
+        g, src = g.add_source()
+        g, nid = g.add_node(self, (src,))
+        g, sink = g.add_sink(nid)
+        return Pipeline(g, src, sink)
+
+    # device copies of fitted params must not leak into pickles
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        state.pop("_params_cache", None)
+        state.pop("_eq_key_val", None)
+        return state
+
+
+class LambdaTransformer(Transformer):
+    """Function lift (reference ``Transformer.apply(f)``)."""
+
+    def __init__(self, fn: Callable[[Any], Any], name: str = "Lambda"):
+        self.fn = fn
+        self.name = name
+
+    def eq_key(self):
+        return (LambdaTransformer, self.fn, self.name)
+
+    def apply(self, x: Any) -> Any:
+        return self.fn(x)
+
+    def label(self) -> str:
+        return self.name
+
+
+def transformer(fn: Callable[[Any], Any]) -> LambdaTransformer:
+    """Decorator/lift: ``transformer(lambda x: x * 2)``."""
+    return LambdaTransformer(fn, getattr(fn, "__name__", "Lambda"))
