@@ -17,12 +17,21 @@ Phases, each of which raises (and so exits non-zero) on failure:
    4096-wide BCD blocks) on surrogate CIFAR (20480 train / 4096 test
    images), through ``Pipeline.fit`` / ``apply`` / ``apply_datum``;
    then LinearPixels on the same data. Accuracy must land in the
-   surrogate's bands and every kernel must have launched.
+   surrogate's bands and the featurize kernel must have launched.
+4b. Streamed path: the same fit out of core, the training images
+   streamed from the host in chunks of 1024 with prefetch depth 2
+   (``StreamingDataset``), the scaler and the BCD solver accumulating
+   chunk by chunk through the Gram kernel, under an explicit device
+   budget; applied chunk by chunk to a test stream and to resident
+   data. Launch counts, accuracy, agreement with phase 4 and the
+   stream's residency are asserted; both fits' device-memory peaks are
+   printed.
 5. Timing: each kernel, its plain version and a library yardstick with
-   CUDA events at B = 1024, K = 1024.
+   CUDA events at the main path's shapes.
 
-``--profile`` adds a second fit + apply under ``torch.profiler`` after
-phase 4 and prints device time by kernel and the device's idle share.
+``--profile`` adds a second resident fit + apply and a second streamed
+fit under ``torch.profiler`` and prints device time by kernel and the
+device's idle share.
 
 The line before the last is a JSON object listing every kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -31,6 +40,7 @@ result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -52,9 +62,17 @@ PEAK_HBM_BYTES = 3.35e12
 #: rtol = atol = 2e-3 against the composed ops).
 FEATURIZE_TOL = 1e-5
 
+#: Gram kernel vs plain version: max |kernel - plain| <= GRAM_TOL *
+#: max |plain|. Both sides are true float32 (the plain version is cuBLAS
+#: with TF32 off) and differ only in summation order; the JAX package
+#: holds its Gram kernel to rtol = atol = 2e-4, the ceiling here.
+GRAM_TOL = 2e-4
+
 SEED = 0
 N_TRAIN, N_TEST = 20480, 4096
 NUM_FILTERS = 1024
+#: the streamed path's chunking, as the JAX package's streamed bench
+CHUNK, DEPTH = 1024, 2
 
 
 def _sync():
@@ -100,31 +118,91 @@ def _featurize_work(B, K, P=729, F=108, R=4, region_hits=4 * 196):
     return ops, nbytes
 
 
-def _profile_main_path(rpc, config, train, test, train_labels):
-    """Fit + apply once more under torch.profiler (``--profile`` only):
-    device time by kernel, and the device's idle share of the wall."""
+def _gram_work(n, d, k):
+    """(operations, bytes) of gram_cross on X (n, d), Y (n, k): the upper
+    triangle of X^T X plus X^T Y, 2 n (d (d + 1) / 2 + d k) operations;
+    X and Y read once, G and C read and written once (in place)."""
+    ops = 2 * n * (d * (d + 1) // 2 + d * k)
+    nbytes = 4 * (n * d + n * k + 2 * d * d + 2 * d * k)
+    return ops, nbytes
+
+
+def _bound(ops, nbytes):
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def _check_gram(kernels, rng, dev):
+    """gram_cross against its plain version at the streamed path's chunk
+    shape (into a nonzero carry), two small ragged shapes and
+    LinearPixels' width; returns the largest absolute error."""
+    worst = 0.0
+    for n, d, k, carry in ((CHUNK, NUM_FILTERS * 8, 10, True),
+                           (1000, 100, 3, False), (7, 3, 2, False),
+                           (N_TRAIN, 3072, 10, False)):
+        X = torch.as_tensor(rng.randn(n, d).astype(np.float32), device=dev)
+        Y = torch.as_tensor(rng.randn(n, k).astype(np.float32), device=dev)
+        G0 = torch.zeros((d, d), device=dev)
+        C0 = torch.zeros((d, k), device=dev)
+        if carry:
+            # a carry of the size one earlier chunk would have left
+            G0 = torch.randn((d, d), device=dev) * n ** 0.5
+            G0 = G0 + G0.T
+            C0 = torch.randn((d, k), device=dev) * n ** 0.5
+        G, C = kernels.gram_cross(X, Y, G0.clone(), C0.clone())
+        want_G, want_C = kernels.gram_cross_plain(X, Y, G0, C0)
+        _sync()
+        assert bool(torch.isfinite(G).all()) and bool(torch.isfinite(C).all())
+        assert torch.equal(G, G.T), "gram_cross: G is not symmetric"
+        for name, got, want in (("G", G, want_G), ("C", C, want_C)):
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            print(f"[check] gram_cross n={n} d={d} k={k}"
+                  f"{' (nonzero carry)' if carry else ''} {name}: max abs "
+                  f"err {err:.3e} (max |plain| {scale:.3e}, rel "
+                  f"{err / scale:.3e})", flush=True)
+            assert err <= GRAM_TOL * scale, (name, err, scale)
+            worst = max(worst, err)
+        del X, Y, G0, C0, G, C, want_G, want_C
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _profile(label, fn):
+    """Run ``fn`` once under torch.profiler (``--profile`` only): device
+    time by kernel, and the device's idle share of the wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from keystone_tpu_torch.workflow.env import PipelineEnv
-
-    PipelineEnv.reset()  # else the prefix memo serves the earlier fit
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _sync()
         t0 = time.time()
-        filters, whitener = rpc.learn_filters(train.data, config)
-        fitted = rpc.build_pipeline(filters, whitener, config, train.data,
-                                    train_labels).fit()
-        fitted.apply(test.data).get()
+        fn()
         _sync()
         wall = time.time() - t0
     busy = sum(e.device_time for e in prof.events()
                if e.device_type == DeviceType.CUDA) / 1e6
     print(prof.key_averages().table(sort_by="self_device_time_total",
                                     row_limit=15, max_name_column_width=60))
-    print(f"[profile] fit + apply {wall:.3f} s wall, device busy "
+    print(f"[profile] {label} {wall:.3f} s wall, device busy "
           f"{busy:.3f} s, idle share {1 - busy / wall:.3f}", flush=True)
+
+
+def _profile_main_path(rpc, config, train, test, train_labels):
+    """Fit + apply once more under torch.profiler (``--profile`` only):
+    device time by kernel, and the device's idle share of the wall."""
+    from keystone_tpu_torch.workflow.env import PipelineEnv
+
+    def run():
+        filters, whitener = rpc.learn_filters(train.data, config)
+        fitted = rpc.build_pipeline(filters, whitener, config, train.data,
+                                    train_labels).fit()
+        fitted.apply(test.data).get()
+
+    PipelineEnv.reset()  # else the prefix memo serves the earlier fit
+    _profile("fit + apply", run)
 
 
 def main() -> int:
@@ -141,13 +219,16 @@ def main() -> int:
     )
     from keystone_tpu_torch.ops import kernels
     from keystone_tpu_torch.parallel.dataset import ArrayDataset
+    from keystone_tpu_torch.parallel.streaming import StreamingDataset
     from keystone_tpu_torch.pipelines.images.cifar import (
         linear_pixels,
         random_patch_cifar as rpc,
     )
     from keystone_tpu_torch.workflow.common import Cacher
+    from keystone_tpu_torch.workflow.env import PipelineEnv
 
     dev = torch.device("cuda")
+    torch.manual_seed(SEED)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -199,6 +280,7 @@ def main() -> int:
         worst = max(worst, err)
         del imgs, filters, means, got, want
     torch.cuda.empty_cache()
+    gram_worst = _check_gram(kernels, rng, dev)
 
     # -- 4. main path ---------------------------------------------------------
     (tr_x, tr_y), (te_x, te_y) = make_surrogate_cifar(N_TRAIN, N_TEST,
@@ -212,6 +294,8 @@ def main() -> int:
 
     kernels.reset_launches()
     _sync()
+    torch.cuda.reset_peak_memory_stats()
+    base_resident = torch.cuda.memory_allocated()
     t0 = time.time()
     train_labels = (ClassLabelIndicatorsFromIntLabels(rpc.NUM_CLASSES)
                     >> Cacher("labels"))(train.labels)
@@ -220,6 +304,7 @@ def main() -> int:
                                 train_labels).fit()
     _sync()
     fit_s = time.time() - t0
+    peak_resident = torch.cuda.max_memory_allocated()
     t0 = time.time()
     test_pred = fitted.apply(test.data).get()
     _sync()
@@ -251,23 +336,102 @@ def main() -> int:
     assert 0.02 < rp_test < 0.90, rp_test
     assert 0.30 < lin_test < 0.98, lin_test
     assert rp_test < lin_test - 0.15, (rp_test, lin_test)
-    for name, count in launches.items():
-        assert count > 0, f"{name} was not launched on the main path"
+    assert launches["fused_cifar_featurize"] > 0, \
+        "fused_cifar_featurize was not launched on the main path"
     if "--profile" in sys.argv[1:]:
         _profile_main_path(rpc, config, train, test, train_labels)
-        kernels.LAUNCHES.update(launches)
-    del fitted, train, test, train_labels, test_pred, train_pred
+    resident_W = _block_weights(fitted)
+    del fitted, train, train_labels, test_pred, train_pred
+
+    # -- 4b. streamed path ----------------------------------------------------
+    # the prefix memo pins the resident fit's features; the streamed fit
+    # starts from a clean memo with only the test set on the device
+    PipelineEnv.reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+    chunk_bytes = CHUNK * 32 * 32 * 3 * 4          # an f32 image chunk
+    budget = (DEPTH + 1) * chunk_bytes + (1 << 20)
+    stream = StreamingDataset.from_numpy(
+        tr_x, CHUNK, device=dev, prefetch_depth=DEPTH, tag="cifar-train",
+        hbm_budget=budget)
+    labels = (ClassLabelIndicatorsFromIntLabels(rpc.NUM_CLASSES)
+              >> Cacher("labels"))(
+        ArrayDataset.from_numpy(tr_y.astype(np.int32), dev))
+
+    def streamed_fit():
+        return rpc.build_pipeline(filters, whitener, config, stream,
+                                  labels).fit()
+
+    kernels.reset_launches()
+    _sync()
+    torch.cuda.reset_peak_memory_stats()
+    base_stream = torch.cuda.memory_allocated()
+    t0 = time.time()
+    fitted_s = streamed_fit()
+    _sync()
+    stream_s = time.time() - t0
+    peak_stream = torch.cuda.max_memory_allocated()
+    stream_launches = dict(kernels.LAUNCHES)
+    n_chunks = -(-N_TRAIN // CHUNK)
+    print(f"[stream] RandomPatchCifar streamed fit ({n_chunks} chunks of "
+          f"{CHUNK}, depth {DEPTH}, two passes): {stream_s:.3f} s "
+          f"({N_TRAIN / stream_s:.0f} train img/s), launches "
+          f"{stream_launches}", flush=True)
+    assert stream_launches["gram_cross"] == n_chunks, stream_launches
+    assert stream_launches["fused_cifar_featurize"] == 2 * n_chunks, \
+        stream_launches
+    print(f"[stream] residency peak {stream.peak_device_nbytes:.0f} B, "
+          f"static plan {stream.static_plan_nbytes():.0f} B, budget "
+          f"{budget:.0f} B", flush=True)
+    assert stream.peak_device_nbytes <= budget
+    assert stream.buffered_nbytes() == 0.0
+    print(f"[mem] device-memory peak: resident fit {peak_resident / 2**20:.1f}"
+          f" MiB ({base_resident / 2**20:.1f} MiB allocated before it: "
+          f"train and test images, labels), streamed fit "
+          f"{peak_stream / 2**20:.1f} MiB ({base_stream / 2**20:.1f} MiB "
+          "allocated before it: test images, labels)", flush=True)
+
+    test_stream = StreamingDataset.from_numpy(te_x, CHUNK, device=dev,
+                                              prefetch_depth=DEPTH)
+    out = fitted_s.apply(test_stream).get()
+    chunk_preds = np.concatenate([c.data[:c.n].cpu().numpy()
+                                  for c in out.chunks()])
+    s_pred = fitted_s.apply(test.data).get()
+    s_preds = s_pred.numpy()
+    s_datum = np.array([int(fitted_s.apply_datum(test.data.data[i]).get())
+                        for i in range(8)])
+    assert chunk_preds.shape == s_preds.shape == (N_TEST,)
+    assert np.mean(chunk_preds == s_preds) >= 0.999, \
+        np.mean(chunk_preds == s_preds)
+    assert np.array_equal(s_datum, s_preds[:8]), (s_datum, s_preds[:8])
+    s_test = evaluate_multiclass(s_pred, test.labels,
+                                 rpc.NUM_CLASSES).total_error
+    agree = float(np.mean(s_preds == preds))
+    stream_W = _block_weights(fitted_s)
+    w_rel = float((stream_W - resident_W).abs().max()
+                  / resident_W.abs().max())
+    print(f"[stream] test error {s_test:.4f} (resident {rp_test:.4f}), "
+          f"predictions agree with the resident fit on {agree:.4f} of "
+          f"test images, max |W_stream - W_resident| / max |W_resident| "
+          f"{w_rel:.3e}", flush=True)
+    assert 0.02 < s_test < 0.90, s_test
+    assert s_test < lin_test - 0.15, (s_test, lin_test)
+    assert agree >= 0.99, agree
+    assert abs(s_test - rp_test) <= 0.01, (s_test, rp_test)
+    if "--profile" in sys.argv[1:]:
+        PipelineEnv.reset()
+        _profile("streamed fit", streamed_fit)
+    del fitted_s, out, stream, test_stream, labels, test
+    PipelineEnv.reset()
     torch.cuda.empty_cache()
 
     # -- 5. timing ------------------------------------------------------------
     B = K = 1024
     imgs, filters, means = _featurize_inputs(rng, B, K, dev)
-    counted = dict(kernels.LAUNCHES)
     ms = _time_ms(lambda: kernels.fused_cifar_featurize(
         imgs, filters, whitener_means=means), reps=20)
     plain_ms = _time_ms(lambda: kernels.fused_cifar_featurize_plain(
         imgs, filters, whitener_means=means), reps=5, warmup=1)
-    kernels.LAUNCHES.update(counted)  # timing launches are not the path's
     # library yardstick: the raw filter-bank product alone, as one
     # cuDNN float32 convolution (TF32 off); no single PyTorch call
     # computes the whole fused function
@@ -275,14 +439,33 @@ def main() -> int:
     w = filters.reshape(K, 6, 6, 3).permute(0, 3, 1, 2).contiguous()
     library_ms = _time_ms(lambda: torch.nn.functional.conv2d(x, w), reps=20)
     ops, nbytes = _featurize_work(B, K)
-    t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
-    bound_ms = max(t_ops, t_bytes)
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    bound_ms, bound_by = _bound(ops, nbytes)
     print(f"[time] fused_cifar_featurize B={B} K={K}: kernel {ms:.3f} ms, "
           f"plain {plain_ms:.3f} ms, conv2d (GEMM only) {library_ms:.3f} ms, "
           f"bound {bound_ms:.3f} ms by {bound_by} ({ops / 1e9:.1f} GFLOP, "
           f"{nbytes / 1e6:.1f} MB), {ops / ms / 1e9:.1f} TFLOP/s achieved",
           flush=True)
+    del imgs, filters, means, x, w
+
+    n, d, k = CHUNK, NUM_FILTERS * 8, 10
+    X = torch.randn((n, d), device=dev)
+    Y = torch.randn((n, k), device=dev)
+    G = torch.zeros((d, d), device=dev)
+    C = torch.zeros((d, k), device=dev)
+    g_ms = _time_ms(lambda: kernels.gram_cross(X, Y, G, C), reps=20)
+    g_plain_ms = _time_ms(lambda: kernels.gram_cross_plain(X, Y, G, C),
+                          reps=20)
+    # library yardstick: the two cuBLAS float32 products (TF32 off), the
+    # full square of X^T X; the port never calls them on the path
+    g_library_ms = _time_ms(lambda: (torch.addmm(G, X.T, X),
+                                     torch.addmm(C, X.T, Y)), reps=20)
+    g_ops, g_bytes = _gram_work(n, d, k)
+    g_bound_ms, g_bound_by = _bound(g_ops, g_bytes)
+    print(f"[time] gram_cross n={n} d={d} k={k}: kernel {g_ms:.3f} ms, "
+          f"plain {g_plain_ms:.3f} ms, torch.addmm x2 {g_library_ms:.3f} ms, "
+          f"bound {g_bound_ms:.3f} ms by {g_bound_by} ({g_ops / 1e9:.1f} "
+          f"GFLOP triangle, {g_bytes / 1e6:.1f} MB), "
+          f"{g_ops / g_ms / 1e9:.1f} TFLOP/s achieved", flush=True)
 
     # -- 6. report ------------------------------------------------------------
     print(smi)
@@ -298,11 +481,31 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
+    }, {
+        "name": "gram_cross",
+        "route": "cuda",
+        "source": "keystone_tpu_torch/csrc/gram_cross.cu",
+        "replaces": "keystone_tpu/ops/pallas_kernels.py:101",
+        "launches": stream_launches["gram_cross"],
+        "max_abs_err": gram_worst,
+        "ms": g_ms,
+        "plain_ms": g_plain_ms,
+        "bound_ms": g_bound_ms,
+        "bound_by": g_bound_by,
+        "library_ms": g_library_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _block_weights(fitted):
+    """The fitted BlockLinearMapper's concatenated weights."""
+    g = fitted._graph
+    mapper = next(g.get_operator(n) for n in g.nodes
+                  if type(g.get_operator(n)).__name__ == "BlockLinearMapper")
+    return torch.as_tensor(mapper.weights).float()
 
 
 if __name__ == "__main__":

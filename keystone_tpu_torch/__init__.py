@@ -9,6 +9,7 @@ unless the caller passes ``device="cpu"``.
 """
 from .ops.device import resolve_device
 from .parallel.dataset import ArrayDataset, Dataset, HostDataset, as_dataset
+from .parallel.streaming import StreamingDataset, fit_streaming
 from .workflow import (
     Cacher,
     Estimator,
@@ -29,6 +30,8 @@ __all__ = [
     "Dataset",
     "HostDataset",
     "as_dataset",
+    "StreamingDataset",
+    "fit_streaming",
     "Cacher",
     "Estimator",
     "FittedPipeline",

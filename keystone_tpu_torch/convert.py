@@ -31,6 +31,17 @@ from .pipelines.images.cifar.random_patch_cifar import (
 from .workflow.pipeline import FittedPipeline
 
 
+def whitener_from_arrays(means: np.ndarray,
+                         whitener: Optional[np.ndarray] = None) -> ZCAWhitener:
+    """The port's ZCA whitener from a reference whitener's means (F,) and
+    matrix (F, F), the identity when the matrix is absent. The fused
+    featurizer reads only the means."""
+    means = np.array(means, np.float32)
+    if whitener is None:
+        whitener = np.eye(means.shape[0], dtype=np.float32)
+    return ZCAWhitener(np.array(whitener, np.float32), means)
+
+
 def from_reference_arrays(d: Dict[str, np.ndarray], device=DEFAULT_DEVICE,
                           config: Optional[RandomCifarConfig] = None,
                           block_size: int = 4096) -> FittedPipeline:
@@ -41,9 +52,7 @@ def from_reference_arrays(d: Dict[str, np.ndarray], device=DEFAULT_DEVICE,
     filters = np.asarray(d["filters"], np.float32)
     whitener = None
     if d.get("whitener_means") is not None:
-        F = filters.shape[1]
-        whitener = ZCAWhitener(d.get("whitener", np.eye(F, dtype=np.float32)),
-                               d["whitener_means"])
+        whitener = whitener_from_arrays(d["whitener_means"], d.get("whitener"))
 
     def on(key):
         v = d.get(key)

@@ -3,8 +3,9 @@
 Counterpart of ``keystone_tpu/nodes/learning/linear.py`` (reference
 ``nodes/learning/LinearMapper.scala`` and ``BlockLinearMapper.scala``):
 mean-centered normal equations solved by Cholesky, and block coordinate
-descent over feature blocks. Streamed fits and quantized weights come in
-later slices.
+descent over feature blocks, fitted on resident data or streamed chunk
+by chunk through a ``(G, C, sx, sy, n)`` Gram carry. Quantized weights
+come in a later slice.
 """
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ import numpy as np
 import torch
 
 from ...ops import linalg
-from ...parallel.dataset import Dataset, ensure_array
+from ...ops.kernels import gram_cross
+from ...parallel.dataset import ArrayDataset, Dataset, ensure_array
 from ...workflow.label_estimator import LabelEstimator
 from ...workflow.operators import tensor_token
 from ...workflow.transformer import Transformer
@@ -83,6 +85,23 @@ class LinearMapEstimator(LabelEstimator):
 
     def __init__(self, lam: Optional[float] = None):
         self.lam = lam
+
+    # -- streaming fit (accumulate/finalize protocol) ----------------------
+    def accumulate(self, carry, chunk, labels):
+        """One chunk's contribution to the raw Gram / cross / sum carry,
+        through the fused Gram kernel, in place."""
+        return accumulate_gram_carry(carry, chunk, labels)
+
+    def finalize(self, carry) -> LinearMapper:
+        """Centered ridge normal equations from the accumulated raw
+        moments, Gc = G - n mu_x mu_x^T and Cc = C - n mu_x mu_y^T:
+        algebraically the resident ``_fit``, with only the (d, d) + (d, k)
+        carry on the device. Consumes the carry (centered in place)."""
+        x_mean, y_mean, Gc, Cc = _centered_carry(carry)
+        W = linalg.ridge_cho_solve(Gc, Cc, float(self.lam or 0.0))
+        return LinearMapper(W, intercept=y_mean,
+                            feature_scaler=StandardScalerModel(
+                                x_mean.cpu().numpy()))
 
     def _fit(self, ds: Dataset, labels: Dataset) -> LinearMapper:
         ds = ensure_array(ds)
@@ -155,6 +174,24 @@ class BlockLeastSquaresEstimator(LabelEstimator):
         self.num_iter = num_iter
         self.lam = lam
 
+    # -- streaming fit (accumulate/finalize protocol) ----------------------
+    def accumulate(self, carry, chunk, labels):
+        """The same carry as the exact solver: raw Gram, cross products
+        and sums. The carry is (d, d): streaming bounds device memory in
+        the row count n, not in d."""
+        return accumulate_gram_carry(carry, chunk, labels)
+
+    def finalize(self, carry) -> BlockLinearMapper:
+        """Block coordinate descent from the carry (``gram_bcd``);
+        consumes the carry."""
+        d = carry[0].shape[0]
+        bs = self.block_size
+        bounds = [(i, min(d, i + bs)) for i in range(0, d, bs)]
+        Ws, x_mean, y_mean = gram_bcd(carry, float(self.lam), bounds,
+                                      self.num_iter)
+        return BlockLinearMapper(Ws, bs, intercept=y_mean,
+                                 feature_means=x_mean)
+
     def _fit(self, ds: Dataset, labels: Dataset) -> BlockLinearMapper:
         ds = ensure_array(ds)
         labels = ensure_array(labels, ds.device)
@@ -184,3 +221,81 @@ def block_least_squares(X, Y, n, lam, bounds, num_iter, mask=None):
     Ws = linalg.bcd_core(blocks, Yc, lam, num_passes=num_iter)
     return Ws, x_mean, y_mean
 
+
+# -- streaming carry (shared by the least-squares estimators) --------------
+#
+# Raw second moments (G = X^T X, C = X^T Y), raw column sums and the true
+# row count. Centering is recovered at finalize (Gc = G - n mu mu^T), so
+# accumulation is a pure sum: the chunk order changes the result only by
+# float32 rounding.
+
+def accumulate_gram_carry(carry, chunk, labels):
+    """Fold one (features, labels) chunk pair into the
+    ``(G, C, sx, sy, n)`` carry, in place: the fused Gram kernel adds
+    X^T X and X^T Y into G and C (the counterpart of the JAX package's
+    donated ``_gram_carry_update``), so no (d, d) temporary is made per
+    chunk. ``n`` stays a host int. Chunks must keep the zero-pad
+    invariant (stream chunks, or any masked resident dataset)."""
+    if not isinstance(chunk, ArrayDataset) or not isinstance(
+            labels, ArrayDataset):
+        raise TypeError("the Gram carry accumulates ArrayDataset chunks")
+    X, Y = chunk.data, labels.data
+    if X.dim() != 2 or Y.dim() != 2:
+        raise ValueError(
+            f"streamed least squares needs 2-D (n, d) / (n, k) chunks, got "
+            f"{tuple(X.shape)} / {tuple(Y.shape)}")
+    if X.shape[0] != Y.shape[0]:
+        raise ValueError(f"chunk / labels padded rows differ: {X.shape[0]} "
+                         f"vs {Y.shape[0]}")
+    if carry is None:
+        d, k = X.shape[1], Y.shape[1]
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.float32, device=X.device)
+
+        carry = (zeros(d, d), zeros(d, k), zeros(d), zeros(k), 0)
+    G, C, sx, sy, n = carry
+    gram_cross(X, Y, G, C)
+    sx += X.sum(dim=0, dtype=torch.float32)
+    sy += Y.sum(dim=0, dtype=torch.float32)
+    return (G, C, sx, sy, n + chunk.n)
+
+
+def _centered_carry(carry):
+    """``(x_mean, y_mean, Gc, Cc)`` from a raw carry, centering G and C in
+    place (``addr_``: no (d, d) outer-product temporary)."""
+    G, C, sx, sy, n = carry
+    x_mean, y_mean = sx / n, sy / n
+    G.addr_(x_mean, x_mean, alpha=-float(n))
+    C.addr_(x_mean, y_mean, alpha=-float(n))
+    return x_mean, y_mean, G, C
+
+
+def gram_bcd(carry, lam, bounds, num_iter):
+    """Block coordinate descent driven entirely by the Gram carry: the
+    update
+
+        W_b <- (Gc[b,b] + lam I)^-1 (Cc[b] - Gc[b,:] W + Gc[b,b] W_b)
+
+    is algebraically the data-form update A_b^T (Yc - P + A_b W_b) of
+    ``ops.linalg.bcd_core``, with the same sequential block order, the
+    same per-block Cholesky reuse and the same breakdown recovery, so
+    streamed and resident fits agree to float32 rounding without the
+    (n, d) data ever being resident (``linear.py::_gram_bcd_impl`` in the
+    JAX package). Consumes the carry. Returns ``(per-block weights,
+    x_mean, y_mean)``."""
+    x_mean, y_mean, Gc, Cc = _centered_carry(carry)
+    d, k = Cc.shape
+    factors = []
+    for lo, hi in bounds:
+        reg = Gc[lo:hi, lo:hi] + lam * torch.eye(hi - lo, dtype=Gc.dtype,
+                                                 device=Gc.device)
+        factors.append((reg,) + linalg.cholesky_factor(reg))
+    W = torch.zeros((d, k), dtype=Gc.dtype, device=Gc.device)
+    for _ in range(num_iter):
+        for (lo, hi), (reg, L, ok) in zip(bounds, factors):
+            rhs = (Cc[lo:hi] - Gc[lo:hi, :] @ W
+                   + Gc[lo:hi, lo:hi] @ W[lo:hi])
+            W[lo:hi] = linalg.finite_or_eigh_solve(
+                torch.cholesky_solve(rhs, L), lambda reg=reg: reg, rhs, ok)
+    return [W[lo:hi].clone() for lo, hi in bounds], x_mean, y_mean

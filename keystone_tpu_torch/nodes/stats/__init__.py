@@ -46,10 +46,12 @@ class StandardScalerModel(Transformer):
 class StandardScaler(Estimator):
     """Fit column means (and optionally stds) over the dataset.
 
-    The column sums and sums of squares are two reductions on the device;
-    the moments are finished on the host in float64, as in the JAX
-    package. Degenerate stds (NaN/inf/<eps) are replaced by 1.0, as in
-    the reference.
+    The column sums and sums of squares are reductions on the device,
+    folded chunk by chunk into a carry by ``accumulate`` (a streamed
+    fit), of which the resident ``_fit`` is the one-chunk case. The
+    moments are finished on the host in float64 by ``finalize``, as in
+    the JAX package. Degenerate stds (NaN/inf/<eps) are replaced by 1.0,
+    as in the reference.
     """
 
     def __init__(self, normalize_std_dev: bool = True, eps: float = 1e-12):
@@ -57,18 +59,36 @@ class StandardScaler(Estimator):
         self.eps = eps
 
     def _fit(self, ds: Dataset) -> StandardScalerModel:
-        assert isinstance(ds, ArrayDataset), "StandardScaler needs array data"
-        X = ds.data
+        return self.finalize(self.accumulate(None, ds))
+
+    # -- streaming fit (accumulate/finalize protocol) ----------------------
+    def accumulate(self, carry, chunk):
+        """Fold one chunk's column sums and sums of squares into the
+        ``(S, SQ, n)`` carry, in place. Padded rows are zero, so the
+        moments stay exact; integer chunks are promoted to float32 so a
+        uint8 chunk's squares do not wrap."""
+        if not isinstance(chunk, ArrayDataset):
+            raise TypeError("StandardScaler needs array data or array "
+                            "chunks")
+        X = chunk.data
         if not torch.is_floating_point(X):
             X = X.to(torch.float32)
-        s = X.sum(dim=0).cpu().numpy()
-        sq = (X * X).sum(dim=0).cpu().numpy()
-        n = ds.n
-        mean = s.astype(np.float64) / n
+        if carry is None:
+            zeros = torch.zeros(X.shape[1], dtype=X.dtype, device=X.device)
+            carry = (zeros, zeros.clone(), 0)
+        S, SQ, n = carry
+        S += X.sum(dim=0)
+        SQ += (X * X).sum(dim=0)
+        return (S, SQ, n + chunk.n)
+
+    def finalize(self, carry) -> StandardScalerModel:
+        s, sq, n = carry
+        mean = s.cpu().numpy().astype(np.float64) / n
         if not self.normalize_std_dev:
             return StandardScalerModel(mean.astype(np.float32))
         # unbiased sample variance, matching MultivariateOnlineSummarizer
-        var = (sq.astype(np.float64) - n * mean * mean) / max(n - 1, 1)
+        var = (sq.cpu().numpy().astype(np.float64) - n * mean * mean) / max(
+            n - 1, 1)
         std = np.sqrt(np.maximum(var, 0.0))
         bad = ~np.isfinite(std) | (np.abs(std) < self.eps)
         std = np.where(bad, 1.0, std)

@@ -21,6 +21,8 @@ Kernels (Pallas TPU kernel replaced -> file here):
 
 * ``fused_cifar_featurize`` (``keystone_tpu/ops/pallas_kernels.py::
   fused_cifar_featurize``) -> ``csrc/fused_featurize.cu``.
+* ``gram_cross`` (``keystone_tpu/ops/pallas_kernels.py::
+  gram_cross_pallas``) -> ``csrc/gram_cross.cu``.
 """
 from __future__ import annotations
 
@@ -42,13 +44,14 @@ CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "keystone_tpu_torch"
 
 #: kernel library name -> CUDA source under csrc/
-SOURCES = {"fused_featurize": "fused_featurize.cu"}
+SOURCES = {"fused_featurize": "fused_featurize.cu",
+           "gram_cross": "gram_cross.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: wrapper name -> launches made by that wrapper
-LAUNCHES: Dict[str, int] = {"fused_cifar_featurize": 0}
+LAUNCHES: Dict[str, int] = {"fused_cifar_featurize": 0, "gram_cross": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -122,6 +125,7 @@ def _library(name: str) -> ctypes.CDLL:
 
 def _declare(name: str, lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ll = ctypes.c_longlong
     if name == "fused_featurize":
         lib.fused_cifar_featurize_f32.argtypes = [
             p, p, p, p, p, i, i, i, i, i, i, i, i, f, f, p]
@@ -132,6 +136,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.fused_featurize_max_regions.restype = i
         lib.fused_featurize_supported.argtypes = [i, i]
         lib.fused_featurize_supported.restype = i
+    elif name == "gram_cross":
+        lib.gram_cross_f32.argtypes = [p, p, p, p, i, i, i, ll, ll, p]
+        lib.gram_cross_f32.restype = i
 
 
 # -- fused CIFAR featurization ---------------------------------------------
@@ -230,3 +237,77 @@ def fused_cifar_featurize(imgs, filters, img_size=32, patch_size=6,
         raise RuntimeError(f"fused_cifar_featurize: CUDA error {rc} at launch")
     LAUNCHES["fused_cifar_featurize"] += 1
     return out
+
+
+# -- fused Gram / cross products -------------------------------------------
+
+def _gram_operands(X, Y, G, C):
+    """Integer X and Y promoted to float32 (a uint8 chunk must not wrap
+    its products mod 256, as ``pallas_kernels.py::gram_cross`` promotes),
+    and zeroed G (d, d) and C (d, k) where none are given."""
+    if not torch.is_floating_point(X):
+        X = X.to(torch.float32)
+    if not torch.is_floating_point(Y):
+        Y = Y.to(torch.float32)
+    if X.dim() != 2 or Y.dim() != 2 or X.shape[0] != Y.shape[0]:
+        raise ValueError(f"gram_cross: X {tuple(X.shape)} and Y "
+                         f"{tuple(Y.shape)} are not (n, d) and (n, k)")
+    d, k = X.shape[1], Y.shape[1]
+    if G is None:
+        G = torch.zeros((d, d), dtype=torch.float32, device=X.device)
+    if C is None:
+        C = torch.zeros((d, k), dtype=torch.float32, device=X.device)
+    if tuple(G.shape) != (d, d) or tuple(C.shape) != (d, k):
+        raise ValueError(f"gram_cross: carry G {tuple(G.shape)}, C "
+                         f"{tuple(C.shape)} is not ({d}, {d}), ({d}, {k})")
+    return X, Y, G, C
+
+
+def gram_cross_plain(X, Y, G=None, C=None):
+    """The plain PyTorch version of the Gram kernel: G += X^T X and
+    C += X^T Y as two matrix products, in place (zeroed G and C when none
+    are given). Returns ``(G, C)``."""
+    X, Y, G, C = _gram_operands(X, Y, G, C)
+    G.addmm_(X.T, X)
+    C.addmm_(X.T, Y)
+    return G, C
+
+
+def gram_cross(X, Y, G=None, C=None):
+    """Fused ``G += X^T X``, ``C += X^T Y`` in one pass over the rows of
+    X (n, d) and Y (n, k), in place on the float32 carry (zeroed G and C
+    when none are given); returns ``(G, C)``. CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors. Integer inputs are
+    promoted to float32 first. The kernel computes the upper triangle of
+    X^T X and mirrors it, so G stays exactly symmetric when it starts
+    so."""
+    X, Y, G, C = _gram_operands(X, Y, G, C)
+    if X.device.type == "cpu":
+        return gram_cross_plain(X, Y, G, C)
+    if X.device.type != "cuda":
+        raise ValueError(f"gram_cross: unsupported device {X.device}")
+    for name, t in (("X", X), ("Y", Y)):
+        if t.dtype != torch.float32 or t.device != X.device or (
+                t.numel() and (t.stride(1) != 1
+                               or t.stride(0) < t.shape[1])):
+            raise ValueError(f"gram_cross: {name} must be float32 rows "
+                             "with unit column stride on X's device")
+    for name, t in (("G", G), ("C", C)):
+        if t.dtype != torch.float32 or not t.is_contiguous() \
+                or t.device != X.device:
+            raise ValueError(f"gram_cross: {name} must be contiguous "
+                             "float32 on X's device")
+    n, d = X.shape
+    k = Y.shape[1]
+    if n == 0 or d == 0:
+        return G, C
+    lib = _library("gram_cross")
+    with torch.cuda.device(X.device):
+        rc = lib.gram_cross_f32(
+            X.data_ptr(), Y.data_ptr(), G.data_ptr(), C.data_ptr(), n, d, k,
+            X.stride(0), Y.stride(0) if k else 0,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"gram_cross: CUDA error {rc} at launch")
+    LAUNCHES["gram_cross"] += 1
+    return G, C

@@ -1,9 +1,10 @@
 """Dense linear algebra for the solvers, on one device.
 
-Counterpart of the resident-solver half of ``keystone_tpu/ops/linalg.py``:
-Gram and cross products, column means over zero-padded rows, the ridge
-Cholesky solve with its breakdown gate and eigendecomposition fallback,
-and block coordinate descent. Everything runs in true float32
+Counterpart of ``keystone_tpu/ops/linalg.py`` on one device: Gram and
+cross products, column means over zero-padded rows, the ridge Cholesky
+solve with its breakdown gate and eigendecomposition fallback, the
+normal equations through the fused Gram kernel, and block coordinate
+descent. Everything runs in true float32
 (``ops/device.py`` turns TF32 off), the counterpart of the JAX package's
 ``SOLVER_PRECISION = HIGHEST``.
 
@@ -18,6 +19,7 @@ from typing import Callable, List, Sequence
 import torch
 
 from . import device as _device  # noqa: F401  (sets the TF32 policy)
+from .kernels import gram_cross
 
 
 def gram(A: torch.Tensor) -> torch.Tensor:
@@ -106,6 +108,16 @@ def ridge_cho_solve(AtA: torch.Tensor, Atb: torch.Tensor,
     L, ok = cholesky_factor(reg)
     W = torch.cholesky_solve(Atb, L)
     return finite_or_eigh_solve(W, lambda: reg, Atb, ok)
+
+
+def normal_equations(A: torch.Tensor, Y: torch.Tensor,
+                     lam: float = 0.0) -> torch.Tensor:
+    """Least squares / ridge by the normal equations,
+    W = (A^T A + lam I)^-1 A^T Y (mlmatrix ``NormalEquations``): one pass
+    of the fused Gram kernel over A (its plain version for CPU tensors)
+    into zeroed G and C, then ``ridge_cho_solve``."""
+    G, C = gram_cross(A, Y)
+    return ridge_cho_solve(G, C, float(lam))
 
 
 def bcd_core(blocks: Sequence[torch.Tensor], Y: torch.Tensor, lam: float,

@@ -10,7 +10,9 @@ Counterpart of ``keystone_tpu/parallel/dataset.py`` on one device:
   stay exact and means divide by the true ``n``.
 * `HostDataset` — a plain Python list of items for host-side stages.
 
-Datasets are eager; laziness lives in ``workflow.expression``.
+Datasets are eager; laziness lives in ``workflow.expression``. The
+chunked, prefetched ``StreamingDataset`` lives in ``parallel.streaming``
+and is recognised here by ``is_streaming``.
 """
 from __future__ import annotations
 
@@ -74,6 +76,14 @@ def _to_tensor(x: Any, device: torch.device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device)
     return torch.as_tensor(np.asarray(x), device=device)
+
+
+def is_streaming(ds: Any) -> bool:
+    """True for chunked streaming datasets (``parallel.streaming``).
+    Duck-typed on the chunk API so the modules below the streaming module
+    (this one, ``workflow.transformer``) share one predicate without an
+    import cycle."""
+    return isinstance(ds, Dataset) and hasattr(ds, "map_chunks")
 
 
 class Dataset:
@@ -232,10 +242,38 @@ def ensure_array(ds: Any, device=DEFAULT_DEVICE) -> ArrayDataset:
         return ds
     if isinstance(ds, (np.ndarray, torch.Tensor)):
         return ArrayDataset.from_numpy(ds, device)
+    if is_streaming(ds):
+        raise TypeError(
+            "a StreamingDataset cannot be implicitly promoted to a "
+            "device-resident ArrayDataset (that would materialize the "
+            "whole stream on the device, the thing streaming exists to "
+            "avoid). Fit with a streamable estimator "
+            "(parallel.streaming.fit_streaming), or call .materialize() "
+            "explicitly if the stream is known to fit.")
     if not isinstance(ds, HostDataset):
         raise TypeError(f"cannot promote {type(ds).__name__} to an "
                         "ArrayDataset")
     return ds.to_device(device)
+
+
+def device_nbytes(value: Any) -> float:
+    """Memory footprint in bytes of a pipeline value, from tensor
+    metadata alone. A stream reports its device residency: the bounded
+    prefetch buffer plus the working chunk at its post-cast width, not
+    the logical dataset size; this is the number the streamed fit's
+    ``hbm_budget`` check reads."""
+    if isinstance(value, ArrayDataset):
+        return float(sum(leaf.element_size() * leaf.numel()
+                         for leaf in tree_leaves(value.data)))
+    if is_streaming(value):
+        return float(value.buffered_nbytes())
+    if isinstance(value, HostDataset):
+        return float(sum(getattr(it, "nbytes", 64) for it in value.items))
+    if isinstance(value, Dataset):
+        return 64.0 * len(value)
+    return float(sum(
+        leaf.element_size() * leaf.numel() if isinstance(leaf, torch.Tensor)
+        else getattr(leaf, "nbytes", 64) for leaf in tree_leaves(value)))
 
 
 def to_numpy(x: Any, dtype=None) -> np.ndarray:

@@ -3,7 +3,9 @@
 Counterpart of ``keystone_tpu/workflow/common.py`` (reference
 ``workflow/graph/Identity.scala`` and ``Cacher.scala``). Datasets are
 already materialized on the device, so Cacher's job is to mark its node
-saveable for the cross-pipeline prefix memo.
+saveable for the cross-pipeline prefix memo. On a stream it returns the
+stream itself: caching never materializes a stream, and the memo then
+holds the lazy stream, never its device chunks.
 """
 from __future__ import annotations
 

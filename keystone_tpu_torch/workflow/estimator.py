@@ -4,14 +4,16 @@ Counterpart of ``keystone_tpu/workflow/estimator.py`` (reference
 ``workflow/Estimator.scala``): ``fit`` is the eager user-facing entry;
 ``with_data`` builds the lazy 3-node fit-time subgraph (data ->
 estimator -> delegating transformer) whose estimator executes only when
-the pipeline is first used. Streamed fits come in a later slice.
+the pipeline is first used. A StreamingDataset routes through the
+accumulate/finalize protocol (``parallel.streaming.fit_streaming``).
 """
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 from ..ops.device import DEFAULT_DEVICE
-from ..parallel.dataset import Dataset, as_dataset
+from ..parallel.dataset import Dataset, as_dataset, is_streaming
+from ..parallel.streaming import fit_streaming
 from .graph import Graph
 from .operators import DelegatingOperator, EstimatorOperator
 from .pipeline import DataInput, Pipeline, PipelineDataset, _add_data_input
@@ -19,17 +21,28 @@ from .transformer import Transformer
 
 
 class Estimator(EstimatorOperator):
-    def fit(self, data: Any, device=DEFAULT_DEVICE) -> Transformer:
+    def fit(self, data: Any, device=DEFAULT_DEVICE,
+            hbm_budget: Optional[float] = None) -> Transformer:
         """Eagerly fit on a dataset (raw arrays are staged on ``device``),
-        returning the fitted transformer."""
+        returning the fitted transformer. A StreamingDataset is fitted
+        chunk by chunk through ``fit_streaming``; ``hbm_budget`` applies
+        only to such a fit."""
         if isinstance(data, PipelineDataset):
             data = data.get()
+        if is_streaming(data):
+            return fit_streaming(self, data, hbm_budget=hbm_budget)
+        if hbm_budget is not None:
+            raise TypeError(f"{self.label()}: hbm_budget needs a "
+                            "StreamingDataset input (a resident fit has no "
+                            "chunk loop to budget)")
         return self._fit(as_dataset(data, device))
 
     def _fit(self, ds: Dataset) -> Transformer:
         raise NotImplementedError
 
     def fit_datasets(self, inputs):
+        if is_streaming(inputs[0]):
+            return fit_streaming(self, inputs[0])
         return self._fit(inputs[0])
 
     def with_data(self, data: DataInput, device=DEFAULT_DEVICE) -> Pipeline:

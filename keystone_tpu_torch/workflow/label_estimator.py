@@ -3,14 +3,16 @@
 Counterpart of ``keystone_tpu/workflow/label_estimator.py`` (reference
 ``workflow/LabelEstimator.scala``): same contract as Estimator with a
 second labels input; ``with_data(data, labels)`` builds the 4-node
-fit-time subgraph.
+fit-time subgraph. Streamed data routes through ``fit_streaming``, with
+labels either an aligned stream or resident and sliced chunk by chunk.
 """
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 from ..ops.device import DEFAULT_DEVICE
-from ..parallel.dataset import Dataset, as_dataset
+from ..parallel.dataset import Dataset, as_dataset, is_streaming
+from ..parallel.streaming import fit_streaming
 from .graph import Graph
 from .operators import DelegatingOperator, EstimatorOperator
 from .pipeline import DataInput, Pipeline, PipelineDataset, _add_data_input
@@ -18,19 +20,40 @@ from .transformer import Transformer
 
 
 class LabelEstimator(EstimatorOperator):
-    def fit(self, data: Any, labels: Any,
-            device=DEFAULT_DEVICE) -> Transformer:
-        """Eager fit; raw arrays are staged on ``device``."""
+    def fit(self, data: Any, labels: Any, device=DEFAULT_DEVICE,
+            hbm_budget: Optional[float] = None) -> Transformer:
+        """Eager fit; raw arrays are staged on ``device``. Streamed
+        ``data`` is fitted chunk by chunk through ``fit_streaming``
+        (``labels`` an aligned StreamingDataset, or resident and sliced
+        chunk-wise); ``hbm_budget`` applies only to such a fit."""
         if isinstance(data, PipelineDataset):
             data = data.get()
         if isinstance(labels, PipelineDataset):
             labels = labels.get()
+        if is_streaming(data):
+            return fit_streaming(self, data, labels, hbm_budget=hbm_budget)
+        self._refuse_streamed_labels(labels)
+        if hbm_budget is not None:
+            raise TypeError(f"{self.label()}: hbm_budget needs a "
+                            "StreamingDataset input (a resident fit has no "
+                            "chunk loop to budget)")
         return self._fit(as_dataset(data, device), as_dataset(labels, device))
+
+    def _refuse_streamed_labels(self, labels: Any) -> None:
+        if is_streaming(labels):
+            raise TypeError(
+                f"{self.label()}: labels are a StreamingDataset but the "
+                "data is resident; the chunk loop is driven by the DATA "
+                "stream. Stream the data too (chunk sizes must align), or "
+                "materialize() the labels (they are k-wide, usually tiny).")
 
     def _fit(self, ds: Dataset, labels: Dataset) -> Transformer:
         raise NotImplementedError
 
     def fit_datasets(self, inputs):
+        if is_streaming(inputs[0]):
+            return fit_streaming(self, inputs[0], inputs[1])
+        self._refuse_streamed_labels(inputs[1])
         return self._fit(inputs[0], inputs[1])
 
     def with_data(self, data: DataInput, labels: DataInput,

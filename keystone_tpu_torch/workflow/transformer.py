@@ -19,7 +19,7 @@ from typing import Any, Callable, Sequence
 
 import torch
 
-from ..parallel.dataset import ArrayDataset, Dataset, map_rows
+from ..parallel.dataset import ArrayDataset, Dataset, is_streaming, map_rows
 from .graph import Graph
 from .operators import TransformerOperator
 from .pipeline import Chainable, Pipeline
@@ -58,6 +58,10 @@ class Transformer(TransformerOperator, Chainable):
     def apply_dataset(self, ds: Dataset) -> Dataset:
         if isinstance(ds, ArrayDataset):
             return ds.map_batch(self.apply_batch)
+        if is_streaming(ds):
+            # lazy per-chunk apply: each chunk is an ArrayDataset, so the
+            # batch path above runs on it when the stream is consumed
+            return ds.map_chunks(self.apply_dataset)
         return ds.map(self.apply)
 
     # -- operator plumbing -------------------------------------------------

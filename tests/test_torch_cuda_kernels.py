@@ -6,16 +6,19 @@ also run on a GPU machine without JAX:
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
 
-Both sides compute in float32 and differ in summation order; pooled
-features reach ~1e4, so the bar is rtol 1e-5 with atol 1e-5 of the
-largest feature.
+Both sides compute in float32 and differ in summation order. Pooled
+features reach ~1e4, so the featurize bar is rtol 1e-5 with atol 1e-5 of
+the largest feature. The Gram kernel is held to the JAX package's bar for
+its Gram kernel, 2e-4 of the largest entry.
 """
 import numpy as np
 import pytest
 import torch
 
 from keystone_tpu_torch.nodes.images.core import FusedConvRectifyPool
+from keystone_tpu_torch.nodes.learning.linear import LinearMapEstimator
 from keystone_tpu_torch.ops import kernels
+from keystone_tpu_torch.parallel.streaming import StreamingDataset
 
 RTOL, ATOL_REL = 1e-5, 1e-5
 
@@ -73,3 +76,56 @@ def test_cuda_rejects_shapes_the_kernel_does_not_take(cuda):
         kernels.fused_cifar_featurize(
             torch.as_tensor(imgs, device=cuda).double(),
             torch.as_tensor(filters, device=cuda))
+
+
+@pytest.mark.parametrize("n,d,k", [(7, 3, 2), (100, 37, 5), (513, 128, 16),
+                                   (1000, 130, 3)])
+def test_cuda_gram_cross_matches_plain(cuda, n, d, k):
+    rng = np.random.RandomState(n + d + k)
+    X = torch.as_tensor(rng.randn(n, d).astype(np.float32), device=cuda)
+    Y = torch.as_tensor(rng.randn(n, k).astype(np.float32), device=cuda)
+    G0 = torch.as_tensor(rng.randn(d, d).astype(np.float32), device=cuda)
+    G0 = G0 + G0.T
+    C0 = torch.as_tensor(rng.randn(d, k).astype(np.float32), device=cuda)
+    before = kernels.LAUNCHES["gram_cross"]
+    G, C = kernels.gram_cross(X, Y, G0.clone(), C0.clone())
+    want_G, want_C = kernels.gram_cross_plain(X, Y, G0.clone(), C0.clone())
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["gram_cross"] == before + 1
+    for got, want in ((G, want_G), (C, want_C)):
+        err = float((got - want).abs().max())
+        assert err <= 2e-4 * float(want.abs().max()), err
+    assert torch.equal(G, G.T)  # the mirrored triangle is exact
+    # a column slice (row stride > d) and a uint8 input
+    Gs, _ = kernels.gram_cross(X[:, 1:], Y)
+    np.testing.assert_allclose(Gs.cpu().numpy(), want_G.cpu().numpy()[1:, 1:]
+                               - G0.cpu().numpy()[1:, 1:], rtol=0,
+                               atol=2e-4 * float(want_G.abs().max()))
+    # uint8 rows: promoted, not wrapped, and exact while every sum stays
+    # an integer below 2^24 (at most 200 rows of 255^2)
+    m = min(n, 200)
+    U = torch.as_tensor(rng.randint(0, 256, (m, d), np.uint8), device=cuda)
+    Gu, _ = kernels.gram_cross(U, Y[:m])
+    Uf = U.double().cpu()
+    np.testing.assert_array_equal(Gu.cpu().numpy(), (Uf.T @ Uf).numpy())
+
+
+def test_cuda_streamed_fit_matches_the_cpu_fit(cuda):
+    """A streamed fit staged through pinned buffers on a side stream, on a
+    uint8 wire with a ragged tail, against the same fit on the CPU."""
+    rng = np.random.RandomState(11)
+    X = rng.randint(0, 256, size=(1000, 40)).astype(np.float32)
+    Y = (X @ rng.randn(40, 3) + rng.randn(1000, 3)).astype(np.float32)
+    fits = {}
+    for dev in ("cpu", cuda):
+        stream = StreamingDataset.from_numpy(X, 96, device=dev,
+                                             wire_dtype=np.uint8)
+        before = kernels.LAUNCHES["gram_cross"]
+        fits[str(dev)] = LinearMapEstimator(lam=0.1).fit(stream, Y)
+        launched = kernels.LAUNCHES["gram_cross"] - before
+        assert launched == (11 if dev == cuda else 0)
+        assert stream.buffered_nbytes() == 0.0
+        assert stream.peak_device_nbytes <= stream.static_plan_nbytes()
+    got = fits[str(cuda)].weights.cpu().numpy()
+    want = fits["cpu"].weights.numpy()
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
