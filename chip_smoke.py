@@ -25,7 +25,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    budget; applied chunk by chunk to a test stream and to resident
    data. Launch counts, accuracy, agreement with phase 4 and the
    stream's residency are asserted; both fits' device-memory peaks are
-   printed.
+   printed. Both fits' solves are redone in float64 on their own inputs,
+   in the data form and (streamed) the Gram form, and each fit's weights
+   are held against the float64 ones and against each other.
 5. Timing: each kernel, its plain version and a library yardstick with
    CUDA events at the main path's shapes.
 
@@ -73,6 +75,21 @@ N_TRAIN, N_TEST = 20480, 4096
 NUM_FILTERS = 1024
 #: the streamed path's chunking, as the JAX package's streamed bench
 CHUNK, DEPTH = 1024, 2
+#: the solve ``build_pipeline`` runs: BlockLeastSquaresEstimator(4096, 1,
+#: lam), two 4096-wide blocks, one pass
+BLOCK, PASSES = 4096, 1
+
+#: Limits on the full-width solves, each max |a - b| / max |b|, set about
+#: 3x above the readings of sound runs on an H100 (PERF.md): streamed
+#: weights against resident weights, both float32 (read 1.561e-3) ...
+W_STREAM_RESIDENT_TOL = 5e-3
+#: ... each float32 fit against the float64 solve of its own input (read
+#: 1.433e-3 resident, 7.93e-4 streamed) ...
+W_FLOAT64_TOL = 5e-3
+#: ... and the Gram-form BCD against the data-form BCD, both in float64
+#: on the same input (read 6.1e-11): equal in exact arithmetic, so only
+#: float64 rounding amplified by the blocks' conditioning remains
+GRAM_FORM_FLOAT64_TOL = 2e-10
 
 
 def _sync():
@@ -167,6 +184,65 @@ def _check_gram(kernels, rng, dev):
         del X, Y, G0, C0, G, C, want_G, want_C
     torch.cuda.empty_cache()
     return worst
+
+
+def _bcd_float64(A, Y, lam, bounds, passes):
+    """Block coordinate descent in float64, written out in the data form
+    and independent of the port's solvers: center A and Y, then per pass
+    and per block in order W_b <- (A_b^T A_b + lam I)^-1 A_b^T (Y - P +
+    A_b W_b), keeping P = A W."""
+    A = A - A.mean(dim=0)
+    Y = Y - Y.mean(dim=0)
+    W = torch.zeros((A.shape[1], Y.shape[1]), dtype=A.dtype,
+                    device=A.device)
+    P = torch.zeros_like(Y)
+    for _ in range(passes):
+        for lo, hi in bounds:
+            Ab = A[:, lo:hi]
+            reg = Ab.T @ Ab + lam * torch.eye(hi - lo, dtype=A.dtype,
+                                              device=A.device)
+            new = torch.linalg.solve(reg, Ab.T @ (Y - P + Ab @ W[lo:hi]))
+            P += Ab @ (new - W[lo:hi])
+            W[lo:hi] = new
+    return W
+
+
+def _float64_check(featurizer, fits, images, labels, lam, dev):
+    """The full-width solve of each fit redone in float64 on that fit's
+    own input: the training set featurized by the fit's featurizer, in
+    chunks of CHUNK images, and scaled in float32 by the fit's scaler,
+    which is what its solver consumed. ``fits`` maps a name to
+    ``(scaler, float32 weights)``. Returns, per fit, max |W32 - W64| /
+    max |W64|; the spread of the float64 solves between the fits' inputs
+    (the scalers' float32 rounding alone); and, on the streamed fit's
+    input, the port's Gram-form BCD (``gram_bcd``) against the data form,
+    both in float64."""
+    from keystone_tpu_torch.nodes.learning.linear import gram_bcd
+
+    F = torch.cat([featurizer.apply_batch(torch.as_tensor(
+        images[i:i + CHUNK], device=dev)) for i in range(0, N_TRAIN, CHUNK)])
+    Y = torch.where(torch.arange(10, device=dev) == torch.as_tensor(
+        labels, device=dev)[:, None], 1.0, -1.0).to(torch.float64)
+    d = F.shape[1]
+    bounds = [(lo, min(d, lo + BLOCK)) for lo in range(0, d, BLOCK)]
+    out, w64 = {}, {}
+    for name, (scaler, W32) in fits.items():
+        A = scaler.apply_batch(F).to(torch.float64)
+        W = _bcd_float64(A, Y, lam, bounds, PASSES)
+        out[name] = float((W32.to(W) - W).abs().max() / W.abs().max())
+        w64[name] = W
+        if name == "streamed":
+            carry = (A.T @ A, A.T @ Y, A.sum(dim=0), Y.sum(dim=0), N_TRAIN)
+            Wg, _, _ = gram_bcd(carry, lam, bounds, PASSES)
+            out["gram_form"] = float((torch.cat(Wg) - W).abs().max()
+                                     / W.abs().max())
+            del carry, Wg
+        del A
+    a, b = w64.values()
+    out["inputs"] = float((a - b).abs().max() / b.abs().max())
+    del F, Y, w64, a, b
+    torch.cuda.empty_cache()
+    return out
 
 
 def _profile(label, fn):
@@ -340,7 +416,10 @@ def main() -> int:
         "fused_cifar_featurize was not launched on the main path"
     if "--profile" in sys.argv[1:]:
         _profile_main_path(rpc, config, train, test, train_labels)
-    resident_W = _block_weights(fitted)
+    resident_W = torch.as_tensor(
+        _operator(fitted, "BlockLinearMapper").weights).float()
+    resident_scaler = _operator(fitted, "StandardScalerModel")
+    featurizer = _operator(fitted, "FusedConvRectifyPool")
     del fitted, train, train_labels, test_pred, train_pred
 
     # -- 4b. streamed path ----------------------------------------------------
@@ -407,7 +486,8 @@ def main() -> int:
     s_test = evaluate_multiclass(s_pred, test.labels,
                                  rpc.NUM_CLASSES).total_error
     agree = float(np.mean(s_preds == preds))
-    stream_W = _block_weights(fitted_s)
+    stream_W = torch.as_tensor(
+        _operator(fitted_s, "BlockLinearMapper").weights).float()
     w_rel = float((stream_W - resident_W).abs().max()
                   / resident_W.abs().max())
     print(f"[stream] test error {s_test:.4f} (resident {rp_test:.4f}), "
@@ -418,10 +498,24 @@ def main() -> int:
     assert s_test < lin_test - 0.15, (s_test, lin_test)
     assert agree >= 0.99, agree
     assert abs(s_test - rp_test) <= 0.01, (s_test, rp_test)
+    assert w_rel <= W_STREAM_RESIDENT_TOL, w_rel
+    f64 = _float64_check(
+        featurizer,
+        {"resident": (resident_scaler, resident_W),
+         "streamed": (_operator(fitted_s, "StandardScalerModel"), stream_W)},
+        tr_x, tr_y, float(config.lam), dev)
+    print(f"[float64] max |W - W64| / max |W64| against the float64 BCD of "
+          f"each fit's own input: resident {f64['resident']:.3e}, streamed "
+          f"{f64['streamed']:.3e}; the two inputs' float64 solves differ by "
+          f"{f64['inputs']:.3e}; Gram-form against data-form BCD, both "
+          f"float64: {f64['gram_form']:.3e}", flush=True)
+    assert f64["gram_form"] <= GRAM_FORM_FLOAT64_TOL, f64
+    assert f64["resident"] <= W_FLOAT64_TOL, f64
+    assert f64["streamed"] <= W_FLOAT64_TOL, f64
     if "--profile" in sys.argv[1:]:
         PipelineEnv.reset()
         _profile("streamed fit", streamed_fit)
-    del fitted_s, out, stream, test_stream, labels, test
+    del fitted_s, out, stream, test_stream, labels, test, featurizer
     PipelineEnv.reset()
     torch.cuda.empty_cache()
 
@@ -500,12 +594,11 @@ def main() -> int:
     return 0
 
 
-def _block_weights(fitted):
-    """The fitted BlockLinearMapper's concatenated weights."""
+def _operator(fitted, type_name):
+    """The fitted pipeline's operator of the named type."""
     g = fitted._graph
-    mapper = next(g.get_operator(n) for n in g.nodes
-                  if type(g.get_operator(n)).__name__ == "BlockLinearMapper")
-    return torch.as_tensor(mapper.weights).float()
+    return next(g.get_operator(n) for n in g.nodes
+                if type(g.get_operator(n)).__name__ == type_name)
 
 
 if __name__ == "__main__":

@@ -56,6 +56,7 @@
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -183,11 +184,12 @@ gram_cross_kernel(const float* __restrict__ X, const float* __restrict__ Y,
   }
 
   // direct add: G[i0 + r, j0 + c] (or C) += tile[r, c], from registers;
-  // 16-byte read-modify-writes where the row stride allows, so a warp
-  // covers 256 contiguous bytes of two rows
+  // 16-byte read-modify-writes where the row stride and the base address
+  // allow (a contiguous view at an odd storage offset is not 16-byte
+  // aligned), so a warp covers 256 contiguous bytes of two rows
   float* out = is_c ? C : G;
   const int ldo = is_c ? k : d;
-  const bool vec = ldo % 4 == 0;
+  const bool vec = ldo % 4 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
 #pragma unroll
   for (int m = 0; m < 8; ++m) {
     const int r = i0 + tile_index(ty, m);

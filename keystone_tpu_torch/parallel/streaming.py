@@ -205,8 +205,7 @@ class StreamingDataset(Dataset):
 
     ``n`` (the total item count) may be unknown (None); a completed pass
     pins it. ``hbm_budget`` (bytes), when given, is the residency bound a
-    streamed fit of this stream or of a view of it checks, unless the fit
-    is given its own."""
+    streamed fit of this stream or of a view of it checks."""
 
     def __init__(self, chunk_source: Callable[[], Iterator[Any]],
                  chunk_size: int, n: Optional[int] = None,
@@ -557,15 +556,14 @@ def _paired_chunks(data: StreamingDataset, labels: Any
             f"len(labels)={host.shape[0]}; refusing to truncate silently")
 
 
-def fit_streaming(estimator: Any, data: StreamingDataset, labels: Any = None,
-                  hbm_budget: Optional[float] = None):
+def fit_streaming(estimator: Any, data: StreamingDataset, labels: Any = None):
     """Drive a streamable estimator over a chunked dataset: one
     ``accumulate`` per chunk, then ``finalize``. Only the carry (Gram,
     cross products, moments) and the bounded prefetch buffer live on the
     device, never the whole featurized matrix.
 
-    ``hbm_budget`` (bytes; default the stream's own ``hbm_budget``) is
-    checked twice: against the stream's static plan before any chunk is
+    The stream's ``hbm_budget`` (bytes), when it has one, is checked
+    twice: against the stream's static plan before any chunk is
     staged, and against the measured residency after every chunk. Either
     excess raises MemoryError."""
     if not is_streamable(estimator):
@@ -573,7 +571,7 @@ def fit_streaming(estimator: Any, data: StreamingDataset, labels: Any = None,
     if not is_streaming(data):
         raise TypeError(f"fit_streaming needs a StreamingDataset, got "
                         f"{type(data).__name__}")
-    budget = data.hbm_budget if hbm_budget is None else float(hbm_budget)
+    budget = data.hbm_budget
     tag = data.tag or "stream"
     plan = data.static_plan_nbytes()
     if budget is not None and plan is not None and plan > budget:

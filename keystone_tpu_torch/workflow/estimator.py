@@ -9,7 +9,7 @@ accumulate/finalize protocol (``parallel.streaming.fit_streaming``).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Optional
+from typing import Any, Callable
 
 from ..ops.device import DEFAULT_DEVICE
 from ..parallel.dataset import Dataset, as_dataset, is_streaming
@@ -21,20 +21,15 @@ from .transformer import Transformer
 
 
 class Estimator(EstimatorOperator):
-    def fit(self, data: Any, device=DEFAULT_DEVICE,
-            hbm_budget: Optional[float] = None) -> Transformer:
+    def fit(self, data: Any, device=DEFAULT_DEVICE) -> Transformer:
         """Eagerly fit on a dataset (raw arrays are staged on ``device``),
         returning the fitted transformer. A StreamingDataset is fitted
-        chunk by chunk through ``fit_streaming``; ``hbm_budget`` applies
-        only to such a fit."""
+        chunk by chunk through ``fit_streaming``, under the stream's own
+        ``hbm_budget``."""
         if isinstance(data, PipelineDataset):
             data = data.get()
         if is_streaming(data):
-            return fit_streaming(self, data, hbm_budget=hbm_budget)
-        if hbm_budget is not None:
-            raise TypeError(f"{self.label()}: hbm_budget needs a "
-                            "StreamingDataset input (a resident fit has no "
-                            "chunk loop to budget)")
+            return fit_streaming(self, data)
         return self._fit(as_dataset(data, device))
 
     def _fit(self, ds: Dataset) -> Transformer:

@@ -8,7 +8,7 @@ labels either an aligned stream or resident and sliced chunk by chunk.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Optional
+from typing import Any, Callable
 
 from ..ops.device import DEFAULT_DEVICE
 from ..parallel.dataset import Dataset, as_dataset, is_streaming
@@ -20,23 +20,19 @@ from .transformer import Transformer
 
 
 class LabelEstimator(EstimatorOperator):
-    def fit(self, data: Any, labels: Any, device=DEFAULT_DEVICE,
-            hbm_budget: Optional[float] = None) -> Transformer:
+    def fit(self, data: Any, labels: Any,
+            device=DEFAULT_DEVICE) -> Transformer:
         """Eager fit; raw arrays are staged on ``device``. Streamed
         ``data`` is fitted chunk by chunk through ``fit_streaming``
         (``labels`` an aligned StreamingDataset, or resident and sliced
-        chunk-wise); ``hbm_budget`` applies only to such a fit."""
+        chunk-wise), under the data stream's own ``hbm_budget``."""
         if isinstance(data, PipelineDataset):
             data = data.get()
         if isinstance(labels, PipelineDataset):
             labels = labels.get()
         if is_streaming(data):
-            return fit_streaming(self, data, labels, hbm_budget=hbm_budget)
+            return fit_streaming(self, data, labels)
         self._refuse_streamed_labels(labels)
-        if hbm_budget is not None:
-            raise TypeError(f"{self.label()}: hbm_budget needs a "
-                            "StreamingDataset input (a resident fit has no "
-                            "chunk loop to budget)")
         return self._fit(as_dataset(data, device), as_dataset(labels, device))
 
     def _refuse_streamed_labels(self, labels: Any) -> None:

@@ -110,6 +110,25 @@ def test_cuda_gram_cross_matches_plain(cuda, n, d, k):
     np.testing.assert_array_equal(Gu.cpu().numpy(), (Uf.T @ Uf).numpy())
 
 
+def test_cuda_gram_cross_into_a_carry_at_an_odd_offset(cuda):
+    """G and C contiguous but 4 bytes past a 16-byte boundary, with row
+    strides that are multiples of 4: the 16-byte epilogue must not be
+    taken on them."""
+    rng = np.random.RandomState(12)
+    n, d, k = 300, 128, 4
+    X = torch.as_tensor(rng.randn(n, d).astype(np.float32), device=cuda)
+    Y = torch.as_tensor(rng.randn(n, k).astype(np.float32), device=cuda)
+    G = torch.zeros(d * d + 1, device=cuda)[1:].view(d, d)
+    C = torch.zeros(d * k + 1, device=cuda)[1:].view(d, k)
+    assert G.is_contiguous() and G.data_ptr() % 16 == 4
+    kernels.gram_cross(X, Y, G, C)
+    want_G, want_C = kernels.gram_cross_plain(X, Y)
+    torch.cuda.synchronize()
+    for got, want in ((G, want_G), (C, want_C)):
+        err = float((got - want).abs().max())
+        assert err <= 2e-4 * float(want.abs().max()), err
+
+
 def test_cuda_streamed_fit_matches_the_cpu_fit(cuda):
     """A streamed fit staged through pinned buffers on a side stream, on a
     uint8 wire with a ragged tail, against the same fit on the CPU."""

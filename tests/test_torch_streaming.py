@@ -172,21 +172,22 @@ def test_residency_bounded_during_a_fit_and_budgets_enforced():
     n, d, chunk, depth = 2048, 16, 64, 2
     X = np.random.RandomState(0).rand(n, d).astype(np.float32)
     Y = np.random.RandomState(1).rand(n, 2).astype(np.float32)
-    stream = _stream(X, chunk, prefetch_depth=depth)
     budget = (depth + 1) * chunk * d * 4 + 4096
+    stream = _stream(X, chunk, prefetch_depth=depth, hbm_budget=budget)
     assert n * d * 4 > 5 * budget  # the data genuinely exceeds it
     seen = []
     probe = stream.map_chunks(
         lambda ad: (seen.append(device_nbytes(stream)), ad)[1])
-    fit_streaming(LinearMapEstimator(lam=0.1), probe, Y, hbm_budget=budget)
+    assert probe.hbm_budget == budget  # a view carries its root's budget
+    fit_streaming(LinearMapEstimator(lam=0.1), probe, Y)
     assert seen and max(seen) <= budget
     assert stream.peak_device_nbytes <= budget
     # the static plan refuses before any chunk is staged ...
+    tight = _stream(X, chunk, prefetch_depth=depth, hbm_budget=budget // 2)
     with pytest.raises(MemoryError, match="before any chunk"):
-        fit_streaming(LinearMapEstimator(lam=0.1), stream, Y,
-                      hbm_budget=budget // 2)
-    # ... and an opaque source trips the per-chunk check, with the budget
-    # carried on the stream itself
+        fit_streaming(LinearMapEstimator(lam=0.1), tight, Y)
+    assert tight.peak_device_nbytes == 0
+    # ... and an opaque source trips the per-chunk check
     opaque = StreamingDataset.from_chunks(
         lambda: (X[i:i + chunk] for i in range(0, n, chunk)), chunk,
         device="cpu", hbm_budget=16.0)
@@ -251,12 +252,13 @@ def test_streamed_labels_with_resident_data_raise():
 
 
 def test_streams_are_never_promoted_implicitly():
-    X, _ = _xy(n=64)
+    X, Y = _xy(n=64)
     with pytest.raises(TypeError, match="materialize"):
         ensure_array(_stream(X, 32))
-    with pytest.raises(TypeError, match="hbm_budget needs a Streaming"):
-        StandardScaler().fit(ArrayDataset.from_numpy(X, "cpu"),
-                             hbm_budget=1e6)
+    # a resident fit handed a stream refuses it rather than promote it
+    with pytest.raises(TypeError, match="materialize"):
+        LinearMapEstimator(lam=0.1)._fit(_stream(X, 32),
+                                         ArrayDataset.from_numpy(Y, "cpu"))
 
 
 def test_non_streamable_estimator_is_refused():
@@ -305,6 +307,37 @@ def test_block_ls_streamed_matches_resident(chunk_size):
     assert len(streamed.block_weights) == len(resident.block_weights) == 3
     _close_weights(streamed.weights, resident.weights)
     np.testing.assert_array_equal(_argmax(streamed, X), _argmax(resident, X))
+
+
+@pytest.mark.parametrize("block_size,passes", [(8, 1), (10, 3)])
+def test_gram_bcd_in_float64_matches_the_data_form(block_size, passes):
+    """The Gram-form BCD and the data-form BCD are equal in exact
+    arithmetic; in float64 on the same input they agree to float64
+    rounding (1e-10 of the largest weight), so any gap between the two
+    float32 fits is rounding, not algebra. The data form is written out
+    here, independent of the port's solvers."""
+    from keystone_tpu_torch.nodes.learning.linear import gram_bcd
+
+    X, Y = (torch.as_tensor(a, dtype=torch.float64) for a in _xy(n=300))
+    lam, d = 0.1, X.shape[1]
+    bounds = [(lo, min(d, lo + block_size)) for lo in range(0, d, block_size)]
+    A, Yc = X - X.mean(dim=0), Y - Y.mean(dim=0)
+    want = torch.zeros((d, Y.shape[1]), dtype=torch.float64)
+    for _ in range(passes):
+        for lo, hi in bounds:
+            Ab = A[:, lo:hi]
+            rhs = Ab.T @ (Yc - A @ want + Ab @ want[lo:hi])
+            want[lo:hi] = torch.linalg.solve(
+                Ab.T @ Ab + lam * torch.eye(hi - lo, dtype=torch.float64), rhs)
+    carry = (X.T @ X, X.T @ Y, X.sum(dim=0), Y.sum(dim=0), X.shape[0])
+    Ws, x_mean, y_mean = gram_bcd(carry, lam, bounds, passes)
+    got = torch.cat(Ws)
+    assert got.dtype == torch.float64
+    assert float((got - want).abs().max()) <= 1e-10 * float(want.abs().max())
+    np.testing.assert_allclose(x_mean.numpy(), X.mean(dim=0).numpy(),
+                               rtol=1e-12)
+    np.testing.assert_allclose(y_mean.numpy(), Y.mean(dim=0).numpy(),
+                               rtol=1e-12)
 
 
 def test_scaler_streamed_matches_resident():
