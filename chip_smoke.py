@@ -10,14 +10,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
 1. Device: require CUDA; print the card's name and power limit.
 2. Build: compile every kernel from the checkout's CUDA sources.
 3. Kernel against plain: each kernel's wrapper on card tensors at the
-   shapes the main path gives it (and a ragged K), held against its
+   shapes the main path gives it (and ragged ones), held against its
    plain PyTorch version on the same inputs.
 4. Main path: RandomPatchCifar fit + apply at the full width of the
    repository's bench configuration (1024 filters, 8192 features, two
    4096-wide BCD blocks) on surrogate CIFAR (20480 train / 4096 test
    images), through ``Pipeline.fit`` / ``apply`` / ``apply_datum``;
    then LinearPixels on the same data. Accuracy must land in the
-   surrogate's bands and the featurize kernel must have launched.
+   surrogate's bands and the featurize kernel must have launched. The
+   fitted model is saved with ``save_pipeline`` for phase 4c.
 4b. Streamed path: the same fit out of core, the training images
    streamed from the host in chunks of 1024 with prefetch depth 2
    (``StreamingDataset``), the scaler and the BCD solver accumulating
@@ -28,12 +29,22 @@ Phases, each of which raises (and so exits non-zero) on failure:
    printed. Both fits' solves are redone in float64 on their own inputs,
    in the data form and (streamed) the Gram form, and each fit's weights
    are held against the float64 ones and against each other.
+4c. Serving: the saved model admitted three times into a
+   ``ServingPlane`` (f32, bf16 and int8 weights) under a device budget
+   that holds three charges and not four, served through
+   ``plane.submit`` (the 4096 test images from 8 client threads, request
+   sizes 1-64), over HTTP (32 small requests per model) and by a
+   ``python -m keystone_tpu_torch serve`` subprocess. Launch counts,
+   agreement with phase 4, the quantized parity bars, test errors, a
+   refused fourth admission, bit-identical eviction + readmission and
+   the HTTP statuses are asserted; rows/s, request latency, batch fill,
+   warmup, charges and device-memory peaks are printed.
 5. Timing: each kernel, its plain version and a library yardstick with
    CUDA events at the main path's shapes.
 
-``--profile`` adds a second resident fit + apply and a second streamed
-fit under ``torch.profiler`` and prints device time by kernel and the
-device's idle share.
+``--profile`` adds a second resident fit + apply, a second streamed fit
+and a serving burst under ``torch.profiler`` and prints device time by
+kernel and the device's idle share.
 
 The line before the last is a JSON object listing every kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -45,10 +56,16 @@ from __future__ import annotations
 import gc
 import json
 import os
+import queue
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -69,6 +86,27 @@ FEATURIZE_TOL = 1e-5
 #: with TF32 off) and differ only in summation order; the JAX package
 #: holds its Gram kernel to rtol = atol = 2e-4, the ceiling here.
 GRAM_TOL = 2e-4
+
+#: Quantized affine kernel vs plain version: max |kernel - plain| <=
+#: QUANT_TOL * max |plain|. Both apply the same dequantized weights in
+#: true float32 and differ only in the order of their sums.
+QUANT_TOL = 1e-5
+
+#: the serving phase: the plane's largest bucket (the JAX serve
+#: command's default), client threads, small HTTP requests per model
+SERVE_MAX_BATCH, CLIENTS, HTTP_REQUESTS = 64, 8, 32
+#: quantized parity bars on the 4096 test images' scores: argmax
+#: agreement with the f32 scores, max |delta| / max |f32 score|. The
+#: error bars are those of tests/test_pallas_kernels.py:331-368; so is
+#: int8's agreement bar. Its bf16 agreement bar (1.0 there, 0.999
+#: planned here) was set on a separable teacher task: on this model the
+#: bf16 weights, bit-identical to the JAX package's, flip 5 of 4096
+#: near-tie images (0.9988; PERF.md, ROADMAP C4). So bf16 is held at
+#: 0.998, and every flip, at either width, must be a near tie: an image
+#: whose f32 top-2 margin is within twice the measured max |delta|.
+QUANT_BARS = {"bf16": (0.998, 0.02), "int8": (0.98, 0.03)}
+
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 SEED = 0
 N_TRAIN, N_TEST = 20480, 4096
@@ -144,6 +182,16 @@ def _gram_work(n, d, k):
     return ops, nbytes
 
 
+def _quant_work(n, d, k, itemsize):
+    """(operations, bytes) of quantized_affine on X (n, d) and Wq (d, k):
+    the product (2 n d k) and the normalization (3 n d: subtract, scale,
+    and the widening of each weight is not counted); X read once, Wq at
+    its width, the four vectors and the output once."""
+    ops = 2 * n * d * k + 3 * n * d
+    nbytes = 4 * n * d + d * k * itemsize + 4 * (2 * d + 2 * k) + 4 * n * k
+    return ops, nbytes
+
+
 def _bound(ops, nbytes):
     t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
@@ -183,6 +231,43 @@ def _check_gram(kernels, rng, dev):
             worst = max(worst, err)
         del X, Y, G0, C0, G, C, want_G, want_C
     torch.cuda.empty_cache()
+    return worst
+
+
+def _quant_inputs(rng, n, d, k, weight_dtype, dev):
+    from keystone_tpu_torch.nodes.learning.linear import _quantize_weights
+
+    X = torch.as_tensor(rng.randn(n, d).astype(np.float32), device=dev)
+    W = torch.as_tensor((rng.randn(d, k) * 0.01).astype(np.float32),
+                        device=dev)
+    Wq, scale = _quantize_weights(W, weight_dtype)
+    mean, inv, b = (torch.as_tensor(v.astype(np.float32), device=dev)
+                    for v in (rng.randn(d), 1.0 + rng.rand(d), rng.randn(k)))
+    return X, Wq, scale, mean, inv, b
+
+
+def _check_quant(kernels, rng, dev):
+    """quantized_affine against its plain version, bf16 and int8, at the
+    served shapes (a request of one, a full bucket, the 4096-image batch
+    apply), a ragged shape and a wide k; returns the largest absolute
+    error."""
+    worst = 0.0
+    for n, d, k in ((1, 8192, 10), (SERVE_MAX_BATCH, 8192, 10),
+                    (N_TEST, 8192, 10), (77, 50, 11), (33, 1000, 1000)):
+        for wd in ("bf16", "int8"):
+            args = _quant_inputs(rng, n, d, k, wd, dev)
+            got = kernels.quantized_affine(*args)
+            want = kernels.quantized_affine_plain(*args)
+            _sync()
+            assert got.shape == want.shape == (n, k)
+            assert bool(torch.isfinite(got).all())
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            print(f"[check] quantized_affine {wd} n={n} d={d} k={k}: max abs "
+                  f"err {err:.3e} (max |plain| {scale:.3e}, rel "
+                  f"{err / scale:.3e})", flush=True)
+            assert err <= QUANT_TOL * scale, (wd, n, d, k, err, scale)
+            worst = max(worst, err)
     return worst
 
 
@@ -245,6 +330,281 @@ def _float64_check(featurizer, fits, images, labels, lam, dev):
     return out
 
 
+def _serving_requests(images, seed):
+    """The images cut, in order, into requests of seeded sizes 1-64."""
+    rng = np.random.RandomState(seed)
+    out, i = [], 0
+    while i < len(images):
+        n = int(rng.randint(1, SERVE_MAX_BATCH + 1))
+        out.append(images[i:i + n])
+        i += n
+    return out
+
+
+def _drive(plane, name, requests):
+    """Send ``requests`` to model ``name`` through ``plane.submit`` from
+    CLIENTS threads, each waiting on its answer before its next request.
+    Returns the predictions in request order and the wall seconds."""
+    results = [None] * len(requests)
+
+    def client(j):
+        for r in range(j, len(requests), CLIENTS):
+            results[r] = plane.submit(name, requests[r]).result(timeout=120)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(CLIENTS) as pool:
+        for fut in [pool.submit(client, j) for j in range(CLIENTS)]:
+            fut.result(timeout=600)
+    wall = time.perf_counter() - t0
+    return np.concatenate(results), wall
+
+
+def _post(base, path, payload):
+    """POST JSON; returns (status, decoded body)."""
+    req = urllib.request.Request(base + path, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as rsp:
+            return rsp.status, json.loads(rsp.read())
+    except urllib.error.HTTPError as exc:
+        return exc.code, json.loads(exc.read() or b"null")
+
+
+def _serve_subprocess(model_path, images, want):
+    """``python -m keystone_tpu_torch serve`` on the saved model at bf16:
+    wait for its ready line, POST 4 requests of 1-4 images, hold the
+    answers against ``want`` (the in-process bf16 predictions of the
+    same images), stop it. Returns the lines it printed."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "keystone_tpu_torch", "serve",
+         f"rpc={model_path}@32,32,3", "--port", "0", "--weight-dtype",
+         "bf16"], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    lines: "queue.Queue" = queue.Queue()
+
+    def read():
+        for line in proc.stdout:
+            lines.put(line.rstrip())
+        lines.put(None)
+
+    threading.Thread(target=read, daemon=True).start()
+    seen = []
+    try:
+        deadline = time.time() + 300
+        while not (seen and seen[-1].startswith("serving ready")):
+            line = lines.get(timeout=max(deadline - time.time(), 1.0))
+            if line is None:
+                raise RuntimeError("serve exited before it was ready:\n"
+                                   + "\n".join(seen))
+            seen.append(line)
+        assert seen[-1].startswith("serving ready (1 models)"), seen
+        port = int(next(s for s in seen if s.startswith("serving on"))
+                   .rsplit(":", 1)[1])
+        i = 0
+        for n in (1, 2, 3, 4):
+            status, out = _post(f"http://127.0.0.1:{port}", "/predict/rpc",
+                                {"instances": images[i:i + n].tolist()})
+            assert status == 200, (status, out)
+            assert np.array_equal(np.asarray(out["predictions"]),
+                                  want[i:i + n]), (out, want[i:i + n])
+            i += n
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    return seen
+
+
+def _serving_phase(kernels, model_path, te_x, te_y, preds, dev):
+    """Phase 4c (see the module docstring). Returns the kernel launch
+    counts of the traffic run."""
+    from keystone_tpu_torch.nodes.learning.linear import BlockLinearMapper
+    from keystone_tpu_torch.observability.metrics import MetricsRegistry
+    from keystone_tpu_torch.serving import (
+        AdmissionError,
+        ItemSpec,
+        ModelNotAdmitted,
+        ServingPlane,
+        model_charge,
+        serve,
+    )
+    from keystone_tpu_torch.utils.checkpoint import load_pipeline
+
+    mib = 1 << 20
+    saved = load_pipeline(model_path, device=dev)
+    spec = ItemSpec((32, 32, 3), np.float32)
+    one = model_charge(saved, np.zeros((1, 32, 32, 3), np.float32),
+                       SERVE_MAX_BATCH, dev).total_nbytes()
+    budget = 3.5 * one  # three charges, not four
+    models = {"rpc_f32": None, "rpc_bf16": "bf16", "rpc_int8": "int8"}
+    reg = MetricsRegistry.get_or_create()
+    plane = ServingPlane(hbm_budget=budget, max_batch=SERVE_MAX_BATCH,
+                         device=dev).start()
+    server = serve(plane, port=0)
+    base = f"http://127.0.0.1:{server.server_port}"
+    try:
+        entries = {name: plane.admit(name, saved, spec, weight_dtype=wd)
+                   for name, wd in models.items()}
+        state = plane.state()
+        charged = state["hbm_charged_bytes"]
+        assert state["ready"] and len(state["models"]) == 3
+        assert charged <= budget < 4 * min(
+            e.charge.total_nbytes() for e in entries.values()), state
+        # a fourth model, larger than the budget: refused, nothing changed
+        W = np.random.RandomState(SEED).randn(3072, 1000).astype(np.float32)
+        big = BlockLinearMapper([W], 3072).to_pipeline()
+        try:
+            plane.admit("big", big, ItemSpec((3072,), np.float32))
+            raise AssertionError("an admission beyond the budget was taken")
+        except AdmissionError as exc:
+            print(f"[serve] fourth admission refused: {exc}", flush=True)
+        refused = plane.state()
+        assert [m["name"] for m in refused["models"]] == sorted(models)
+        assert refused["hbm_charged_bytes"] == charged
+
+        # traffic: the test set to each model from CLIENTS threads
+        requests = _serving_requests(te_x, SEED)
+        served, walls, peaks = {}, {}, {}
+        _sync()
+        kernels.reset_launches()
+        batches0 = reg.counter("serving.batches_total").value
+        for name in models:
+            torch.cuda.reset_peak_memory_stats()
+            served[name], walls[name] = _drive(plane, name, requests)
+            peaks[name] = torch.cuda.max_memory_allocated()
+        launches = dict(kernels.LAUNCHES)
+        batches = {m["name"]: m["batches"] for m in plane.state()["models"]}
+        total_batches = reg.counter("serving.batches_total").value - batches0
+        assert sum(batches.values()) == total_batches, (batches,
+                                                        total_batches)
+        for name in models:
+            h = reg.histogram(f"serving.request_ms.{name}")
+            fill = reg.histogram(f"serving.batch_fill.{name}").mean
+            e = entries[name]
+            print(f"[serve] {name}: {N_TEST} rows in {walls[name]:.3f} s "
+                  f"({N_TEST / walls[name]:.0f} rows/s), {len(requests)} "
+                  f"requests in {batches[name]} batches (mean fill "
+                  f"{fill:.3f}), request_ms p50 {h.percentile(50):.3f} p99 "
+                  f"{h.percentile(99):.3f}, warmup {e.warmup_s:.3f} s, "
+                  f"charge {e.charge.total_nbytes() / mib:.3f} MiB "
+                  f"(model {e.charge.model_nbytes / mib:.3f} MiB + "
+                  f"{e.charge.item_nbytes:.0f} B x {e.charge.bucket_rows}, "
+                  f"{e.charge.source}), device-memory peak "
+                  f"{peaks[name] / mib:.1f} MiB", flush=True)
+        print(f"[serve] budget {budget / mib:.3f} MiB, charged "
+              f"{charged / mib:.3f} MiB; launches during traffic "
+              f"{launches}, served batches {batches}", flush=True)
+        quant_batches = batches["rpc_bf16"] + batches["rpc_int8"]
+        assert launches["quantized_affine"] >= quant_batches > 0, launches
+        assert launches["fused_cifar_featurize"] >= total_batches, launches
+
+        # agreement, test errors, the quantized parity bars
+        f32 = served["rpc_f32"]
+        agree = float(np.mean(f32 == preds))
+        errors = {name: float(np.mean(p != te_y)) for name, p in
+                  served.items()}
+        print(f"[serve] f32 served predictions agree with phase 4's batch "
+              f"apply on {agree:.4f} of test images; test errors {errors}",
+              flush=True)
+        assert agree >= 0.999, agree
+        graph = {name: {type(op).__name__: op
+                        for op in e.fitted.graph.operators.values()}
+                 for name, e in entries.items()}
+        ops = graph["rpc_f32"]
+        F = torch.cat([ops["StandardScalerModel"].apply_batch(
+            ops["FusedConvRectifyPool"].apply_batch(torch.as_tensor(
+                te_x[i:i + 1024], device=dev)))
+            for i in range(0, N_TEST, 1024)])
+        scores = {name: graph[name]["BlockLinearMapper"].apply_batch(F)
+                  for name in models}
+        ref = scores["rpc_f32"]
+        for name, wd in models.items():
+            if wd is None:
+                continue
+            min_agree, max_rel = QUANT_BARS[wd]
+            flips = scores[name].argmax(1) != ref.argmax(1)
+            arg = 1.0 - float(flips.float().mean())
+            noise = float((scores[name] - ref).abs().max())
+            rel = noise / float(ref.abs().max())
+            top2 = ref.topk(2, dim=1).values
+            margins = (top2[:, 0] - top2[:, 1])[flips]
+            worst_margin = float(margins.max()) if len(margins) else 0.0
+            print(f"[serve] {name} scores on the {N_TEST} scaled test "
+                  f"features: argmax agreement with f32 {arg:.4f} (bar "
+                  f"{min_agree}; {int(flips.sum())} flips, largest f32 "
+                  f"top-2 margin among them {worst_margin:.3e} against "
+                  f"max |delta| {noise:.3e}), max |delta| / max |f32| "
+                  f"{rel:.4e} (bar {max_rel}); test error "
+                  f"{errors[name]:.4f} (f32 {errors['rpc_f32']:.4f})",
+                  flush=True)
+            assert arg >= min_agree and rel <= max_rel, (name, arg, rel)
+            assert worst_margin <= 2 * noise, (name, worst_margin, noise)
+            assert abs(errors[name] - errors["rpc_f32"]) <= 0.01, errors
+        del F, scores, ref
+
+        # eviction and readmission: bit-identical on the same requests
+        mapper = graph["rpc_int8"]["BlockLinearMapper"]
+        wq = mapper.apply_params(dev)[0].clone()
+        again_reqs = requests[:16]
+        before = [plane.predict("rpc_int8", r) for r in again_reqs]
+        plane.evict("rpc_int8")
+        try:
+            plane.predict("rpc_int8", again_reqs[0])
+            raise AssertionError("an evicted model answered")
+        except ModelNotAdmitted:
+            pass
+        readmitted = plane.readmit("rpc_int8")
+        after = [plane.predict("rpc_int8", r) for r in again_reqs]
+        wq_again = next(op for op in readmitted.fitted.graph.operators
+                        .values() if type(op).__name__ ==
+                        "BlockLinearMapper").apply_params(dev)[0]
+        assert all(np.array_equal(a, b) for a, b in zip(before, after))
+        assert torch.equal(wq, wq_again)
+        print(f"[serve] evict + readmit rpc_int8: {len(again_reqs)} requests "
+              "bit-identical, Wq bit-identical", flush=True)
+
+        # HTTP: small requests per model, then the error statuses
+        rng = np.random.RandomState(SEED + 1)
+        t0 = time.perf_counter()
+        for name in models:
+            i = 0
+            for _ in range(HTTP_REQUESTS):
+                n = int(rng.randint(1, 5))
+                status, out = _post(base, f"/predict/{name}",
+                                    {"instances": te_x[i:i + n].tolist()})
+                assert status == 200, (status, out)
+                assert np.array_equal(np.asarray(out["predictions"]),
+                                      served[name][i:i + n]), name
+                i += n
+        http_s = time.perf_counter() - t0
+        statuses = {
+            "unknown model": _post(base, "/predict/ghost",
+                                   {"instances": te_x[:1].tolist()})[0],
+            "bad shape": _post(base, "/predict/rpc_f32", {
+                "instances": te_x[:1, :31].tolist()})[0],
+        }
+        print(f"[serve] HTTP: {HTTP_REQUESTS} requests of 1-4 images per "
+              f"model answered 200 and equal to the in-process answers in "
+              f"{http_s:.3f} s; statuses {statuses}", flush=True)
+        assert statuses == {"unknown model": 404, "bad shape": 400}
+
+        # the serve command, as a subprocess
+        lines = _serve_subprocess(model_path, te_x, served["rpc_bf16"])
+        print("[serve] subprocess: " + " | ".join(
+            s for s in lines if s.startswith(("admitted", "serving ready"))),
+            flush=True)
+        if "--profile" in sys.argv[1:]:
+            _profile("serving burst (rpc_bf16, 4096 images)",
+                     lambda: _drive(plane, "rpc_bf16", requests))
+    finally:
+        server.shutdown()
+        plane.close()
+    return launches
+
+
 def _profile(label, fn):
     """Run ``fn`` once under torch.profiler (``--profile`` only): device
     time by kernel, and the device's idle share of the wall."""
@@ -286,7 +646,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, REPO)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        return _main(workdir)
+
+
+def _main(workdir: str) -> int:
     from keystone_tpu_torch.evaluation.multiclass import evaluate_multiclass
     from keystone_tpu_torch.loaders.csv_loader import LabeledData
     from keystone_tpu_torch.loaders.surrogate import make_surrogate_cifar
@@ -300,6 +665,7 @@ def main() -> int:
         linear_pixels,
         random_patch_cifar as rpc,
     )
+    from keystone_tpu_torch.utils.checkpoint import save_pipeline
     from keystone_tpu_torch.workflow.common import Cacher
     from keystone_tpu_torch.workflow.env import PipelineEnv
 
@@ -357,6 +723,7 @@ def main() -> int:
         del imgs, filters, means, got, want
     torch.cuda.empty_cache()
     gram_worst = _check_gram(kernels, rng, dev)
+    quant_worst = _check_quant(kernels, rng, dev)
 
     # -- 4. main path ---------------------------------------------------------
     (tr_x, tr_y), (te_x, te_y) = make_surrogate_cifar(N_TRAIN, N_TEST,
@@ -420,6 +787,8 @@ def main() -> int:
         _operator(fitted, "BlockLinearMapper").weights).float()
     resident_scaler = _operator(fitted, "StandardScalerModel")
     featurizer = _operator(fitted, "FusedConvRectifyPool")
+    model_path = os.path.join(workdir, "rpc.pkl")
+    save_pipeline(fitted, model_path)
     del fitted, train, train_labels, test_pred, train_pred
 
     # -- 4b. streamed path ----------------------------------------------------
@@ -517,6 +886,13 @@ def main() -> int:
         _profile("streamed fit", streamed_fit)
     del fitted_s, out, stream, test_stream, labels, test, featurizer
     PipelineEnv.reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 4c. serving ----------------------------------------------------------
+    serve_launches = _serving_phase(kernels, model_path, te_x, te_y, preds,
+                                    dev)
+    gc.collect()
     torch.cuda.empty_cache()
 
     # -- 5. timing ------------------------------------------------------------
@@ -561,6 +937,36 @@ def main() -> int:
           f"GFLOP triangle, {g_bytes / 1e6:.1f} MB), "
           f"{g_ops / g_ms / 1e9:.1f} TFLOP/s achieved", flush=True)
 
+    q_times = {}
+    for n in (SERVE_MAX_BATCH, N_TEST):
+        for wd, itemsize in (("bf16", 2), ("int8", 1)):
+            args = _quant_inputs(rng, n, NUM_FILTERS * 8, 10, wd, dev)
+            X, Wq, scale, mean, inv, b = args
+            # library yardstick: the GEMM alone, one cuBLAS float32 addmm
+            # on operands normalized and dequantized outside the timing
+            Xn = ((X - mean) * inv).contiguous()
+            Wdeq = (Wq.to(torch.float32) * scale[None, :]).contiguous()
+            t = {"ms": _time_ms(lambda: kernels.quantized_affine(*args),
+                                reps=50),
+                 # what one plain pass over X takes: the practical floor
+                 "read_ms": _time_ms(lambda: X.sum(), reps=50),
+                 "plain_ms": _time_ms(
+                     lambda: kernels.quantized_affine_plain(*args), reps=50),
+                 "library_ms": _time_ms(lambda: torch.addmm(b, Xn, Wdeq),
+                                        reps=50)}
+            q_ops, q_bytes = _quant_work(n, NUM_FILTERS * 8, 10, itemsize)
+            t["bound_ms"], t["bound_by"] = _bound(q_ops, q_bytes)
+            q_times[(n, wd)] = t
+            print(f"[time] quantized_affine {wd} n={n} d={NUM_FILTERS * 8} "
+                  f"k=10: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+                  f"ms, torch.addmm (GEMM only) {t['library_ms']:.4f} ms, "
+                  f"X.sum (one read of X) {t['read_ms']:.4f} ms, "
+                  f"bound {t['bound_ms']:.4f} ms by {t['bound_by']} "
+                  f"({q_ops / 1e6:.1f} MFLOP, {q_bytes / 1e6:.2f} MB), "
+                  f"{q_bytes / t['ms'] / 1e6:.1f} GB/s achieved", flush=True)
+            del args, X, Wq, Xn, Wdeq
+    q = q_times[(SERVE_MAX_BATCH, "bf16")]
+
     # -- 6. report ------------------------------------------------------------
     print(smi)
     print(json.dumps({"kernels": [{
@@ -587,6 +993,18 @@ def main() -> int:
         "bound_ms": g_bound_ms,
         "bound_by": g_bound_by,
         "library_ms": g_library_ms,
+    }, {
+        "name": "quantized_affine",
+        "route": "cuda",
+        "source": "keystone_tpu_torch/csrc/quantized_affine.cu",
+        "replaces": "keystone_tpu/ops/pallas_kernels.py:630",
+        "launches": serve_launches["quantized_affine"],
+        "max_abs_err": quant_worst,
+        "ms": q["ms"],
+        "plain_ms": q["plain_ms"],
+        "bound_ms": q["bound_ms"],
+        "bound_by": q["bound_by"],
+        "library_ms": q["library_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,11 @@ JAX package holds them:
 * ``scaler_mean`` and ``scaler_std`` (D,), the StandardScaler's model;
 * ``weights`` (D, k), ``feature_means`` (D,) and ``intercept`` (k,), the
   block least-squares model (split into ``block_size``-row blocks).
+
+``quantized_mapper`` carries a quantized linear model across: the JAX
+package's quantized params ``(Wq, scale, mean, inv_std, b)``, or a
+JAX-fitted mapper with a ``weight_dtype``, become the port's mapper
+holding the same ``Wq`` and ``scale`` bit for bit.
 """
 from __future__ import annotations
 
@@ -18,7 +23,7 @@ import numpy as np
 import torch
 
 from .nodes.images.core import FusedConvRectifyPool
-from .nodes.learning.linear import BlockLinearMapper
+from .nodes.learning.linear import BlockLinearMapper, LinearMapper
 from .nodes.learning.zca import ZCAWhitener
 from .nodes.stats import StandardScalerModel
 from .nodes.util import MaxClassifier
@@ -74,3 +79,57 @@ def from_reference_arrays(d: Dict[str, np.ndarray], device=DEFAULT_DEVICE,
         >> MaxClassifier()
     )
     return chain.fit()
+
+
+def _weight_bits(Wq) -> torch.Tensor:
+    """A (d, k) bfloat16 or int8 weight array as a host tensor with the
+    same bits. A bfloat16 numpy array (the ``ml_dtypes`` type that
+    ``np.asarray`` of a JAX array gives) is read through its 16-bit
+    pattern, so no conversion can round it."""
+    if isinstance(Wq, torch.Tensor):
+        return Wq.detach().cpu()
+    a = np.asarray(Wq)
+    if a.dtype == np.int8:
+        return torch.from_numpy(a.copy())
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    raise ValueError(f"quantized weights are {a.dtype}; bfloat16 or int8 "
+                     "are taken")
+
+
+def quantized_mapper(source, device=DEFAULT_DEVICE):
+    """The port's quantized mapper from the JAX package's quantized
+    params ``(Wq, scale, mean, inv_std, b)`` (arrays), or from a JAX
+    mapper fitted with a ``weight_dtype`` (its ``apply_params()``). The
+    mapper applies exactly the given ``Wq`` and ``scale`` (its
+    ``quantized`` pair) and stores their float32 dequantization as its
+    weights. A BlockLinearMapper when ``inv_std`` is all ones (the JAX
+    BlockLinearMapper's params), else a LinearMapper whose scaler
+    reproduces ``inv_std``. Its params are staged on ``device``."""
+    dev = resolve_device(device)
+    if hasattr(source, "apply_params") and hasattr(source, "weight_dtype"):
+        if source.weight_dtype is None:
+            raise ValueError("the mapper has no weight_dtype: carry a "
+                             "float32 model with from_reference_arrays")
+        source = source.apply_params()
+    Wq, scale, mean, inv_std, b = source
+    Wq = _weight_bits(Wq)
+    weight_dtype = "int8" if Wq.dtype == torch.int8 else "bf16"
+    scale = torch.as_tensor(np.array(scale, np.float32))
+    mean, inv_std, b = (np.array(v, np.float32) for v in (mean, inv_std, b))
+    W = Wq.to(torch.float32) * scale[None, :]
+    if np.all(inv_std == 1.0):
+        mapper = BlockLinearMapper([W], W.shape[0], intercept=b,
+                                   feature_means=mean,
+                                   weight_dtype=weight_dtype,
+                                   quantized=(Wq, scale))
+    else:
+        # the mapper takes inv_std = 1 / std; a float64 std makes that
+        # reciprocal land back on the given float32 inv_std
+        std = 1.0 / inv_std.astype(np.float64)
+        mapper = LinearMapper(W, intercept=b,
+                              feature_scaler=StandardScalerModel(mean, std),
+                              weight_dtype=weight_dtype,
+                              quantized=(Wq, scale))
+    mapper.apply_params(dev)
+    return mapper

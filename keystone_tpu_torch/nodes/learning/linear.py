@@ -4,8 +4,14 @@ Counterpart of ``keystone_tpu/nodes/learning/linear.py`` (reference
 ``nodes/learning/LinearMapper.scala`` and ``BlockLinearMapper.scala``):
 mean-centered normal equations solved by Cholesky, and block coordinate
 descent over feature blocks, fitted on resident data or streamed chunk
-by chunk through a ``(G, C, sx, sy, n)`` Gram carry. Quantized weights
-come in a later slice.
+by chunk through a ``(G, C, sx, sy, n)`` Gram carry.
+
+Quantized predict: a fitted mapper may apply its weights at a narrower
+type than float32 (``weight_dtype="bf16"``, or ``"int8"`` with
+per-column scales), as the serving plane does by default. The weights
+are quantized on first use on a device; the apply then goes through
+``ops.kernels.quantized_affine`` (the CUDA kernel on the card, its plain
+version on the CPU), dequantizing and accumulating in float32.
 """
 from __future__ import annotations
 
@@ -14,8 +20,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ...observability.metrics import MetricsRegistry
 from ...ops import linalg
-from ...ops.kernels import gram_cross
+from ...ops.kernels import gram_cross, quantized_affine
 from ...parallel.dataset import ArrayDataset, Dataset, ensure_array
 from ...workflow.label_estimator import LabelEstimator
 from ...workflow.operators import tensor_token
@@ -44,23 +51,137 @@ def _affine(params, x):
     return ((x - mean) * inv_std) @ W + b
 
 
+# -- quantized predict (serving plane) --------------------------------------
+#
+# Weights stored at float32 and narrowed on the apply path: bf16, or int8
+# with per-column scales. The quantization error is recorded the moment
+# the weights narrow (``numerics.quant_rel_error`` gauge and a
+# ``numerics.quant_error`` count); the parity bars against the float32
+# apply are pinned by tests/test_torch_quantized.py.
+
+def _canon_weight_dtype(weight_dtype):
+    """None, ``"bf16"`` or ``"int8"``; any other spelling raises."""
+    if weight_dtype is None:
+        return None
+    alias = {"bf16": "bf16", "bfloat16": "bf16", "int8": "int8"}
+    if isinstance(weight_dtype, torch.dtype):
+        key = {torch.bfloat16: "bf16", torch.int8: "int8"}.get(weight_dtype)
+    elif isinstance(weight_dtype, str):
+        key = alias.get(weight_dtype)
+    else:
+        try:
+            key = alias.get(str(np.dtype(weight_dtype)))
+        except TypeError:
+            key = alias.get(str(weight_dtype))
+    if key is None:
+        raise ValueError(
+            f"weight_dtype must be None, 'bf16' or 'int8', got "
+            f"{weight_dtype!r}")
+    return key
+
+
+def _quantize_weights(W, weight_dtype):
+    """Quantize a fitted (d, k) float32 weight tensor: bf16
+    (round-to-nearest-even, scales of ones), or int8 with per-COLUMN
+    symmetric scales (``amax / 127``, 1 where a column is all zero;
+    ``round`` half to even, clipped to +-127). Returns ``(Wq, scale)`` on
+    W's device and records the dequantization error."""
+    Wf = W.to(torch.float32)
+    k = Wf.shape[1]
+    if weight_dtype == "bf16":
+        Wq = Wf.to(torch.bfloat16)
+        scale = torch.ones(k, dtype=torch.float32, device=Wf.device)
+    else:
+        amax = Wf.abs().amax(dim=0)
+        scale = torch.where(amax > 0.0, amax / 127.0,
+                            torch.ones_like(amax))
+        Wq = torch.clamp(torch.round(Wf / scale[None, :]), -127.0,
+                         127.0).to(torch.int8)
+    _record_quant_error(Wf, Wq, scale)
+    return Wq, scale
+
+
+def _record_quant_error(Wf, Wq, scale):
+    """Largest dequantization error relative to the largest weight, into
+    the ``numerics.quant_rel_error`` gauge, and one
+    ``numerics.quant_error`` count."""
+    deq = Wq.to(torch.float32) * scale[None, :]
+    denom = max(float(Wf.abs().max()) if Wf.numel() else 0.0, 1e-12)
+    err = float((deq - Wf).abs().max()) if Wf.numel() else 0.0
+    reg = MetricsRegistry.get_or_create()
+    reg.gauge("numerics.quant_rel_error").set(err / denom)
+    reg.counter("numerics.quant_error").inc()
+
+
+def _maybe_quantized_params(affine, weight_dtype, quantized=None):
+    """The apply-params tail of both mappers: the float32 4-tuple
+    ``(W, mean, inv_std, b)`` as it is when no weight_dtype is set, else
+    the quantized 5-tuple ``(Wq, scale, mean, inv_std, b)``; ``quantized``
+    holds a given ``(Wq, scale)`` pair (a model carried across already
+    quantized), used instead of quantizing W."""
+    if weight_dtype is None:
+        return affine
+    W, mean, inv_std, b = affine
+    if quantized is None:
+        Wq, scale = _quantize_weights(W, weight_dtype)
+    else:
+        Wq = torch.as_tensor(quantized[0]).to(W.device)
+        scale = torch.as_tensor(quantized[1], dtype=torch.float32,
+                                device=W.device)
+    # the kernel takes contiguous operands; a solve may leave W (and so
+    # Wq) column-major
+    return tuple(t.contiguous() for t in (Wq, scale, mean, inv_std, b))
+
+
+def _dequant_affine(params, x):
+    """The per-item quantized apply, through the batch's wrapper
+    (``ops.kernels.quantized_affine``: a one-row launch on the card, the
+    plain version on the CPU), so the two paths cannot diverge."""
+    return quantized_affine(x.reshape(1, -1).contiguous(), *params)[0]
+
+
+def _host(v):
+    return v.cpu() if isinstance(v, torch.Tensor) else v
+
+
 class LinearMapper(Transformer):
     """out = x_model^T in (+ b), with optional feature scaler
-    (reference ``LinearMapper.scala:18-62``)."""
+    (reference ``LinearMapper.scala:18-62``). ``weight_dtype`` narrows
+    the weights on the apply path (None = float32; ``"bf16"`` /
+    ``"int8"``, see ``_quantize_weights``); ``quantized`` is an already
+    quantized ``(Wq, scale)`` pair to apply instead (``convert.py``)."""
 
     def __init__(self, weights, intercept=None,
-                 feature_scaler: Optional[StandardScalerModel] = None):
+                 feature_scaler: Optional[StandardScalerModel] = None,
+                 weight_dtype: Optional[str] = None, quantized=None):
         self.weights = weights
         self.intercept = intercept
         self.feature_scaler = feature_scaler
+        self.weight_dtype = _canon_weight_dtype(weight_dtype)
+        self.quantized = quantized
+        if (self.weight_dtype is not None and feature_scaler is not None
+                and type(feature_scaler) is not StandardScalerModel):
+            raise ValueError(
+                "weight_dtype quantization requires a plain "
+                "StandardScalerModel feature scaler (or none): the "
+                "quantized apply is one fused affine")
 
     def eq_key(self):
-        return (LinearMapper, tensor_token(self.weights),
+        return (LinearMapper, self.weight_dtype, tensor_token(self.weights),
                 tensor_token(self.intercept),
                 None if self.feature_scaler is None
-                else self.feature_scaler._cached_eq_key())
+                else self.feature_scaler._cached_eq_key(),
+                None if self.quantized is None
+                else tuple(tensor_token(q) for q in self.quantized))
+
+    def struct_key(self):
+        """The apply's program family: every float32 mapper shares one,
+        each weight type has its own."""
+        return (LinearMapper, "affine", self.weight_dtype)
 
     def apply(self, x):
+        if self.weight_dtype is not None:
+            return _dequant_affine(self.apply_params(x.device), x)
         if self.feature_scaler is not None:
             x = self.feature_scaler.apply(x)
         W, _, _, b = self.apply_params(x.device)
@@ -72,19 +193,36 @@ class LinearMapper(Transformer):
             mean = None if s is None else s.mean
             inv = (None if s is None or s.std is None
                    else 1.0 / np.asarray(s.std))
-            return _affine_params(self.weights, mean, inv, self.intercept, d)
+            return _maybe_quantized_params(
+                _affine_params(self.weights, mean, inv, self.intercept, d),
+                self.weight_dtype, self.quantized)
         return self._params_on(device, build)
 
     def apply_batch(self, X):
-        return _affine(self.apply_params(X.device), X)
+        params = self.apply_params(X.device)
+        if self.weight_dtype is not None:
+            return quantized_affine(X, *params)
+        return _affine(params, X)
+
+    def __getstate__(self):
+        # device tensors pickle as host copies
+        d = super().__getstate__()
+        for f in ("weights", "intercept"):
+            d[f] = _host(d[f])
+        if d["quantized"] is not None:
+            d["quantized"] = tuple(_host(q) for q in d["quantized"])
+        return d
 
 
 class LinearMapEstimator(LabelEstimator):
     """OLS/ridge via normal equations on mean-centered features and
     labels; intercept = label mean (reference ``LinearMapper.scala:71-98``)."""
 
-    def __init__(self, lam: Optional[float] = None):
+    def __init__(self, lam: Optional[float] = None,
+                 weight_dtype: Optional[str] = None):
         self.lam = lam
+        # checked here, so a typo fails before the fit, not after it
+        self.weight_dtype = _canon_weight_dtype(weight_dtype)
 
     # -- streaming fit (accumulate/finalize protocol) ----------------------
     def accumulate(self, carry, chunk, labels):
@@ -101,7 +239,8 @@ class LinearMapEstimator(LabelEstimator):
         W = linalg.ridge_cho_solve(Gc, Cc, float(self.lam or 0.0))
         return LinearMapper(W, intercept=y_mean,
                             feature_scaler=StandardScalerModel(
-                                x_mean.cpu().numpy()))
+                                x_mean.cpu().numpy()),
+                            weight_dtype=self.weight_dtype)
 
     def _fit(self, ds: Dataset, labels: Dataset) -> LinearMapper:
         ds = ensure_array(ds)
@@ -117,21 +256,25 @@ class LinearMapEstimator(LabelEstimator):
                                    float(self.lam or 0.0))
         return LinearMapper(W, intercept=y_mean,
                             feature_scaler=StandardScalerModel(
-                                x_mean.cpu().numpy()))
+                                x_mean.cpu().numpy()),
+                            weight_dtype=self.weight_dtype)
 
 
 class BlockLinearMapper(Transformer):
     """Block-partitioned linear model (reference
     ``BlockLinearMapper.scala:22-73``). The blocks concatenate into one
     weight matrix applied as one GEMM; the per-block view is kept for API
-    parity."""
+    parity. ``weight_dtype`` and ``quantized`` as in LinearMapper."""
 
     def __init__(self, block_weights: Sequence, block_size: int,
-                 intercept=None, feature_means=None):
+                 intercept=None, feature_means=None,
+                 weight_dtype: Optional[str] = None, quantized=None):
         self.block_weights = list(block_weights)
         self.block_size = block_size
         self.intercept = intercept
         self.feature_means = feature_means
+        self.weight_dtype = _canon_weight_dtype(weight_dtype)
+        self.quantized = quantized
         if any(isinstance(w, torch.Tensor) for w in self.block_weights):
             self.weights = torch.cat([torch.as_tensor(w)
                                       for w in self.block_weights], dim=0)
@@ -139,28 +282,43 @@ class BlockLinearMapper(Transformer):
             self.weights = np.concatenate(self.block_weights, axis=0)
 
     def eq_key(self):
-        return (BlockLinearMapper, self.block_size,
+        return (BlockLinearMapper, self.block_size, self.weight_dtype,
                 tensor_token(self.weights), tensor_token(self.intercept),
-                tensor_token(self.feature_means))
+                tensor_token(self.feature_means),
+                None if self.quantized is None
+                else tuple(tensor_token(q) for q in self.quantized))
+
+    def struct_key(self):
+        """The apply's program family, as LinearMapper's."""
+        return (BlockLinearMapper, "affine", self.weight_dtype)
 
     def apply_params(self, device):
-        return self._params_on(device, lambda d: _affine_params(
-            self.weights, self.feature_means, None, self.intercept, d))
+        return self._params_on(device, lambda d: _maybe_quantized_params(
+            _affine_params(self.weights, self.feature_means, None,
+                           self.intercept, d),
+            self.weight_dtype, self.quantized))
 
     def apply(self, x):
-        W, mean, _, b = self.apply_params(x.device)
+        params = self.apply_params(x.device)
+        if self.weight_dtype is not None:
+            return _dequant_affine(params, x)
+        W, mean, _, b = params
         return (x - mean) @ W + b
 
     def apply_batch(self, X):
-        return _affine(self.apply_params(X.device), X)
+        params = self.apply_params(X.device)
+        if self.weight_dtype is not None:
+            return quantized_affine(X, *params)
+        return _affine(params, X)
 
     def __getstate__(self):
         # device tensors pickle as host copies
         d = super().__getstate__()
-        host = (lambda v: v.cpu() if isinstance(v, torch.Tensor) else v)
-        d["block_weights"] = [host(w) for w in self.block_weights]
+        d["block_weights"] = [_host(w) for w in self.block_weights]
         for f in ("weights", "intercept", "feature_means"):
-            d[f] = host(d[f])
+            d[f] = _host(d[f])
+        if d["quantized"] is not None:
+            d["quantized"] = tuple(_host(q) for q in d["quantized"])
         return d
 
 
@@ -169,10 +327,12 @@ class BlockLeastSquaresEstimator(LabelEstimator):
     per-block mean-centering, label mean-centering, block coordinate
     descent with L2, intercept from the joint means."""
 
-    def __init__(self, block_size: int, num_iter: int, lam: float = 0.0):
+    def __init__(self, block_size: int, num_iter: int, lam: float = 0.0,
+                 weight_dtype: Optional[str] = None):
         self.block_size = block_size
         self.num_iter = num_iter
         self.lam = lam
+        self.weight_dtype = _canon_weight_dtype(weight_dtype)
 
     # -- streaming fit (accumulate/finalize protocol) ----------------------
     def accumulate(self, carry, chunk, labels):
@@ -190,7 +350,8 @@ class BlockLeastSquaresEstimator(LabelEstimator):
         Ws, x_mean, y_mean = gram_bcd(carry, float(self.lam), bounds,
                                       self.num_iter)
         return BlockLinearMapper(Ws, bs, intercept=y_mean,
-                                 feature_means=x_mean)
+                                 feature_means=x_mean,
+                                 weight_dtype=self.weight_dtype)
 
     def _fit(self, ds: Dataset, labels: Dataset) -> BlockLinearMapper:
         ds = ensure_array(ds)
@@ -203,7 +364,8 @@ class BlockLeastSquaresEstimator(LabelEstimator):
             self.num_iter, mask=ds.mask)
         # apply() centers x by the means, so the intercept is y_mean
         return BlockLinearMapper(Ws, bs, intercept=y_mean,
-                                 feature_means=x_mean)
+                                 feature_means=x_mean,
+                                 weight_dtype=self.weight_dtype)
 
 
 def block_least_squares(X, Y, n, lam, bounds, num_iter, mask=None):

@@ -23,6 +23,8 @@ Kernels (Pallas TPU kernel replaced -> file here):
   fused_cifar_featurize``) -> ``csrc/fused_featurize.cu``.
 * ``gram_cross`` (``keystone_tpu/ops/pallas_kernels.py::
   gram_cross_pallas``) -> ``csrc/gram_cross.cu``.
+* ``quantized_affine`` (``keystone_tpu/ops/pallas_kernels.py::
+  quantized_affine_pallas``) -> ``csrc/quantized_affine.cu``.
 """
 from __future__ import annotations
 
@@ -45,13 +47,15 @@ BUILD_DIR = _PKG_DIR.parent / "build" / "keystone_tpu_torch"
 
 #: kernel library name -> CUDA source under csrc/
 SOURCES = {"fused_featurize": "fused_featurize.cu",
-           "gram_cross": "gram_cross.cu"}
+           "gram_cross": "gram_cross.cu",
+           "quantized_affine": "quantized_affine.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: wrapper name -> launches made by that wrapper
-LAUNCHES: Dict[str, int] = {"fused_cifar_featurize": 0, "gram_cross": 0}
+LAUNCHES: Dict[str, int] = {"fused_cifar_featurize": 0, "gram_cross": 0,
+                            "quantized_affine": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -139,6 +143,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "gram_cross":
         lib.gram_cross_f32.argtypes = [p, p, p, p, i, i, i, ll, ll, p]
         lib.gram_cross_f32.restype = i
+    elif name == "quantized_affine":
+        for fn in (lib.quantized_affine_bf16, lib.quantized_affine_int8):
+            fn.argtypes = [p, ll, p, p, p, p, p, p, p, i, i, i, i, p]
+            fn.restype = i
 
 
 # -- fused CIFAR featurization ---------------------------------------------
@@ -311,3 +319,108 @@ def gram_cross(X, Y, G=None, C=None):
         raise RuntimeError(f"gram_cross: CUDA error {rc} at launch")
     LAUNCHES["gram_cross"] += 1
     return G, C
+
+
+# -- quantized affine apply --------------------------------------------------
+
+#: the kernel's tile: rows of X and output columns per block, depth of a
+#: slab along d (``csrc/quantized_affine.cu``: RT, KT, DS)
+QUANT_ROWS, QUANT_COLS, QUANT_SLAB = 32, 16, 256
+
+_QUANT_ENTRY = {torch.bfloat16: "quantized_affine_bf16",
+                torch.int8: "quantized_affine_int8"}
+
+_SM_COUNT: Dict[int, int] = {}
+
+
+def _quant_operands(X, Wq, scale, mean, inv_std, b):
+    """Shapes and types of the quantized apply, checked the same way for
+    the kernel and its plain version."""
+    if X.dim() != 2 or Wq.dim() != 2 or X.shape[1] != Wq.shape[0]:
+        raise ValueError(f"quantized_affine: X {tuple(X.shape)} and Wq "
+                         f"{tuple(Wq.shape)} are not (n, d) and (d, k)")
+    if Wq.dtype not in _QUANT_ENTRY:
+        raise ValueError(f"quantized_affine: Wq is {Wq.dtype}; bfloat16 or "
+                         "int8 weights are taken")
+    d, k = Wq.shape
+    for name, v, size in (("scale", scale, k), ("mean", mean, d),
+                          ("inv_std", inv_std, d), ("b", b, k)):
+        if tuple(v.shape) != (size,):
+            raise ValueError(f"quantized_affine: {name} {tuple(v.shape)} is "
+                             f"not ({size},)")
+
+
+def quantized_affine_plain(X, Wq, scale, mean, inv_std, b):
+    """The plain PyTorch version of the quantized apply: dequantize the
+    weights (``float(Wq) * scale`` per column), then the float32 affine
+    ``((X - mean) * inv_std) @ W + b``."""
+    _quant_operands(X, Wq, scale, mean, inv_std, b)
+    W = Wq.to(torch.float32) * scale[None, :]
+    return ((X - mean) * inv_std) @ W + b
+
+
+def quant_split(n: int, d: int, k: int, sms: int):
+    """``(splits, dsplit)``: how the kernel splits d across blocks so that
+    a batch of n rows fills the card. The grid has ceil(n / 32) x
+    ceil(k / 16) tiles; d is cut into ``splits`` parts of ``dsplit`` (a
+    multiple of the 256-deep slab), enough for about two blocks per SM,
+    every part nonempty."""
+    tiles = -(-n // QUANT_ROWS) * -(-k // QUANT_COLS)
+    slabs = max(-(-d // QUANT_SLAB), 1)
+    want = min(max(-(-2 * sms // tiles), 1), slabs)
+    dsplit = -(-slabs // want) * QUANT_SLAB
+    return -(-d // dsplit), dsplit
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNT[idx]
+
+
+def quantized_affine(X, Wq, scale, mean, inv_std, b):
+    """``((X - mean) * inv_std) @ (float(Wq) * scale) + b`` for X (n, d)
+    float32 and Wq (d, k) bfloat16 or int8 with per-column float32
+    scales, accumulated in float32: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors. Every shape is taken. X may be a row
+    slice (unit column stride); the weights and vectors must be
+    contiguous on X's device."""
+    _quant_operands(X, Wq, scale, mean, inv_std, b)
+    if X.device.type == "cpu":
+        return quantized_affine_plain(X, Wq, scale, mean, inv_std, b)
+    if X.device.type != "cuda":
+        raise ValueError(f"quantized_affine: unsupported device {X.device}")
+    if X.dtype != torch.float32 or (X.numel() and (
+            X.stride(1) != 1 or X.stride(0) < X.shape[1])):
+        raise ValueError("quantized_affine: X must be float32 rows with "
+                         "unit column stride")
+    for name, t in (("Wq", Wq), ("scale", scale), ("mean", mean),
+                    ("inv_std", inv_std), ("b", b)):
+        if not t.is_contiguous() or t.device != X.device or (
+                name != "Wq" and t.dtype != torch.float32):
+            raise ValueError(f"quantized_affine: {name} must be contiguous "
+                             "(float32 for the vectors) on X's device")
+    n, d = X.shape
+    k = Wq.shape[1]
+    if n == 0 or k == 0:
+        return torch.empty((n, k), dtype=torch.float32, device=X.device)
+    if d == 0:
+        return b.expand(n, k).clone()
+    splits, dsplit = quant_split(n, d, k, _sm_count(X.device))
+    out = torch.empty((n, k), dtype=torch.float32, device=X.device)
+    partial = (torch.empty((splits, n, k), dtype=torch.float32,
+                           device=X.device) if splits > 1 else None)
+    lib = _library("quantized_affine")
+    with torch.cuda.device(X.device):
+        rc = getattr(lib, _QUANT_ENTRY[Wq.dtype])(
+            X.data_ptr(), X.stride(0), Wq.data_ptr(), scale.data_ptr(),
+            mean.data_ptr(), inv_std.data_ptr(), b.data_ptr(),
+            out.data_ptr(), None if partial is None else partial.data_ptr(),
+            n, d, k, dsplit, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"quantized_affine: CUDA error {rc} at launch")
+    LAUNCHES["quantized_affine"] += 1
+    return out

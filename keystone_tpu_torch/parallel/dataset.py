@@ -201,6 +201,30 @@ class ArrayDataset(Dataset):
         return [tree_map(lambda x: x[i], self.data) for i in range(self.n)]
 
 
+def bucketed_dataset(data: Any, n: int, bucket_rows: int,
+                     device=DEFAULT_DEVICE) -> ArrayDataset:
+    """Stage a host batch of ``n`` items on ``device``, padded with zero
+    rows to exactly ``bucket_rows`` (not merely to the shard multiple):
+    the serving micro-batcher's pad-to-bucket step. The result is an
+    ArrayDataset with ``padded_n == bucket_rows`` and the true ``n``, so
+    the mask machinery treats the pad rows like any padding: they are
+    re-zeroed after every batch map, and ``numpy()`` / ``collect()``
+    strip them. One device, so the shard count is 1."""
+    if n > bucket_rows:
+        raise ValueError(f"n={n} items do not fit bucket_rows={bucket_rows}")
+    dev = resolve_device(device)
+
+    def put(x):
+        x = _host(x)
+        if x.shape[0] != n:
+            raise ValueError(f"leading dim {x.shape[0]} != n={n}")
+        padded = np.zeros((bucket_rows,) + x.shape[1:], x.dtype)
+        padded[:n] = x
+        return torch.as_tensor(padded, device=dev)
+
+    return ArrayDataset(tree_map(put, data), n)
+
+
 class HostDataset(Dataset):
     """Host-resident list-backed dataset for ragged / non-numeric stages."""
 

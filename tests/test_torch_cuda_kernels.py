@@ -9,14 +9,19 @@ also run on a GPU machine without JAX:
 Both sides compute in float32 and differ in summation order. Pooled
 features reach ~1e4, so the featurize bar is rtol 1e-5 with atol 1e-5 of
 the largest feature. The Gram kernel is held to the JAX package's bar for
-its Gram kernel, 2e-4 of the largest entry.
+its Gram kernel, 2e-4 of the largest entry. The quantized affine kernel and
+its plain version apply the same dequantized weights in float32, so the
+bar is 1e-5 of the largest output.
 """
 import numpy as np
 import pytest
 import torch
 
 from keystone_tpu_torch.nodes.images.core import FusedConvRectifyPool
-from keystone_tpu_torch.nodes.learning.linear import LinearMapEstimator
+from keystone_tpu_torch.nodes.learning.linear import (
+    LinearMapEstimator,
+    _quantize_weights,
+)
 from keystone_tpu_torch.ops import kernels
 from keystone_tpu_torch.parallel.streaming import StreamingDataset
 
@@ -148,3 +153,84 @@ def test_cuda_streamed_fit_matches_the_cpu_fit(cuda):
     got = fits[str(cuda)].weights.cpu().numpy()
     want = fits["cpu"].weights.numpy()
     assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
+def _quant_inputs(n, d, k, weight_dtype, device, seed=0):
+    rng = np.random.RandomState(seed)
+    X = torch.as_tensor(rng.randn(n, d).astype(np.float32), device=device)
+    W = torch.as_tensor(rng.randn(d, k).astype(np.float32), device=device)
+    Wq, scale = _quantize_weights(W, weight_dtype)
+    vecs = [torch.as_tensor(v.astype(np.float32), device=device) for v in
+            (rng.randn(d), 1.0 + rng.rand(d), rng.randn(k))]
+    return X, Wq, scale, vecs[0], vecs[1], vecs[2]
+
+
+@pytest.mark.parametrize("weight_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("n,d,k", [(1, 8192, 10), (64, 8192, 10),
+                                   (4096, 8192, 10), (77, 50, 11),
+                                   (33, 1000, 1000), (5, 3, 1)])
+def test_cuda_quantized_affine_matches_plain(cuda, weight_dtype, n, d, k):
+    args = _quant_inputs(n, d, k, weight_dtype, cuda, seed=n + d + k)
+    before = kernels.LAUNCHES["quantized_affine"]
+    got = kernels.quantized_affine(*args)
+    want = kernels.quantized_affine_plain(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["quantized_affine"] == before + 1
+    assert got.shape == (n, k)
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()), err
+    # a fixed summation order: the same inputs give the same bits
+    assert torch.equal(got, kernels.quantized_affine(*args))
+
+
+def test_cuda_quantized_affine_takes_row_slices_and_refuses_the_rest(cuda):
+    X, Wq, scale, mean, inv, b = _quant_inputs(40, 300, 7, "int8", cuda)
+    big = torch.zeros((45, 305), device=cuda)
+    big[3:43, 2:302] = X
+    view = big[3:43, 2:302]           # row stride 305, offset 917 floats
+    assert not view.is_contiguous() and view.stride(1) == 1
+    got = kernels.quantized_affine(view, Wq, scale, mean, inv, b)
+    want = kernels.quantized_affine_plain(X, Wq, scale, mean, inv, b)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    with pytest.raises(ValueError, match="unit column stride"):
+        kernels.quantized_affine(X.T.contiguous().T, Wq, scale, mean, inv, b)
+    with pytest.raises(ValueError, match="unit column stride"):
+        kernels.quantized_affine(X.double(), Wq, scale, mean, inv, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.quantized_affine(X, Wq.T.contiguous().T, scale, mean, inv, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.quantized_affine(X, Wq, scale.cpu(), mean, inv, b)
+
+
+def test_cuda_plane_launches_the_kernel_once_per_served_batch(cuda):
+    from keystone_tpu_torch.observability.metrics import MetricsRegistry
+    from keystone_tpu_torch.serving import ItemSpec, ServingPlane
+
+    rng = np.random.RandomState(9)
+    X = rng.randn(96, 48).astype(np.float32)
+    Y = rng.randn(96, 5).astype(np.float32)
+    fitted = LinearMapEstimator(1e-2).with_data(X, Y, device=cuda).fit()
+    reg = MetricsRegistry.get_or_create()
+    with ServingPlane(max_batch=16, device=cuda) as plane:
+        plane.admit("m", fitted, ItemSpec((48,), np.float32),
+                    weight_dtype="int8")
+        batches0 = reg.counter("serving.batches_total").value
+        before = kernels.LAUNCHES["quantized_affine"]
+        outs = [plane.predict("m", X[i:i + n])
+                for i, n in ((0, 1), (1, 5), (6, 16), (22, 9))]
+        served = reg.counter("serving.batches_total").value - batches0
+        assert served == 4
+        assert kernels.LAUNCHES["quantized_affine"] - before == served
+    # the same quantized model applied directly
+    mapper = LinearMapEstimator(1e-2, weight_dtype="int8").fit(
+        X, Y, device=cuda)
+    direct = mapper.apply_batch(torch.as_tensor(X[:31], device=cuda))
+    np.testing.assert_allclose(np.concatenate(outs), direct.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    # the per-item apply is a one-row launch
+    before = kernels.LAUNCHES["quantized_affine"]
+    one = mapper.apply(torch.as_tensor(X[3], device=cuda))
+    assert kernels.LAUNCHES["quantized_affine"] == before + 1
+    np.testing.assert_allclose(one.cpu().numpy(), outs[1][2], rtol=1e-5,
+                               atol=1e-5)
