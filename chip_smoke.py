@@ -39,12 +39,28 @@ Phases, each of which raises (and so exits non-zero) on failure:
    refused fourth admission, bit-identical eviction + readmission and
    the HTTP statuses are asserted; rows/s, request latency, batch fill,
    warmup, charges and device-memory peaks are printed.
+4d. VOCSIFTFisher: fit + apply at the reference's published defaults
+   (80-dim PCA, 256-component GMM, 40,960 Fisher-vector features, 10
+   BCD blocks of 4096 over 20 classes, 10^6 PCA and GMM samples, SIFT
+   step 4, bin 6, 5 scales) on surrogate VOC images at 375 x 500 and
+   500 x 375 (512 train, 256 test), through ``build_pipeline`` /
+   ``fit`` / ``apply`` and the mean average precision. Every SIFT
+   application must launch ``banded_matmul`` 20 times and every Fisher
+   vector ``fv_moments`` once; the GMM must be a distribution with
+   positive variances; the MAP must beat a seeded random score matrix;
+   8 test images go through SIFT -> PCA -> FV with the kernels and with
+   the plain versions, both on the card, within the golden envelope.
+   Seconds per stage, EM iterations, images/s and the device-memory
+   peak are printed.
 5. Timing: each kernel, its plain version and a library yardstick with
-   CUDA events at the main path's shapes.
+   CUDA events at the main path's shapes, one call at a time (the
+   ``kernels`` line); for the SIFT and FV kernels, whose launches are
+   shorter than their wrappers' host time, also the device time alone,
+   replayed from a CUDA graph.
 
-``--profile`` adds a second resident fit + apply, a second streamed fit
-and a serving burst under ``torch.profiler`` and prints device time by
-kernel and the device's idle share.
+``--profile`` adds a second resident fit + apply, a second streamed fit,
+a serving burst and a second VOC test apply under ``torch.profiler`` and
+prints device time by kernel and the device's idle share.
 
 The line before the last is a JSON object listing every kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -106,6 +122,15 @@ SERVE_MAX_BATCH, CLIENTS, HTTP_REQUESTS = 64, 8, 32
 #: whose f32 top-2 margin is within twice the measured max |delta|.
 QUANT_BARS = {"bf16": (0.998, 0.02), "int8": (0.98, 0.03)}
 
+#: banded_matmul against its plain version: max |kernel - plain| <=
+#: BANDED_TOL * max |plain|. Both sum the same band entries in float32;
+#: only the order differs (the dense plain product adds the zeros too).
+BANDED_TOL = 1e-5
+#: fv_moments against its plain version: max |kernel - plain| <= FV_TOL *
+#: max |plain| per output. The plain version writes the posteriors out
+#: and takes its exponentials and sums in another order.
+FV_TOL = 1e-4
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 SEED = 0
@@ -116,6 +141,23 @@ CHUNK, DEPTH = 1024, 2
 #: the solve ``build_pipeline`` runs: BlockLeastSquaresEstimator(4096, 1,
 #: lam), two 4096-wide blocks, one pass
 BLOCK, PASSES = 4096, 1
+
+#: VOCSIFTFisher: surrogate train / test images (VOC2007 has 5,011
+#: trainval and 4,952 test images; PERF.md lists the cut), the GMM at
+#: full width, the 8 test images held kernel against plain
+VOC_TRAIN, VOC_TEST, VOC_CHECK = 512, 256, 8
+#: the test MAP must beat a seeded random score matrix's MAP on the same
+#: labels by this margin, about 3x below the first sound reading (0.9707
+#: against 0.1311 on an H100)
+VOC_MAP_MARGIN = 0.28
+#: Fisher vectors of the kernel path against float64: max |delta| / max.
+#: The moment form fv2 = (s2 - 2 m s1 + (m^2 - v) s0) / (v sqrt(2 w))
+#: cancels where the uncentered PCA'd descriptors are large against a
+#: component's spread, so float32 sums in any order move it far more than
+#: the sums themselves move
+FV64_TOL = 1e-2
+#: images in the --profile VOC apply
+VOC_PROFILE = 32
 
 #: Limits on the full-width solves, each max |a - b| / max |b|, set about
 #: 3x above the readings of sound runs on an H100 (PERF.md): streamed
@@ -149,6 +191,32 @@ def _time_ms(fn, reps, warmup=2):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _device_ms(fn, reps=10):
+    """Device milliseconds of one ``fn()``: ``reps`` calls captured in a
+    CUDA graph and replayed (best of 5 replays, CUDA events), so the
+    host's time in the wrappers, which exceeds the device time of small
+    launches, is left out. ``fn`` is warmed once before the capture."""
+    fn()
+    _sync()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    _sync()
+    best = float("inf")
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / reps)
+    del graph
+    return best
 
 
 def _featurize_inputs(rng, B, K, device):
@@ -605,6 +673,323 @@ def _serving_phase(kernels, model_path, te_x, te_y, preds, dev):
     return launches
 
 
+def _sift_products(sift, H, W, scale):
+    """The four band products of one SIFT scale on an (H, W) image at the
+    VOCSIFTFisher defaults, as (name, band, X rows, X columns)."""
+    step, b, lo = sift._scale_params(scale, 4, 6, 5, 0)
+    Ty, ny = sift._sampling_operator_interleaved(H, lo, step, b)
+    Tx, _ = sift._sampling_operator_interleaved(W, lo, step, b)
+    return [("smooth rows", sift._smooth_band(H, b), H, W),
+            ("smooth cols", sift._smooth_band(W, b), W, H),
+            ("sample rows", Ty, H, 8 * W),
+            ("sample cols", Tx, W, 8 * 4 * ny)]
+
+
+def _check_banded(kernels, sift, rng, dev):
+    """banded_matmul against its plain version on scale 0's and scale 4's
+    four band products at both VOC orientations, and a seeded random
+    band; prints each band's nonzeros a row and 32-row live ranges.
+    Returns the largest absolute error."""
+    cases = [(f"{H}x{W} scale {sc} {name}", band, rows, cols)
+             for H, W in ((375, 500), (500, 375)) for sc in (0, 4)
+             for name, band, rows, cols in _sift_products(sift, H, W, sc)]
+    rand = np.zeros((500, 520), np.float32)
+    for j in range(500):
+        c = min(int(j * 1.04), 519)
+        rand[j, max(0, c - 13):c + 14] = rng.randn(
+            min(520, c + 14) - max(0, c - 13))
+    cases.append(("seeded random band", rand, 520, 777))
+    worst = 0.0
+    for label, band, rows, cols in cases:
+        X = torch.as_tensor(rng.rand(rows, cols).astype(np.float32),
+                            device=dev)
+        got = kernels.banded_matmul(band, X)
+        want = kernels.banded_matmul_plain(band, X)
+        _sync()
+        assert bool(torch.isfinite(got).all())
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        nnz = (band != 0).sum(axis=1)
+        klo, khi = kernels.band_live_map(band)
+        print(f"[check] banded_matmul {label} {band.shape}@({rows}, {cols}):"
+              f" max abs err {err:.3e} (max |plain| {scale:.3e}, rel "
+              f"{err / scale:.3e}); nonzeros a row {nnz.min()}-{nnz.max()}, "
+              f"32-row live ranges {int((khi - klo).min())}-"
+              f"{int((khi - klo).max())} of {band.shape[1]} columns",
+              flush=True)
+        assert err <= BANDED_TOL * scale, (label, err, scale)
+        worst = max(worst, err)
+    return worst
+
+
+def _fv_inputs(rng, D, K, n, dev):
+    X = rng.randn(D, n).astype(np.float32)
+    means = rng.randn(D, K).astype(np.float32)
+    variances = (0.5 + rng.rand(D, K)).astype(np.float32)
+    weights = rng.dirichlet(np.ones(K)).astype(np.float32)
+    return [torch.as_tensor(a, device=dev)
+            for a in (X, means, variances, weights)]
+
+
+def _check_fv(kernels, rng, dev):
+    """fv_moments against its plain version at the full-width FV shape and
+    at ragged descriptor counts. Returns the largest absolute error."""
+    worst = 0.0
+    for n in (47213, 1, 511, 513, 4097):
+        args = _fv_inputs(rng, 80, 256, n, dev)
+        got = kernels.fv_moments(*args, 1e-4)
+        want = kernels.fv_moments_plain(*args, 1e-4)
+        _sync()
+        for name, g, w in zip(("s0", "s1", "s2"), got, want):
+            assert bool(torch.isfinite(g).all())
+            err = float((g - w).abs().max())
+            scale = float(w.abs().max())
+            print(f"[check] fv_moments D=80 K=256 n={n} {name}: max abs err "
+                  f"{err:.3e} (max |plain| {scale:.3e}, rel "
+                  f"{err / scale:.3e})", flush=True)
+            assert err <= FV_TOL * scale, (n, name, err, scale)
+            worst = max(worst, err)
+    return worst
+
+
+class _StageTimer:
+    """Seconds and calls per pipeline stage, by wrapping the stage's
+    method with a timer that synchronizes the card on both sides. The
+    wrappers are removed by ``close``."""
+
+    def __init__(self):
+        self.seconds, self.calls, self._undo = {}, {}, []
+
+    def wrap(self, owner, attr, stage):
+        real = getattr(owner, attr)
+        self.seconds.setdefault(stage, 0.0)
+        self.calls.setdefault(stage, 0)
+
+        def timed(*args, **kwargs):
+            _sync()
+            t0 = time.perf_counter()
+            out = real(*args, **kwargs)
+            _sync()
+            self.seconds[stage] += time.perf_counter() - t0
+            self.calls[stage] += 1
+            return out
+
+        setattr(owner, attr, timed)
+        self._undo.append((owner, attr, real))
+
+    def close(self):
+        for owner, attr, real in reversed(self._undo):
+            setattr(owner, attr, real)
+
+
+def _voc_kernel_check(kernels, sift, fitted, images, dev):
+    """VOC_CHECK test images through SIFT -> PCA -> FV with the kernels and
+    again with the plain versions (the einsum SIFT and the posterior-form
+    moments), both on the card. Descriptors are held to the golden
+    envelope (max <= 2, mean <= 0.15 quantized units) over the columns
+    that neither path zeroes at the contrast threshold alone (a float32
+    flip there moves a whole column; those flips are counted and must stay
+    below 1e-4 of the columns). On the kernel path's PCA'd descriptors the
+    moment sums are held kernel against plain at FV_TOL, and each path's
+    Fisher vector against the same Fisher vector computed in float64
+    (the moment form cancels: see FV64_TOL). Returns a summary dict."""
+    from keystone_tpu_torch.nodes.images.core import GrayScaler, PixelScaler
+    from keystone_tpu_torch.nodes.images.fisher_vector import _fisher_vector
+
+    pca = _operator(fitted, "BatchPCATransformer").apply_params(dev)
+    fv = _operator(fitted, "FisherVector")
+    params = fv.apply_params(dev)
+    params64 = [p.double() for p in params]
+    thr = fv.weight_threshold
+    out = {"max": 0.0, "mean": 0.0, "flips": 0, "cols": 0, "moments": 0.0,
+           "kernel64": 0.0, "plain64": 0.0, "paths": 0.0}
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    for img in images:
+        gray = GrayScaler().apply(PixelScaler().apply(img.to(dev)))[..., 0]
+        a = sift.dense_sift(gray)
+        b = sift.dense_sift_plain(gray)
+        za, zb = (a.sum(0) == 0), (b.sum(0) == 0)
+        diff = (a - b).abs()[:, ~(za ^ zb)]
+        out["max"] = max(out["max"], float(diff.max()))
+        out["mean"] = max(out["mean"], float(diff.mean()))
+        out["flips"] += int((za ^ zb).sum())
+        out["cols"] += a.shape[1]
+        X = pca.T @ a
+        for g, w in zip(kernels.fv_moments(X, *params, thr),
+                        kernels.fv_moments_plain(X, *params, thr)):
+            out["moments"] = max(out["moments"], rel(g, w))
+        f64 = _fisher_vector(X.double(), *params64, thr,
+                             moments=kernels.fv_moments_plain)
+        fk = _fisher_vector(X, *params, thr)
+        fp = _fisher_vector(X, *params, thr, moments=kernels.fv_moments_plain)
+        fb = _fisher_vector(pca.T @ b, *params, thr,
+                            moments=kernels.fv_moments_plain)
+        out["kernel64"] = max(out["kernel64"], rel(fk, f64))
+        out["plain64"] = max(out["plain64"], rel(fp, f64))
+        out["paths"] = max(out["paths"], rel(fk, fb))
+    _sync()
+    return out
+
+
+def _voc_phase(kernels, dev):
+    """Phase 4d (see the module docstring). Returns the kernel launch
+    counts of the fit + apply."""
+    from keystone_tpu_torch.evaluation.mean_average_precision import (
+        evaluate_mean_average_precision,
+    )
+    from keystone_tpu_torch.loaders.surrogate import make_surrogate_voc
+    from keystone_tpu_torch.loaders.voc import NUM_CLASSES
+    from keystone_tpu_torch.nodes.images.extractors import SIFTExtractor
+    from keystone_tpu_torch.nodes.images.fisher_vector import FisherVector
+    from keystone_tpu_torch.nodes.images.multilabel import (
+        MultiLabeledImageExtractor,
+        MultiLabelExtractor,
+    )
+    from keystone_tpu_torch.nodes.learning import gmm as gmm_mod
+    from keystone_tpu_torch.nodes.learning.linear import (
+        BlockLeastSquaresEstimator,
+    )
+    from keystone_tpu_torch.nodes.learning.pca import (
+        DistributedColumnPCAEstimator,
+    )
+    from keystone_tpu_torch.nodes.util import (
+        ClassLabelIndicatorsFromIntArrayLabels,
+    )
+    from keystone_tpu_torch.ops import sift
+    from keystone_tpu_torch.parallel.dataset import HostDataset
+    from keystone_tpu_torch.pipelines.images.voc import voc_sift_fisher as voc
+    from keystone_tpu_torch.workflow.common import Cacher
+    from keystone_tpu_torch.workflow.env import PipelineEnv
+
+    t0 = time.time()
+    train, test = make_surrogate_voc(VOC_TRAIN, VOC_TEST, seed=SEED)
+    print(f"[voc] surrogate VOC: {VOC_TRAIN} train / {VOC_TEST} test images "
+          f"at 375x500 and 500x375 made in {time.time() - t0:.1f} s",
+          flush=True)
+    config = voc.SIFTFisherConfig()
+    timer = _StageTimer()
+    timer.wrap(SIFTExtractor, "apply", "SIFT")
+    timer.wrap(DistributedColumnPCAEstimator, "_fit", "PCA fit")
+    timer.wrap(gmm_mod.GaussianMixtureModelEstimator, "fit_matrix",
+               "k-means++ + EM")
+    timer.wrap(gmm_mod, "_em_iter", "EM iteration")
+    timer.wrap(FisherVector, "apply", "FV")
+    timer.wrap(BlockLeastSquaresEstimator, "_fit", "BCD")
+    PipelineEnv.reset()
+    try:
+        _sync()
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        labels = (MultiLabelExtractor(dev)
+                  >> ClassLabelIndicatorsFromIntArrayLabels(NUM_CLASSES)
+                  >> Cacher())(train).get()
+        train_data = MultiLabeledImageExtractor(dev).apply_dataset(train)
+        fitted = voc.build_pipeline(config, train_data, labels).fit()
+        _sync()
+        fit_s = time.time() - t0
+        fit_calls = dict(timer.calls)
+        t0 = time.time()
+        test_data = MultiLabeledImageExtractor(dev).apply_dataset(test)
+        scores = torch.stack(fitted(test_data).get().collect())
+        _sync()
+        apply_s = time.time() - t0
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        timer.close()
+    sift_apps = timer.calls["SIFT"]
+    fv_apps = timer.calls["FV"]
+    actuals = [it.labels for it in test.collect()]
+    ap = evaluate_mean_average_precision(actuals, scores, NUM_CLASSES)
+    vmap = float(np.mean(ap))
+    rand = np.random.RandomState(SEED).randn(VOC_TEST, NUM_CLASSES)
+    rand_map = float(np.mean(evaluate_mean_average_precision(
+        actuals, rand, NUM_CLASSES)))
+    g = _operator(fitted, "FisherVector").gmm
+    stages = ", ".join(f"{k} {v:.3f} s ({timer.calls[k]} calls)"
+                       for k, v in timer.seconds.items())
+    print(f"[voc] VOCSIFTFisher desc_dim {config.desc_dim}, vocab "
+          f"{config.vocab_size}, {2 * config.desc_dim * config.vocab_size} "
+          f"FV features, block {config.block_size}: fit {fit_s:.2f} s "
+          f"({VOC_TRAIN / fit_s:.1f} train img/s), apply {apply_s:.2f} s "
+          f"({VOC_TEST / apply_s:.1f} test img/s), "
+          f"{(VOC_TRAIN + VOC_TEST) / (fit_s + apply_s):.1f} img/s overall",
+          flush=True)
+    print(f"[voc] seconds per stage: {stages}; EM iterations "
+          f"{timer.calls['EM iteration']}; SIFT applications {sift_apps} "
+          f"({fit_calls['SIFT']} in the fit), FV applications {fv_apps}",
+          flush=True)
+    print(f"[voc] test MAP {vmap:.4f} (seeded random scores {rand_map:.4f});"
+          f" APs {np.round(ap, 4).tolist()}; GMM weights sum "
+          f"{float(g.weights.sum()):.6f}, min variance "
+          f"{float(g.variances.min()):.4e}; device-memory peak "
+          f"{peak / 2**30:.2f} GiB; launches {launches}", flush=True)
+    assert scores.shape == (VOC_TEST, NUM_CLASSES)
+    assert bool(torch.isfinite(scores).all())
+    assert sift_apps >= VOC_TRAIN + VOC_TEST, sift_apps
+    assert launches["banded_matmul"] == 20 * sift_apps, (launches, sift_apps)
+    assert launches["banded_matmul"] >= 20 * (VOC_TRAIN + VOC_TEST)
+    assert launches["fv_moments"] == fv_apps >= VOC_TRAIN + VOC_TEST, \
+        (launches, fv_apps)
+    assert abs(float(g.weights.sum()) - 1.0) <= 1e-3
+    assert bool((g.variances > 0).all())
+    assert np.isfinite(vmap) and vmap > rand_map + VOC_MAP_MARGIN, (
+        vmap, rand_map)
+
+    check = _voc_kernel_check(kernels, sift, fitted,
+                              [torch.as_tensor(it.image) for it in
+                               test.collect()[:VOC_CHECK]], dev)
+    print(f"[voc] {VOC_CHECK} test images, kernels against plain versions "
+          f"on the card: descriptors max |delta| {check['max']:.3e}, mean "
+          f"{check['mean']:.3e} (quantized units), contrast-threshold flips "
+          f"{check['flips']} of {check['cols']} columns; FV moment sums "
+          f"max |delta| / max {check['moments']:.3e}; Fisher vectors "
+          f"against float64, max |delta| / max: kernel "
+          f"{check['kernel64']:.3e}, plain {check['plain64']:.3e}; kernel path against plain path "
+          f"{check['paths']:.3e}", flush=True)
+    assert check["max"] <= 2.0 and check["mean"] <= 0.15, check
+    assert check["flips"] <= 1e-4 * check["cols"], check
+    assert check["moments"] <= FV_TOL, check
+    assert check["kernel64"] <= FV64_TOL, check
+    if "--profile" in sys.argv[1:]:
+        sub = MultiLabeledImageExtractor(dev).apply_dataset(
+            HostDataset(test.collect()[:VOC_PROFILE]))
+        _profile(f"VOC test apply ({VOC_PROFILE} images)",
+                 lambda: fitted(sub).get())
+    del fitted, train_data, test_data, scores
+    PipelineEnv.reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _banded_image_calls(kernels, sift, dev):
+    """The 20 banded_matmul calls of one 375 x 500 SIFT image, as (band,
+    X) pairs recorded from ``dense_sift`` on a seeded image."""
+    calls = []
+    real = sift.banded_matmul
+
+    def record(band, X):
+        calls.append((band, X.clone()))
+        return real(band, X)
+
+    sift.banded_matmul = record
+    try:
+        img = torch.as_tensor(np.random.RandomState(SEED).rand(375, 500)
+                              .astype(np.float32), device=dev)
+        sift.dense_sift(img)
+    finally:
+        sift.banded_matmul = real
+    _sync()
+    assert len(calls) == 20, len(calls)
+    return calls
+
+
+
 def _profile(label, fn):
     """Run ``fn`` once under torch.profiler (``--profile`` only): device
     time by kernel, and the device's idle share of the wall."""
@@ -658,7 +1043,7 @@ def _main(workdir: str) -> int:
     from keystone_tpu_torch.nodes.util import (
         ClassLabelIndicatorsFromIntLabels,
     )
-    from keystone_tpu_torch.ops import kernels
+    from keystone_tpu_torch.ops import kernels, sift
     from keystone_tpu_torch.parallel.dataset import ArrayDataset
     from keystone_tpu_torch.parallel.streaming import StreamingDataset
     from keystone_tpu_torch.pipelines.images.cifar import (
@@ -724,6 +1109,8 @@ def _main(workdir: str) -> int:
     torch.cuda.empty_cache()
     gram_worst = _check_gram(kernels, rng, dev)
     quant_worst = _check_quant(kernels, rng, dev)
+    banded_worst = _check_banded(kernels, sift, rng, dev)
+    fv_worst = _check_fv(kernels, rng, dev)
 
     # -- 4. main path ---------------------------------------------------------
     (tr_x, tr_y), (te_x, te_y) = make_surrogate_cifar(N_TRAIN, N_TEST,
@@ -895,6 +1282,9 @@ def _main(workdir: str) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- 4d. VOCSIFTFisher ----------------------------------------------------
+    voc_launches = _voc_phase(kernels, dev)
+
     # -- 5. timing ------------------------------------------------------------
     B = K = 1024
     imgs, filters, means = _featurize_inputs(rng, B, K, dev)
@@ -967,6 +1357,70 @@ def _main(workdir: str) -> int:
             del args, X, Wq, Xn, Wdeq
     q = q_times[(SERVE_MAX_BATCH, "bf16")]
 
+    calls = _banded_image_calls(kernels, sift, dev)
+    dense = [torch.as_tensor(band, device=dev) for band, _ in calls]
+
+    def each(fn):
+        return lambda: [fn(i, band, X) for i, (band, X) in enumerate(calls)]
+
+    b_ms = _time_ms(each(lambda i, band, X: kernels.banded_matmul(band, X)),
+                    reps=20)
+    b_plain_ms = _time_ms(each(
+        lambda i, band, X: kernels.banded_matmul_plain(band, X)), reps=20)
+    # library yardstick: one dense cuBLAS float32 matmul per call (TF32
+    # off), which the port never calls on the path
+    b_library_ms = _time_ms(each(lambda i, band, X: torch.matmul(dense[i], X)),
+                            reps=20)
+    b_ops = sum(2 * int((band != 0).sum()) * X.shape[1] for band, X in calls)
+    b_bytes = sum(4 * (X.numel() + band.shape[0] * X.shape[1])
+                  for band, X in calls)
+    b_bound_ms, b_bound_by = _bound(b_ops, b_bytes)
+    b_dev = {name: _device_ms(each(fn)) for name, fn in (
+        ("kernel", lambda i, band, X: kernels.banded_matmul(band, X)),
+        ("plain", lambda i, band, X: kernels.banded_matmul_plain(band, X)),
+        ("library", lambda i, band, X: torch.matmul(dense[i], X)))}
+    print(f"[time] banded_matmul, one 375x500 image's 20 calls: kernel "
+          f"{b_ms:.4f} ms, plain {b_plain_ms:.4f} ms, torch.matmul dense "
+          f"{b_library_ms:.4f} ms, bound {b_bound_ms:.4f} ms by "
+          f"{b_bound_by} ({b_ops / 1e9:.3f} GFLOP of band work, "
+          f"{b_bytes / 1e6:.1f} MB of X read and output written); device "
+          f"time alone (CUDA graph): kernel {b_dev['kernel']:.4f} ms, plain "
+          f"{b_dev['plain']:.4f} ms, torch.matmul {b_dev['library']:.4f} "
+          f"ms, {b_bytes / b_dev['kernel'] / 1e6:.1f} GB/s achieved",
+          flush=True)
+    del calls, dense
+
+    D, K, n = 80, 256, 47213
+    X, means, variances, weights = _fv_inputs(rng, D, K, n, dev)
+    f_ms = _time_ms(lambda: kernels.fv_moments(X, means, variances, weights,
+                                               1e-4), reps=20)
+    f_plain_ms = _time_ms(lambda: kernels.fv_moments_plain(
+        X, means, variances, weights, 1e-4), reps=20)
+    # library yardstick, GEMM only: the log-likelihood product as one
+    # cuBLAS float32 addmm of [X^2; X]^T against [A; -B] (TF32 off)
+    XX = torch.cat([X * X, X]).T.contiguous()
+    AB = torch.cat([0.5 / variances, -means / variances]).contiguous()
+    c = torch.zeros(K, device=dev)
+    f_library_ms = _time_ms(lambda: torch.addmm(c, XX, AB), reps=20)
+    f_ops = 8 * n * D * K
+    f_bytes = 4 * (D * n + 2 * D * K + K + K + 2 * D * K)
+    f_bound_ms, f_bound_by = _bound(f_ops, f_bytes)
+    f_dev = {name: _device_ms(fn) for name, fn in (
+        ("kernel", lambda: kernels.fv_moments(X, means, variances, weights,
+                                              1e-4)),
+        ("plain", lambda: kernels.fv_moments_plain(X, means, variances,
+                                                   weights, 1e-4)),
+        ("library", lambda: torch.addmm(c, XX, AB)))}
+    print(f"[time] fv_moments D={D} K={K} n={n}: kernel {f_ms:.4f} ms, "
+          f"plain {f_plain_ms:.4f} ms, torch.addmm (llh GEMM only) "
+          f"{f_library_ms:.4f} ms, bound {f_bound_ms:.4f} ms by "
+          f"{f_bound_by} ({f_ops / 1e9:.2f} GFLOP, {f_bytes / 1e6:.1f} MB); "
+          f"device time alone (CUDA graph): kernel {f_dev['kernel']:.4f} ms, "
+          f"plain {f_dev['plain']:.4f} ms, torch.addmm "
+          f"{f_dev['library']:.4f} ms, {f_ops / f_dev['kernel'] / 1e9:.1f} "
+          f"TFLOP/s achieved", flush=True)
+    del X, means, variances, weights, XX, AB
+
     # -- 6. report ------------------------------------------------------------
     print(smi)
     print(json.dumps({"kernels": [{
@@ -1005,6 +1459,30 @@ def _main(workdir: str) -> int:
         "bound_ms": q["bound_ms"],
         "bound_by": q["bound_by"],
         "library_ms": q["library_ms"],
+    }, {
+        "name": "banded_matmul",
+        "route": "cuda",
+        "source": "keystone_tpu_torch/csrc/banded_matmul.cu",
+        "replaces": "keystone_tpu/ops/pallas_kernels.py:424",
+        "launches": voc_launches["banded_matmul"],
+        "max_abs_err": banded_worst,
+        "ms": b_ms,
+        "plain_ms": b_plain_ms,
+        "bound_ms": b_bound_ms,
+        "bound_by": b_bound_by,
+        "library_ms": b_library_ms,
+    }, {
+        "name": "fv_moments",
+        "route": "cuda",
+        "source": "keystone_tpu_torch/csrc/fv_moments.cu",
+        "replaces": "keystone_tpu/ops/pallas_kernels.py:548",
+        "launches": voc_launches["fv_moments"],
+        "max_abs_err": fv_worst,
+        "ms": f_ms,
+        "plain_ms": f_plain_ms,
+        "bound_ms": f_bound_ms,
+        "bound_by": f_bound_by,
+        "library_ms": f_library_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

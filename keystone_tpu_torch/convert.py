@@ -1,4 +1,4 @@
-"""Carry fitted RandomPatchCifar parameters across from the JAX package.
+"""Carry fitted parameters across from the JAX package.
 
 ``from_reference_arrays`` builds the port's fitted RandomPatchCifar
 pipeline from parameters given as numpy arrays, as a model fitted by the
@@ -14,6 +14,12 @@ JAX package holds them:
 package's quantized params ``(Wq, scale, mean, inv_std, b)``, or a
 JAX-fitted mapper with a ``weight_dtype``, become the port's mapper
 holding the same ``Wq`` and ``scale`` bit for bit.
+
+``pca_transformer`` and ``fisher_vector`` carry VOCSIFTFisher's fitted
+column PCA (``pca_mat`` (d, dims)) and GMM codebook (``means`` and
+``variances`` (D, K), ``weights`` (K,), ``weight_threshold``) across as
+numpy arrays into the port's ``BatchPCATransformer`` and
+``FisherVector``.
 """
 from __future__ import annotations
 
@@ -23,7 +29,10 @@ import numpy as np
 import torch
 
 from .nodes.images.core import FusedConvRectifyPool
+from .nodes.images.fisher_vector import FisherVector
+from .nodes.learning.gmm import GaussianMixtureModel
 from .nodes.learning.linear import BlockLinearMapper, LinearMapper
+from .nodes.learning.pca import BatchPCATransformer
 from .nodes.learning.zca import ZCAWhitener
 from .nodes.stats import StandardScalerModel
 from .nodes.util import MaxClassifier
@@ -133,3 +142,20 @@ def quantized_mapper(source, device=DEFAULT_DEVICE):
                               quantized=(Wq, scale))
     mapper.apply_params(dev)
     return mapper
+
+
+def pca_transformer(pca_mat: np.ndarray) -> BatchPCATransformer:
+    """The port's per-item column projection from a fitted (d, dims) PCA
+    matrix (the JAX ``BatchPCATransformer.pca_mat``)."""
+    return BatchPCATransformer(np.array(pca_mat, np.float32))
+
+
+def fisher_vector(means: np.ndarray, variances: np.ndarray,
+                  weights: np.ndarray,
+                  weight_threshold: float = 1e-4) -> FisherVector:
+    """The port's Fisher-vector encoder from a fitted diagonal GMM: means
+    and variances (D, K), weights (K,), as the JAX package's
+    ``GaussianMixtureModel`` stores them."""
+    return FisherVector(GaussianMixtureModel(
+        np.array(means, np.float32), np.array(variances, np.float32),
+        np.array(weights, np.float32), float(weight_threshold)))

@@ -1,12 +1,20 @@
-"""Surrogate CIFAR data at CIFAR shapes, made from a seed.
+"""Surrogate data made from a seed: CIFAR shapes, and VOC image sizes.
 
-A copy of ``bench.py::make_surrogate_cifar`` in the repository root, so
-the port and its chip check have data without importing ``bench.py``;
-a test holds the two bit-identical.
+``make_surrogate_cifar`` is a copy of ``bench.py::make_surrogate_cifar``
+in the repository root, so the port and its chip check have data without
+importing ``bench.py``; a test holds the two bit-identical.
+``make_surrogate_voc`` is the port's copy of the image generator of
+``bench.py::voc_bench``, made at VOC2007's image sizes.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from ..parallel.dataset import HostDataset
+from .image_loader_utils import MultiLabeledImage
+
+#: VOC2007's two common image sizes, (height, width): landscape, portrait
+VOC_SIZES = ((375, 500), (500, 375))
 
 
 def make_surrogate_cifar(n_train, n_test, seed=0):
@@ -56,3 +64,39 @@ def make_surrogate_cifar(n_train, n_test, seed=0):
     tr = split(n_train, np.random.RandomState(seed + 1), 0)
     te = split(n_test, np.random.RandomState(seed + 2), 8)
     return tr, te
+
+
+def make_surrogate_voc(n_train, n_test, seed=0, num_classes=20,
+                       sizes=VOC_SIZES):
+    """Multi-label surrogate at VOC image sizes, the stand-in while VOC2007
+    is absent: each image codes 1-2 of ``num_classes`` classes as oriented
+    sinusoidal stripes (class c at angle pi c / num_classes) over uniform
+    noise, in [0, 255], as ``bench.py::voc_bench`` makes them. In each
+    split a seeded half of the images is ``sizes[0]`` and the rest
+    ``sizes[1]``, so the images are ragged and both orientations of the
+    band operators are used. Returns two HostDatasets of
+    MultiLabeledImage (float32 (H, W, 3) images)."""
+    grids = {hw: np.mgrid[0:hw[0], 0:hw[1]].astype(np.float32)
+             for hw in sizes}
+
+    def split(n, r):
+        second = np.zeros(n, bool)
+        second[r.permutation(n)[:n - n // 2]] = True
+        items = []
+        for i in range(n):
+            h, w = sizes[int(second[i])]
+            yy, xx = grids[(h, w)]
+            labels = sorted(set(r.randint(0, num_classes, r.randint(1, 3))))
+            img = r.rand(h, w, 3).astype(np.float32) * 160
+            for c in labels:
+                ang = np.pi * c / num_classes
+                stripes = np.sin((np.cos(ang) * xx + np.sin(ang) * yy)
+                                 / 2.5)
+                img += 45.0 * stripes[:, :, None]
+            items.append(MultiLabeledImage(
+                np.clip(img, 0, 255), [int(c) for c in labels],
+                f"im{i}.jpg"))
+        return HostDataset(items)
+
+    return (split(n_train, np.random.RandomState(seed + 1)),
+            split(n_test, np.random.RandomState(seed + 2)))

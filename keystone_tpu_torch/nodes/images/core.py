@@ -29,6 +29,16 @@ class ImageVectorizer(Transformer):
         return imgs.reshape(imgs.shape[0], -1)
 
 
+class PixelScaler(Transformer):
+    """Divide pixels by 255 (reference ``images/PixelScaler``)."""
+
+    def apply(self, img):
+        return img / 255.0
+
+    def apply_batch(self, imgs):
+        return imgs / 255.0
+
+
 class GrayScaler(Transformer):
     """MATLAB-weight grayscale (reference ``images/GrayScaler``)."""
 

@@ -1,7 +1,9 @@
 """Statistical feature nodes.
 
-Counterpart of the scaler in ``keystone_tpu/nodes/stats/__init__.py``
-(reference ``stats/StandardScaler.scala``).
+Counterpart of the scaler, the row normalizer and the signed Hellinger
+maps of ``keystone_tpu/nodes/stats/__init__.py`` (reference
+``stats/StandardScaler.scala``, ``NormalizeRows.scala``,
+``SignedHellingerMapper.scala``).
 """
 from __future__ import annotations
 
@@ -11,6 +13,35 @@ import torch
 from ...parallel.dataset import ArrayDataset, Dataset
 from ...workflow.estimator import Estimator
 from ...workflow.transformer import Transformer
+
+EPS = 2.2e-16  # the reference's floor on a row norm
+
+
+class NormalizeRows(Transformer):
+    """L2-normalize each vector, flooring the norm at machine epsilon
+    (reference ``stats/NormalizeRows.scala:8-14``)."""
+
+    def apply(self, x):
+        return x / torch.clamp_min(torch.linalg.vector_norm(x), EPS)
+
+    def apply_batch(self, X):
+        norms = torch.linalg.vector_norm(X, dim=1, keepdim=True)
+        return X / torch.clamp_min(norms, EPS)
+
+
+class SignedHellingerMapper(Transformer):
+    """sign(x) * sqrt(|x|) (reference
+    ``stats/SignedHellingerMapper.scala``)."""
+
+    def apply(self, x):
+        return torch.sign(x) * torch.sqrt(torch.abs(x))
+
+    def apply_batch(self, X):
+        return self.apply(X)
+
+
+class BatchSignedHellingerMapper(SignedHellingerMapper):
+    """Matrix-input variant (applied to per-image descriptor matrices)."""
 
 
 class StandardScalerModel(Transformer):

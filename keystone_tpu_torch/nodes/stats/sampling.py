@@ -44,6 +44,28 @@ class Sampler(Transformer):
         return HostDataset([items[i] for i in idx])
 
 
+class ColumnSampler(Transformer):
+    """Sample ``num_cols`` columns of each per-item (d, cols) matrix
+    (reference ``ColumnSampler``, used to subsample SIFT descriptors).
+    The columns are those of the JAX package's draw: a fresh
+    ``RandomState(seed).choice`` over the item's column count, sorted."""
+
+    def __init__(self, num_cols: int, seed: int = 42):
+        self.num_cols = num_cols
+        self.seed = seed
+
+    def apply(self, x):
+        # the draw depends only on the column count: cached per (count,
+        # device)
+        cache = self.__dict__.setdefault("_idx_cache", {})
+        key = (x.shape[-1], str(x.device))
+        if key not in cache:
+            cache[key] = torch.as_tensor(
+                sample_indices(x.shape[-1], self.num_cols, self.seed),
+                device=x.device)
+        return x[..., cache[key]]
+
+
 def sample_rows(mat: np.ndarray, num_rows: int, seed: int = 0) -> np.ndarray:
     """Random row subset (reference ``MatrixUtils.sampleRows``)."""
     return np.asarray(mat)[sample_indices(mat.shape[0], num_rows, seed)]

@@ -25,18 +25,24 @@ Kernels (Pallas TPU kernel replaced -> file here):
   gram_cross_pallas``) -> ``csrc/gram_cross.cu``.
 * ``quantized_affine`` (``keystone_tpu/ops/pallas_kernels.py::
   quantized_affine_pallas``) -> ``csrc/quantized_affine.cu``.
+* ``banded_matmul`` (``keystone_tpu/ops/pallas_kernels.py::
+  banded_matmul_pallas``) -> ``csrc/banded_matmul.cu``.
+* ``fv_moments`` (``keystone_tpu/ops/pallas_kernels.py::
+  fv_moments_pallas``) -> ``csrc/fv_moments.cu``.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .image_ops import patch_matrix, patch_stats, pool_image, pool_regions
@@ -48,14 +54,17 @@ BUILD_DIR = _PKG_DIR.parent / "build" / "keystone_tpu_torch"
 #: kernel library name -> CUDA source under csrc/
 SOURCES = {"fused_featurize": "fused_featurize.cu",
            "gram_cross": "gram_cross.cu",
-           "quantized_affine": "quantized_affine.cu"}
+           "quantized_affine": "quantized_affine.cu",
+           "banded_matmul": "banded_matmul.cu",
+           "fv_moments": "fv_moments.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: wrapper name -> launches made by that wrapper
 LAUNCHES: Dict[str, int] = {"fused_cifar_featurize": 0, "gram_cross": 0,
-                            "quantized_affine": 0}
+                            "quantized_affine": 0, "banded_matmul": 0,
+                            "fv_moments": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -147,6 +156,19 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         for fn in (lib.quantized_affine_bf16, lib.quantized_affine_int8):
             fn.argtypes = [p, ll, p, p, p, p, p, p, p, i, i, i, i, p]
             fn.restype = i
+    elif name == "banded_matmul":
+        lib.banded_matmul_f32.argtypes = [p, p, p, p, ll, p, i, i, i, p]
+        lib.banded_matmul_f32.restype = i
+        lib.banded_matmul_tile_rows.argtypes = []
+        lib.banded_matmul_tile_rows.restype = i
+    elif name == "fv_moments":
+        lib.fv_moments_f32.argtypes = [p, ll, p, p, p, p, p, i, i, i, i, i,
+                                       i, f, p]
+        lib.fv_moments_f32.restype = i
+        lib.fv_moments_smem_bytes.argtypes = [i, i, i, i]
+        lib.fv_moments_smem_bytes.restype = ll
+        lib.fv_moments_block_threads.argtypes = []
+        lib.fv_moments_block_threads.restype = i
 
 
 # -- fused CIFAR featurization ---------------------------------------------
@@ -424,3 +446,211 @@ def quantized_affine(X, Wq, scale, mean, inv_std, b):
         raise RuntimeError(f"quantized_affine: CUDA error {rc} at launch")
     LAUNCHES["quantized_affine"] += 1
     return out
+
+
+# -- banded matrix product (dense SIFT) --------------------------------------
+
+#: rows per tile of the banded kernel's live map (``csrc/banded_matmul.cu``:
+#: TM)
+BAND_TILE_ROWS = 32
+
+#: (id(band), device) -> (band, its float32 device copy, klo, khi). The
+#: entry holds the host band itself, so its id cannot be reused by another
+#: array while the entry lives.
+_BANDS: Dict[Tuple[int, str], Tuple[np.ndarray, torch.Tensor,
+                                    Optional[torch.Tensor],
+                                    Optional[torch.Tensor]]] = {}
+
+
+def band_live_map(band: np.ndarray, tile_rows: int = BAND_TILE_ROWS):
+    """The banded kernel's live map of a host band matrix (m, l): for each
+    ``tile_rows``-row tile, the first and one past the last column holding
+    a nonzero in any of the tile's rows, as two int32 arrays ``(klo,
+    khi)``. A tile with no nonzero gets the empty range (0, 0). Each tile
+    visits one contiguous column range, so no column is visited twice."""
+    band = np.asarray(band)
+    m = band.shape[0]
+    tiles = -(-m // tile_rows)
+    klo = np.zeros(tiles, np.int32)
+    khi = np.zeros(tiles, np.int32)
+    for i in range(tiles):
+        nz = np.nonzero(np.any(band[i * tile_rows:(i + 1) * tile_rows] != 0,
+                               axis=0))[0]
+        if len(nz):
+            klo[i], khi[i] = nz[0], nz[-1] + 1
+    return klo, khi
+
+
+def _band_on(band: np.ndarray, device: torch.device, live_map: bool):
+    """The band's float32 copy on ``device`` (and, for the kernel, its
+    live map there), cached per (band id, device)."""
+    key = (id(band), str(device))
+    hit = _BANDS.get(key)
+    if hit is None or (live_map and hit[2] is None):
+        dense = torch.as_tensor(np.ascontiguousarray(band, np.float32),
+                                device=device)
+        klo = khi = None
+        if live_map:
+            klo, khi = (torch.as_tensor(v, device=device)
+                        for v in band_live_map(band))
+        hit = (band, dense, klo, khi)
+        _BANDS[key] = hit
+    return hit[1], hit[2], hit[3]
+
+
+def _band_operands(band, X):
+    if not isinstance(band, np.ndarray) or band.ndim != 2:
+        raise ValueError("banded_matmul: the band must be a 2-D host numpy "
+                         "array")
+    if X.dim() != 2 or X.shape[0] != band.shape[1]:
+        raise ValueError(f"banded_matmul: band {band.shape} and X "
+                         f"{tuple(X.shape)} are not (m, l) and (l, n)")
+
+
+def banded_matmul_plain(band: np.ndarray, X: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of the banded kernel: the dense product
+    ``band @ X`` in float32."""
+    _band_operands(band, X)
+    dense, _, _ = _band_on(band, X.device, live_map=False)
+    return dense @ X.to(torch.float32)
+
+
+def banded_matmul(band: np.ndarray, X: torch.Tensor) -> torch.Tensor:
+    """``band @ X`` for a host numpy band matrix (m, l) and X (l, n):
+    the CUDA kernel for a CUDA X, visiting only each 32-row tile's live
+    column range, the plain version for a CPU X. The band's device copy
+    and live map are cached per (band id, device). X must be float32 with
+    unit column stride (a row slice is taken; a transposed view is not:
+    make it contiguous first). The output is a contiguous float32 (m, n)
+    tensor. Every shape is taken."""
+    _band_operands(band, X)
+    if X.device.type == "cpu":
+        return banded_matmul_plain(band, X)
+    if X.device.type != "cuda":
+        raise ValueError(f"banded_matmul: unsupported device {X.device}")
+    m, l = band.shape
+    n = X.shape[1]
+    if X.dtype != torch.float32 or (X.numel() and X.stride(1) != 1
+                                    and n > 1):
+        raise ValueError("banded_matmul: X must be float32 rows with unit "
+                         "column stride")
+    out = torch.empty((m, n), dtype=torch.float32, device=X.device)
+    if m == 0 or n == 0:
+        return out
+    lib = _library("banded_matmul")
+    if lib.banded_matmul_tile_rows() != BAND_TILE_ROWS:
+        raise RuntimeError("banded_matmul: the library's tile height is not "
+                           f"{BAND_TILE_ROWS}")
+    dense, klo, khi = _band_on(band, X.device, live_map=True)
+    ldx = X.stride(0) if l > 1 else n
+    with torch.cuda.device(X.device):
+        rc = lib.banded_matmul_f32(
+            dense.data_ptr(), klo.data_ptr(), khi.data_ptr(), X.data_ptr(),
+            ldx, out.data_ptr(), m, l, n,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"banded_matmul: CUDA error {rc} at launch")
+    LAUNCHES["banded_matmul"] += 1
+    return out
+
+
+# -- fused GMM posteriors + Fisher-vector moments ---------------------------
+
+#: shared memory a block may use on Hopper (227 KB)
+_SMEM_LIMIT = 232448
+
+
+def _fv_operands(X, means, variances, weights):
+    if X.dim() != 2 or means.dim() != 2 or means.shape != variances.shape \
+            or means.shape[0] != X.shape[0] or weights.dim() != 1 \
+            or weights.shape[0] != means.shape[1]:
+        raise ValueError(
+            f"fv_moments: X {tuple(X.shape)}, means {tuple(means.shape)}, "
+            f"variances {tuple(variances.shape)}, weights "
+            f"{tuple(weights.shape)} are not (D, n), (D, K), (D, K), (K,)")
+
+
+def fv_moments_plain(X, means, variances, weights, threshold):
+    """The plain PyTorch version of the FV moments kernel: the thresholded
+    posterior matrix q (n, K) of ``nodes.learning.gmm._posteriors``
+    written out, then ``(q.sum(0), X @ q, (X * X) @ q)``."""
+    from ..nodes.learning.gmm import _posteriors
+
+    _fv_operands(X, means, variances, weights)
+    q = _posteriors(X.T, means.T, variances.T, weights, threshold)
+    return q.sum(dim=0), X @ q, (X * X) @ q
+
+
+def fv_plan(D: int, K: int) -> Tuple[int, int, int]:
+    """``(T, splits, smem bytes)`` of the FV kernel: tile width T (32 where
+    32 rows of the (T, K) llh tile fit, else 1) and the fewest row splits
+    of D whose accumulators fit the 227 KB a block may use. Raises where
+    even one accumulated row does not fit."""
+    for T in (32, 1):
+        budget = _SMEM_LIMIT // 4 - (2 * D * T + T * K + K)
+        if D == 0 and budget >= 0:
+            return T, 1, 4 * (T * K + K)
+        rows = min(D, budget // (2 * K)) if budget > 0 else 0
+        if rows >= 1:
+            splits = -(-D // rows)
+            dr = -(-D // splits)
+            return T, splits, 4 * (2 * D * T + T * K + 2 * dr * K + K)
+    raise ValueError(f"fv_moments: D={D}, K={K} does not fit one block's "
+                     "shared memory")
+
+
+def fv_moments(X, means, variances, weights, threshold):
+    """Moment SUMS ``(s0, s1, s2)`` = ``(sum q, X q, (X * X) q)`` of the
+    thresholded GMM posteriors q of the descriptor columns of X (D, n),
+    for means and variances (D, K) and weights (K,): the CUDA kernel for
+    a CUDA X (the (n, K) posteriors never reach device memory), the plain
+    version for a CPU X. The caller divides by n. X must be float32 with
+    unit column stride; the GMM tensors float32 on X's device."""
+    _fv_operands(X, means, variances, weights)
+    if X.device.type == "cpu":
+        return fv_moments_plain(X, means, variances, weights, threshold)
+    if X.device.type != "cuda":
+        raise ValueError(f"fv_moments: unsupported device {X.device}")
+    D, n = X.shape
+    K = means.shape[1]
+    if X.dtype != torch.float32 or (X.numel() and X.stride(1) != 1
+                                    and n > 1):
+        raise ValueError("fv_moments: X must be float32 rows with unit "
+                         "column stride")
+    for name, t in (("means", means), ("variances", variances),
+                    ("weights", weights)):
+        if t.dtype != torch.float32 or t.device != X.device:
+            raise ValueError(f"fv_moments: {name} must be float32 on X's "
+                             "device")
+    out = torch.zeros(K + 2 * D * K, dtype=torch.float32, device=X.device)
+    s0, s1, s2 = (out[:K], out[K:K + D * K].view(D, K),
+                  out[K + D * K:].view(D, K))
+    if n == 0 or K == 0:
+        return s0, s1, s2
+    T, splits, smem = fv_plan(D, K)
+    lib = _library("fv_moments")
+    if lib.fv_moments_smem_bytes(T, D, K, -(-D // splits)) != smem:
+        raise RuntimeError("fv_moments: the library's shared-memory plan "
+                           "differs from the wrapper's")
+    # blocks an SM: by shared memory, and by the SM's 2048 threads
+    per_sm = max(1, min(2048 // lib.fv_moments_block_threads(),
+                        _SMEM_LIMIT // smem))
+    blocks = min(-(-n // T), _sm_count(X.device) * per_sm)
+    A = (0.5 / variances).contiguous()
+    B = (means / variances).contiguous()
+    c = (-0.5 * D * math.log(2.0 * math.pi)
+         - 0.5 * torch.log(variances).sum(dim=0) + torch.log(weights)
+         - 0.5 * (means * means / variances).sum(dim=0)).contiguous()
+    partial = (torch.empty((blocks, out.numel()), dtype=torch.float32,
+                           device=X.device) if blocks > 1 else None)
+    ldx = X.stride(0) if D > 1 else n
+    with torch.cuda.device(X.device):
+        rc = lib.fv_moments_f32(
+            X.data_ptr(), ldx, A.data_ptr(), B.data_ptr(), c.data_ptr(),
+            out.data_ptr(), None if partial is None else partial.data_ptr(),
+            D, n, K, T, splits, blocks, float(threshold),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fv_moments: CUDA error {rc} at launch")
+    LAUNCHES["fv_moments"] += 1
+    return s0, s1, s2

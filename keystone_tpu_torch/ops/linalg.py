@@ -150,3 +150,15 @@ def bcd_core(blocks: Sequence[torch.Tensor], Y: torch.Tensor, lam: float,
             pred = pred + A @ (Wi - Ws[i])
             Ws[i] = Wi
     return Ws
+
+
+def tsqr_r(A: torch.Tensor) -> torch.Tensor:
+    """R factor of A (reference: mlmatrix ``TSQR().qrR`` used by
+    DistributedPCA.scala:47; ``keystone_tpu/ops/linalg.py::tsqr_r``). On
+    one device the communication-avoiding tree is a single QR. The sign is
+    normalized so R has a non-negative diagonal, as the JAX package
+    normalizes it."""
+    R = torch.linalg.qr(A.to(torch.float32), mode="r").R
+    sign = torch.sign(torch.diagonal(R))
+    sign = torch.where(sign == 0, 1.0, sign).to(R.dtype)
+    return R * sign[:, None]

@@ -140,9 +140,15 @@ class ArrayDataset(Dataset):
     @staticmethod
     def from_items(items: Sequence[Any], device=DEFAULT_DEVICE,
                    shards: int = 1) -> "ArrayDataset":
-        stacked = tree_map(lambda *xs: np.stack([_host(x) for x in xs]),
-                           *items)
-        return ArrayDataset.from_numpy(stacked, device, shards)
+        """Stack fixed-shape items; tensor items are stacked where they
+        lie and then moved, host arrays are stacked on the host."""
+        def stack(*xs):
+            if all(isinstance(x, torch.Tensor) for x in xs):
+                return torch.stack(xs)
+            return np.stack([_host(x) for x in xs])
+
+        return ArrayDataset.from_numpy(tree_map(stack, *items), device,
+                                       shards)
 
     # -- properties -------------------------------------------------------
     @property
@@ -259,9 +265,16 @@ def as_dataset(data: Any, device=DEFAULT_DEVICE) -> Dataset:
     return ArrayDataset.from_numpy(data, device)
 
 
-def ensure_array(ds: Any, device=DEFAULT_DEVICE) -> ArrayDataset:
+def ensure_array(ds: Any, device=None) -> ArrayDataset:
     """Promote a host dataset of fixed-shape items (or a raw array) to an
-    ArrayDataset; no-op for one already."""
+    ArrayDataset; no-op for one already. With no ``device``, a host
+    dataset of tensors stays on its items' device, anything else goes to
+    the default device."""
+    if device is None:
+        first = (tree_leaves(ds.items[0])[0]
+                 if isinstance(ds, HostDataset) and ds.items else None)
+        device = (first.device if isinstance(first, torch.Tensor)
+                  else DEFAULT_DEVICE)
     if isinstance(ds, ArrayDataset):
         return ds
     if isinstance(ds, (np.ndarray, torch.Tensor)):

@@ -11,7 +11,10 @@ features reach ~1e4, so the featurize bar is rtol 1e-5 with atol 1e-5 of
 the largest feature. The Gram kernel is held to the JAX package's bar for
 its Gram kernel, 2e-4 of the largest entry. The quantized affine kernel and
 its plain version apply the same dequantized weights in float32, so the
-bar is 1e-5 of the largest output.
+bar is 1e-5 of the largest output. The banded product sums the same
+band entries in another order than the dense plain product: 1e-5 of the
+largest output. The FV moments' plain version writes the posteriors out
+and takes its exponentials in another order: 1e-4 of the largest sum.
 """
 import numpy as np
 import pytest
@@ -22,7 +25,7 @@ from keystone_tpu_torch.nodes.learning.linear import (
     LinearMapEstimator,
     _quantize_weights,
 )
-from keystone_tpu_torch.ops import kernels
+from keystone_tpu_torch.ops import kernels, sift
 from keystone_tpu_torch.parallel.streaming import StreamingDataset
 
 RTOL, ATOL_REL = 1e-5, 1e-5
@@ -234,3 +237,126 @@ def test_cuda_plane_launches_the_kernel_once_per_served_batch(cuda):
     assert kernels.LAUNCHES["quantized_affine"] == before + 1
     np.testing.assert_allclose(one.cpu().numpy(), outs[1][2], rtol=1e-5,
                                atol=1e-5)
+
+
+def _band(rng, m, l, bw):
+    band = np.zeros((m, l), np.float32)
+    for j in range(m):
+        c = min(int(j * l / max(m, 1)), l - 1)
+        lo, hi = max(0, c - bw), min(l, c + bw + 1)
+        band[j, lo:hi] = rng.randn(hi - lo)
+    return band
+
+
+@pytest.mark.parametrize("m,l,n", [(375, 375, 500), (340, 375, 4000),
+                                   (97, 97, 33), (1, 5, 1), (33, 40, 65),
+                                   (300, 1, 7), (70, 500, 129)])
+def test_cuda_banded_matmul_matches_plain(cuda, m, l, n):
+    rng = np.random.RandomState(m + l + n)
+    band = _band(rng, m, l, 6)
+    X = torch.as_tensor(rng.randn(l, n).astype(np.float32), device=cuda)
+    before = kernels.LAUNCHES["banded_matmul"]
+    got = kernels.banded_matmul(band, X)
+    want = kernels.banded_matmul_plain(band, X)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["banded_matmul"] == before + 1
+    assert got.shape == (m, n) and got.is_contiguous()
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()), err
+    # one sequential sum per output: the same inputs give the same bits
+    assert torch.equal(got, kernels.banded_matmul(band, X))
+
+
+def test_cuda_banded_matmul_strided_rows_zero_sizes_and_refusals(cuda):
+    rng = np.random.RandomState(21)
+    band = _band(rng, 90, 120, 9)
+    X = torch.as_tensor(rng.randn(120, 50).astype(np.float32), device=cuda)
+    big = torch.zeros((125, 73), device=cuda)
+    big[2:122, 5:55] = X
+    view = big[2:122, 5:55]          # row stride 73, offset 151 floats
+    assert not view.is_contiguous() and view.stride(1) == 1
+    got = kernels.banded_matmul(band, view)
+    want = kernels.banded_matmul_plain(band, X)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+    before = kernels.LAUNCHES["banded_matmul"]
+    assert kernels.banded_matmul(band, X[:, :0]).shape == (90, 0)
+    assert kernels.banded_matmul(band[:0], X).shape == (0, 50)
+    assert kernels.LAUNCHES["banded_matmul"] == before
+    # an all-zero band writes zeros
+    zero = kernels.banded_matmul(np.zeros((40, 120), np.float32), X)
+    assert torch.equal(zero, torch.zeros_like(zero))
+    with pytest.raises(ValueError, match="unit column stride"):
+        kernels.banded_matmul(band, X.T.contiguous().T)
+    with pytest.raises(ValueError, match="unit column stride"):
+        kernels.banded_matmul(band, X.double())
+    with pytest.raises(ValueError, match="not"):
+        kernels.banded_matmul(band, X[:100])
+
+
+def test_cuda_dense_sift_takes_the_banded_kernel(cuda):
+    """At a VOC image size: 4 launches a scale, 20 an image, and
+    descriptors inside the golden envelope of the einsum form on the
+    card."""
+    img = torch.as_tensor(np.random.RandomState(2).rand(375, 500)
+                          .astype(np.float32), device=cuda)
+    before = kernels.LAUNCHES["banded_matmul"]
+    got = sift.dense_sift(img)
+    assert kernels.LAUNCHES["banded_matmul"] == before + 20
+    want = sift.dense_sift_plain(img)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (128, 47213)
+    diff = (got - want).abs()
+    assert float(diff.max()) <= 2.0 and float(diff.mean()) <= 0.15
+
+
+def _fv_inputs(D, K, n, device, seed=0):
+    rng = np.random.RandomState(seed)
+    X = rng.randn(D, n).astype(np.float32)
+    means = rng.randn(D, K).astype(np.float32)
+    variances = (0.5 + rng.rand(D, K)).astype(np.float32)
+    weights = rng.dirichlet(np.ones(K)).astype(np.float32)
+    return [torch.as_tensor(a, device=device)
+            for a in (X, means, variances, weights)]
+
+
+@pytest.mark.parametrize("D,K,n", [(80, 256, 1), (80, 256, 33),
+                                   (80, 256, 513), (80, 256, 4097),
+                                   (64, 16, 513), (7, 3, 12),
+                                   (8, 2000, 100), (300, 256, 100)])
+def test_cuda_fv_moments_matches_plain(cuda, D, K, n):
+    """n = 1 and n off the 32-column tile; K off any tile; (8, 2000) takes
+    the one-column tile, (300, 256) splits the accumulated rows of D."""
+    args = _fv_inputs(D, K, n, cuda, seed=D + K + n)
+    before = kernels.LAUNCHES["fv_moments"]
+    got = kernels.fv_moments(*args, 1e-4)
+    want = kernels.fv_moments_plain(*args, 1e-4)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fv_moments"] == before + 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        err = float((g - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()), err
+    # partials added in block order: the same inputs give the same bits
+    again = kernels.fv_moments(*args, 1e-4)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_cuda_fv_moments_strided_and_empty(cuda):
+    X, means, variances, weights = _fv_inputs(80, 256, 700, cuda, seed=5)
+    big = torch.zeros((80, 760), device=cuda)
+    big[:, 30:730] = X
+    got = kernels.fv_moments(big[:, 30:730], means, variances, weights, 1e-4)
+    want = kernels.fv_moments_plain(X, means, variances, weights, 1e-4)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+    before = kernels.LAUNCHES["fv_moments"]
+    s0, s1, s2 = kernels.fv_moments(X[:, :0], means, variances, weights,
+                                    1e-4)
+    assert kernels.LAUNCHES["fv_moments"] == before
+    assert float(s0.abs().sum() + s1.abs().sum() + s2.abs().sum()) == 0.0
+    with pytest.raises(ValueError, match="unit column stride"):
+        kernels.fv_moments(X.T.contiguous().T, means, variances, weights,
+                           1e-4)
