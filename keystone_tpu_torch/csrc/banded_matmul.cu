@@ -13,9 +13,9 @@
 // matrices, four products a scale, twenty an image at five scales.
 //
 // What bounds it. The bands are narrow: at VOC's 375 x 500 images the
-// smoothing operators have 9-21 nonzeros a row and the interleaved
-// sampling operators 11-27, so an image's twenty products do about 0.5
-// GFLOP of true band work against about 120 MB of X read and output
+// smoothing operators have 5-21 nonzeros a row and the interleaved
+// sampling operators 9-27, so an image's twenty products do about 0.53
+// GFLOP of true band work against about 122 MB of X read and output
 // written. Bytes bound it (about 36 us an image at 3.35 TB/s); the
 // arithmetic is tiny, provided only the band is visited.
 //
@@ -24,21 +24,28 @@
 //    each row tile the wrapper gives the first and one past the last
 //    nonzero column over the tile's rows (klo, khi), computed on the host
 //    and cached beside the band's device copy. A block loops over that
-//    k-range only. The TPU's 128 x 128 tile map visits every column tile
-//    at these sizes; a 32-row tile of the interleaved sampling operator
-//    spans about 68 columns at scale 0 and about 116 at scale 4.
-//  * Each block computes one 32-row x 64-column output tile. It stages a
-//    32 x 32 band tile and a 32 x 64 tile of X through shared memory per
-//    step of the k-range; each of its 128 threads keeps a 4 x 4 block of
-//    the output in registers (rows ty + 8i, columns tx + 16j, so a warp's
-//    shared-memory reads are broadcasts or 16 consecutive words, and its
-//    stores are coalesced).
+//    k-range only: 24-57 columns a tile at scale 0, 30-97 at scale 4. The
+//    TPU's 128 x 128 tile map visits every column tile at these sizes.
+//  * Each block owns a 32-row tile and 128 consecutive output columns,
+//    one column a thread. It stages the tile's live band columns in
+//    shared memory, transposed (k-major, 32 rows a k, so one 16-byte
+//    load gives a thread 4 rows and the whole warp reads the same
+//    address); X is not staged: each thread streams its column straight
+//    from device memory, 8 rows ahead, the 32 lanes of a warp reading 128
+//    contiguous bytes of an X row. Each X element is read once per row
+//    tile whose live range covers it and feeds 32 FMAs from registers.
+//    The 32 sums of a column stay in registers and are written once,
+//    coalesced across the warp.
 //  * True float32 FMAs, one sequential sum over k per output: no tensor
 //    core (TF32 would change the numerics), no split of k, no atomics,
 //    so the same inputs give the same bits.
-//  * Every shape is taken: rows past m, columns past n and depths past the
-//    tile's k-range load as zeros and are not written. A row tile with no
+//  * Every shape is taken: rows past m and columns past n are neither
+//    read nor written; the k-range is the tile's own. A row tile with no
 //    nonzero writes zeros.
+//
+// An earlier version staged 32 x 64 tiles of X through shared memory
+// with a 4 x 4 register tile per thread; this one takes about 30% less
+// device time over an image's 20 products on the H100 (PERF.md).
 //
 // Built by nvcc into a shared library with a plain C entry point and
 // loaded with ctypes (keystone_tpu_torch/ops/kernels.py).
@@ -48,72 +55,66 @@
 namespace {
 
 constexpr int TM = 32;         // output rows per block (the live map's tile)
-constexpr int TN = 64;         // output columns per block
-constexpr int TK = 32;         // depth of one staged step
-constexpr int NTHREADS = 128;  // 16 x 8 threads, 4 x 4 outputs each
+constexpr int NTHREADS = 128;  // output columns per block, one a thread
+constexpr int KC = 128;        // live band columns staged per pass
+constexpr int BTS = TM + 4;    // padded k-row of the staged band tile
+constexpr int UNROLL = 8;      // X rows a thread has in flight
 
 __global__ void __launch_bounds__(NTHREADS)
 banded_matmul_kernel(const float* __restrict__ band,
                      const int* __restrict__ klo, const int* __restrict__ khi,
                      const float* __restrict__ X, long long ldx,
                      float* __restrict__ out, int m, int l, int n) {
-  __shared__ float bs[TM][TK + 1];  // band tile, padded against conflicts
-  __shared__ float xs[TK][TN];      // X tile
+  __shared__ __align__(16) float bt[KC * BTS];  // [k][row]
 
   const int rt = blockIdx.y;
   const int r0 = rt * TM;
-  const int c0 = blockIdx.x * TN;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
+  const int c = blockIdx.x * NTHREADS + threadIdx.x;
+  const bool in = c < n;
   const int lo = klo[rt], hi = khi[rt];
 
-  float acc[4][4];
+  float acc[TM];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  for (int r = 0; r < TM; ++r) acc[r] = 0.0f;
 
-  for (int k0 = lo; k0 < hi; k0 += TK) {
-#pragma unroll
-    for (int q = 0; q < TM * TK / NTHREADS; ++q) {
-      const int e = tid + q * NTHREADS;
-      const int r = e / TK, kk = e % TK;
-      const int gr = r0 + r, gk = k0 + kk;
-      bs[r][kk] = (gr < m && gk < hi) ? band[(long long)gr * l + gk] : 0.0f;
-    }
-#pragma unroll
-    for (int q = 0; q < TK * TN / NTHREADS; ++q) {
-      const int e = tid + q * NTHREADS;
-      const int kk = e / TN, c = e % TN;
-      const int gk = k0 + kk, gc = c0 + c;
-      xs[kk][c] = (gk < hi && gc < n) ? X[(long long)gk * ldx + gc] : 0.0f;
+  for (int k0 = lo; k0 < hi; k0 += KC) {
+    const int kc = min(KC, hi - k0);
+    __syncthreads();  // the previous pass's tile is read before restaging
+    for (int e = threadIdx.x; e < TM * kc; e += NTHREADS) {
+      const int r = e / kc, kk = e % kc;
+      bt[kk * BTS + r] =
+          r0 + r < m ? band[(long long)(r0 + r) * l + k0 + kk] : 0.0f;
     }
     __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < TK; ++kk) {
-      float a[4], b[4];
+    const float* xp = X + (long long)k0 * ldx + (in ? c : 0);
+    int kk = 0;
+    for (; kk < kc; kk += UNROLL) {
+      float x[UNROLL];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = bs[ty + 8 * i][kk];
+      for (int u = 0; u < UNROLL; ++u)
+        x[u] = (in && kk + u < kc) ? __ldg(xp + (long long)(kk + u) * ldx)
+                                   : 0.0f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = xs[kk][tx + 16 * j];
+      for (int u = 0; u < UNROLL; ++u) {
+        if (kk + u >= kc) break;
+        const float4* b4 =
+            reinterpret_cast<const float4*>(bt + (kk + u) * BTS);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int q = 0; q < TM / 4; ++q) {
+          const float4 b = b4[q];
+          acc[4 * q] = fmaf(b.x, x[u], acc[4 * q]);
+          acc[4 * q + 1] = fmaf(b.y, x[u], acc[4 * q + 1]);
+          acc[4 * q + 2] = fmaf(b.z, x[u], acc[4 * q + 2]);
+          acc[4 * q + 3] = fmaf(b.w, x[u], acc[4 * q + 3]);
+        }
+      }
     }
-    __syncthreads();  // the tiles are read before the next ones are staged
   }
 
+  if (!in) return;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty + 8 * i;
-    if (r >= m) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + tx + 16 * j;
-      if (c < n) out[(long long)r * n + c] = acc[i][j];
-    }
-  }
+  for (int r = 0; r < TM; ++r)
+    if (r0 + r < m) out[(long long)(r0 + r) * n + c] = acc[r];
 }
 
 }  // namespace
@@ -134,12 +135,12 @@ int banded_matmul_f32(const float* band, const int* klo, const int* khi,
                       int n, void* stream) {
   if (m <= 0 || n <= 0 || l < 0 || ldx < n) return (int)cudaErrorInvalidValue;
   const long long row_tiles = (m + TM - 1) / TM;
-  const long long col_tiles = (n + TN - 1) / TN;
+  const long long col_tiles = (n + NTHREADS - 1) / NTHREADS;
   if (row_tiles > 65535 || col_tiles > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)col_tiles, (unsigned)row_tiles);
-  banded_matmul_kernel<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(
-                                                stream)>>>(
+  banded_matmul_kernel<<<grid, NTHREADS, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
       band, klo, khi, X, ldx, out, m, l, n);
   return (int)cudaGetLastError();
 }

@@ -27,16 +27,19 @@
 //    and carry their own partial sums in shared memory. A second small
 //    launch adds the blocks' partials in block order: no atomics, the same
 //    bits on every run.
-//  * Per tile: the block stages x and x^2 (D x T) in shared memory; each
-//    thread owns a component k and computes its T log-likelihoods with A
-//    and B read once per depth from L2 (T FMAs per load pair); the llh
-//    tile (T x K) is held in shared memory, one warp per row does the
-//    max, the exponentials, both normalizations and the threshold with
-//    fixed shuffle butterflies; then each thread owns a (k, d-group) and
-//    adds its T-column sums of x q and x^2 q into the shared-memory
-//    accumulators, reading its column of q once into registers.
+//  * Per tile: the block stages x and x^2 (D x T) in shared memory. The
+//    llh tile (T x K) is computed by (component, half-tile) work items:
+//    a thread reads A and B for 8 depths at once from L2 (8 loads in
+//    flight) and applies each to its T/2 columns, read as 16-byte
+//    broadcasts, with T/2 pairs of sums in registers. One warp per row
+//    then does the max, the exponentials, both normalizations and the
+//    threshold in shared memory with fixed shuffle butterflies. Last, each
+//    thread owns a (component, group of depths), reads its column of q
+//    once into registers and adds its T-column sums of x q and x^2 q into
+//    the shared-memory accumulators.
 //  * At D = 80 and K = 256 the two accumulators take 160 KB: with the
-//    tiles that is 213 KB of the 227 KB a block may use, one block an SM. Where D x K is larger
+//    tiles that is 213 KB of the 227 KB a block may use, one 512-thread
+//    block an SM (16 warps to hide the L2 reads). Where D x K is larger
 //    the wrapper splits the accumulated rows of D across the grid's y
 //    dimension (each split recomputes the posteriors, which need every
 //    row of D).
@@ -47,6 +50,10 @@
 //    normalization.
 //  * True float32 throughout (expf, not the fast intrinsic).
 //
+// An earlier version (256 threads, one component a thread over the whole
+// tile, one depth of A and B at a time) took about 35% more device time
+// at the full-width shape on the H100 (PERF.md).
+//
 // Built by nvcc into a shared library with a plain C entry point and
 // loaded with ctypes (keystone_tpu_torch/ops/kernels.py).
 
@@ -54,8 +61,9 @@
 
 namespace {
 
-constexpr int NTHREADS = 256;
+constexpr int NTHREADS = 512;
 constexpr int NWARPS = NTHREADS / 32;
+constexpr int DU = 8;  // depths of A and B a thread loads at once
 
 __device__ inline float warp_max(float v) {
 #pragma unroll
@@ -71,22 +79,24 @@ __device__ inline float warp_sum(float v) {
   return v;
 }
 
-// One row of a staged [D][T] tile into registers: a warp reads the same
-// row, so each load is a broadcast; 16-byte loads where T allows.
-template <int T>
-__device__ inline void load_row(const float* src, float (&v)[T]) {
-  if constexpr (T % 4 == 0) {
+// dot-style updates over N consecutive floats of two staged rows (x and
+// x^2), the operands read as 16-byte broadcasts where N allows (the rows
+// are 16-byte aligned when T is 32): f(t, x[t], x2[t]) for t < N.
+template <int N, typename F>
+__device__ inline void for_row(const float* xr, const float* x2r, F f) {
+  if constexpr (N % 4 == 0) {
 #pragma unroll
-    for (int t = 0; t < T; t += 4) {
-      const float4 f = *reinterpret_cast<const float4*>(src + t);
-      v[t] = f.x;
-      v[t + 1] = f.y;
-      v[t + 2] = f.z;
-      v[t + 3] = f.w;
+    for (int t = 0; t < N; t += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(xr + t);
+      const float4 b = *reinterpret_cast<const float4*>(x2r + t);
+      f(t, a.x, b.x);
+      f(t + 1, a.y, b.y);
+      f(t + 2, a.z, b.z);
+      f(t + 3, a.w, b.w);
     }
   } else {
 #pragma unroll
-    for (int t = 0; t < T; ++t) v[t] = src[t];
+    for (int t = 0; t < N; ++t) f(t, xr[t], x2r[t]);
   }
 }
 
@@ -103,6 +113,8 @@ fv_moments_kernel(const float* __restrict__ X, long long ldx,
                   const float* __restrict__ A, const float* __restrict__ B,
                   const float* __restrict__ c, float* __restrict__ partial,
                   int D, int n, int K, int dr, float threshold) {
+  constexpr int TH = T > 1 ? T / 2 : 1;  // llh columns per work item
+  constexpr int HALVES = T / TH;
   extern __shared__ float4 smem4[];  // float4: 16-byte aligned tiles
   float* xs = reinterpret_cast<float*>(smem4);  // [D][T]
   float* x2s = xs + D * T;          // [D][T]
@@ -135,26 +147,35 @@ fv_moments_kernel(const float* __restrict__ X, long long ldx,
     }
     __syncthreads();
 
-    // llh[t][k] = c[k] - (sum_d x2 A - sum_d x B)
-    for (int k = tid; k < K; k += NTHREADS) {
-      float m1[T], m2[T];
+    // llh[t][k] = c[k] - (sum_d x2 A - sum_d x B), item (k, half)
+    for (int w = tid; w < HALVES * K; w += NTHREADS) {
+      const int k = w % K, tb = (w / K) * TH;
+      float m1[TH], m2[TH];
 #pragma unroll
-      for (int t = 0; t < T; ++t) m1[t] = m2[t] = 0.0f;
-      for (int d = 0; d < D; ++d) {
-        const float a = __ldg(A + (long long)d * K + k);
-        const float b = __ldg(B + (long long)d * K + k);
-        float xv[T], x2v[T];
-        load_row<T>(xs + d * T, xv);
-        load_row<T>(x2s + d * T, x2v);
+      for (int t = 0; t < TH; ++t) m1[t] = m2[t] = 0.0f;
+      for (int d = 0; d < D; d += DU) {
+        float a[DU], b[DU];
 #pragma unroll
-        for (int t = 0; t < T; ++t) {
-          m1[t] = fmaf(x2v[t], a, m1[t]);
-          m2[t] = fmaf(xv[t], b, m2[t]);
+        for (int u = 0; u < DU; ++u) {
+          const bool in = d + u < D;
+          a[u] = in ? __ldg(A + (long long)(d + u) * K + k) : 0.0f;
+          b[u] = in ? __ldg(B + (long long)(d + u) * K + k) : 0.0f;
+        }
+#pragma unroll
+        for (int u = 0; u < DU; ++u) {
+          if (d + u >= D) break;
+          const float au = a[u], bu = b[u];
+          for_row<TH>(xs + (d + u) * T + tb, x2s + (d + u) * T + tb,
+                      [&](int t, float x, float x2) {
+                        m1[t] = fmaf(x2, au, m1[t]);
+                        m2[t] = fmaf(x, bu, m2[t]);
+                      });
         }
       }
       const float ck = c[k];
 #pragma unroll
-      for (int t = 0; t < T; ++t) qs[t * K + k] = ck - (m1[t] - m2[t]);
+      for (int t = 0; t < TH; ++t)
+        qs[(tb + t) * K + k] = ck - (m1[t] - m2[t]);
     }
     __syncthreads();
 
@@ -200,15 +221,11 @@ fv_moments_kernel(const float* __restrict__ X, long long ldx,
         acc0[k] += s0;
       }
       for (int d = d0 + g; d < d1; d += groups) {
-        float xv[T], x2v[T];
-        load_row<T>(xs + d * T, xv);
-        load_row<T>(x2s + d * T, x2v);
         float s1 = 0.0f, s2 = 0.0f;
-#pragma unroll
-        for (int t = 0; t < T; ++t) {
-          s1 = fmaf(xv[t], q[t], s1);
-          s2 = fmaf(x2v[t], q[t], s2);
-        }
+        for_row<T>(xs + d * T, x2s + d * T, [&](int t, float x, float x2) {
+          s1 = fmaf(x, q[t], s1);
+          s2 = fmaf(x2, q[t], s2);
+        });
         acc1[(d - d0) * K + k] += s1;
         acc2[(d - d0) * K + k] += s2;
       }
@@ -227,11 +244,13 @@ fv_moments_kernel(const float* __restrict__ X, long long ldx,
   }
 }
 
+constexpr int RTHREADS = 256;
+
 // out[i] = sum over blocks b, in order, of partial[b][i]
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(RTHREADS)
 reduce_blocks_kernel(const float* __restrict__ partial, float* __restrict__ out,
                      long long total, int blocks) {
-  const long long i = (long long)blockIdx.x * NTHREADS + threadIdx.x;
+  const long long i = (long long)blockIdx.x * RTHREADS + threadIdx.x;
   if (i >= total) return;
   float acc = 0.0f;
   for (int b = 0; b < blocks; ++b) acc += partial[(long long)b * total + i];
@@ -255,8 +274,8 @@ int launch(const float* X, long long ldx, const float* A, const float* B,
   int rc = (int)cudaGetLastError();
   if (rc != 0 || blocks == 1) return rc;
   const long long total = K + 2LL * D * K;
-  const long long rblocks = (total + NTHREADS - 1) / NTHREADS;
-  reduce_blocks_kernel<<<(unsigned)rblocks, NTHREADS, 0, st>>>(
+  const long long rblocks = (total + RTHREADS - 1) / RTHREADS;
+  reduce_blocks_kernel<<<(unsigned)rblocks, RTHREADS, 0, st>>>(
       partial, out, total, blocks);
   return (int)cudaGetLastError();
 }
