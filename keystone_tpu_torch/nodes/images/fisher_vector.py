@@ -30,22 +30,16 @@ from ..learning.gmm import GaussianMixtureModel, GaussianMixtureModelEstimator
 from ..learning.pca import _stack_item_columns
 
 
-def _fv_moment_sums(X, means, variances, weights, weight_threshold,
-                    moments=fv_moments):
-    """Raw posterior moment sums ``(sum q, X q, (X*X) q)`` of a (D, nDesc)
-    descriptor matrix: ``moments`` is the kernel's wrapper (its plain
-    version on a CPU matrix), or ``ops.kernels.fv_moments_plain`` to run
-    the posterior form on any device."""
-    return moments(X, means, variances, weights, weight_threshold)
-
-
 def _fisher_vector(X, means, variances, weights, weight_threshold,
                    moments=fv_moments):
     """X is (D, nDesc); means/variances (D, K); weights (K,). Returns the
-    (D, 2K) Fisher vector."""
+    (D, 2K) Fisher vector. ``moments`` computes the raw posterior moment
+    sums ``(sum q, X q, (X*X) q)``: the kernel's wrapper (its plain
+    version on a CPU matrix), or ``ops.kernels.fv_moments_plain`` to run
+    the posterior form on any device."""
     n_desc = X.shape[1]
-    q_sum, s1_sum, s2_sum = _fv_moment_sums(
-        X, means, variances, weights, weight_threshold, moments)
+    q_sum, s1_sum, s2_sum = moments(X, means, variances, weights,
+                                    weight_threshold)
     s0 = q_sum / n_desc                           # (K,)
     s1 = s1_sum / n_desc                          # (D, K)
     s2 = s2_sum / n_desc                          # (D, K)

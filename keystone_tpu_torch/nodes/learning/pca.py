@@ -134,11 +134,6 @@ class ColumnPCAEstimator(OptimizableEstimator):
         self.dims = dims
 
     @property
-    def options(self):
-        return [LocalColumnPCAEstimator(self.dims),
-                DistributedColumnPCAEstimator(self.dims)]
-
-    @property
     def default(self):
         return DistributedColumnPCAEstimator(self.dims)
 

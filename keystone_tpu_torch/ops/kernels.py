@@ -491,6 +491,10 @@ def _band_on(band: np.ndarray, device: torch.device, live_map: bool):
                                 device=device)
         klo = khi = None
         if live_map:
+            if _library("banded_matmul").banded_matmul_tile_rows() != \
+                    BAND_TILE_ROWS:
+                raise RuntimeError("banded_matmul: the library's tile "
+                                   f"height is not {BAND_TILE_ROWS}")
             klo, khi = (torch.as_tensor(v, device=device)
                         for v in band_live_map(band))
         hit = (band, dense, klo, khi)
@@ -538,9 +542,6 @@ def banded_matmul(band: np.ndarray, X: torch.Tensor) -> torch.Tensor:
     if m == 0 or n == 0:
         return out
     lib = _library("banded_matmul")
-    if lib.banded_matmul_tile_rows() != BAND_TILE_ROWS:
-        raise RuntimeError("banded_matmul: the library's tile height is not "
-                           f"{BAND_TILE_ROWS}")
     dense, klo, khi = _band_on(band, X.device, live_map=True)
     ldx = X.stride(0) if l > 1 else n
     with torch.cuda.device(X.device):

@@ -199,6 +199,22 @@ def test_label_nodes():
     np.testing.assert_array_equal(ind.numpy(), want)
 
 
+def test_parse_voc_labels_matches_jax(tmp_path):
+    from keystone_tpu.loaders.voc import parse_voc_labels as jparse
+    from keystone_tpu_torch.loaders.voc import NUM_CLASSES, parse_voc_labels
+
+    path = tmp_path / "labels.csv"
+    path.write_text('id,class,x,y,file\n'
+                    '0,15,a,b,"000005.jpg"\n'
+                    '1,9,a,b,"000005.jpg"\n'
+                    '\n'
+                    '2,20,a,b,"000007.jpg"\n')
+    got = parse_voc_labels(str(path))
+    assert got == jparse(str(path)) == {"000005.jpg": [14, 8],
+                                        "000007.jpg": [19]}
+    assert NUM_CLASSES == 20
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_mean_average_precision_matches_jax(seed):
     rng = np.random.RandomState(seed)
