@@ -39,6 +39,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from collections import OrderedDict
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Tuple
 
@@ -454,12 +455,12 @@ def quantized_affine(X, Wq, scale, mean, inv_std, b):
 #: TM)
 BAND_TILE_ROWS = 32
 
-#: (id(band), device) -> (band, its float32 device copy, klo, khi). The
-#: entry holds the host band itself, so its id cannot be reused by another
-#: array while the entry lives.
-_BANDS: Dict[Tuple[int, str], Tuple[np.ndarray, torch.Tensor,
-                                    Optional[torch.Tensor],
-                                    Optional[torch.Tensor]]] = {}
+#: (id(band), device) -> (band, its float32 device copy, klo, khi), the
+#: least recently used entry dropped beyond _BANDS_KEPT (SIFT makes 20
+#: bands an image size). The entry holds the host band itself, so its id
+#: cannot be reused by another array while the entry lives.
+_BANDS: "OrderedDict[Tuple[int, str], tuple]" = OrderedDict()
+_BANDS_KEPT = 256
 
 
 def band_live_map(band: np.ndarray, tile_rows: int = BAND_TILE_ROWS):
@@ -486,6 +487,8 @@ def _band_on(band: np.ndarray, device: torch.device, live_map: bool):
     live map there), cached per (band id, device)."""
     key = (id(band), str(device))
     hit = _BANDS.get(key)
+    if hit is not None:
+        _BANDS.move_to_end(key)
     if hit is None or (live_map and hit[2] is None):
         dense = torch.as_tensor(np.ascontiguousarray(band, np.float32),
                                 device=device)
@@ -499,6 +502,8 @@ def _band_on(band: np.ndarray, device: torch.device, live_map: bool):
                         for v in band_live_map(band))
         hit = (band, dense, klo, khi)
         _BANDS[key] = hit
+        if len(_BANDS) > _BANDS_KEPT:
+            _BANDS.popitem(last=False)
     return hit[1], hit[2], hit[3]
 
 
