@@ -43,10 +43,6 @@
 //    read nor written; the k-range is the tile's own. A row tile with no
 //    nonzero writes zeros.
 //
-// An earlier version staged 32 x 64 tiles of X through shared memory
-// with a 4 x 4 register tile per thread; this one takes about 30% less
-// device time over an image's 20 products on the H100 (PERF.md).
-//
 // Built by nvcc into a shared library with a plain C entry point and
 // loaded with ctypes (keystone_tpu_torch/ops/kernels.py).
 

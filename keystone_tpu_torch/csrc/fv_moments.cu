@@ -40,9 +40,9 @@
 //  * At D = 80 and K = 256 the two accumulators take 160 KB: with the
 //    tiles that is 213 KB of the 227 KB a block may use, one 512-thread
 //    block an SM (16 warps to hide the L2 reads). Where D x K is larger
-//    the wrapper splits the accumulated rows of D across the grid's y
-//    dimension (each split recomputes the posteriors, which need every
-//    row of D).
+//    the launch plan (make_plan, below) splits the accumulated rows of D
+//    across the grid's y dimension (each split recomputes the posteriors,
+//    which need every row of D).
 //  * Columns at or past n load as zeros, and their posteriors (nonzero for
 //    a zero descriptor) are dropped by index. The loops run over exactly K
 //    components, so no padded component enters the max or the sums. The
@@ -50,14 +50,12 @@
 //    normalization.
 //  * True float32 throughout (expf, not the fast intrinsic).
 //
-// An earlier version (256 threads, one component a thread over the whole
-// tile, one depth of A and B at a time) took about 35% more device time
-// at the full-width shape on the H100 (PERF.md).
-//
 // Built by nvcc into a shared library with a plain C entry point and
 // loaded with ctypes (keystone_tpu_torch/ops/kernels.py).
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -257,26 +255,67 @@ reduce_blocks_kernel(const float* __restrict__ partial, float* __restrict__ out,
   out[i] = acc;
 }
 
+constexpr long long SMEM_LIMIT = 232448;  // bytes a block may use (227 KB)
+
+struct Plan {
+  int T;       // tile width: 32, or 1 for a K too wide for 32 rows of llh
+  int splits;  // row splits of D (grid y)
+  int dr;      // accumulated rows of D a split
+  int blocks;  // blocks along n (grid x)
+  long long smem;
+};
+
+// The launch plan for (D, n, K) on the current device: the widest tile and
+// the fewest row splits of D whose shared memory fits a block, and as many
+// blocks as the SMs hold at once (by shared memory and by the SM's 2048
+// threads), at most one a tile. False where even one accumulated row of D
+// does not fit.
+bool make_plan(int D, int n, int K, Plan* p) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return false;
+  for (int T : {32, 1}) {
+    const long long budget =
+        SMEM_LIMIT / 4 - (2LL * D * T + (long long)T * K + K);
+    if (budget < 0) continue;
+    int splits = 1, dr = 0;
+    if (D > 0) {
+      const long long rows = std::min<long long>(D, budget / (2LL * K));
+      if (rows < 1) continue;
+      splits = (int)((D + rows - 1) / rows);
+      dr = (D + splits - 1) / splits;
+    }
+    const long long smem = 4 * smem_floats(T, D, K, dr);
+    const long long per_sm = std::max<long long>(
+        1, std::min<long long>(2048 / NTHREADS, SMEM_LIMIT / smem));
+    const long long tiles = ((long long)n + T - 1) / T;
+    *p = {T, splits, dr, (int)std::min<long long>(tiles, sms * per_sm),
+          smem};
+    return true;
+  }
+  return false;
+}
+
 template <int T>
 int launch(const float* X, long long ldx, const float* A, const float* B,
            const float* c, float* out, float* partial, int D, int n, int K,
-           int splits, int blocks, float threshold, cudaStream_t st) {
-  const int dr = (D + splits - 1) / splits;
-  const long long bytes = 4 * smem_floats(T, D, K, dr);
-  if (bytes > 232448) return (int)cudaErrorInvalidValue;
+           const Plan& p, float threshold, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(
       fv_moments_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      (int)p.smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)blocks, (unsigned)splits);
-  fv_moments_kernel<T><<<grid, NTHREADS, (size_t)bytes, st>>>(
-      X, ldx, A, B, c, blocks > 1 ? partial : out, D, n, K, dr, threshold);
+  const dim3 grid((unsigned)p.blocks, (unsigned)p.splits);
+  fv_moments_kernel<T><<<grid, NTHREADS, (size_t)p.smem, st>>>(
+      X, ldx, A, B, c, p.blocks > 1 ? partial : out, D, n, K, p.dr,
+      threshold);
   int rc = (int)cudaGetLastError();
-  if (rc != 0 || blocks == 1) return rc;
+  if (rc != 0 || p.blocks == 1) return rc;
   const long long total = K + 2LL * D * K;
   const long long rblocks = (total + RTHREADS - 1) / RTHREADS;
   reduce_blocks_kernel<<<(unsigned)rblocks, RTHREADS, 0, st>>>(
-      partial, out, total, blocks);
+      partial, out, total, p.blocks);
   return (int)cudaGetLastError();
 }
 
@@ -284,38 +323,34 @@ int launch(const float* X, long long ldx, const float* A, const float* B,
 
 extern "C" {
 
-// Threads of one block (the wrapper sizes the grid by blocks per SM).
-int fv_moments_block_threads() { return NTHREADS; }
-
-// Shared-memory bytes one block needs at tile width T (32 or 1) with dr
-// accumulated rows of D.
-long long fv_moments_smem_bytes(int T, int D, int K, int dr) {
-  return 4 * smem_floats(T, D, K, dr);
+// Floats of the (blocks, K + 2 D K) scratch that fv_moments_f32 needs on
+// the current device for (D, n, K): 0 where the plan has one block, -1
+// where no plan fits a block's shared memory.
+long long fv_moments_scratch_floats(int D, int n, int K) {
+  Plan p;
+  if (n <= 0 || K <= 0 || D < 0 || !make_plan(D, n, K, &p)) return -1;
+  return p.blocks > 1 ? (long long)p.blocks * (K + 2LL * D * K) : 0;
 }
 
 // out = [s0 (K) | s1 (D, K) | s2 (D, K)], contiguous float32, for X (D, n)
 // float32 with row stride ldx (unit column stride), A = 0.5 / var and
-// B = means / var contiguous (D, K), c (K) the llh constants. T is the
-// tile width (32 or 1), `splits` the number of row splits of D (grid y),
-// `blocks` the blocks along n (grid x). With more than one block,
-// `partial` is a contiguous (blocks, K + 2 D K) float32 scratch. Launches
-// on `stream` and returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for arguments the launch cannot take.
+// B = means / var contiguous (D, K), c (K) the llh constants. `partial` is
+// a float32 scratch of fv_moments_scratch_floats(D, n, K) floats (null
+// where that is 0). Launches on `stream` on the current device and returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for
+// arguments the launch cannot take.
 int fv_moments_f32(const float* X, long long ldx, const float* A,
                    const float* B, const float* c, float* out, float* partial,
-                   int D, int n, int K, int T, int splits, int blocks,
-                   float threshold, void* stream) {
-  if (n <= 0 || K <= 0 || D < 0 || splits <= 0 || blocks <= 0 ||
-      splits > 65535 || ldx < n || (blocks > 1 && partial == nullptr))
+                   int D, int n, int K, float threshold, void* stream) {
+  Plan p;
+  if (n <= 0 || K <= 0 || D < 0 || ldx < n || !make_plan(D, n, K, &p) ||
+      p.splits > 65535 || (p.blocks > 1 && partial == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (T == 32)
-    return launch<32>(X, ldx, A, B, c, out, partial, D, n, K, splits, blocks,
-                      threshold, st);
-  if (T == 1)
-    return launch<1>(X, ldx, A, B, c, out, partial, D, n, K, splits, blocks,
-                     threshold, st);
-  return (int)cudaErrorInvalidValue;
+  if (p.T == 32)
+    return launch<32>(X, ldx, A, B, c, out, partial, D, n, K, p, threshold,
+                      st);
+  return launch<1>(X, ldx, A, B, c, out, partial, D, n, K, p, threshold, st);
 }
 
 }  // extern "C"

@@ -163,13 +163,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.banded_matmul_tile_rows.argtypes = []
         lib.banded_matmul_tile_rows.restype = i
     elif name == "fv_moments":
-        lib.fv_moments_f32.argtypes = [p, ll, p, p, p, p, p, i, i, i, i, i,
-                                       i, f, p]
+        lib.fv_moments_f32.argtypes = [p, ll, p, p, p, p, p, i, i, i, f, p]
         lib.fv_moments_f32.restype = i
-        lib.fv_moments_smem_bytes.argtypes = [i, i, i, i]
-        lib.fv_moments_smem_bytes.restype = ll
-        lib.fv_moments_block_threads.argtypes = []
-        lib.fv_moments_block_threads.restype = i
+        lib.fv_moments_scratch_floats.argtypes = [i, i, i]
+        lib.fv_moments_scratch_floats.restype = ll
 
 
 # -- fused CIFAR featurization ---------------------------------------------
@@ -451,10 +448,6 @@ def quantized_affine(X, Wq, scale, mean, inv_std, b):
 
 # -- banded matrix product (dense SIFT) --------------------------------------
 
-#: rows per tile of the banded kernel's live map (``csrc/banded_matmul.cu``:
-#: TM)
-BAND_TILE_ROWS = 32
-
 #: (id(band), device) -> (band, its float32 device copy, klo, khi), the
 #: least recently used entry dropped beyond _BANDS_KEPT (SIFT makes 20
 #: bands an image size). The entry holds the host band itself, so its id
@@ -463,7 +456,13 @@ _BANDS: "OrderedDict[Tuple[int, str], tuple]" = OrderedDict()
 _BANDS_KEPT = 256
 
 
-def band_live_map(band: np.ndarray, tile_rows: int = BAND_TILE_ROWS):
+def band_tile_rows() -> int:
+    """Rows per tile of the banded kernel's live map, as the built library
+    reports it."""
+    return _library("banded_matmul").banded_matmul_tile_rows()
+
+
+def band_live_map(band: np.ndarray, tile_rows: int):
     """The banded kernel's live map of a host band matrix (m, l): for each
     ``tile_rows``-row tile, the first and one past the last column holding
     a nonzero in any of the tile's rows, as two int32 arrays ``(klo,
@@ -494,12 +493,8 @@ def _band_on(band: np.ndarray, device: torch.device, live_map: bool):
                                 device=device)
         klo = khi = None
         if live_map:
-            if _library("banded_matmul").banded_matmul_tile_rows() != \
-                    BAND_TILE_ROWS:
-                raise RuntimeError("banded_matmul: the library's tile "
-                                   f"height is not {BAND_TILE_ROWS}")
             klo, khi = (torch.as_tensor(v, device=device)
-                        for v in band_live_map(band))
+                        for v in band_live_map(band, band_tile_rows()))
         hit = (band, dense, klo, khi)
         _BANDS[key] = hit
         if len(_BANDS) > _BANDS_KEPT:
@@ -562,10 +557,6 @@ def banded_matmul(band: np.ndarray, X: torch.Tensor) -> torch.Tensor:
 
 # -- fused GMM posteriors + Fisher-vector moments ---------------------------
 
-#: shared memory a block may use on Hopper (227 KB)
-_SMEM_LIMIT = 232448
-
-
 def _fv_operands(X, means, variances, weights):
     if X.dim() != 2 or means.dim() != 2 or means.shape != variances.shape \
             or means.shape[0] != X.shape[0] or weights.dim() != 1 \
@@ -585,24 +576,6 @@ def fv_moments_plain(X, means, variances, weights, threshold):
     _fv_operands(X, means, variances, weights)
     q = _posteriors(X.T, means.T, variances.T, weights, threshold)
     return q.sum(dim=0), X @ q, (X * X) @ q
-
-
-def fv_plan(D: int, K: int) -> Tuple[int, int, int]:
-    """``(T, splits, smem bytes)`` of the FV kernel: tile width T (32 where
-    32 rows of the (T, K) llh tile fit, else 1) and the fewest row splits
-    of D whose accumulators fit the 227 KB a block may use. Raises where
-    even one accumulated row does not fit."""
-    for T in (32, 1):
-        budget = _SMEM_LIMIT // 4 - (2 * D * T + T * K + K)
-        if D == 0 and budget >= 0:
-            return T, 1, 4 * (T * K + K)
-        rows = min(D, budget // (2 * K)) if budget > 0 else 0
-        if rows >= 1:
-            splits = -(-D // rows)
-            dr = -(-D // splits)
-            return T, splits, 4 * (2 * D * T + T * K + 2 * dr * K + K)
-    raise ValueError(f"fv_moments: D={D}, K={K} does not fit one block's "
-                     "shared memory")
 
 
 def fv_moments(X, means, variances, weights, threshold):
@@ -633,28 +606,25 @@ def fv_moments(X, means, variances, weights, threshold):
                   out[K + D * K:].view(D, K))
     if n == 0 or K == 0:
         return s0, s1, s2
-    T, splits, smem = fv_plan(D, K)
     lib = _library("fv_moments")
-    if lib.fv_moments_smem_bytes(T, D, K, -(-D // splits)) != smem:
-        raise RuntimeError("fv_moments: the library's shared-memory plan "
-                           "differs from the wrapper's")
-    # blocks an SM: by shared memory, and by the SM's 2048 threads
-    per_sm = max(1, min(2048 // lib.fv_moments_block_threads(),
-                        _SMEM_LIMIT // smem))
-    blocks = min(-(-n // T), _sm_count(X.device) * per_sm)
     A = (0.5 / variances).contiguous()
     B = (means / variances).contiguous()
     c = (-0.5 * D * math.log(2.0 * math.pi)
          - 0.5 * torch.log(variances).sum(dim=0) + torch.log(weights)
          - 0.5 * (means * means / variances).sum(dim=0)).contiguous()
-    partial = (torch.empty((blocks, out.numel()), dtype=torch.float32,
-                           device=X.device) if blocks > 1 else None)
     ldx = X.stride(0) if D > 1 else n
     with torch.cuda.device(X.device):
+        # the library plans the launch; the wrapper allocates its scratch
+        scratch = lib.fv_moments_scratch_floats(D, n, K)
+        if scratch < 0:
+            raise ValueError(f"fv_moments: D={D}, K={K} does not fit one "
+                             "block's shared memory")
+        partial = (torch.empty(scratch, dtype=torch.float32, device=X.device)
+                   if scratch else None)
         rc = lib.fv_moments_f32(
             X.data_ptr(), ldx, A.data_ptr(), B.data_ptr(), c.data_ptr(),
             out.data_ptr(), None if partial is None else partial.data_ptr(),
-            D, n, K, T, splits, blocks, float(threshold),
+            D, n, K, float(threshold),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fv_moments: CUDA error {rc} at launch")

@@ -267,16 +267,17 @@ def as_dataset(data: Any, device=DEFAULT_DEVICE) -> Dataset:
 
 def ensure_array(ds: Any, device=None) -> ArrayDataset:
     """Promote a host dataset of fixed-shape items (or a raw array) to an
-    ArrayDataset; no-op for one already. With no ``device``, a host
-    dataset of tensors stays on its items' device, anything else goes to
-    the default device."""
-    if device is None:
-        first = (tree_leaves(ds.items[0])[0]
-                 if isinstance(ds, HostDataset) and ds.items else None)
-        device = (first.device if isinstance(first, torch.Tensor)
-                  else DEFAULT_DEVICE)
+    ArrayDataset; no-op for one already. With no ``device``, tensors
+    stay where they lie (a raw tensor, or a host dataset's tensor items);
+    host arrays, which lie on no device, go to the default device."""
     if isinstance(ds, ArrayDataset):
         return ds
+    if device is None:
+        first = ds
+        if isinstance(ds, HostDataset):
+            first = tree_leaves(ds.items[0])[0] if ds.items else None
+        device = (first.device if isinstance(first, torch.Tensor)
+                  else DEFAULT_DEVICE)
     if isinstance(ds, (np.ndarray, torch.Tensor)):
         return ArrayDataset.from_numpy(ds, device)
     if is_streaming(ds):

@@ -52,9 +52,6 @@ from ....workflow.common import Cacher
 
 @dataclass
 class SIFTFisherConfig:
-    train_location: str = ""
-    test_location: str = ""
-    label_path: str = ""
     lam: float = 0.5
     desc_dim: int = 80
     vocab_size: int = 256

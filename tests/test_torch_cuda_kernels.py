@@ -360,3 +360,6 @@ def test_cuda_fv_moments_strided_and_empty(cuda):
     with pytest.raises(ValueError, match="unit column stride"):
         kernels.fv_moments(X.T.contiguous().T, means, variances, weights,
                            1e-4)
+    # K so wide that one accumulated row does not fit a block
+    with pytest.raises(ValueError, match="does not fit"):
+        kernels.fv_moments(*_fv_inputs(2, 30000, 4, cuda), 1e-4)

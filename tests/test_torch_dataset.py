@@ -89,6 +89,29 @@ def test_host_dataset_and_coercions():
         tds.to_numpy(torch.arange(3)), np.arange(3))
 
 
+@pytest.mark.parametrize("form", ["tensor", "host_tensors"])
+def test_ensure_array_keeps_tensors_where_they_lie(form):
+    """With no device, a CPU tensor (raw, or as a host dataset's items)
+    stays on the CPU."""
+    x = torch.as_tensor(_rows(4))
+    ds = x if form == "tensor" else tds.HostDataset(list(x))
+    got = tds.ensure_array(ds)
+    assert got.device.type == "cpu" and got.n == 4
+    np.testing.assert_array_equal(got.numpy(), x.numpy())
+
+
+def test_ensure_array_stages_host_arrays_on_the_default_device():
+    """A numpy array lies on no device: with no device it goes to the
+    default one, which raises where no card is present."""
+    x = _rows(4)
+    if torch.cuda.is_available():
+        assert tds.ensure_array(x).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tds.ensure_array(x)
+    assert tds.ensure_array(x, "cpu").device.type == "cpu"
+
+
 def test_mean_over_true_n_matches_reference(mesh8):
     """Means divide by the true n, not the padded row count."""
     from keystone_tpu.ops.linalg import distributed_mean as jmean

@@ -98,8 +98,8 @@ def test_live_map_covers_every_nonzero_once():
         band[j, max(0, c - 30):c + 31] = 1.0
     band[250:260, :] = 0.0
     band[448:480, :] = 0.0  # one whole 32-row tile
-    klo, khi = kernels.band_live_map(band)
-    tr = kernels.BAND_TILE_ROWS
+    tr = 32  # csrc/banded_matmul.cu: TM
+    klo, khi = kernels.band_live_map(band, tr)
     assert len(klo) == len(khi) == 512 // tr
     for i in range(len(klo)):
         rows = band[i * tr:(i + 1) * tr]
@@ -121,7 +121,7 @@ def test_live_map_is_narrow_at_voc_size():
         for scale in (0, 4):
             step, b, lo = sift._scale_params(scale, 4, 6, 5, 0)
             T, _ = sift._sampling_operator_interleaved(length, lo, step, b)
-            klo, khi = kernels.band_live_map(T)
+            klo, khi = kernels.band_live_map(T, 32)
             assert (khi - klo).max() <= 128, (length, scale, khi - klo)
 
 
