@@ -4,8 +4,8 @@ Counterpart of the SIFT extractors of
 ``keystone_tpu/nodes/images/extractors.py`` (reference
 ``nodes/images/external/SIFTExtractor.scala``): a per-image (128,
 numDesc) float matrix, the reference's column-per-descriptor layout. On
-a CUDA image every band product runs in the banded kernel
-(``ops.kernels.banded_matmul``, 4 launches a scale). ``LCSExtractor``
+a CUDA image every band contraction runs in the banded kernel
+(``ops.kernels.banded_matmul``, 2 launches a scale). ``LCSExtractor``
 is not ported yet.
 """
 from __future__ import annotations

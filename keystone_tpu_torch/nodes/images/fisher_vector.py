@@ -15,13 +15,17 @@ the Sanchez et al. survey:
 
 The moment sums go through ``ops.kernels.fv_moments``: on a CUDA matrix
 the kernel, which never writes q to device memory; on a CPU matrix its
-plain version, the posterior form.
+plain version, the posterior form. The kernel's GMM terms
+(``ops.kernels.fv_terms``) are computed once per fitted model and device,
+with the GMM's tensors, by ``FisherVector.apply_params``.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from ...ops.kernels import fv_moments
+from ...ops.kernels import fv_moments, fv_terms
 from ...parallel.dataset import Dataset
 from ...workflow.estimator import Estimator
 from ...workflow.optimizable import OptimizableEstimator
@@ -35,8 +39,9 @@ def _fisher_vector(X, means, variances, weights, weight_threshold,
     """X is (D, nDesc); means/variances (D, K); weights (K,). Returns the
     (D, 2K) Fisher vector. ``moments`` computes the raw posterior moment
     sums ``(sum q, X q, (X*X) q)``: the kernel's wrapper (its plain
-    version on a CPU matrix), or ``ops.kernels.fv_moments_plain`` to run
-    the posterior form on any device."""
+    version on a CPU matrix), with the GMM's ``fv_terms`` bound or not,
+    or ``ops.kernels.fv_moments_plain`` to run the posterior form on any
+    device."""
     n_desc = X.shape[1]
     q_sum, s1_sum, s2_sum = moments(X, means, variances, weights,
                                     weight_threshold)
@@ -60,12 +65,19 @@ class FisherVector(Transformer):
         self.weight_threshold = gmm.weight_threshold
 
     def apply_params(self, device):
-        return self.gmm.apply_params(device)
+        """(means, variances, weights, their ``fv_terms``) on ``device``,
+        the terms computed once per device."""
+        def build(d):
+            params = self.gmm.apply_params(d)
+            return (*params, fv_terms(*params))
+
+        return self._params_on(device, build)
 
     def apply_with_params(self, params, x):
-        means, variances, weights = params
+        means, variances, weights, terms = params
         return _fisher_vector(x.to(torch.float32), means, variances, weights,
-                              self.weight_threshold)
+                              self.weight_threshold,
+                              functools.partial(fv_moments, terms=terms))
 
     def apply(self, x):
         return self.apply_with_params(self.apply_params(x.device), x)

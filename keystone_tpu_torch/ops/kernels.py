@@ -32,6 +32,7 @@ Kernels (Pallas TPU kernel replaced -> file here):
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import math
@@ -41,7 +42,7 @@ import subprocess
 import tempfile
 from collections import OrderedDict
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -162,8 +163,14 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.banded_matmul_f32.restype = i
         lib.banded_matmul_tile_rows.argtypes = []
         lib.banded_matmul_tile_rows.restype = i
+        lib.banded_matmul_group_rows.argtypes = []
+        lib.banded_matmul_group_rows.restype = i
+        lib.banded2_matmul_f32.argtypes = [p, p, p, p, ll, ll, p, i, i, i,
+                                           i, i, i, i, p]
+        lib.banded2_matmul_f32.restype = i
     elif name == "fv_moments":
-        lib.fv_moments_f32.argtypes = [p, ll, p, p, p, p, p, i, i, i, f, p]
+        lib.fv_moments_f32.argtypes = [p, ll, p, p, p, p, p, p, i, i, i, f,
+                                       p]
         lib.fv_moments_f32.restype = i
         lib.fv_moments_scratch_floats.argtypes = [i, i, i]
         lib.fv_moments_scratch_floats.restype = ll
@@ -446,28 +453,48 @@ def quantized_affine(X, Wq, scale, mean, inv_std, b):
     return out
 
 
-# -- banded matrix product (dense SIFT) --------------------------------------
+# -- banded matrix products (dense SIFT) -------------------------------------
 
-#: (id(band), device) -> (band, its float32 device copy, klo, khi), the
-#: least recently used entry dropped beyond _BANDS_KEPT (SIFT makes 20
-#: bands an image size). The entry holds the host band itself, so its id
-#: cannot be reused by another array while the entry lives.
-_BANDS: "OrderedDict[Tuple[int, str], tuple]" = OrderedDict()
+#: (id(band), id(right), device) -> _BandPair, the least recently used
+#: entry dropped beyond _BANDS_KEPT (SIFT makes 10 band pairs an image
+#: size). The entry holds the host arrays themselves, so their ids cannot
+#: be reused by other arrays while the entry lives.
+_BANDS: "OrderedDict[Tuple[int, int, str], _BandPair]" = OrderedDict()
 _BANDS_KEPT = 256
 
 
+class _BandPair(NamedTuple):
+    band: np.ndarray
+    right: Optional[np.ndarray]
+    dense: torch.Tensor                 # band, float32 on the device
+    rdense: Optional[torch.Tensor]      # right, float32 on the device
+    maps: Optional[torch.Tensor]        # int32 live maps, see banded_matmul
+    KL: int                             # widest live range of band
+    KR: int                             # widest live range of right
+    ptrs: Tuple[int, int, int]          # launch arguments: dense, rdense,
+                                        # maps device pointers (0: none)
+
+
 def band_tile_rows() -> int:
-    """Rows per tile of the banded kernel's live map, as the built library
-    reports it."""
+    """Rows per tile of the banded kernels' live maps, as the built
+    library reports it."""
     return _library("banded_matmul").banded_matmul_tile_rows()
 
 
+def band_group_rows() -> int:
+    """Rows of a band a warp of the two-sided kernel sums over one live
+    range (the rows per entry of its group maps), as the built library
+    reports it."""
+    return _library("banded_matmul").banded_matmul_group_rows()
+
+
 def band_live_map(band: np.ndarray, tile_rows: int):
-    """The banded kernel's live map of a host band matrix (m, l): for each
+    """The banded kernels' live map of a host band matrix (m, l): for each
     ``tile_rows``-row tile, the first and one past the last column holding
     a nonzero in any of the tile's rows, as two int32 arrays ``(klo,
     khi)``. A tile with no nonzero gets the empty range (0, 0). Each tile
-    visits one contiguous column range, so no column is visited twice."""
+    visits one contiguous column range, so no column is visited twice. The
+    two-sided product takes the same map of both of its bands."""
     band = np.asarray(band)
     m = band.shape[0]
     tiles = -(-m // tile_rows)
@@ -481,81 +508,157 @@ def band_live_map(band: np.ndarray, tile_rows: int):
     return klo, khi
 
 
-def _band_on(band: np.ndarray, device: torch.device, live_map: bool):
-    """The band's float32 copy on ``device`` (and, for the kernel, its
-    live map there), cached per (band id, device)."""
-    key = (id(band), str(device))
+def _band_pair_on(band: np.ndarray, right: Optional[np.ndarray],
+                  device: torch.device, live_map: bool) -> _BandPair:
+    """The pair's float32 copies on ``device`` (and, for the kernels, the
+    live maps of both bands there and their widest ranges), cached per
+    (band id, right id, device)."""
+    key = (id(band), id(right), str(device))
     hit = _BANDS.get(key)
     if hit is not None:
         _BANDS.move_to_end(key)
-    if hit is None or (live_map and hit[2] is None):
-        dense = torch.as_tensor(np.ascontiguousarray(band, np.float32),
-                                device=device)
-        klo = khi = None
+    if hit is None or (live_map and hit.maps is None):
+        def on(a):
+            return torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                                   device=device)
+
+        maps, widths = None, [0, 0]
         if live_map:
-            klo, khi = (torch.as_tensor(v, device=device)
-                        for v in band_live_map(band, band_tile_rows()))
-        hit = (band, dense, klo, khi)
+            parts = []
+            sides = [a for a in (band, right) if a is not None]
+            for side, a in enumerate(sides):
+                lo, hi = band_live_map(a, band_tile_rows())
+                parts += [lo, hi]
+                widths[side] = int((hi - lo).max(initial=0))
+            if right is not None:
+                parts += [v for a in sides
+                          for v in band_live_map(a, band_group_rows())]
+            maps = torch.as_tensor(np.concatenate(parts), device=device)
+        dense = on(band)
+        rdense = None if right is None else on(right)
+        ptrs = tuple(0 if t is None else t.data_ptr()
+                     for t in (dense, rdense, maps))
+        hit = _BandPair(band, right, dense, rdense, maps, *widths, ptrs)
         _BANDS[key] = hit
         if len(_BANDS) > _BANDS_KEPT:
             _BANDS.popitem(last=False)
-    return hit[1], hit[2], hit[3]
+    return hit
 
 
-def _band_operands(band, X):
-    if not isinstance(band, np.ndarray) or band.ndim != 2:
-        raise ValueError("banded_matmul: the band must be a 2-D host numpy "
-                         "array")
-    if X.dim() != 2 or X.shape[0] != band.shape[1]:
-        raise ValueError(f"banded_matmul: band {band.shape} and X "
-                         f"{tuple(X.shape)} are not (m, l) and (l, n)")
+def _band_operands(band, X, right):
+    for name, a in (("band", band), ("right", right)):
+        if (a is not None or name == "band") and not (
+                isinstance(a, np.ndarray) and a.ndim == 2):
+            raise ValueError(f"banded_matmul: the {name} must be a 2-D host "
+                             "numpy array")
+    if right is None:
+        if X.dim() != 2 or X.shape[0] != band.shape[1]:
+            raise ValueError(f"banded_matmul: band {band.shape} and X "
+                             f"{tuple(X.shape)} are not (m, l) and (l, n)")
+    elif X.dim() not in (2, 3) or X.shape[-2] != band.shape[1] \
+            or X.shape[-1] != right.shape[1]:
+        raise ValueError(f"banded_matmul: band {band.shape}, X "
+                         f"{tuple(X.shape)} and right {right.shape} are not "
+                         "(m, l), ([C,] l, w) and (r, w)")
 
 
-def banded_matmul_plain(band: np.ndarray, X: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version of the banded kernel: the dense product
-    ``band @ X`` in float32."""
-    _band_operands(band, X)
-    dense, _, _ = _band_on(band, X.device, live_map=False)
-    return dense @ X.to(torch.float32)
+def banded_matmul_plain(band: np.ndarray, X: torch.Tensor,
+                        right: Optional[np.ndarray] = None) -> torch.Tensor:
+    """The plain PyTorch version of the banded kernels: the dense products
+    ``band @ X`` and, with ``right``, ``band @ X @ right.T``, in float32."""
+    _band_operands(band, X, right)
+    pair = _band_pair_on(band, right, X.device, live_map=False)
+    out = pair.dense @ X.to(torch.float32)
+    return out if right is None else out @ pair.rdense.T
 
 
-def banded_matmul(band: np.ndarray, X: torch.Tensor) -> torch.Tensor:
-    """``band @ X`` for a host numpy band matrix (m, l) and X (l, n):
-    the CUDA kernel for a CUDA X, visiting only each 32-row tile's live
-    column range, the plain version for a CPU X. The band's device copy
-    and live map are cached per (band id, device). X must be float32 with
-    unit column stride (a row slice is taken; a transposed view is not:
-    make it contiguous first). The output is a contiguous float32 (m, n)
-    tensor. Every shape is taken."""
-    _band_operands(band, X)
+def banded_matmul(band: np.ndarray, X: torch.Tensor,
+                  right: Optional[np.ndarray] = None) -> torch.Tensor:
+    """``band @ X`` for a host numpy band matrix (m, l) and X (l, n); with
+    a host band ``right`` (r, w) and X (l, w) or (C, l, w), ``band @ X[c]
+    @ right.T`` for every channel, shape (m, r) or (C, m, r), in one
+    launch. The CUDA kernels for a CUDA X, visiting only the live column
+    ranges of each 32-row tile of both bands; the plain version for a CPU
+    X. The bands' device copies and live maps are cached per (band id,
+    right id, device). X must be float32 with unit column stride (row and
+    channel strides are taken; a transposed view is not). The output is a
+    contiguous float32 tensor. Every shape is taken."""
+    _band_operands(band, X, right)
     if X.device.type == "cpu":
-        return banded_matmul_plain(band, X)
+        return banded_matmul_plain(band, X, right)
     if X.device.type != "cuda":
         raise ValueError(f"banded_matmul: unsupported device {X.device}")
-    m, l = band.shape
-    n = X.shape[1]
-    if X.dtype != torch.float32 or (X.numel() and X.stride(1) != 1
-                                    and n > 1):
+    if X.dtype != torch.float32 or (X.numel() and X.stride(-1) != 1
+                                    and X.shape[-1] > 1):
         raise ValueError("banded_matmul: X must be float32 rows with unit "
                          "column stride")
-    out = torch.empty((m, n), dtype=torch.float32, device=X.device)
-    if m == 0 or n == 0:
+    m, l = band.shape
+    w = X.shape[-1]
+    r = w if right is None else right.shape[0]
+    out = torch.empty((*X.shape[:-2], m, r), dtype=torch.float32,
+                      device=X.device)
+    if out.numel() == 0:
         return out
     lib = _library("banded_matmul")
-    dense, klo, khi = _band_on(band, X.device, live_map=True)
-    ldx = X.stride(0) if l > 1 else n
-    with torch.cuda.device(X.device):
-        rc = lib.banded_matmul_f32(
-            dense.data_ptr(), klo.data_ptr(), khi.data_ptr(), X.data_ptr(),
-            ldx, out.data_ptr(), m, l, n,
-            torch.cuda.current_stream().cuda_stream)
+    pair = _band_pair_on(band, right, X.device, live_map=True)
+    sl = X.stride(-2) if l > 1 else w
+    dense, rdense, maps = pair.ptrs
+    with _on_device(X.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if right is None:
+            tiles = pair.maps.shape[0] // 2
+            rc = lib.banded_matmul_f32(
+                dense, maps, maps + 4 * tiles, X.data_ptr(), sl,
+                out.data_ptr(), m, l, w, stream)
+        else:
+            C = X.shape[0] if X.dim() == 3 else 1
+            sc = X.stride(0) if C > 1 else l * w
+            rc = lib.banded2_matmul_f32(
+                dense, rdense, maps, X.data_ptr(), sc, sl, out.data_ptr(), C,
+                m, l, r, w, pair.KL, pair.KR, stream)
     if rc != 0:
         raise RuntimeError(f"banded_matmul: CUDA error {rc} at launch")
     LAUNCHES["banded_matmul"] += 1
     return out
 
 
+def _on_device(device: torch.device):
+    """``torch.cuda.device(device)`` where it is not the current device
+    already, else a no-op context (the common case costs no switch)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 # -- fused GMM posteriors + Fisher-vector moments ---------------------------
+
+class FVTerms(NamedTuple):
+    """The fitted-GMM terms the FV kernel reads: a per-row center g (D,),
+    A = 0.5 / var and B = (means - g) / var (D, K), and the per-component
+    constants c (K,) of the centered means, so that the log-likelihood of
+    a descriptor x is ``c + (x - g) . B - (x - g)^2 . A``."""
+    center: torch.Tensor
+    A: torch.Tensor
+    B: torch.Tensor
+    c: torch.Tensor
+
+
+def fv_terms(means, variances, weights) -> FVTerms:
+    """The kernel's terms of a diagonal GMM (means and variances (D, K),
+    weights (K,)), on their device: computed once per fitted model and
+    device (``FisherVector.apply_params``). The center g is the mean of
+    the component means, which shrinks the terms the llh product adds and
+    cancels (a column of PCA'd SIFT runs to the hundreds); the llh is the
+    same function of x as ``nodes.learning.gmm._llh``."""
+    D = means.shape[0]
+    center = means.mean(dim=1)
+    mc = means - center[:, None]
+    c = (-0.5 * D * math.log(2.0 * math.pi)
+         - 0.5 * torch.log(variances).sum(dim=0) + torch.log(weights)
+         - 0.5 * (mc * mc / variances).sum(dim=0))
+    return FVTerms(*(t.contiguous() for t in (
+        center, 0.5 / variances, mc / variances, c)))
+
 
 def _fv_operands(X, means, variances, weights):
     if X.dim() != 2 or means.dim() != 2 or means.shape != variances.shape \
@@ -578,13 +681,15 @@ def fv_moments_plain(X, means, variances, weights, threshold):
     return q.sum(dim=0), X @ q, (X * X) @ q
 
 
-def fv_moments(X, means, variances, weights, threshold):
+def fv_moments(X, means, variances, weights, threshold, terms=None):
     """Moment SUMS ``(s0, s1, s2)`` = ``(sum q, X q, (X * X) q)`` of the
     thresholded GMM posteriors q of the descriptor columns of X (D, n),
     for means and variances (D, K) and weights (K,): the CUDA kernel for
-    a CUDA X (the (n, K) posteriors never reach device memory), the plain
-    version for a CPU X. The caller divides by n. X must be float32 with
-    unit column stride; the GMM tensors float32 on X's device."""
+    a CUDA X (the (n, K) posteriors never reach device memory; one launch
+    and its block-order reduce), the plain version for a CPU X. The
+    caller divides by n. ``terms`` is :func:`fv_terms` of the GMM,
+    computed here when not given. X must be float32 with unit column
+    stride; the GMM tensors float32 on X's device."""
     _fv_operands(X, means, variances, weights)
     if X.device.type == "cpu":
         return fv_moments_plain(X, means, variances, weights, threshold)
@@ -601,30 +706,33 @@ def fv_moments(X, means, variances, weights, threshold):
         if t.dtype != torch.float32 or t.device != X.device:
             raise ValueError(f"fv_moments: {name} must be float32 on X's "
                              "device")
-    out = torch.zeros(K + 2 * D * K, dtype=torch.float32, device=X.device)
+    empty = n == 0 or K == 0 or D == 0
+    out = (torch.zeros if empty else torch.empty)(
+        K + 2 * D * K, dtype=torch.float32, device=X.device)
     s0, s1, s2 = (out[:K], out[K:K + D * K].view(D, K),
                   out[K + D * K:].view(D, K))
-    if n == 0 or K == 0:
+    if empty:
         return s0, s1, s2
     lib = _library("fv_moments")
-    A = (0.5 / variances).contiguous()
-    B = (means / variances).contiguous()
-    c = (-0.5 * D * math.log(2.0 * math.pi)
-         - 0.5 * torch.log(variances).sum(dim=0) + torch.log(weights)
-         - 0.5 * (means * means / variances).sum(dim=0)).contiguous()
+    if terms is None:
+        terms = fv_terms(means, variances, weights)
+    elif terms.A.shape != means.shape or any(
+            t.device != X.device or t.dtype != torch.float32
+            or not t.is_contiguous() for t in terms):
+        raise ValueError("fv_moments: terms must be fv_terms of the GMM, "
+                         "contiguous float32 on X's device")
     ldx = X.stride(0) if D > 1 else n
-    with torch.cuda.device(X.device):
+    with _on_device(X.device):
         # the library plans the launch; the wrapper allocates its scratch
         scratch = lib.fv_moments_scratch_floats(D, n, K)
         if scratch < 0:
             raise ValueError(f"fv_moments: D={D}, K={K} does not fit one "
                              "block's shared memory")
-        partial = (torch.empty(scratch, dtype=torch.float32, device=X.device)
-                   if scratch else None)
+        partial = torch.empty(scratch, dtype=torch.float32, device=X.device)
         rc = lib.fv_moments_f32(
-            X.data_ptr(), ldx, A.data_ptr(), B.data_ptr(), c.data_ptr(),
-            out.data_ptr(), None if partial is None else partial.data_ptr(),
-            D, n, K, float(threshold),
+            X.data_ptr(), ldx, terms.center.data_ptr(), terms.A.data_ptr(),
+            terms.B.data_ptr(), terms.c.data_ptr(), out.data_ptr(),
+            partial.data_ptr(), D, n, K, float(threshold),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fv_moments: CUDA error {rc} at launch")

@@ -10,11 +10,12 @@ contrast threshold, quantize to min(512 v, 255). Descriptors of all
 scales are concatenated scale-major as a (128, numDesc) matrix.
 
 The smoothing and the binning + sampling are band matrices built on the
-host (numpy, ``lru_cache``d per shape). On a CUDA image every band
-product goes through ``ops.kernels.banded_matmul`` (the CUDA kernel,
-four launches a scale); on a CPU image the einsum form runs, the plain
-path, as the JAX package runs it off the TPU. The band operators and
-their keypoint-major interleaving are copied from the JAX package.
+host (numpy, ``lru_cache``d per shape). On a CUDA image both band
+contractions of a scale go through ``ops.kernels.banded_matmul`` (the
+two-sided CUDA kernel, two launches a scale); on a CPU image the einsum
+form runs, the plain path, as the JAX package runs it off the TPU. The
+band operators and their keypoint-major interleaving are copied from
+the JAX package.
 """
 from __future__ import annotations
 
@@ -172,21 +173,16 @@ def _dsift_one_scale_einsum(img, height, width, step, bin_size, lo):
 
 
 def _dsift_one_scale_banded(img, height, width, step, bin_size, lo):
-    """Dense SIFT at one scale through the banded kernel: the same three
-    band contractions (smooth rows, smooth columns, bin + sample both
-    axes) as four ``banded_matmul`` launches. The kernel reads X with
-    unit column stride, so the second smoothing product takes ``z.T``
-    made contiguous (one (W, H) copy), and the smoothed image is made
-    contiguous again before the gradients (a transposed layout would
-    carry through the orientation maps into a strided ``x1``). The
-    sampling operators use the keypoint-major row order; the final
-    reshape and transpose restore the bin-major (o, by, iy, bx, ix)
-    layout the normalizer reads, as the JAX package's
-    ``_dsift_one_scale_banded`` does."""
-    Gy = _smooth_band(height, bin_size)
-    Gx = _smooth_band(width, bin_size)
-    z = banded_matmul(Gy, img)
-    smoothed = banded_matmul(Gx, z.T.contiguous()).T.contiguous()
+    """Dense SIFT at one scale through the banded kernel: the same two
+    two-sided band contractions as the einsum form (smooth both axes, then
+    bin + sample both axes of the 8 orientation maps), each one
+    ``banded_matmul(left, X, right=...)`` launch whose intermediate stays
+    in shared memory. The sampling operators use the
+    keypoint-major row order; the final reshape and permute (a view)
+    restore the bin-major (o, by, iy, bx, ix) layout the normalizer reads,
+    as the JAX package's ``_dsift_one_scale_banded`` does."""
+    smoothed = banded_matmul(_smooth_band(height, bin_size), img,
+                             right=_smooth_band(width, bin_size))
     omaps = _orientation_maps(smoothed)            # (8, H, W)
 
     Ty, ny = _sampling_operator_interleaved(height, lo, step, bin_size)
@@ -194,15 +190,7 @@ def _dsift_one_scale_banded(img, height, width, step, bin_size, lo):
     if ny == 0 or nx == 0:
         return torch.zeros((DIMS, 0), dtype=smoothed.dtype,
                            device=img.device)
-    py, px = NBP * ny, NBP * nx
-    # contract over h: (py, H) @ (H, 8W), o rides the column axis
-    x1 = omaps.permute(1, 0, 2).reshape(height, NBO * width)
-    z1 = banded_matmul(Ty, x1)
-    # contract over w: (px, W) @ (W, 8*py)
-    x2 = z1.reshape(py, NBO, width).permute(2, 1, 0).reshape(
-        width, NBO * py)
-    z2 = banded_matmul(Tx, x2)
-    bins = z2.reshape(px, NBO, py).permute(1, 2, 0)  # (o, py, px)
+    bins = banded_matmul(Ty, omaps, right=Tx)      # (8, NBP*ny, NBP*nx)
     # keypoint-major rows (i*NBP + b) -> the (o, by, iy, bx, ix) layout
     b5 = bins.reshape(NBO, ny, NBP, nx, NBP).permute(0, 2, 1, 4, 3)
     return _normalize_quantize_binned(b5)
@@ -251,7 +239,7 @@ def dense_sift(img_gray: torch.Tensor, step: int = 4, bin_size: int = 6,
                num_scales: int = 5, scale_step: int = 0) -> torch.Tensor:
     """Multi-scale dense SIFT of a grayscale (H, W) image in [0, 1].
     Returns (128, numDesc) float32, scales concatenated in order. A CUDA
-    image goes through the banded kernel (4 launches a scale, at every
+    image goes through the banded kernel (2 launches a scale, at every
     image size); a CPU image through the einsum form, the plain path."""
     if img_gray.device.type == "cpu":
         return dense_sift_plain(img_gray, step, bin_size, num_scales,

@@ -7,9 +7,10 @@ Fisher vector] -> FloatToDouble -> MatrixVectorizer -> NormalizeRows ->
 SignedHellinger -> NormalizeRows -> BlockLeastSquares(4096, 1, lambda) ->
 mean average precision over the 20 VOC classes.
 
-On the card every SIFT band product runs in ``banded_matmul`` (20
+On the card every SIFT band contraction runs in ``banded_matmul`` (10
 launches an image at 5 scales) and every Fisher vector in
-``fv_moments`` (one launch an image). The tar loader, and so ``main``,
+``fv_moments`` (one launch an image, with the GMM's kernel terms cached
+per device). The tar loader, and so ``main``,
 waits for the port's image decoding: ``run`` takes the images as
 HostDatasets of ``MultiLabeledImage``.
 """

@@ -11,10 +11,12 @@ features reach ~1e4, so the featurize bar is rtol 1e-5 with atol 1e-5 of
 the largest feature. The Gram kernel is held to the JAX package's bar for
 its Gram kernel, 2e-4 of the largest entry. The quantized affine kernel and
 its plain version apply the same dequantized weights in float32, so the
-bar is 1e-5 of the largest output. The banded product sums the same
-band entries in another order than the dense plain product: 1e-5 of the
-largest output. The FV moments' plain version writes the posteriors out
-and takes its exponentials in another order: 1e-4 of the largest sum.
+bar is 1e-5 of the largest output. The banded products (one-sided and
+two-sided) sum the same band entries in another order than the dense
+plain products: 1e-5 of the largest output. The FV moments' plain
+version writes the posteriors out and takes its exponentials in another
+order, and the kernel's products run in 3xTF32 on centered terms: 1e-4
+of the largest sum.
 """
 import numpy as np
 import pytest
@@ -295,15 +297,68 @@ def test_cuda_banded_matmul_strided_rows_zero_sizes_and_refusals(cuda):
         kernels.banded_matmul(band, X[:100])
 
 
+def _sift_pair(h, w, scale, which):
+    step, b, lo = sift._scale_params(scale, 4, 6, 5, 0)
+    if which == "smooth":
+        return sift._smooth_band(h, b), sift._smooth_band(w, b)
+    return (sift._sampling_operator_interleaved(h, lo, step, b)[0],
+            sift._sampling_operator_interleaved(w, lo, step, b)[0])
+
+
+@pytest.mark.parametrize("C", [1, 8])
+@pytest.mark.parametrize("which", ["smooth", "sample"])
+@pytest.mark.parametrize("scale", [0, 4])
+@pytest.mark.parametrize("h,w", [(375, 500), (500, 375)])
+def test_cuda_banded_two_sided_matches_plain_at_sift_pairs(cuda, h, w,
+                                                           scale, which, C):
+    left, right = _sift_pair(h, w, scale, which)
+    rng = np.random.RandomState(h + scale + C)
+    X = torch.as_tensor(rng.rand(C, h, w).astype(np.float32), device=cuda)
+    before = kernels.LAUNCHES["banded_matmul"]
+    got = kernels.banded_matmul(left, X, right=right)
+    want = kernels.banded_matmul_plain(left, X, right=right)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["banded_matmul"] == before + 1
+    assert got.shape == (C, left.shape[0], right.shape[0])
+    assert got.is_contiguous()
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()), err
+    # one sequential sum per value: the same inputs give the same bits
+    assert torch.equal(got, kernels.banded_matmul(left, X, right=right))
+
+
+@pytest.mark.parametrize("m,l,r,w,C", [(45, 61, 38, 47, 1), (33, 40, 70, 29, 8),
+                                       (1, 5, 3, 2, 3), (97, 97, 65, 130, 2)])
+def test_cuda_banded_two_sided_ragged_strided_and_zero(cuda, m, l, r, w, C):
+    rng = np.random.RandomState(m + r)
+    left, right = _band(rng, m, l, 6), _band(rng, r, w, 9)
+    X = torch.as_tensor(rng.randn(C, l, w).astype(np.float32), device=cuda)
+    big = torch.zeros((C + 1, l + 3, w + 5), device=cuda)
+    big[1:, 2:l + 2, 3:w + 3] = X
+    view = big[1:, 2:l + 2, 3:w + 3]       # channel and row strides
+    assert not view.is_contiguous() and view.stride(-1) == 1
+    got = kernels.banded_matmul(left, view, right=right)
+    want = kernels.banded_matmul_plain(left, X, right=right)
+    two_d = kernels.banded_matmul(left, view[0], right=right)
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+    assert float((two_d - want[0]).abs().max()) <= 1e-5 * scale
+    zero = kernels.banded_matmul(np.zeros((m, l), np.float32), X, right=right)
+    assert torch.equal(zero, torch.zeros_like(zero))
+    with pytest.raises(ValueError, match="not"):
+        kernels.banded_matmul(left, X[:, :, 1:], right=right)
+
+
 def test_cuda_dense_sift_takes_the_banded_kernel(cuda):
-    """At a VOC image size: 4 launches a scale, 20 an image, and
+    """At a VOC image size: 2 launches a scale, 10 an image, and
     descriptors inside the golden envelope of the einsum form on the
     card."""
     img = torch.as_tensor(np.random.RandomState(2).rand(375, 500)
                           .astype(np.float32), device=cuda)
     before = kernels.LAUNCHES["banded_matmul"]
     got = sift.dense_sift(img)
-    assert kernels.LAUNCHES["banded_matmul"] == before + 20
+    assert kernels.LAUNCHES["banded_matmul"] == before + 10
     want = sift.dense_sift_plain(img)
     torch.cuda.synchronize()
     assert got.shape == want.shape == (128, 47213)
@@ -322,12 +377,21 @@ def _fv_inputs(D, K, n, device, seed=0):
 
 
 @pytest.mark.parametrize("D,K,n", [(80, 256, 1), (80, 256, 33),
-                                   (80, 256, 513), (80, 256, 4097),
-                                   (64, 16, 513), (7, 3, 12),
-                                   (8, 2000, 100), (300, 256, 100)])
+                                   (80, 256, 511), (80, 256, 513),
+                                   (80, 256, 4097), (80, 257, 1),
+                                   (80, 257, 511), (80, 257, 513),
+                                   (80, 257, 4097), (64, 16, 513),
+                                   (7, 3, 12), (96, 100, 300),
+                                   (8, 2000, 100), (300, 256, 100),
+                                   (81, 256, 513), (128, 256, 513),
+                                   (64, 512, 513)])
 def test_cuda_fv_moments_matches_plain(cuda, D, K, n):
-    """n = 1 and n off the 32-column tile; K off any tile; (8, 2000) takes
-    the one-column tile, (300, 256) splits the accumulated rows of D."""
+    """n = 1 and n off the 16-column tile; K = 257 off the 256 components
+    a split accumulates (two component splits), K = 3 and 100 off the
+    8-component tile, D = 7 off the 8-row tile, D = 96 past the 160
+    accumulated rows (two row splits). [B; A] does not fit beside the
+    tiles at (8, 2000), (300, 256), (81, 256), (128, 256) and (64, 512):
+    the kernel takes it in chunks of rows."""
     args = _fv_inputs(D, K, n, cuda, seed=D + K + n)
     before = kernels.LAUNCHES["fv_moments"]
     got = kernels.fv_moments(*args, 1e-4)
@@ -360,6 +424,14 @@ def test_cuda_fv_moments_strided_and_empty(cuda):
     with pytest.raises(ValueError, match="unit column stride"):
         kernels.fv_moments(X.T.contiguous().T, means, variances, weights,
                            1e-4)
-    # K so wide that one accumulated row does not fit a block
-    with pytest.raises(ValueError, match="does not fit"):
-        kernels.fv_moments(*_fv_inputs(2, 30000, 4, cuda), 1e-4)
+    # refused where the tiles and 8 rows of [B; A] do not fit one block's
+    # shared memory
+    for D, K in ((2, 30000), (8, 4000), (512, 256)):
+        with pytest.raises(ValueError, match="does not fit"):
+            kernels.fv_moments(*_fv_inputs(D, K, 4, cuda), 1e-4)
+    # precomputed terms give the same bits as terms made in the call
+    terms = kernels.fv_terms(means, variances, weights)
+    got = kernels.fv_moments(X, means, variances, weights, 1e-4)
+    cached = kernels.fv_moments(X, means, variances, weights, 1e-4,
+                                terms=terms)
+    assert all(torch.equal(a, b) for a, b in zip(got, cached))

@@ -1,12 +1,16 @@
 """GMM, k-means++ and the Fisher vector: the port against ``keystone_tpu``.
 
 The same seeded inputs go through both packages. The FV moments' plain
-version is held to the JAX package's bar for its Pallas kernel in
-interpret mode, rtol = atol = 2e-4. The posteriors, the Fisher vector and
+version, and the moments of the posteriors built from the kernel's GMM
+terms (``kernels.fv_terms``), are held to the JAX package's bar for its
+Pallas kernel in interpret mode, rtol = atol = 2e-4. The kernel's 3xTF32
+products are emulated in plain PyTorch and held against float64 at the
+card's bar, 1e-4 of the largest moment sum. The posteriors, the Fisher vector and
 the fitted GMMs differ only by float32 summation order: 1e-4 of the
 largest entry (1e-5 for the posteriors). The k-means++ choices are made
 on the host from the same RandomState draws, so the centers are equal.
 """
+import math
 import os
 
 import jax.numpy as jnp
@@ -207,3 +211,120 @@ def test_fv_estimator_fits_the_columns_gmm():
     got = tfit.apply(torch.as_tensor(items[0])).numpy()
     want = np.asarray(jfit.apply(items[0]))
     _close_to_largest(got, want)
+
+
+def _terms_posteriors(X, terms, threshold):
+    """The kernel's posteriors of the columns of X (D, n) from its GMM
+    terms: llh = c + x' . B - x'^2 . A with x' = x - g, then the max-shifted
+    softmax, threshold and renormalization (``gmm._threshold_softmax``)."""
+    xc = X - terms.center[:, None]
+    llh = terms.c + xc.T @ terms.B - (xc * xc).T @ terms.A
+    return tgmm._threshold_softmax(llh, threshold)
+
+
+@pytest.mark.parametrize("d,k,n", [(64, 16, 513), (32, 8, 100), (7, 3, 12),
+                                   (80, 257, 96)])
+def test_fv_terms_match_pallas_interpret_and_posteriors(d, k, n):
+    rng = np.random.RandomState(d + k)
+    X = rng.randn(d, n).astype(np.float32)
+    means, variances, weights = _gmm_params(rng, d, k)
+    terms = kernels.fv_terms(*(torch.as_tensor(a) for a in
+                               (means, variances, weights)))
+    assert [tuple(t.shape) for t in terms] == [(d,), (d, k), (d, k), (k,)]
+    assert all(t.is_contiguous() for t in terms)
+    q = _terms_posteriors(torch.as_tensor(X), terms, 1e-4)
+    # the centered terms round the llh at other places than the uncentered
+    # form (float32, llh of order 1e2 here): posteriors move by up to about
+    # 1.3e-5, so 3e-5 where the forms that share an order are held to 1e-5
+    want_q = np.asarray(jgmm._posteriors(
+        jnp.asarray(X.T), jnp.asarray(means.T), jnp.asarray(variances.T),
+        jnp.asarray(weights), 1e-4))
+    np.testing.assert_allclose(q.numpy(), want_q, rtol=0, atol=3e-5)
+    plain_q = tgmm._posteriors(torch.as_tensor(X.T),
+                               torch.as_tensor(means.T),
+                               torch.as_tensor(variances.T),
+                               torch.as_tensor(weights), 1e-4)
+    np.testing.assert_allclose(q.numpy(), plain_q.numpy(), rtol=0, atol=3e-5)
+    want = fv_moments_pallas(
+        jnp.asarray(X), jnp.asarray(means), jnp.asarray(variances),
+        jnp.asarray(weights), threshold=1e-4, interpret=True)
+    Xt = torch.as_tensor(X)
+    for g, w in zip((q.sum(0), Xt @ q, (Xt * Xt) @ q), want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-4,
+                                   atol=2e-4)
+
+
+def _tf32(v):
+    """float32 to TF32 as the kernel splits: the low 13 mantissa bits
+    cleared."""
+    return (v.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the kernel's 3xTF32 products: big = tf32(v), small =
+    tf32(v - big), (small*big + big*small) + big*big, float32 sums."""
+    ab, bb = _tf32(a), _tf32(b)
+    asm, bsm = _tf32(a - ab), _tf32(b - bb)
+    return (asm @ bb + ab @ bsm) + ab @ bb
+
+
+def test_fv_moments_3xtf32_emulation_holds_the_card_bar():
+    """The kernel's arithmetic in plain PyTorch on descriptors drawn from
+    the VOC codebook (80 x 256, means in the hundreds): centered terms,
+    both products in 3xTF32, s0 in float32, the block reduce's
+    un-centering. The moment sums stay within 1e-4 of the largest against
+    float64 (the card's bar against the plain version) and within twice
+    the plain float32 version's own error."""
+    g = tgmm.GaussianMixtureModel.load(*_codebook())
+    rng = np.random.RandomState(0)
+    n, thr = 2048, 1e-4
+    comp = rng.choice(g.k, n, p=g.weights / g.weights.sum())
+    X = torch.as_tensor((g.means[:, comp] + np.sqrt(g.variances[:, comp])
+                         * rng.randn(g.dim, n)).astype(np.float32))
+    M, V, W = (torch.as_tensor(a) for a in (g.means, g.variances, g.weights))
+    t = kernels.fv_terms(M, V, W)
+    xc = X - t.center[:, None]
+    feats = torch.cat([xc, xc * xc])                      # (2D, n)
+    llh = _mm_3xtf32(feats.T, torch.cat([t.B, -t.A])) + t.c
+    q = tgmm._threshold_softmax(llh, thr)
+    s = _mm_3xtf32(feats, q)
+    s0, s1c, s2c = q.sum(0), s[:g.dim], s[g.dim:]
+    cen = t.center[:, None]
+    emulated = (s0, s1c + cen * s0, s2c + 2 * cen * s1c + cen * cen * s0)
+    X64 = X.double()
+    q64 = tgmm._posteriors(X64.T, M.double().T, V.double().T, W.double(), thr)
+    exact = (q64.sum(0), X64 @ q64, (X64 * X64) @ q64)
+    plain = kernels.fv_moments_plain(X, M, V, W, thr)
+
+    def err(got):
+        return max(float((a.double() - b).abs().max() / b.abs().max())
+                   for a, b in zip(got, exact))
+
+    assert err(emulated) <= 1e-4, err(emulated)
+    assert err(emulated) <= 2 * err(plain), (err(emulated), err(plain))
+
+
+def test_fisher_vector_computes_its_kernel_terms_once_per_device(
+        monkeypatch):
+    calls = []
+    real = tfv.fv_terms
+
+    def counted(*a):
+        calls.append(1)
+        return real(*a)
+
+    monkeypatch.setattr(tfv, "fv_terms", counted)
+    rng = np.random.RandomState(3)
+    node = tfv.FisherVector(tgmm.GaussianMixtureModel(*_gmm_params(rng, 6, 4)))
+    x = torch.as_tensor(rng.randn(6, 40).astype(np.float32))
+    outs = [node.apply(x) for _ in range(3)]
+    assert len(calls) == 1
+    assert all(torch.equal(o, outs[0]) for o in outs)
+    means, variances, weights, terms = node.apply_params(x.device)
+    assert len(calls) == 1
+    want = tfv._fisher_vector(x, means, variances, weights,
+                              node.weight_threshold,
+                              moments=kernels.fv_moments_plain)
+    assert torch.equal(outs[0], want)
+    assert math.isclose(float(terms.center.sum()), float(means.mean(1).sum()),
+                        rel_tol=1e-6, abs_tol=1e-6)

@@ -8,9 +8,11 @@ quantized to [0, 255]; the bar is the golden envelope of the JAX
 package's SIFT tests (max |delta| <= 2, mean <= 0.15 quantized units)
 and atol 5e-3, float32 summation order being the only difference. The
 banded product's plain version is held to the Pallas kernel's bar in
-the JAX package's tests, rtol = atol = 2e-4.
+the JAX package's tests, rtol = atol = 2e-4, one-sided and two-sided
+(the Pallas kernel applied twice).
 """
 import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +29,15 @@ from keystone_tpu_torch.ops import kernels, sift
 
 RES = os.path.join(os.path.dirname(__file__), "resources")
 KW = dict(step=4, bin_size=4, num_scales=2, scale_step=1)
+
+
+def _tile_rows():
+    """The banded kernels' live-map tile height, read from their CUDA
+    source (the library that reports it is built only on a card)."""
+    src = os.path.join(os.path.dirname(kernels.__file__), os.pardir, "csrc",
+                       "banded_matmul.cu")
+    with open(src) as f:
+        return int(re.search(r"constexpr int TM = (\d+);", f.read()).group(1))
 
 
 def _envelope(got, want):
@@ -98,7 +109,7 @@ def test_live_map_covers_every_nonzero_once():
         band[j, max(0, c - 30):c + 31] = 1.0
     band[250:260, :] = 0.0
     band[448:480, :] = 0.0  # one whole 32-row tile
-    tr = 32  # csrc/banded_matmul.cu: TM
+    tr = _tile_rows()
     klo, khi = kernels.band_live_map(band, tr)
     assert len(klo) == len(khi) == 512 // tr
     for i in range(len(klo)):
@@ -174,3 +185,93 @@ def test_extractors_match_dense_sift():
     out = BatchSIFTExtractor(step=8, num_scales=2).apply_dataset(
         HostDataset([t, t]))
     assert all(torch.equal(o, want) for o in out.collect())
+
+
+def _sift_pairs(h, w, scale):
+    """The two band pairs of one SIFT scale at the VOCSIFTFisher defaults:
+    (left, right, channels) of the smoothing and of the binning."""
+    step, b, lo = sift._scale_params(scale, 4, 6, 5, 0)
+    Ty, _ = sift._sampling_operator_interleaved(h, lo, step, b)
+    Tx, _ = sift._sampling_operator_interleaved(w, lo, step, b)
+    return [(sift._smooth_band(h, b), sift._smooth_band(w, b), 1),
+            (Ty, Tx, sift.NBO)]
+
+
+@pytest.mark.parametrize("case", ["random", "sift_small", "channels"])
+def test_two_sided_plain_matches_pallas_interpret_twice(case):
+    """band @ X[c] @ right.T against the Pallas kernel applied twice (the
+    second time to the transposed intermediate), ragged shapes."""
+    rng = np.random.RandomState(1)
+    if case == "random":
+        band, right, C = _random_band(rng, 45, 61, 5), \
+            _random_band(rng, 38, 47, 7), 1
+    elif case == "sift_small":
+        band, right, C = _sift_pairs(61, 47, 0)[1]
+    else:
+        band, right, C = _random_band(rng, 33, 40, 4), \
+            _random_band(rng, 70, 29, 9), 8
+    X = rng.randn(C, band.shape[1], right.shape[1]).astype(np.float32)
+    want = np.stack([np.asarray(jbanded(
+        right, jnp.asarray(np.asarray(jbanded(band, jnp.asarray(x),
+                                              interpret=True)).T),
+        interpret=True)).T for x in X])
+    before = dict(kernels.LAUNCHES)
+    got = kernels.banded_matmul(band, torch.as_tensor(X), right=right)
+    two_d = kernels.banded_matmul(band, torch.as_tensor(X[0]), right=right)
+    assert kernels.LAUNCHES == before  # a CPU tensor takes the plain version
+    assert got.shape == (C, band.shape[0], right.shape[0])
+    assert two_d.shape == got.shape[1:]
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(two_d.numpy(), want[0], rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("h,w", [(375, 500), (500, 375)])
+def test_right_side_live_map_covers_every_nonzero_once(h, w):
+    """The live map of each right-hand SIFT operator, at VOC's sizes: every
+    nonzero of a tile lies in the tile's one contiguous column range,
+    which is exact; the widest ranges of both sides stay within the 97
+    columns a side the two-sided kernel's patches are sized for; and the
+    smoothing launch has an output tile for each of the 132 SMs."""
+    tr = _tile_rows()
+    for scale in (0, 4):
+        for left, right, _ in _sift_pairs(h, w, scale):
+            widths = []
+            for band in (left, right):
+                lo, hi = kernels.band_live_map(band, tr)
+                assert len(lo) == -(-band.shape[0] // tr)
+                for i in range(len(lo)):
+                    cols = np.nonzero(band[i * tr:(i + 1) * tr].any(0))[0]
+                    assert lo[i] == cols[0] and hi[i] == cols[-1] + 1
+                    visited = np.arange(lo[i], hi[i])
+                    assert len(np.unique(visited)) == len(visited)
+                widths.append(int((hi - lo).max()))
+            assert max(widths) <= 97, (scale, widths)
+        smooth_tiles = -(-h // tr) * -(-w // tr)
+        assert smooth_tiles >= 132
+
+
+@pytest.mark.parametrize("h,w", [(61, 47), (96, 128), (90, 110)])
+def test_two_sided_banded_form_matches_jax_in_two_calls_a_scale(h, w):
+    """The banded form makes two two-sided band calls a scale, and its
+    descriptors (plain band products on the CPU) lie in the golden
+    envelope of the einsum form and of the JAX package's dense_sift."""
+    img = np.random.RandomState(h * w).rand(h, w).astype(np.float32)
+    args = (KW["step"], KW["bin_size"], KW["num_scales"], KW["scale_step"])
+    calls = []
+    real = sift.banded_matmul
+
+    def record(band, X, right=None):
+        calls.append((band.shape, tuple(X.shape), right.shape))
+        return real(band, X, right=right)
+
+    sift.banded_matmul = record
+    try:
+        banded = sift._dense_sift(torch.as_tensor(img), *args,
+                                  sift._dsift_one_scale_banded).numpy()
+    finally:
+        sift.banded_matmul = real
+    assert len(calls) == 2 * KW["num_scales"], calls
+    assert [c[1][0] for c in calls[1::2]] == [sift.NBO] * KW["num_scales"]
+    _envelope(banded, sift.dense_sift_plain(torch.as_tensor(img),
+                                            *args).numpy())
+    _envelope(banded, np.asarray(jsift.dense_sift(jnp.asarray(img), **KW)))
