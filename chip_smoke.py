@@ -10,8 +10,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
 1. Device: require CUDA; print the card's name and power limit.
 2. Build: compile every kernel from the checkout's CUDA sources.
 3. Kernel against plain: each kernel's wrapper on card tensors at the
-   shapes the main path gives it (and ragged ones), held against its
-   plain PyTorch version on the same inputs.
+   shapes the main path gives it (and ragged ones, and the geometries
+   the featurize and FV kernels take past the main path's), held against
+   its plain PyTorch version on the same inputs.
 4. Main path: RandomPatchCifar fit + apply at the full width of the
    repository's bench configuration (1024 filters, 8192 features, two
    4096-wide BCD blocks) on surrogate CIFAR (20480 train / 4096 test
@@ -59,9 +60,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
    stage call; its seconds per stage are printed, and its totals apart.
 5. Timing: each kernel, its plain version and a library yardstick with
    CUDA events at the main path's shapes, one call at a time (the
-   ``kernels`` line); for the SIFT and FV kernels, whose launches are
-   shorter than their wrappers' host time, also the device time alone,
-   replayed from a CUDA graph; each wrapper's host time a call.
+   ``kernels`` line); for every kernel but the Gram kernel also the device
+   time alone of the kernel and of its yardstick, replayed from a CUDA
+   graph (``device_ms`` and ``library_device_ms`` in that line); each
+   wrapper's host time a call, the featurize and quantized wrappers
+   through the launch plans their nodes make once per model. Also the
+   widened paths: featurize at 16 pooling regions, and ``fv_moments``
+   at 4000 components (past the llh tile).
 
 ``--profile`` adds a second resident fit + apply, a second streamed fit,
 a serving burst and a second VOC test apply under ``torch.profiler`` and
@@ -99,10 +104,27 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 
 #: Kernel vs plain version: max |kernel - plain| <= FEATURIZE_TOL *
-#: max |plain|. Both sides run in true float32 and differ only in the
-#: order of their sums (the JAX package holds its TPU kernel to
+#: max |plain|. The plain version runs in float32, the kernel's product
+#: in 3xTF32 on centered patches (about float32's accuracy) and the rest
+#: in float32, in another order (the JAX package holds its TPU kernel to
 #: rtol = atol = 2e-3 against the composed ops).
 FEATURIZE_TOL = 1e-5
+
+#: the featurize kernel's product runs in 3xTF32 on centered patches: on
+#: FEATURIZE_F64_B images its pooled features against float64 (the plain
+#: version in float64) must be no worse than FEATURIZE_F64_RATIO x the
+#: float32 plain version's error, and phase 4's test error must stay
+#: within CIFAR_ERROR_DRIFT of the first sound reading (0.2371 on an H100,
+#: float32 products)
+FEATURIZE_F64_B, FEATURIZE_F64_RATIO = 256, 2.0
+CIFAR_ERROR_FIRST, CIFAR_ERROR_DRIFT = 0.2371, 0.002
+
+#: (patch size, channels, pool stride, pool size) held against the plain
+#: version besides the main path's (6, 3, 13, 14): 9, 16 and 36 regions
+#: (``--poolStride 7 --poolSize 8`` gives 16), patch size 9 on one
+#: channel, four channels
+FEATURIZE_GEOMETRIES = ((6, 3, 9, 10), (6, 3, 7, 8), (5, 3, 4, 8),
+                        (9, 1, 13, 14), (6, 4, 13, 14))
 
 #: Gram kernel vs plain version: max |kernel - plain| <= GRAM_TOL *
 #: max |plain|. Both sides are true float32 (the plain version is cuBLAS
@@ -138,6 +160,11 @@ BANDED_TOL = 1e-5
 #: and takes its exponentials and sums in another order; the kernel runs
 #: both products in 3xTF32 on centered terms.
 FV_TOL = 1e-4
+#: the wide FV at an image's descriptor count is held to FV_TOL on the
+#: descriptors whose float64 posteriors all lie more than FV_CLEAR (in
+#: log) from the threshold: float32 rounding moves a log-posterior by
+#: about 1e-5, so closer ones can flip across it
+FV_CLEAR = 1e-3
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -229,26 +256,41 @@ def _device_ms(fn, reps=10):
     return best
 
 
-def _featurize_inputs(rng, B, K, device):
-    imgs = torch.as_tensor((rng.rand(B, 32, 32, 3) * 255).astype(np.float32),
+def _featurize_inputs(rng, B, K, device, S=6, C=3):
+    F = S * S * C
+    imgs = torch.as_tensor((rng.rand(B, 32, 32, C) * 255).astype(np.float32),
                            device=device)
-    filters = torch.as_tensor((rng.randn(K, 108) * 0.1).astype(np.float32),
+    filters = torch.as_tensor((rng.randn(K, F) * 0.1).astype(np.float32),
                               device=device)
-    means = torch.as_tensor((rng.randn(108) * 20).astype(np.float32),
+    means = torch.as_tensor((rng.randn(F) * 20).astype(np.float32),
                             device=device)
     return imgs, filters, means
 
 
 def _featurize_work(B, K, P=729, F=108, R=4, region_hits=4 * 196):
-    """(operations, bytes) of fused_cifar_featurize on B images and K
-    filters: the patch-by-filter products (2 P F K), the patch sums and
-    sums of squares (3 P F), normalize + rectify (9 P K), and the pooled
-    adds (2 K per patch-region membership; the four 14 x 14 regions hold
-    784 memberships). Bytes: each input read once, the output written
-    once."""
-    ops = B * (2 * P * F * K + 3 * P * F + 9 * P * K + 2 * K * region_hits)
+    """(product operations, other operations, bytes) of
+    fused_cifar_featurize on B images and K filters: the patch-by-filter
+    products (2 P F K); the patch sums and sums of squares (3 P F),
+    normalize + rectify (9 P K) and the pooled adds (2 K per patch-region
+    membership; the four 14 x 14 regions hold 784 memberships). Bytes:
+    each input read once, the output written once."""
+    product = B * 2 * P * F * K
+    rest = B * (3 * P * F + 9 * P * K + 2 * K * region_hits)
     nbytes = 4 * (B * 32 * 32 * 3 + K * F + F + B * R * 2 * K)
-    return ops, nbytes
+    return product, rest, nbytes
+
+
+def _featurize_bound(B, K, **work):
+    """(operations, bound ms, bound by) of fused_cifar_featurize: the
+    kernel runs its product in 3xTF32, three TF32 products at the TF32
+    tensor-core peak, and the rest in float32 at the float32 peak, one
+    after the other; the bound is the larger of that time and the
+    bytes'."""
+    product, rest, nbytes = _featurize_work(B, K, **work)
+    t_ops = (3 * product / PEAK_TF32_FLOPS + rest / PEAK_F32_FLOPS) * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    return (product + rest, max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def _gram_work(n, d, k):
@@ -341,23 +383,34 @@ def _quant_inputs(rng, n, d, k, weight_dtype, dev):
 def _check_quant(kernels, rng, dev):
     """quantized_affine against its plain version, bf16 and int8, at the
     served shapes (a request of one, a full bucket, the 4096-image batch
-    apply), a ragged shape and a wide k; returns the largest absolute
-    error."""
+    apply), a ragged shape, a wide k and the column variants k = 1, 16
+    and 17, each through the model's launch plan as the path calls it:
+    one launch a call, the same bits on a second call. Returns the
+    largest absolute error."""
     worst = 0.0
     for n, d, k in ((1, 8192, 10), (SERVE_MAX_BATCH, 8192, 10),
-                    (N_TEST, 8192, 10), (77, 50, 11), (33, 1000, 1000)):
+                    (N_TEST, 8192, 10), (77, 50, 11), (33, 1000, 1000),
+                    (SERVE_MAX_BATCH, 8192, 1), (SERVE_MAX_BATCH, 8192, 16),
+                    (SERVE_MAX_BATCH, 8192, 17)):
         for wd in ("bf16", "int8"):
             args = _quant_inputs(rng, n, d, k, wd, dev)
-            got = kernels.quantized_affine(*args)
+            plan = kernels.quant_plan(*args[1:])
+            before = kernels.LAUNCHES["quantized_affine"]
+            got = kernels.quantized_affine(args[0], plan)
+            assert kernels.LAUNCHES["quantized_affine"] == before + 1
+            again = kernels.quantized_affine(args[0], plan)
             want = kernels.quantized_affine_plain(*args)
             _sync()
             assert got.shape == want.shape == (n, k)
             assert bool(torch.isfinite(got).all())
+            assert torch.equal(got, again), (wd, n, d, k)
             err = float((got - want).abs().max())
             scale = float(want.abs().max())
-            print(f"[check] quantized_affine {wd} n={n} d={d} k={k}: max abs "
-                  f"err {err:.3e} (max |plain| {scale:.3e}, rel "
-                  f"{err / scale:.3e})", flush=True)
+            splits, dsplit = plan.split(n)
+            print(f"[check] quantized_affine {wd} n={n} d={d} k={k} (columns "
+                  f"{plan.kc}, {splits} splits of d): max abs err {err:.3e} "
+                  f"(max |plain| {scale:.3e}, rel {err / scale:.3e})",
+                  flush=True)
             assert err <= QUANT_TOL * scale, (wd, n, d, k, err, scale)
             worst = max(worst, err)
     return worst
@@ -639,7 +692,7 @@ def _serving_phase(kernels, model_path, te_x, te_y, preds, dev):
 
         # eviction and readmission: bit-identical on the same requests
         mapper = graph["rpc_int8"]["BlockLinearMapper"]
-        wq = mapper.apply_params(dev)[0].clone()
+        wq = mapper.apply_params(dev)[0].Wt.clone()   # the plan's weights
         again_reqs = requests[:16]
         before = [plane.predict("rpc_int8", r) for r in again_reqs]
         plane.evict("rpc_int8")
@@ -652,7 +705,7 @@ def _serving_phase(kernels, model_path, te_x, te_y, preds, dev):
         after = [plane.predict("rpc_int8", r) for r in again_reqs]
         wq_again = next(op for op in readmitted.fitted.graph.operators
                         .values() if type(op).__name__ ==
-                        "BlockLinearMapper").apply_params(dev)[0]
+                        "BlockLinearMapper").apply_params(dev)[0].Wt
         assert all(np.array_equal(a, b) for a, b in zip(before, after))
         assert torch.equal(wq, wq_again)
         print(f"[serve] evict + readmit rpc_int8: {len(again_reqs)} requests "
@@ -767,35 +820,44 @@ def _fv_inputs(rng, D, K, n, dev):
             for a in (X, means, variances, weights)]
 
 
+#: fv_moments at GMMs past the resident tiles (D, K, n, seed): the llh
+#: tile of K = 30000 and 4000 components, the x' tiles of D = 512 rows.
+#: Seeds whose posteriors all lie at least 2.8e-4 (in log) from the 1e-4
+#: threshold in float64, so float32 rounding cannot flip one across it
+FV_WIDE = ((2, 30000, 1, 30), (8, 4000, 17, 1), (512, 256, 513, 768))
+
+
 def _check_fv(kernels, rng, dev):
     """fv_moments against its plain version at the full-width FV shape and
     at ragged descriptor counts, at K = 256 and 257 (off the 256
     components a block accumulates), the GMM terms precomputed as the
-    path does; a second launch must give the same bits. Returns the
-    largest absolute error."""
+    path does, and at the GMMs of FV_WIDE; a second launch must give the
+    same bits. Returns the largest absolute error."""
+    cases = [(80, K, n, None) for K in (256, 257)
+             for n in (47213, 1, 511, 513, 4097)] + list(FV_WIDE)
     worst = 0.0
-    for K in (256, 257):
-        for n in (47213, 1, 511, 513, 4097):
-            X, means, variances, weights = _fv_inputs(rng, 80, K, n, dev)
-            terms = kernels.fv_terms(means, variances, weights)
-            got = kernels.fv_moments(X, means, variances, weights, 1e-4,
-                                     terms=terms)
-            again = kernels.fv_moments(X, means, variances, weights, 1e-4,
-                                       terms=terms)
-            want = kernels.fv_moments_plain(X, means, variances, weights,
-                                            1e-4)
-            _sync()
-            assert all(torch.equal(a, b) for a, b in zip(got, again))
-            errs = []
-            for name, g, w in zip(("s0", "s1", "s2"), got, want):
-                assert bool(torch.isfinite(g).all())
-                err = float((g - w).abs().max())
-                scale = float(w.abs().max())
-                errs.append(f"{name} {err:.3e} (rel {err / scale:.3e})")
-                assert err <= FV_TOL * scale, (n, name, err, scale)
-                worst = max(worst, err)
-            print(f"[check] fv_moments D=80 K={K} n={n}: max abs err "
-                  f"{', '.join(errs)}", flush=True)
+    for D, K, n, seed in cases:
+        X, means, variances, weights = _fv_inputs(
+            rng if seed is None else np.random.RandomState(seed), D, K, n,
+            dev)
+        terms = kernels.fv_terms(means, variances, weights)
+        got = kernels.fv_moments(X, means, variances, weights, 1e-4,
+                                 terms=terms)
+        again = kernels.fv_moments(X, means, variances, weights, 1e-4,
+                                   terms=terms)
+        want = kernels.fv_moments_plain(X, means, variances, weights, 1e-4)
+        _sync()
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        errs = []
+        for name, g, w in zip(("s0", "s1", "s2"), got, want):
+            assert bool(torch.isfinite(g).all())
+            err = float((g - w).abs().max())
+            scale = float(w.abs().max())
+            errs.append(f"{name} {err:.3e} (rel {err / scale:.3e})")
+            assert err <= FV_TOL * scale, (D, K, n, name, err, scale)
+            worst = max(worst, err)
+        print(f"[check] fv_moments D={D} K={K} n={n}: max abs err "
+              f"{', '.join(errs)}", flush=True)
     return worst
 
 
@@ -1157,6 +1219,7 @@ def _main(workdir: str) -> int:
     )
     from keystone_tpu_torch.nodes.learning.gmm import _posteriors
     from keystone_tpu_torch.ops import kernels, sift
+    from keystone_tpu_torch.ops.image_ops import pool_regions
     from keystone_tpu_torch.parallel.dataset import ArrayDataset
     from keystone_tpu_torch.parallel.streaming import StreamingDataset
     from keystone_tpu_torch.pipelines.images.cifar import (
@@ -1219,6 +1282,41 @@ def _main(workdir: str) -> int:
         assert err <= FEATURIZE_TOL * scale, (err, scale)
         worst = max(worst, err)
         del imgs, filters, means, got, want
+    # against float64 at the main path's geometry
+    imgs, filters, means = _featurize_inputs(rng, FEATURIZE_F64_B,
+                                             NUM_FILTERS, dev)
+    want64 = kernels.fused_cifar_featurize_plain(
+        imgs.double(), filters.double(), whitener_means=means.double())
+    scale64 = float(want64.abs().max())
+    k_err = float((kernels.fused_cifar_featurize(
+        imgs, filters, whitener_means=means).double() - want64).abs().max())
+    p_err = float((kernels.fused_cifar_featurize_plain(
+        imgs, filters, whitener_means=means).double() - want64).abs().max())
+    print(f"[check] fused_cifar_featurize B={FEATURIZE_F64_B} "
+          f"K={NUM_FILTERS} against float64: kernel (3xTF32) "
+          f"{k_err / scale64:.3e}, plain float32 {p_err / scale64:.3e} of "
+          f"the largest feature", flush=True)
+    assert k_err <= FEATURIZE_F64_RATIO * p_err, (k_err, p_err)
+    del imgs, filters, means, want64
+    # the geometries the kernel takes beyond the main path's: 9, 16 and
+    # 36 pooling regions, patch size 9 on one channel, four channels
+    for S, C, stride, size in FEATURIZE_GEOMETRIES:
+        imgs, filters, means = _featurize_inputs(rng, 64, 200, dev, S, C)
+        kw = dict(patch_size=S, channels=C, pool_stride=stride,
+                  pool_size=size, whitener_means=means)
+        got = kernels.fused_cifar_featurize(imgs, filters, **kw)
+        want = kernels.fused_cifar_featurize_plain(imgs, filters, **kw)
+        _sync()
+        R = got.shape[1] // 400
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        print(f"[check] fused_cifar_featurize S={S} C={C} pool {stride}/"
+              f"{size} (R={R}) B=64 K=200: max abs err {err:.3e} (max "
+              f"|plain| {scale:.3e})", flush=True)
+        assert got.shape == want.shape and bool(torch.isfinite(got).all())
+        assert err <= FEATURIZE_TOL * scale, (S, C, stride, err, scale)
+        worst = max(worst, err)
+        del imgs, filters, means, got, want
     torch.cuda.empty_cache()
     gram_worst = _check_gram(kernels, rng, dev)
     quant_worst = _check_quant(kernels, rng, dev)
@@ -1279,6 +1377,7 @@ def _main(workdir: str) -> int:
     assert 0.02 < rp_test < 0.90, rp_test
     assert 0.30 < lin_test < 0.98, lin_test
     assert rp_test < lin_test - 0.15, (rp_test, lin_test)
+    assert abs(rp_test - CIFAR_ERROR_FIRST) <= CIFAR_ERROR_DRIFT, rp_test
     assert launches["fused_cifar_featurize"] > 0, \
         "fused_cifar_featurize was not launched on the main path"
     if "--profile" in sys.argv[1:]:
@@ -1401,26 +1500,42 @@ def _main(workdir: str) -> int:
     # -- 5. timing ------------------------------------------------------------
     B = K = 1024
     imgs, filters, means = _featurize_inputs(rng, B, K, dev)
-    ms = _time_ms(lambda: kernels.fused_cifar_featurize(
-        imgs, filters, whitener_means=means), reps=20)
-    plain_ms = _time_ms(lambda: kernels.fused_cifar_featurize_plain(
-        imgs, filters, whitener_means=means), reps=5, warmup=1)
-    # library yardstick: the raw filter-bank product alone, as one
-    # cuDNN float32 convolution (TF32 off); no single PyTorch call
-    # computes the whole fused function
+    # the path's call: the bank's plan made once, as the node's
+    # apply_params makes it
+    fplan = kernels.featurize_plan(filters, means)
     x = imgs.permute(0, 3, 1, 2).contiguous()
     w = filters.reshape(K, 6, 6, 3).permute(0, 3, 1, 2).contiguous()
-    library_ms = _time_ms(lambda: torch.nn.functional.conv2d(x, w), reps=20)
-    ops, nbytes = _featurize_work(B, K)
-    bound_ms, bound_by = _bound(ops, nbytes)
-    host = _host_us(lambda: kernels.fused_cifar_featurize(
-        imgs, filters, whitener_means=means), reps=5)
+    fz_fns = {
+        "kernel": lambda: kernels.fused_cifar_featurize(imgs, fplan),
+        # library yardstick: the raw filter-bank product alone, as one
+        # cuDNN float32 convolution (TF32 off); no single PyTorch call
+        # computes the whole fused function
+        "library": lambda: torch.nn.functional.conv2d(x, w),
+    }
+    ms, library_ms = (_time_ms(fz_fns[name], reps=20)
+                      for name in ("kernel", "library"))
+    fz_dev = {name: _device_ms(fn, reps=5) for name, fn in fz_fns.items()}
+    plain_ms = _time_ms(lambda: kernels.fused_cifar_featurize_plain(
+        imgs, filters, whitener_means=means), reps=5, warmup=1)
+    ops, bound_ms, bound_by = _featurize_bound(B, K)
+    host = _host_us(fz_fns["kernel"], reps=5)
     print(f"[time] fused_cifar_featurize B={B} K={K}: kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms, conv2d (GEMM only) {library_ms:.3f} ms, "
-          f"bound {bound_ms:.3f} ms by {bound_by} ({ops / 1e9:.1f} GFLOP, "
-          f"{nbytes / 1e6:.1f} MB), {ops / ms / 1e9:.1f} TFLOP/s achieved; "
-          f"wrapper host time {host:.1f} us a call", flush=True)
-    del imgs, filters, means, x, w
+          f"plain {plain_ms:.3f} ms, conv2d (GEMM only) {library_ms:.3f} ms; "
+          f"device time alone (CUDA graph): kernel {fz_dev['kernel']:.3f} ms, "
+          f"conv2d {fz_dev['library']:.3f} ms; bound {bound_ms:.3f} ms by "
+          f"{bound_by} (3xTF32 product at the TF32 peak, the rest at the "
+          f"float32 peak; {ops / 1e9:.1f} GFLOP), "
+          f"{ops / fz_dev['kernel'] / 1e9:.1f} TFLOP/s achieved; wrapper "
+          f"host time {host:.1f} us a call", flush=True)
+    # the widened path: 16 regions (pool stride 7, size 8)
+    r16_ms = _time_ms(lambda: kernels.fused_cifar_featurize(
+        imgs, fplan, pool_stride=7, pool_size=8), reps=10)
+    span = sum(hi - lo for lo, hi in pool_regions(27, 7, 8))
+    _, r16_bound, _ = _featurize_bound(B, K, R=16, region_hits=span ** 2)
+    print(f"[time] fused_cifar_featurize B={B} K={K}, 16 regions (pool "
+          f"stride 7, size 8): kernel {r16_ms:.3f} ms, bound "
+          f"{r16_bound:.3f} ms", flush=True)
+    del imgs, filters, means, x, w, fplan, fz_fns
 
     n, d, k = CHUNK, NUM_FILTERS * 8, 10
     X = torch.randn((n, d), device=dev)
@@ -1449,31 +1564,42 @@ def _main(workdir: str) -> int:
         for wd, itemsize in (("bf16", 2), ("int8", 1)):
             args = _quant_inputs(rng, n, NUM_FILTERS * 8, 10, wd, dev)
             X, Wq, scale, mean, inv, b = args
+            # the path's call: the model's plan made once, as the mapper's
+            # apply_params makes it
+            plan = kernels.quant_plan(*args[1:])
             # library yardstick: the GEMM alone, one cuBLAS float32 addmm
             # on operands normalized and dequantized outside the timing
             Xn = ((X - mean) * inv).contiguous()
             Wdeq = (Wq.to(torch.float32) * scale[None, :]).contiguous()
-            t = {"ms": _time_ms(lambda: kernels.quantized_affine(*args),
-                                reps=50),
-                 # what one plain pass over X takes: the practical floor
-                 "read_ms": _time_ms(lambda: X.sum(), reps=50),
-                 "plain_ms": _time_ms(
-                     lambda: kernels.quantized_affine_plain(*args), reps=50),
-                 "library_ms": _time_ms(lambda: torch.addmm(b, Xn, Wdeq),
-                                        reps=50),
-                 "host_us": _host_us(lambda: kernels.quantized_affine(*args))}
+            fns = {"kernel": lambda: kernels.quantized_affine(X, plan),
+                   "library": lambda: torch.addmm(b, Xn, Wdeq),
+                   # what one plain pass over X takes: the practical floor
+                   "read": lambda: X.sum()}
+            t = {f"{name}_ms": _time_ms(fn, reps=50)
+                 for name, fn in fns.items()}
+            t.update({f"{name}_device_ms": _device_ms(fn, reps=20)
+                      for name, fn in fns.items()})
+            t["ms"] = t.pop("kernel_ms")
+            t["device_ms"] = t.pop("kernel_device_ms")
+            t["plain_ms"] = _time_ms(
+                lambda: kernels.quantized_affine_plain(*args), reps=50)
+            t["host_us"] = _host_us(fns["kernel"])
             q_ops, q_bytes = _quant_work(n, NUM_FILTERS * 8, 10, itemsize)
             t["bound_ms"], t["bound_by"] = _bound(q_ops, q_bytes)
             q_times[(n, wd)] = t
             print(f"[time] quantized_affine {wd} n={n} d={NUM_FILTERS * 8} "
-                  f"k=10: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+                  f"k=10 ({plan.split(n)[0]} splits of d): one call at a "
+                  f"time kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
                   f"ms, torch.addmm (GEMM only) {t['library_ms']:.4f} ms, "
-                  f"X.sum (one read of X) {t['read_ms']:.4f} ms, "
-                  f"bound {t['bound_ms']:.4f} ms by {t['bound_by']} "
-                  f"({q_ops / 1e6:.1f} MFLOP, {q_bytes / 1e6:.2f} MB), "
-                  f"{q_bytes / t['ms'] / 1e6:.1f} GB/s achieved; wrapper host "
-                  f"time {t['host_us']:.1f} us a call", flush=True)
-            del args, X, Wq, Xn, Wdeq
+                  f"X.sum (one read of X) {t['read_ms']:.4f} ms; device time "
+                  f"alone (CUDA graph): kernel {t['device_ms']:.4f} ms, "
+                  f"torch.addmm {t['library_device_ms']:.4f} ms, X.sum "
+                  f"{t['read_device_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
+                  f"by {t['bound_by']} ({q_ops / 1e6:.1f} MFLOP, "
+                  f"{q_bytes / 1e6:.2f} MB), {q_bytes / t['device_ms'] / 1e6:.1f}"
+                  f" GB/s achieved; wrapper host time {t['host_us']:.1f} us a "
+                  "call", flush=True)
+            del args, X, Wq, Xn, Wdeq, plan, fns
     q = q_times[(SERVE_MAX_BATCH, "bf16")]
 
     calls = _banded_image_calls(kernels, sift, dev)
@@ -1560,6 +1686,60 @@ def _main(workdir: str) -> int:
           f" TFLOP/s achieved; wrapper host time {f_host:.1f} us a call",
           flush=True)
     del X, means, variances, weights, XX, AB, Xm, post, terms, f_fns
+    # the widened path: 4000 components at D = 8, past the llh tile, over
+    # an image's descriptors, beside the plain version and both GEMMs
+    D, K = 8, 4000
+    X, means, variances, weights = _fv_inputs(rng, D, K, n, dev)
+    terms = kernels.fv_terms(means, variances, weights)
+    XX = torch.cat([X * X, X]).T.contiguous()
+    AB = torch.cat([0.5 / variances, -means / variances]).contiguous()
+    Xm = torch.cat([X, X * X]).contiguous()
+    post = _posteriors(X.T, means.T, variances.T, weights, 1e-4).contiguous()
+    c0 = torch.zeros(K, device=dev)
+    s0 = torch.zeros(2 * D, K, device=dev)
+    w_fns = {
+        "kernel": lambda: kernels.fv_moments(X, means, variances, weights,
+                                             1e-4, terms=terms),
+        "plain": lambda: kernels.fv_moments_plain(X, means, variances,
+                                                  weights, 1e-4),
+        "library": lambda: (torch.addmm(c0, XX, AB),
+                            torch.addmm(s0, Xm, post)),
+    }
+    w_call = {name: _time_ms(fn, reps=5) for name, fn in w_fns.items()}
+    w_dev = {name: _device_ms(fn, reps=3) for name, fn in w_fns.items()}
+    del XX, AB, Xm, post
+    # held against the plain version at this n, on the descriptors whose
+    # float64 posteriors all lie clear of the threshold (a posterior
+    # within float32 rounding of it may be kept by one side and dropped
+    # by the other)
+    q64 = _posteriors(X.T.double(), means.T.double(), variances.T.double(),
+                      weights.double(), 0.0)
+    clear = ((q64.log() - np.log(1e-4)).abs() > FV_CLEAR).all(dim=1)
+    del q64
+    Xc = X[:, clear].contiguous()
+    got = kernels.fv_moments(Xc, means, variances, weights, 1e-4,
+                             terms=terms)
+    want = kernels.fv_moments_plain(Xc, means, variances, weights, 1e-4)
+    _sync()
+    w_errs = []
+    for name, g, w in zip(("s0", "s1", "s2"), got, want):
+        assert bool(torch.isfinite(g).all())
+        err = float((g - w).abs().max())
+        scale = float(w.abs().max())
+        w_errs.append(f"{name} {err / scale:.3e}")
+        assert err <= FV_TOL * scale, (D, K, Xc.shape[1], name, err, scale)
+    print(f"[time] fv_moments D={D} K={K} n={n} (components in chunks: the "
+          f"column statistics, then the moments): one call at a time kernel "
+          f"{w_call['kernel']:.4f} ms, plain {w_call['plain']:.4f} ms, "
+          f"torch.addmm x2 (both GEMMs) {w_call['library']:.4f} ms; device "
+          f"time alone (CUDA graph): kernel {w_dev['kernel']:.4f} ms, plain "
+          f"{w_dev['plain']:.4f} ms, torch.addmm x2 {w_dev['library']:.4f} "
+          f"ms; bound "
+          f"{_bound(3 * 8 * n * D * K, 4 * D * n, PEAK_TF32_FLOPS)[0]:.4f} ms "
+          f"(3xTF32, one llh and one moment product); against plain on the "
+          f"{Xc.shape[1]} of {n} descriptors clear of the threshold, "
+          f"relative to the largest sum: {', '.join(w_errs)}", flush=True)
+    del X, means, variances, weights, terms, w_fns, Xc, got, want
 
     # -- 6. report ------------------------------------------------------------
     print(smi)
@@ -1575,6 +1755,8 @@ def _main(workdir: str) -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
+        "device_ms": fz_dev["kernel"],
+        "library_device_ms": fz_dev["library"],
     }, {
         "name": "gram_cross",
         "route": "cuda",
@@ -1599,6 +1781,8 @@ def _main(workdir: str) -> int:
         "bound_ms": q["bound_ms"],
         "bound_by": q["bound_by"],
         "library_ms": q["library_ms"],
+        "device_ms": q["device_ms"],
+        "library_device_ms": q["library_device_ms"],
     }, {
         "name": "banded_matmul",
         "route": "cuda",
@@ -1611,6 +1795,8 @@ def _main(workdir: str) -> int:
         "bound_ms": b_bound_ms,
         "bound_by": b_bound_by,
         "library_ms": b_library_ms,
+        "device_ms": b_dev["kernel"],
+        "library_device_ms": b_dev["library"],
     }, {
         "name": "fv_moments",
         "route": "cuda",
@@ -1623,6 +1809,8 @@ def _main(workdir: str) -> int:
         "bound_ms": f_bound_ms,
         "bound_by": f_bound_by,
         "library_ms": f_library_ms,
+        "device_ms": f_dev["kernel"],
+        "library_device_ms": f_dev["library"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

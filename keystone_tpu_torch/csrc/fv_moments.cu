@@ -43,18 +43,35 @@
 //    accumulator fragments: each of 8 warps owns 32 components (4 tiles
 //    of 8) over all 2D = 160 rows of [x'; -x'^2] (10 tiles of 16), 160
 //    floats a thread. Where 2D or K is larger than 160 rows or 256
-//    components, grid.y splits the accumulated rows and components; each
-//    split recomputes the posteriors, which need every row and component.
+//    components, grid y and z split the accumulated rows and components;
+//    each split recomputes the posteriors, which need every row and
+//    component.
 //  * Where [B; A] does not fit beside the tiles (D = 81 and up at K =
 //    256, K = 512 at D = 64), the same buffer takes it in chunks of rows,
 //    as many as fit: each tile copies the chunks in turn and sums the
 //    llh over them in the llh tile, in chunk order, so such a GMM rereads
-//    [B; A] from L2 on every tile. Refused only where the tiles and 8 rows
-//    of [B; A] exceed one block's 227 KB: K past 1960 at D = 80, D past
-//    455 at K = 256 (the llh tile is T x K floats, the x' tiles 2D x T).
+//    [B; A] from L2 on every tile.
+//  * Where the llh tile (T x K) does not fit (K past about 1960 at D =
+//    80), the components go in chunks (multiples of 256, as wide as fit),
+//    in a fixed order, and the same kernel runs twice. The first launch
+//    (no row or component splits) walks each tile's chunks twice,
+//    recomputing their llh: a running max and sum of exponentials (the
+//    sum rescaled to each new max), then the kept sum of the thresholded
+//    posteriors; it writes the three per descriptor column. The second,
+//    split over components as usual, recomputes only its split's own 256
+//    components' llh, takes their posteriors from the three, and runs
+//    the moment update. So such a GMM pays 3x the llh product, and only
+//    there; one chunk runs the three steps at once on values held in
+//    registers. A compile-time flag keeps that code out of the resident
+//    instantiation, whose registers stay those of the one-chunk form.
+//  * Where the x' tiles (2D x T) do not fit (D past about 455 at K =
+//    256), the rows of [x'; -x'^2] are staged straight from X in the
+//    chunks of rows of [B; A] for the llh, then each row split's own 160
+//    rows are staged again for the moment product. With both, every
+//    (D, K) has a launch plan; only device memory bounds it.
 //  * Blocks run in no order on Hopper, so each block (one an SM) takes a
 //    strided set of T = 16-column tiles and keeps its own partial sums; a
-//    second launch adds the blocks' partials in a fixed order (4 threads
+//    last launch adds the blocks' partials in a fixed order (4 threads
 //    an entry, each a quarter of the blocks in block order) and
 //    un-centers. No atomics: the same inputs give the same bits on every
 //    run.
@@ -167,61 +184,89 @@ __host__ __device__ inline int comp_stride(int ntiles) {
   return ks + ((8 - ks % 32) + 32) % 32;
 }
 
-// shared memory of one block, in floats: R rows of [B; -A] (R x KS, R =
-// 2Dp where it is resident), the tile's [x'; x'^2] split into TF32 big and
-// small parts (2 x 2Dp x TS), the raw X tile (D x T, the cp.async
-// target), the llh / q tile (T x KS), c (KS) and g (Dp)
-__host__ __device__ inline long long smem_floats(int D, int Dp, int KS,
-                                                 int R) {
-  return (long long)R * KS + 4LL * Dp * TS + (long long)D * T +
-         (long long)T * KS + KS + Dp;
+// shared memory of one block, in floats: R rows of [B; -A] over a chunk of
+// components (R x KS), XR rows of [x'; -x'^2] split into TF32 big and small
+// (2 x XR x TS), the raw X tile and g where x' is resident (D x T, Dp),
+// the llh / q tile (T x KS), c of the chunk (KS), and the per-row softmax
+// state of the component passes (3 x T)
+__host__ __device__ inline long long smem_floats(int D, int Dp, int KS, int R,
+                                                 int XR, bool xres) {
+  return (long long)R * KS + 2LL * XR * TS +
+         (xres ? (long long)D * T + Dp : 0LL) + (long long)T * KS + KS +
+         3 * T;
 }
 
+// WIDE: the instantiation for GMMs past the resident tiles (components in
+// chunks, or x' rows staged from X); the other compiles only the one-chunk,
+// resident-x' form, so its registers are those of that form alone.
+// mode (WIDE only; 0 otherwise): 0 one pass where the llh tile holds
+// every component; with chunks of components, 1 the column statistics
+// (running max, sum of exponentials, kept sum) into stats [3][ns], 2 the
+// moments of the split's own components from those statistics.
+template <bool WIDE>
 __global__ void __launch_bounds__(NTHREADS, 1)
 fv_moments_kernel(const float* __restrict__ X, long long ldx,
                   const float* __restrict__ g, const float* __restrict__ A,
                   const float* __restrict__ B, const float* __restrict__ c,
-                  float* __restrict__ partial, int D, int n, int K,
-                  int rsplits, int R, float threshold) {
+                  float* __restrict__ partial, float* __restrict__ stats,
+                  long long ns, int D, int n, int K, int R, int XR, int KC,
+                  float threshold, int mode) {
+  const int md = WIDE ? mode : 0;
   const int Dp = (D + 7) / 8 * 8;
   const int ntiles = (K + 7) / 8;
-  const int KS = comp_stride(ntiles);
+  const int kct = (KC + 7) / 8;      // 8-component tiles of a chunk
+  const int KS = comp_stride(kct);
+  const int nchunks = (K + KC - 1) / KC;
+  // the llh tile holds every component; every row of [x'; -x'^2] staged
+  const bool single = !WIDE || nchunks == 1;
+  const bool xres = !WIDE || XR >= 2 * Dp;
+  const bool wres = single && R >= 2 * Dp;  // [B; -A] resident
   const int MT = Dp / 8;  // 16-row tiles of [x'; x'^2] (2 Dp rows)
-  const bool resident = R >= 2 * Dp;  // else [B; -A] in chunks of R rows
   extern __shared__ float4 smem4[];
   float* ws = reinterpret_cast<float*>(smem4);  // [R][KS]: B, then A
   uint32_t* xb = reinterpret_cast<uint32_t*>(ws + (long long)R * KS);
-  uint32_t* xm = xb + 2 * Dp * TS;  // [2Dp][TS] big, small of [x'; x'^2]
-  float* raw = reinterpret_cast<float*>(xm + 2 * Dp * TS);  // [D][T]
-  float* qs = raw + D * T;                                   // [T][KS]
-  float* cs = qs + T * KS;                                   // [KS]
-  float* gs = cs + KS;                                       // [Dp]
+  uint32_t* xm = xb + XR * TS;  // [XR][TS] big, small of [x'; x'^2]
+  float* raw = reinterpret_cast<float*>(xm + XR * TS);  // [D][T] (xres)
+  float* qs = raw + (xres ? D * T : 0);                  // [T][KS]
+  float* cs = qs + T * KS;                               // [KS]
+  float* gs = cs + KS;                                   // [Dp] (xres)
+  float* rowm = gs + (xres ? Dp : 0);  // running max, sum, kept sum [T]
+  float* rowz = rowm + T;
+  float* rowk = rowz + T;
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int gq = lane / 4, tq = lane % 4;  // mma fragment coordinates
-  const int rsplit = blockIdx.y % rsplits, csplit = blockIdx.y / rsplits;
+  const int rsplit = blockIdx.y, csplit = blockIdx.z;
   const int mt0 = rsplit * MTW;
   const int mtn = min(MTW, MT - mt0);
   const int nbase = csplit * SPLIT_N + warp * NTW;
+  // the first component tile the q tile holds for the moment product:
+  // with several chunks, the last pass computes this split's own
+  const int qbase = single ? 0 : csplit * SPLIT_N;
 
-  // rows [r0, r0 + R) of [B; A] into ws, asynchronously (padding rows
-  // and components zero-filled)
-  auto load_ws = [&](int r0) {
+  // rows [r0, r0 + R) of [B; A] over components [kc0, kc0 + kn) into ws,
+  // asynchronously (padding rows and components zero-filled)
+  auto load_ws = [&](int r0, int kc0, int kn) {
     for (int r = r0 + warp; r < min(r0 + R, 2 * Dp); r += NWARPS) {
-      const float* src = r < D ? B + (long long)r * K
-                         : r >= Dp && r - Dp < D ? A + (long long)(r - Dp) * K
-                                                 : nullptr;
+      const float* src = r < D ? B + (long long)r * K + kc0
+                         : r >= Dp && r - Dp < D
+                             ? A + (long long)(r - Dp) * K + kc0
+                             : nullptr;
       for (int k = lane; k < KS; k += 32)
         cp_async4(ws + (r - r0) * KS + k,
-                  src != nullptr && k < K ? src + k : c,
-                  src != nullptr && k < K);
+                  src != nullptr && k < kn ? src + k : c,
+                  src != nullptr && k < kn);
     }
   };
+  auto load_c = [&](int kc0, int kn) {
+    for (int k = tid; k < KS; k += NTHREADS) cs[k] = k < kn ? c[kc0 + k] : 0.0f;
+  };
   // resident: [B; A] copied once per block, in the first tile's copy group
-  if (resident) load_ws(0);
-  for (int k = tid; k < KS; k += NTHREADS) cs[k] = k < K ? c[k] : 0.0f;
-  for (int d = tid; d < Dp; d += NTHREADS) gs[d] = d < D ? g[d] : 0.0f;
+  if (wres) load_ws(0, 0, K);
+  if (single) load_c(0, K);
+  if (xres)
+    for (int d = tid; d < Dp; d += NTHREADS) gs[d] = d < D ? g[d] : 0.0f;
 
   const long long tiles = ((long long)n + T - 1) / T;
   auto load_tile = [&](long long tile) {
@@ -231,6 +276,22 @@ fv_moments_kernel(const float* __restrict__ X, long long ldx,
       const bool valid = col0 + t < n;
       cp_async4(raw + e, valid ? X + (long long)d * ldx + col0 + t : X,
                 valid);
+    }
+  };
+  // rows [ra, rb) of [x'; -x'^2] of the tile at col0, straight from X, into
+  // rows [0, rb - ra) of xb / xm (where x' is not resident)
+  auto stage_rows = [&](int ra, int rb, long long col0) {
+    for (int e = tid; e < (rb - ra) * T; e += NTHREADS) {
+      const int r = ra + e / T, t = e % T;
+      const int d = r < Dp ? r : r - Dp;
+      float v = 0.0f;
+      if (d < D) {
+        const float x =
+            col0 + t < n ? X[(long long)d * ldx + col0 + t] : 0.0f;
+        v = x - g[d];
+      }
+      split_tf32(r < Dp ? v : -(v * v), xb[(r - ra) * TS + t],
+                 xm[(r - ra) * TS + t]);
     }
   };
 
@@ -246,135 +307,243 @@ fv_moments_kernel(const float* __restrict__ X, long long ldx,
   for (int j = 0; j < NTW; ++j) s0acc[j] = 0.0f;
 
   long long tile = blockIdx.x;
-  if (tile < tiles) load_tile(tile);
+  if (xres && tile < tiles) load_tile(tile);
   cp_async_commit();
   for (; tile < tiles; tile += gridDim.x) {
     const int valid = (int)min((long long)T, (long long)n - tile * T);
-    cp_async_wait_all();
-    __syncthreads();  // raw holds this tile; the last tile is consumed
-    // x' = x - g and -x'^2 (the llh subtracts x'^2 A), each split once
-    // into TF32 big and small parts
-    for (int e = tid; e < Dp * T; e += NTHREADS) {
-      const int d = e / T, t = e % T;
-      const float v = d < D ? raw[e] - gs[d] : 0.0f;
-      split_tf32(v, xb[d * TS + t], xm[d * TS + t]);
-      split_tf32(-(v * v), xb[(Dp + d) * TS + t], xm[(Dp + d) * TS + t]);
-    }
-    __syncthreads();  // raw is free: fetch the next tile behind the math
-    if (tile + gridDim.x < tiles) load_tile(tile + gridDim.x);
-    cp_async_commit();
-
-    // llh[t][k] = c[k] + sum_r [x' | -x'^2][t][r] ws[r][k], over the
-    // chunks of [B; -A] in order: a warp takes NTW 8-component tiles at a
-    // time, its x' fragments serving all of them
-    for (int r0 = 0; r0 < 2 * Dp; r0 += R) {
-      if (!resident) {
-        __syncthreads();  // every warp is done with the last chunk
-        load_ws(r0);
-        cp_async_commit();
-        cp_async_wait_all();  // (the next X tile's copy with it)
-        __syncthreads();
+    const long long col0 = tile * T;
+    if (xres) {
+      cp_async_wait_all();
+      __syncthreads();  // raw holds this tile; the last tile is consumed
+      // x' = x - g and -x'^2 (the llh subtracts x'^2 A), each split once
+      // into TF32 big and small parts
+      for (int e = tid; e < Dp * T; e += NTHREADS) {
+        const int d = e / T, t = e % T;
+        const float v = d < D ? raw[e] - gs[d] : 0.0f;
+        split_tf32(v, xb[d * TS + t], xm[d * TS + t]);
+        split_tf32(-(v * v), xb[(Dp + d) * TS + t], xm[(Dp + d) * TS + t]);
       }
-      const int r1 = min(r0 + R, 2 * Dp);
-      for (int nt0 = warp * NTW; nt0 < ntiles; nt0 += NWARPS * NTW) {
-        float l[NTW][4] = {};
-        for (int k0 = r0; k0 < r1; k0 += 8) {
-          const int x0 = (k0 + tq) * TS + gq, x1 = x0 + 4 * TS;
-          const uint32_t ab[4] = {xb[x0], xb[x0 + 8], xb[x1], xb[x1 + 8]};
-          const uint32_t as[4] = {xm[x0], xm[x0 + 8], xm[x1], xm[x1 + 8]};
-          const float* w0 = ws + (k0 - r0 + tq) * KS;
+      __syncthreads();  // raw is free: fetch the next tile behind the math
+      if (tile + gridDim.x < tiles) load_tile(tile + gridDim.x);
+      cp_async_commit();
+    }
+    if (!single && tid < T) {
+      const long long col = col0 + tid;
+      rowm[tid] = md == 2 ? stats[col] : __int_as_float(0xff800000);  // -inf
+      rowz[tid] = md == 2 ? stats[ns + col] : 0.0f;
+      rowk[tid] = md == 2 ? stats[2 * ns + col] : 0.0f;
+    }
+
+    // One pass where the llh tile holds every component. Else, in chunk
+    // order, each recomputing a chunk's llh: 0 the running max and sum of
+    // exponentials and 1 the kept sum (mode 1), or 2 q of this split's
+    // own components only (mode 2).
+    const int pass_a = single || md == 1 ? 0 : 2;
+    const int pass_b = single ? 1 : md == 1 ? 2 : 3;
+    for (int pass = pass_a; pass < pass_b; ++pass) {
+      const int cc1 = pass == 2 ? 1 : nchunks;
+      for (int cc = 0; cc < cc1; ++cc) {
+        const int kc0 = pass == 2 ? qbase * 8 : cc * KC;
+        const int kn = min(pass == 2 ? SPLIT_N * 8 : KC, K - kc0);
+        const int ntc = (kn + 7) / 8;
+        // llh[t][k] = c[k] + sum_r [x' | -x'^2][t][r] ws[r][k], over the
+        // chunks of rows of [B; -A] in order: a warp takes NTW 8-component
+        // tiles at a time, its x' fragments serving all of them
+        for (int r0 = 0; r0 < 2 * Dp; r0 += R) {
+          const int r1 = min(r0 + R, 2 * Dp);
+          if (!wres) {
+            __syncthreads();  // every warp is done with the last chunk
+            load_ws(r0, kc0, kn);
+            cp_async_commit();
+            if (!single && r0 == 0) load_c(kc0, kn);
+            if (!xres) stage_rows(r0, r1, col0);
+            cp_async_wait_all();  // (the next X tile's copy with it)
+            __syncthreads();
+          }
+          const int xoff = xres ? 0 : r0;
+          for (int nt0 = warp * NTW; nt0 < ntc; nt0 += NWARPS * NTW) {
+            float l[NTW][4] = {};
+            for (int k0 = r0; k0 < r1; k0 += 8) {
+              const int x0 = (k0 - xoff + tq) * TS + gq, x1 = x0 + 4 * TS;
+              const uint32_t ab[4] = {xb[x0], xb[x0 + 8], xb[x1], xb[x1 + 8]};
+              const uint32_t as[4] = {xm[x0], xm[x0 + 8], xm[x1], xm[x1 + 8]};
+              const float* w0 = ws + (k0 - r0 + tq) * KS;
 #pragma unroll
-          for (int j = 0; j < NTW; ++j) {
-            if (nt0 + j >= ntiles) break;
-            const int kc = (nt0 + j) * 8 + gq;
-            uint32_t bb0, bs0, bb1, bs1;
-            split_tf32(w0[kc], bb0, bs0);
-            split_tf32(w0[4 * KS + kc], bb1, bs1);
-            mma_3xtf32(l[j], ab, as, bb0, bb1, bs0, bs1);
+              for (int j = 0; j < NTW; ++j) {
+                if (nt0 + j >= ntc) break;
+                const int kc = (nt0 + j) * 8 + gq;
+                uint32_t bb0, bs0, bb1, bs1;
+                split_tf32(w0[kc], bb0, bs0);
+                split_tf32(w0[4 * KS + kc], bb1, bs1);
+                mma_3xtf32(l[j], ab, as, bb0, bb1, bs0, bs1);
+              }
+            }
+            // the first chunk of rows starts from c, a later one adds to
+            // the tile this thread wrote for the chunk before
+#pragma unroll
+            for (int j = 0; j < NTW; ++j) {
+              if (nt0 + j >= ntc) break;
+              const int k = (nt0 + j) * 8 + 2 * tq;
+              float* q0 = qs + gq * KS + k;
+              float* q1 = q0 + 8 * KS;
+              const bool first = r0 == 0;
+              q0[0] = (first ? cs[k] : q0[0]) + l[j][0];
+              q0[1] = (first ? cs[k + 1] : q0[1]) + l[j][1];
+              q1[0] = (first ? cs[k] : q1[0]) + l[j][2];
+              q1[1] = (first ? cs[k + 1] : q1[1]) + l[j][3];
+            }
           }
         }
-        // the first chunk starts from c, a later one adds to the tile
-        // this thread wrote for the chunk before
+        __syncthreads();
+
+        // softmax, threshold, renormalize; rows past n -> 0. Where the
+        // chunk is at most 16 SV components a half-warp takes a row (a warp
+        // two at once), each lane holding SV of its values in registers;
+        // else a warp walks a row in shared memory. Fixed shuffle
+        // butterflies: the same bits on every run.
+        if (kn <= 16 * SV) {
+          const int t = 2 * warp + lane / 16, hl = lane % 16;
+          float* row = qs + t * KS;
+          float v[SV];
+          float mx = __int_as_float(0xff800000);  // -inf
 #pragma unroll
-        for (int j = 0; j < NTW; ++j) {
-          if (nt0 + j >= ntiles) break;
-          const int k = (nt0 + j) * 8 + 2 * tq;
-          float* q0 = qs + gq * KS + k;
-          float* q1 = q0 + 8 * KS;
-          const bool first = r0 == 0;
-          q0[0] = (first ? cs[k] : q0[0]) + l[j][0];
-          q0[1] = (first ? cs[k + 1] : q0[1]) + l[j][1];
-          q1[0] = (first ? cs[k] : q1[0]) + l[j][2];
-          q1[1] = (first ? cs[k + 1] : q1[1]) + l[j][3];
+          for (int i = 0; i < SV; ++i) {
+            const int k = hl + 16 * i;
+            v[i] = k < kn ? row[k] : __int_as_float(0xff800000);
+            mx = fmaxf(mx, v[i]);
+          }
+          mx = half_max(mx);
+          if (single) {
+            float s = 0.0f;
+#pragma unroll
+            for (int i = 0; i < SV; ++i) {
+              v[i] = hl + 16 * i < kn ? expf(v[i] - mx) : 0.0f;
+              s += v[i];
+            }
+            const float inv = 1.0f / half_sum(s);
+            float s2 = 0.0f;
+#pragma unroll
+            for (int i = 0; i < SV; ++i) {
+              const float q = v[i] * inv;
+              v[i] = q > threshold ? q : 0.0f;
+              s2 += v[i];
+            }
+            const float s2sum = half_sum(s2);  // every lane takes part
+            const float inv2 = t < valid ? 1.0f / s2sum : 0.0f;
+#pragma unroll
+            for (int i = 0; i < SV; ++i)
+              if (hl + 16 * i < kn) row[hl + 16 * i] = v[i] * inv2;
+          } else if (pass == 0) {
+            // the running max and sum, rescaled to the new max
+            const float m0 = rowm[t], m1 = fmaxf(m0, mx);
+            float s = 0.0f;
+#pragma unroll
+            for (int i = 0; i < SV; ++i)
+              s += hl + 16 * i < kn ? expf(v[i] - m1) : 0.0f;
+            s = half_sum(s);
+            __syncwarp();
+            if (hl == 0) {
+              rowz[t] = rowz[t] * expf(m0 - m1) + s;
+              rowm[t] = m1;
+            }
+          } else {
+            const float m = rowm[t], inv = 1.0f / rowz[t];
+            float s2 = 0.0f;
+#pragma unroll
+            for (int i = 0; i < SV; ++i) {
+              const float q = hl + 16 * i < kn ? expf(v[i] - m) * inv : 0.0f;
+              v[i] = q > threshold ? q : 0.0f;
+              s2 += v[i];
+            }
+            s2 = half_sum(s2);
+            if (pass == 1) {
+              __syncwarp();
+              if (hl == 0) rowk[t] += s2;
+            } else {
+              const float inv2 = t < valid ? 1.0f / rowk[t] : 0.0f;
+#pragma unroll
+              for (int i = 0; i < SV; ++i)
+                if (hl + 16 * i < kn) row[hl + 16 * i] = v[i] * inv2;
+            }
+          }
+        } else if (!single) {
+          // passes 0 and 1 over a chunk wider than 16 SV components: a
+          // warp walks a row in shared memory (pass 2 is never this wide)
+          for (int t = warp; t < T; t += NWARPS) {
+            const float* row = qs + t * KS;
+            float mx = __int_as_float(0xff800000);  // -inf
+            const float m0 = rowm[t];
+            if (pass == 0) {
+              for (int k = lane; k < kn; k += 32) mx = fmaxf(mx, row[k]);
+              mx = fmaxf(m0, warp_max(mx));
+            }
+            const float inv = pass == 0 ? 0.0f : 1.0f / rowz[t];
+            float s = 0.0f;
+            for (int k = lane; k < kn; k += 32) {
+              if (pass == 0) {
+                s += expf(row[k] - mx);
+              } else {
+                const float q = expf(row[k] - m0) * inv;
+                s += q > threshold ? q : 0.0f;
+              }
+            }
+            s = warp_sum(s);
+            __syncwarp();
+            if (lane == 0) {
+              if (pass == 0) {
+                rowz[t] = rowz[t] * expf(m0 - mx) + s;
+                rowm[t] = mx;
+              } else {
+                rowk[t] += s;
+              }
+            }
+          }
+        } else {
+          // one chunk of more than 16 SV components
+          for (int t = warp; t < T; t += NWARPS) {
+            float* row = qs + t * KS;
+            if (t >= valid) {
+              for (int k = lane; k < K; k += 32) row[k] = 0.0f;
+              continue;
+            }
+            float mx = __int_as_float(0xff800000);  // -inf
+            for (int k = lane; k < K; k += 32) mx = fmaxf(mx, row[k]);
+            mx = warp_max(mx);
+            float s = 0.0f;
+            for (int k = lane; k < K; k += 32) {
+              const float e = expf(row[k] - mx);
+              row[k] = e;
+              s += e;
+            }
+            const float inv = 1.0f / warp_sum(s);
+            float s2 = 0.0f;
+            for (int k = lane; k < K; k += 32) {
+              const float q = row[k] * inv;
+              row[k] = q > threshold ? q : 0.0f;
+              s2 += row[k];
+            }
+            const float inv2 = 1.0f / warp_sum(s2);
+            for (int k = lane; k < K; k += 32) row[k] = row[k] * inv2;
+          }
         }
+        __syncthreads();
       }
     }
-    __syncthreads();
-
-    // softmax, threshold, renormalize; rows past n -> 0. Where K <= 16 SV
-    // a half-warp takes a row (a warp two at once), each lane holding SV
-    // of its values in registers; else a warp walks a row in shared
-    // memory. Fixed shuffle butterflies: the same bits on every run.
-    if (K <= 16 * SV) {
-      const int t = 2 * warp + lane / 16, hl = lane % 16;
-      float* row = qs + t * KS;
-      float v[SV];
-      float mx = __int_as_float(0xff800000);  // -inf
-#pragma unroll
-      for (int i = 0; i < SV; ++i) {
-        const int k = hl + 16 * i;
-        v[i] = k < K ? row[k] : __int_as_float(0xff800000);
-        mx = fmaxf(mx, v[i]);
+    if (md == 1) {  // the column statistics, and no moments
+      if (tid < T) {
+        stats[col0 + tid] = rowm[tid];
+        stats[ns + col0 + tid] = rowz[tid];
+        stats[2 * ns + col0 + tid] = rowk[tid];
       }
-      mx = half_max(mx);
-      float s = 0.0f;
-#pragma unroll
-      for (int i = 0; i < SV; ++i) {
-        v[i] = hl + 16 * i < K ? expf(v[i] - mx) : 0.0f;
-        s += v[i];
-      }
-      const float inv = 1.0f / half_sum(s);
-      float s2 = 0.0f;
-#pragma unroll
-      for (int i = 0; i < SV; ++i) {
-        const float q = v[i] * inv;
-        v[i] = q > threshold ? q : 0.0f;
-        s2 += v[i];
-      }
-      const float s2sum = half_sum(s2);  // every lane takes part
-      const float inv2 = t < valid ? 1.0f / s2sum : 0.0f;
-#pragma unroll
-      for (int i = 0; i < SV; ++i)
-        if (hl + 16 * i < K) row[hl + 16 * i] = v[i] * inv2;
-    } else {
-      for (int t = warp; t < T; t += NWARPS) {
-        float* row = qs + t * KS;
-        if (t >= valid) {
-          for (int k = lane; k < K; k += 32) row[k] = 0.0f;
-          continue;
-        }
-        float mx = __int_as_float(0xff800000);  // -inf
-        for (int k = lane; k < K; k += 32) mx = fmaxf(mx, row[k]);
-        mx = warp_max(mx);
-        float s = 0.0f;
-        for (int k = lane; k < K; k += 32) {
-          const float e = expf(row[k] - mx);
-          row[k] = e;
-          s += e;
-        }
-        const float inv = 1.0f / warp_sum(s);
-        float s2 = 0.0f;
-        for (int k = lane; k < K; k += 32) {
-          const float q = row[k] * inv;
-          row[k] = q > threshold ? q : 0.0f;
-          s2 += row[k];
-        }
-        const float inv2 = 1.0f / warp_sum(s2);
-        for (int k = lane; k < K; k += 32) row[k] = row[k] * inv2;
-      }
+      continue;
     }
-    __syncthreads();
 
+    // where x' is not resident, this split's own rows, restaged
+    const int xoff = xres ? 0 : mt0 * 16;
+    if (!xres) {
+      stage_rows(mt0 * 16, (mt0 + mtn) * 16, col0);
+      __syncthreads();
+    }
     // [s1'; -s2'] += [x'; -x'^2] (2Dp x T) @ q (T x K); s0 += sum_t q
 #pragma unroll
     for (int t0 = 0; t0 < T; t0 += 8) {
@@ -384,8 +553,9 @@ fv_moments_kernel(const float* __restrict__ X, long long ldx,
         const int nt = nbase + j;
         float v0 = 0.0f, v1 = 0.0f;
         if (nt < ntiles) {
-          v0 = qs[(t0 + tq) * KS + nt * 8 + gq];
-          v1 = qs[(t0 + tq + 4) * KS + nt * 8 + gq];
+          const int kq = (nt - qbase) * 8 + gq;
+          v0 = qs[(t0 + tq) * KS + kq];
+          v1 = qs[(t0 + tq + 4) * KS + kq];
         }
         s0acc[j] += v0 + v1;
         split_tf32(v0, qb[j][0], qm[j][0]);
@@ -394,7 +564,7 @@ fv_moments_kernel(const float* __restrict__ X, long long ldx,
 #pragma unroll
       for (int i = 0; i < MTW; ++i) {
         if (i >= mtn) break;
-        const int r0 = ((mt0 + i) * 16 + gq) * TS + t0 + tq;
+        const int r0 = ((mt0 + i) * 16 + gq - xoff) * TS + t0 + tq;
         const int r1 = r0 + 8 * TS;
         const uint32_t ab[4] = {xb[r0], xb[r1], xb[r0 + 4], xb[r1 + 4]};
         const uint32_t as[4] = {xm[r0], xm[r1], xm[r0 + 4], xm[r1 + 4]};
@@ -405,9 +575,11 @@ fv_moments_kernel(const float* __restrict__ X, long long ldx,
                        qm[j][1]);
       }
     }
+    if (!xres) __syncthreads();  // the next tile restages xb
   }
 
   cp_async_wait_all();  // a block past the last tile has copies in flight
+  if (md == 1) return;
 
   // this block's partial: [s0 (K) | s1' (D x K) | s2' (D x K)]
   float* dst = partial + (long long)blockIdx.x * (K + 2LL * D * K);
@@ -489,17 +661,23 @@ constexpr long long SMEM_LIMIT = 232448;  // bytes a block may use (227 KB)
 
 struct Plan {
   int R;        // rows of [B; -A] shared memory holds (2Dp: resident)
+  int XR;       // rows of [x'; -x'^2] shared memory holds (2Dp: resident)
+  int KC;       // components of a chunk (K: the llh tile holds them all)
   int rsplits;  // splits of the accumulated rows of [x'; x'^2] (grid y)
-  int csplits;  // splits of the accumulated components (grid y)
+  int csplits;  // splits of the accumulated components (grid z)
   int blocks;   // blocks along n (grid x)
   long long smem;
 };
 
-// The launch plan for (D, n, K) on the current device: as many rows of
-// [B; -A] as fit beside the tiles (a multiple of 8, at most all 2Dp), the
-// row and component splits the register accumulators need, and as many
-// blocks as the SMs hold at once, at most one a tile. False where the
-// tiles and 8 rows of [B; -A] do not fit one block's shared memory.
+// The launch plan for (D, n, K) on the current device, the first that fits
+// one block's shared memory of: every component in the llh tile, then
+// chunks of SPLIT_N * 8 components; for each, every row of [x'; -x'^2]
+// staged from a raw X tile, then rows staged straight from X in chunks of
+// at least one row split's 160 (or all 2Dp). With them as many rows of
+// [B; -A] as fit (a multiple of 8, at most all 2Dp, at least 8), the row
+// and component splits the register accumulators need, and as many blocks
+// as the SMs hold at once, at most one a tile. Every positive (D, K) has a
+// plan: the last form needs about 1.3 KB a row of [B; -A] and 17 KB more.
 bool make_plan(int D, int n, int K, Plan* p) {
   int dev = 0, sms = 0;
   if (D <= 0 || n <= 0 || K <= 0 || cudaGetDevice(&dev) != cudaSuccess ||
@@ -508,30 +686,58 @@ bool make_plan(int D, int n, int K, Plan* p) {
     return false;
   const int Dp = (D + 7) / 8 * 8;
   const int ntiles = (K + 7) / 8;
-  const int KS = comp_stride(ntiles);
-  const long long room = SMEM_LIMIT / 4 - smem_floats(D, Dp, KS, 0);
-  const int R = (int)std::min<long long>(2 * Dp, room / KS / 8 * 8);
-  if (R < 8) return false;
-  const long long smem = 4 * smem_floats(D, Dp, KS, R);
-  const long long per_sm = std::max<long long>(
-      1, std::min<long long>(2048 / NTHREADS, SMEM_LIMIT / smem));
   const long long tiles = ((long long)n + T - 1) / T;
-  *p = {R, (Dp / 8 + MTW - 1) / MTW, (ntiles + SPLIT_N - 1) / SPLIT_N,
-        (int)std::min<long long>(tiles, sms * per_sm), smem};
-  return true;
+  // every component, else the widest chunk (a multiple of SPLIT_N * 8)
+  // beside which at least min(2Dp, 64) rows of [B; -A] fit
+  for (int KC = K; KC == K || KC >= SPLIT_N * 8;
+       KC = KC == K ? (K - 1) / (SPLIT_N * 8) * (SPLIT_N * 8)
+               : KC - SPLIT_N * 8) {
+    if (KC <= 0) break;
+    const int KS = comp_stride((KC + 7) / 8);
+    for (bool xres : {true, false}) {
+      const int xmin = xres ? 2 * Dp : std::min(2 * Dp, MTW * 16);
+      const long long room =
+          SMEM_LIMIT / 4 - smem_floats(D, Dp, KS, 0, xmin, xres);
+      if (room <= 0) continue;
+      // rows past xmin also widen the x' buffer where it is not resident
+      long long R = std::min<long long>(2 * Dp, room / KS);
+      if (!xres && R > xmin)
+        R = std::max<long long>(
+            xmin, std::min<long long>(2 * Dp, (room + 2LL * xmin * TS) /
+                                                  (KS + 2 * TS)));
+      R = R / 8 * 8;
+      if (R < (KC == K ? 8 : std::min(2 * Dp, 64))) continue;
+      const int XR = xres ? 2 * Dp : (int)std::max<long long>(xmin, R);
+      const long long smem = 4 * smem_floats(D, Dp, KS, (int)R, XR, xres);
+      const long long per_sm = std::max<long long>(
+          1, std::min<long long>(2048 / NTHREADS, SMEM_LIMIT / smem));
+      *p = {(int)R,
+            XR,
+            KC,
+            (Dp / 8 + MTW - 1) / MTW,
+            (ntiles + SPLIT_N - 1) / SPLIT_N,
+            (int)std::min<long long>(tiles, sms * per_sm),
+            smem};
+      return p->rsplits <= 65535 && p->csplits <= 65535;
+    }
+  }
+  return false;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of the (blocks, K + 2 D K) scratch that fv_moments_f32 needs on
-// the current device for (D, n, K), or -1 where no plan fits a block's
-// shared memory (or a size is not positive).
+// Floats of the scratch that fv_moments_f32 needs on the current device
+// for (D, n, K): the blocks' partials (blocks, K + 2 D K), then, where the
+// components go in chunks, three statistics a descriptor column (3,
+// tiles x T); or -1 where a size is not positive (or D or K passes 65535
+// splits of the accumulators).
 long long fv_moments_scratch_floats(int D, int n, int K) {
   Plan p;
   if (!make_plan(D, n, K, &p)) return -1;
-  return (long long)p.blocks * (K + 2LL * D * K);
+  const long long ns = ((long long)n + T - 1) / T * T;
+  return (long long)p.blocks * (K + 2LL * D * K) + (p.KC < K ? 3 * ns : 0);
 }
 
 // out = [s0 (K) | s1 (D, K) | s2 (D, K)], contiguous float32, for X (D, n)
@@ -539,16 +745,16 @@ long long fv_moments_scratch_floats(int D, int n, int K) {
 // 0.5 / var and B = (means - g) / var contiguous (D, K), c (K) the llh
 // constants of the centered means. `partial` is a float32 scratch of
 // fv_moments_scratch_floats(D, n, K) floats. Launches the moments kernel
-// and the block-order reduce on `stream` on the current device and
-// returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue for
-// arguments the launch cannot take.
+// (twice where the components go in chunks: the column statistics, then
+// the moments) and the block-order reduce on `stream` on the current
+// device and returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for arguments the launch cannot take.
 int fv_moments_f32(const float* X, long long ldx, const float* g,
                    const float* A, const float* B, const float* c,
                    float* out, float* partial, int D, int n, int K,
                    float threshold, void* stream) {
   Plan p;
-  if (ldx < n || partial == nullptr || !make_plan(D, n, K, &p) ||
-      (long long)p.rsplits * p.csplits > 65535)
+  if (ldx < n || partial == nullptr || !make_plan(D, n, K, &p))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // the opt-in to 227 KB of dynamic shared memory, once per device (it
@@ -557,15 +763,33 @@ int fv_moments_f32(const float* X, long long ldx, const float* g,
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess && opted_in_device != dev) {
-    err = cudaFuncSetAttribute(fv_moments_kernel,
+    err = cudaFuncSetAttribute(fv_moments_kernel<false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)SMEM_LIMIT);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(fv_moments_kernel<true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)SMEM_LIMIT);
     if (err == cudaSuccess) opted_in_device = dev;
   }
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)p.blocks, (unsigned)(p.rsplits * p.csplits));
-  fv_moments_kernel<<<grid, NTHREADS, (size_t)p.smem, st>>>(
-      X, ldx, g, A, B, c, partial, D, n, K, p.rsplits, p.R, threshold);
+  const dim3 grid((unsigned)p.blocks, (unsigned)p.rsplits,
+                  (unsigned)p.csplits);
+  const bool chunks = p.KC < K;
+  const bool wide = chunks || p.XR < 2 * ((D + 7) / 8 * 8);
+  const long long ns = ((long long)n + T - 1) / T * T;
+  float* stats = partial + (long long)p.blocks * (K + 2LL * D * K);
+  if (chunks) {  // the column statistics first, once for every split
+    fv_moments_kernel<true><<<(unsigned)p.blocks, NTHREADS, (size_t)p.smem,
+                              st>>>(X, ldx, g, A, B, c, partial, stats, ns, D,
+                                    n, K, p.R, p.XR, p.KC, threshold, 1);
+    const int rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+  }
+  (wide ? fv_moments_kernel<true> : fv_moments_kernel<false>)<<<
+      grid, NTHREADS, (size_t)p.smem, st>>>(X, ldx, g, A, B, c, partial,
+                                            stats, ns, D, n, K, p.R, p.XR,
+                                            p.KC, threshold, chunks ? 2 : 0);
   int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   const long long DK = (long long)D * K;

@@ -10,7 +10,7 @@ import numpy as np
 import torch
 
 from ...ops import image_ops
-from ...ops.kernels import fused_cifar_featurize
+from ...ops.kernels import featurize_plan, fused_cifar_featurize
 from ...parallel.dataset import ArrayDataset, Dataset
 from ...workflow.transformer import Transformer
 
@@ -180,10 +180,18 @@ class FusedConvRectifyPool(Transformer):
         self.var_constant = var_constant
 
     def apply_params(self, device):
-        return self._params_on(device, lambda d: (
-            _on(self.filters, d),
-            None if self.whitener_means is None
-            else _on(self.whitener_means, d)))
+        """(filters, whitener means) on ``device``; on a CUDA device the
+        kernel's ``FeaturizePlan`` (the filters laid out (F, K) with the
+        means' bias), made once per device, takes the filters' place and
+        the means are None, so the bank lives on the card once."""
+        def build(d):
+            filters = _on(self.filters, d)
+            means = (None if self.whitener_means is None
+                     else _on(self.whitener_means, d))
+            plan = featurize_plan(filters, means)
+            return (filters, means) if plan is None else (plan, None)
+
+        return self._params_on(device, build)
 
     def apply_with_params(self, params, imgs):
         filters, means = params

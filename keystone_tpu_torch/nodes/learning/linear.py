@@ -22,7 +22,7 @@ import torch
 
 from ...observability.metrics import MetricsRegistry
 from ...ops import linalg
-from ...ops.kernels import gram_cross, quantized_affine
+from ...ops.kernels import gram_cross, quant_plan, quantized_affine
 from ...parallel.dataset import ArrayDataset, Dataset, ensure_array
 from ...workflow.label_estimator import LabelEstimator
 from ...workflow.operators import tensor_token
@@ -116,9 +116,13 @@ def _record_quant_error(Wf, Wq, scale):
 def _maybe_quantized_params(affine, weight_dtype, quantized=None):
     """The apply-params tail of both mappers: the float32 4-tuple
     ``(W, mean, inv_std, b)`` as it is when no weight_dtype is set, else
-    the quantized 5-tuple ``(Wq, scale, mean, inv_std, b)``; ``quantized``
+    the quantized 5-tuple ``(Wq, scale, mean, inv_std, b)`` on the CPU
+    and, on a CUDA device, the kernel's ``QuantPlan`` alone in a 1-tuple
+    (the operands laid out as the kernel reads them, made once per model
+    and device, so the weights live on the card once); ``quantized``
     holds a given ``(Wq, scale)`` pair (a model carried across already
-    quantized), used instead of quantizing W."""
+    quantized), used instead of quantizing W. ``quantized_affine(X,
+    *params)`` takes either form."""
     if weight_dtype is None:
         return affine
     W, mean, inv_std, b = affine
@@ -130,7 +134,9 @@ def _maybe_quantized_params(affine, weight_dtype, quantized=None):
                                 device=W.device)
     # the kernel takes contiguous operands; a solve may leave W (and so
     # Wq) column-major
-    return tuple(t.contiguous() for t in (Wq, scale, mean, inv_std, b))
+    params = tuple(t.contiguous() for t in (Wq, scale, mean, inv_std, b))
+    plan = quant_plan(*params)
+    return params if plan is None else (plan,)
 
 
 def _dequant_affine(params, x):

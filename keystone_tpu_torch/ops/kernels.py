@@ -143,21 +143,31 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     ll = ctypes.c_longlong
     if name == "fused_featurize":
         lib.fused_cifar_featurize_f32.argtypes = [
-            p, p, p, p, p, i, i, i, i, i, i, i, i, f, f, p]
+            p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, f, p]
         lib.fused_cifar_featurize_f32.restype = i
-        lib.fused_featurize_smem_bytes.argtypes = [i, i, i, i]
-        lib.fused_featurize_smem_bytes.restype = i
-        lib.fused_featurize_max_regions.argtypes = []
-        lib.fused_featurize_max_regions.restype = i
-        lib.fused_featurize_supported.argtypes = [i, i]
-        lib.fused_featurize_supported.restype = i
+        lib.fused_featurize_smem_bytes.argtypes = [i, i, i, i, i]
+        lib.fused_featurize_smem_bytes.restype = ll
+        for fn in (lib.fused_featurize_run_cut,
+                   lib.fused_featurize_filter_tile):
+            fn.argtypes = []
+            fn.restype = i
     elif name == "gram_cross":
         lib.gram_cross_f32.argtypes = [p, p, p, p, i, i, i, ll, ll, p]
         lib.gram_cross_f32.restype = i
     elif name == "quantized_affine":
         for fn in (lib.quantized_affine_bf16, lib.quantized_affine_int8):
-            fn.argtypes = [p, ll, p, p, p, p, p, p, p, i, i, i, i, p]
+            fn.argtypes = [p, ll, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
             fn.restype = i
+        lib.quantized_affine_geometry.argtypes = [ctypes.POINTER(i)] * 5
+        lib.quantized_affine_geometry.restype = None
+        geo = [i() for _ in range(5)]
+        lib.quantized_affine_geometry(*geo)
+        got = tuple(v.value for v in geo)
+        want = (QUANT_ROWS, QUANT_SLAB, QUANT_MAX_SPLITS, QUANT_KMAX,
+                QUANT_BLOCKS_PER_SM)
+        if got != want:
+            raise RuntimeError(f"quantized_affine: the library's geometry "
+                               f"{got} is not the wrapper's {want}")
     elif name == "banded_matmul":
         lib.banded_matmul_f32.argtypes = [p, p, p, p, ll, p, i, i, i, p]
         lib.banded_matmul_f32.restype = i
@@ -211,6 +221,119 @@ def fused_cifar_featurize_plain(imgs, filters, img_size=32, patch_size=6,
     return pooled.reshape(B, -1)
 
 
+#: (img_size, channels, patch_size, pool_stride, pool_size, device index)
+#: -> _FeaturizeEnds, the least recently used entry dropped beyond
+#: _ENDS_KEPT
+_ENDS: "OrderedDict[Tuple[int, ...], _FeaturizeEnds]" = OrderedDict()
+_ENDS_KEPT = 64
+
+
+class _FeaturizeEnds(NamedTuple):
+    ends: torch.Tensor  # int32 (patches, 2)
+    nry: int            # regions along a row
+    R: int              # regions
+
+
+def region_map(dim: int, pool_stride: int, pool_size: int):
+    """Per index of one axis of the patch grid, the pooling regions along
+    that axis holding it, as ``(first, count)`` int arrays: the regions
+    (``image_ops.pool_regions``) are sorted by both ends, so the ones
+    holding an index are consecutive."""
+    ranges = pool_regions(dim, pool_stride, pool_size)
+    first = np.zeros(dim, np.int32)
+    count = np.zeros(dim, np.int32)
+    for i in range(dim):
+        hits = [r for r, (lo, hi) in enumerate(ranges) if lo <= i < hi]
+        if hits:
+            first[i], count[i] = hits[0], len(hits)
+    return first, count
+
+
+def featurize_ends(OH: int, OW: int, pool_stride: int, pool_size: int,
+                   cut: int) -> np.ndarray:
+    """The featurize kernel's run ends: the patches (row-major over the
+    OH x OW grid) cut into runs that lie in one row, in one stretch of
+    ``cut`` patches (the kernel's ``fused_featurize_run_cut``), and in the
+    same pooling regions, from the per-row and per-column region maps.
+    Two int32 a patch: ``(-1, 0)`` inside a run, and at a run's last
+    patch its row and column region sets, each packed as ``first | count
+    << 16`` (a count of 0: the run lies in no region)."""
+    rows = region_map(OH, pool_stride, pool_size)
+    cols = region_map(OW, pool_stride, pool_size)
+    P = OH * OW
+    ends = np.zeros((P, 2), np.int32)
+    ends[:, 0] = -1
+    for p in range(P):
+        py, px = divmod(p, OW)
+        q = p + 1
+        if q % cut and q % OW and q < P and (
+                cols[0][q % OW], cols[1][q % OW]) == (cols[0][px],
+                                                      cols[1][px]):
+            continue
+        ends[p] = (rows[0][py] | rows[1][py] << 16,
+                   cols[0][px] | cols[1][px] << 16)
+    return ends
+
+
+def _featurize_ends_on(img_size, channels, patch_size, pool_stride,
+                       pool_size, imgs):
+    """The run ends of a geometry on ``imgs``' device, cached per geometry
+    and device; raises where an image's staged form does not fit one
+    block's shared memory."""
+    key = (img_size, channels, patch_size, pool_stride, pool_size,
+           imgs.get_device())
+    hit = _ENDS.get(key)
+    if hit is not None:
+        _ENDS.move_to_end(key)
+        return hit
+    lib = _library("fused_featurize")
+    out_dim = img_size - patch_size + 1
+    nry = len(pool_regions(out_dim, pool_stride, pool_size))
+    R = nry * nry
+    smem = lib.fused_featurize_smem_bytes(img_size, img_size, channels,
+                                          patch_size, R)
+    if smem > 232448:
+        raise ValueError(f"fused_cifar_featurize: the staged image needs "
+                         f"{smem} bytes of shared memory, above the 227 KB "
+                         "a block may use")
+    hit = _FeaturizeEnds(torch.as_tensor(
+        featurize_ends(out_dim, out_dim, pool_stride, pool_size,
+                       lib.fused_featurize_run_cut()), device=imgs.device),
+        nry, R)
+    _ENDS[key] = hit
+    if len(_ENDS) > _ENDS_KEPT:
+        _ENDS.popitem(last=False)
+    return hit
+
+
+class FeaturizePlan(NamedTuple):
+    """A filter bank's terms as the featurize kernel reads them, made once
+    per fitted model and device (on a CUDA device,
+    ``FusedConvRectifyPool.apply_params`` holds this plan in the filters'
+    place, so the bank lives on the card once): the filters laid out
+    (F, Kp), K padded with zero filters to the kernel's filter tile, and
+    the bias of the whitener means padded the same way."""
+    filt: torch.Tensor
+    bias: torch.Tensor
+    K: int
+
+
+def featurize_plan(filters, whitener_means=None) -> Optional[FeaturizePlan]:
+    """The featurize kernel's plan of a filter bank (K, F) on its device:
+    a :class:`FeaturizePlan` on a CUDA device, None on the CPU."""
+    if filters.device.type != "cuda":
+        return None
+    K, F = filters.shape
+    tile = _library("fused_featurize").fused_featurize_filter_tile()
+    Kp = max(-(-K // tile), 1) * tile
+    _, bias = _featurize_terms(filters, whitener_means)
+    terms = torch.zeros((F + 1, Kp), dtype=torch.float32,
+                        device=filters.device)
+    terms[:F, :K] = filters.T
+    terms[F, :K] = bias
+    return FeaturizePlan(terms[:F].contiguous(), terms[F].contiguous(), K)
+
+
 def fused_cifar_featurize(imgs, filters, img_size=32, patch_size=6,
                           channels=3, pool_stride=13, pool_size=14,
                           var_constant=10.0, alpha=0.25,
@@ -218,56 +341,61 @@ def fused_cifar_featurize(imgs, filters, img_size=32, patch_size=6,
     """Fused Convolver(normalize) >> SymmetricRectifier >> Pooler(sum) >>
     vectorize over a batch of images (B, H, W, C) with filters
     (K, S*S*C): CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors."""
-    if imgs.device.type == "cpu":
+    tensors. Every patch size, channel count and pooling geometry is
+    taken, up to an image whose staged form (the filter tile, a patch
+    chunk, the per-patch statistics and run ends, the region sums)
+    exceeds one block's shared memory. For CUDA images ``filters`` may
+    be the bank's :class:`FeaturizePlan` instead (:func:`featurize_plan`,
+    made once per model and device: the node's apply params there),
+    which holds the whitener means' bias, so ``whitener_means`` is then
+    None; from a filter tensor a CUDA call makes the plan itself."""
+    F = patch_size * patch_size * channels
+    if isinstance(filters, FeaturizePlan):
+        plan = filters
+        if whitener_means is not None:
+            raise ValueError("fused_cifar_featurize: a FeaturizePlan holds "
+                             "the whitener means' bias; pass no means")
+        if imgs.device.type != "cuda" or plan.filt.shape[0] != F \
+                or plan.filt.device != imgs.device:
+            raise ValueError("fused_cifar_featurize: the plan is not of (K, "
+                             f"{F}) filters on the CUDA images' device")
+    elif imgs.device.type == "cpu":
         return fused_cifar_featurize_plain(
             imgs, filters, img_size, patch_size, channels, pool_stride,
             pool_size, var_constant, alpha, whitener_means)
-    if imgs.device.type != "cuda":
+    elif imgs.device.type != "cuda":
         raise ValueError(f"fused_cifar_featurize: unsupported device "
                          f"{imgs.device}")
+    else:
+        if filters.dim() != 2 or filters.shape[1] != F:
+            raise ValueError(f"fused_cifar_featurize: filters "
+                             f"{tuple(filters.shape)} are not (K, {F})")
+        if filters.dtype != torch.float32 or not filters.is_contiguous() \
+                or filters.device != imgs.device:
+            raise ValueError("fused_cifar_featurize: filters must be "
+                             "contiguous float32 on the images' device")
+        plan = featurize_plan(filters, whitener_means)
     if imgs.dim() != 4 or tuple(imgs.shape[1:]) != (
             img_size, img_size, channels):
         raise ValueError(f"fused_cifar_featurize: images {tuple(imgs.shape)} "
                          f"are not (B, {img_size}, {img_size}, {channels})")
-    F = patch_size * patch_size * channels
-    if filters.dim() != 2 or filters.shape[1] != F:
-        raise ValueError(f"fused_cifar_featurize: filters "
-                         f"{tuple(filters.shape)} are not (K, {F})")
-    for name, t in (("images", imgs), ("filters", filters)):
-        if t.dtype != torch.float32 or not t.is_contiguous() \
-                or t.device != imgs.device:
-            raise ValueError(f"fused_cifar_featurize: {name} must be "
-                             "contiguous float32 on the images' device")
+    if imgs.dtype != torch.float32 or not imgs.is_contiguous():
+        raise ValueError("fused_cifar_featurize: images must be contiguous "
+                         "float32")
+    geo = _featurize_ends_on(img_size, channels, patch_size, pool_stride,
+                             pool_size, imgs)
+    B, K = imgs.shape[0], plan.K
+    out = torch.empty((B, geo.R * 2 * K), dtype=torch.float32,
+                      device=imgs.device)
+    if B == 0 or K == 0 or geo.R == 0:
+        return out.zero_()
     lib = _library("fused_featurize")
-    if not lib.fused_featurize_supported(patch_size, channels):
-        raise ValueError(f"fused_cifar_featurize: the kernel is not compiled "
-                         f"for patch size {patch_size} with {channels} "
-                         "channels")
-    out_dim = img_size - patch_size + 1
-    R = len(pool_regions(out_dim, pool_stride, pool_size)) ** 2
-    if R > lib.fused_featurize_max_regions():
-        raise ValueError(f"fused_cifar_featurize: {R} pooling regions; the "
-                         f"kernel takes at most "
-                         f"{lib.fused_featurize_max_regions()}")
-    smem = lib.fused_featurize_smem_bytes(img_size, img_size, channels,
-                                          patch_size)
-    if smem > 232448:
-        raise ValueError(f"fused_cifar_featurize: needs {smem} bytes of "
-                         "shared memory, above the 227 KB a block may use")
-    B, K = imgs.shape[0], filters.shape[0]
-    out = torch.empty((B, R * 2 * K), dtype=torch.float32, device=imgs.device)
-    if B == 0 or K == 0:
-        return out
-    fsum, bias = _featurize_terms(filters, whitener_means)
-    fsum, bias = fsum.contiguous(), bias.contiguous()
-    with torch.cuda.device(imgs.device):
+    with _on_device(imgs.device):
         rc = lib.fused_cifar_featurize_f32(
-            imgs.data_ptr(), filters.data_ptr(), fsum.data_ptr(),
-            bias.data_ptr(), out.data_ptr(), B, img_size, img_size,
-            channels, patch_size, K, pool_stride, pool_size,
-            float(var_constant), float(alpha),
-            torch.cuda.current_stream().cuda_stream)
+            imgs.data_ptr(), plan.filt.data_ptr(), plan.bias.data_ptr(),
+            geo.ends.data_ptr(), out.data_ptr(), B, img_size, img_size,
+            channels, patch_size, K, plan.filt.shape[1], geo.nry, geo.R,
+            float(var_constant), float(alpha), _current_stream(imgs))
     if rc != 0:
         raise RuntimeError(f"fused_cifar_featurize: CUDA error {rc} at launch")
     LAUNCHES["fused_cifar_featurize"] += 1
@@ -350,9 +478,12 @@ def gram_cross(X, Y, G=None, C=None):
 
 # -- quantized affine apply --------------------------------------------------
 
-#: the kernel's tile: rows of X and output columns per block, depth of a
-#: slab along d (``csrc/quantized_affine.cu``: RT, KT, DS)
-QUANT_ROWS, QUANT_COLS, QUANT_SLAB = 32, 16, 256
+#: the kernel's fixed geometry (``csrc/quantized_affine.cu``): rows a
+#: block, slab depth along d, blocks of a cluster along d, widest column
+#: tile, and blocks an SM holds; the library's own report is checked
+#: against them when it loads
+QUANT_ROWS, QUANT_SLAB, QUANT_MAX_SPLITS, QUANT_KMAX = 16, 256, 8, 16
+QUANT_BLOCKS_PER_SM = 2
 
 _QUANT_ENTRY = {torch.bfloat16: "quantized_affine_bf16",
                 torch.int8: "quantized_affine_int8"}
@@ -386,17 +517,29 @@ def quantized_affine_plain(X, Wq, scale, mean, inv_std, b):
     return ((X - mean) * inv_std) @ W + b
 
 
-def quant_split(n: int, d: int, k: int, sms: int):
-    """``(splits, dsplit)``: how the kernel splits d across blocks so that
-    a batch of n rows fills the card. The grid has ceil(n / 32) x
-    ceil(k / 16) tiles; d is cut into ``splits`` parts of ``dsplit`` (a
-    multiple of the 256-deep slab), enough for about two blocks per SM,
-    every part nonempty."""
-    tiles = -(-n // QUANT_ROWS) * -(-k // QUANT_COLS)
+def quant_columns(k: int) -> Tuple[int, int]:
+    """``(kc, ctiles)``: the kernel's column variant for k output columns
+    (k rounded up to even, at most 16) and the column tiles of that
+    width that cover k."""
+    kc = min(k + (k & 1), QUANT_KMAX)
+    return kc, -(-k // kc)
+
+
+def quant_split(n: int, d: int, k: int, sms: int) -> Tuple[int, int]:
+    """``(splits, dsplit)``: how the kernel cuts d across the blocks of a
+    cluster for a batch of n rows. The grid has ceil(n / 16) x ctiles row
+    and column tiles; with S splits each block takes ceil(slabs / S)
+    256-deep slabs, and the card holds QUANT_BLOCKS_PER_SM blocks an SM.
+    S (at most 8, at most the slab count) minimizes the waves of blocks
+    times the slabs a block takes, the smaller S on a tie; then every
+    split holds at least one slab, dsplit = slabs a split x 256."""
     slabs = max(-(-d // QUANT_SLAB), 1)
-    want = min(max(-(-2 * sms // tiles), 1), slabs)
-    dsplit = -(-slabs // want) * QUANT_SLAB
-    return -(-d // dsplit), dsplit
+    tiles = -(-n // QUANT_ROWS) * quant_columns(k)[1]
+    res = QUANT_BLOCKS_PER_SM * sms
+    best = min(range(1, min(QUANT_MAX_SPLITS, slabs) + 1),
+               key=lambda s: (-(-tiles * s // res) * -(-slabs // s), s))
+    sps = -(-slabs // best)
+    return -(-slabs // sps), sps * QUANT_SLAB
 
 
 def _sm_count(device: torch.device) -> int:
@@ -408,45 +551,112 @@ def _sm_count(device: torch.device) -> int:
     return _SM_COUNT[idx]
 
 
-def quantized_affine(X, Wq, scale, mean, inv_std, b):
-    """``((X - mean) * inv_std) @ (float(Wq) * scale) + b`` for X (n, d)
-    float32 and Wq (d, k) bfloat16 or int8 with per-column float32
-    scales, accumulated in float32: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors. Every shape is taken. X may be a row
-    slice (unit column stride); the weights and vectors must be
-    contiguous on X's device."""
+class QuantPlan:
+    """A quantized model's launch plan on one CUDA device, made once per
+    fitted model and device (on a CUDA device, a quantized mapper's
+    ``apply_params`` is this plan alone, so the model's weights live on
+    the card once): the weights laid out as the kernel reads them,
+    (ctiles, dpad, kc) at their narrow width, zero past d and k, mean and
+    inv_std padded to dpad, scale and b, the column variant kc, the SM
+    count, the library entry and the device pointers, and the d splits
+    per batch size. A call through it pays the shape checks of X and one
+    ctypes call."""
+
+    def __init__(self, Wq, scale, mean, inv_std, b):
+        d, k = Wq.shape
+        dev = Wq.device
+        self.d, self.k, self.device = d, k, dev
+        self.kc, ctiles = quant_columns(k)
+        self.dpad = max(-(-d // QUANT_SLAB), 1) * QUANT_SLAB
+        Wt = torch.zeros((self.dpad, ctiles * self.kc), dtype=Wq.dtype,
+                         device=dev)
+        Wt[:d, :k] = Wq
+        self.Wt = Wt.view(self.dpad, ctiles, self.kc).transpose(0, 1) \
+            .contiguous()
+        pad = torch.zeros((2, self.dpad), dtype=torch.float32, device=dev)
+        pad[0, :d] = mean
+        pad[1, :d] = inv_std
+        self.mean, self.inv = pad[0], pad[1]
+        self.scale = scale.to(torch.float32).contiguous()
+        self.b = b.to(torch.float32).contiguous()
+        self.sms = _sm_count(dev)
+        self.entry = getattr(_library("quantized_affine"),
+                             _QUANT_ENTRY[Wq.dtype])
+        self.ptrs = (self.Wt.data_ptr(), self.scale.data_ptr(),
+                     self.mean.data_ptr(), self.inv.data_ptr(),
+                     self.b.data_ptr())
+        self._splits: Dict[int, Tuple[int, int]] = {}
+
+    def split(self, n: int) -> Tuple[int, int]:
+        """``(splits, slabs a split)`` for a batch of n rows, memoized."""
+        hit = self._splits.get(n)
+        if hit is None:
+            splits, dsplit = quant_split(n, self.d, self.k, self.sms)
+            hit = self._splits[n] = (splits, dsplit // QUANT_SLAB)
+        return hit
+
+
+def quant_plan(Wq, scale, mean, inv_std, b) -> Optional[QuantPlan]:
+    """The launch plan of a quantized model on its weights' device: a
+    :class:`QuantPlan` on a CUDA device, None on the CPU (where the plain
+    version runs). The operands are checked once here."""
+    if Wq.device.type != "cuda":
+        return None
+    X = torch.empty((0, Wq.shape[0]), device="meta")
     _quant_operands(X, Wq, scale, mean, inv_std, b)
-    if X.device.type == "cpu":
-        return quantized_affine_plain(X, Wq, scale, mean, inv_std, b)
-    if X.device.type != "cuda":
-        raise ValueError(f"quantized_affine: unsupported device {X.device}")
-    if X.dtype != torch.float32 or (X.numel() and (
-            X.stride(1) != 1 or X.stride(0) < X.shape[1])):
-        raise ValueError("quantized_affine: X must be float32 rows with "
-                         "unit column stride")
     for name, t in (("Wq", Wq), ("scale", scale), ("mean", mean),
                     ("inv_std", inv_std), ("b", b)):
-        if not t.is_contiguous() or t.device != X.device or (
+        if not t.is_contiguous() or t.device != Wq.device or (
                 name != "Wq" and t.dtype != torch.float32):
             raise ValueError(f"quantized_affine: {name} must be contiguous "
                              "(float32 for the vectors) on X's device")
+    return QuantPlan(Wq, scale, mean, inv_std, b)
+
+
+def quantized_affine(X, *params):
+    """``((X - mean) * inv_std) @ (float(Wq) * scale) + b`` for X (n, d)
+    float32 and Wq (d, k) bfloat16 or int8 with per-column float32
+    scales, accumulated in float32: the CUDA kernel (one launch) for CUDA
+    tensors, the plain version for CPU tensors. Every shape is taken. X
+    may be a row slice (unit column stride). ``params`` is either the
+    five operands ``(Wq, scale, mean, inv_std, b)``, from which a CUDA
+    call lays out the weights itself on every call, or, for a CUDA X,
+    the model's :class:`QuantPlan` alone (:func:`quant_plan`, made once
+    per model and device: a quantized mapper's apply params there)."""
+    if len(params) == 1 and isinstance(params[0], QuantPlan):
+        plan = params[0]
+        if X.dim() != 2 or X.shape[1] != plan.d:
+            raise ValueError(f"quantized_affine: X {tuple(X.shape)} is not "
+                             f"(n, {plan.d})")
+    elif len(params) == 5:
+        if X.device.type == "cpu":
+            return quantized_affine_plain(X, *params)
+        if X.device.type != "cuda":
+            raise ValueError(f"quantized_affine: unsupported device "
+                             f"{X.device}")
+        _quant_operands(X, *params)
+        if params[0].device != X.device:
+            raise ValueError("quantized_affine: Wq must be on X's device")
+        plan = quant_plan(*params)
+    else:
+        raise TypeError("quantized_affine: params are (Wq, scale, mean, "
+                        "inv_std, b) or a QuantPlan")
+    if X.dtype != torch.float32 or X.device != plan.device or (
+            X.numel() and (X.stride(1) != 1 or X.stride(0) < X.shape[1])):
+        raise ValueError("quantized_affine: X must be float32 rows with "
+                         "unit column stride on the weights' device")
     n, d = X.shape
-    k = Wq.shape[1]
+    k = plan.k
     if n == 0 or k == 0:
         return torch.empty((n, k), dtype=torch.float32, device=X.device)
     if d == 0:
-        return b.expand(n, k).clone()
-    splits, dsplit = quant_split(n, d, k, _sm_count(X.device))
+        return plan.b.expand(n, k).clone()
+    splits, sps = plan.split(n)
     out = torch.empty((n, k), dtype=torch.float32, device=X.device)
-    partial = (torch.empty((splits, n, k), dtype=torch.float32,
-                           device=X.device) if splits > 1 else None)
-    lib = _library("quantized_affine")
-    with torch.cuda.device(X.device):
-        rc = getattr(lib, _QUANT_ENTRY[Wq.dtype])(
-            X.data_ptr(), X.stride(0), Wq.data_ptr(), scale.data_ptr(),
-            mean.data_ptr(), inv_std.data_ptr(), b.data_ptr(),
-            out.data_ptr(), None if partial is None else partial.data_ptr(),
-            n, d, k, dsplit, torch.cuda.current_stream().cuda_stream)
+    with _on_device(X.device):
+        rc = plan.entry(X.data_ptr(), X.stride(0), *plan.ptrs,
+                        out.data_ptr(), n, d, k, plan.kc, plan.dpad, splits,
+                        sps, _current_stream(X))
     if rc != 0:
         raise RuntimeError(f"quantized_affine: CUDA error {rc} at launch")
     LAUNCHES["quantized_affine"] += 1
@@ -622,6 +832,13 @@ def banded_matmul(band: np.ndarray, X: torch.Tensor,
     return out
 
 
+def _current_stream(t: torch.Tensor) -> int:
+    """The raw handle of the current CUDA stream on ``t``'s device, as
+    ``torch.cuda.current_stream(dev).cuda_stream`` gives it, without
+    making a Stream object (a few microseconds of host time a call)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
 def _on_device(device: torch.device):
     """``torch.cuda.device(device)`` where it is not the current device
     already, else a no-op context (the common case costs no switch)."""
@@ -686,7 +903,9 @@ def fv_moments(X, means, variances, weights, threshold, terms=None):
     thresholded GMM posteriors q of the descriptor columns of X (D, n),
     for means and variances (D, K) and weights (K,): the CUDA kernel for
     a CUDA X (the (n, K) posteriors never reach device memory; one launch
-    and its block-order reduce), the plain version for a CPU X. The
+    and its block-order reduce, and a first launch of the per-column
+    softmax statistics where K is past the llh tile), the plain version
+    for a CPU X. The
     caller divides by n. ``terms`` is :func:`fv_terms` of the GMM,
     computed here when not given. X must be float32 with unit column
     stride; the GMM tensors float32 on X's device."""
@@ -726,8 +945,7 @@ def fv_moments(X, means, variances, weights, threshold, terms=None):
         # the library plans the launch; the wrapper allocates its scratch
         scratch = lib.fv_moments_scratch_floats(D, n, K)
         if scratch < 0:
-            raise ValueError(f"fv_moments: D={D}, K={K} does not fit one "
-                             "block's shared memory")
+            raise ValueError(f"fv_moments: no launch plan for D={D}, K={K}")
         partial = torch.empty(scratch, dtype=torch.float32, device=X.device)
         rc = lib.fv_moments_f32(
             X.data_ptr(), ldx, terms.center.data_ptr(), terms.A.data_ptr(),

@@ -66,6 +66,37 @@ def test_cuda_kernel_matches_plain(cuda, B, K):
     _close(got.cpu().numpy(), want.cpu().numpy())
 
 
+def _geometry_inputs(B, K, S, C, seed):
+    rng = np.random.RandomState(seed)
+    imgs = (rng.rand(B, 32, 32, C) * 255).astype(np.float32)
+    filters = rng.randn(K, S * S * C).astype(np.float32)
+    means = rng.randn(S * S * C).astype(np.float32)
+    return imgs, filters, means
+
+
+@pytest.mark.parametrize("S,C,stride,size,R", [
+    (6, 3, 9, 10, 9), (6, 3, 7, 8, 16), (9, 1, 13, 14, 4), (6, 4, 13, 14, 4),
+    (5, 3, 4, 8, 36), (6, 3, 13, 14, 4)])
+def test_cuda_kernel_matches_plain_at_every_geometry(cuda, S, C, stride,
+                                                     size, R):
+    """Pooling with 9, 16 and 36 regions, patch size 9 on one channel,
+    four channels: one kernel takes them all; K = 200 is off the
+    128-filter tile and B = 3 leaves most blocks without an image."""
+    imgs, filters, means = (torch.as_tensor(a, device=cuda)
+                            for a in _geometry_inputs(3, 200, S, C, seed=S))
+    kw = dict(patch_size=S, channels=C, pool_stride=stride, pool_size=size,
+              whitener_means=means)
+    before = kernels.LAUNCHES["fused_cifar_featurize"]
+    got = kernels.fused_cifar_featurize(imgs, filters, **kw)
+    want = kernels.fused_cifar_featurize_plain(imgs, filters, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fused_cifar_featurize"] == before + 1
+    assert got.shape == want.shape == (3, R * 2 * 200)
+    _close(got.cpu().numpy(), want.cpu().numpy())
+    # one thread sums each value in a fixed order: the same bits again
+    assert torch.equal(got, kernels.fused_cifar_featurize(imgs, filters, **kw))
+
+
 def test_cuda_datum_path_launches_the_kernel(cuda):
     imgs, filters, _ = _inputs(2, 32, seed=6)
     node = FusedConvRectifyPool(filters, 32, 6)
@@ -74,6 +105,31 @@ def test_cuda_datum_path_launches_the_kernel(cuda):
     assert kernels.LAUNCHES["fused_cifar_featurize"] == before + 1
     want = node.apply(torch.as_tensor(imgs[1]))
     _close(one.cpu().numpy(), want.numpy())
+
+
+def test_cuda_node_params_are_the_plan_alone(cuda):
+    """On the card the node's params hold the bank once, as the kernel's
+    plan (the whitener means' bias folded in); it gives the same bits as
+    the raw filters, and refuses means beside it."""
+    imgs, filters, means = (torch.as_tensor(a, device=cuda)
+                            for a in _inputs(3, 200, seed=8))
+
+    class _Whitener:
+        pass
+
+    whitener = _Whitener()
+    whitener.means = means.cpu().numpy()
+    node = FusedConvRectifyPool(filters.cpu().numpy(), 32, 6,
+                                whitener=whitener)
+    plan, none = node.apply_params(cuda)
+    assert isinstance(plan, kernels.FeaturizePlan) and none is None
+    got = node.apply_batch(imgs)
+    want = kernels.fused_cifar_featurize(imgs, filters, whitener_means=means)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="means"):
+        kernels.fused_cifar_featurize(imgs, plan, whitener_means=means)
+    with pytest.raises(ValueError, match="plan"):
+        kernels.fused_cifar_featurize(imgs.cpu(), plan)
 
 
 def test_cuda_rejects_shapes_the_kernel_does_not_take(cuda):
@@ -188,6 +244,32 @@ def test_cuda_quantized_affine_matches_plain(cuda, weight_dtype, n, d, k):
     assert torch.equal(got, kernels.quantized_affine(*args))
 
 
+@pytest.mark.parametrize("weight_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("n,d,k", [(64, 8192, 1), (64, 8192, 10),
+                                   (64, 8192, 16), (64, 8192, 17),
+                                   (300, 1000, 17), (3, 130, 16)])
+def test_cuda_quantized_affine_column_variants(cuda, weight_dtype, n, d, k):
+    """k = 1, 10 and 16 run one column tile of the nearest even width,
+    k = 17 two tiles of 16; one launch a call, through a model's plan as
+    from the raw operands, with the same bits."""
+    args = _quant_inputs(n, d, k, weight_dtype, cuda, seed=n + k)
+    plan = kernels.quant_plan(*args[1:])
+    assert plan.kc >= min(k, 16) and plan.kc % 2 == 0
+    before = kernels.LAUNCHES["quantized_affine"]
+    got = kernels.quantized_affine(args[0], plan)
+    assert kernels.LAUNCHES["quantized_affine"] == before + 1
+    want = kernels.quantized_affine_plain(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()), err
+    assert torch.equal(got, kernels.quantized_affine(*args))
+    assert torch.equal(got, kernels.quantized_affine(args[0], plan))
+    with pytest.raises(ValueError, match="not"):
+        kernels.quantized_affine(args[0][:, 1:], plan)
+    with pytest.raises(TypeError):
+        kernels.quantized_affine(args[0], plan, args[1])
+
+
 def test_cuda_quantized_affine_takes_row_slices_and_refuses_the_rest(cuda):
     X, Wq, scale, mean, inv, b = _quant_inputs(40, 300, 7, "int8", cuda)
     big = torch.zeros((45, 305), device=cuda)
@@ -227,9 +309,12 @@ def test_cuda_plane_launches_the_kernel_once_per_served_batch(cuda):
         served = reg.counter("serving.batches_total").value - batches0
         assert served == 4
         assert kernels.LAUNCHES["quantized_affine"] - before == served
-    # the same quantized model applied directly
+    # the same quantized model applied directly; on the card its params
+    # are the kernel's plan alone
     mapper = LinearMapEstimator(1e-2, weight_dtype="int8").fit(
         X, Y, device=cuda)
+    params = mapper.apply_params(cuda)
+    assert len(params) == 1 and isinstance(params[0], kernels.QuantPlan)
     direct = mapper.apply_batch(torch.as_tensor(X[:31], device=cuda))
     np.testing.assert_allclose(np.concatenate(outs), direct.cpu().numpy(),
                                rtol=1e-5, atol=1e-5)
@@ -424,14 +509,68 @@ def test_cuda_fv_moments_strided_and_empty(cuda):
     with pytest.raises(ValueError, match="unit column stride"):
         kernels.fv_moments(X.T.contiguous().T, means, variances, weights,
                            1e-4)
-    # refused where the tiles and 8 rows of [B; A] do not fit one block's
-    # shared memory
-    for D, K in ((2, 30000), (8, 4000), (512, 256)):
-        with pytest.raises(ValueError, match="does not fit"):
-            kernels.fv_moments(*_fv_inputs(D, K, 4, cuda), 1e-4)
     # precomputed terms give the same bits as terms made in the call
     terms = kernels.fv_terms(means, variances, weights)
     got = kernels.fv_moments(X, means, variances, weights, 1e-4)
     cached = kernels.fv_moments(X, means, variances, weights, 1e-4,
                                 terms=terms)
     assert all(torch.equal(a, b) for a, b in zip(got, cached))
+
+
+#: (D, K, n, seed): seeds whose posteriors all lie at least 2.8e-4 (in
+#: log) from the 1e-4 threshold in float64, so float32 rounding cannot
+#: flip one across it (at K = 30000 most seeds put a posterior within
+#: 1e-5 of it)
+FV_WIDE = [(2, 30000, 1, 30), (8, 4000, 17, 1), (512, 256, 513, 768),
+           (600, 300, 17, 900)]
+
+
+@pytest.mark.parametrize("D,K,n,seed", FV_WIDE)
+def test_cuda_fv_moments_matches_plain_past_the_resident_tiles(cuda, D, K, n,
+                                                               seed):
+    """Where the llh tile does not fit (K = 30000 at D = 2, K = 4000 at
+    D = 8) the kernel walks the components in chunks, the column
+    statistics in a first launch and the moments in a second;
+    where the x' tiles do not fit (D = 512, 600) it stages rows of x'
+    straight from X. Both match the plain version, with the same bits on
+    a second launch."""
+    args = _fv_inputs(D, K, n, cuda, seed=seed)
+    before = kernels.LAUNCHES["fv_moments"]
+    got = kernels.fv_moments(*args, 1e-4)
+    want = kernels.fv_moments_plain(*args, 1e-4)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fv_moments"] == before + 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        err = float((g - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()), err
+    again = kernels.fv_moments(*args, 1e-4)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("D,K,n", [(8, 4000, 5000), (16, 2500, 3000)])
+def test_cuda_fv_moments_past_the_llh_tile_over_many_tiles(cuda, D, K, n):
+    """Components in chunks over many tiles a block (the column statistics
+    of a first launch read back by the second), held against the plain
+    version on the descriptors whose float64 posteriors all lie more than
+    1e-3 (in log) from the threshold, where float32 rounding cannot flip
+    one across it."""
+    from keystone_tpu_torch.nodes.learning.gmm import _posteriors
+
+    X, means, variances, weights = _fv_inputs(D, K, n, cuda, seed=D + n)
+    q64 = _posteriors(X.T.double(), means.T.double(), variances.T.double(),
+                      weights.double(), 0.0)
+    clear = ((q64.log() - np.log(1e-4)).abs() > 1e-3).all(dim=1)
+    assert int(clear.sum()) >= n // 4
+    args = (X[:, clear].contiguous(), means, variances, weights)
+    before = kernels.LAUNCHES["fv_moments"]
+    got = kernels.fv_moments(*args, 1e-4)
+    want = kernels.fv_moments_plain(*args, 1e-4)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fv_moments"] == before + 1
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        err = float((g - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()), err
+    again = kernels.fv_moments(*args, 1e-4)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))

@@ -121,6 +121,27 @@ def test_cpu_tensor_takes_plain_version_without_launching():
     assert kernels.LAUNCHES == before
 
 
+def test_node_params_on_the_cpu_are_the_filters_and_means():
+    """Off the card no launch plan is made: the node's params are its
+    filters and whitener means, and a plan is refused for CPU images (it
+    is made only for a CUDA device, where it takes the filters' place)."""
+    from keystone_tpu_torch.nodes.learning.zca import ZCAWhitener
+
+    imgs, filters, means = _inputs(2, 8, seed=5)
+    node = FusedConvRectifyPool(filters, 32, 6,
+                                whitener=ZCAWhitener(np.eye(108), means))
+    f, m = node.apply_params(torch.device("cpu"))
+    assert kernels.featurize_plan(f, m) is None
+    np.testing.assert_array_equal(f.numpy(), filters)
+    np.testing.assert_array_equal(m.numpy(), means)
+    plan = kernels.FeaturizePlan(f.T.contiguous(), torch.zeros(8), 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.fused_cifar_featurize(torch.as_tensor(imgs), plan)
+    with pytest.raises(ValueError, match="means"):
+        kernels.fused_cifar_featurize(torch.as_tensor(imgs), plan,
+                                      whitener_means=m)
+
+
 def test_other_devices_raise():
     imgs = torch.empty((1, 32, 32, 3), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -153,3 +174,75 @@ def test_node_batch_and_datum_paths_match_reference(mesh8, with_means):
     for i in (0, 4):
         want_one = np.asarray(jnode.apply(jnp.asarray(imgs[i])))
         _close(tnode.apply(torch.as_tensor(imgs[i])).numpy(), want_one)
+
+
+@pytest.mark.parametrize("S,C,stride,size,R", [
+    (6, 3, 7, 8, 16), (9, 1, 13, 14, 4), (6, 3, 9, 10, 9), (6, 4, 13, 14, 4)])
+def test_plain_matches_reference_at_other_geometries(mesh8, S, C, stride,
+                                                     size, R):
+    """The geometries the card kernel takes since it dropped its region,
+    patch-size and channel limits (``--poolStride 7 --poolSize 8``: 16
+    regions; patch size 9 on one channel; four channels), through the
+    plain version and the node, against the JAX node's composed path
+    (off-TPU); the same bar as above."""
+    from keystone_tpu.nodes.learning.zca import ZCAWhitener as JZCA
+    from keystone_tpu.parallel.dataset import ArrayDataset as JArrayDataset
+    from keystone_tpu_torch.nodes.learning.zca import ZCAWhitener
+
+    rng = np.random.RandomState(S * 10 + R)
+    F = S * S * C
+    imgs = (rng.rand(3, 32, 32, C) * 255).astype(np.float32)
+    filters = rng.randn(12, F).astype(np.float32)
+    means = rng.randn(F).astype(np.float32)
+    eye = np.eye(F, dtype=np.float32)
+    jnode = JFused(filters, 32, S, C, stride, size, 0.25,
+                   whitener=JZCA(eye, means))
+    want = jnode.apply_dataset(JArrayDataset.from_numpy(imgs)).numpy()
+    assert want.shape == (3, R * 2 * 12)
+    got = kernels.fused_cifar_featurize_plain(
+        torch.as_tensor(imgs), torch.as_tensor(filters), 32, S, C, stride,
+        size, whitener_means=torch.as_tensor(means))
+    _close(got.numpy(), want)
+    tnode = FusedConvRectifyPool(filters, 32, S, C, stride, size, 0.25,
+                                 whitener=ZCAWhitener(eye, means))
+    _close(tnode.apply_dataset(ArrayDataset.from_numpy(imgs, "cpu")).numpy(),
+           want)
+
+
+@pytest.mark.parametrize("stride,size", [(13, 14), (7, 8), (9, 10), (4, 8),
+                                         (1, 2), (30, 2)])
+@pytest.mark.parametrize("cut", [32, 64])
+def test_run_ends_sum_every_region_membership_once(stride, size, cut):
+    """The card kernel's pooling walks each stretch of ``cut`` patches in
+    order and, at every run end of ``kernels.featurize_ends`` (built from
+    the per-row and per-column region maps), adds the run's sum to the
+    run's regions: that must give the plain pooling's region-membership
+    counts, with every run in one row and one stretch."""
+    from keystone_tpu_torch.ops.image_ops import pool_regions
+
+    OH = OW = 27
+    P = OH * OW
+    ends = kernels.featurize_ends(OH, OW, stride, size, cut)
+    assert ends.shape == (P, 2)
+    ranges = pool_regions(OH, stride, size)
+    nr = len(ranges)
+    want = np.zeros((nr, nr, P), np.int64)
+    for rx, (x0, x1) in enumerate(ranges):
+        for ry, (y0, y1) in enumerate(ranges):
+            for py in range(x0, x1):
+                want[rx, ry, py * OW + y0:py * OW + y1] = 1
+    got = np.zeros_like(want)
+    start = 0
+    for p in range(P):
+        if p % cut == 0:
+            assert start == p                # no run crosses a stretch
+        rows, cols = ends[p]
+        if rows < 0:
+            continue
+        assert start // OW == p // OW       # nor a row
+        for rx in range(rows & 0xffff, (rows & 0xffff) + (rows >> 16)):
+            for ry in range(cols & 0xffff, (cols & 0xffff) + (cols >> 16)):
+                got[rx, ry, start:p + 1] += 1
+        start = p + 1
+    assert start == P
+    np.testing.assert_array_equal(got, want)

@@ -328,3 +328,22 @@ def test_fisher_vector_computes_its_kernel_terms_once_per_device(
     assert torch.equal(outs[0], want)
     assert math.isclose(float(terms.center.sum()), float(means.mean(1).sum()),
                         rel_tol=1e-6, abs_tol=1e-6)
+
+
+def test_fisher_vector_past_the_card_kernels_resident_tiles_matches_jax():
+    """D = 8, K = 4000: the llh tile of 4000 components does not fit one
+    block's shared memory, so the card kernel walks the components in
+    chunks (an earlier kernel refused this GMM). The port's FV (the plain
+    version here) against the JAX package's, which computes this shape
+    through its einsum form."""
+    rng = np.random.RandomState(4000)
+    X = rng.randn(8, 40).astype(np.float32)
+    means, variances, weights = _gmm_params(rng, 8, 4000)
+    want = np.asarray(jfv._fisher_vector(
+        jnp.asarray(X), jnp.asarray(means), jnp.asarray(variances),
+        jnp.asarray(weights), 1e-4, kernel_mode="einsum"))
+    got = tfv._fisher_vector(*(torch.as_tensor(a) for a in
+                               (X, means, variances, weights)), 1e-4).numpy()
+    assert got.shape == want.shape == (8, 8000) and np.isfinite(got).all()
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+

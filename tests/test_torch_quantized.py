@@ -190,8 +190,38 @@ def test_kernel_split_covers_d_in_nonempty_slab_multiples(n, d, k):
     slab = kernels.QUANT_SLAB
     assert dsplit % slab == 0
     assert (splits - 1) * dsplit < d <= splits * dsplit
-    tiles = -(-n // kernels.QUANT_ROWS) * -(-k // kernels.QUANT_COLS)
-    assert splits == 1 or tiles * splits <= 2 * 132 + tiles
+    assert 1 <= splits <= kernels.QUANT_MAX_SPLITS
+    # no other split count would take fewer waves x slabs a block
+    tiles = -(-n // kernels.QUANT_ROWS) * kernels.quant_columns(k)[1]
+    slabs = -(-d // slab)
+    res = kernels.QUANT_BLOCKS_PER_SM * 132
+
+    def cost(s):
+        return -(-tiles * s // res) * -(-slabs // s)
+
+    assert cost(splits) == min(cost(s) for s in range(
+        1, min(kernels.QUANT_MAX_SPLITS, slabs) + 1))
+
+
+@pytest.mark.parametrize("k", [1, 2, 9, 10, 15, 16, 17, 31, 33, 1000])
+@pytest.mark.parametrize("n,d", [(1, 8192), (64, 8192), (4096, 8192),
+                                 (77, 50), (5, 3), (300, 1000)])
+def test_launch_plan_covers_every_depth_once_and_every_column(n, d, k):
+    """The kernel's launch plan: the d splits, each a run of whole slabs,
+    cover every depth exactly once; the column variant is even, at most
+    16, and its tiles cover k (k <= 16: one tile of at least k)."""
+    kc, ctiles = kernels.quant_columns(k)
+    assert kc % 2 == 0 and kc <= kernels.QUANT_KMAX
+    assert kc * ctiles >= k > kc * (ctiles - 1)
+    if k <= kernels.QUANT_KMAX:
+        assert ctiles == 1 and kc >= k
+    splits, dsplit = kernels.quant_split(n, d, k, sms=132)
+    seen = np.zeros(d, np.int64)
+    for s in range(splits):
+        lo = s * dsplit
+        assert lo < d                       # every split holds depths
+        seen[lo:min(d, lo + dsplit)] += 1
+    assert (seen == 1).all()
 
 
 def test_bucketed_dataset_pads_to_the_bucket_with_the_true_n():
@@ -251,6 +281,32 @@ def test_wrapper_checks_its_operands_on_every_device():
     with pytest.raises(ValueError, match="scale"):
         kernels.quantized_affine(t["X"], Wq, torch.ones(4), t["mean"],
                                  t["inv"], t["b"])
+    # params are the five operands or a launch plan alone
+    with pytest.raises(TypeError, match="QuantPlan"):
+        kernels.quantized_affine(t["X"], Wq, ones, t["mean"], t["inv"])
+    with pytest.raises(TypeError, match="QuantPlan"):
+        kernels.quantized_affine(t["X"], (Wq, ones, t["mean"], t["inv"],
+                                          t["b"]))
+
+
+def test_mapper_params_on_the_cpu_are_the_operands_and_no_plan():
+    """On the CPU a quantized mapper's params are the five operands (no
+    launch plan is made off the card), and its batch and item applies
+    pass them to the wrapper, which takes the plain version."""
+    X, W, mean, inv, b = _affine_inputs(9, 6, 3, seed=2)
+    mapper = tlinear.LinearMapper(
+        torch.as_tensor(W), intercept=torch.as_tensor(b),
+        feature_scaler=tlinear.StandardScalerModel(mean, 1.0 / inv),
+        weight_dtype="int8")
+    params = mapper.apply_params(torch.device("cpu"))
+    assert len(params) == 5
+    assert kernels.quant_plan(*params) is None
+    before = dict(kernels.LAUNCHES)
+    x = torch.as_tensor(X)
+    want = kernels.quantized_affine_plain(x, *params)
+    assert torch.equal(mapper.apply_batch(x), want)
+    torch.testing.assert_close(mapper.apply(x[4]), want[4])
+    assert kernels.LAUNCHES == before
 
 
 def test_no_port_module_imports_jax_or_the_jax_package():
