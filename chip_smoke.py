@@ -12,7 +12,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
 3. Kernel against plain: each kernel's wrapper on card tensors at the
    shapes the main path gives it (and ragged ones, and the geometries
    the featurize and FV kernels take past the main path's), held against
-   its plain PyTorch version on the same inputs.
+   its plain PyTorch version on the same inputs; the 3xTF32 kernels
+   also against float64: featurize no worse than 2x the plain float32
+   version, Gram within its own bar at every shape (and no worse than 2x
+   the plain version at the streamed fit's chunk shape).
 4. Main path: RandomPatchCifar fit + apply at the full width of the
    repository's bench configuration (1024 filters, 8192 features, two
    4096-wide BCD blocks) on surrogate CIFAR (20480 train / 4096 test
@@ -29,7 +32,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    stream's residency are asserted; both fits' device-memory peaks are
    printed. Both fits' solves are redone in float64 on their own inputs,
    in the data form and (streamed) the Gram form, and each fit's weights
-   are held against the float64 ones and against each other.
+   are held against the float64 ones and against each other; the Gram
+   kernel is held against float64 on the first training chunk as the
+   solver pass feeds it.
 4c. Serving: the saved model admitted three times into a
    ``ServingPlane`` (f32, bf16 and int8 weights) under a device budget
    that holds three charges and not four, served through
@@ -60,9 +65,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    stage call; its seconds per stage are printed, and its totals apart.
 5. Timing: each kernel, its plain version and a library yardstick with
    CUDA events at the main path's shapes, one call at a time (the
-   ``kernels`` line); for every kernel but the Gram kernel also the device
-   time alone of the kernel and of its yardstick, replayed from a CUDA
-   graph (``device_ms`` and ``library_device_ms`` in that line); each
+   ``kernels`` line); for every kernel also the device time alone of the
+   kernel and of its yardstick, replayed from a CUDA graph
+   (``device_ms`` and ``library_device_ms`` in that line); each
    wrapper's host time a call, the featurize and quantized wrappers
    through the launch plans their nodes make once per model. Also the
    widened paths: featurize at 16 pooling regions, and ``fv_moments``
@@ -127,10 +132,26 @@ FEATURIZE_GEOMETRIES = ((6, 3, 9, 10), (6, 3, 7, 8), (5, 3, 4, 8),
                         (9, 1, 13, 14), (6, 4, 13, 14))
 
 #: Gram kernel vs plain version: max |kernel - plain| <= GRAM_TOL *
-#: max |plain|. Both sides are true float32 (the plain version is cuBLAS
-#: with TF32 off) and differ only in summation order; the JAX package
-#: holds its Gram kernel to rtol = atol = 2e-4, the ceiling here.
+#: max |plain|. The plain version is cuBLAS in true float32 (TF32 off),
+#: the kernel 3xTF32 on the tensor cores with float32 sums; the JAX
+#: package holds its Gram kernel to rtol = atol = 2e-4, the ceiling here.
 GRAM_TOL = 2e-4
+#: the Gram kernel's products run in 3xTF32, the one exception to the
+#: solver path's true float32. Against the float64 sums of the same
+#: inputs into the same carry, its max error (G and C each) must be
+#: within (GRAM_F64_ULPS + sqrt(slabs)) x 2^-24 of the largest float64
+#: entry at every shape, for the ceil(n / kernels.gram_slab_rows())
+#: slabs it sums: each slab's products accumulate on the tensor cores,
+#: whose accumulator truncates (a bias of a few units of 2^-24), and the
+#: slab sums are added with float32 rounding, a walk of sqrt(slabs).
+#: Read on an H100 (PERF.md): 1.8-8.4 units at n <= 1024 (the plain
+#: version 1.0-23.8), 25.9 at n = 20480; a split that truncates both
+#: parts reads 16.4 at n = 1024 (keystone_tpu_torch/tools/time_gram.py),
+#: over the bar (13.7). At the chunk shape, on seeded randn rows (phase
+#: 3) and on the first training chunk featurized and scaled as the
+#: streamed fit feeds it (phase 4b), it must also be no worse than
+#: GRAM_F64_RATIO x the plain float32 version's error.
+GRAM_F64_ULPS, GRAM_F64_RATIO = 8.0, 2.0
 
 #: Quantized affine kernel vs plain version: max |kernel - plain| <=
 #: QUANT_TOL * max |plain|. Both apply the same dequantized weights in
@@ -203,6 +224,11 @@ W_STREAM_RESIDENT_TOL = 5e-3
 #: ... each float32 fit against the float64 solve of its own input (read
 #: 1.433e-3 resident, 7.93e-4 streamed) ...
 W_FLOAT64_TOL = 5e-3
+#: ... and the streamed fit, whose Gram products run in 3xTF32, no worse
+#: than W_STREAMED_F64_RATIO x the streamed reading with the float32 Gram
+#: kernel: W_STREAMED_F64_FLOAT32, read on an H100 80GB HBM3 at 700 W
+#: with the true float32 kernel (PERF.md)
+W_STREAMED_F64_FLOAT32, W_STREAMED_F64_RATIO = 9.163e-4, 2.0
 #: ... and the Gram-form BCD against the data-form BCD, both in float64
 #: on the same input (read 6.1e-11): equal in exact arithmetic, so only
 #: float64 rounding amplified by the blocks' conditioning remains
@@ -228,32 +254,6 @@ def _time_ms(fn, reps, warmup=2):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
-
-
-def _device_ms(fn, reps=10):
-    """Device milliseconds of one ``fn()``: ``reps`` calls captured in a
-    CUDA graph and replayed (best of 5 replays, CUDA events), so the
-    host's time in the wrappers, which exceeds the device time of small
-    launches, is left out. ``fn`` is warmed once before the capture."""
-    fn()
-    _sync()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    _sync()
-    best = float("inf")
-    for _ in range(5):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        best = min(best, start.elapsed_time(end) / reps)
-    del graph
-    return best
 
 
 def _featurize_inputs(rng, B, K, device, S=6, C=3):
@@ -302,6 +302,16 @@ def _gram_work(n, d, k):
     return ops, nbytes
 
 
+def _gram_bound(n, d, k):
+    """(operations, bound ms, bound by) of gram_cross: the kernel runs its
+    products in 3xTF32, three TF32 products at the TF32 tensor-core peak
+    for each float32 one; the bound is the larger of that time and the
+    bytes'."""
+    ops, nbytes = _gram_work(n, d, k)
+    bound_ms, bound_by = _bound(3 * ops, nbytes, PEAK_TF32_FLOPS)
+    return ops, bound_ms, bound_by
+
+
 def _quant_work(n, d, k, itemsize):
     """(operations, bytes) of quantized_affine on X (n, d) and Wq (d, k):
     the product (2 n d k) and the normalization (3 n d: subtract, scale,
@@ -332,13 +342,49 @@ def _host_us(fn, reps=50):
     return host
 
 
+def _gram_f64_bar(kernels, n):
+    """The Gram kernel's bar against float64 for n rows, relative to the
+    largest float64 entry (GRAM_F64_ULPS)."""
+    slabs = -(-n // kernels.gram_slab_rows())
+    return (GRAM_F64_ULPS + slabs ** 0.5) * 2.0 ** -24
+
+
+def _gram_float64(kernels, X, Y, G0, C0, label, ratio=True):
+    """gram_cross and its plain version on the same X, Y into the same
+    carry G0, C0, each held against the float64 sums: asserts the
+    kernel's max error is within ``_gram_f64_bar`` and, with ``ratio``,
+    no worse than GRAM_F64_RATIO x the plain version's, for G and for C."""
+    G, C = kernels.gram_cross(X, Y, G0.clone(), C0.clone())
+    plain_G, plain_C = kernels.gram_cross_plain(X, Y, G0.clone(), C0.clone())
+    Xd = X.double()
+    want_G = torch.addmm(G0.double(), Xd.T, Xd)
+    want_C = torch.addmm(C0.double(), Xd.T, Y.double())
+    for name, got, plain, want in (("G", G, plain_G, want_G),
+                                   ("C", C, plain_C, want_C)):
+        scale = float(want.abs().max())
+        k_err = float((got.double() - want).abs().max()) / scale
+        p_err = float((plain.double() - want).abs().max()) / scale
+        bar = _gram_f64_bar(kernels, X.shape[0])
+        print(f"[check] gram_cross {label} {name} against float64: kernel "
+              f"(3xTF32) {k_err:.3e}, plain float32 {p_err:.3e} of the "
+              f"largest entry ({k_err / max(p_err, 1e-30):.2f}x); "
+              f"{k_err * 2 ** 24:.2f} units of 2^-24 (bar "
+              f"{bar * 2 ** 24:.2f})", flush=True)
+        assert k_err <= bar, (label, name, k_err, bar)
+        assert not ratio or k_err <= GRAM_F64_RATIO * p_err, \
+            (label, name, k_err, p_err)
+    del G, C, plain_G, plain_C, Xd, want_G, want_C
+
+
 def _check_gram(kernels, rng, dev):
     """gram_cross against its plain version at the streamed path's chunk
-    shape (into a nonzero carry), two small ragged shapes and
-    LinearPixels' width; returns the largest absolute error."""
+    shape (into a nonzero carry, and against float64 there), small ragged
+    shapes at the tile edges and LinearPixels' width, with the same bits
+    on a second launch; returns the largest absolute error."""
     worst = 0.0
     for n, d, k, carry in ((CHUNK, NUM_FILTERS * 8, 10, True),
                            (1000, 100, 3, False), (7, 3, 2, False),
+                           (33, 129, 17, True), (1000, 255, 16, False),
                            (N_TRAIN, 3072, 10, False)):
         X = torch.as_tensor(rng.randn(n, d).astype(np.float32), device=dev)
         Y = torch.as_tensor(rng.randn(n, k).astype(np.float32), device=dev)
@@ -350,10 +396,18 @@ def _check_gram(kernels, rng, dev):
             G0 = G0 + G0.T
             C0 = torch.randn((d, k), device=dev) * n ** 0.5
         G, C = kernels.gram_cross(X, Y, G0.clone(), C0.clone())
-        want_G, want_C = kernels.gram_cross_plain(X, Y, G0, C0)
+        G2, C2 = kernels.gram_cross(X, Y, G0.clone(), C0.clone())
+        want_G, want_C = kernels.gram_cross_plain(X, Y, G0.clone(),
+                                                  C0.clone())
         _sync()
         assert bool(torch.isfinite(G).all()) and bool(torch.isfinite(C).all())
         assert torch.equal(G, G.T), "gram_cross: G is not symmetric"
+        assert torch.equal(G, G2) and torch.equal(C, C2), \
+            "gram_cross: a second launch gave other bits"
+        # the ratio to the plain version is held at the chunk shape
+        _gram_float64(kernels, X, Y, G0, C0,
+                      "randn rows" if n == CHUNK else f"n={n} d={d} k={k}",
+                      ratio=n == CHUNK)
         for name, got, want in (("G", G, want_G), ("C", C, want_C)):
             err = float((got - want).abs().max())
             scale = float(want.abs().max())
@@ -363,7 +417,7 @@ def _check_gram(kernels, rng, dev):
                   f"{err / scale:.3e})", flush=True)
             assert err <= GRAM_TOL * scale, (name, err, scale)
             worst = max(worst, err)
-        del X, Y, G0, C0, G, C, want_G, want_C
+        del X, Y, G0, C0, G, C, G2, C2, want_G, want_C
     torch.cuda.empty_cache()
     return worst
 
@@ -1226,6 +1280,7 @@ def _main(workdir: str) -> int:
         linear_pixels,
         random_patch_cifar as rpc,
     )
+    from keystone_tpu_torch.tools import device_ms as _device_ms
     from keystone_tpu_torch.utils.checkpoint import save_pipeline
     from keystone_tpu_torch.workflow.common import Cacher
     from keystone_tpu_torch.workflow.env import PipelineEnv
@@ -1480,6 +1535,23 @@ def _main(workdir: str) -> int:
     assert f64["gram_form"] <= GRAM_FORM_FLOAT64_TOL, f64
     assert f64["resident"] <= W_FLOAT64_TOL, f64
     assert f64["streamed"] <= W_FLOAT64_TOL, f64
+    assert f64["streamed"] <= W_STREAMED_F64_RATIO * W_STREAMED_F64_FLOAT32, \
+        f64
+    # the Gram kernel on what the streamed solver pass feeds it: the first
+    # chunk, featurized and scaled, with its +-1 labels, into the carry
+    # the second chunk leaves
+    scaler_s = _operator(fitted_s, "StandardScalerModel")
+    Xc, Yc = [], []
+    for lo in (0, CHUNK):
+        Xc.append(scaler_s.apply_batch(featurizer.apply_batch(
+            torch.as_tensor(tr_x[lo:lo + CHUNK], device=dev))))
+        Yc.append(torch.where(torch.arange(10, device=dev) == torch.as_tensor(
+            tr_y[lo:lo + CHUNK], device=dev)[:, None], 1.0, -1.0))
+    G0 = Xc[1].double().T @ Xc[1].double()
+    G0 = ((G0 + G0.T) / 2).float()
+    C0 = (Xc[1].double().T @ Yc[1].double()).float()
+    _gram_float64(kernels, Xc[0], Yc[0], G0, C0, "first featurized chunk")
+    del Xc, Yc, G0, C0, scaler_s
     if "--profile" in sys.argv[1:]:
         PipelineEnv.reset()
         _profile("streamed fit", streamed_fit)
@@ -1542,22 +1614,29 @@ def _main(workdir: str) -> int:
     Y = torch.randn((n, k), device=dev)
     G = torch.zeros((d, d), device=dev)
     C = torch.zeros((d, k), device=dev)
-    g_ms = _time_ms(lambda: kernels.gram_cross(X, Y, G, C), reps=20)
+    g_fns = {
+        "kernel": lambda: kernels.gram_cross(X, Y, G, C),
+        # library yardstick: the two cuBLAS float32 products (TF32 off),
+        # the full square of X^T X; the port never calls them on the path
+        "library": lambda: (torch.addmm(G, X.T, X), torch.addmm(C, X.T, Y)),
+    }
+    g_ms, g_library_ms = (_time_ms(g_fns[name], reps=20)
+                          for name in ("kernel", "library"))
+    g_dev = {name: _device_ms(fn) for name, fn in g_fns.items()}
     g_plain_ms = _time_ms(lambda: kernels.gram_cross_plain(X, Y, G, C),
                           reps=20)
-    # library yardstick: the two cuBLAS float32 products (TF32 off), the
-    # full square of X^T X; the port never calls them on the path
-    g_library_ms = _time_ms(lambda: (torch.addmm(G, X.T, X),
-                                     torch.addmm(C, X.T, Y)), reps=20)
-    g_ops, g_bytes = _gram_work(n, d, k)
-    g_bound_ms, g_bound_by = _bound(g_ops, g_bytes)
-    g_host = _host_us(lambda: kernels.gram_cross(X, Y, G, C), reps=10)
-    print(f"[time] gram_cross n={n} d={d} k={k}: kernel {g_ms:.3f} ms, "
-          f"plain {g_plain_ms:.3f} ms, torch.addmm x2 {g_library_ms:.3f} ms, "
-          f"bound {g_bound_ms:.3f} ms by {g_bound_by} ({g_ops / 1e9:.1f} "
-          f"GFLOP triangle, {g_bytes / 1e6:.1f} MB), "
-          f"{g_ops / g_ms / 1e9:.1f} TFLOP/s achieved; wrapper host time "
-          f"{g_host:.1f} us a call", flush=True)
+    g_ops, g_bound_ms, g_bound_by = _gram_bound(n, d, k)
+    g_host = _host_us(g_fns["kernel"], reps=10)
+    print(f"[time] gram_cross n={n} d={d} k={k}: one call at a time kernel "
+          f"{g_ms:.3f} ms, plain {g_plain_ms:.3f} ms, torch.addmm x2 "
+          f"{g_library_ms:.3f} ms; device time alone (CUDA graph): kernel "
+          f"{g_dev['kernel']:.4f} ms, torch.addmm x2 "
+          f"{g_dev['library']:.4f} ms; bound {g_bound_ms:.4f} ms by "
+          f"{g_bound_by} (3xTF32: {g_ops / 1e9:.1f} GFLOP triangle x 3 at "
+          f"the TF32 peak, {_gram_work(n, d, k)[1] / 1e6:.1f} MB), "
+          f"{100 * g_bound_ms / g_dev['kernel']:.1f}% of the bound achieved, "
+          f"{g_ops / g_dev['kernel'] / 1e9:.1f} float32 TFLOP/s; wrapper "
+          f"host time {g_host:.1f} us a call", flush=True)
 
     q_times = {}
     for n in (SERVE_MAX_BATCH, N_TEST):
@@ -1769,6 +1848,8 @@ def _main(workdir: str) -> int:
         "bound_ms": g_bound_ms,
         "bound_by": g_bound_by,
         "library_ms": g_library_ms,
+        "device_ms": g_dev["kernel"],
+        "library_device_ms": g_dev["library"],
     }, {
         "name": "quantized_affine",
         "route": "cuda",

@@ -9,15 +9,24 @@ Device rule: every entry point takes ``device=`` and defaults to
 CUDA device is present; nothing continues silently on the CPU. Tests
 pass ``device="cpu"``.
 
-Precision rule: float32 means true float32 everywhere. On Hopper a
-float32 matmul may run in TF32 (a 10-bit mantissa) when
-``torch.backends.cuda.matmul.allow_tf32`` is set, and cuDNN convolutions
-do so by default (``torch.backends.cudnn.allow_tf32``). The solver path
-(Gram, cross products, Cholesky and block solves) feeds normal equations
-whose conditioning amplifies input error; the JAX package measured
-6.6e-2 relative solution error at a reduced matmul precision against
-4.1e-4 in full f32. Both switches are therefore turned off when this
-module is imported, and every module of the port imports it.
+Precision rule: float32 means true float32, with the one exception
+below. On Hopper a float32 matmul may run in TF32 (a 10-bit mantissa)
+when ``torch.backends.cuda.matmul.allow_tf32`` is set, and cuDNN
+convolutions do so by default (``torch.backends.cudnn.allow_tf32``). The
+solver path (Gram, cross products, Cholesky and block solves) feeds
+normal equations whose conditioning amplifies input error; the JAX
+package measured 6.6e-2 relative solution error at a reduced matmul
+precision against 4.1e-4 in full f32. Both switches are therefore turned
+off when this module is imported, and every module of the port imports
+it.
+
+The solver path runs in true float32 with one exception: the fused Gram
+kernel (``gram_cross``) runs its products in 3xTF32 on the tensor cores,
+behind float64 bars: its G and C within (8 + sqrt(slabs)) x 2^-24 of the
+largest entry at every shape, for its ceil(n / 32) slabs of rows, and no
+worse than 2x the plain float32 version's error at the streamed fit's
+chunk shape; the streamed fit's weights no worse than 2x their reading
+with the float32 kernel. Every other solver GEMM stays true float32.
 """
 from __future__ import annotations
 

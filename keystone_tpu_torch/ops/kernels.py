@@ -154,6 +154,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "gram_cross":
         lib.gram_cross_f32.argtypes = [p, p, p, p, i, i, i, ll, ll, p]
         lib.gram_cross_f32.restype = i
+        lib.gram_cross_slab_rows.argtypes = []
+        lib.gram_cross_slab_rows.restype = i
     elif name == "quantized_affine":
         for fn in (lib.quantized_affine_bf16, lib.quantized_affine_int8):
             fn.argtypes = [p, ll, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
@@ -443,7 +445,8 @@ def gram_cross(X, Y, G=None, C=None):
     tensors, the plain version for CPU tensors. Integer inputs are
     promoted to float32 first. The kernel computes the upper triangle of
     X^T X and mirrors it, so G stays exactly symmetric when it starts
-    so."""
+    so; its products run in 3xTF32 on the tensor cores (the precision
+    rule of ``ops/device.py``)."""
     X, Y, G, C = _gram_operands(X, Y, G, C)
     if X.device.type == "cpu":
         return gram_cross_plain(X, Y, G, C)
@@ -474,6 +477,13 @@ def gram_cross(X, Y, G=None, C=None):
         raise RuntimeError(f"gram_cross: CUDA error {rc} at launch")
     LAUNCHES["gram_cross"] += 1
     return G, C
+
+
+def gram_slab_rows() -> int:
+    """Rows of X the Gram kernel sums on the tensor cores before adding
+    them, rounded, into its float32 total, as the built library reports
+    it."""
+    return _library("gram_cross").gram_cross_slab_rows()
 
 
 # -- quantized affine apply --------------------------------------------------

@@ -6,7 +6,8 @@ solve with its breakdown gate and eigendecomposition fallback, the
 normal equations through the fused Gram kernel, and block coordinate
 descent. Everything runs in true float32
 (``ops/device.py`` turns TF32 off), the counterpart of the JAX package's
-``SOLVER_PRECISION = HIGHEST``.
+``SOLVER_PRECISION = HIGHEST``, except the fused Gram kernel's products,
+which run in 3xTF32 behind float64 bars (``ops/device.py``).
 
 Inputs follow the ArrayDataset convention: the row count may exceed the
 true ``n`` with zero padding, which is exact for every Gram and cross

@@ -8,10 +8,11 @@ also run on a GPU machine without JAX:
 
 Both sides compute in float32 and differ in summation order. Pooled
 features reach ~1e4, so the featurize bar is rtol 1e-5 with atol 1e-5 of
-the largest feature. The Gram kernel is held to the JAX package's bar for
-its Gram kernel, 2e-4 of the largest entry. The quantized affine kernel and
-its plain version apply the same dequantized weights in float32, so the
-bar is 1e-5 of the largest output. The banded products (one-sided and
+the largest feature. The Gram kernel (3xTF32 products) is held to the JAX
+package's bar for its Gram kernel, 2e-4 of the largest entry, and against
+float64 to its own bar (``chip_smoke.GRAM_F64_ULPS``). The quantized
+affine kernel and its plain version apply the same dequantized weights
+in float32, so the bar is 1e-5 of the largest output. The banded products (one-sided and
 two-sided) sum the same band entries in another order than the dense
 plain products: 1e-5 of the largest output. The FV moments' plain
 version writes the posteriors out and takes its exponentials in another
@@ -145,7 +146,9 @@ def test_cuda_rejects_shapes_the_kernel_does_not_take(cuda):
 
 
 @pytest.mark.parametrize("n,d,k", [(7, 3, 2), (100, 37, 5), (513, 128, 16),
-                                   (1000, 130, 3)])
+                                   (1000, 130, 3), (33, 127, 1),
+                                   (65, 129, 16), (31, 255, 17),
+                                   (1030, 257, 33)])
 def test_cuda_gram_cross_matches_plain(cuda, n, d, k):
     rng = np.random.RandomState(n + d + k)
     X = torch.as_tensor(rng.randn(n, d).astype(np.float32), device=cuda)
@@ -174,6 +177,41 @@ def test_cuda_gram_cross_matches_plain(cuda, n, d, k):
     Gu, _ = kernels.gram_cross(U, Y[:m])
     Uf = U.double().cpu()
     np.testing.assert_array_equal(Gu.cpu().numpy(), (Uf.T @ Uf).numpy())
+
+
+@pytest.mark.parametrize("n,d,k", [(1024, 8192, 10), (7, 3, 2), (33, 129, 17),
+                                   (65, 129, 16), (1000, 255, 16),
+                                   (1030, 257, 33)])
+def test_cuda_gram_cross_against_float64(cuda, n, d, k):
+    """The kernel's 3xTF32 products into a nonzero carry against the
+    float64 sums, G and C each: within (8 + sqrt(slabs)) x 2^-24 of the
+    largest entry, for the kernel's ceil(n / slab rows) slabs
+    (``chip_smoke.GRAM_F64_ULPS``), and at the streamed fit's chunk shape
+    no worse than 2x the plain float32 version's error; G exactly
+    symmetric and the same bits on a second launch."""
+    rng = np.random.RandomState(n + d + k)
+    X = torch.as_tensor(rng.randn(n, d).astype(np.float32), device=cuda)
+    Y = torch.as_tensor(rng.randn(n, k).astype(np.float32), device=cuda)
+    G0 = torch.as_tensor(rng.randn(d, d).astype(np.float32), device=cuda)
+    G0 = (G0 + G0.T) * n ** 0.5
+    C0 = torch.as_tensor(rng.randn(d, k).astype(np.float32), device=cuda)
+    G, C = kernels.gram_cross(X, Y, G0.clone(), C0.clone())
+    G2, C2 = kernels.gram_cross(X, Y, G0.clone(), C0.clone())
+    want_G, want_C = kernels.gram_cross_plain(X, Y, G0.clone(), C0.clone())
+    torch.cuda.synchronize()
+    assert torch.equal(G, G2) and torch.equal(C, C2)
+    assert torch.equal(G, G.T)
+    slabs = -(-n // kernels.gram_slab_rows())
+    bar = (8.0 + slabs ** 0.5) * 2.0 ** -24
+    Xd = X.double()
+    for got, plain, exact in (
+            (G, want_G, G0.double() + Xd.T @ Xd),
+            (C, want_C, C0.double() + Xd.T @ Y.double())):
+        k_err = float((got.double() - exact).abs().max())
+        p_err = float((plain.double() - exact).abs().max())
+        assert k_err <= bar * float(exact.abs().max()), (k_err, bar)
+        if (n, d, k) == (1024, 8192, 10):
+            assert k_err <= 2.0 * p_err, (k_err, p_err)
 
 
 def test_cuda_gram_cross_into_a_carry_at_an_odd_offset(cuda):
