@@ -60,9 +60,47 @@ Phases, each of which raises (and so exits non-zero) on failure:
    the card, within the golden envelope, and each path's Fisher vectors
    are held against float64.
    Fit and apply seconds, images/s, EM iterations and the device-memory
-   peak are printed from that pass, which has no stage timers. A second
+   peak are printed from that pass, which has no stage timers. The fit
+   runs the node-level rule, which runs SIFT once on a sample of up to
+   96 training images (counted with the other SIFT applications) for
+   both the PCA's and the GMM's choice, and must keep the distributed
+   column PCA; its seconds per node and the device memory it leaves
+   allocated are printed. A second
    fit + apply then times each stage, the card synchronized around every
    stage call; its seconds per stage are printed, and its totals apart.
+4e. The cost-model solver choice on the CIFAR path (phase 4's data,
+   filters, 8192 features after the scaler, lam = 10):
+   - resident: ``LeastSquaresEstimator`` through ``Pipeline.fit``, where
+     the node-level rule samples 96 images (``fused_cifar_featurize``
+     launched for the sample and for the fit) and must splice Densify ->
+     ``BlockLeastSquaresEstimator(1000, 3)``; its test error in phase 4's
+     bands, its weights against the float64 BCD of its own input;
+   - the candidates (dense L-BFGS, BCD(1000, 3), exact) fitted on the
+     same scaled matrix, and the exact solver and BCD at LinearPixels'
+     1024 features, each fit's seconds beside its EC2 cost, and whether
+     the cost order is the measured order (printed, not asserted); the
+     test error of each candidate at 8192 features, of phase 4's BCD(4096,
+     1) and of the float64 exact ridge solve, beside how far each fit's
+     weights lie from that solve (printed);
+   - sparse: seeded host SparseVectors at (20480, 8192) and 1% density
+     with 10-class labels, through the same rule, which must splice
+     Sparsify -> ``SparseLBFGSwithL2``; weights against the dense L-BFGS
+     on the densified copy at lam = 1, the same bits on a second fit, and
+     at lam = 10 the weights against the exact float64 solve, where the
+     JAX package's solver stops as far from it;
+   - streamed: the same pipeline over chunks of 1024; the rule leaves
+     the node in place and ``finalize`` must choose the resident choice,
+     with ``gram_cross`` once per chunk; weights against the resident
+     fit's and against the float64 Gram-form solve, test errors within
+     0.01.
+4f. MnistRandomFFT through ``run`` at the app's published width (200
+   FFT branches, 102,400 features, blocks of 2048, lam = 1e-2) on
+   16,384 / 2,048 surrogate MNIST images: train error at most 0.05,
+   finite scores, and the block weights against a float64 BCD with the
+   same blocks and pass on the fit's own features; fit and apply
+   seconds, images/s, the fit's device-memory peak and the optimizer's
+   host seconds inside the fit and the apply are printed (phase 4c prints
+   the latter for its traffic too).
 5. Timing: each kernel, its plain version and a library yardstick with
    CUDA events at the main path's shapes, one call at a time (the
    ``kernels`` line); for every kernel also the device time alone of the
@@ -77,7 +115,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
 a serving burst and a second VOC test apply under ``torch.profiler`` and
 prints device time by kernel and the device's idle share.
 
-The line before the last is a JSON object listing every kernel; the last
+The line before the last is a JSON object listing every kernel (with its
+launches on each phase's path, ``launches_by_path``); the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no
 result.
@@ -233,6 +272,40 @@ W_STREAMED_F64_FLOAT32, W_STREAMED_F64_RATIO = 9.163e-4, 2.0
 #: on the same input (read 6.1e-11): equal in exact arithmetic, so only
 #: float64 rounding amplified by the blocks' conditioning remains
 GRAM_FORM_FLOAT64_TOL = 2e-10
+
+#: Phase 4e, the cost-model solver choice: the candidates the reference's
+#: EC2 surface ranks at the CIFAR path's width and at LinearPixels'
+#: (n, d, k), timed on the same matrices; the sparse dataset's shape and
+#: density; its L2 weight, where the sparse and the dense L-BFGS both
+#: reach their optimum before the relative-improvement stop (9.4e-5 apart
+#: on an H100 at lam = 1), and the bar of the sparse fit against the dense
+#: fit on the densified copy there, max |delta| / max |W_dense|. At the
+#: CIFAR path's lam = 10 the stop ends the sparse fit 1.410e-3 of the
+#: largest weight from the exact solve in the JAX package as in the port,
+#: on these data (tests/test_torch_solver_choice.py::
+#: test_sparse_lbfgs_stops_where_jax_does_at_heavy_l2; ROADMAP C10), so
+#: the bar there is on the distance from the exact solve, just above it
+SOLVER_BLOCK, SOLVER_PASSES = 1000, 3
+#: the resident choice's test error stays within SOLVER_ERROR_DRIFT of its
+#: first sound reading (H100 80GB HBM3, 700 W; PERF.md): at lam = 10 three
+#: passes of 1000-wide blocks end further from the exact ridge solve than
+#: phase 4's one pass of 4096-wide blocks (2.30 of the largest weight
+#: against 0.85), and the choice reads 0.0483 above it on this surrogate
+SOLVER_ERROR_FIRST, SOLVER_ERROR_DRIFT = 0.2854, 0.002
+SPARSE_N, SPARSE_D, SPARSE_NNZ, SPARSE_LAM = N_TRAIN, 8192, 82, 1.0
+SPARSE_DENSE_TOL, SPARSE_HEAVY_L2_TOL = 1e-3, 1.5e-3
+
+#: Phase 4f, MnistRandomFFT at the app's published width (200 FFT
+#: branches of 512 features, blocks of 2048, bench.py's lam) on the
+#: bench's surrogate, cut from 60,000 / 10,000 images as
+#: ``bench.py::mnist_bench`` cuts it; its weights against a float64 BCD
+#: with the same blocks and pass on the fit's own features, max |delta| /
+#: max |W64| (phase 4b's bar); the train-error bar (no bar on the test
+#: error: with as many features as images or more, this surrogate does not
+#: generalise under a one-pass BCD)
+MNIST_TRAIN, MNIST_TEST, MNIST_FFTS = 16384, 2048, 200
+MNIST_BLOCK, MNIST_LAM = 2048, 1e-2
+MNIST_F64_TOL, MNIST_TRAIN_ERROR = 5e-3, 0.05
 
 
 def _sync():
@@ -474,33 +547,40 @@ def _bcd_float64(A, Y, lam, bounds, passes):
     """Block coordinate descent in float64, written out in the data form
     and independent of the port's solvers: center A and Y, then per pass
     and per block in order W_b <- (A_b^T A_b + lam I)^-1 A_b^T (Y - P +
-    A_b W_b), keeping P = A W."""
-    A = A - A.mean(dim=0)
+    A_b W_b), keeping P = A W. A may be float32: each block is cast to
+    float64 (and centered) when it is used, so no float64 copy of the
+    whole of A is made."""
+    Y = Y.to(torch.float64)
     Y = Y - Y.mean(dim=0)
-    W = torch.zeros((A.shape[1], Y.shape[1]), dtype=A.dtype,
+    W = torch.zeros((A.shape[1], Y.shape[1]), dtype=torch.float64,
                     device=A.device)
     P = torch.zeros_like(Y)
     for _ in range(passes):
         for lo, hi in bounds:
-            Ab = A[:, lo:hi]
-            reg = Ab.T @ Ab + lam * torch.eye(hi - lo, dtype=A.dtype,
+            Ab = A[:, lo:hi].to(torch.float64)
+            Ab = Ab - Ab.mean(dim=0)
+            reg = Ab.T @ Ab + lam * torch.eye(hi - lo, dtype=Ab.dtype,
                                               device=A.device)
             new = torch.linalg.solve(reg, Ab.T @ (Y - P + Ab @ W[lo:hi]))
             P += Ab @ (new - W[lo:hi])
             W[lo:hi] = new
+            del Ab, reg
     return W
 
 
-def _float64_check(featurizer, fits, images, labels, lam, dev):
+def _float64_check(featurizer, fits, images, labels, lam, dev, block=BLOCK,
+                   passes=PASSES):
     """The full-width solve of each fit redone in float64 on that fit's
     own input: the training set featurized by the fit's featurizer, in
     chunks of CHUNK images, and scaled in float32 by the fit's scaler,
     which is what its solver consumed. ``fits`` maps a name to
-    ``(scaler, float32 weights)``. Returns, per fit, max |W32 - W64| /
-    max |W64|; the spread of the float64 solves between the fits' inputs
-    (the scalers' float32 rounding alone); and, on the streamed fit's
-    input, the port's Gram-form BCD (``gram_bcd``) against the data form,
-    both in float64."""
+    ``(scaler, float32 weights)``; the solve is a BCD over blocks of
+    ``block`` features, ``passes`` passes. Returns, per fit, max |W32 -
+    W64| / max |W64|; the spread of the float64 solves between the fits'
+    inputs (the scalers' float32 rounding alone); and, on the streamed
+    fit's input, the port's Gram-form BCD (``gram_bcd``) against the data
+    form, both in float64 (``gram_form``), and the streamed float32
+    weights against that Gram-form solve (``streamed_gram``)."""
     from keystone_tpu_torch.nodes.learning.linear import gram_bcd
 
     F = torch.cat([featurizer.apply_batch(torch.as_tensor(
@@ -508,18 +588,19 @@ def _float64_check(featurizer, fits, images, labels, lam, dev):
     Y = torch.where(torch.arange(10, device=dev) == torch.as_tensor(
         labels, device=dev)[:, None], 1.0, -1.0).to(torch.float64)
     d = F.shape[1]
-    bounds = [(lo, min(d, lo + BLOCK)) for lo in range(0, d, BLOCK)]
+    bounds = [(lo, min(d, lo + block)) for lo in range(0, d, block)]
     out, w64 = {}, {}
     for name, (scaler, W32) in fits.items():
         A = scaler.apply_batch(F).to(torch.float64)
-        W = _bcd_float64(A, Y, lam, bounds, PASSES)
+        W = _bcd_float64(A, Y, lam, bounds, passes)
         out[name] = float((W32.to(W) - W).abs().max() / W.abs().max())
         w64[name] = W
         if name == "streamed":
             carry = (A.T @ A, A.T @ Y, A.sum(dim=0), Y.sum(dim=0), N_TRAIN)
-            Wg, _, _ = gram_bcd(carry, lam, bounds, PASSES)
-            out["gram_form"] = float((torch.cat(Wg) - W).abs().max()
-                                     / W.abs().max())
+            Wg = torch.cat(gram_bcd(carry, lam, bounds, passes)[0])
+            out["gram_form"] = float((Wg - W).abs().max() / W.abs().max())
+            out["streamed_gram"] = float((W32.to(Wg) - Wg).abs().max()
+                                         / Wg.abs().max())
             del carry, Wg
         del A
     a, b = w64.values()
@@ -915,6 +996,175 @@ def _check_fv(kernels, rng, dev):
     return worst
 
 
+class _RuleClock:
+    """What the node-level rule does per optimizable node: the seconds of
+    its sampled execution (the card synchronized after it) and of the
+    node's ``optimize``, the kernel launches the sampled execution makes,
+    and the choice; also every ``LeastSquaresEstimator._choose`` call
+    (the rule's and a streamed finalize's) with its arguments, so the
+    density and each candidate's cost can be printed; and, per
+    application of the rule that splices, its seconds, the device memory
+    its values on the sample hold after its last splice, and the memory
+    it leaves allocated when it returns. ``close`` removes the
+    wrappers."""
+
+    def __init__(self, kernels):
+        from keystone_tpu_torch.nodes.images.fisher_vector import (
+            GMMFisherVectorEstimator,
+        )
+        from keystone_tpu_torch.nodes.learning.least_squares import (
+            LeastSquaresEstimator,
+        )
+        from keystone_tpu_torch.nodes.learning.pca import ColumnPCAEstimator
+        from keystone_tpu_torch.workflow.optimizer.node_rule import (
+            NodeOptimizationRule,
+            _SampledValues,
+        )
+
+        self.nodes, self.choices, self.applies, self._undo = [], [], [], []
+        self._sample = None
+        self._values_held = 0
+        clock = self
+
+        def apply(real):
+            def run(rule, graph):
+                _sync()
+                base = torch.cuda.memory_allocated()
+                clock._values_held = 0
+                t0 = time.perf_counter()
+                out = real(rule, graph)
+                _sync()
+                if rule.splices:
+                    clock.applies.append({
+                        "seconds": time.perf_counter() - t0,
+                        "values": clock._values_held - base,
+                        "held": torch.cuda.memory_allocated() - base})
+                return out
+            return run
+
+        def drop(real):
+            def run(values, graph, node):
+                clock._values_held = torch.cuda.memory_allocated()
+                return real(values, graph, node)
+            return run
+
+        def sampled(real):
+            def run(graph, deps, values):
+                before = dict(kernels.LAUNCHES)
+                t0 = time.perf_counter()
+                out = real(graph, deps, values)
+                _sync()
+                clock._sample = (time.perf_counter() - t0, {
+                    k: v - before.get(k, 0)
+                    for k, v in kernels.LAUNCHES.items()
+                    if v != before.get(k, 0)})
+                return out
+            return run
+
+        def optimize(real):
+            def run(node, *args):
+                t0 = time.perf_counter()
+                choice = real(node, *args)
+                seconds, launches = clock._sample or (0.0, {})
+                clock._sample = None
+                clock.nodes.append({
+                    "node": type(node).__name__,
+                    "chosen": type(choice.node).__name__,
+                    "prefix": [type(t).__name__ for t in choice.prefix],
+                    "sample_s": seconds,
+                    "optimize_s": time.perf_counter() - t0,
+                    "sample_launches": launches})
+                return choice
+            return run
+
+        def choose(real):
+            def run(est, n, d, k, sparsity, machines, streaming=False):
+                choice = real(est, n, d, k, sparsity, machines, streaming)
+                clock.choices.append({
+                    "args": (n, d, k, sparsity, machines),
+                    "streaming": streaming,
+                    "costs": {type(solver).__name__: cost for cost, solver, _
+                              in est.costs(n, d, k, sparsity, machines,
+                                           streaming)},
+                    "choice": choice})
+                return choice
+            return run
+
+        self._wrap(NodeOptimizationRule, "apply", apply)
+        self._wrap(_SampledValues, "drop", drop)
+        self._wrap(NodeOptimizationRule, "_execute_sampled",
+                   lambda real: staticmethod(sampled(real)))
+        for cls in (LeastSquaresEstimator, ColumnPCAEstimator,
+                    GMMFisherVectorEstimator):
+            self._wrap(cls, "optimize", optimize)
+        self._wrap(LeastSquaresEstimator, "_choose", choose)
+
+    def _wrap(self, owner, attr, make):
+        # restored as found in the class (a staticmethod stays one)
+        self._undo.append((owner, attr, owner.__dict__[attr]))
+        setattr(owner, attr, make(getattr(owner, attr)))
+
+    def close(self):
+        for owner, attr, real in reversed(self._undo):
+            setattr(owner, attr, real)
+        self._undo = []
+
+    def summary(self):
+        return "; ".join(
+            [f"{n['node']} -> {' -> '.join(n['prefix'] + [n['chosen']])}: "
+             f"sampled execution {n['sample_s']:.3f} s (launches "
+             f"{n['sample_launches']}), optimize {n['optimize_s']:.4f} s"
+             for n in self.nodes]
+            + [f"rule applied in {a['seconds']:.3f} s; its values on the "
+               f"sample held {a['values'] / 2**20:+.1f} MiB at its last "
+               f"splice, {a['held'] / 2**20:+.1f} MiB left allocated when "
+               f"it returned" for a in self.applies])
+
+
+class _OptimizerClock:
+    """Host seconds of the optimizer's executions (one per graph a fit or
+    an apply optimizes) and of its CSE passes, counted by wrapping
+    ``Optimizer.execute`` and ``EquivalentNodeMergeRule.apply``; the card
+    is not synchronized, as both are host code. ``close`` removes the
+    wrappers."""
+
+    def __init__(self):
+        from keystone_tpu_torch.workflow.optimizer.rule import Optimizer
+        from keystone_tpu_torch.workflow.optimizer.rules import (
+            EquivalentNodeMergeRule,
+        )
+
+        self.counts = {"execute": 0, "CSE pass": 0}
+        self.seconds = {"execute": 0.0, "CSE pass": 0.0}
+        self._undo = []
+        self._wrap(Optimizer, "execute", "execute")
+        self._wrap(EquivalentNodeMergeRule, "apply", "CSE pass")
+
+    def _wrap(self, owner, attr, name):
+        real = getattr(owner, attr)
+
+        def run(*args):
+            t0 = time.perf_counter()
+            try:
+                return real(*args)
+            finally:
+                self.counts[name] += 1
+                self.seconds[name] += time.perf_counter() - t0
+
+        setattr(owner, attr, run)
+        self._undo.append((owner, attr, real))
+
+    def close(self):
+        for owner, attr, real in reversed(self._undo):
+            setattr(owner, attr, real)
+        self._undo = []
+
+    def summary(self):
+        return (f"optimizer {self.counts['execute']} executions, "
+                f"{self.seconds['execute']:.4f} s; CSE {self.counts['CSE pass']}"
+                f" passes, {self.seconds['CSE pass']:.4f} s (host)")
+
+
 class _StageTimer:
     """Calls per pipeline stage, by wrapping the stage's method; with
     ``timed``, also seconds, the card synchronized on both sides of every
@@ -1100,11 +1350,15 @@ def _voc_phase(kernels, dev):
     # the main pass: stage calls counted, nothing synchronized or timed
     # inside the fit and the apply
     counter = _voc_stage_timer(timed=False)
+    rule = _RuleClock(kernels)
     _sync()
     kernels.reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    fitted, scores, fit_s, apply_s, fit_calls = _voc_fit_apply(
-        voc, config, train, test, dev, counter)
+    try:
+        fitted, scores, fit_s, apply_s, fit_calls = _voc_fit_apply(
+            voc, config, train, test, dev, counter)
+    finally:
+        rule.close()
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     sift_apps = counter.calls["SIFT"]
@@ -1123,6 +1377,12 @@ def _voc_phase(kernels, dev):
           f"{apply_s:.2f} s ({VOC_TEST / apply_s:.1f} test img/s), "
           f"{(VOC_TRAIN + VOC_TEST) / (fit_s + apply_s):.1f} img/s overall",
           flush=True)
+    print(f"[voc] node-level rule (seconds inside the fit): "
+          f"{rule.summary()}", flush=True)
+    assert [(n["node"], n["chosen"]) for n in rule.nodes] == [
+        ("ColumnPCAEstimator", "DistributedColumnPCAEstimator"),
+        ("GMMFisherVectorEstimator", "EncEvalGMMFisherVectorEstimator")], \
+        rule.nodes
     print(f"[voc] EM iterations {counter.calls['EM iteration']}; SIFT "
           f"applications {sift_apps} ({fit_calls['SIFT']} in the fit), FV "
           f"applications {fv_apps}", flush=True)
@@ -1180,6 +1440,471 @@ def _voc_phase(kernels, dev):
     del fitted
     _voc_release()
     return launches
+
+
+def _fit_seconds(fit, reps=3):
+    """Median seconds of ``fit()`` (the card synchronized on both sides)
+    over ``reps`` runs, and the last run's model."""
+    times = []
+    for _ in range(reps):
+        _sync()
+        t0 = time.perf_counter()
+        model = fit()
+        _sync()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times), model
+
+
+def _candidates(label, est, X, Y, fits):
+    """Fit each named candidate on the same (X, Y) ArrayDatasets; print
+    its seconds beside its cost on the estimator's surface, and whether
+    the cost order is the measured order (evidence for a calibration on
+    the card, not asserted). Returns {name: seconds} and {name: model}."""
+    n, d, k = X.n, X.data.shape[1], Y.data.shape[1]
+    costs = {type(s).__name__: c for c, s, _ in est.costs(n, d, k, 1.0, 1)}
+    secs, models = {}, {}
+    for name, solver in fits.items():
+        secs[name], model = _fit_seconds(lambda: solver.fit(X, Y))
+        models[name] = model
+        stats = getattr(model, "_solve_stats", None)
+        print(f"[solver] {label} ({n}, {d}, {k}): {name} fit "
+              f"{secs[name]:.4f} s (median of 3), EC2 cost "
+              f"{costs[name]:.4g}{f'; L-BFGS {stats}' if stats else ''}",
+              flush=True)
+    by_cost = sorted(secs, key=lambda name: costs[name])
+    by_time = sorted(secs, key=lambda name: secs[name])
+    print(f"[solver] {label}: cost order {by_cost}, measured order "
+          f"{by_time}; cost model's order matches measured: "
+          f"{by_cost == by_time}", flush=True)
+    return secs, models
+
+
+def _solver_accuracy(models, X, Y, X_test, te_y, lam):
+    """Each fitted candidate's test error beside how far its weights lie
+    from the exact float64 minimizer of its own objective, max |W -
+    W_exact| / max |W_exact|: the BCDs and the exact solver minimize
+    |Xc W - Yc|^2 + lam |W|^2, the L-BFGS solver the same with its terms
+    divided by n, whose minimizer is the first's at lam * n. Returns
+    {name: (test error, distance)}."""
+    n = X.n
+    Y = Y.data[:n]
+    exact = {"ridge": _ridge_float64(X.data, Y, lam / n),
+             "per-n": _ridge_float64(X.data, Y, lam)}
+    out = {}
+    for name, model in models.items():
+        W = torch.as_tensor(model.weights).to(X.data.device)
+        ref = exact["per-n" if "LBFGS" in name else "ridge"]
+        pred = model.apply_batch(X_test.data).argmax(dim=1).cpu().numpy()
+        out[name] = (float(np.mean(pred != te_y)), _rel(W, ref))
+    ridge = exact["ridge"]
+    # the exact minimizer's own test error, as a float32 mapper would score
+    # it: the intercept is the label mean less the feature means times W
+    Xm, Ym = X.data.double().mean(dim=0), Y.double().mean(dim=0)
+    scores = (X_test.data.double() - Xm) @ ridge + Ym
+    out["float64 exact ridge"] = (
+        float(np.mean(scores.argmax(dim=1).cpu().numpy() != te_y)), 0.0)
+    print("[solver] test error and max |W - W_exact| / max |W_exact| (the "
+          "float64 minimizer of the solver's own objective) at lam = "
+          f"{lam}: " + "; ".join(f"{name} {err:.4f}, {dist:.3e}"
+                                 for name, (err, dist) in out.items()),
+          flush=True)
+    del exact, ridge, scores
+    return out
+
+
+def _sparse_dataset(n, d, nnz, seed):
+    """Seeded host SparseVectors at density about nnz / d (duplicate
+    draws coalesce), and +-1 indicators of 10 classes given by the argmax
+    of a seeded linear score of each row. Returns the items and the
+    (n, 10) labels as numpy."""
+    from keystone_tpu_torch.nodes.util.sparse import SparseVector
+
+    rng = np.random.RandomState(seed)
+    idx = rng.randint(0, d, (n, nnz))
+    vals = rng.randn(n, nnz).astype(np.float32)
+    W = rng.randn(d, 10).astype(np.float32)
+    y = np.einsum("rs,rsk->rk", vals, W[idx]).argmax(axis=1)
+    Y = np.where(np.arange(10) == y[:, None], 1.0, -1.0).astype(np.float32)
+    return [SparseVector(idx[i], vals[i], d) for i in range(n)], Y
+
+
+def _ridge_float64(X, Y, lam):
+    """The exact minimizer of the L-BFGS solvers' objective with an
+    intercept, in float64: (Xc^T Xc / n + lam I)^-1 Xc^T Yc / n."""
+    X, Y = X.to(torch.float64), Y.to(torch.float64)
+    X = X - X.mean(dim=0)
+    Y = Y - Y.mean(dim=0)
+    n, d = X.shape
+    G = X.T @ X / n + lam * torch.eye(d, dtype=X.dtype, device=X.device)
+    return torch.linalg.solve(G, X.T @ Y / n)
+
+
+def _rel(a, b):
+    """max |a - b| / max |b|, float64."""
+    a, b = a.to(torch.float64), b.to(torch.float64)
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _chosen_cifar(rpc, filters, whitener, config, train, labels):
+    """RandomPatchCifar's predictor (``rpc.build_pipeline``) with a
+    LeastSquaresEstimator in place of the app's BlockLeastSquaresEstimator
+    (4096, 1), so that the node-level rule chooses the solver."""
+    from keystone_tpu_torch.nodes.images.core import FusedConvRectifyPool
+    from keystone_tpu_torch.nodes.learning import LeastSquaresEstimator
+    from keystone_tpu_torch.nodes.stats import StandardScaler
+    from keystone_tpu_torch.nodes.util import MaxClassifier
+    from keystone_tpu_torch.workflow.common import Cacher
+
+    featurizer = FusedConvRectifyPool(
+        filters, rpc.IMAGE_SIZE, config.patch_size, rpc.NUM_CHANNELS,
+        config.pool_stride, config.pool_size, config.alpha,
+        whitener=whitener) >> Cacher("features")
+    return (featurizer.and_then(StandardScaler(), train)
+            .and_then(LeastSquaresEstimator(lam=config.lam), train, labels)
+            >> MaxClassifier())
+
+
+def _solver_phase(kernels, rpc, tr_x, tr_y, te_x, te_y, filters, whitener,
+                  config, lin_test, dev):
+    """Phase 4e (see the module docstring). Returns the kernel launch
+    counts of the resident fit and of the streamed fit."""
+    from keystone_tpu_torch.evaluation.multiclass import evaluate_multiclass
+    from keystone_tpu_torch.nodes.images.core import (
+        GrayScaler,
+        ImageVectorizer,
+    )
+    from keystone_tpu_torch.nodes.learning import (
+        BlockLeastSquaresEstimator,
+        DenseLBFGSwithL2,
+        LeastSquaresEstimator,
+        LinearMapEstimator,
+    )
+    from keystone_tpu_torch.nodes.util import (
+        ClassLabelIndicatorsFromIntLabels,
+        Densify,
+    )
+    from keystone_tpu_torch.parallel.dataset import ArrayDataset, HostDataset
+    from keystone_tpu_torch.parallel.streaming import StreamingDataset
+    from keystone_tpu_torch.workflow.common import Cacher
+    from keystone_tpu_torch.workflow.env import PipelineEnv
+
+    lam = float(config.lam)
+    train_x = ArrayDataset.from_numpy(tr_x, dev)
+    test_x = ArrayDataset.from_numpy(te_x, dev)
+    y_train = ArrayDataset.from_numpy(tr_y.astype(np.int32), dev)
+    labels = (ClassLabelIndicatorsFromIntLabels(rpc.NUM_CLASSES)
+              >> Cacher("labels"))(y_train)
+
+    # -- 1. resident: the node-level rule chooses inside Pipeline.fit
+    clock = _RuleClock(kernels)
+    kernels.reset_launches()
+    _sync()
+    t0 = time.time()
+    try:
+        fitted = _chosen_cifar(rpc, filters, whitener, config, train_x,
+                               labels).fit()
+        _sync()
+    finally:
+        clock.close()
+    fit_s = time.time() - t0
+    launches = dict(kernels.LAUNCHES)
+    (rule,) = [c for c in clock.choices if not c["streaming"]]
+    n, d, k, density, machines = rule["args"]
+    choice = rule["choice"]
+    (node,) = [c for c in clock.nodes if c["node"] == "LeastSquaresEstimator"]
+    print(f"[solver] resident RandomPatchCifar with LeastSquaresEstimator("
+          f"lam={lam}): sampled (n, d, k) = ({n}, {d}, {k}), density "
+          f"{density:.6f}, {machines} machine; EC2 costs "
+          f"{ {name: f'{c:.4g}' for name, c in rule['costs'].items()} }; "
+          f"chose {type(choice.node).__name__}("
+          f"{getattr(choice.node, 'block_size', '')}, "
+          f"{getattr(choice.node, 'num_iter', '')}) behind "
+          f"{[type(t).__name__ for t in choice.prefix]}; rule: "
+          f"{clock.summary()}; fit {fit_s:.2f} s (incl. the rule); launches "
+          f"{launches}", flush=True)
+    assert (n, d, k, machines) == (N_TRAIN, 8 * NUM_FILTERS, 10, 1), rule
+    want = LeastSquaresEstimator(lam=lam)._choose(n, d, k, density, 1)
+    assert type(choice.node) is type(want.node) is BlockLeastSquaresEstimator
+    assert (choice.node.block_size, choice.node.num_iter) == (
+        SOLVER_BLOCK, SOLVER_PASSES), choice.node
+    sample_fz = node["sample_launches"].get("fused_cifar_featurize", 0)
+    assert sample_fz >= 1, node
+    assert launches["fused_cifar_featurize"] > sample_fz, launches
+    mapper = _operator(fitted, "BlockLinearMapper")
+    assert mapper.block_size == SOLVER_BLOCK
+    test_pred = fitted.apply(test_x).get()
+    r_test = evaluate_multiclass(test_pred, te_y, rpc.NUM_CLASSES).total_error
+    print(f"[solver] resident test error {r_test:.4f} (phase 4's solver "
+          f"{CIFAR_ERROR_FIRST} first reading)", flush=True)
+    assert 0.02 < r_test < 0.90, r_test
+    assert r_test < lin_test - 0.15, (r_test, lin_test)
+    assert abs(r_test - SOLVER_ERROR_FIRST) <= SOLVER_ERROR_DRIFT, r_test
+    featurizer = _operator(fitted, "FusedConvRectifyPool")
+    r_scaler = _operator(fitted, "StandardScalerModel")
+    r_W = torch.as_tensor(mapper.weights).float()
+    r_preds = test_pred.numpy()
+    del fitted, test_pred
+
+    # -- 2. each candidate on the same scaled training matrix
+    X = ArrayDataset(torch.cat([r_scaler.apply_batch(featurizer.apply_batch(
+        train_x.data[i:i + CHUNK])) for i in range(0, N_TRAIN, CHUNK)]),
+        N_TRAIN)
+    Y = labels.get()
+    est = LeastSquaresEstimator(lam=lam)
+    _, models = _candidates("CIFAR features", est, X, Y, {
+        "DenseLBFGSwithL2": DenseLBFGSwithL2(lam=lam, num_iterations=20),
+        "BlockLeastSquaresEstimator": BlockLeastSquaresEstimator(
+            SOLVER_BLOCK, SOLVER_PASSES, lam=lam),
+        "LinearMapEstimator": LinearMapEstimator(lam=lam)})
+    models["BCD(4096, 1)"] = BlockLeastSquaresEstimator(4096, 1, lam=lam).fit(
+        X, Y)
+    _solver_accuracy(models, X, Y, ArrayDataset(torch.cat([
+        r_scaler.apply_batch(featurizer.apply_batch(test_x.data[i:i + CHUNK]))
+        for i in range(0, N_TEST, CHUNK)]), N_TEST), te_y, lam)
+    del X, models
+    pixels = ArrayDataset((GrayScaler() >> ImageVectorizer()).apply(
+        train_x).get().data, N_TRAIN)
+    _candidates("LinearPixels' width", est, pixels, Y, {
+        "BlockLeastSquaresEstimator": BlockLeastSquaresEstimator(
+            SOLVER_BLOCK, SOLVER_PASSES, lam=lam),
+        "LinearMapEstimator": LinearMapEstimator(lam=lam)})
+    del pixels
+    PipelineEnv.reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 3. sparse: Sparsify -> SparseLBFGSwithL2 through the same rule
+    t0 = time.time()
+    items, Ys = _sparse_dataset(SPARSE_N, SPARSE_D, SPARSE_NNZ, SEED)
+    sparse_train = HostDataset(items)
+    sparse_labels = ArrayDataset.from_numpy(Ys, dev)
+    make_s = time.time() - t0
+
+    def sparse_fit(lam_s):
+        PipelineEnv.reset()
+        clock = _RuleClock(kernels)
+        try:
+            fitted = LeastSquaresEstimator(lam=lam_s).with_data(
+                sparse_train, sparse_labels).fit()
+            _sync()
+        finally:
+            clock.close()
+        return fitted, clock
+
+    t0 = time.time()
+    fitted_sp, clock = sparse_fit(SPARSE_LAM)
+    sparse_s = time.time() - t0
+    (rule,) = clock.choices
+    n, d, k, density, machines = rule["args"]
+    model = _operator(fitted_sp, "SparseLinearMapper")
+    names = sorted(type(fitted_sp._graph.get_operator(x)).__name__
+                   for x in fitted_sp._graph.nodes)
+    stats = model._solve_stats
+    print(f"[solver] sparse ({n}, {d}, {k}) at density {density:.6f} "
+          f"(host items made in {make_s:.2f} s): EC2 costs "
+          f"{ {name: f'{c:.4g}' for name, c in rule['costs'].items()} }; "
+          f"rule: {clock.summary()}; fitted graph {names}; fit "
+          f"{sparse_s:.2f} s (incl. the rule); L-BFGS {stats}", flush=True)
+    assert type(rule["choice"].node).__name__ == "SparseLBFGSwithL2"
+    assert [type(t).__name__ for t in rule["choice"].prefix] == ["Sparsify"]
+    assert names.count("Sparsify") == 1 and "SparseLinearMapper" in names
+    dense_x = Densify(dev).apply_dataset(sparse_train)
+    dense = DenseLBFGSwithL2(lam=SPARSE_LAM, num_iterations=20).fit(
+        dense_x, sparse_labels)
+    gap = _rel(model.weights, dense.weights)
+    exact = _ridge_float64(dense_x.data, sparse_labels.data, SPARSE_LAM)
+    print(f"[solver] sparse fit against DenseLBFGSwithL2 on the densified "
+          f"copy: max |delta W| / max |W_dense| {gap:.3e} (bar "
+          f"{SPARSE_DENSE_TOL}); intercepts {_rel(model.intercept, dense.intercept):.3e}"
+          f" apart; against the exact float64 ridge solve: sparse "
+          f"{_rel(model.weights, exact):.3e}, dense "
+          f"{_rel(dense.weights, exact):.3e}; dense L-BFGS "
+          f"{dense._solve_stats}", flush=True)
+    assert gap <= SPARSE_DENSE_TOL, gap
+    again, _ = sparse_fit(SPARSE_LAM)
+    W2 = _operator(again, "SparseLinearMapper")
+    same = (torch.equal(W2.weights, model.weights)
+            and torch.equal(W2.intercept, model.intercept))
+    print(f"[solver] second sparse fit: same bits {same}", flush=True)
+    assert same
+    # at the CIFAR path's lam: the reference algorithm's stop
+    fitted10, _ = sparse_fit(lam)
+    model10 = _operator(fitted10, "SparseLinearMapper")
+    dense10 = DenseLBFGSwithL2(lam=lam, num_iterations=20).fit(
+        dense_x, sparse_labels)
+    exact10 = _ridge_float64(dense_x.data, sparse_labels.data, lam)
+    print(f"[solver] at lam = {lam}: sparse against dense "
+          f"{_rel(model10.weights, dense10.weights):.3e}; against the exact "
+          f"float64 solve: sparse {_rel(model10.weights, exact10):.3e} "
+          f"(L-BFGS {model10._solve_stats}), dense "
+          f"{_rel(dense10.weights, exact10):.3e} (L-BFGS "
+          f"{dense10._solve_stats}); bar on the sparse fit "
+          f"{SPARSE_HEAVY_L2_TOL}", flush=True)
+    assert _rel(model10.weights, exact10) <= SPARSE_HEAVY_L2_TOL, \
+        _rel(model10.weights, exact10)
+    del (fitted_sp, again, fitted10, model, model10, W2, dense, dense10,
+         dense_x, exact, exact10, items, sparse_train, sparse_labels)
+    PipelineEnv.reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 4. streamed: the rule leaves the node; finalize chooses
+    stream = StreamingDataset.from_numpy(
+        tr_x, CHUNK, device=dev, prefetch_depth=DEPTH, tag="cifar-train")
+    labels = (ClassLabelIndicatorsFromIntLabels(rpc.NUM_CLASSES)
+              >> Cacher("labels"))(y_train)
+    clock = _RuleClock(kernels)
+    kernels.reset_launches()
+    _sync()
+    t0 = time.time()
+    try:
+        fitted_s = _chosen_cifar(rpc, filters, whitener, config, stream,
+                                 labels).fit()
+        _sync()
+    finally:
+        clock.close()
+    stream_s = time.time() - t0
+    stream_launches = dict(kernels.LAUNCHES)
+    (final,) = clock.choices
+    n_chunks = -(-N_TRAIN // CHUNK)
+    s_mapper = _operator(fitted_s, "BlockLinearMapper")
+    s_W = torch.as_tensor(s_mapper.weights).float()
+    s_pred = fitted_s.apply(test_x).get().numpy()
+    s_test = evaluate_multiclass(s_pred, te_y, rpc.NUM_CLASSES).total_error
+    print(f"[solver] streamed ({n_chunks} chunks of {CHUNK}): the rule "
+          f"sampled {len(clock.nodes)} nodes; finalize chose "
+          f"{type(final['choice'].node).__name__}("
+          f"{final['choice'].node.block_size}, "
+          f"{final['choice'].node.num_iter}) at {final['args']} among "
+          f"{list(final['costs'])}; fit {stream_s:.2f} s; launches "
+          f"{stream_launches}; test error {s_test:.4f} (resident "
+          f"{r_test:.4f}); max |W_stream - W_resident| / max |W_resident| "
+          f"{_rel(s_W, r_W):.3e}; predictions agree on "
+          f"{float(np.mean(s_pred == r_preds)):.4f}", flush=True)
+    assert not clock.nodes, clock.nodes
+    assert final["streaming"]
+    assert type(final["choice"].node) is type(choice.node)
+    assert (final["choice"].node.block_size, final["choice"].node.num_iter) \
+        == (choice.node.block_size, choice.node.num_iter)
+    assert stream_launches["gram_cross"] == n_chunks, stream_launches
+    assert _rel(s_W, r_W) <= W_STREAM_RESIDENT_TOL
+    assert abs(s_test - r_test) <= 0.01, (s_test, r_test)
+    f64 = _float64_check(
+        featurizer,
+        {"resident": (r_scaler, r_W),
+         "streamed": (_operator(fitted_s, "StandardScalerModel"), s_W)},
+        tr_x, tr_y, lam, dev, block=SOLVER_BLOCK, passes=SOLVER_PASSES)
+    print(f"[float64] BCD({SOLVER_BLOCK}, {SOLVER_PASSES}) max |W - W64| / "
+          f"max |W64|: resident against the data-form float64 solve of its "
+          f"input {f64['resident']:.3e}, streamed against the Gram-form "
+          f"float64 solve of its input {f64['streamed_gram']:.3e} (data form "
+          f"{f64['streamed']:.3e}); Gram form against data form, both "
+          f"float64: {f64['gram_form']:.3e}", flush=True)
+    assert f64["resident"] <= W_FLOAT64_TOL, f64
+    assert f64["streamed_gram"] <= W_FLOAT64_TOL, f64
+    assert f64["gram_form"] <= GRAM_FORM_FLOAT64_TOL, f64
+    del fitted_s, stream, labels, featurizer, r_scaler
+    PipelineEnv.reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, stream_launches
+
+
+def _mnist_phase(dev):
+    """Phase 4f (see the module docstring)."""
+    from keystone_tpu_torch.evaluation.multiclass import evaluate_multiclass
+    from keystone_tpu_torch.loaders.csv_loader import LabeledData
+    from keystone_tpu_torch.loaders.surrogate import make_surrogate_mnist
+    from keystone_tpu_torch.parallel.dataset import ArrayDataset
+    from keystone_tpu_torch.pipelines.images.mnist import random_fft
+    from keystone_tpu_torch.workflow.env import PipelineEnv
+
+    (tx, ty), (vx, vy) = make_surrogate_mnist(MNIST_TRAIN, MNIST_TEST)
+    train = LabeledData(ArrayDataset.from_numpy(tx, dev),
+                        ArrayDataset.from_numpy(ty, dev))
+    test = LabeledData(ArrayDataset.from_numpy(vx, dev),
+                       ArrayDataset.from_numpy(vy, dev))
+    config = random_fft.MnistRandomFFTConfig(
+        num_ffts=MNIST_FFTS, block_size=MNIST_BLOCK, lam=MNIST_LAM, seed=SEED)
+    PipelineEnv.reset()
+    _sync()
+    t0 = time.time()
+    fitted, train_eval, test_eval = random_fft.run(config, train=train,
+                                                   test=test, device=dev)
+    _sync()
+    run_s = time.time() - t0
+    del fitted
+    # the same fit and apply again, timed apart, with the fit's peak
+    PipelineEnv.reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _sync()
+    opt_fit = _OptimizerClock()
+    t0 = time.time()
+    try:
+        fitted = random_fft.build_pipeline(config, train).fit()
+        _sync()
+    finally:
+        opt_fit.close()
+    fit_s = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    opt_apply = _OptimizerClock()
+    t0 = time.time()
+    try:
+        test_pred = fitted(test.data).get()
+        _sync()
+    finally:
+        opt_apply.close()
+    apply_s = time.time() - t0
+    train_pred = fitted(train.data).get()
+    preds = test_pred.numpy()
+    features = MNIST_FFTS * 512
+    tr_err = evaluate_multiclass(train_pred, train.labels,
+                                 random_fft.NUM_CLASSES).total_error
+    te_err = evaluate_multiclass(test_pred, test.labels,
+                                 random_fft.NUM_CLASSES).total_error
+    print(f"[mnist] MnistRandomFFT {MNIST_FFTS} FFT branches, {features} "
+          f"features, block {MNIST_BLOCK}, lam {MNIST_LAM}, {MNIST_TRAIN} / "
+          f"{MNIST_TEST} surrogate images: run() {run_s:.2f} s (train error "
+          f"{train_eval.total_error:.4f}, test error "
+          f"{test_eval.total_error:.4f}); fit {fit_s:.2f} s ({MNIST_TRAIN / fit_s:.0f}"
+          f" train img/s), test apply {apply_s:.3f} s ({MNIST_TEST / apply_s:.0f}"
+          f" img/s), {(MNIST_TRAIN + MNIST_TEST) / (fit_s + apply_s):.0f} "
+          f"img/s fit + apply; train error {tr_err:.4f}, test error "
+          f"{te_err:.4f}; fit device-memory peak {peak / 2**30:.2f} GiB "
+          f"({base / 2**30:.2f} GiB allocated before it)", flush=True)
+    print(f"[mnist] inside the fit: {opt_fit.summary()}; inside the test "
+          f"apply: {opt_apply.summary()}", flush=True)
+    assert preds.shape == (MNIST_TEST,)
+    assert preds.min() >= 0 and preds.max() < random_fft.NUM_CLASSES
+    assert tr_err <= MNIST_TRAIN_ERROR, tr_err
+    assert train_eval.total_error <= MNIST_TRAIN_ERROR, train_eval.total_error
+    mapper = _operator(fitted, "BlockLinearMapper")
+    W = torch.as_tensor(mapper.weights).float()
+    F = random_fft.build_featurizer(config).apply(train.data).get().data
+    assert F.shape == (MNIST_TRAIN, features), F.shape
+    # every prediction's class scores finite, and the inputs of the bar
+    ok = all(bool(torch.isfinite(t).all())
+             for t in (F, W, mapper.apply_batch(F)))
+    Y = torch.where(torch.arange(10, device=dev) == train.labels.data[:, None],
+                    1.0, -1.0)
+    bounds = [(lo, min(features, lo + MNIST_BLOCK))
+              for lo in range(0, features, MNIST_BLOCK)]
+    W64 = _bcd_float64(F, Y, MNIST_LAM, bounds, 1)
+    w_rel = _rel(W, W64)
+    print(f"[float64] MnistRandomFFT weights against the float64 BCD "
+          f"({len(bounds)} blocks of {MNIST_BLOCK}, one pass) of the fit's "
+          f"own features: max |W - W64| / max |W64| {w_rel:.3e} (bar "
+          f"{MNIST_F64_TOL}); features, weights and train scores finite: "
+          f"{ok}", flush=True)
+    assert ok
+    assert w_rel <= MNIST_F64_TOL, w_rel
+    del fitted, F, W64, train, test
+    PipelineEnv.reset()
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _banded_image_calls(kernels, sift, dev):
@@ -1561,13 +2286,31 @@ def _main(workdir: str) -> int:
     torch.cuda.empty_cache()
 
     # -- 4c. serving ----------------------------------------------------------
-    serve_launches = _serving_phase(kernels, model_path, te_x, te_y, preds,
-                                    dev)
+    opt_serve = _OptimizerClock()
+    try:
+        serve_launches = _serving_phase(kernels, model_path, te_x, te_y,
+                                        preds, dev)
+    finally:
+        opt_serve.close()
+    print(f"[serve] inside the serving phase: {opt_serve.summary()}",
+          flush=True)
     gc.collect()
     torch.cuda.empty_cache()
 
     # -- 4d. VOCSIFTFisher ----------------------------------------------------
     voc_launches = _voc_phase(kernels, dev)
+
+    # -- 4e. the cost-model solver choice --------------------------------------
+    solver_launches, solver_stream_launches = _solver_phase(
+        kernels, rpc, tr_x, tr_y, te_x, te_y, filters, whitener, config,
+        lin_test, dev)
+
+    # -- 4f. MnistRandomFFT ---------------------------------------------------
+    kernels.reset_launches()
+    _mnist_phase(dev)
+    mnist_launches = dict(kernels.LAUNCHES)
+    print(f"[mnist] kernel launches {mnist_launches} (the path runs none of "
+          "the five)", flush=True)
 
     # -- 5. timing ------------------------------------------------------------
     B = K = 1024
@@ -1836,6 +2579,12 @@ def _main(workdir: str) -> int:
         "library_ms": library_ms,
         "device_ms": fz_dev["kernel"],
         "library_device_ms": fz_dev["library"],
+        "launches_by_path": {"4": launches["fused_cifar_featurize"],
+                             "4b": stream_launches["fused_cifar_featurize"],
+                             "4c": serve_launches["fused_cifar_featurize"],
+                             "4e": solver_launches["fused_cifar_featurize"],
+                             "4e streamed": solver_stream_launches[
+                                 "fused_cifar_featurize"]},
     }, {
         "name": "gram_cross",
         "route": "cuda",
@@ -1850,6 +2599,11 @@ def _main(workdir: str) -> int:
         "library_ms": g_library_ms,
         "device_ms": g_dev["kernel"],
         "library_device_ms": g_dev["library"],
+        "launches_by_path": {"4": launches["gram_cross"],
+                             "4b": stream_launches["gram_cross"],
+                             "4e": solver_launches["gram_cross"],
+                             "4e streamed": solver_stream_launches[
+                                 "gram_cross"]},
     }, {
         "name": "quantized_affine",
         "route": "cuda",
@@ -1864,6 +2618,7 @@ def _main(workdir: str) -> int:
         "library_ms": q["library_ms"],
         "device_ms": q["device_ms"],
         "library_device_ms": q["library_device_ms"],
+        "launches_by_path": {"4c": serve_launches["quantized_affine"]},
     }, {
         "name": "banded_matmul",
         "route": "cuda",
@@ -1878,6 +2633,7 @@ def _main(workdir: str) -> int:
         "library_ms": b_library_ms,
         "device_ms": b_dev["kernel"],
         "library_device_ms": b_dev["library"],
+        "launches_by_path": {"4d": voc_launches["banded_matmul"]},
     }, {
         "name": "fv_moments",
         "route": "cuda",
@@ -1892,6 +2648,7 @@ def _main(workdir: str) -> int:
         "library_ms": f_library_ms,
         "device_ms": f_dev["kernel"],
         "library_device_ms": f_dev["library"],
+        "launches_by_path": {"4d": voc_launches["fv_moments"]},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

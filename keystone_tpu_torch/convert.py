@@ -15,6 +15,13 @@ package's quantized params ``(Wq, scale, mean, inv_std, b)``, or a
 JAX-fitted mapper with a ``weight_dtype``, become the port's mapper
 holding the same ``Wq`` and ``scale`` bit for bit.
 
+``solver_model`` carries the model a spliced least-squares solver fits:
+a JAX ``LinearMapper`` (exact or dense L-BFGS: weights, intercept and
+the feature scaler's mean and std), ``BlockLinearMapper`` (block
+weights, block size, intercept, feature means) or ``SparseLinearMapper``
+(weights, intercept) becomes the port's model of the same class, its
+arrays copied as float32.
+
 ``pca_transformer`` and ``fisher_vector`` carry VOCSIFTFisher's fitted
 column PCA (``pca_mat`` (d, dims)) and GMM codebook (``means`` and
 ``variances`` (D, K), ``weights`` (K,), ``weight_threshold``) across as
@@ -31,6 +38,7 @@ import torch
 from .nodes.images.core import FusedConvRectifyPool
 from .nodes.images.fisher_vector import FisherVector
 from .nodes.learning.gmm import GaussianMixtureModel
+from .nodes.learning.classifiers import SparseLinearMapper
 from .nodes.learning.linear import BlockLinearMapper, LinearMapper
 from .nodes.learning.pca import BatchPCATransformer
 from .nodes.learning.zca import ZCAWhitener
@@ -159,3 +167,34 @@ def fisher_vector(means: np.ndarray, variances: np.ndarray,
     return FisherVector(GaussianMixtureModel(
         np.array(means, np.float32), np.array(variances, np.float32),
         np.array(weights, np.float32), float(weight_threshold)))
+
+
+def solver_model(model, device=DEFAULT_DEVICE):
+    """The port's counterpart of a fitted JAX least-squares model (read by
+    its attributes, see the module docstring), its params staged on
+    ``device``."""
+    dev = resolve_device(device)
+
+    def f32(v):
+        return None if v is None else np.array(v, np.float32)
+
+    kind = type(model).__name__
+    if kind == "SparseLinearMapper":
+        out = SparseLinearMapper(torch.as_tensor(f32(model.weights),
+                                                 device=dev),
+                                 f32(model.intercept))
+    elif kind == "BlockLinearMapper":
+        out = BlockLinearMapper([f32(w) for w in model.block_weights],
+                                model.block_size,
+                                intercept=f32(model.intercept),
+                                feature_means=f32(model.feature_means))
+    elif kind == "LinearMapper":
+        s = model.feature_scaler
+        scaler = None if s is None else StandardScalerModel(
+            f32(s.mean), f32(getattr(s, "std", None)))
+        out = LinearMapper(f32(model.weights), intercept=f32(model.intercept),
+                           feature_scaler=scaler)
+    else:
+        raise TypeError(f"no port counterpart for a fitted {kind}")
+    out.apply_params(dev)
+    return out

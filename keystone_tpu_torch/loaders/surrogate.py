@@ -1,10 +1,12 @@
-"""Surrogate data made from a seed: CIFAR shapes, and VOC image sizes.
+"""Surrogate data made from a seed: CIFAR and MNIST shapes, and VOC
+image sizes.
 
 ``make_surrogate_cifar`` is a copy of ``bench.py::make_surrogate_cifar``
 in the repository root, so the port and its chip check have data without
 importing ``bench.py``; a test holds the two bit-identical.
 ``make_surrogate_voc`` is the port's copy of the image generator of
-``bench.py::voc_bench``, made at VOC2007's image sizes.
+``bench.py::voc_bench``, made at VOC2007's image sizes, and
+``make_surrogate_mnist`` the copy of ``bench.py::mnist_bench``'s.
 """
 from __future__ import annotations
 
@@ -100,3 +102,22 @@ def make_surrogate_voc(n_train, n_test, seed=0, num_classes=20,
 
     return (split(n_train, np.random.RandomState(seed + 1)),
             split(n_test, np.random.RandomState(seed + 2)))
+
+
+def make_surrogate_mnist(n_train, n_test):
+    """MNIST-shaped surrogate, as ``bench.py::mnist_bench`` makes it: 10
+    class prototypes at 0.5 + 0.05 N(0, 1) per pixel (seed 0), each image
+    its class's prototype plus 0.35 N(0, 1) noise, clipped to [0, 1];
+    train from seed 1, test from seed 2. Returns ``((X_train, y_train),
+    (X_test, y_test))``: float32 (n, 784) images and int labels."""
+    rng = np.random.RandomState(0)
+    protos = (0.5 + 0.05 * rng.randn(10, 784)).astype(np.float32)
+
+    def split(n, seed):
+        r = np.random.RandomState(seed)
+        y = r.randint(0, 10, n)
+        X = np.clip(protos[y] + 0.35 * r.randn(n, 784), 0, 1).astype(
+            np.float32)
+        return X, y.astype(np.int32)
+
+    return split(n_train, 1), split(n_test, 2)

@@ -28,7 +28,7 @@ import torch
 from ...ops.kernels import fv_moments, fv_terms
 from ...parallel.dataset import Dataset
 from ...workflow.estimator import Estimator
-from ...workflow.optimizable import OptimizableEstimator
+from ...workflow.optimizable import NodeChoice, OptimizableEstimator
 from ...workflow.transformer import Transformer
 from ..learning.gmm import GaussianMixtureModel, GaussianMixtureModelEstimator
 from ..learning.pca import _stack_item_columns
@@ -112,8 +112,8 @@ class EncEvalGMMFisherVectorEstimator(ScalaGMMFisherVectorEstimator):
 class GMMFisherVectorEstimator(OptimizableEstimator):
     """Optimizable FV estimator (reference ``FisherVector.scala:85-94``,
     which picks the native implementation when k >= 32). Both choices fit
-    and apply identically; without the node-level rule (ROADMAP A6) it
-    fits through its ``default``."""
+    and apply identically; without the node-level rule it fits through
+    its ``default``."""
 
     def __init__(self, k: int):
         self.k = k
@@ -121,3 +121,9 @@ class GMMFisherVectorEstimator(OptimizableEstimator):
     @property
     def default(self) -> Estimator:
         return ScalaGMMFisherVectorEstimator(self.k)
+
+    def optimize(self, sample: Dataset, n: int,
+                 num_machines: int) -> NodeChoice:
+        if self.k >= 32:
+            return NodeChoice(EncEvalGMMFisherVectorEstimator(self.k))
+        return NodeChoice(ScalaGMMFisherVectorEstimator(self.k))

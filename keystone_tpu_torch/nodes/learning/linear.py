@@ -248,6 +248,23 @@ class LinearMapEstimator(LabelEstimator):
                                 x_mean.cpu().numpy()),
                             weight_dtype=self.weight_dtype)
 
+    #: Serial device rounds of the JAX package's exact fit (center, gram,
+    #: factorize, solve, intercept and the eigendecomposition's host
+    #: syncs): the program's structure, read only with a nonzero
+    #: ``lat_w``, which the port's default weights do not have.
+    DISPATCH_ROUNDS = 10
+
+    def cost(self, n, d, k, sparsity, num_machines, cpu_w, mem_w, net_w,
+             lat_w=0.0) -> float:
+        """Reference cost model (LinearMapper.scala:100-115), with the
+        JAX package's term of ``lat_w`` seconds per serial device round
+        (``lat_w = 0`` is the reference surface)."""
+        flops = n * d * (d + k) / num_machines
+        bytes_scanned = n * d / num_machines + d * d
+        network = d * (d + k)
+        return (max(cpu_w * flops, mem_w * bytes_scanned) + net_w * network
+                + lat_w * self.DISPATCH_ROUNDS)
+
     def _fit(self, ds: Dataset, labels: Dataset) -> LinearMapper:
         ds = ensure_array(ds)
         labels = ensure_array(labels, ds.device)
@@ -358,6 +375,23 @@ class BlockLeastSquaresEstimator(LabelEstimator):
         return BlockLinearMapper(Ws, bs, intercept=y_mean,
                                  feature_means=x_mean,
                                  weight_dtype=self.weight_dtype)
+
+    #: Serial device rounds of the JAX package's BCD fit, which stages the
+    #: whole multi-pass solve as one program: its structure, read only
+    #: with a nonzero ``lat_w``.
+    DISPATCH_ROUNDS = 3
+
+    def cost(self, n, d, k, sparsity, num_machines, cpu_w, mem_w, net_w,
+             lat_w=0.0) -> float:
+        """Reference cost model (BlockLinearMapper.scala:268-282), with
+        the serial-round term of ``LinearMapEstimator.cost``."""
+        flops = n * d * (self.block_size + k) / num_machines
+        bytes_scanned = n * d / num_machines + d * k
+        network = 2.0 * (d * (self.block_size + k)) * np.log2(
+            max(num_machines, 1))
+        return self.num_iter * (
+            max(cpu_w * flops, mem_w * bytes_scanned) + net_w * network
+        ) + lat_w * self.DISPATCH_ROUNDS
 
     def _fit(self, ds: Dataset, labels: Dataset) -> BlockLinearMapper:
         ds = ensure_array(ds)

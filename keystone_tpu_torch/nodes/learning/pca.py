@@ -15,7 +15,7 @@ import torch
 from ...ops import linalg
 from ...parallel.dataset import ArrayDataset, Dataset, HostDataset
 from ...workflow.estimator import Estimator
-from ...workflow.optimizable import OptimizableEstimator
+from ...workflow.optimizable import NodeChoice, OptimizableEstimator
 from ...workflow.transformer import Transformer
 from .kmeans import _as_matrix
 
@@ -81,6 +81,21 @@ class PCAEstimator(Estimator):
     def compute_pca(self, X) -> np.ndarray:
         return _svd_pca(torch.as_tensor(X), self.dims)
 
+    #: gather + one SVD: two serial rounds in the JAX package's program
+    #: (its structure, read only with a nonzero ``lat_w``).
+    DISPATCH_ROUNDS = 2
+
+    def cost(self, n, d, k, sparsity, num_machines, cpu_w, mem_w, net_w,
+             lat_w=0.0) -> float:
+        """Reference cost model (PCA.scala:~213-226): all data moves to
+        one machine; ``lat_w`` seconds per serial device round, as in
+        ``LinearMapEstimator.cost`` (0 is the reference surface)."""
+        flops = n * d * d
+        bytes_scanned = n * d
+        network = n * d
+        return (max(cpu_w * flops, mem_w * bytes_scanned) + net_w * network
+                + lat_w * self.DISPATCH_ROUNDS)
+
 
 class DistributedPCAEstimator(Estimator):
     """PCA via TSQR: center by the column means, R factor of the QR, SVD
@@ -98,6 +113,22 @@ class DistributedPCAEstimator(Estimator):
         _, _, vt = np.linalg.svd(R.cpu().numpy())
         pca = enforce_matlab_sign_convention(vt.T.astype(np.float32))
         return pca[:, : self.dims]
+
+    #: mean + center + TSQR + small host SVD: four serial rounds in the
+    #: JAX package's program (its structure, read only with a nonzero
+    #: ``lat_w``).
+    DISPATCH_ROUNDS = 4
+
+    def cost(self, n, d, k, sparsity, num_machines, cpu_w, mem_w, net_w,
+             lat_w=0.0) -> float:
+        """Reference cost model (DistributedPCA.scala:59-73), with the
+        serial-round term of ``PCAEstimator.cost``."""
+        log2m = np.log2(max(num_machines, 1))
+        flops = n * d * d / num_machines + d * d * d * log2m
+        bytes_scanned = n * d
+        network = d * d * log2m
+        return (max(cpu_w * flops, mem_w * bytes_scanned) + net_w * network
+                + lat_w * self.DISPATCH_ROUNDS)
 
 
 class LocalColumnPCAEstimator(Estimator):
@@ -124,18 +155,63 @@ class DistributedColumnPCAEstimator(Estimator):
 
 
 class ColumnPCAEstimator(OptimizableEstimator):
-    """Optimizable column PCA (reference PCA.scala:118-156). The JAX
-    package's node-level rule picks the local or the distributed PCA by
-    the reference's cost models; the port has no node-level rule yet
-    (ROADMAP A6), so it fits through its ``default``, the distributed
-    PCA. Both are exact PCAs of the same sample."""
+    """Optimizable column PCA (reference PCA.scala:118-156): the
+    node-level rule picks the local or the distributed PCA by the
+    reference's cost models at the sampled item geometry; without the
+    rule it fits through its ``default``, the distributed PCA. Both are
+    exact PCAs of the same sample. The weights default to the
+    reference's EC2 calibration (``least_squares.REFERENCE_EC2_WEIGHTS``).
+    """
 
-    def __init__(self, dims: int):
+    def __init__(self, dims: int, cpu_weight: float = None,
+                 mem_weight: float = None, network_weight: float = None,
+                 lat_weight: float = None):
+        from .least_squares import REFERENCE_EC2_WEIGHTS as ec2
+
         self.dims = dims
+        self.cpu_weight = ec2["cpu_weight"] if cpu_weight is None \
+            else cpu_weight
+        self.mem_weight = ec2["mem_weight"] if mem_weight is None \
+            else mem_weight
+        self.network_weight = (ec2["network_weight"] if network_weight is None
+                               else network_weight)
+        self.lat_weight = ec2["lat_weight"] if lat_weight is None \
+            else lat_weight
+
+    @property
+    def options(self):
+        return [LocalColumnPCAEstimator(self.dims),
+                DistributedColumnPCAEstimator(self.dims)]
 
     @property
     def default(self):
         return DistributedColumnPCAEstimator(self.dims)
+
+    def optimize(self, sample: Dataset, n: int,
+                 num_machines: int) -> NodeChoice:
+        """The column PCA's sample unit is a (d, cols) matrix; the cost
+        models see the total column count as n (reference
+        PCA.scala:134-151)."""
+        items = sample.collect()
+        cols_per_item = int(items[0].shape[-1]) if items else 1
+        d = int(items[0].shape[0]) if items else 1
+        return self._choose(d, cols_per_item, n, num_machines)
+
+    def _choose(self, d: int, cols_per_item: int, n: int,
+                num_machines: int) -> NodeChoice:
+        total_cols = n * cols_per_item
+        local = PCAEstimator(self.dims)
+        dist = DistributedPCAEstimator(self.dims)
+        costs = [
+            (local.cost(total_cols, d, self.dims, 1.0, num_machines,
+                        self.cpu_weight, self.mem_weight,
+                        self.network_weight, lat_w=self.lat_weight), 0),
+            (dist.cost(total_cols, d, self.dims, 1.0, num_machines,
+                       self.cpu_weight, self.mem_weight,
+                       self.network_weight, lat_w=self.lat_weight), 1),
+        ]
+        _, best = min(costs)
+        return NodeChoice(self.options[best])
 
 
 def _stack_item_columns(ds: Dataset) -> torch.Tensor:

@@ -1,9 +1,11 @@
 """Statistical feature nodes.
 
-Counterpart of the scaler, the row normalizer and the signed Hellinger
-maps of ``keystone_tpu/nodes/stats/__init__.py`` (reference
-``stats/StandardScaler.scala``, ``NormalizeRows.scala``,
-``SignedHellingerMapper.scala``).
+Counterpart of the scaler, the row normalizer, the signed Hellinger
+maps and the random-FFT nodes of ``keystone_tpu/nodes/stats/__init__.py``
+(reference ``stats/StandardScaler.scala``, ``NormalizeRows.scala``,
+``SignedHellingerMapper.scala``, ``RandomSignNode.scala``,
+``PaddedFFT.scala``, ``LinearRectifier.scala``). Each node's batch form
+is one tensor function over the batch on its device.
 """
 from __future__ import annotations
 
@@ -15,6 +17,59 @@ from ...workflow.estimator import Estimator
 from ...workflow.transformer import Transformer
 
 EPS = 2.2e-16  # the reference's floor on a row norm
+
+
+class RandomSignNode(Transformer):
+    """Elementwise multiply by a fixed +-1 vector
+    (reference ``stats/RandomSignNode.scala:11-23``)."""
+
+    def __init__(self, signs: np.ndarray):
+        self.signs = np.asarray(signs, dtype=np.float32)
+
+    @staticmethod
+    def create(size: int, seed: int = 0) -> "RandomSignNode":
+        rng = np.random.RandomState(seed)
+        return RandomSignNode(2.0 * rng.randint(0, 2, size=size) - 1.0)
+
+    def apply_params(self, device):
+        return self._params_on(device, lambda d: torch.as_tensor(
+            self.signs, device=d))
+
+    def apply(self, x):
+        return x * self.apply_params(x.device)
+
+    def apply_batch(self, X):
+        return self.apply(X)
+
+
+class PaddedFFT(Transformer):
+    """Zero-pad to the next power of two, FFT, keep the real part of the
+    first half (reference ``stats/PaddedFFT.scala:13-20``), through
+    ``torch.fft.rfft``, whose bins 0 .. N/2 are the full FFT's."""
+
+    def apply(self, x):
+        n = x.shape[-1]
+        padded = 1 << (n - 1).bit_length()
+        return torch.fft.rfft(x, n=padded).real[..., :padded // 2].to(
+            x.dtype)
+
+    def apply_batch(self, X):
+        return self.apply(X)
+
+
+class LinearRectifier(Transformer):
+    """f(x) = max(max_val, x - alpha)
+    (reference ``stats/LinearRectifier.scala:12-17``)."""
+
+    def __init__(self, max_val: float = 0.0, alpha: float = 0.0):
+        self.max_val = float(max_val)
+        self.alpha = float(alpha)
+
+    def apply(self, x):
+        return torch.clamp_min(x - self.alpha, self.max_val)
+
+    def apply_batch(self, X):
+        return self.apply(X)
 
 
 class NormalizeRows(Transformer):

@@ -1,12 +1,15 @@
 """Utility nodes (reference ``nodes/util``).
 
-Counterpart of the label and classifier nodes of
+Counterpart of the label, classifier, combiner and densifying nodes of
 ``keystone_tpu/nodes/util/__init__.py``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ...ops.device import resolve_device
+from ...parallel.dataset import ArrayDataset, Dataset, is_streaming
 from ...workflow.transformer import Transformer
 
 
@@ -45,6 +48,17 @@ class ClassLabelIndicatorsFromIntArrayLabels(Transformer):
         return self.apply_batch(labels)
 
 
+class VectorCombiner(Transformer):
+    """Concatenate a gathered tuple of vectors into one vector
+    (reference ``util/VectorCombiner.scala:12-14``)."""
+
+    def apply(self, xs):
+        return torch.cat(list(xs), dim=-1)
+
+    def apply_batch(self, Xs):
+        return self.apply(Xs)
+
+
 class MaxClassifier(Transformer):
     """argmax (reference ``util/MaxClassifier.scala:9-11``)."""
 
@@ -76,3 +90,34 @@ class MatrixVectorizer(Transformer):
 
     def apply_batch(self, X):
         return X.transpose(1, 2).reshape(X.shape[0], -1)
+
+
+class Densify(Transformer):
+    """Sparse -> dense (reference ``util/Densify.scala:10-21``). Array
+    datasets and streams are already dense and pass through; a host
+    dataset is stacked into an ArrayDataset. Tensors stay on their
+    device; host items (SparseVectors, numpy arrays) go to ``device``,
+    the default device (``"cuda"``) when it is None."""
+
+    def __init__(self, device=None):
+        self.device = device
+
+    def _host_device(self):
+        return resolve_device() if self.device is None else resolve_device(
+            self.device)
+
+    def apply(self, x):
+        if hasattr(x, "todense"):
+            return torch.as_tensor(x.todense(), device=self._host_device())
+        return x
+
+    def apply_dataset(self, ds: Dataset) -> Dataset:
+        if isinstance(ds, ArrayDataset) or is_streaming(ds):
+            return ds
+        items = ds.collect()
+        if items and all(isinstance(it, torch.Tensor) for it in items):
+            return ArrayDataset.from_items([it.reshape(-1) for it in items],
+                                           items[0].device)
+        dense = [np.asarray(it.todense() if hasattr(it, "todense") else it,
+                            dtype=np.float32).ravel() for it in items]
+        return ArrayDataset.from_numpy(np.stack(dense), self._host_device())

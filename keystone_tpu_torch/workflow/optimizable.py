@@ -2,12 +2,17 @@
 
 Counterpart of ``keystone_tpu/workflow/optimizable.py`` (reference
 ``workflow/OptimizableNodes.scala``). An optimizable node carries a
-``default`` implementation and fits, and applies, through it. The JAX
-package's node-level rule (``optimizer/node_rule.py``) calls each node's
-``optimize`` hook and its cost models to splice a choice into the DAG;
-the port has neither the rule nor the cost models yet (ROADMAP A6), so
-every optimizable node runs its ``default``. ``NodeChoice`` is the
-result type that rule will return.
+``default`` implementation (used when the optimizer never runs) and an
+``optimize(sample..., n, num_machines)`` hook that inspects a data
+sample and the workload shape and returns a :class:`NodeChoice`: the
+implementation the cost model prefers, plus a transformer prefix applied
+both to the training data and to the runtime input (``Sparsify`` before
+a sparse solver, reference ``LeastSquaresEstimator.scala:36-53``).
+
+``NodeOptimizationRule`` (``optimizer/node_rule.py``) calls the hook on
+a sampled execution and splices the choice into the DAG. The JAX
+package's ``optimize_static`` (choices from statically inferred shapes)
+waits for the port's analyzer.
 """
 from __future__ import annotations
 
@@ -44,6 +49,10 @@ class OptimizableTransformer(Transformer):
     def apply_dataset(self, ds: Dataset) -> Dataset:
         return self.default.apply_dataset(ds)
 
+    def optimize(self, sample: Dataset, n: int,
+                 num_machines: int) -> NodeChoice:
+        raise NotImplementedError
+
 
 class OptimizableEstimator(Estimator):
     """An estimator with implementation choices
@@ -56,6 +65,10 @@ class OptimizableEstimator(Estimator):
     def _fit(self, ds: Dataset) -> Transformer:
         return self.default._fit(ds)
 
+    def optimize(self, sample: Dataset, n: int,
+                 num_machines: int) -> NodeChoice:
+        raise NotImplementedError
+
 
 class OptimizableLabelEstimator(LabelEstimator):
     """A label estimator with implementation choices
@@ -67,3 +80,7 @@ class OptimizableLabelEstimator(LabelEstimator):
 
     def _fit(self, ds: Dataset, labels: Dataset) -> Transformer:
         return self.default._fit(ds, labels)
+
+    def optimize(self, sample: Dataset, sample_labels: Dataset, n: int,
+                 num_machines: int) -> NodeChoice:
+        raise NotImplementedError

@@ -17,7 +17,9 @@ two-sided) sum the same band entries in another order than the dense
 plain products: 1e-5 of the largest output. The FV moments' plain
 version writes the posteriors out and takes its exponentials in another
 order, and the kernel's products run in 3xTF32 on centered terms: 1e-4
-of the largest sum.
+of the largest sum. The sparse L-BFGS fit (plain PyTorch, no kernel) on
+the card against its CPU fit: 1e-4 of the largest weight, and the same
+bits on a second fit.
 """
 import numpy as np
 import pytest
@@ -612,3 +614,29 @@ def test_cuda_fv_moments_past_the_llh_tile_over_many_tiles(cuda, D, K, n):
         assert err <= 1e-4 * float(w.abs().max()), err
     again = kernels.fv_moments(*args, 1e-4)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_cuda_sparse_lbfgs_matches_the_cpu_fit_and_repeats_its_bits(cuda):
+    """The sparse solver's row-compressed products on the card (plain
+    PyTorch, fixed summation order): the fit agrees with the CPU fit
+    within 1e-4 of the largest weight, and a second fit on the card
+    gives the same bits."""
+    from keystone_tpu_torch.nodes.learning.lbfgs import SparseLBFGSwithL2
+    from keystone_tpu_torch.nodes.util.sparse import SparseVector
+    from keystone_tpu_torch.parallel.dataset import ArrayDataset, HostDataset
+
+    rng = np.random.RandomState(0)
+    n, d = 512, 300
+    items = HostDataset([SparseVector(rng.randint(0, d, 9), rng.randn(9), d)
+                         for _ in range(n)])
+    Y = rng.randn(n, 3).astype(np.float32)
+    est = SparseLBFGSwithL2(lam=0.1, num_iterations=30)
+    host = est.fit(items, ArrayDataset.from_numpy(Y, "cpu"))
+    card = est.fit(items, ArrayDataset.from_numpy(Y, cuda))
+    again = est.fit(items, ArrayDataset.from_numpy(Y, cuda))
+    assert card.weights.device.type == "cuda"
+    W = host.weights.numpy()
+    assert np.abs(card.weights.cpu().numpy() - W).max() <= \
+        1e-4 * np.abs(W).max()
+    assert torch.equal(card.weights, again.weights)
+    assert torch.equal(card.intercept, again.intercept)
