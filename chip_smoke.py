@@ -98,9 +98,36 @@ Phases, each of which raises (and so exits non-zero) on failure:
    16,384 / 2,048 surrogate MNIST images: train error at most 0.05,
    finite scores, and the block weights against a float64 BCD with the
    same blocks and pass on the fit's own features; fit and apply
-   seconds, images/s, the fit's device-memory peak and the optimizer's
-   host seconds inside the fit and the apply are printed (phase 4c prints
-   the latter for its traffic too).
+   seconds, images/s, the fit's device-memory peak (beside the peak
+   before map and gather fusion) and the optimizer's host seconds (its
+   executions, CSE passes and fusion rule applications) inside the fit
+   and the apply are printed (phase 4c prints the latter for its traffic
+   too). The fit path's 600 branch nodes must be one fused featurizer
+   node after the optimizer.
+4g. TIMIT through ``run`` at the app's published width (50 cosine
+   branches of 4096, 204,800 features, BlockLeastSquares(4096, 5, lam),
+   147 classes) on 16,384 / 2,048 surrogate frames (gamma 1/880, lam
+   1e-2, as ``bench.py::timit_bench`` sets them): one fused featurizer
+   node on the fit path, the test error inside (0.02, 0.90), finite
+   scores, and, against a float64 BCD (same blocks and passes, computed
+   block by block) on the fit's own features, the block weights no
+   worse than 2x the same BCD's in float32 and the training scores
+   within 5e-3; fit and
+   apply seconds, frames/s, the fit's peak and the optimizer's host
+   seconds are printed.
+4h. RandomCifar through ``run`` at its published defaults (100 Gaussian
+   filters, patch 6, pool 14 / 13, alpha 0.25, exact solve) on phase 4's
+   surrogate: the test error inside (0.02, 0.90), printed beside
+   LinearPixels'; the featurizer one ``Fused[Convolver >>
+   SymmetricRectifier >> Pooler >> ImageVectorizer]`` node; the same
+   predictions under the DefaultOptimizer and the NoOpOptimizer; fit and
+   apply seconds printed.
+4i. Auto-caching: phase 4's RandomPatchCifar composed without its
+   Cachers, fitted and applied under the DefaultOptimizer and under the
+   greedy ``AutoCachingOptimizer`` in turn: the same predictions, and a
+   budget of 75% of the free memory the card reports; the budget, each
+   node's extrapolated profile, the cached set, the featurize kernel's
+   launches in each fit and the fit and apply seconds are printed.
 5. Timing: each kernel, its plain version and a library yardstick with
    CUDA events at the main path's shapes, one call at a time (the
    ``kernels`` line); for every kernel also the device time alone of the
@@ -306,6 +333,37 @@ SPARSE_DENSE_TOL, SPARSE_HEAVY_L2_TOL = 1e-3, 1.5e-3
 MNIST_TRAIN, MNIST_TEST, MNIST_FFTS = 16384, 2048, 200
 MNIST_BLOCK, MNIST_LAM = 2048, 1e-2
 MNIST_F64_TOL, MNIST_TRAIN_ERROR = 5e-3, 0.05
+#: the fit's device-memory peak before map and gather fusion (H100 80GB
+#: HBM3, 700 W; PERF.md), printed beside this run's
+MNIST_PEAK_UNFUSED_GIB = 42.68
+
+#: Phase 4g, TIMIT at the app's published width (50 cosine branches of
+#: 4096, 204,800 features, BlockLeastSquares(4096, 5, lam), 147 classes)
+#: on ``bench.py::timit_bench``'s surrogate frames, cut from TIMIT's ~1.1M
+#: training frames as the bench cuts them, with the bench's gamma and lam
+#: for the surrogate's scale; the test error's band. Against a float64
+#: BCD with the same blocks and passes on the fit's own features: the
+#: weights no worse than TIMIT_F64_RATIO x those of the same BCD written
+#: out in float32, and the training scores, max |delta| / max |P64|,
+#: within TIMIT_SCORE_TOL (phase 4b's bar). At gamma 1/880 the cosine
+#: features are near-linear in the frames, so each block's Gram is
+#: ill-conditioned and five float32 passes leave the weights far from
+#: float64 along its weak directions (7.373e-2 on an H100, PERF.md),
+#: where the scores barely move
+TIMIT_TRAIN, TIMIT_TEST, TIMIT_COSINES = 16384, 2048, 50
+TIMIT_GAMMA, TIMIT_LAM, TIMIT_EPOCHS = 1.0 / 880, 1e-2, 5
+TIMIT_F64_RATIO, TIMIT_SCORE_TOL = 2.0, 5e-3
+TIMIT_ERROR_BAND = (0.02, 0.90)
+
+#: Phase 4h, RandomCifar at its published defaults (100 filters, patch
+#: 6, pool 14 / 13, alpha 0.25, the exact solve with lam None) on phase
+#: 4's surrogate; the surrogate's test-error band
+RC_ERROR_BAND = (0.02, 0.90)
+
+#: Phase 4i: the greedy auto-cache budget must be 75% of the free device
+#: memory read beside it, within this many bytes (the driver reports free
+#: memory in whole pages)
+AUTO_CACHE_BUDGET_SLACK = 2 * 2**20
 
 
 def _sync():
@@ -543,29 +601,39 @@ def _check_quant(kernels, rng, dev):
     return worst
 
 
-def _bcd_float64(A, Y, lam, bounds, passes):
-    """Block coordinate descent in float64, written out in the data form
-    and independent of the port's solvers: center A and Y, then per pass
-    and per block in order W_b <- (A_b^T A_b + lam I)^-1 A_b^T (Y - P +
-    A_b W_b), keeping P = A W. A may be float32: each block is cast to
-    float64 (and centered) when it is used, so no float64 copy of the
-    whole of A is made."""
-    Y = Y.to(torch.float64)
+def _bcd_float64(A, Y, lam, bounds, passes, dtype=torch.float64):
+    """Block coordinate descent in float64 (or ``dtype``), written out in
+    the data form and independent of the port's solvers: center A and Y,
+    then per pass and per block in order W_b <- (A_b^T A_b + lam I)^-1
+    A_b^T (Y - P + A_b W_b), keeping P = A W. A may be float32: each block
+    is cast to ``dtype`` (and centered) when it is used, so no float64
+    copy of the whole of A is made. Over several passes each block's
+    regularized Gram, which the passes share, is factored (Cholesky) in
+    the first and its factor kept. Returns W and the centered scores P."""
+    Y = Y.to(dtype)
     Y = Y - Y.mean(dim=0)
-    W = torch.zeros((A.shape[1], Y.shape[1]), dtype=torch.float64,
-                    device=A.device)
+    W = torch.zeros((A.shape[1], Y.shape[1]), dtype=dtype, device=A.device)
     P = torch.zeros_like(Y)
+    factors = {}
     for _ in range(passes):
         for lo, hi in bounds:
-            Ab = A[:, lo:hi].to(torch.float64)
+            Ab = A[:, lo:hi].to(dtype)
             Ab = Ab - Ab.mean(dim=0)
-            reg = Ab.T @ Ab + lam * torch.eye(hi - lo, dtype=Ab.dtype,
-                                              device=A.device)
-            new = torch.linalg.solve(reg, Ab.T @ (Y - P + Ab @ W[lo:hi]))
+            rhs = Ab.T @ (Y - P + Ab @ W[lo:hi])
+            if lo not in factors:
+                reg = Ab.T @ Ab + lam * torch.eye(hi - lo, dtype=Ab.dtype,
+                                                  device=A.device)
+                if passes == 1:
+                    new = torch.linalg.solve(reg, rhs)
+                else:
+                    factors[lo] = torch.linalg.cholesky(reg)
+                del reg
+            if lo in factors:
+                new = torch.cholesky_solve(rhs, factors[lo])
             P += Ab @ (new - W[lo:hi])
             W[lo:hi] = new
-            del Ab, reg
-    return W
+            del Ab, rhs
+    return W, P
 
 
 def _float64_check(featurizer, fits, images, labels, lam, dev, block=BLOCK,
@@ -592,7 +660,7 @@ def _float64_check(featurizer, fits, images, labels, lam, dev, block=BLOCK,
     out, w64 = {}, {}
     for name, (scaler, W32) in fits.items():
         A = scaler.apply_batch(F).to(torch.float64)
-        W = _bcd_float64(A, Y, lam, bounds, passes)
+        W, _ = _bcd_float64(A, Y, lam, bounds, passes)
         out[name] = float((W32.to(W) - W).abs().max() / W.abs().max())
         w64[name] = W
         if name == "streamed":
@@ -1123,33 +1191,47 @@ class _RuleClock:
 
 class _OptimizerClock:
     """Host seconds of the optimizer's executions (one per graph a fit or
-    an apply optimizes) and of its CSE passes, counted by wrapping
-    ``Optimizer.execute`` and ``EquivalentNodeMergeRule.apply``; the card
-    is not synchronized, as both are host code. ``close`` removes the
-    wrappers."""
+    an apply optimizes), of its CSE passes and of its fusion rule
+    applications (map and gather, each a scan of the graph), counted by
+    wrapping ``Optimizer.execute``, ``EquivalentNodeMergeRule.apply`` and
+    the two fusion rules' ``apply``; the card is not synchronized, as all
+    are host code. The first execution's input and output graphs are
+    kept in ``first``. ``close`` removes the wrappers."""
 
     def __init__(self):
+        from keystone_tpu_torch.workflow.optimizer.fusion import (
+            GatherFusionRule,
+            MapFusionRule,
+        )
         from keystone_tpu_torch.workflow.optimizer.rule import Optimizer
         from keystone_tpu_torch.workflow.optimizer.rules import (
             EquivalentNodeMergeRule,
         )
 
-        self.counts = {"execute": 0, "CSE pass": 0}
-        self.seconds = {"execute": 0.0, "CSE pass": 0.0}
+        names = ("execute", "CSE pass", "fusion rule")
+        self.counts = dict.fromkeys(names, 0)
+        self.seconds = dict.fromkeys(names, 0.0)
+        self.first = None
         self._undo = []
         self._wrap(Optimizer, "execute", "execute")
         self._wrap(EquivalentNodeMergeRule, "apply", "CSE pass")
+        self._wrap(MapFusionRule, "apply", "fusion rule")
+        self._wrap(GatherFusionRule, "apply", "fusion rule")
 
     def _wrap(self, owner, attr, name):
         real = getattr(owner, attr)
 
         def run(*args):
             t0 = time.perf_counter()
+            out = None
             try:
-                return real(*args)
+                out = real(*args)
+                return out
             finally:
                 self.counts[name] += 1
                 self.seconds[name] += time.perf_counter() - t0
+                if name == "execute" and self.first is None:
+                    self.first = (args[-1], out)
 
         setattr(owner, attr, run)
         self._undo.append((owner, attr, real))
@@ -1160,9 +1242,34 @@ class _OptimizerClock:
         self._undo = []
 
     def summary(self):
-        return (f"optimizer {self.counts['execute']} executions, "
-                f"{self.seconds['execute']:.4f} s; CSE {self.counts['CSE pass']}"
-                f" passes, {self.seconds['CSE pass']:.4f} s (host)")
+        c, s = self.counts, self.seconds
+        return (f"optimizer {c['execute']} executions, "
+                f"{s['execute']:.4f} s; CSE {c['CSE pass']} passes, "
+                f"{s['CSE pass']:.4f} s; fusion {c['fusion rule']} rule "
+                f"applications, {s['fusion rule']:.4f} s (host)")
+
+
+def _fit_path_ops(graph):
+    """The operators a fit of ``graph`` executes: those not downstream of
+    its runtime source."""
+    unexec = graph.source_descendants()
+    return [graph.get_operator(n) for n in sorted(graph.nodes,
+                                                  key=lambda g: g.id)
+            if n not in unexec]
+
+
+def _fused_featurizers(ops, branches):
+    """The fused nodes among ``ops`` that hold a gather of ``branches``
+    branches feeding a VectorCombiner."""
+    from keystone_tpu_torch.workflow.optimizer.fusion import (
+        FusedGatherTransformer,
+        FusedTransformer,
+    )
+
+    return [op for op in ops if isinstance(op, FusedTransformer)
+            and isinstance(op.stages[0], FusedGatherTransformer)
+            and len(op.stages[0].branches) == branches
+            and type(op.stages[-1]).__name__ == "VectorCombiner"]
 
 
 class _StageTimer:
@@ -1317,7 +1424,9 @@ def _voc_fit_apply(voc, config, train, test, dev, timer):
     return fitted, scores, fit_s, apply_s, fit_calls
 
 
-def _voc_release():
+def _release():
+    """A clean prefix memo and environment, and the card's cached blocks
+    returned."""
     from keystone_tpu_torch.workflow.env import PipelineEnv
 
     PipelineEnv.reset()
@@ -1426,7 +1535,7 @@ def _voc_phase(kernels, dev):
         _profile(f"VOC test apply ({VOC_PROFILE} images)",
                  lambda: fitted(sub).get())
     del fitted, scores
-    _voc_release()
+    _release()
 
     # a second, instrumented pass for the per-stage split
     timer = _voc_stage_timer(timed=True)
@@ -1438,7 +1547,7 @@ def _voc_phase(kernels, dev):
           f"stage call): fit {t_fit_s:.2f} s, apply {t_apply_s:.2f} s; "
           f"seconds per stage: {stages}", flush=True)
     del fitted
-    _voc_release()
+    _release()
     return launches
 
 
@@ -1858,6 +1967,23 @@ def _mnist_phase(dev):
     finally:
         opt_apply.close()
     apply_s = time.time() - t0
+    # the fit's graph before and after the optimizer: the fit path's 600
+    # branch nodes become one fused featurizer
+    raw, optimized = opt_fit.first
+    branch_names = ("RandomSignNode", "PaddedFFT", "LinearRectifier")
+    raw_branch = sum(type(op).__name__ in branch_names
+                     for op in _fit_path_ops(raw))
+    opt_ops = _fit_path_ops(optimized)
+    opt_branch = sum(type(op).__name__ in branch_names for op in opt_ops)
+    fused = _fused_featurizers(opt_ops, MNIST_FFTS)
+    print(f"[mnist] the fit path's graph: {raw_branch} branch nodes before "
+          f"the optimizer, {opt_branch} after it, {len(fused)} fused "
+          f"featurizer node ({len(raw.nodes)} -> {len(optimized.nodes)} "
+          f"nodes in all)", flush=True)
+    assert raw_branch == 3 * MNIST_FFTS, raw_branch
+    assert opt_branch == 0 and len(fused) == 1, (opt_branch, len(fused))
+    del raw, optimized, opt_ops, fused
+    opt_fit.first = None
     train_pred = fitted(train.data).get()
     preds = test_pred.numpy()
     features = MNIST_FFTS * 512
@@ -1874,7 +2000,8 @@ def _mnist_phase(dev):
           f" img/s), {(MNIST_TRAIN + MNIST_TEST) / (fit_s + apply_s):.0f} "
           f"img/s fit + apply; train error {tr_err:.4f}, test error "
           f"{te_err:.4f}; fit device-memory peak {peak / 2**30:.2f} GiB "
-          f"({base / 2**30:.2f} GiB allocated before it)", flush=True)
+          f"(PR 8, without fusion: {MNIST_PEAK_UNFUSED_GIB} GiB; "
+          f"{base / 2**30:.2f} GiB allocated before it)", flush=True)
     print(f"[mnist] inside the fit: {opt_fit.summary()}; inside the test "
           f"apply: {opt_apply.summary()}", flush=True)
     assert preds.shape == (MNIST_TEST,)
@@ -1892,7 +2019,7 @@ def _mnist_phase(dev):
                     1.0, -1.0)
     bounds = [(lo, min(features, lo + MNIST_BLOCK))
               for lo in range(0, features, MNIST_BLOCK)]
-    W64 = _bcd_float64(F, Y, MNIST_LAM, bounds, 1)
+    W64, _ = _bcd_float64(F, Y, MNIST_LAM, bounds, 1)
     w_rel = _rel(W, W64)
     print(f"[float64] MnistRandomFFT weights against the float64 BCD "
           f"({len(bounds)} blocks of {MNIST_BLOCK}, one pass) of the fit's "
@@ -1905,6 +2032,298 @@ def _mnist_phase(dev):
     PipelineEnv.reset()
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def _timit_phase(dev):
+    """Phase 4g (see the module docstring)."""
+    from keystone_tpu_torch.loaders.csv_loader import LabeledData
+    from keystone_tpu_torch.loaders.surrogate import make_surrogate_timit
+    from keystone_tpu_torch.loaders.timit import (
+        NUM_CLASSES,
+        TimitFeaturesData,
+    )
+    from keystone_tpu_torch.evaluation.multiclass import evaluate_multiclass
+    from keystone_tpu_torch.parallel.dataset import ArrayDataset
+    from keystone_tpu_torch.pipelines.speech import timit
+
+    (tx, ty), (vx, vy) = make_surrogate_timit(TIMIT_TRAIN, TIMIT_TEST)
+    train = LabeledData(ArrayDataset.from_numpy(tx, dev),
+                        ArrayDataset.from_numpy(ty, dev))
+    test = LabeledData(ArrayDataset.from_numpy(vx, dev),
+                       ArrayDataset.from_numpy(vy, dev))
+    config = timit.TimitConfig(num_cosines=TIMIT_COSINES, gamma=TIMIT_GAMMA,
+                               lam=TIMIT_LAM, num_epochs=TIMIT_EPOCHS)
+    features = TIMIT_COSINES * config.num_cosine_features
+    _release()
+    _sync()
+    t0 = time.time()
+    fitted, run_eval = timit.run(config, TimitFeaturesData(train, test),
+                                 device=dev)
+    _sync()
+    run_s = time.time() - t0
+    del fitted
+    # the same fit and apply again, timed apart, with the fit's peak
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    opt_fit = _OptimizerClock()
+    t0 = time.time()
+    try:
+        fitted = timit.build_pipeline(config, train).fit()
+        _sync()
+    finally:
+        opt_fit.close()
+    fit_s = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    opt_apply = _OptimizerClock()
+    t0 = time.time()
+    try:
+        test_pred = fitted(test.data).get()
+        _sync()
+    finally:
+        opt_apply.close()
+    apply_s = time.time() - t0
+    raw, optimized = opt_fit.first
+    raw_branch = sum(type(op).__name__ == "CosineRandomFeatures"
+                     for op in _fit_path_ops(raw))
+    fused = _fused_featurizers(_fit_path_ops(optimized), TIMIT_COSINES)
+    del raw, optimized
+    opt_fit.first = None
+    te_err = evaluate_multiclass(test_pred, test.labels,
+                                 NUM_CLASSES).total_error
+    print(f"[timit] TIMIT {TIMIT_COSINES} cosine branches, {features} "
+          f"features, BCD({config.num_cosine_features}, {TIMIT_EPOCHS}, "
+          f"{TIMIT_LAM}), gamma {TIMIT_GAMMA:.6g}, {TIMIT_TRAIN} / "
+          f"{TIMIT_TEST} surrogate frames: run() {run_s:.2f} s (test error "
+          f"{run_eval.total_error:.4f}); fit {fit_s:.2f} s "
+          f"({TIMIT_TRAIN / fit_s:.0f} train frames/s), test apply "
+          f"{apply_s:.3f} s ({TIMIT_TEST / apply_s:.0f} frames/s), "
+          f"{(TIMIT_TRAIN + TIMIT_TEST) / (fit_s + apply_s):.0f} frames/s "
+          f"fit + apply; test error {te_err:.4f}; fit device-memory peak "
+          f"{peak / 2**30:.2f} GiB ({base / 2**30:.2f} GiB allocated before "
+          f"it); the fit path: {raw_branch} branch nodes before the "
+          f"optimizer, {len(fused)} fused featurizer node after it",
+          flush=True)
+    print(f"[timit] inside the fit: {opt_fit.summary()}; inside the test "
+          f"apply: {opt_apply.summary()}", flush=True)
+    assert raw_branch == TIMIT_COSINES and len(fused) == 1, \
+        (raw_branch, len(fused))
+    lo, hi = TIMIT_ERROR_BAND
+    assert lo < te_err < hi, te_err
+    mapper = _operator(fitted, "BlockLinearMapper")
+    W = torch.as_tensor(mapper.weights).float()
+    del fitted, test_pred
+    _release()
+    F = timit.build_featurizer(config).apply(train.data).get().data
+    assert F.shape == (TIMIT_TRAIN, features), F.shape
+    ok = all(bool(torch.isfinite(t).all())
+             for t in (F, W, mapper.apply_batch(F[:4096])))
+    Y = torch.where(torch.arange(NUM_CLASSES, device=dev)
+                    == train.labels.data[:, None], 1.0, -1.0)
+    block = config.num_cosine_features
+    bounds = [(b, min(features, b + block))
+              for b in range(0, features, block)]
+    t0 = time.time()
+    W64, P64 = _bcd_float64(F, Y, TIMIT_LAM, bounds, TIMIT_EPOCHS)
+    f64_s = time.time() - t0
+    # the same BCD written out in float32: what a plain float32 solve of
+    # these features reaches
+    W32, P32 = _bcd_float64(F, Y, TIMIT_LAM, bounds, TIMIT_EPOCHS,
+                            dtype=torch.float32)
+    del P32
+    P = torch.cat([mapper.apply_batch(F[i:i + 4096])
+                   for i in range(0, TIMIT_TRAIN, 4096)]) - torch.as_tensor(
+        mapper.intercept, device=dev)
+    w_rel, w_plain = _rel(W, W64), _rel(W32, W64)
+    p_rel = _rel(P, P64)
+    print(f"[float64] TIMIT against the float64 BCD ({len(bounds)} blocks "
+          f"of {block}, {TIMIT_EPOCHS} passes, block by block, {f64_s:.1f} "
+          f"s) of the fit's own features: weights max |W - W64| / max |W64| "
+          f"{w_rel:.3e}, the plain float32 BCD's {w_plain:.3e} (bar "
+          f"{TIMIT_F64_RATIO}x it); training scores max |P - P64| / max "
+          f"|P64| {p_rel:.3e} (bar {TIMIT_SCORE_TOL}); features, weights and "
+          f"scores finite: {ok}", flush=True)
+    assert ok
+    assert w_rel <= TIMIT_F64_RATIO * w_plain, (w_rel, w_plain)
+    assert p_rel <= TIMIT_SCORE_TOL, p_rel
+    del F, W, W64, P64, W32, P, Y, mapper, train, test
+    _release()
+
+
+def _random_cifar_phase(tr_x, tr_y, te_x, te_y, lin_test, dev):
+    """Phase 4h (see the module docstring)."""
+    from keystone_tpu_torch.evaluation.multiclass import evaluate_multiclass
+    from keystone_tpu_torch.loaders.csv_loader import LabeledData
+    from keystone_tpu_torch.nodes.util import (
+        ClassLabelIndicatorsFromIntLabels,
+    )
+    from keystone_tpu_torch.parallel.dataset import ArrayDataset
+    from keystone_tpu_torch.pipelines.images.cifar import random_cifar
+    from keystone_tpu_torch.workflow.env import PipelineEnv
+    from keystone_tpu_torch.workflow.optimizer.default import NoOpOptimizer
+
+    config = random_cifar.RandomCifarConfig(seed=SEED)
+    train = LabeledData(ArrayDataset.from_numpy(tr_x, dev),
+                        ArrayDataset.from_numpy(tr_y.astype(np.int32), dev))
+    test = LabeledData(ArrayDataset.from_numpy(te_x, dev),
+                       ArrayDataset.from_numpy(te_y.astype(np.int32), dev))
+    _release()
+    _sync()
+    t0 = time.time()
+    fitted, train_eval, test_eval = random_cifar.run(config, train, test,
+                                                     device=dev)
+    _sync()
+    run_s = time.time() - t0
+    del fitted
+    preds, seconds, labels = {}, {}, {}
+    for name, opt in (("default", None), ("no-op", NoOpOptimizer())):
+        _release()
+        if opt is not None:
+            PipelineEnv.get_or_create().set_optimizer(opt)
+        clock = _OptimizerClock()
+        try:
+            t0 = time.time()
+            train_labels = ClassLabelIndicatorsFromIntLabels(
+                random_cifar.NUM_CLASSES)(train.labels)
+            fitted = random_cifar.build_pipeline(config, train.data,
+                                                 train_labels).fit()
+            _sync()
+            fit_s = time.time() - t0
+            t0 = time.time()
+            out = fitted(test.data).get()
+            _sync()
+            seconds[name] = (fit_s, time.time() - t0)
+        finally:
+            clock.close()
+        preds[name] = out.numpy()
+        _, optimized = clock.first
+        labels[name] = [op.label() for op in _fit_path_ops(optimized)]
+        del fitted, out, optimized, clock
+    _release()
+    featurizer = ("Fused[Convolver >> SymmetricRectifier >> Pooler >> "
+                  "ImageVectorizer]")
+    te_err = test_eval.total_error
+    agree = float(np.mean(preds["default"] == preds["no-op"]))
+    print(f"[random-cifar] RandomCifar {config.num_filters} filters, patch "
+          f"{config.patch_size}, pool {config.pool_size} / "
+          f"{config.pool_stride}, {config.num_filters * 8} features, exact "
+          f"solve, {N_TRAIN} / {N_TEST} surrogate images: run() {run_s:.2f} "
+          f"s, train error {train_eval.total_error:.4f}, test error "
+          f"{te_err:.4f} (LinearPixels {lin_test:.4f}); DefaultOptimizer fit "
+          f"{seconds['default'][0]:.2f} s, test apply "
+          f"{seconds['default'][1]:.3f} s; NoOpOptimizer fit "
+          f"{seconds['no-op'][0]:.2f} s, test apply "
+          f"{seconds['no-op'][1]:.3f} s; predictions of the two fits agree "
+          f"on {agree:.4f} of test images; the fit path under the "
+          f"DefaultOptimizer: {labels['default']}", flush=True)
+    lo, hi = RC_ERROR_BAND
+    assert lo < te_err < hi, te_err
+    assert labels["default"].count(featurizer) == 1, labels["default"]
+    assert featurizer not in labels["no-op"], labels["no-op"]
+    assert np.array_equal(preds["default"], preds["no-op"]), agree
+
+
+def _auto_cache_phase(kernels, rpc, tr_x, tr_y, te_x, filters, whitener,
+                      config, dev):
+    """Phase 4i (see the module docstring). Returns the featurize kernel's
+    launches in the fit under each optimizer."""
+    from keystone_tpu_torch.nodes.learning import BlockLeastSquaresEstimator
+    from keystone_tpu_torch.nodes.images.core import FusedConvRectifyPool
+    from keystone_tpu_torch.nodes.stats import StandardScaler
+    from keystone_tpu_torch.nodes.util import (
+        ClassLabelIndicatorsFromIntLabels,
+        MaxClassifier,
+    )
+    from keystone_tpu_torch.parallel.dataset import ArrayDataset
+    from keystone_tpu_torch.workflow.env import PipelineEnv
+    from keystone_tpu_torch.workflow.optimizer import auto_cache
+    from keystone_tpu_torch.workflow.optimizer.default import (
+        AutoCachingOptimizer,
+    )
+
+    train = ArrayDataset.from_numpy(tr_x, dev)
+    test = ArrayDataset.from_numpy(te_x, dev)
+    seen = {}
+    real = {name: getattr(auto_cache, name) for name in
+            ("profile_graph", "_device_mem_budget", "make_cached_graph")}
+
+    # the fit's optimize is the first to call each; the apply's optimize
+    # profiles and plans its own graph after it
+    def profile_graph(graph, *args):
+        out = real["profile_graph"](graph, *args)
+        seen.setdefault("profiles", (graph, out))
+        return out
+
+    def budget(device=None):
+        out = real["_device_mem_budget"](device)
+        seen.setdefault("budget", (out, torch.cuda.mem_get_info(dev)[0]))
+        return out
+
+    def make_cached_graph(graph, to_cache):
+        seen.setdefault("cached", sorted(
+            f"{graph.get_operator(n).label()} (node {n.id})"
+            for n in to_cache))
+        return real["make_cached_graph"](graph, to_cache)
+
+    preds, launches, seconds = {}, {}, {}
+    for name, opt in (("default", None), ("auto-cache", AutoCachingOptimizer())):
+        _release()
+        if opt is not None:
+            PipelineEnv.get_or_create().set_optimizer(opt)
+            auto_cache.profile_graph = profile_graph
+            auto_cache._device_mem_budget = budget
+            auto_cache.make_cached_graph = make_cached_graph
+        try:
+            # RandomPatchCifar as a user writes it with no hints: no Cacher
+            labels = ClassLabelIndicatorsFromIntLabels(rpc.NUM_CLASSES)(
+                ArrayDataset.from_numpy(tr_y.astype(np.int32), dev))
+            pipe = FusedConvRectifyPool(
+                filters, rpc.IMAGE_SIZE, config.patch_size, rpc.NUM_CHANNELS,
+                config.pool_stride, config.pool_size, config.alpha,
+                whitener=whitener,
+            ).and_then(StandardScaler(), train).and_then(
+                BlockLeastSquaresEstimator(BLOCK, PASSES, config.lam), train,
+                labels) >> MaxClassifier()
+            kernels.reset_launches()
+            _sync()
+            t0 = time.time()
+            fitted = pipe.fit()
+            _sync()
+            fit_s = time.time() - t0
+            launches[name] = kernels.LAUNCHES["fused_cifar_featurize"]
+            t0 = time.time()
+            out = fitted(test).get()
+            _sync()
+            seconds[name] = (fit_s, time.time() - t0)
+            preds[name] = out.numpy()
+        finally:
+            for attr, fn in real.items():
+                setattr(auto_cache, attr, fn)
+        del fitted, out, pipe, labels
+    _release()
+    graph, profiles = seen["profiles"]
+    shown = ", ".join(
+        f"{graph.get_operator(n).label()} (node {n.id}): {p.ns / 1e9:.4f} s, "
+        f"{p.mem / 2**20:.1f} MiB" for n, p in sorted(
+            profiles.items(), key=lambda kv: kv[0].id))
+    budget_b, free_b = seen["budget"]
+    print(f"[auto-cache] RandomPatchCifar without Cachers ({NUM_FILTERS} "
+          f"filters, BCD({BLOCK}, {PASSES})), greedy AutoCachingOptimizer: "
+          f"budget {budget_b / 2**30:.3f} GiB read from the card (free "
+          f"{free_b / 2**30:.3f} GiB when read); profiles extrapolated to "
+          f"{N_TRAIN} images from samples of 2 and 4: {shown}; cached "
+          f"{seen['cached']}; fused_cifar_featurize launches in the fit: "
+          f"DefaultOptimizer {launches['default']}, AutoCachingOptimizer "
+          f"{launches['auto-cache']}; fit / test apply seconds: "
+          f"DefaultOptimizer {seconds['default'][0]:.2f} / "
+          f"{seconds['default'][1]:.3f}, AutoCachingOptimizer "
+          f"{seconds['auto-cache'][0]:.2f} / {seconds['auto-cache'][1]:.3f}",
+          flush=True)
+    assert abs(budget_b - 0.75 * free_b) <= AUTO_CACHE_BUDGET_SLACK, \
+        (budget_b, free_b)
+    assert np.array_equal(preds["default"], preds["auto-cache"])
+    assert launches["default"] > 0 and launches["auto-cache"] > 0, launches
+    return launches
 
 
 def _banded_image_calls(kernels, sift, dev):
@@ -2312,6 +2731,22 @@ def _main(workdir: str) -> int:
     print(f"[mnist] kernel launches {mnist_launches} (the path runs none of "
           "the five)", flush=True)
 
+    # -- 4g. TIMIT --------------------------------------------------------------
+    kernels.reset_launches()
+    _timit_phase(dev)
+    print(f"[timit] kernel launches {dict(kernels.LAUNCHES)} (the path runs "
+          "none of the five)", flush=True)
+
+    # -- 4h. RandomCifar --------------------------------------------------------
+    kernels.reset_launches()
+    _random_cifar_phase(tr_x, tr_y, te_x, te_y, lin_test, dev)
+    print(f"[random-cifar] kernel launches {dict(kernels.LAUNCHES)} (the "
+          "path runs none of the five)", flush=True)
+
+    # -- 4i. auto-caching ---------------------------------------------------------
+    cache_launches = _auto_cache_phase(kernels, rpc, tr_x, tr_y, te_x,
+                                       filters, whitener, config, dev)
+
     # -- 5. timing ------------------------------------------------------------
     B = K = 1024
     imgs, filters, means = _featurize_inputs(rng, B, K, dev)
@@ -2584,7 +3019,10 @@ def _main(workdir: str) -> int:
                              "4c": serve_launches["fused_cifar_featurize"],
                              "4e": solver_launches["fused_cifar_featurize"],
                              "4e streamed": solver_stream_launches[
-                                 "fused_cifar_featurize"]},
+                                 "fused_cifar_featurize"],
+                             "4i default fit": cache_launches["default"],
+                             "4i auto-cache fit": cache_launches[
+                                 "auto-cache"]},
     }, {
         "name": "gram_cross",
         "route": "cuda",
@@ -2656,11 +3094,20 @@ def _main(workdir: str) -> int:
     return 0
 
 
+def _stages(op):
+    """The operator and, for a fused node, its stages and branches, in
+    order."""
+    yield op
+    for inner in getattr(op, "stages", ()) or getattr(op, "branches", ()):
+        yield from _stages(inner)
+
+
 def _operator(fitted, type_name):
-    """The fitted pipeline's operator of the named type."""
+    """The fitted pipeline's operator of the named type, inside a fused
+    node too."""
     g = fitted._graph
-    return next(g.get_operator(n) for n in g.nodes
-                if type(g.get_operator(n)).__name__ == type_name)
+    return next(op for n in g.nodes for op in _stages(g.get_operator(n))
+                if type(op).__name__ == type_name)
 
 
 if __name__ == "__main__":

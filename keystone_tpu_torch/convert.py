@@ -22,6 +22,14 @@ weights, block size, intercept, feature means) or ``SparseLinearMapper``
 (weights, intercept) becomes the port's model of the same class, its
 arrays copied as float32.
 
+``cosine_random_features``, ``timit_pipeline`` and
+``random_cifar_pipeline`` carry the random-feature apps across: a
+cosine branch from its ``W`` (out, in) and ``b`` (out,); the fitted
+TIMIT pipeline from its branches' ``(W, b)`` and its fitted JAX
+``BlockLinearMapper``; the fitted RandomCifar pipeline from its filter
+bank, its scaler's ``mean`` and ``std`` and its fitted JAX
+``LinearMapper``.
+
 ``pca_transformer`` and ``fisher_vector`` carry VOCSIFTFisher's fitted
 column PCA (``pca_mat`` (d, dims)) and GMM codebook (``means`` and
 ``variances`` (D, K), ``weights`` (K,), ``weight_threshold``) across as
@@ -30,27 +38,34 @@ numpy arrays into the port's ``BatchPCATransformer`` and
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .nodes.images.core import FusedConvRectifyPool
+from .nodes.images.core import (
+    Convolver,
+    FusedConvRectifyPool,
+    ImageVectorizer,
+    Pooler,
+    SymmetricRectifier,
+)
 from .nodes.images.fisher_vector import FisherVector
 from .nodes.learning.gmm import GaussianMixtureModel
 from .nodes.learning.classifiers import SparseLinearMapper
 from .nodes.learning.linear import BlockLinearMapper, LinearMapper
 from .nodes.learning.pca import BatchPCATransformer
 from .nodes.learning.zca import ZCAWhitener
-from .nodes.stats import StandardScalerModel
-from .nodes.util import MaxClassifier
+from .nodes.stats import CosineRandomFeatures, StandardScalerModel
+from .nodes.util import MaxClassifier, VectorCombiner
 from .ops.device import DEFAULT_DEVICE, resolve_device
+from .pipelines.images.cifar import random_cifar
 from .pipelines.images.cifar.random_patch_cifar import (
     IMAGE_SIZE,
     NUM_CHANNELS,
     RandomCifarConfig,
 )
-from .workflow.pipeline import FittedPipeline
+from .workflow.pipeline import FittedPipeline, Pipeline
 
 
 def whitener_from_arrays(means: np.ndarray,
@@ -95,7 +110,13 @@ def from_reference_arrays(d: Dict[str, np.ndarray], device=DEFAULT_DEVICE,
                              feature_means=on("feature_means"))
         >> MaxClassifier()
     )
-    return chain.fit()
+    return _as_fitted(chain)
+
+
+def _as_fitted(chain: Pipeline) -> FittedPipeline:
+    """The chain as a fitted pipeline of one node a stage, as a fit leaves
+    the stages it fitted (each apply fuses the chain)."""
+    return FittedPipeline(chain.graph, chain._source, chain._sink)
 
 
 def _weight_bits(Wq) -> torch.Tensor:
@@ -198,3 +219,48 @@ def solver_model(model, device=DEFAULT_DEVICE):
         raise TypeError(f"no port counterpart for a fitted {kind}")
     out.apply_params(dev)
     return out
+
+
+def cosine_random_features(W: np.ndarray,
+                           b: np.ndarray) -> CosineRandomFeatures:
+    """The port's cosine branch with the given W (out, in) and b (out,)."""
+    return CosineRandomFeatures(np.array(W, np.float32),
+                                np.array(b, np.float32))
+
+
+def timit_pipeline(branches: Sequence[Tuple[np.ndarray, np.ndarray]], model,
+                   device=DEFAULT_DEVICE) -> FittedPipeline:
+    """The fitted TIMIT pipeline (gathered cosine branches ->
+    VectorCombiner -> block linear model -> argmax) from each branch's
+    ``(W, b)`` and the fitted JAX ``BlockLinearMapper``, its params on
+    ``device``."""
+    feats = Pipeline.gather([cosine_random_features(W, b)
+                             for W, b in branches])
+    return _as_fitted(feats >> VectorCombiner()
+                      >> solver_model(model, device) >> MaxClassifier())
+
+
+def random_cifar_pipeline(filters: np.ndarray, scaler_mean: np.ndarray,
+                          scaler_std: Optional[np.ndarray], model,
+                          config: Optional[
+                              random_cifar.RandomCifarConfig] = None,
+                          device=DEFAULT_DEVICE) -> FittedPipeline:
+    """The fitted RandomCifar pipeline (convolve, rectify, pool,
+    vectorize -> scale -> linear model -> argmax) from its filter bank,
+    its scaler's moments and the fitted JAX ``LinearMapper``, its params
+    on ``device``."""
+    config = config or random_cifar.RandomCifarConfig()
+    size, chans = random_cifar.IMAGE_SIZE, random_cifar.NUM_CHANNELS
+    chain = (
+        Convolver(np.array(filters, np.float32), size, size, chans,
+                  whitener=None, normalize_patches=True)
+        >> SymmetricRectifier(alpha=config.alpha)
+        >> Pooler(config.pool_stride, config.pool_size, "identity", "sum")
+        >> ImageVectorizer()
+        >> StandardScalerModel(np.array(scaler_mean, np.float32),
+                               None if scaler_std is None
+                               else np.array(scaler_std, np.float32))
+        >> solver_model(model, device)
+        >> MaxClassifier()
+    )
+    return _as_fitted(chain)

@@ -6,7 +6,8 @@ in the repository root, so the port and its chip check have data without
 importing ``bench.py``; a test holds the two bit-identical.
 ``make_surrogate_voc`` is the port's copy of the image generator of
 ``bench.py::voc_bench``, made at VOC2007's image sizes, and
-``make_surrogate_mnist`` the copy of ``bench.py::mnist_bench``'s.
+``make_surrogate_mnist`` the copy of ``bench.py::mnist_bench``'s and
+``make_surrogate_timit`` of ``bench.py::timit_bench``'s.
 """
 from __future__ import annotations
 
@@ -118,6 +119,26 @@ def make_surrogate_mnist(n_train, n_test):
         y = r.randint(0, 10, n)
         X = np.clip(protos[y] + 0.35 * r.randn(n, 784), 0, 1).astype(
             np.float32)
+        return X, y.astype(np.int32)
+
+    return split(n_train, 1), split(n_test, 2)
+
+
+def make_surrogate_timit(n_train, n_test):
+    """TIMIT-shaped surrogate, as ``bench.py::timit_bench`` makes it: 147
+    class prototypes ``RandomState(0).randn(147, 440)``, each frame its
+    class's prototype plus 4.0 N(0, 1) noise (genuine class overlap, so
+    the test error cannot saturate at 0); train from seed 1, test from
+    seed 2. Returns ``((X_train, y_train), (X_test, y_test))``: float32
+    (n, 440) frames and int labels."""
+    k, d = 147, 440
+    rng = np.random.RandomState(0)
+    protos = rng.randn(k, d).astype(np.float32)
+
+    def split(n, seed):
+        r = np.random.RandomState(seed)
+        y = r.randint(0, k, n)
+        X = (protos[y] + 4.0 * r.randn(n, d)).astype(np.float32)
         return X, y.astype(np.int32)
 
     return split(n_train, 1), split(n_test, 2)

@@ -136,6 +136,8 @@ class Windower(Transformer):
     image-major. Padding rows of the input map to trailing zero windows,
     so the true count stays exact."""
 
+    fusable = False
+
     def __init__(self, stride: int, window_size: int):
         self.stride = stride
         self.window_size = window_size
@@ -161,7 +163,10 @@ class FusedConvRectifyPool(Transformer):
     CUDA tensor and its plain version on a CPU tensor. Same contract as
     Convolver: ``filters`` arrive pre-whitened by the caller; the
     whitener contributes only its means, subtracted after
-    normalization."""
+    normalization. Never fused: the JAX package's counterpart has its
+    own batch path."""
+
+    fusable = False
 
     def __init__(self, filters, img_size: int, patch_size: int,
                  channels: int = 3, pool_stride: int = 13,

@@ -41,5 +41,7 @@ class SIFTExtractor(Transformer):
 class BatchSIFTExtractor(SIFTExtractor):
     """SIFT over a dataset of images, one image at a time."""
 
+    fusable = False
+
     def apply_dataset(self, ds):
         return ds.map(self.apply)

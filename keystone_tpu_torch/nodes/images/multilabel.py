@@ -21,6 +21,8 @@ from ...workflow.transformer import Transformer
 class MultiLabelExtractor(Transformer):
     """MultiLabeledImage -> padded int label array."""
 
+    fusable = False
+
     def __init__(self, device=DEFAULT_DEVICE):
         self.device = str(resolve_device(device))
 
@@ -40,6 +42,8 @@ class MultiLabelExtractor(Transformer):
 class MultiLabeledImageExtractor(Transformer):
     """MultiLabeledImage -> float32 image tensor on ``device`` (a host
     dataset: the images are ragged)."""
+
+    fusable = False
 
     def __init__(self, device=DEFAULT_DEVICE):
         self.device = str(resolve_device(device))

@@ -30,6 +30,8 @@ class SparseLinearMapper(Transformer):
     padded COO (``sparse_batch``) and is one gather and one contraction
     on the weights' device; a dense batch is one GEMM on its own."""
 
+    fusable = False
+
     def __init__(self, weights, intercept: Optional[np.ndarray] = None):
         self.weights = weights
         self.intercept = intercept

@@ -53,6 +53,12 @@ class DenseLBFGSwithL2(LabelEstimator):
         self.num_iterations = num_iterations
         self.lam = lam
 
+    @property
+    def weight(self) -> int:
+        """Passes over the input a fit makes, for auto-caching's run
+        counts (the JAX package's weight)."""
+        return self.num_iterations + 1
+
     def _fit(self, ds: Dataset, labels: Dataset) -> LinearMapper:
         ds = ensure_array(ds)
         labels = ensure_array(labels, ds.device)
@@ -119,6 +125,12 @@ class SparseLBFGSwithL2(LabelEstimator):
         self.num_iterations = num_iterations
         self.lam = lam
         self.sparse_overhead = sparse_overhead
+
+    @property
+    def weight(self) -> int:
+        """Passes over the input a fit makes, for auto-caching's run
+        counts (the JAX package's weight)."""
+        return self.num_iterations + 1
 
     def _fit(self, ds: Dataset, labels: Dataset) -> SparseLinearMapper:
         if isinstance(ds, ArrayDataset):

@@ -208,6 +208,11 @@ class LeastSquaresEstimator(OptimizableLabelEstimator):
         return DenseLBFGSwithL2(
             lam=self.lam, num_iterations=self.num_iterations)
 
+    @property
+    def weight(self) -> int:
+        """The default solver's passes (auto-caching's run counts)."""
+        return self.default.weight
+
     def _fit(self, ds: Dataset, labels: Dataset):
         # when the node-level rule has not sampled: densify host data for
         # the dense default

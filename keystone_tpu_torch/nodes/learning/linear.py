@@ -357,6 +357,12 @@ class BlockLeastSquaresEstimator(LabelEstimator):
         self.lam = lam
         self.weight_dtype = _canon_weight_dtype(weight_dtype)
 
+    @property
+    def weight(self) -> int:
+        """Passes over the input a fit makes, for auto-caching's run
+        counts (the JAX package's weight)."""
+        return 3 * self.num_iter + 1
+
     # -- streaming fit (accumulate/finalize protocol) ----------------------
     def accumulate(self, carry, chunk, labels):
         """The same carry as the exact solver: raw Gram, cross products

@@ -1,10 +1,12 @@
 """Statistical feature nodes.
 
 Counterpart of the scaler, the row normalizer, the signed Hellinger
-maps and the random-FFT nodes of ``keystone_tpu/nodes/stats/__init__.py``
-(reference ``stats/StandardScaler.scala``, ``NormalizeRows.scala``,
+maps, the random-FFT nodes and the random cosine features of
+``keystone_tpu/nodes/stats/__init__.py`` (reference
+``stats/StandardScaler.scala``, ``NormalizeRows.scala``,
 ``SignedHellingerMapper.scala``, ``RandomSignNode.scala``,
-``PaddedFFT.scala``, ``LinearRectifier.scala``). Each node's batch form
+``PaddedFFT.scala``, ``LinearRectifier.scala``,
+``CosineRandomFeatures.scala``). Each node's batch form
 is one tensor function over the batch on its device.
 """
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 
 from ...parallel.dataset import ArrayDataset, Dataset
 from ...workflow.estimator import Estimator
+from ...workflow.operators import tensor_token
 from ...workflow.transformer import Transformer
 
 EPS = 2.2e-16  # the reference's floor on a row norm
@@ -67,6 +70,63 @@ class LinearRectifier(Transformer):
 
     def apply(self, x):
         return torch.clamp_min(x - self.alpha, self.max_val)
+
+    def apply_batch(self, X):
+        return self.apply(X)
+
+
+class CosineRandomFeatures(Transformer):
+    """Random Fourier features cos(x W^T + b) (reference
+    ``stats/CosineRandomFeatures.scala:19-60``): W (out, in), b (out,),
+    float32. Both paths are one ``torch.matmul`` and a cosine on the
+    input's device, the params staged there once."""
+
+    def __init__(self, W: np.ndarray, b: np.ndarray):
+        self.W = np.asarray(W, dtype=np.float32)
+        self.b = np.asarray(b, dtype=np.float32)
+        assert self.b.shape[0] == self.W.shape[0]
+
+    @staticmethod
+    def create(num_input_features: int, num_output_features: int,
+               gamma: float, w_dist: str = "gaussian",
+               b_dist: str = "uniform",
+               seed: int = 0) -> "CosineRandomFeatures":
+        """W from ``w_dist`` scaled by ``gamma``, b from ``b_dist`` scaled
+        by 2 pi: the JAX package's ``RandomState(seed)`` draws, in its
+        order."""
+        rng = np.random.RandomState(seed)
+        if w_dist == "gaussian":
+            W = rng.randn(num_output_features, num_input_features)
+        elif w_dist == "cauchy":
+            W = rng.standard_cauchy((num_output_features, num_input_features))
+        elif w_dist == "uniform":
+            W = rng.rand(num_output_features, num_input_features)
+        else:
+            raise ValueError(w_dist)
+        W = W * gamma
+        if b_dist == "uniform":
+            b = rng.rand(num_output_features) * 2 * np.pi
+        elif b_dist == "gaussian":
+            b = rng.randn(num_output_features) * 2 * np.pi
+        else:
+            raise ValueError(b_dist)
+        return CosineRandomFeatures(W, b)
+
+    def eq_key(self):
+        return (CosineRandomFeatures, tensor_token(self.W),
+                tensor_token(self.b))
+
+    def apply_params(self, device):
+        return self._params_on(device, lambda d: (
+            torch.as_tensor(self.W, device=d),
+            torch.as_tensor(self.b, device=d)))
+
+    def apply_with_params(self, params, x):
+        W, b = params
+        return torch.cos(torch.matmul(x, W.T) + b)
+
+    def apply(self, x):
+        return self.apply_with_params(self.apply_params(x.device), x)
 
     def apply_batch(self, X):
         return self.apply(X)

@@ -25,6 +25,8 @@ class Sampler(Transformer):
     """Random subsample of ``size`` items without replacement (reference
     ``Sampler``: RDD takeSample). Deterministic seed."""
 
+    fusable = False
+
     def __init__(self, size: int, seed: int = 42):
         self.size = size
         self.seed = seed

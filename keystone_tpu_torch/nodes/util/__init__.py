@@ -99,6 +99,8 @@ class Densify(Transformer):
     device; host items (SparseVectors, numpy arrays) go to ``device``,
     the default device (``"cuda"``) when it is None."""
 
+    fusable = False
+
     def __init__(self, device=None):
         self.device = device
 

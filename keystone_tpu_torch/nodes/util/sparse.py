@@ -228,6 +228,8 @@ class Sparsify(Transformer):
     A host stage: a dense batch is copied to the host once and cut into
     items; SparseVectors pass through."""
 
+    fusable = False
+
     def apply(self, x) -> SparseVector:
         if isinstance(x, SparseVector):
             return x

@@ -39,6 +39,8 @@ class OptimizableTransformer(Transformer):
     """A transformer with implementation choices
     (reference ``OptimizableNodes.scala:10-16``)."""
 
+    fusable = False
+
     @property
     def default(self) -> Transformer:
         raise NotImplementedError

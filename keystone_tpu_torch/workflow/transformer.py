@@ -12,6 +12,15 @@ on a device, from ``apply_params(device)`` and computes from them in
 ``apply_with_params(params, x)``, so the datum path and the batch path
 read the same device copies. The copies are cached per device on the
 node and dropped when it is pickled.
+
+Fusability: map and gather fusion (``optimizer/fusion.py``) may fold a
+node into one fused node with its neighbours only when its class says
+``fusable``. A fused node runs each stage's own ``apply_batch`` in turn,
+so a class whose ``apply_dataset`` is not that per-batch map (a 1->many
+reshape, a host stage, a sampler, a cache point) sets it False. The
+classes that set it False are exactly those for which the JAX package's
+predicate is False (``tests/test_torch_fusion.py`` holds the two apart
+class by class).
 """
 from __future__ import annotations
 
@@ -26,6 +35,9 @@ from .pipeline import Chainable, Pipeline
 
 
 class Transformer(TransformerOperator, Chainable):
+    #: May map and gather fusion fold this node into a fused node? False
+    #: where ``apply_dataset`` is not the per-batch map of ``apply_batch``.
+    fusable = True
 
     def apply(self, x: Any) -> Any:
         """Per-item transform on tensors."""

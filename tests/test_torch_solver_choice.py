@@ -424,8 +424,8 @@ def test_default_optimizer_order_matches_jax():
 
     port = [b.name for b in DefaultOptimizer().batches]
     ref = [b.name for b in JDefault().batches]
-    # the JAX package's order, less the batches still to port
-    assert port == [name for name in ref if name != "map fusion"]
+    # the JAX package's batches, in its order
+    assert port == ref
 
 
 # -- L-BFGS ----------------------------------------------------------------
