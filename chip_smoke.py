@@ -128,6 +128,36 @@ Phases, each of which raises (and so exits non-zero) on failure:
    budget of 75% of the free memory the card reports; the budget, each
    node's extrapolated profile, the cached set, the featurize kernel's
    launches in each fit and the fit and apply seconds are printed.
+4j. ImageNetSiftLcsFV through ``build_pipeline`` / ``fit`` / apply at
+   its published widths (SIFT step 4, bin 6, 5 scales, scale_step 1;
+   LCS stride 4, border 16, sub-patch 6; 64-dim PCAs and 16-component
+   GMMs on 10^7 sampled descriptors each; 4,096 features;
+   BlockWeightedLeastSquares(4096, 1, 6e-5, 0.25) over 1000 classes;
+   top 5) on ``make_surrogate_imagenet``'s uint8 images at 480 x 640
+   (INET_TRAIN / INET_TEST). Every SIFT application must launch
+   ``banded_matmul`` 10 times and every Fisher vector of either branch
+   ``fv_moments`` once; the solver must run "woodbury"; the test top-5
+   error must beat a seeded random score matrix's by 0.30; the fitted
+   weights must lie within 5e-3 of the same solver's float64 weights on
+   the same features, and the top-5 sets agree with the float64 model's
+   on 99% of the test images. Fit and apply seconds, images/s, the
+   device-memory peak and the launches are printed from that pass; an
+   instrumented second pass gives the seconds per stage (SIFT, LCS, the
+   PCA fits, the GMM fits, FV, the solve). Then the weighted solve at
+   the rehearsal shape (randn X of 4096 x 4096, 1000 classes drawn at
+   random), "woodbury" and "cholesky" each in float32 and float64: the
+   two within 1e-8 of the largest weight of each other in float64, each
+   float32 fit's training scores within 1.5e-2 of the largest float64
+   score with the same argmax on 99% of the rows; each one's seconds,
+   peak and class chunk printed, and each float32 path's distance from
+   float64 (see REHEARSAL_SCORE_TOL for why the weights are not held).
+4k. RandomPatchCifarAugmented at its published defaults (100 filters,
+   patch 6, pool 14 / 13, alpha 0.25, lam 0, 10 random 24 x 24 patches
+   an image, flips at 0.5, 10 center / corner test patches an image
+   averaged) on phase 4's surrogate, the training set cut to AUG_TRAIN
+   images: the test error inside (0.02, 0.90), printed beside phase
+   4h's RandomCifar error with the fit and apply seconds and the fit's
+   peak.
 5. Timing: each kernel, its plain version and a library yardstick with
    CUDA events at the main path's shapes, one call at a time (the
    ``kernels`` line); for every kernel also the device time alone of the
@@ -136,7 +166,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    wrapper's host time a call, the featurize and quantized wrappers
    through the launch plans their nodes make once per model. Also the
    widened paths: featurize at 16 pooling regions, and ``fv_moments``
-   at 4000 components (past the llh tile).
+   at 4000 components (past the llh tile); and phase 4j's shapes: one
+   480 x 640 image's 10 banded calls at scale_step 1, and ``fv_moments``
+   at (64, 16) over 44,023 and 17,024 descriptors (the ``imagenet`` keys
+   of the kernels line). Phase 3 holds those against their plain
+   versions too.
 
 ``--profile`` adds a second resident fit + apply, a second streamed fit,
 a serving burst and a second VOC test apply under ``torch.profiler`` and
@@ -359,6 +393,44 @@ TIMIT_ERROR_BAND = (0.02, 0.90)
 #: 6, pool 14 / 13, alpha 0.25, the exact solve with lam None) on phase
 #: 4's surrogate; the surrogate's test-error band
 RC_ERROR_BAND = (0.02, 0.90)
+
+#: Phase 4j, ImageNetSiftLcsFV at its published widths
+#: (``keystone_tpu/pipelines/images/imagenet/sift_lcs_fv.py:48-73``) on
+#: ``make_surrogate_imagenet``'s 480 x 640 images over 1000 classes, top 5,
+#: cut from ImageNet's 1.28M / 50k images (PERF.md lists the cut). The
+#: test top-5 error must beat a seeded random score matrix's by
+#: INET_RANDOM_MARGIN; the fitted weights must lie within INET_F64_TOL of
+#: the largest weight of the same solver run in float64 on the same
+#: features, and the top-5 sets agree with that model's on INET_TOP_AGREE
+#: of the test images
+INET_TRAIN, INET_TEST, INET_CLASSES, INET_TOP_K = 1024, 1000, 1000, 5
+INET_H, INET_W = 480, 640
+INET_LAM, INET_MIXTURE = 6e-5, 0.25
+INET_RANDOM_MARGIN, INET_F64_TOL, INET_TOP_AGREE = 0.30, 5e-3, 0.99
+#: the FV kernel's descriptor counts on 4j's path: 44,023 SIFT descriptors
+#: (5 scales, scale_step 1) and 112 x 152 LCS keypoints of a 480 x 640 image
+INET_FV_N = (44023, 17024)
+#: the weighted solve at the rehearsal shape (bench.py:1131, 1217-1230):
+#: randn X (n, d), labels drawn at random over INET_CLASSES. The JAX
+#: package holds "woodbury" against "cholesky" within 2e-3 of the largest
+#: weight (tests/test_weighted_solvers.py:114-133, at lam 0.3). At this
+#: shape, n = d and lam = 6e-5, M = (1-w) pop_cov + lam I has condition
+#: number 4.98e4 (eigenvalues 6e-5 to 2.99), and float32 rounding moves
+#: each path's weights far from its float64 solve (woodbury 3.57e-2,
+#: cholesky 1.28e-2; the two in float32 3.59e-2 apart) while the two
+#: paths in float64 agree to 7.3e-10 (H100 80GB HBM3, 700 W; PERF.md).
+#: So the paths are held to each other in float64 (the algebra), and each
+#: float32 fit's training scores to the float64 solve's: within
+#: REHEARSAL_SCORE_TOL of the largest score (read 4.5e-3 woodbury, 1.4e-3
+#: cholesky) with the same argmax on REHEARSAL_ARGMAX_AGREE of the rows
+REHEARSAL_N, REHEARSAL_D = 4096, 4096
+REHEARSAL_F64_TOL, REHEARSAL_SCORE_TOL, REHEARSAL_ARGMAX_AGREE = (
+    1e-8, 1.5e-2, 0.99)
+
+#: Phase 4k, RandomPatchCifarAugmented at its published defaults on phase
+#: 4's surrogate, the training set cut to its first AUG_TRAIN images (10
+#: patches each; PERF.md gives the memory reason); the test error's band
+AUG_TRAIN, AUG_ERROR_BAND = 4096, (0.02, 0.90)
 
 #: Phase 4i: the greedy auto-cache budget must be 75% of the free device
 #: memory read beside it, within this many bytes (the driver reports free
@@ -2221,6 +2293,7 @@ def _random_cifar_phase(tr_x, tr_y, te_x, te_y, lin_test, dev):
     assert labels["default"].count(featurizer) == 1, labels["default"]
     assert featurizer not in labels["no-op"], labels["no-op"]
     assert np.array_equal(preds["default"], preds["no-op"]), agree
+    return te_err
 
 
 def _auto_cache_phase(kernels, rpc, tr_x, tr_y, te_x, filters, whitener,
@@ -2326,9 +2399,493 @@ def _auto_cache_phase(kernels, rpc, tr_x, tr_y, te_x, filters, whitener,
     return launches
 
 
-def _banded_image_calls(kernels, sift, dev):
-    """The 10 banded_matmul calls of one 375 x 500 SIFT image, as (band,
-    X, right) triples recorded from ``dense_sift`` on a seeded image."""
+def _imagenet_stage_timer(timed):
+    """A _StageTimer on phase 4j's stages: SIFT, LCS, the PCA fits, the
+    GMM fits (k-means++ + EM), the Fisher vectors and the weighted
+    solve."""
+    from keystone_tpu_torch.nodes.images.extractors import (
+        LCSExtractor,
+        SIFTExtractor,
+    )
+    from keystone_tpu_torch.nodes.images.fisher_vector import FisherVector
+    from keystone_tpu_torch.nodes.learning import gmm as gmm_mod
+    from keystone_tpu_torch.nodes.learning.block_weighted import (
+        BlockWeightedLeastSquaresEstimator,
+    )
+    from keystone_tpu_torch.nodes.learning.pca import (
+        DistributedColumnPCAEstimator,
+        LocalColumnPCAEstimator,
+    )
+
+    timer = _StageTimer(timed)
+    timer.wrap(SIFTExtractor, "apply", "SIFT")
+    timer.wrap(LCSExtractor, "apply", "LCS")
+    timer.wrap(DistributedColumnPCAEstimator, "_fit", "PCA fits")
+    timer.wrap(LocalColumnPCAEstimator, "_fit", "PCA fits")
+    timer.wrap(gmm_mod.GaussianMixtureModelEstimator, "fit_matrix",
+               "GMM fits")
+    timer.wrap(FisherVector, "apply", "FV")
+    timer.wrap(BlockWeightedLeastSquaresEstimator, "_solve", "solve")
+    return timer
+
+
+class _Recorder:
+    """Keeps the arguments of calls to a class's method (the card's
+    tensors, by reference) while ``on``; ``close`` removes the wrapper."""
+
+    def __init__(self, owner, attr):
+        self.owner, self.attr = owner, attr
+        self.real = getattr(owner, attr)
+        self.calls, self.on = [], True
+        real = self.real
+
+        def wrapped(obj, *args, **kwargs):
+            if self.on:
+                self.calls.append(args)
+            return real(obj, *args, **kwargs)
+
+        setattr(owner, attr, wrapped)
+
+    def close(self):
+        setattr(self.owner, self.attr, self.real)
+
+
+def _imagenet_fit_apply(inet, config, train, test, dev, timer):
+    """One ImageNetSiftLcsFV fit on ``train`` and top-k apply on ``test``
+    from a clean prefix memo, with ``timer``'s wrappers in place. Returns
+    the fitted predictor, the test top-k (n, k), the fit and apply
+    seconds and the stage calls of the fit."""
+    from keystone_tpu_torch.nodes.util import (
+        ClassLabelIndicatorsFromIntLabels,
+    )
+    from keystone_tpu_torch.parallel.dataset import ArrayDataset
+
+    from keystone_tpu_torch.workflow.env import PipelineEnv
+
+    PipelineEnv.reset()
+    try:
+        _sync()
+        t0 = time.time()
+        labels = ClassLabelIndicatorsFromIntLabels(INET_CLASSES)\
+            .apply_dataset(ArrayDataset.from_numpy(np.asarray(
+                [it.label for it in train.collect()], np.int64), dev))
+        fitted = inet.build_pipeline(config, inet.images_on(train, dev),
+                                     labels, INET_TOP_K).fit()
+        _sync()
+        fit_s = time.time() - t0
+        fit_calls = dict(timer.calls)
+        t0 = time.time()
+        top = torch.stack(fitted(inet.images_on(test, dev)).get().collect())
+        _sync()
+        apply_s = time.time() - t0
+    finally:
+        timer.close()
+    return fitted, top, fit_s, apply_s, fit_calls
+
+
+def _top_k_error(top, labels):
+    return float(1.0 - np.any(top == labels[:, None], axis=1).mean())
+
+
+def _imagenet_phase(kernels, dev):
+    """Phase 4j (see the module docstring). Returns the kernel launch
+    counts of the main pass's fit + apply."""
+    from keystone_tpu_torch.loaders.surrogate import make_surrogate_imagenet
+    from keystone_tpu_torch.nodes.learning.block_weighted import (
+        BlockWeightedLeastSquaresEstimator,
+    )
+    from keystone_tpu_torch.nodes.learning.linear import BlockLinearMapper
+    from keystone_tpu_torch.pipelines.images.imagenet import (
+        sift_lcs_fv as inet,
+    )
+
+    t0 = time.time()
+    train, test = make_surrogate_imagenet(INET_TRAIN, INET_TEST, seed=SEED,
+                                          num_classes=INET_CLASSES, h=INET_H,
+                                          w=INET_W)
+    test_labels = np.array([it.label for it in test.collect()])
+    print(f"[imagenet] surrogate ImageNet: {INET_TRAIN} train / {INET_TEST} "
+          f"test uint8 images at {INET_H}x{INET_W}x3 over {INET_CLASSES} "
+          f"classes made "
+          f"in {time.time() - t0:.1f} s", flush=True)
+    config = inet.ImageNetSiftLcsFVConfig()
+
+    # the main pass: stage calls counted, nothing synchronized inside; the
+    # solver's inputs and the test features kept for the float64 solve
+    # (the recorders wrap first, so the stage timer, closed first, leaves
+    # them in place)
+    solves = _Recorder(BlockWeightedLeastSquaresEstimator, "_solve")
+    applies = _Recorder(BlockLinearMapper, "apply")
+    counter = _imagenet_stage_timer(timed=False)
+    rule = _RuleClock(kernels)
+    _sync()
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        fitted, top, fit_s, apply_s, fit_calls = _imagenet_fit_apply(
+            inet, config, train, test, dev, counter)
+    finally:
+        rule.close()
+        solves.close()
+        applies.close()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    top = top.cpu().numpy()
+    err = _top_k_error(top, test_labels)
+    rand = np.random.RandomState(SEED).randn(INET_TEST, INET_CLASSES)
+    rand_top = np.argsort(-rand, axis=1)[:, :INET_TOP_K]
+    rand_err = _top_k_error(rand_top, test_labels)
+    model = _operator(fitted, "BlockLinearMapper")
+    stats = model._solve_stats
+    sift_apps, lcs_apps, fv_apps = (counter.calls[k]
+                                    for k in ("SIFT", "LCS", "FV"))
+    n_img = INET_TRAIN + INET_TEST
+    print(f"[imagenet] ImageNetSiftLcsFV desc_dim {config.desc_dim}, vocab "
+          f"{config.vocab_size}, SIFT scale_step {config.sift_scale_step}, "
+          f"LCS stride {config.lcs_stride} border {config.lcs_border} patch "
+          f"{config.lcs_patch}, {config.num_pca_samples} PCA / "
+          f"{config.num_gmm_samples} GMM samples, "
+          f"{4 * config.desc_dim * config.vocab_size} features, "
+          f"BlockWeightedLeastSquares({config.block_size}, 1, {config.lam}, "
+          f"{config.mixture_weight}) over {INET_CLASSES} classes, no stage "
+          f"timers: fit {fit_s:.2f} s ({INET_TRAIN / fit_s:.1f} train img/s), "
+          f"apply {apply_s:.2f} s ({INET_TEST / apply_s:.1f} test img/s), "
+          f"{n_img / (fit_s + apply_s):.1f} img/s overall; fit + apply "
+          f"device-memory peak {peak / 2**30:.2f} GiB", flush=True)
+    print(f"[imagenet] node-level rule (seconds inside the fit): "
+          f"{rule.summary()}", flush=True)
+    print(f"[imagenet] solver {stats}; SIFT applications {sift_apps} "
+          f"({fit_calls['SIFT']} in the fit), LCS {lcs_apps} "
+          f"({fit_calls['LCS']}), FV {fv_apps}; launches {launches}",
+          flush=True)
+    print(f"[imagenet] test top-{INET_TOP_K} error {err:.4f} (seeded random "
+          f"scores {rand_err:.4f})", flush=True)
+    assert top.shape == (INET_TEST, INET_TOP_K)
+    assert sift_apps >= n_img and lcs_apps >= n_img, (sift_apps, lcs_apps)
+    assert launches["banded_matmul"] == 10 * sift_apps, (launches, sift_apps)
+    assert launches["fv_moments"] == fv_apps == 2 * n_img, (launches, fv_apps)
+    assert stats["solver"] == "woodbury", stats
+    assert err < rand_err - INET_RANDOM_MARGIN, (err, rand_err)
+
+    # the same solver in float64 on the same features
+    (X, L, n, *_), = solves.calls
+    F_test = torch.stack([args[0] for args in applies.calls])
+    assert F_test.shape[0] == INET_TEST, F_test.shape
+    est = BlockWeightedLeastSquaresEstimator(
+        config.block_size, 1, config.lam, config.mixture_weight)
+    m64 = est._solve(X.double(), L.double(), n)
+    W32, W64 = model.weights.to(torch.float64), m64.weights
+    w_err = float((W32 - W64).abs().max() / W64.abs().max())
+    scores64 = F_test.double() @ W64 + m64.intercept
+    top64 = torch.sort(scores64, dim=1, descending=True,
+                       stable=True).indices[:, :INET_TOP_K].cpu().numpy()
+    agree = float(np.mean([set(a) == set(b) for a, b in zip(top, top64)]))
+    scores32 = F_test @ model.weights + model.intercept
+    s_err = float((scores32.double() - scores64).abs().max()
+                  / scores64.abs().max())
+    print(f"[imagenet] against the same solver in float64 on the fit's "
+          f"features ({tuple(X.shape)}): weights max |delta| / max "
+          f"{w_err:.3e}, test scores {s_err:.3e}, top-{INET_TOP_K} sets "
+          f"agree on {agree:.4f} of test images; float64 solver "
+          f"{m64._solve_stats}", flush=True)
+    del X, L, F_test, m64, W32, W64, scores64, scores32, solves, applies
+    assert agree >= INET_TOP_AGREE, agree
+    assert w_err <= INET_F64_TOL, w_err
+    del fitted, model
+    _release()
+
+    # a second, instrumented pass for the per-stage split
+    timer = _imagenet_stage_timer(timed=True)
+    fitted, _, t_fit_s, t_apply_s, _ = _imagenet_fit_apply(
+        inet, config, train, test, dev, timer)
+    stages = ", ".join(f"{k} {v:.3f} s ({timer.calls[k]} calls)"
+                       for k, v in timer.seconds.items())
+    print(f"[imagenet] instrumented pass (the card synchronized around every "
+          f"stage call): fit {t_fit_s:.2f} s, apply {t_apply_s:.2f} s; "
+          f"seconds per stage: {stages}", flush=True)
+    del fitted
+    _release()
+    return launches
+
+
+def _weighted_rehearsal(dev):
+    """The weighted solve at the rehearsal shape (see the module
+    docstring): "woodbury" and "cholesky" on the same data, each in
+    float32 and in float64."""
+    from keystone_tpu_torch.nodes.learning.block_weighted import (
+        BlockWeightedLeastSquaresEstimator,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    X = torch.randn((REHEARSAL_N, REHEARSAL_D), generator=gen, device=dev)
+    y = torch.as_tensor(np.random.RandomState(SEED).randint(
+        0, INET_CLASSES, REHEARSAL_N), device=dev)
+    L = torch.where(torch.arange(INET_CLASSES, device=dev) == y[:, None],
+                    1.0, -1.0)
+    fits, seconds, peaks = {}, {}, {}
+    for dtype in (torch.float32, torch.float64):
+        for solver in ("woodbury", "cholesky"):
+            _release()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            est = BlockWeightedLeastSquaresEstimator(
+                REHEARSAL_D, 1, INET_LAM, INET_MIXTURE, solver=solver)
+            key = (solver, str(dtype).split(".")[1])
+            _sync()
+            t0 = time.time()
+            fits[key] = est.fit_arrays(X.to(dtype), L.to(dtype))
+            _sync()
+            seconds[key] = time.time() - t0
+            peaks[key] = torch.cuda.max_memory_allocated() - base
+
+    def w(key):
+        return fits[key].weights.double()
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    ref = ("cholesky", "float64")
+    Xd = X.double()
+    ref_scores = Xd @ w(ref) + fits[ref].intercept.double()
+    counts = np.bincount(y.cpu().numpy(), minlength=INET_CLASSES)
+    print(f"[rehearsal] BlockWeightedLeastSquares({REHEARSAL_D}, 1, "
+          f"{INET_LAM}, {INET_MIXTURE}) on seeded randn X ({REHEARSAL_N}, "
+          f"{REHEARSAL_D}), {INET_CLASSES} classes drawn at random (largest "
+          f"class {counts.max()}, {int((counts == 0).sum())} empty): "
+          + "; ".join(f"{s} {d} {seconds[(s, d)]:.2f} s, peak above the "
+                      f"inputs {peaks[(s, d)] / 2**30:.2f} GiB, class chunk "
+                      f"{fits[(s, d)]._solve_stats['class_chunk']} "
+                      f"({fits[(s, d)]._solve_stats['chunks']} chunks)"
+                      for s, d in fits), flush=True)
+    out = {"f32": rel(w(("woodbury", "float32")), w(("cholesky", "float32"))),
+           "f64": rel(w(("woodbury", "float64")), w(ref))}
+    agree = {}
+    for s in ("woodbury", "cholesky"):
+        out[s] = rel(w((s, "float32")), w((s, "float64")))
+        scores = Xd @ w((s, "float32")) + fits[(s, "float32")].intercept
+        out[s + " scores"] = rel(scores, ref_scores)
+        agree[s] = float((scores.argmax(1) == ref_scores.argmax(1))
+                         .double().mean())
+    print(f"[rehearsal] woodbury against cholesky, max |delta| / max: float32 "
+          f"{out['f32']:.3e}, float64 {out['f64']:.3e}; each float32 path "
+          f"against its float64 solve: woodbury {out['woodbury']:.3e}, "
+          f"cholesky {out['cholesky']:.3e}; float32 training scores against "
+          f"the float64 solve's: woodbury {out['woodbury scores']:.3e} "
+          f"(argmax agreement {agree['woodbury']:.4f}), cholesky "
+          f"{out['cholesky scores']:.3e} ({agree['cholesky']:.4f})",
+          flush=True)
+    assert all(bool(torch.isfinite(m.weights).all()) for m in fits.values())
+    assert out["f64"] <= REHEARSAL_F64_TOL, out
+    for s in ("woodbury", "cholesky"):
+        assert out[s + " scores"] <= REHEARSAL_SCORE_TOL, out
+        assert agree[s] >= REHEARSAL_ARGMAX_AGREE, agree
+    del X, L, fits, Xd, ref_scores
+    _release()
+
+
+def _augmented_phase(tr_x, tr_y, te_x, te_y, rc_err, dev):
+    """Phase 4k (see the module docstring)."""
+    from keystone_tpu_torch.evaluation.augmented import evaluate_augmented
+    from keystone_tpu_torch.loaders.csv_loader import LabeledData
+    from keystone_tpu_torch.parallel.dataset import ArrayDataset
+    from keystone_tpu_torch.pipelines.images.cifar import (
+        random_patch_cifar_augmented as aug,
+    )
+
+    config = aug.AugmentedConfig(seed=SEED)
+    train = LabeledData(
+        ArrayDataset.from_numpy(tr_x[:AUG_TRAIN], dev),
+        ArrayDataset.from_numpy(tr_y[:AUG_TRAIN].astype(np.int32), dev))
+    test = ArrayDataset.from_numpy(te_x, dev)
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    _sync()
+    t0 = time.time()
+    filters, whitener = aug.learn_filters(train.data, config)
+    images, labels = aug.augment_train(config, train)
+    fitted = aug.build_pipeline(config, filters, whitener, images,
+                                labels).fit()
+    _sync()
+    fit_s = time.time() - t0
+    fit_peak = torch.cuda.max_memory_allocated()
+    t0 = time.time()
+    patches, ids = aug.augment_test(test)
+    scores = fitted(patches).get()
+    _sync()
+    apply_s = time.time() - t0
+    n_aug = patches.n // test.n
+    ev = evaluate_augmented(ids, scores, np.repeat(te_y, n_aug),
+                            aug.NUM_CLASSES)
+    err = ev.total_error
+    print(f"[augmented] RandomPatchCifarAugmented {config.num_filters} "
+          f"filters, patch {config.patch_size}, pool {config.pool_size} / "
+          f"{config.pool_stride}, alpha {config.alpha}, lam {config.lam}, "
+          f"{config.num_random_patches_augment} random 24x24 patches an "
+          f"image and flips at 0.5 on {AUG_TRAIN} training images "
+          f"({images.n} patches), {n_aug} test patches an image on "
+          f"{test.n}: fit {fit_s:.2f} s ({images.n / fit_s:.0f} patches/s), "
+          f"fit peak {fit_peak / 2**30:.2f} GiB, apply {apply_s:.2f} s "
+          f"({patches.n / apply_s:.0f} patches/s); test error {err:.4f} "
+          f"(RandomCifar, phase 4h: {rc_err:.4f})", flush=True)
+    lo, hi = AUG_ERROR_BAND
+    assert scores.n == patches.n and bool(torch.isfinite(scores.data).all())
+    assert lo < err < hi, err
+    del fitted, images, labels, patches, scores, train, test
+    _release()
+
+
+def _check_imagenet_kernels(kernels, sift, dev):
+    """Phase 3 at ImageNetSiftLcsFV's shapes: every two-sided contraction
+    of one 480 x 640 image at scale_step 1 and fv_moments at (64, 16) at
+    both branches' descriptor counts, each against its plain version
+    and twice for the same bits. Returns the largest absolute errors
+    (banded, FV)."""
+    from keystone_tpu_torch.nodes.learning.gmm import _posteriors
+
+    banded = 0.0
+    for i, (band, X, right) in enumerate(_banded_image_calls(
+            kernels, sift, dev, (INET_H, INET_W), scale_step=1)):
+        got = kernels.banded_matmul(band, X, right=right)
+        again = kernels.banded_matmul(band, X, right=right)
+        want = kernels.banded_matmul_plain(band, X, right=right)
+        _sync()
+        assert torch.equal(got, again) and bool(torch.isfinite(got).all())
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        print(f"[check] banded_matmul 480x640 scale_step 1 call {i} "
+              f"{band.shape} x {tuple(X.shape)} x {right.shape}: max abs "
+              f"err {err:.3e} (rel {err / scale:.3e})", flush=True)
+        assert err <= BANDED_TOL * scale, (i, err, scale)
+        banded = max(banded, err)
+    fv = 0.0
+    for n in INET_FV_N:
+        X, means, variances, weights = _fv_inputs(
+            np.random.RandomState(n), 64, 16, n, dev)
+        q64 = _posteriors(X.T.double(), means.T.double(),
+                          variances.T.double(), weights.double(), 0.0)
+        clear = ((q64.log() - np.log(1e-4)).abs() > FV_CLEAR).all(dim=1)
+        del q64
+        Xc = X[:, clear].contiguous()
+        terms = kernels.fv_terms(means, variances, weights)
+        got = kernels.fv_moments(Xc, means, variances, weights, 1e-4,
+                                 terms=terms)
+        again = kernels.fv_moments(Xc, means, variances, weights, 1e-4,
+                                   terms=terms)
+        want = kernels.fv_moments_plain(Xc, means, variances, weights, 1e-4)
+        _sync()
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        errs = []
+        for name, g, w in zip(("s0", "s1", "s2"), got, want):
+            assert bool(torch.isfinite(g).all())
+            err = float((g - w).abs().max())
+            scale = float(w.abs().max())
+            errs.append(f"{name} {err:.3e} (rel {err / scale:.3e})")
+            assert err <= FV_TOL * scale, (n, name, err, scale)
+            fv = max(fv, err)
+        print(f"[check] fv_moments D=64 K=16 n={n} ({Xc.shape[1]} "
+              f"descriptors clear of the threshold): max abs err "
+              f"{', '.join(errs)}", flush=True)
+    return banded, fv
+
+
+def _time_imagenet_kernels(kernels, sift, dev):
+    """Phase 5 at ImageNetSiftLcsFV's shapes: one 480 x 640 image's 10
+    banded calls (scale_step 1) and fv_moments at (64, 16, n) for both
+    branches' n, each one call at a time and from a CUDA graph, beside
+    the plain version, two dense / addmm products and the bound. Returns
+    a dict for the kernels line."""
+    from keystone_tpu_torch.nodes.learning.gmm import _posteriors
+    from keystone_tpu_torch.tools import device_ms as _device_ms
+
+    out = {}
+    calls = _banded_image_calls(kernels, sift, dev, (INET_H, INET_W),
+                                scale_step=1)
+    dense = [(torch.as_tensor(band, device=dev),
+              torch.as_tensor(right, device=dev).T)
+             for band, _, right in calls]
+
+    def each(fn):
+        return lambda: [fn(i, band, X, right)
+                        for i, (band, X, right) in enumerate(calls)]
+
+    fns = {
+        "kernel": each(lambda i, band, X, right: kernels.banded_matmul(
+            band, X, right=right)),
+        "plain": each(lambda i, band, X, right: kernels.banded_matmul_plain(
+            band, X, right=right)),
+        "library": each(lambda i, band, X, right: torch.matmul(
+            torch.matmul(dense[i][0], X), dense[i][1])),
+    }
+    call = {name: _time_ms(fn, reps=20) for name, fn in fns.items()}
+    devt = {name: _device_ms(fn) for name, fn in fns.items()}
+    ops, nbytes = _banded_work(calls)
+    bound_ms, bound_by = _bound(ops, nbytes)
+    out["banded_matmul"] = {
+        "shape": "one 480x640 image's 10 two-sided calls, scale_step 1",
+        "ms": call["kernel"], "device_ms": devt["kernel"],
+        "plain_ms": call["plain"], "plain_device_ms": devt["plain"],
+        "library_ms": call["library"],
+        "library_device_ms": devt["library"],
+        "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"[time] banded_matmul, one 480x640 image's {len(calls)} two-sided "
+          f"calls at scale_step 1: one call at a time kernel "
+          f"{call['kernel']:.4f} ms, plain {call['plain']:.4f} ms, "
+          f"torch.matmul dense x2 {call['library']:.4f} ms; device time "
+          f"alone (CUDA graph): kernel {devt['kernel']:.4f} ms, plain "
+          f"{devt['plain']:.4f} ms, torch.matmul {devt['library']:.4f} ms; "
+          f"bound {bound_ms:.4f} ms by {bound_by} ({ops / 1e9:.3f} GFLOP of "
+          f"band work, {nbytes / 1e6:.1f} MB)", flush=True)
+    del calls, dense, fns
+
+    D, K = 64, 16
+    for n in INET_FV_N:
+        X, means, variances, weights = _fv_inputs(
+            np.random.RandomState(n), D, K, n, dev)
+        terms = kernels.fv_terms(means, variances, weights)
+        XX = torch.cat([X * X, X]).T.contiguous()
+        AB = torch.cat([0.5 / variances, -means / variances]).contiguous()
+        Xm = torch.cat([X, X * X]).contiguous()
+        post = _posteriors(X.T, means.T, variances.T, weights,
+                           1e-4).contiguous()
+        c0 = torch.zeros(K, device=dev)
+        s0 = torch.zeros(2 * D, K, device=dev)
+        fns = {
+            "kernel": lambda: kernels.fv_moments(X, means, variances,
+                                                 weights, 1e-4, terms=terms),
+            "plain": lambda: kernels.fv_moments_plain(X, means, variances,
+                                                      weights, 1e-4),
+            "library": lambda: (torch.addmm(c0, XX, AB),
+                                torch.addmm(s0, Xm, post)),
+        }
+        call = {name: _time_ms(fn, reps=20) for name, fn in fns.items()}
+        devt = {name: _device_ms(fn) for name, fn in fns.items()}
+        ops = 3 * 8 * n * D * K
+        nbytes = 4 * (D * n + 3 * D * K + K + K + 2 * D * K)
+        bound_ms, bound_by = _bound(ops, nbytes, PEAK_TF32_FLOPS)
+        out[f"fv_moments n={n}"] = {
+            "shape": f"(D, K, n) = ({D}, {K}, {n})",
+            "ms": call["kernel"], "device_ms": devt["kernel"],
+            "plain_ms": call["plain"], "plain_device_ms": devt["plain"],
+            "library_ms": call["library"],
+            "library_device_ms": devt["library"],
+            "bound_ms": bound_ms, "bound_by": bound_by}
+        print(f"[time] fv_moments D={D} K={K} n={n}: one call at a time "
+              f"kernel {call['kernel']:.4f} ms, plain {call['plain']:.4f} "
+              f"ms, torch.addmm x2 (both GEMMs) {call['library']:.4f} ms; "
+              f"device time alone (CUDA graph): kernel "
+              f"{devt['kernel']:.4f} ms, plain {devt['plain']:.4f} ms, "
+              f"torch.addmm x2 {devt['library']:.4f} ms; bound "
+              f"{bound_ms:.4f} ms by {bound_by} (3xTF32: {ops / 1e9:.3f} "
+              f"GFLOP at the TF32 peak, {nbytes / 1e6:.2f} MB)", flush=True)
+        del X, means, variances, weights, terms, XX, AB, Xm, post, fns
+    return out
+
+
+def _banded_image_calls(kernels, sift, dev, shape=(375, 500),
+                        scale_step=0):
+    """The 10 banded_matmul calls of one SIFT image (375 x 500 at
+    VOCSIFTFisher's scale_step 0 by default), as (band, X, right) triples
+    recorded from ``dense_sift`` on a seeded image."""
     calls = []
     real = sift.banded_matmul
 
@@ -2339,9 +2896,9 @@ def _banded_image_calls(kernels, sift, dev):
 
     sift.banded_matmul = record
     try:
-        img = torch.as_tensor(np.random.RandomState(SEED).rand(375, 500)
+        img = torch.as_tensor(np.random.RandomState(SEED).rand(*shape)
                               .astype(np.float32), device=dev)
-        sift.dense_sift(img)
+        sift.dense_sift(img, 4, 6, 5, scale_step)
     finally:
         sift.banded_matmul = real
     _sync()
@@ -2521,6 +3078,10 @@ def _main(workdir: str) -> int:
     quant_worst = _check_quant(kernels, rng, dev)
     banded_worst = _check_banded(kernels, sift, rng, dev)
     fv_worst = _check_fv(kernels, rng, dev)
+    inet_banded_worst, inet_fv_worst = _check_imagenet_kernels(kernels, sift,
+                                                               dev)
+    banded_worst = max(banded_worst, inet_banded_worst)
+    fv_worst = max(fv_worst, inet_fv_worst)
 
     # -- 4. main path ---------------------------------------------------------
     (tr_x, tr_y), (te_x, te_y) = make_surrogate_cifar(N_TRAIN, N_TEST,
@@ -2739,13 +3300,26 @@ def _main(workdir: str) -> int:
 
     # -- 4h. RandomCifar --------------------------------------------------------
     kernels.reset_launches()
-    _random_cifar_phase(tr_x, tr_y, te_x, te_y, lin_test, dev)
+    rc_err = _random_cifar_phase(tr_x, tr_y, te_x, te_y, lin_test, dev)
     print(f"[random-cifar] kernel launches {dict(kernels.LAUNCHES)} (the "
           "path runs none of the five)", flush=True)
 
     # -- 4i. auto-caching ---------------------------------------------------------
     cache_launches = _auto_cache_phase(kernels, rpc, tr_x, tr_y, te_x,
                                        filters, whitener, config, dev)
+
+    # -- 4j. ImageNetSiftLcsFV, and the weighted solve at the rehearsal shape
+    inet_launches = _imagenet_phase(kernels, dev)
+    kernels.reset_launches()
+    _weighted_rehearsal(dev)
+    print(f"[rehearsal] kernel launches {dict(kernels.LAUNCHES)} (the solve "
+          "runs none of the five)", flush=True)
+
+    # -- 4k. RandomPatchCifarAugmented ----------------------------------------
+    kernels.reset_launches()
+    _augmented_phase(tr_x, tr_y, te_x, te_y, rc_err, dev)
+    print(f"[augmented] kernel launches {dict(kernels.LAUNCHES)} (the path "
+          "runs none of the five)", flush=True)
 
     # -- 5. timing ------------------------------------------------------------
     B = K = 1024
@@ -2997,6 +3571,7 @@ def _main(workdir: str) -> int:
           f"{Xc.shape[1]} of {n} descriptors clear of the threshold, "
           f"relative to the largest sum: {', '.join(w_errs)}", flush=True)
     del X, means, variances, weights, terms, w_fns, Xc, got, want
+    inet_times = _time_imagenet_kernels(kernels, sift, dev)
 
     # -- 6. report ------------------------------------------------------------
     print(smi)
@@ -3071,7 +3646,9 @@ def _main(workdir: str) -> int:
         "library_ms": b_library_ms,
         "device_ms": b_dev["kernel"],
         "library_device_ms": b_dev["library"],
-        "launches_by_path": {"4d": voc_launches["banded_matmul"]},
+        "launches_by_path": {"4d": voc_launches["banded_matmul"],
+                             "4j": inet_launches["banded_matmul"]},
+        "imagenet": inet_times["banded_matmul"],
     }, {
         "name": "fv_moments",
         "route": "cuda",
@@ -3086,7 +3663,9 @@ def _main(workdir: str) -> int:
         "library_ms": f_library_ms,
         "device_ms": f_dev["kernel"],
         "library_device_ms": f_dev["library"],
-        "launches_by_path": {"4d": voc_launches["fv_moments"]},
+        "launches_by_path": {"4d": voc_launches["fv_moments"],
+                             "4j": inet_launches["fv_moments"]},
+        "imagenet": [inet_times[f"fv_moments n={n}"] for n in INET_FV_N],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,6 +35,13 @@ column PCA (``pca_mat`` (d, dims)) and GMM codebook (``means`` and
 ``variances`` (D, K), ``weights`` (K,), ``weight_threshold``) across as
 numpy arrays into the port's ``BatchPCATransformer`` and
 ``FisherVector``.
+
+``imagenet_pipeline`` carries a fitted ImageNetSiftLcsFV across: each
+branch's ``pca_mat`` and GMM (an object with ``means``, ``variances``,
+``weights`` and optionally ``weight_threshold``, such as the JAX
+``GaussianMixtureModel``), and the fitted weighted solver's model, a JAX
+``BlockLinearMapper`` (block weights and intercept, through
+``solver_model``).
 """
 from __future__ import annotations
 
@@ -45,21 +52,37 @@ import torch
 
 from .nodes.images.core import (
     Convolver,
+    GrayScaler,
+    PixelScaler,
     FusedConvRectifyPool,
     ImageVectorizer,
     Pooler,
     SymmetricRectifier,
 )
+from .nodes.images.extractors import LCSExtractor, SIFTExtractor
 from .nodes.images.fisher_vector import FisherVector
 from .nodes.learning.gmm import GaussianMixtureModel
 from .nodes.learning.classifiers import SparseLinearMapper
 from .nodes.learning.linear import BlockLinearMapper, LinearMapper
 from .nodes.learning.pca import BatchPCATransformer
 from .nodes.learning.zca import ZCAWhitener
-from .nodes.stats import CosineRandomFeatures, StandardScalerModel
-from .nodes.util import MaxClassifier, VectorCombiner
+from .nodes.stats import (
+    BatchSignedHellingerMapper,
+    CosineRandomFeatures,
+    NormalizeRows,
+    SignedHellingerMapper,
+    StandardScalerModel,
+)
+from .nodes.util import (
+    FloatToDouble,
+    MatrixVectorizer,
+    MaxClassifier,
+    TopKClassifier,
+    VectorCombiner,
+)
 from .ops.device import DEFAULT_DEVICE, resolve_device
 from .pipelines.images.cifar import random_cifar
+from .pipelines.images.imagenet.sift_lcs_fv import ImageNetSiftLcsFVConfig
 from .pipelines.images.cifar.random_patch_cifar import (
     IMAGE_SIZE,
     NUM_CHANNELS,
@@ -264,3 +287,31 @@ def random_cifar_pipeline(filters: np.ndarray, scaler_mean: np.ndarray,
         >> MaxClassifier()
     )
     return _as_fitted(chain)
+
+
+def imagenet_pipeline(sift_branch, lcs_branch, model,
+                      config: Optional[ImageNetSiftLcsFVConfig] = None,
+                      top_k: int = 5, sift_kwargs: Optional[dict] = None,
+                      device=DEFAULT_DEVICE) -> FittedPipeline:
+    """The fitted ImageNetSiftLcsFV predictor (the SIFT and LCS branches,
+    each PCA -> Fisher vector -> normalizations, gathered and combined ->
+    the weighted solver's linear model -> top-k) from each branch's
+    ``(pca_mat, gmm)`` and the fitted JAX model, its params on
+    ``device``."""
+    config = config or ImageNetSiftLcsFVConfig()
+
+    def suffix(pca_mat, gmm):
+        return (pca_transformer(pca_mat)
+                >> fisher_vector(gmm.means, gmm.variances, gmm.weights,
+                                 getattr(gmm, "weight_threshold", 1e-4))
+                >> FloatToDouble() >> MatrixVectorizer() >> NormalizeRows()
+                >> SignedHellingerMapper() >> NormalizeRows())
+
+    sift = (PixelScaler() >> GrayScaler()
+            >> SIFTExtractor(scale_step=config.sift_scale_step,
+                             **(sift_kwargs or {}))
+            >> BatchSignedHellingerMapper() >> suffix(*sift_branch))
+    lcs = LCSExtractor(config.lcs_stride, config.lcs_border,
+                       config.lcs_patch) >> suffix(*lcs_branch)
+    return _as_fitted(Pipeline.gather([sift, lcs]) >> VectorCombiner()
+                      >> solver_model(model, device) >> TopKClassifier(top_k))

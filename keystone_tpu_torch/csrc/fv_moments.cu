@@ -69,12 +69,24 @@
 //    chunks of rows of [B; A] for the llh, then each row split's own 160
 //    rows are staged again for the moment product. With both, every
 //    (D, K) has a launch plan; only device memory bounds it.
-//  * Blocks run in no order on Hopper, so each block (one an SM) takes a
-//    strided set of T = 16-column tiles and keeps its own partial sums; a
-//    last launch adds the blocks' partials in a fixed order (4 threads
-//    an entry, each a quarter of the blocks in block order) and
-//    un-centers. No atomics: the same inputs give the same bits on every
-//    run.
+//  * Where the component tiles need fewer than the 8 warps (K <= 224,
+//    one chunk, x' resident: ImageNet's K = 16 needs one), a third
+//    instantiation (SMALLK) gives the idle warps work: G groups of warps
+//    share the component tiles; group p takes the llh product's 8-row
+//    steps of [B; -A] and the moment product's 16-row tiles of [x';
+//    -x'^2] whose index is p mod G, and the groups' partial llh tiles
+//    are added in group order in shared memory (at (64, 16) the device
+//    time halves, keystone_tpu_torch/tools/time_fv.py); the other
+//    instantiations compile none of it.
+//  * Blocks run in no order on Hopper, so each block takes a strided set
+//    of T = 16-column tiles and keeps its own partial sums; a last launch
+//    adds the blocks' partials in a fixed order (4 threads an entry, each
+//    a quarter of the blocks in block order) and un-centers. No atomics:
+//    the same inputs give the same bits on every run. There are as many
+//    blocks as the SMs hold at once, as the runtime's occupancy reports
+//    it (one an SM at 160 accumulators a thread): more would only add
+//    partials to reduce. The 227 KB shared-memory opt-in comes before
+//    any plan, so a plan reads the occupancy its launch gets.
 //  * The next X tile is copied into shared memory with cp.async while the
 //    current tile's two products and softmax run.
 //  * Per tile: x' = x - g and -x'^2, each split into big and small once
@@ -184,26 +196,41 @@ __host__ __device__ inline int comp_stride(int ntiles) {
   return ks + ((8 - ks % 32) + 32) % 32;
 }
 
+// Groups of warps for a GMM whose kct 8-component tiles need fewer than
+// NWARPS warps (NTW tiles a warp, one chunk of every component): G groups
+// of ceil(kct / NTW) warps share the component tiles, and split the llh
+// product's rows of [B; -A] and the moment product's 16-row tiles. 1 where
+// the tiles take every warp.
+__host__ __device__ inline int warp_groups(int kct) {
+  const int wk = (kct + NTW - 1) / NTW;
+  return wk >= NWARPS ? 1 : NWARPS / (wk > 0 ? wk : 1);
+}
+
 // shared memory of one block, in floats: R rows of [B; -A] over a chunk of
 // components (R x KS), XR rows of [x'; -x'^2] split into TF32 big and small
 // (2 x XR x TS), the raw X tile and g where x' is resident (D x T, Dp),
-// the llh / q tile (T x KS), c of the chunk (KS), and the per-row softmax
-// state of the component passes (3 x T)
+// the llh / q tile (T x KS), c of the chunk (KS), the per-row softmax
+// state of the component passes (3 x T), and where lg > 1 groups split
+// the llh product, their partial llh tiles (lg x T x KS)
 __host__ __device__ inline long long smem_floats(int D, int Dp, int KS, int R,
-                                                 int XR, bool xres) {
+                                                 int XR, bool xres, int lg) {
   return (long long)R * KS + 2LL * XR * TS +
          (xres ? (long long)D * T + Dp : 0LL) + (long long)T * KS + KS +
-         3 * T;
+         3 * T + (lg > 1 ? (long long)lg * T * KS : 0LL);
 }
 
 // WIDE: the instantiation for GMMs past the resident tiles (components in
 // chunks, or x' rows staged from X); the other compiles only the one-chunk,
 // resident-x' form, so its registers are those of that form alone.
+// SMALLK (not WIDE): the instantiation for a GMM whose component tiles
+// need fewer than NWARPS warps (K <= 224): warp_groups(K) groups of warps
+// share them, splitting both products' rows; the other instantiations
+// compile none of that code.
 // mode (WIDE only; 0 otherwise): 0 one pass where the llh tile holds
 // every component; with chunks of components, 1 the column statistics
 // (running max, sum of exponentials, kept sum) into stats [3][ns], 2 the
 // moments of the split's own components from those statistics.
-template <bool WIDE>
+template <bool WIDE, bool SMALLK>
 __global__ void __launch_bounds__(NTHREADS, 1)
 fv_moments_kernel(const float* __restrict__ X, long long ldx,
                   const float* __restrict__ g, const float* __restrict__ A,
@@ -233,6 +260,7 @@ fv_moments_kernel(const float* __restrict__ X, long long ldx,
   float* rowm = gs + (xres ? Dp : 0);  // running max, sum, kept sum [T]
   float* rowz = rowm + T;
   float* rowk = rowz + T;
+  float* lred = rowk + T;  // [G][T][KS] partial llh tiles (SMALLK)
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -240,7 +268,21 @@ fv_moments_kernel(const float* __restrict__ X, long long ldx,
   const int rsplit = blockIdx.y, csplit = blockIdx.z;
   const int mt0 = rsplit * MTW;
   const int mtn = min(MTW, MT - mt0);
-  const int nbase = csplit * SPLIT_N + warp * NTW;
+  // SMALLK: G groups of wk warps share the component tiles (one split);
+  // group gp takes the 8-row steps of [B; -A] and the 16-row tiles of
+  // [x'; -x'^2] with index = gp mod G, the partial llh tiles added in
+  // group order. Otherwise G = 1 and each warp owns NTW component tiles.
+  const int G = SMALLK ? warp_groups(kct) : 1;
+  const int wk = SMALLK ? (kct + NTW - 1) / NTW : NWARPS;
+  const bool gwork = !SMALLK || warp < wk * G;
+  const int gp = SMALLK && gwork ? warp / wk : 0;
+  const int nbase =
+      csplit * SPLIT_N + (gwork ? (SMALLK ? warp % wk : warp) * NTW : SPLIT_N);
+  unsigned rows_mine = ~0u;  // the moment product's 16-row tiles it takes
+  if (SMALLK) {
+    rows_mine = 0u;
+    for (int i = gp; i < MTW; i += G) rows_mine |= 1u << i;
+  }
   // the first component tile the q tile holds for the moment product:
   // with several chunks, the last pass computes this split's own
   const int qbase = single ? 0 : csplit * SPLIT_N;
@@ -361,9 +403,10 @@ fv_moments_kernel(const float* __restrict__ X, long long ldx,
             __syncthreads();
           }
           const int xoff = xres ? 0 : r0;
-          for (int nt0 = warp * NTW; nt0 < ntc; nt0 += NWARPS * NTW) {
+          for (int nt0 = gwork ? nbase - csplit * SPLIT_N : ntc; nt0 < ntc;
+               nt0 += wk * NTW) {
             float l[NTW][4] = {};
-            for (int k0 = r0; k0 < r1; k0 += 8) {
+            for (int k0 = r0 + 8 * gp; k0 < r1; k0 += 8 * G) {
               const int x0 = (k0 - xoff + tq) * TS + gq, x1 = x0 + 4 * TS;
               const uint32_t ab[4] = {xb[x0], xb[x0 + 8], xb[x1], xb[x1 + 8]};
               const uint32_t as[4] = {xm[x0], xm[x0 + 8], xm[x1], xm[x1 + 8]};
@@ -379,18 +422,53 @@ fv_moments_kernel(const float* __restrict__ X, long long ldx,
               }
             }
             // the first chunk of rows starts from c, a later one adds to
-            // the tile this thread wrote for the chunk before
+            // the tile this thread wrote for the chunk before; a SMALLK
+            // group leaves its partial tile in its own slot
 #pragma unroll
             for (int j = 0; j < NTW; ++j) {
               if (nt0 + j >= ntc) break;
               const int k = (nt0 + j) * 8 + 2 * tq;
-              float* q0 = qs + gq * KS + k;
+              float* q0 = (SMALLK ? lred + gp * T * KS : qs) + gq * KS + k;
               float* q1 = q0 + 8 * KS;
+              if (SMALLK) {
+                q0[0] = l[j][0];
+                q0[1] = l[j][1];
+                q1[0] = l[j][2];
+                q1[1] = l[j][3];
+                continue;
+              }
               const bool first = r0 == 0;
               q0[0] = (first ? cs[k] : q0[0]) + l[j][0];
               q0[1] = (first ? cs[k + 1] : q0[1]) + l[j][1];
               q1[0] = (first ? cs[k] : q1[0]) + l[j][2];
               q1[1] = (first ? cs[k + 1] : q1[1]) + l[j][3];
+            }
+          }
+          if (SMALLK) {
+            __syncthreads();  // every group's partial tile is written
+            // group 0 adds the groups' tiles in group order
+            for (int nt0 = gwork && gp == 0 ? nbase : ntc; nt0 < ntc;
+                 nt0 += wk * NTW) {
+#pragma unroll
+              for (int j = 0; j < NTW; ++j) {
+                if (nt0 + j >= ntc) break;
+                const int k = (nt0 + j) * 8 + 2 * tq;
+                float* q0 = qs + gq * KS + k;
+                float* q1 = q0 + 8 * KS;
+                float a0 = 0.0f, a1 = 0.0f, b0 = 0.0f, b1 = 0.0f;
+                for (int p = 0; p < G; ++p) {
+                  const float* l0 = lred + p * T * KS + gq * KS + k;
+                  a0 += l0[0];
+                  a1 += l0[1];
+                  b0 += l0[8 * KS];
+                  b1 += l0[8 * KS + 1];
+                }
+                const bool first = r0 == 0;
+                q0[0] = (first ? cs[k] : q0[0]) + a0;
+                q0[1] = (first ? cs[k + 1] : q0[1]) + a1;
+                q1[0] = (first ? cs[k] : q1[0]) + b0;
+                q1[1] = (first ? cs[k + 1] : q1[1]) + b1;
+              }
             }
           }
         }
@@ -564,6 +642,7 @@ fv_moments_kernel(const float* __restrict__ X, long long ldx,
 #pragma unroll
       for (int i = 0; i < MTW; ++i) {
         if (i >= mtn) break;
+        if (!((rows_mine >> i) & 1u)) continue;
         const int r0 = ((mt0 + i) * 16 + gq - xoff) * TS + t0 + tq;
         const int r1 = r0 + 8 * TS;
         const uint32_t ab[4] = {xb[r0], xb[r1], xb[r0 + 4], xb[r1 + 4]};
@@ -589,11 +668,12 @@ fv_moments_kernel(const float* __restrict__ X, long long ldx,
     v += __shfl_xor_sync(0xffffffffu, v, 1);
     v += __shfl_xor_sync(0xffffffffu, v, 2);
     const int k = (nbase + j) * 8 + gq;
-    if (rsplit == 0 && tq == 0 && k < K) dst[k] = v;
+    if (rsplit == 0 && gp == 0 && tq == 0 && k < K) dst[k] = v;
   }
 #pragma unroll
   for (int i = 0; i < MTW; ++i) {
     if (i >= mtn) break;
+    if (!((rows_mine >> i) & 1u)) continue;
 #pragma unroll
     for (int j = 0; j < NTW; ++j) {
 #pragma unroll
@@ -669,6 +749,35 @@ struct Plan {
   long long smem;
 };
 
+// The kernel instantiation a launch takes: WIDE past the resident tiles,
+// else SMALLK where the component tiles need fewer than NWARPS warps.
+using FvKernel = void (*)(const float*, long long, const float*, const float*,
+                          const float*, const float*, float*, float*,
+                          long long, int, int, int, int, int, int, float, int);
+FvKernel fv_kernel(bool wide, int K) {
+  if (wide) return fv_moments_kernel<true, false>;
+  return warp_groups((K + 7) / 8) > 1 ? fv_moments_kernel<false, true>
+                                      : fv_moments_kernel<false, false>;
+}
+
+// The opt-in to 227 KB of dynamic shared memory, once per device, before
+// any plan, so the occupancy a plan reads is the one its launch gets (the
+// opt-in does not lower occupancy: a launch is placed by the bytes it
+// asks for).
+cudaError_t opt_in(int dev) {
+  static int opted_in_device = -1;
+  if (opted_in_device == dev) return cudaSuccess;
+  for (FvKernel k : {fv_moments_kernel<false, false>,
+                     fv_moments_kernel<false, true>,
+                     fv_moments_kernel<true, false>}) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_LIMIT);
+    if (err != cudaSuccess) return err;
+  }
+  opted_in_device = dev;
+  return cudaSuccess;
+}
+
 // The launch plan for (D, n, K) on the current device, the first that fits
 // one block's shared memory of: every component in the llh tile, then
 // chunks of SPLIT_N * 8 components; for each, every row of [x'; -x'^2]
@@ -682,7 +791,7 @@ bool make_plan(int D, int n, int K, Plan* p) {
   int dev = 0, sms = 0;
   if (D <= 0 || n <= 0 || K <= 0 || cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
+          cudaSuccess || opt_in(dev) != cudaSuccess)
     return false;
   const int Dp = (D + 7) / 8 * 8;
   const int ntiles = (K + 7) / 8;
@@ -695,9 +804,12 @@ bool make_plan(int D, int n, int K, Plan* p) {
     if (KC <= 0) break;
     const int KS = comp_stride((KC + 7) / 8);
     for (bool xres : {true, false}) {
+      // one chunk of every component with x' resident takes the
+      // non-WIDE instantiations: SMALLK where the groups are several
+      const int lg = KC == K && xres ? warp_groups((KC + 7) / 8) : 1;
       const int xmin = xres ? 2 * Dp : std::min(2 * Dp, MTW * 16);
       const long long room =
-          SMEM_LIMIT / 4 - smem_floats(D, Dp, KS, 0, xmin, xres);
+          SMEM_LIMIT / 4 - smem_floats(D, Dp, KS, 0, xmin, xres, lg);
       if (room <= 0) continue;
       // rows past xmin also widen the x' buffer where it is not resident
       long long R = std::min<long long>(2 * Dp, room / KS);
@@ -708,9 +820,21 @@ bool make_plan(int D, int n, int K, Plan* p) {
       R = R / 8 * 8;
       if (R < (KC == K ? 8 : std::min(2 * Dp, 64))) continue;
       const int XR = xres ? 2 * Dp : (int)std::max<long long>(xmin, R);
-      const long long smem = 4 * smem_floats(D, Dp, KS, (int)R, XR, xres);
-      const long long per_sm = std::max<long long>(
+      const long long smem =
+          4 * smem_floats(D, Dp, KS, (int)R, XR, xres, lg);
+      // blocks an SM holds at once: the shared-memory bound, lowered to
+      // what the instantiation's registers allow (one, at 160
+      // accumulators a thread), as the runtime reports it
+      long long per_sm = std::max<long long>(
           1, std::min<long long>(2048 / NTHREADS, SMEM_LIMIT / smem));
+      int resident = 0;
+      if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+              &resident, fv_kernel(KC < K || XR < 2 * Dp, K), NTHREADS,
+              (size_t)smem) == cudaSuccess &&
+          resident > 0)
+        per_sm = std::min<long long>(per_sm, resident);
+      else
+        (void)cudaGetLastError();
       *p = {(int)R,
             XR,
             KC,
@@ -757,22 +881,6 @@ int fv_moments_f32(const float* X, long long ldx, const float* g,
   if (ldx < n || partial == nullptr || !make_plan(D, n, K, &p))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // the opt-in to 227 KB of dynamic shared memory, once per device (it
-  // does not lower occupancy: a launch is placed by the bytes it asks for)
-  static int opted_in_device = -1;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess && opted_in_device != dev) {
-    err = cudaFuncSetAttribute(fv_moments_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)SMEM_LIMIT);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(fv_moments_kernel<true>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)SMEM_LIMIT);
-    if (err == cudaSuccess) opted_in_device = dev;
-  }
-  if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)p.blocks, (unsigned)p.rsplits,
                   (unsigned)p.csplits);
   const bool chunks = p.KC < K;
@@ -780,16 +888,16 @@ int fv_moments_f32(const float* X, long long ldx, const float* g,
   const long long ns = ((long long)n + T - 1) / T * T;
   float* stats = partial + (long long)p.blocks * (K + 2LL * D * K);
   if (chunks) {  // the column statistics first, once for every split
-    fv_moments_kernel<true><<<(unsigned)p.blocks, NTHREADS, (size_t)p.smem,
-                              st>>>(X, ldx, g, A, B, c, partial, stats, ns, D,
-                                    n, K, p.R, p.XR, p.KC, threshold, 1);
+    fv_moments_kernel<true, false><<<(unsigned)p.blocks, NTHREADS,
+                                     (size_t)p.smem, st>>>(
+        X, ldx, g, A, B, c, partial, stats, ns, D, n, K, p.R, p.XR, p.KC,
+        threshold, 1);
     const int rc = (int)cudaGetLastError();
     if (rc != 0) return rc;
   }
-  (wide ? fv_moments_kernel<true> : fv_moments_kernel<false>)<<<
-      grid, NTHREADS, (size_t)p.smem, st>>>(X, ldx, g, A, B, c, partial,
-                                            stats, ns, D, n, K, p.R, p.XR,
-                                            p.KC, threshold, chunks ? 2 : 0);
+  fv_kernel(wide, K)<<<grid, NTHREADS, (size_t)p.smem, st>>>(
+      X, ldx, g, A, B, c, partial, stats, ns, D, n, K, p.R, p.XR, p.KC,
+      threshold, chunks ? 2 : 0);
   int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   const long long DK = (long long)D * K;

@@ -8,13 +8,15 @@ importing ``bench.py``; a test holds the two bit-identical.
 ``bench.py::voc_bench``, made at VOC2007's image sizes, and
 ``make_surrogate_mnist`` the copy of ``bench.py::mnist_bench``'s and
 ``make_surrogate_timit`` of ``bench.py::timit_bench``'s.
+``make_surrogate_imagenet`` makes ImageNet-sized images with a class
+signal both of the ImageNet app's branches (SIFT and LCS) can see.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..parallel.dataset import HostDataset
-from .image_loader_utils import MultiLabeledImage
+from .image_loader_utils import LabeledImage, MultiLabeledImage
 
 #: VOC2007's two common image sizes, (height, width): landscape, portrait
 VOC_SIZES = ((375, 500), (500, 375))
@@ -142,3 +144,52 @@ def make_surrogate_timit(n_train, n_test):
         return X, y.astype(np.int32)
 
     return split(n_train, 1), split(n_test, 2)
+
+
+def make_surrogate_imagenet(n_train, n_test, seed=0, num_classes=1000,
+                            h=480, w=640):
+    """Single-label surrogate at ImageNet image sizes, the stand-in while
+    the ImageNet tars are absent. Each class has a mean color (uniform
+    in [40, 215] per channel) and an oriented sinusoidal texture (an
+    angle in [0, pi) and a period of 7-25 pixels), drawn from
+    ``RandomState(seed)``; an image is its class's color, jittered by up
+    to 8 levels per channel, plus the texture at amplitude 30-45 and a
+    random phase (both rounded to whole levels), plus uniform integer
+    noise in [-64, 63] per pixel and channel (a random byte halved),
+    clipped to [0, 255]. Gray-level orientation is what dense
+    SIFT sees, local color and contrast what LCS sees. Labels are
+    balanced (each class ``n // num_classes`` or one more times, in a
+    seeded order); train from ``seed + 1``, test from ``seed + 2``.
+    Returns two HostDatasets of LabeledImage with uint8 (h, w, 3)
+    images."""
+    rng = np.random.RandomState(seed)
+    colors = rng.uniform(40.0, 215.0, (num_classes, 3)).astype(np.float32)
+    angles = rng.uniform(0.0, np.pi, num_classes)
+    freqs = 2 * np.pi / rng.uniform(7.0, 25.0, num_classes)
+    yy = np.arange(h, dtype=np.float32)
+    xx = np.arange(w, dtype=np.float32)
+
+    def split(n, r):
+        labels = r.permutation(np.arange(n) % num_classes)
+        items = []
+        for i, c in enumerate(labels):
+            # sin(fx x + fy y + phase), separated into two outer products
+            fx = freqs[c] * np.cos(angles[c])
+            fy = freqs[c] * np.sin(angles[c])
+            a = (fx * xx + r.uniform(0.0, 2 * np.pi)).astype(np.float32)
+            b = (fy * yy).astype(np.float32)
+            tex = np.outer(np.cos(b), np.sin(a))
+            tex += np.outer(np.sin(b), np.cos(a))
+            tex *= r.uniform(30.0, 45.0)
+            base = np.rint(colors[c] + r.uniform(-8.0, 8.0, 3))
+            noise = np.frombuffer(r.bytes(h * w * 3), np.uint8)
+            img = (noise >> 1).astype(np.int16).reshape(h, w, 3) - 64
+            img += np.rint(tex).astype(np.int16)[:, :, None]
+            img += base.astype(np.int16)
+            np.clip(img, 0, 255, out=img)
+            items.append(LabeledImage(img.astype(np.uint8), int(c),
+                                      f"n{c:05d}/im{i}.JPEG"))
+        return HostDataset(items)
+
+    return (split(n_train, np.random.RandomState(seed + 1)),
+            split(n_test, np.random.RandomState(seed + 2)))

@@ -3,6 +3,14 @@
 Counterpart of ``keystone_tpu/nodes/images/core.py`` (the reference's
 ``nodes/images`` package). Images are (H, W, C) float tensors; batch
 forms work over a written-out leading batch dimension.
+
+The augmentation nodes (``RandomPatcher``, ``RandomFlipper``,
+``RandomImageTransformer``) draw through their own ``torch.Generator``
+seeded with ``seed``, on the host, so a seed gives the same draws on
+every device; row i's draws depend only on the seed and i. They cannot
+reproduce ``jax.random``: their deterministic part (``crop_patches``,
+``flip_where``) is what matches the JAX package given the same offsets
+or mask.
 """
 from __future__ import annotations
 
@@ -47,6 +55,19 @@ class GrayScaler(Transformer):
 
     def apply_batch(self, imgs):
         return image_ops.to_grayscale(imgs)
+
+
+class Cropper(Transformer):
+    """Static crop [x0:x1, y0:y1] (reference ``images/Cropper``)."""
+
+    def __init__(self, x0: int, y0: int, x1: int, y1: int):
+        self.x0, self.y0, self.x1, self.y1 = x0, y0, x1, y1
+
+    def apply(self, img):
+        return img[self.x0:self.x1, self.y0:self.y1, :]
+
+    def apply_batch(self, imgs):
+        return imgs[:, self.x0:self.x1, self.y0:self.y1, :]
 
 
 class SymmetricRectifier(Transformer):
@@ -210,3 +231,182 @@ class FusedConvRectifyPool(Transformer):
 
     def apply(self, img):
         return self.apply_batch(img[None].contiguous())[0]
+
+
+def _flatten_leading(x: torch.Tensor) -> torch.Tensor:
+    """(P, M, ...) -> (P * M, ...), item-major."""
+    return x.reshape((x.shape[0] * x.shape[1],) + tuple(x.shape[2:]))
+
+
+def crop_patches(imgs: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
+                 px: int, py: int) -> torch.Tensor:
+    """The crops ``imgs[i, xs[i, j]:+px, ys[i, j]:+py, :]`` of a (P, H, W,
+    C) batch for integer offsets xs, ys (P, M), as one gather:
+    (P, M, px, py, C)."""
+    dev = imgs.device
+    xs, ys = xs.to(dev), ys.to(dev)
+    rows = torch.arange(imgs.shape[0], device=dev)[:, None, None, None]
+    ix = (xs[:, :, None] + torch.arange(px, device=dev))[:, :, :, None]
+    iy = (ys[:, :, None] + torch.arange(py, device=dev))[:, :, None, :]
+    return imgs[rows, ix, iy]
+
+
+def _row_uniforms(seed: int, rows: int, per_row: int) -> torch.Tensor:
+    """(rows, per_row) uniforms in [0, 1) from a host generator seeded
+    with ``seed``; row i's values depend only on the seed and i."""
+    g = torch.Generator().manual_seed(int(seed))
+    return torch.rand((rows, per_row), generator=g, dtype=torch.float64)
+
+
+class RandomPatcher(Transformer):
+    """Uniformly random crops, ``num_patches`` an image (reference
+    ``images/RandomPatcher.scala:17-46``): a 1->many node whose output
+    is item-major. The offsets are :meth:`offsets`, the crops
+    :func:`crop_patches`."""
+
+    fusable = False
+
+    def __init__(self, num_patches: int, patch_size_x: int, patch_size_y: int,
+                 seed: int = 0):
+        self.num_patches = num_patches
+        self.patch_size_x = patch_size_x
+        self.patch_size_y = patch_size_y
+        self.seed = seed
+
+    def offsets(self, rows: int, H: int, W: int):
+        """(xs, ys), each (rows, num_patches) int64 on the host: uniform
+        over the H - px + 1 and W - py + 1 valid starts."""
+        u = _row_uniforms(self.seed, rows, 2 * self.num_patches)
+        u = u.reshape(rows, self.num_patches, 2)
+        xs = (u[..., 0] * (H - self.patch_size_x + 1)).long()
+        ys = (u[..., 1] * (W - self.patch_size_y + 1)).long()
+        return xs, ys
+
+    def apply(self, img):
+        return self.apply_batch(img[None])[0]
+
+    def apply_batch(self, imgs):
+        P, H, W, _ = imgs.shape
+        xs, ys = self.offsets(P, H, W)
+        return crop_patches(imgs, xs, ys, self.patch_size_x,
+                            self.patch_size_y)
+
+    def apply_dataset(self, ds: Dataset) -> Dataset:
+        assert isinstance(ds, ArrayDataset)
+        return ArrayDataset(_flatten_leading(self.apply_batch(ds.data)),
+                            ds.n * self.num_patches)
+
+
+class CenterCornerPatcher(Transformer):
+    """The four corner crops and the center crop, each also flipped when
+    ``horizontal_flips`` (reference ``images/CenterCornerPatcher.scala``):
+    test-time augmentation, 5 or 10 patches an image, item-major."""
+
+    fusable = False
+
+    def __init__(self, patch_size_x: int, patch_size_y: int,
+                 horizontal_flips: bool = False):
+        self.patch_size_x = patch_size_x
+        self.patch_size_y = patch_size_y
+        self.horizontal_flips = horizontal_flips
+
+    @property
+    def patches_per_image(self) -> int:
+        return 10 if self.horizontal_flips else 5
+
+    def apply_batch(self, imgs):
+        H, W = imgs.shape[1], imgs.shape[2]
+        px, py = self.patch_size_x, self.patch_size_y
+        starts = [(0, 0), (0, W - py), (H - px, 0), (H - px, W - py),
+                  ((H - px) // 2, (W - py) // 2)]
+        crops = [imgs[:, x:x + px, y:y + py, :] for x, y in starts]
+        if self.horizontal_flips:
+            crops += [c.flip(-2) for c in crops]
+        return torch.stack(crops, dim=1)
+
+    def apply(self, img):
+        return self.apply_batch(img[None])[0]
+
+    def apply_dataset(self, ds: Dataset) -> Dataset:
+        assert isinstance(ds, ArrayDataset)
+        return ArrayDataset(_flatten_leading(self.apply_batch(ds.data)),
+                            ds.n * self.patches_per_image)
+
+
+def flip_horizontal(imgs: torch.Tensor) -> torch.Tensor:
+    """Mirror (..., H, W, C) images along the width."""
+    return imgs.flip(-2)
+
+
+def flip_where(imgs: torch.Tensor, hit: torch.Tensor, transform=None):
+    """``transform(imgs)`` on the rows where ``hit`` (P,) is True, the
+    rows as they are elsewhere; ``transform`` defaults to the horizontal
+    flip."""
+    changed = (transform or flip_horizontal)(imgs)
+    hit = hit.to(imgs.device).reshape((-1,) + (1,) * (imgs.dim() - 1))
+    return torch.where(hit, changed, imgs)
+
+
+class RandomImageTransformer(Transformer):
+    """Apply an image transform with probability ``prob`` an image
+    (reference ``images/RandomImageTransformer.scala:16-30``). The
+    transform maps (H, W, C) images to images of the same shape and is
+    written on the trailing dimensions, so one call transforms a whole
+    (P, H, W, C) batch; :meth:`mask` draws the rows it applies to. The
+    datum path leaves an image as it is, as the JAX node does."""
+
+    fusable = False
+
+    def __init__(self, prob: float, transform, seed: int = 0):
+        self.prob = prob
+        self.transform = transform
+        self.seed = seed
+
+    def eq_key(self):
+        # a function has no stable content key: its identity (one process)
+        return (RandomImageTransformer, self.prob, self.seed,
+                id(self.transform))
+
+    def mask(self, rows: int) -> torch.Tensor:
+        """(rows,) bool on the host: True where the transform applies."""
+        return _row_uniforms(self.seed, rows, 1)[:, 0] < self.prob
+
+    def apply(self, img):
+        return img
+
+    def apply_dataset(self, ds: Dataset) -> Dataset:
+        assert isinstance(ds, ArrayDataset)
+        return ds.map_batch(lambda imgs: flip_where(
+            imgs, self.mask(imgs.shape[0]), self.transform))
+
+
+class RandomFlipper(RandomImageTransformer):
+    """Horizontal flip with probability ``prob``: the common
+    specialization of RandomImageTransformer, with a content key (the
+    reference uses ``ImageUtils.flipHorizontal`` there)."""
+
+    def __init__(self, prob: float = 0.5, seed: int = 0):
+        super().__init__(prob, flip_horizontal, seed)
+
+    def eq_key(self):
+        return (RandomFlipper, self.prob, self.seed)
+
+
+class LabelExtractor(Transformer):
+    """(image, label) -> label (reference ``images/LabeledImageExtractors``)."""
+
+    def apply(self, item):
+        return item[1]
+
+    def apply_batch(self, X):
+        return X[1]
+
+
+class ImageExtractor(Transformer):
+    """(image, label) -> image."""
+
+    def apply(self, item):
+        return item[0]
+
+    def apply_batch(self, X):
+        return X[0]

@@ -1,4 +1,5 @@
 """Learning nodes: solvers and models (reference ``nodes/learning``)."""
+from .block_weighted import BlockWeightedLeastSquaresEstimator
 from .classifiers import SparseLinearMapper
 from .lbfgs import DenseLBFGSwithL2, SparseLBFGSwithL2
 from .least_squares import LeastSquaresEstimator
@@ -8,15 +9,18 @@ from .linear import (
     LinearMapEstimator,
     LinearMapper,
 )
+from .per_class_weighted import PerClassWeightedLeastSquaresEstimator
 from .zca import ZCAWhitener, ZCAWhitenerEstimator
 
 __all__ = [
     "BlockLeastSquaresEstimator",
+    "BlockWeightedLeastSquaresEstimator",
     "BlockLinearMapper",
     "DenseLBFGSwithL2",
     "LeastSquaresEstimator",
     "LinearMapEstimator",
     "LinearMapper",
+    "PerClassWeightedLeastSquaresEstimator",
     "SparseLBFGSwithL2",
     "SparseLinearMapper",
     "ZCAWhitener",

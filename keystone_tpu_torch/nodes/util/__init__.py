@@ -1,7 +1,8 @@
 """Utility nodes (reference ``nodes/util``).
 
-Counterpart of the label, classifier, combiner and densifying nodes of
-``keystone_tpu/nodes/util/__init__.py``.
+Counterpart of ``keystone_tpu/nodes/util/__init__.py``: the label,
+classifier, combiner, splitting, casting and densifying nodes, and the
+label augmenter of the augmented CIFAR app.
 """
 from __future__ import annotations
 
@@ -9,7 +10,13 @@ import numpy as np
 import torch
 
 from ...ops.device import resolve_device
-from ...parallel.dataset import ArrayDataset, Dataset, is_streaming
+from ...parallel.dataset import (
+    ArrayDataset,
+    Dataset,
+    HostDataset,
+    is_streaming,
+    tree_map,
+)
 from ...workflow.transformer import Transformer
 
 
@@ -69,6 +76,46 @@ class MaxClassifier(Transformer):
         return self.apply(X)
 
 
+class TopKClassifier(Transformer):
+    """Indices of the k largest values, descending (reference
+    ``util/TopKClassifier.scala:9-11``). Equal values come lower index
+    first, as ``jax.lax.top_k`` orders them: a stable descending sort
+    keeps the input order among ties on every device (``torch.topk``
+    promises no order there), so classes that got identical scores (no
+    training rows) are ranked the same way in both packages."""
+
+    def __init__(self, k: int):
+        self.k = k
+
+    def apply_batch(self, X):
+        idx = torch.sort(X, dim=-1, descending=True, stable=True).indices
+        return idx[..., : self.k].to(torch.int32)
+
+    def apply(self, x):
+        return self.apply_batch(x)
+
+
+class VectorSplitter(Transformer):
+    """Split the feature dimension into blocks of ``block_size``
+    (reference ``util/VectorSplitter.scala:11-36``): a tuple of views,
+    the last block ragged."""
+
+    def __init__(self, block_size: int, num_features: int = None):
+        self.block_size = block_size
+        self.num_features = num_features
+
+    def _bounds(self, d: int):
+        bs = self.block_size
+        return [(lo, min(d, lo + bs)) for lo in range(0, d, bs)]
+
+    def apply(self, x):
+        d = self.num_features or x.shape[-1]
+        return tuple(x[..., lo:hi] for lo, hi in self._bounds(d))
+
+    def apply_batch(self, X):
+        return self.apply(X)
+
+
 class FloatToDouble(Transformer):
     """Precision promotion (reference ``util/FloatToDouble.scala``). Like
     the JAX package without x64, it yields float32: the solvers downstream
@@ -79,6 +126,43 @@ class FloatToDouble(Transformer):
 
     def apply_batch(self, X):
         return X.to(torch.float32)
+
+
+class DoubleToFloat(Transformer):
+    """Precision narrowing to float32 (reference
+    ``util/DoubleToFloat.scala``)."""
+
+    def apply(self, x):
+        return x.to(torch.float32)
+
+    def apply_batch(self, X):
+        return X.to(torch.float32)
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch dtype or a numpy-style name
+    (``"float32"``, ``np.int32``, ``"bfloat16"``)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+    out = getattr(torch, name, None)
+    if not isinstance(out, torch.dtype):
+        raise ValueError(f"no torch dtype for {dtype!r}")
+    return out
+
+
+class Cast(Transformer):
+    """Elementwise cast to ``dtype`` (a numpy-style name, as the JAX
+    node takes)."""
+
+    def __init__(self, dtype: str):
+        self.dtype = dtype
+
+    def apply(self, x):
+        return x.to(_torch_dtype(self.dtype))
+
+    def apply_batch(self, X):
+        return self.apply(X)
 
 
 class MatrixVectorizer(Transformer):
@@ -123,3 +207,27 @@ class Densify(Transformer):
         dense = [np.asarray(it.todense() if hasattr(it, "todense") else it,
                             dtype=np.float32).ravel() for it in items]
         return ArrayDataset.from_numpy(np.stack(dense), self._host_device())
+
+
+class LabelAugmenter(Transformer):
+    """Repeat each item ``mult`` times, item-major, so labels (or ids)
+    line up with a patch-augmented dataset (reference
+    ``RandomPatchCifarAugmented.LabelAugmenter``). A 1->many node, never
+    fused: an array dataset is repeated on its device, a host dataset
+    item by item."""
+
+    fusable = False
+
+    def __init__(self, mult: int):
+        self.mult = mult
+
+    def apply(self, x):
+        return x
+
+    def apply_dataset(self, ds: Dataset) -> Dataset:
+        if isinstance(ds, ArrayDataset):
+            data = tree_map(lambda x: torch.repeat_interleave(
+                x[: ds.n], self.mult, dim=0), ds.data)
+            return ArrayDataset(data, ds.n * self.mult)
+        return HostDataset(
+            [it for it in ds.collect() for _ in range(self.mult)])

@@ -640,3 +640,115 @@ def test_cuda_sparse_lbfgs_matches_the_cpu_fit_and_repeats_its_bits(cuda):
         1e-4 * np.abs(W).max()
     assert torch.equal(card.weights, again.weights)
     assert torch.equal(card.intercept, again.intercept)
+
+
+# -- ImageNetSiftLcsFV's shapes -------------------------------------------------
+
+def _sift_pair_step1(h, w, scale, which):
+    """ImageNetSiftLcsFV's SIFT (step 4, bin 6, 5 scales, scale_step 1):
+    the sampling step grows by one a scale."""
+    step, b, lo = sift._scale_params(scale, 4, 6, 5, 1)
+    if which == "smooth":
+        return sift._smooth_band(h, b), sift._smooth_band(w, b)
+    return (sift._sampling_operator_interleaved(h, lo, step, b)[0],
+            sift._sampling_operator_interleaved(w, lo, step, b)[0])
+
+
+@pytest.mark.parametrize("which,C", [("smooth", 1), ("sample", 8)])
+@pytest.mark.parametrize("scale", [0, 4])
+@pytest.mark.parametrize("h,w", [(480, 640), (640, 480)])
+def test_cuda_banded_two_sided_at_imagenet_scale_step_1(cuda, h, w, scale,
+                                                        which, C):
+    """The two-sided contractions of a 480 x 640 (and 640 x 480) image at
+    ``scale_step = 1``, whose sampling operators no VOC shape makes,
+    against the plain version: 1e-5 of the largest output, the same bits
+    twice."""
+    left, right = _sift_pair_step1(h, w, scale, which)
+    rng = np.random.RandomState(h + 7 * scale + C)
+    X = torch.as_tensor(rng.rand(C, h, w).astype(np.float32), device=cuda)
+    before = kernels.LAUNCHES["banded_matmul"]
+    got = kernels.banded_matmul(left, X, right=right)
+    want = kernels.banded_matmul_plain(left, X, right=right)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["banded_matmul"] == before + 1
+    assert got.shape == (C, left.shape[0], right.shape[0])
+    assert float((got - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+    assert torch.equal(got, kernels.banded_matmul(left, X, right=right))
+
+
+def test_cuda_dense_sift_at_imagenet_scale_step_1(cuda):
+    """A 480 x 640 image at scale_step 1: 10 launches, 44,023 descriptors
+    inside the golden envelope of the einsum form."""
+    img = torch.as_tensor(np.random.RandomState(3).rand(480, 640)
+                          .astype(np.float32), device=cuda)
+    before = kernels.LAUNCHES["banded_matmul"]
+    got = sift.dense_sift(img, 4, 6, 5, 1)
+    assert kernels.LAUNCHES["banded_matmul"] == before + 10
+    want = sift.dense_sift_plain(img, 4, 6, 5, 1)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (128, 44023)
+    diff = (got - want).abs()
+    assert float(diff.max()) <= 2.0 and float(diff.mean()) <= 0.15
+
+
+@pytest.mark.parametrize("D,K,n", [
+    (64, 16, 44023), (64, 16, 17024),            # ImageNetSiftLcsFV's two
+    (64, 32, 5000), (64, 64, 5000), (64, 200, 1000), (128, 8, 1000),
+    (300, 16, 100)])
+def test_cuda_fv_moments_at_imagenet_and_small_k_shapes(cuda, D, K, n):
+    """(D, K) = (64, 16) at the SIFT branch's 44,023 and the LCS branch's
+    17,024 descriptors an image, and other GMMs whose component tiles
+    leave warps to share them (the SMALLK instantiation: 1, 2 and 4 warp
+    groups), on the descriptors whose float64 posteriors lie clear of the
+    threshold (see the many-tiles test): 1e-4 of the largest sum, the
+    same bits twice."""
+    from keystone_tpu_torch.nodes.learning.gmm import _posteriors
+
+    X, means, variances, weights = _fv_inputs(D, K, n, cuda, seed=D + K + n)
+    q64 = _posteriors(X.T.double(), means.T.double(), variances.T.double(),
+                      weights.double(), 0.0)
+    clear = ((q64.log() - np.log(1e-4)).abs() > 1e-3).all(dim=1)
+    assert int(clear.sum()) >= n // 2
+    args = (X[:, clear].contiguous(), means, variances, weights)
+    terms = kernels.fv_terms(means, variances, weights)
+    before = kernels.LAUNCHES["fv_moments"]
+    got = kernels.fv_moments(*args, 1e-4, terms=terms)
+    want = kernels.fv_moments_plain(*args, 1e-4)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fv_moments"] == before + 1
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+    again = kernels.fv_moments(*args, 1e-4, terms=terms)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_cuda_weighted_solver_paths_agree(cuda):
+    """The weighted block solver on the card at 300 classes: "woodbury"
+    against "cholesky" within 2e-3 of the largest weight (the JAX
+    package's bar between its two paths), "auto" taking woodbury, and
+    the card's woodbury fit against the CPU's within 1e-4."""
+    from keystone_tpu_torch.nodes.learning.block_weighted import (
+        BlockWeightedLeastSquaresEstimator,
+    )
+
+    rng = np.random.RandomState(0)
+    n, d, k = 1500, 256, 300
+    X = rng.randn(n, d).astype(np.float32)
+    y = rng.randint(0, k, n)
+    L = -np.ones((n, k), np.float32)
+    L[np.arange(n), y] = 1.0
+    fits = {}
+    for solver in ("cholesky", "woodbury", "auto"):
+        est = BlockWeightedLeastSquaresEstimator(128, 2, 1e-2, 0.25,
+                                                 solver=solver)
+        fits[solver] = est.fit_arrays(X, L, device=cuda)
+    assert fits["auto"]._solve_stats["solver"] == "woodbury"
+    W = {s: m.weights.cpu().numpy() for s, m in fits.items()}
+    scale = np.abs(W["cholesky"]).max()
+    assert np.abs(W["woodbury"] - W["cholesky"]).max() <= 2e-3 * scale
+    host = BlockWeightedLeastSquaresEstimator(
+        128, 2, 1e-2, 0.25, solver="woodbury").fit_arrays(X, L, device="cpu")
+    assert np.abs(W["woodbury"] - host.weights.numpy()).max() <= \
+        1e-4 * scale

@@ -138,7 +138,11 @@ SHARED = _port_transformer_classes()
 
 #: the classes the JAX predicate refuses (and so the port's ``fusable``)
 NOT_FUSABLE = {
+    "nodes.images.core.CenterCornerPatcher",
     "nodes.images.core.FusedConvRectifyPool",
+    "nodes.images.core.RandomFlipper",
+    "nodes.images.core.RandomImageTransformer",
+    "nodes.images.core.RandomPatcher",
     "nodes.images.core.Windower",
     "nodes.images.extractors.BatchSIFTExtractor",
     "nodes.images.multilabel.MultiLabelExtractor",
@@ -146,6 +150,7 @@ NOT_FUSABLE = {
     "nodes.learning.classifiers.SparseLinearMapper",
     "nodes.stats.sampling.Sampler",
     "nodes.util.Densify",
+    "nodes.util.LabelAugmenter",
     "nodes.util.sparse.Sparsify",
     "workflow.common.Cacher",
     "workflow.common.Identity",
