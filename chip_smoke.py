@@ -15,7 +15,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    its plain PyTorch version on the same inputs; the 3xTF32 kernels
    also against float64: featurize no worse than 2x the plain float32
    version, Gram within its own bar at every shape (and no worse than 2x
-   the plain version at the streamed fit's chunk shape).
+   the plain version at the streamed fit's chunk shape). Then each
+   kernel and its plain version on an input with one NaN: the same
+   non-finite outputs; the banded kernels, which sum over each tile's
+   live range as the TPU kernel does, those of that range's reach,
+   inside the plain version's (the ``[nan]`` lines).
 4. Main path: RandomPatchCifar fit + apply at the full width of the
    repository's bench configuration (1024 filters, 8192 features, two
    4096-wide BCD blocks) on surrogate CIFAR (20480 train / 4096 test
@@ -158,6 +162,21 @@ Phases, each of which raises (and so exits non-zero) on failure:
    images: the test error inside (0.02, 0.90), printed beside phase
    4h's RandomCifar error with the fit and apply seconds and the fit's
    peak.
+4l. Resilience and telemetry on phase 4b's streamed fit at full width,
+   fitted through ``Estimator.fit`` / ``LabelEstimator.fit`` with stream
+   options: an uninterrupted fit (the same bits as 4b's pipeline
+   weights, a TelemetrySampler at 0.1 s beside it); the solver's fit
+   killed at chunk 10 under a fault plan with a snapshot every 4 chunks
+   (cursor 8 on disk) and resumed under a trace: the same bits,
+   gram_cross launched 20 - 8 times, one restore, the snapshot gone;
+   seeded transient staging faults (the default retry policy exhausts
+   with a post-mortem, five attempts give the same bits); a NaN in chunk
+   5's first pixel raising NumericsError naming the chunk within the
+   deferral window, with the health series in its post-mortem; the
+   numerics plane's overhead as the median of interleaved on/off pairs;
+   a traced pipeline fit's Chrome trace with stage, stall, accumulate
+   and node spans on their lanes. Checkpoint and restore seconds are
+   printed beside the card's name and power limit.
 5. Timing: each kernel, its plain version and a library yardstick with
    CUDA events at the main path's shapes, one call at a time (the
    ``kernels`` line); for every kernel also the device time alone of the
@@ -184,10 +203,12 @@ result.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import json
 import os
+import pickle
 import queue
 import statistics
 import subprocess
@@ -297,6 +318,9 @@ CHUNK, DEPTH = 1024, 2
 #: the solve ``build_pipeline`` runs: BlockLeastSquaresEstimator(4096, 1,
 #: lam), two 4096-wide blocks, one pass
 BLOCK, PASSES = 4096, 1
+#: phase 4l: interleaved fit pairs, numerics plane on and off, whose
+#: median share is printed (one fit reads 0.23-0.42 s on a shared host)
+NUMERICS_PAIRS = 9
 
 #: VOCSIFTFisher: surrogate train / test images (VOC2007 has 5,011
 #: trainval and 4,952 test images; PERF.md lists the cut), the GMM at
@@ -440,6 +464,23 @@ AUTO_CACHE_BUDGET_SLACK = 2 * 2**20
 
 def _sync():
     torch.cuda.synchronize()
+
+
+def _events_ms(fn, reps=20):
+    """Mean milliseconds of ``fn`` over ``reps`` calls enqueued back to
+    back between two CUDA events: device time where the calls' host time
+    is shorter than their work (a CUDA graph's replay, which
+    ``tools.device_ms`` cannot capture again)."""
+    fn()
+    _sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def _time_ms(fn, reps, warmup=2):
@@ -671,6 +712,98 @@ def _check_quant(kernels, rng, dev):
             assert err <= QUANT_TOL * scale, (wd, n, d, k, err, scale)
             worst = max(worst, err)
     return worst
+
+
+def _nan_cases(kernels, sift, dev):
+    """One input with a single NaN for each kernel, at a shape its path
+    gives it: (name, kernel call, plain call, reach), reach None where the
+    kernel's non-finite outputs must be the plain version's, else the call
+    giving the banded kernels' own reach (``kernels.banded_live_reach``).
+    The NaN sits in an image's first pixel, a feature, a served row, an
+    image pixel inside the SIFT bands and a descriptor. Drawn from their
+    own seed, so the other checks' inputs do not move."""
+    rng = np.random.RandomState(SEED + 15)
+    imgs, filters, means = _featurize_inputs(rng, 8, NUM_FILTERS, dev)
+    imgs[0, 0, 0, 0] = float("nan")
+    X = torch.as_tensor(rng.randn(CHUNK, 1024).astype(np.float32),
+                        device=dev)
+    Y = torch.as_tensor(rng.randn(CHUNK, 10).astype(np.float32), device=dev)
+    X[7, 11] = float("nan")
+    q_args = _quant_inputs(rng, SERVE_MAX_BATCH, 8192, 10, "int8", dev)
+    q_args[0][3, 100] = float("nan")
+    q_plan = kernels.quant_plan(*q_args[1:])
+    q_params = tuple(q_args[1:]) if q_plan is None else (q_plan,)
+    rand = np.zeros((500, 520), np.float32)
+    for j in range(500):
+        c = min(int(j * 1.04), 519)
+        rand[j, max(0, c - 13):c + 14] = rng.randn(
+            min(520, c + 14) - max(0, c - 13))
+    Xb = torch.as_tensor(rng.rand(520, 777).astype(np.float32), device=dev)
+    Xb[100, 50] = float("nan")
+    (_, left, right, _), _ = _sift_contractions(sift, 375, 500, 0)
+    Xs = torch.as_tensor(rng.rand(1, 375, 500).astype(np.float32),
+                         device=dev)
+    Xs[0, 100, 200] = float("nan")
+    fv = _fv_inputs(rng, 80, 256, 4097, dev)
+    fv[0][5, 100] = float("nan")
+    return [
+        ("fused_cifar_featurize",
+         lambda: kernels.fused_cifar_featurize(imgs, filters,
+                                               whitener_means=means),
+         lambda: kernels.fused_cifar_featurize_plain(
+             imgs, filters, whitener_means=means), None),
+        ("gram_cross", lambda: kernels.gram_cross(X, Y),
+         lambda: kernels.gram_cross_plain(X, Y), None),
+        ("quantized_affine",
+         lambda: kernels.quantized_affine(q_args[0], *q_params),
+         lambda: kernels.quantized_affine_plain(*q_args), None),
+        ("banded_matmul one-sided",
+         lambda: kernels.banded_matmul(rand, Xb),
+         lambda: kernels.banded_matmul_plain(rand, Xb),
+         lambda: kernels.banded_live_reach(rand, Xb)),
+        ("banded_matmul two-sided",
+         lambda: kernels.banded_matmul(left, Xs, right=right),
+         lambda: kernels.banded_matmul_plain(left, Xs, right=right),
+         lambda: kernels.banded_live_reach(left, Xs, right=right)),
+        ("fv_moments",
+         lambda: kernels.fv_moments(*fv, 1e-4),
+         lambda: kernels.fv_moments_plain(*fv, 1e-4), None),
+    ]
+
+
+def _check_nan(kernels, sift, dev):
+    """Every kernel and its plain version on an input with one NaN. A
+    kernel that turns a NaN into a finite value hides a poisoned input
+    from the numerics tripwires downstream, so each kernel's non-finite
+    outputs must lie where the plain version's do. Four kernels must give
+    the plain version's exactly. The banded kernels sum over each tile's
+    live range, as the TPU kernel does, so a NaN reaches the outputs
+    whose range covers it (``kernels.banded_live_reach``), where the
+    plain version's dense product reaches the whole column; they must
+    give that reach exactly, inside the plain version's."""
+    for name, kernel, plain, reach in _nan_cases(kernels, sift, dev):
+        got, want = kernel(), plain()
+        got = got if isinstance(got, (tuple, list)) else (got,)
+        want = want if isinstance(want, (tuple, list)) else (want,)
+        bad = [~torch.isfinite(g) for g in got]
+        bad_plain = [~torch.isfinite(w) for w in want]
+        ref = bad_plain if reach is None else [reach()]
+        _sync()
+        n_got = sum(int(b.sum()) for b in bad)
+        n_ref = sum(int(b.sum()) for b in ref)
+        n_plain = sum(int(b.sum()) for b in bad_plain)
+        same = all(torch.equal(b, r) for b, r in zip(bad, ref))
+        inside = all(bool((b & ~p).sum() == 0)
+                     for b, p in zip(bad, bad_plain))
+        size = sum(g.numel() for g in got)
+        what = ("plain" if reach is None
+                else f"live-range reach {n_ref}, plain")
+        print(f"[nan] {name}: one NaN in, non-finite outputs kernel {n_got}, "
+              f"{what} {n_plain} of {size}, same positions as "
+              f"{'plain' if reach is None else 'the reach'} {same}, inside "
+              f"the plain version's {inside}", flush=True)
+        assert n_got == n_ref and n_ref > 0, (name, n_got, n_ref)
+        assert same and inside, (name, same, inside)
 
 
 def _bcd_float64(A, Y, lam, bounds, passes, dtype=torch.float64):
@@ -1621,6 +1754,287 @@ def _voc_phase(kernels, dev):
     del fitted
     _release()
     return launches
+
+
+def _lanes_disjoint(events):
+    """True when no lane of a Chrome trace holds two overlapping spans."""
+    by_lane = {}
+    for e in events:
+        if e.get("ph") == "X":
+            by_lane.setdefault(e["tid"], []).append((e["ts"], e["dur"]))
+    for spans in by_lane.values():
+        spans.sort()
+        for (t0, d0), (t1, _) in zip(spans, spans[1:]):
+            if t1 < t0 + d0 - 1e-3:
+                return False
+    return True
+
+
+def _resilience_phase(kernels, rpc, tr_x, tr_y, filters, whitener, config,
+                      featurizer, ref, workdir, dev, smi):
+    """Phase 4l: the resilience and telemetry planes on phase 4b's
+    streamed fit at full width (20 chunks of 1024 f32 images, 8192
+    features), through ``Estimator.fit`` / ``LabelEstimator.fit`` with
+    stream options: an uninterrupted fit, one killed at chunk 10 with a
+    snapshot every 4 chunks and resumed bit-identically, transient
+    staging faults absorbed by retries, a poisoned chunk caught by the
+    numerics tripwire, a traced pipeline fit's timeline, and the planes'
+    costs. Returns the gram_cross launches of the resumed fit."""
+    from keystone_tpu_torch.nodes.learning.linear import (
+        BlockLeastSquaresEstimator,
+    )
+    from keystone_tpu_torch.nodes.stats import StandardScaler
+    from keystone_tpu_torch.nodes.util import (
+        ClassLabelIndicatorsFromIntLabels,
+    )
+    from keystone_tpu_torch.observability.metrics import MetricsRegistry
+    from keystone_tpu_torch.observability.numerics import (
+        NumericsError,
+        numerics_suppressed,
+    )
+    from keystone_tpu_torch.observability.sampler import TelemetrySampler
+    from keystone_tpu_torch.observability.timeline import (
+        flight_recorder,
+        write_trace_artifact,
+    )
+    from keystone_tpu_torch.observability.trace import PipelineTrace
+    from keystone_tpu_torch.parallel.dataset import ArrayDataset
+    from keystone_tpu_torch.parallel.streaming import StreamingDataset
+    from keystone_tpu_torch.resilience import (
+        FaultPlan,
+        RetryExhaustedError,
+        RetryPolicy,
+    )
+    from keystone_tpu_torch.workflow.common import Cacher
+    from keystone_tpu_torch.workflow.env import PipelineEnv
+
+    n_chunks = -(-N_TRAIN // CHUNK)
+    budget = (DEPTH + 1) * CHUNK * 32 * 32 * 3 * 4 + (1 << 20)
+    labels_int = ArrayDataset.from_numpy(tr_y.astype(np.int32), dev)
+    labels = ClassLabelIndicatorsFromIntLabels(rpc.NUM_CLASSES
+                                               ).apply_dataset(labels_int)
+    ck = os.path.join(workdir, "ck")
+    reg = MetricsRegistry.get_or_create()
+
+    def stream(policy=None):
+        return featurizer.apply_dataset(StreamingDataset.from_numpy(
+            tr_x, CHUNK, device=dev, prefetch_depth=DEPTH, tag="cifar-train",
+            hbm_budget=budget, retry_policy=policy))
+
+    def fit(checkpoint=False, solver_plan=None, policy=None):
+        """StandardScaler, then BlockLeastSquaresEstimator(4096, 1, 10),
+        on the featurized stream; the plan is active over the solver's
+        fit only. Returns (scaler model, mapper, seconds)."""
+        feats = stream(policy)
+        opts = {}
+        t0 = time.time()
+        if checkpoint:
+            opts = dict(checkpoint_dir=os.path.join(ck, "scaler"),
+                        checkpoint_every=4)
+        scaler = StandardScaler().fit(feats, **opts)
+        if checkpoint:
+            opts = dict(checkpoint_dir=os.path.join(ck, "solver"),
+                        checkpoint_every=4)
+        est = BlockLeastSquaresEstimator(BLOCK, PASSES, float(config.lam))
+        with solver_plan or contextlib.nullcontext():
+            model = est.fit(scaler.apply_dataset(feats), labels, **opts)
+        _sync()
+        return scaler, model, time.time() - t0
+
+    def same(a, b):
+        return torch.equal(torch.as_tensor(np.asarray(a)),
+                           torch.as_tensor(np.asarray(b)))
+
+    def weights(model):
+        return torch.as_tensor(model.weights).float()
+
+    # -- uninterrupted, with the telemetry sampler at 0.1 s ---------------
+    sampler = TelemetrySampler(interval_s=0.1).start()
+    scaler_u, model_u, t_u = fit()
+    sampler.stop()
+    sampler.stop()  # idempotent
+    W_u = weights(model_u)
+    same_4b = (torch.equal(W_u, ref["W"]) and same(scaler_u.mean, ref["mean"])
+               and same(scaler_u.std, ref["std"]))
+    w_rel = float((W_u - ref["W"]).abs().max() / ref["W"].abs().max())
+    print(f"[4l] uninterrupted fit through Estimator.fit / "
+          f"LabelEstimator.fit: {t_u:.3f} s; same bits as phase 4b's "
+          f"pipeline weights and scaler: {same_4b} (max |dW| / max |W| "
+          f"{w_rel:.3e}) | {smi}", flush=True)
+    if not same_4b:
+        print("[4l] the pipeline fuses the scaler into the featurize "
+              "node's chunk transform; the direct fits apply them one "
+              "after the other", flush=True)
+        assert w_rel <= W_STREAM_RESIDENT_TOL, w_rel
+    names = sampler.series_names()
+    probes = ("process.rss_bytes", "numerics.health_age_s",
+              "streaming.stage_queue_depth")
+    print(f"[4l] TelemetrySampler at 0.1 s: "
+          f"{len(sampler.series('process.rss_bytes'))} ticks, "
+          f"{len(names)} series: {', '.join(names)}", flush=True)
+    assert all(p in names for p in probes), names
+
+    # -- kill at chunk 10 of the solver's fit, a snapshot every 4 chunks --
+    before = len(flight_recorder().spans())
+    kill = FaultPlan().add("ingest.produce", after=10, count=1,
+                           error=RuntimeError)
+    try:
+        fit(checkpoint=True, solver_plan=kill)
+        raise AssertionError("the killed fit did not raise")
+    except RuntimeError as exc:
+        assert "injected fault at ingest.produce" in str(exc), exc
+    snap_path = os.path.join(ck, "solver", "stream_fit.ckpt")
+    with open(snap_path, "rb") as f:
+        cursor = int(pickle.load(f)["cursor"])
+    saves = [s.args for s in flight_recorder().spans()[before:]
+             if s.name == "checkpoint_save"]
+    print(f"[4l] killed at chunk 10 of {n_chunks}: snapshot on disk at "
+          f"cursor {cursor}; {len(saves)} saves (scaler 5, solver 2): "
+          + ", ".join(f"cursor {a['cursor']} d2h {a['d2h_s']:.4f} s write "
+                      f"{a['write_s']:.4f} s" for a in saves)
+          + f" | {smi}", flush=True)
+    assert cursor == 8, cursor
+    assert not os.path.exists(os.path.join(ck, "scaler", "stream_fit.ckpt"))
+
+    # -- resume under a trace -------------------------------------------------
+    restore_before = reg.histogram("checkpoint.restore_s").snapshot()["count"]
+    kernels.reset_launches()
+    with PipelineTrace("4l-resume") as tr:
+        scaler_r, model_r, t_r = fit(checkpoint=True)
+    resumed = dict(kernels.LAUNCHES)
+    restore = reg.histogram("checkpoint.restore_s").snapshot()
+    bits = (torch.equal(weights(model_r), W_u)
+            and same(scaler_r.mean, scaler_u.mean)
+            and same(scaler_r.std, scaler_u.std))
+    print(f"[4l] resumed from cursor {cursor}: {t_r:.3f} s (uninterrupted "
+          f"{t_u:.3f} s), restore {restore['max']:.4f} s, W and scaler "
+          f"torch.equal to the uninterrupted fit's: {bits}; launches "
+          f"{resumed} (gram_cross {n_chunks} - {cursor}; featurize: the "
+          f"scaler's {n_chunks} and the solver's {n_chunks}, replayed "
+          f"chunks featurized again); resilience events "
+          f"{tr.resilience_stats} | {smi}", flush=True)
+    assert bits
+    assert restore["count"] == restore_before + 1
+    assert tr.resilience_stats.get("checkpoint_restore") == 1, \
+        tr.resilience_stats
+    assert resumed["gram_cross"] == n_chunks - cursor, resumed
+    assert not os.path.exists(snap_path)
+
+    # -- transient staging faults --------------------------------------------
+    # rate 0.3 under the default policy (3 attempts): three faults in a
+    # row, 2.7% a chunk, come at chunk 14 of seed 0's draws
+    flaky = FaultPlan(seed=0).add("ingest.stage", kind="error", rate=0.3)
+    try:
+        with flaky:
+            fit()
+        raise AssertionError("the default policy did not exhaust")
+    except RetryExhaustedError as exc:
+        pm = exc.postmortem_path
+        print(f"[4l] default RetryPolicy (3 attempts) at rate 0.3, seed 0: "
+              f"exhausted after {flaky.injections()} faults, post-mortem "
+              f"{os.path.basename(pm)}", flush=True)
+        assert pm and os.path.exists(pm)
+    flaky = FaultPlan(seed=0).add("ingest.stage", kind="error", rate=0.3)
+    with flaky:
+        _, model_f, t_f = fit(policy=RetryPolicy(max_attempts=5))
+    print(f"[4l] RetryPolicy(max_attempts=5) at rate 0.3, seed 0: "
+          f"{flaky.injections()} staging faults retried, {t_f:.3f} s, same "
+          f"bits as the uninterrupted fit: "
+          f"{torch.equal(weights(model_f), W_u)}", flush=True)
+    assert flaky.injections() > 0
+    assert torch.equal(weights(model_f), W_u)
+
+    # -- a poisoned chunk ----------------------------------------------------
+    poison = FaultPlan().add("ingest.stage", kind="corrupt", after=5,
+                             count=1)
+    before = len(flight_recorder().spans())
+    try:
+        with poison:
+            fit()
+        raise AssertionError("the poisoned chunk was not caught")
+    except NumericsError as exc:
+        msg, pm = str(exc), exc.postmortem_path
+    last = max(s.args["chunk"] for s in flight_recorder().spans()[before:]
+               if s.name == "accumulate:cifar-train")
+    with open(pm) as f:
+        series = json.load(f)["context"]["recent_health"]
+    print(f"[4l] NaN in chunk 5's first pixel: NumericsError after the "
+          f"accumulate of chunk {last}: {msg[:120]}...; post-mortem "
+          f"{os.path.basename(pm)} holds {len(series)} health entries",
+          flush=True)
+    assert "chunk 5 of stream 'cifar-train'" in msg, msg
+    assert last <= 5 + 8, last
+    assert any(e.get("chunk") == 5 and e["nan"] > 0 for e in series), series
+
+    # -- numerics overhead: interleaved pairs ----------------------------------
+    shares = []
+    for i in range(NUMERICS_PAIRS):
+        legs = {}
+        for off in ((False, True) if i % 2 == 0 else (True, False)):
+            with numerics_suppressed() if off else contextlib.nullcontext():
+                legs[off] = fit()[2]
+        shares.append((legs[False] - legs[True]) / legs[True])
+    # the plane's pieces a chunk, at the chunk's shape: the health word
+    # of the featurized chunk and its labels, and the sketch's update
+    from keystone_tpu_torch.observability import numerics as num
+    from keystone_tpu_torch.tools import device_ms
+
+    Xf = featurizer.apply_batch(torch.as_tensor(tr_x[:CHUNK], device=dev))
+    Yl = labels.data[:CHUNK]
+    sk = num.SketchTracker()
+    sk.update(ArrayDataset(Xf, CHUNK))
+    monitor = num.HealthMonitor("4l")
+    for _ in range(2):  # the second chunk of a geometry captures the graph
+        monitor._replayed_word([Xf, Yl])
+    pieces = {
+        "health word, eager": (lambda: num.health_word(
+            (Xf, Yl), rows=(CHUNK, CHUNK)), device_ms),
+        "health word, the monitor's graph (copy + replay)": (
+            lambda: monitor._replayed_word([Xf, Yl]), _events_ms),
+        "sketch update": (lambda: num._sketch_update(
+            sk._counts, *sk._dev[1:], sk._dev[0], Xf), device_ms)}
+    costs = ", ".join(f"{k} device {timer(f):.4f} ms, host "
+                      f"{_host_us(f):.1f} us" for k, (f, timer)
+                      in pieces.items())
+    print(f"[4l] numerics plane a chunk ({CHUNK} x {Xf.shape[1]} and its "
+          f"labels): {costs} | {smi}", flush=True)
+    del Xf, Yl, sk, pieces, monitor
+    print(f"[4l] numerics plane overhead, median of {NUMERICS_PAIRS} "
+          f"interleaved pairs: "
+          f"{statistics.median(shares) * 100:.2f}% of the fit (pairs: "
+          + ", ".join(f"{x * 100:.2f}%" for x in shares) + f") | {smi}",
+          flush=True)
+
+    # -- the timeline of a traced pipeline fit ---------------------------------
+    PipelineEnv.reset()
+    flight_recorder().clear()
+    plabels = (ClassLabelIndicatorsFromIntLabels(rpc.NUM_CLASSES)
+               >> Cacher("labels"))(labels_int)
+    pstream = StreamingDataset.from_numpy(
+        tr_x, CHUNK, device=dev, prefetch_depth=DEPTH, tag="cifar-train",
+        hbm_budget=budget)
+    with PipelineTrace("4l-timeline") as tr:
+        rpc.build_pipeline(filters, whitener, config, pstream,
+                           plabels).fit()
+    path = os.path.join(workdir, "4l.perfetto.json")
+    write_trace_artifact(path, tr)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [e for e in events if e.get("ph") == "X"]
+    lanes = {}
+    for kind in ("stage", "stall", "accumulate", "node"):
+        mine = [e for e in spans if e["name"].startswith(kind + ":")
+                or (kind == "node" and e["cat"] == "node")]
+        lanes[kind] = (len(mine), {e["tid"] for e in mine})
+    print("[4l] traced pipeline fit's Chrome trace: " + ", ".join(
+        f"{k} {n} spans on lanes {sorted(t)}" for k, (n, t) in lanes.items())
+        + f"; {len(tr.nodes)} node records", flush=True)
+    assert all(n > 0 for n, _ in lanes.values()), lanes
+    assert not lanes["stage"][1] & (lanes["stall"][1]
+                                   | lanes["accumulate"][1]), lanes
+    assert _lanes_disjoint(events)
+    PipelineEnv.reset()
+    return resumed["gram_cross"]
 
 
 def _fit_seconds(fit, reps=3):
@@ -2988,6 +3402,9 @@ def _main(workdir: str) -> int:
 
     dev = torch.device("cuda")
     torch.manual_seed(SEED)
+    # post-mortems (phase 4l provokes three) stay in the run's directory
+    os.environ["KEYSTONE_TORCH_POSTMORTEM_DIR"] = os.path.join(
+        workdir, "postmortems")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -3082,6 +3499,7 @@ def _main(workdir: str) -> int:
                                                                dev)
     banded_worst = max(banded_worst, inet_banded_worst)
     fv_worst = max(fv_worst, inet_fv_worst)
+    _check_nan(kernels, sift, dev)
 
     # -- 4. main path ---------------------------------------------------------
     (tr_x, tr_y), (te_x, te_y) = make_surrogate_cifar(N_TRAIN, N_TEST,
@@ -3216,6 +3634,7 @@ def _main(workdir: str) -> int:
     agree = float(np.mean(s_preds == preds))
     stream_W = torch.as_tensor(
         _operator(fitted_s, "BlockLinearMapper").weights).float()
+    scaler_4b = _operator(fitted_s, "StandardScalerModel")
     w_rel = float((stream_W - resident_W).abs().max()
                   / resident_W.abs().max())
     print(f"[stream] test error {s_test:.4f} (resident {rp_test:.4f}), "
@@ -3260,8 +3679,17 @@ def _main(workdir: str) -> int:
     if "--profile" in sys.argv[1:]:
         PipelineEnv.reset()
         _profile("streamed fit", streamed_fit)
-    del fitted_s, out, stream, test_stream, labels, test, featurizer
+    ref_4b = {"W": stream_W, "mean": scaler_4b.mean, "std": scaler_4b.std}
+    del fitted_s, out, stream, test_stream, labels, test
     PipelineEnv.reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 4l. resilience and telemetry on the streamed fit ---------------------
+    resilience_gram = _resilience_phase(
+        kernels, rpc, tr_x, tr_y, filters, whitener, config, featurizer,
+        ref_4b, workdir, dev, smi)
+    del featurizer, ref_4b
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3616,7 +4044,8 @@ def _main(workdir: str) -> int:
                              "4b": stream_launches["gram_cross"],
                              "4e": solver_launches["gram_cross"],
                              "4e streamed": solver_stream_launches[
-                                 "gram_cross"]},
+                                 "gram_cross"],
+                             "4l resumed": resilience_gram},
     }, {
         "name": "quantized_affine",
         "route": "cuda",

@@ -82,6 +82,14 @@ static_assert(RUN_CUT % 8 == 0, "the pooling walk loads 8 patches at a time");
 // v ~ big + small, both TF32: the low 13 mantissa bits cleared (a bit
 // mask, where cvt.rna.tf32 runs at the conversion unit's quarter rate);
 // v - big is exact, so only small's truncation is lost (2^-20 of v)
+// max(v, 0) that keeps a NaN, as jnp.maximum and torch.clamp_min do:
+// fmaxf returns its non-NaN operand, which would turn a NaN convolution
+// value into a finite 0 and hide a poisoned image from every check
+// downstream.
+__device__ inline float relu_nan(float v) {
+  return (v > 0.0f || v != v) ? v : 0.0f;
+}
+
 __device__ inline void split_tf32(float v, uint32_t& big, uint32_t& small) {
   big = __float_as_uint(v) & 0xffffe000u;
   small = __float_as_uint(v - __uint_as_float(big)) & 0xffffe000u;
@@ -326,8 +334,8 @@ fused_featurize_kernel(const float* __restrict__ imgs,
           }
 #pragma unroll
           for (int i = 0; i < 8; ++i) {
-            sp_ += fmaxf(c[i] - alpha, 0.0f);
-            sn += fmaxf(-c[i] - alpha, 0.0f);
+            sp_ += relu_nan(c[i] - alpha);
+            sn += relu_nan(-c[i] - alpha);
             if (e[i].x >= 0) {
               const int rx0 = e[i].x & 0xffff, rxn = e[i].x >> 16;
               const int ry0 = e[i].y & 0xffff, ryn = e[i].y >> 16;

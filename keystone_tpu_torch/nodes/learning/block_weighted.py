@@ -45,6 +45,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ...observability.numerics import record_block_health
 from ...ops import linalg
 from ...ops.device import DEFAULT_DEVICE, resolve_device
 from ...parallel.dataset import Dataset, ensure_array
@@ -235,7 +236,11 @@ def _pop_cholesky(pop_cov, w, lam, info):
     eye = torch.eye(d_b, dtype=pop_cov.dtype, device=pop_cov.device)
     M = (1 - w) * pop_cov + lam * eye
     L, bad = torch.linalg.cholesky_ex(M)
-    if int(bad) == 0 and bool(torch.isfinite(L).all()):
+    ok = int(bad) == 0 and bool(torch.isfinite(L).all())
+    # the factor's verdict, already on the host; no pivot ratio is read
+    # here (it would cost another sync per block)
+    record_block_health("block_weighted_pop", [ok], [float("nan")])
+    if ok:
         return L
     info["repairs"] += 1
     V, wc = linalg.clamped_eigh(M)

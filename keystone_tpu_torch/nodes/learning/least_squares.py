@@ -31,6 +31,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ...observability.trace import current_trace
 from ...parallel.dataset import ArrayDataset, Dataset, tree_leaves
 from ...parallel.streaming import is_streamable
 from ...workflow.optimizable import NodeChoice, OptimizableLabelEstimator
@@ -267,4 +268,24 @@ class LeastSquaresEstimator(OptimizableLabelEstimator):
                 machines: int, streaming: bool = False) -> NodeChoice:
         costs = self.costs(n, d, k, sparsity, machines, streaming)
         _, best = min((cost, i) for i, (cost, _, _) in enumerate(costs))
-        return costs[best][2]
+        choice = costs[best][2]
+        trace = current_trace()
+        if trace is not None:
+            # the whole decision: the workload shape, every candidate's
+            # cost, the pick and where the weights came from
+            trace.record_solver_decision({
+                "estimator": type(self).__name__,
+                "n": n, "d": d, "k": k, "sparsity": sparsity,
+                "num_machines": machines,
+                "costs": {type(solver).__name__: cost
+                          for cost, solver, _ in costs},
+                "chosen": type(choice.node).__name__,
+                "weights": {"cpu_weight": self.cpu_weight,
+                            "mem_weight": self.mem_weight,
+                            "network_weight": self.network_weight,
+                            "lat_weight": self.lat_weight},
+                "provenance": dict(self._weight_provenance),
+                "shape_source": "streamed" if streaming else "sampled",
+                "streaming_restricted": streaming,
+            })
+        return choice

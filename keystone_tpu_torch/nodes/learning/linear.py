@@ -21,9 +21,11 @@ import numpy as np
 import torch
 
 from ...observability.metrics import MetricsRegistry
+from ...observability.numerics import record_block_health
 from ...ops import linalg
 from ...ops.kernels import gram_cross, quant_plan, quantized_affine
 from ...parallel.dataset import ArrayDataset, Dataset, ensure_array
+from ...utils.donation import donates_carry
 from ...workflow.label_estimator import LabelEstimator
 from ...workflow.operators import tensor_token
 from ...workflow.transformer import Transformer
@@ -437,6 +439,7 @@ def block_least_squares(X, Y, n, lam, bounds, num_iter, mask=None):
 # accumulation is a pure sum: the chunk order changes the result only by
 # float32 rounding.
 
+@donates_carry(0)
 def accumulate_gram_carry(carry, chunk, labels):
     """Fold one (features, labels) chunk pair into the
     ``(G, C, sx, sy, n)`` carry, in place: the fused Gram kernel adds
@@ -494,11 +497,14 @@ def gram_bcd(carry, lam, bounds, num_iter):
     x_mean, y_mean)``."""
     x_mean, y_mean, Gc, Cc = _centered_carry(carry)
     d, k = Cc.shape
-    factors = []
+    factors, ratios = [], []
     for lo, hi in bounds:
         reg = Gc[lo:hi, lo:hi] + lam * torch.eye(hi - lo, dtype=Gc.dtype,
                                                  device=Gc.device)
-        factors.append((reg,) + linalg.cholesky_factor(reg))
+        L, ok, ratio = linalg.cholesky_health(reg)
+        factors.append((reg, L, ok))
+        ratios.append(ratio)
+    record_block_health("gram_bcd", [f[2] for f in factors], ratios)
     W = torch.zeros((d, k), dtype=Gc.dtype, device=Gc.device)
     for _ in range(num_iter):
         for (lo, hi), (reg, L, ok) in zip(bounds, factors):

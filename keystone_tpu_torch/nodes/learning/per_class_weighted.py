@@ -11,7 +11,7 @@ where B_c gives every example (1-w)/n baseline weight plus w/n_c for the
 example's own class, X is centered by the class's joint feature mean
 (w * class_mean + (1-w) * pop_mean), and y_c is the label column
 centered by the joint label mean. The classes are solved one after the
-other, each block's factor through ``ops.linalg.cholesky_factor`` and
+other, each block's factor through ``ops.linalg.cholesky_health`` and
 its breakdown recovery (``finite_or_eigh_solve``), in the inputs' type.
 """
 from __future__ import annotations
@@ -21,6 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ...observability.numerics import record_block_health
 from ...ops import linalg
 from ...ops.device import DEFAULT_DEVICE, resolve_device
 from ...parallel.dataset import Dataset, ensure_array
@@ -87,12 +88,15 @@ def _solve_single_class(X, b, y, mu, lam, bounds, num_iter):
     by = b * y
     Ws = [torch.zeros(hi - lo, dtype=X.dtype, device=X.device)
           for lo, hi in bounds]
-    factors = []
+    factors, ratios = [], []
     for lo, hi in bounds:
         Xzm = X[:, lo:hi] - mu[lo:hi]
         reg = Xzm.T @ (Xzm * b[:, None]) + lam * torch.eye(
             hi - lo, dtype=X.dtype, device=X.device)
-        factors.append((reg,) + linalg.cholesky_factor(reg))
+        L, ok, ratio = linalg.cholesky_health(reg)
+        factors.append((reg, L, ok))
+        ratios.append(ratio)
+    record_block_health("per_class_bcd", [f[2] for f in factors], ratios)
     r = torch.zeros_like(y)
     for _ in range(num_iter):
         for i, (lo, hi) in enumerate(bounds):

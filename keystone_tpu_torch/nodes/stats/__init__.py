@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ...parallel.dataset import ArrayDataset, Dataset
+from ...utils.donation import donates_carry
 from ...workflow.estimator import Estimator
 from ...workflow.operators import tensor_token
 from ...workflow.transformer import Transformer
@@ -208,6 +209,7 @@ class StandardScaler(Estimator):
         return self.finalize(self.accumulate(None, ds))
 
     # -- streaming fit (accumulate/finalize protocol) ----------------------
+    @donates_carry(1)
     def accumulate(self, carry, chunk):
         """Fold one chunk's column sums and sums of squares into the
         ``(S, SQ, n)`` carry, in place. Padded rows are zero, so the

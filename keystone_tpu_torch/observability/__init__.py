@@ -1,9 +1,12 @@
-"""Telemetry of the port: the metrics registry and its scrape surface.
+"""Telemetry of the port.
 
-Counterpart of part of ``keystone_tpu/observability``: ``metrics.py``
-(counters, gauges, histograms, Prometheus text) and the HTTP handler of
-``sampler.py``. Spans, the sampler thread, post-mortems and the
-numerics plane come later (ROADMAP A9).
+Counterpart of ``keystone_tpu/observability``: ``metrics.py`` (counters,
+gauges, histograms, Prometheus text), ``names.py`` (the metric-name
+catalogue), ``timeline.py`` (the flight recorder and its Chrome trace),
+``trace.py`` (``PipelineTrace``), ``postmortem.py``, ``numerics.py`` (the
+data-health plane) and ``sampler.py`` (``TelemetrySampler`` and the
+scrape handler). ``compilelog.py``, ``utilization.py`` and
+``benchdiff.py`` come later (ROADMAP A9b).
 """
 from .metrics import Counter, Gauge, Histogram, MetricsRegistry
 

@@ -1,0 +1,93 @@
+"""The port's metric-name catalogue.
+
+Counterpart of ``keystone_tpu/observability/names.py``. Dashboards, the
+sampler and the scrape surface address metrics by name across process
+boundaries, so a renamed counter fails silently (a flat zero, not an
+error). Every literal name the port passes to ``counter``, ``gauge``,
+``histogram`` or ``timer`` is listed here; ``tests/test_torch_telemetry.py``
+walks the port's syntax trees and fails on a name that is not.
+Families with a dynamic tail (``resilience.<event>``,
+``lock.wait_s.<lock>``) are catalogued as prefixes, which an f-string's
+literal head must fall inside.
+"""
+from __future__ import annotations
+
+from typing import FrozenSet, Tuple
+
+METRIC_NAMES: FrozenSet[str] = frozenset({
+    # workflow/executor.py: always-on executor counters
+    "executor.nodes_executed",
+    "executor.memo_hits",
+    # parallel/streaming.py: streamed ingest and the streamed fit
+    "streaming.ingest_stall_s",
+    "streaming.prefetch_occupancy",
+    "streaming.chunks_total",
+    "streaming.h2d_bytes",
+    "streaming.resident_bytes",
+    "streaming.carry_bytes",
+    # resilience/stream_checkpoint.py: the cost of a snapshot, split
+    # into the carry's device-to-host copy and the file write, and of a
+    # restore
+    "checkpoint.d2h_s",
+    "checkpoint.write_s",
+    "checkpoint.restore_s",
+    # utils/guarded.py: lock contention
+    "lock.contended_total",
+    # observability/sampler.py: probes, published as gauges
+    "process.rss_bytes",
+    "streaming.stage_queue_depth",
+    # observability/numerics.py: the data-health plane
+    "numerics.health_words",
+    "numerics.nan_total",
+    "numerics.inf_total",
+    "numerics.solves_total",
+    "numerics.breakdown_total",
+    "numerics.pivot_ratio",
+    "numerics.health_age_s",
+    "numerics.quant_rel_error",
+    "numerics.quant_error",
+    # serving/: the serving plane
+    "serving.requests_total",
+    "serving.rows_total",
+    "serving.batches_total",
+    "serving.rejected_total",
+    "serving.errors_total",
+    "serving.evictions_total",
+    "serving.shed_total",
+    "serving.deadline_expired_total",
+    "serving.admission_rejected_total",
+    "serving.queue_depth",
+    "serving.warmup_s",
+    "serving.poisoned_batches_total",
+    "serving.queue_wait_s",
+    "serving.models_resident",
+    "serving.models_warming",
+    "serving.hbm_budget_bytes",
+    "serving.hbm_charged_bytes",
+    "serving.request_ms",
+    "serving.batch_ms",
+    "serving.batch_fill",
+})
+
+METRIC_PREFIXES: Tuple[str, ...] = (
+    "resilience.",   # resilience/events.py: one counter per event kind
+    "lock.wait_s.",  # utils/guarded.py: one histogram per traced lock
+    "numerics.",     # observability/numerics.py: one counter per event
+    # serving/plane.py: the per-model families
+    "serving.request_ms.",
+    "serving.batch_fill.",
+    "serving.rejected_total.",
+    "serving.queue_wait_s.",
+)
+
+
+def is_catalogued(name: str) -> bool:
+    """True when ``name`` is listed, or falls inside a listed prefix."""
+    return name in METRIC_NAMES or any(name.startswith(p)
+                                       for p in METRIC_PREFIXES)
+
+
+def is_catalogued_prefix(head: str) -> bool:
+    """True when an f-string's literal head lands inside a listed prefix
+    family."""
+    return bool(head) and any(head.startswith(p) for p in METRIC_PREFIXES)

@@ -1,17 +1,166 @@
-"""The HTTP scrape surface: ``GET /metrics`` and ``GET /healthz``.
+"""Background telemetry sampler and the HTTP scrape surface.
 
-Counterpart of the handler and server of
-``keystone_tpu/observability/sampler.py``. The serving plane's HTTP
-surface (``serving/http.py``) extends this handler. The background
-``TelemetrySampler`` and its probes are not ported yet (ROADMAP A9).
+Counterpart of ``keystone_tpu/observability/sampler.py``:
+
+* :class:`TelemetrySampler`, a daemon thread that every ``interval_s``
+  snapshots every registry counter and gauge plus a set of probes into
+  bounded time series (``capacity`` points each). Probe values are also
+  published back into the registry as gauges, so the scrape surface
+  serves them too. The probes carry the JAX ones' meaning on the port:
+  ``process.rss_bytes`` (``/proc/self/statm``), ``numerics.health_age_s``
+  (seconds since the numerics plane last read a health word) and
+  ``streaming.stage_queue_depth`` (chunks staged and waiting in the live
+  streams' queues, in the place of the JAX package's H2D pool queue).
+  ``start`` and ``stop`` are idempotent and a stopped sampler can start
+  again; a probe that raises is skipped for that tick.
+* ``GET /metrics`` and ``GET /healthz``: the handler and server below,
+  which the serving plane's HTTP surface (``serving/http.py``) extends.
 """
 from __future__ import annotations
 
+import os
 import threading
+import time
+from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Callable, Optional
+from typing import Callable, Deque, Dict, List, Optional, Tuple
 
+from ..utils.guarded import guarded_by
 from .metrics import MetricsRegistry
+
+
+def _rss_bytes() -> float:
+    """Current resident set size (``/proc/self/statm``); elsewhere the
+    peak from ``getrusage``, better than a dead probe."""
+    try:
+        with open("/proc/self/statm") as f:
+            pages = int(f.read().split()[1])
+        return float(pages * os.sysconf("SC_PAGE_SIZE"))
+    except (OSError, ValueError, IndexError):
+        import resource
+        import sys
+
+        raw = float(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss)
+        return raw if sys.platform == "darwin" else raw * 1024.0
+
+
+def _numerics_health_age_s() -> float:
+    from .numerics import last_health_age_s
+
+    return last_health_age_s()
+
+
+def _stage_queue_depth() -> float:
+    from ..parallel.streaming import staged_queue_depth
+
+    return float(staged_queue_depth())
+
+
+#: probes installed on every sampler (name -> zero-argument float fn)
+DEFAULT_PROBES: Dict[str, Callable[[], float]] = {
+    "process.rss_bytes": _rss_bytes,
+    "numerics.health_age_s": _numerics_health_age_s,
+    "streaming.stage_queue_depth": _stage_queue_depth,
+}
+
+
+@guarded_by("_lock", "_series", "_probes")
+class TelemetrySampler:
+    """Interval sampler of registry scalars and probes into bounded time
+    series::
+
+        sampler = TelemetrySampler(interval_s=0.1).start()
+        ...
+        sampler.stop()
+        rss = sampler.series("process.rss_bytes")   # [(t, value), ...]
+    """
+
+    def __init__(self, interval_s: float = 0.5, capacity: int = 512,
+                 registry: Optional[MetricsRegistry] = None):
+        if interval_s <= 0:
+            raise ValueError("interval_s must be > 0")
+        if capacity < 1:
+            raise ValueError("capacity must be >= 1")
+        self.interval_s = float(interval_s)
+        self.capacity = int(capacity)
+        self._registry = registry
+        self._series: Dict[str, Deque[Tuple[float, float]]] = {}
+        self._probes: Dict[str, Callable[[], float]] = dict(DEFAULT_PROBES)
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def add_probe(self, name: str, fn: Callable[[], float]) -> None:
+        """Register another sampled value (a zero-argument callable)."""
+        with self._lock:
+            self._probes[name] = fn
+
+    def sample_once(self) -> Dict[str, float]:
+        """One tick (also usable without the thread); the values taken."""
+        reg = self._registry or MetricsRegistry.get_or_create()
+        with self._lock:
+            probes = list(self._probes.items())
+        values: Dict[str, float] = {}
+        for name, fn in probes:
+            try:
+                v = float(fn())
+            except Exception:
+                continue  # a broken probe must not kill the sampler
+            values[name] = v
+            reg.gauge(name).set(v)
+        snap = reg.snapshot()
+        for name, v in snap["gauges"].items():
+            values.setdefault(name, float(v))
+        for name, v in snap["counters"].items():
+            values[name] = float(v)
+        now = time.time()
+        with self._lock:
+            for name, v in values.items():
+                series = self._series.get(name)
+                if series is None:
+                    series = self._series[name] = deque(maxlen=self.capacity)
+                series.append((now, v))
+        return values
+
+    def _loop(self, stop: threading.Event) -> None:
+        # wait first, outside any lock: stop() wakes it at once
+        while not stop.wait(self.interval_s):
+            self.sample_once()
+
+    @property
+    def running(self) -> bool:
+        t = self._thread
+        return t is not None and t.is_alive()
+
+    def start(self) -> "TelemetrySampler":
+        """Start the sampling thread (a no-op when running)."""
+        with self._lock:
+            if self._thread is not None:
+                return self
+            stop = self._stop = threading.Event()
+            t = threading.Thread(target=self._loop, args=(stop,),
+                                 name="keystone-torch-telemetry-sampler",
+                                 daemon=True)
+            self._thread = t
+            t.start()
+        return self
+
+    def stop(self, timeout: float = 5.0) -> None:
+        """Stop and join the sampling thread (a no-op when stopped)."""
+        with self._lock:
+            t = self._thread
+            self._thread = None
+            self._stop.set()
+        if t is not None:
+            t.join(timeout=timeout)
+
+    def series(self, name: str) -> List[Tuple[float, float]]:
+        with self._lock:
+            return list(self._series.get(name, ()))
+
+    def series_names(self) -> List[str]:
+        with self._lock:
+            return sorted(self._series)
 
 
 class _MetricsHandler(BaseHTTPRequestHandler):

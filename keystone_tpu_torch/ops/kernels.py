@@ -792,6 +792,41 @@ def banded_matmul_plain(band: np.ndarray, X: torch.Tensor,
     return out if right is None else out @ pair.rdense.T
 
 
+def _live_cover(band: np.ndarray, rows: int) -> np.ndarray:
+    """(m, l) float32, 1 where column k lies in the live range of row i's
+    ``rows``-row tile (:func:`band_live_map`)."""
+    klo, khi = band_live_map(band, rows)
+    tile = np.arange(band.shape[0]) // rows
+    k = np.arange(band.shape[1])
+    return ((k >= klo[tile, None]) & (k < khi[tile, None])).astype(
+        np.float32)
+
+
+def banded_live_reach(band: np.ndarray, X: torch.Tensor,
+                      right: Optional[np.ndarray] = None,
+                      tile_rows: Optional[int] = None,
+                      group_rows: Optional[int] = None) -> torch.Tensor:
+    """Where a non-finite value of X lands in the banded kernels' output,
+    as a bool tensor of its shape: every output whose sum runs over it.
+    The kernels, like the TPU kernel's product over each tile's live
+    blocks, sum over a whole live range, zero band entries included, and
+    0 x NaN is NaN: the one-sided kernel over the range of the output
+    row's ``tile_rows``-row tile, the two-sided one over the ranges of
+    the ``group_rows``-row groups of both bands' rows (the built
+    library's sizes by default). The plain version's dense product sums
+    over every column, so its reach is wider: this is what a check of
+    the kernels' non-finite outputs holds them to."""
+    _band_operands(band, X, right)
+    bad = (~torch.isfinite(X)).to(torch.float32)
+    if right is None:
+        cover = _live_cover(band, tile_rows or band_tile_rows())
+        return torch.as_tensor(cover, device=X.device) @ bad > 0
+    rows = group_rows or band_group_rows()
+    left, cross = (torch.as_tensor(_live_cover(a, rows), device=X.device)
+                   for a in (band, right))
+    return left @ bad @ cross.T > 0
+
+
 def banded_matmul(band: np.ndarray, X: torch.Tensor,
                   right: Optional[np.ndarray] = None) -> torch.Tensor:
     """``band @ X`` for a host numpy band matrix (m, l) and X (l, n); with

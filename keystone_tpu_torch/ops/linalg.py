@@ -20,6 +20,7 @@ from typing import Callable, List, Sequence
 import torch
 
 from . import device as _device  # noqa: F401  (sets the TF32 policy)
+from ..observability.numerics import record_block_health, record_solve_health
 from .kernels import gram_cross
 
 
@@ -49,25 +50,40 @@ def distributed_mean(A: torch.Tensor, n: int) -> torch.Tensor:
 _PIVOT_TAU = 1e-3
 
 
-def chol_healthy(L: torch.Tensor, G: torch.Tensor) -> bool:
-    """True when the Cholesky factor L of G is finite and has no
-    collapsed pivot (min L_ii / sqrt(G_ii) > _PIVOT_TAU). Near rank
-    deficiency (duplicate columns at lam ~ 0) can give a finite factor
-    whose last pivot is rounding noise; the raw solve then returns finite
-    but wildly oversized weights, which this gate catches."""
+def chol_health(L: torch.Tensor, G: torch.Tensor):
+    """``(ok, ratio)``: whether the Cholesky factor L of G is finite and
+    has no collapsed pivot, and the scale-free min pivot ratio
+    L_ii / sqrt(G_ii) it is judged by (``ok`` needs ratio > _PIVOT_TAU).
+    Near rank deficiency (duplicate columns at lam ~ 0) can give a
+    finite factor whose last pivot is rounding noise; the raw solve then
+    returns finite but wildly oversized weights, which this gate
+    catches. Both values are read on the host; the numerics plane
+    records them (``observability/numerics.py``)."""
     dL = torch.diagonal(L, dim1=-2, dim2=-1).abs()
     dG = torch.sqrt(torch.clamp_min(
         torch.diagonal(G, dim1=-2, dim2=-1).abs(), 1e-30))
-    return bool(torch.isfinite(L).all()) and float(
-        torch.min(dL / dG)) > _PIVOT_TAU
+    if not bool(torch.isfinite(L).all()):
+        return False, float("nan")
+    ratio = float(torch.min(dL / dG))
+    return ratio > _PIVOT_TAU, ratio
+
+
+def cholesky_health(reg: torch.Tensor):
+    """``(L, ok, ratio)``: the lower Cholesky factor of ``reg``, whether
+    it is healthy enough to solve with (LAPACK/cuSOLVER success and
+    ``chol_health``), and its min pivot ratio (NaN when the factor
+    failed)."""
+    L, info = torch.linalg.cholesky_ex(reg)
+    if int(info) != 0:
+        return L, False, float("nan")
+    ok, ratio = chol_health(L, reg)
+    return L, ok, ratio
 
 
 def cholesky_factor(reg: torch.Tensor):
-    """``(L, ok)``: the lower Cholesky factor of ``reg`` and whether it is
-    healthy enough to solve with (LAPACK/cuSOLVER success and
-    ``chol_healthy``)."""
-    L, info = torch.linalg.cholesky_ex(reg)
-    return L, int(info) == 0 and chol_healthy(L, reg)
+    """``(L, ok)`` of :func:`cholesky_health`."""
+    L, ok, _ = cholesky_health(reg)
+    return L, ok
 
 
 def clamped_eigh(reg: torch.Tensor):
@@ -98,17 +114,21 @@ def finite_or_eigh_solve(W: torch.Tensor, reg_fn: Callable[[], torch.Tensor],
     return eigh_solve(reg_fn(), rhs)
 
 
-def ridge_cho_solve(AtA: torch.Tensor, Atb: torch.Tensor,
-                    lam: float) -> torch.Tensor:
+def ridge_cho_solve(AtA: torch.Tensor, Atb: torch.Tensor, lam: float,
+                    site: str = "ridge_cho_solve") -> torch.Tensor:
     """Solve (AtA + lam*I) W = Atb by Cholesky. When the f32 factor breaks
     down or comes within a whisker of it, the clamped eigendecomposition
     recovers a finite, more strongly regularized solution instead of
-    NaN or garbage weights."""
+    NaN or garbage weights. The gate's verdict and pivot ratio go to the
+    numerics ledger under ``site``: one ``numerics.breakdown`` event per
+    fallback taken."""
     d = AtA.shape[0]
     reg = AtA + lam * torch.eye(d, dtype=AtA.dtype, device=AtA.device)
-    L, ok = cholesky_factor(reg)
+    L, ok, ratio = cholesky_health(reg)
     W = torch.cholesky_solve(Atb, L)
-    return finite_or_eigh_solve(W, lambda: reg, Atb, ok)
+    ok = ok and bool(torch.isfinite(W).all())
+    record_solve_health(site, ok, ratio)
+    return W if ok else eigh_solve(reg, Atb)
 
 
 def normal_equations(A: torch.Tensor, Y: torch.Tensor,
@@ -134,11 +154,14 @@ def bcd_core(blocks: Sequence[torch.Tensor], Y: torch.Tensor, lam: float,
     eigh fallback every pass. The JAX package runs the same block order
     as a scan for four or more equal blocks and unrolled otherwise."""
     k = Y.shape[1]
-    factors = []
+    factors, ratios = [], []
     for A in blocks:
         reg = gram(A) + lam * torch.eye(A.shape[1], dtype=A.dtype,
                                         device=A.device)
-        factors.append((reg,) + cholesky_factor(reg))
+        L, ok, ratio = cholesky_health(reg)
+        factors.append((reg, L, ok))
+        ratios.append(ratio)
+    record_block_health("bcd_core", [f[2] for f in factors], ratios)
     Ws = [torch.zeros((A.shape[1], k), dtype=Y.dtype, device=Y.device)
           for A in blocks]
     pred = torch.zeros_like(Y)

@@ -32,21 +32,59 @@ and one is working: the device residency is ``(prefetch_depth + 1)``
 chunks, which ``hbm_budget`` checks (statically before the first chunk,
 and after every chunk).
 
-Left out of this port so far: checkpoint/resume, quarantine, retry
-policy, fault-injection sites, the numerics monitor and sketch, the
-compile fence, metrics, spans and post-mortems; the distributed world
-loop and per-shard staging onto a mesh.
+Resilience (``keystone_tpu_torch/resilience``). Staging retries
+transient failures under the stream's `RetryPolicy`; a retried attempt
+refills its ring slot from the host chunk, and a slot is handed on only
+once its copy is enqueued. The consumer's watchdog turns a producer that
+died into `IngestTimeoutError` at once, and one that sends nothing for
+``stall_timeout_s`` seconds into the same error, each with a
+post-mortem. The fault sites are ``ingest.produce`` (per chunk, in the
+producer loop) and ``ingest.stage`` (per staging attempt, after the host
+fill; ``corrupt`` rules poison the host chunk before it is staged).
+`fit_streaming` checkpoints its (cursor, carry, quarantine, sketch)
+state every ``checkpoint_every`` chunks and resumes bit-identically,
+runs the numerics plane's deferred health words and drift sketch over
+the chunks it accumulates, and feeds the flight recorder's
+``stage:<tag>`` (producer), ``stall:<tag>`` and ``accumulate:<tag>``
+(consumer) lanes and the ``streaming.*`` metrics. An interpreter exit
+under a live stream stops its producer and dumps a post-mortem.
+
+Left out of this port so far: the compile fence (ROADMAP A9b), the
+distributed world loop and per-shard staging onto a mesh (A11).
 """
 from __future__ import annotations
 
+import atexit
 import queue
 import threading
-from typing import Any, Callable, Iterator, List, Optional, Tuple
+import time
+import weakref
+from typing import (
+    Any,
+    Callable,
+    Iterator,
+    List,
+    NamedTuple,
+    Optional,
+    Tuple,
+)
 
 import numpy as np
 import torch
 
+from ..observability.metrics import MetricsRegistry
+from ..observability.postmortem import attach_postmortem, dump_postmortem
+from ..observability.timeline import record_span
+from ..observability.trace import current_trace
 from ..ops.device import DEFAULT_DEVICE, resolve_device
+from ..resilience.events import record_event
+from ..resilience.faults import corrupt, inject
+from ..resilience.retry import (
+    IngestTimeoutError,
+    RetryPolicy,
+    default_retry_policy,
+)
+from ..utils.guarded import TracedLock, TracedSemaphore, guarded_by
 from .dataset import (
     ArrayDataset,
     Dataset,
@@ -65,6 +103,52 @@ class _SourceError:
 
     def __init__(self, exc: BaseException):
         self.exc = exc
+
+
+class _LiveIteration:
+    """A live ``chunks()`` iteration, as the exit teardown and the
+    sampler's queue-depth probe see it."""
+
+    __slots__ = ("stop", "producer", "queue", "__weakref__")
+
+    def __init__(self, stop: threading.Event, q: queue.Queue):
+        self.stop = stop
+        self.queue = q
+        self.producer: Optional[threading.Thread] = None
+
+
+#: every live iteration; a finished one is garbage, not a leak
+_LIVE_STREAMS: "weakref.WeakSet[_LiveIteration]" = weakref.WeakSet()
+
+
+def staged_queue_depth() -> int:
+    """Chunks staged and waiting in the queues of the live streams (the
+    sampler's ``streaming.stage_queue_depth`` probe)."""
+    return sum(it.queue.qsize() for it in list(_LIVE_STREAMS))
+
+
+def _shutdown_live_streams() -> None:
+    """Interpreter exit under a live stream: stop every producer, join it
+    briefly (a producer may be mid-copy on its side stream; it must end
+    before the CUDA context is torn down), and dump a post-mortem, so a
+    killed fit still leaves its timeline."""
+    live = list(_LIVE_STREAMS)
+    for it in live:
+        it.stop.set()
+    for it in live:
+        if it.producer is not None and it.producer is not \
+                threading.current_thread():
+            it.producer.join(timeout=2.0)
+    if live:
+        dump_postmortem("exit_under_active_stream",
+                        {"live_streams": len(live)})
+
+
+# threading._register_atexit callbacks run at threading shutdown, before
+# the interpreter tears modules (and torch's CUDA context) down; plain
+# atexit would run too late
+getattr(threading, "_register_atexit", atexit.register)(
+    _shutdown_live_streams)
 
 
 def _rebuild(tree: Any, leaves: Iterator[Any]) -> Any:
@@ -89,13 +173,15 @@ class _IterLedger:
         self.working = 0.0
 
 
+@guarded_by("_lock", "buffered", "working", "chunk_nbytes", "peak")
 class _Residency:
     """Thread-safe device-residency ledger of one prefetch pipeline:
     bytes staged in the queue plus working chunks, with a high-water
-    mark. Shared by a root stream and every view derived from it."""
+    mark. Shared by a root stream and every view derived from it. Its
+    lock is a TracedLock: producer/consumer contention shows."""
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = TracedLock("stream.residency")
         self.buffered = 0.0
         self.working = 0.0
         self.chunk_nbytes = 0.0
@@ -139,7 +225,10 @@ class _Stager:
     """Host-to-device copies for one ``chunks()`` iteration, run on the
     producer thread. On the CPU a chunk is a fresh padded array. On CUDA
     it is copied from a ring of pinned buffers on a side stream; the
-    returned event marks the end of the copy."""
+    returned event marks the end of the copy. The ``ingest.stage`` fault
+    site sits between the host fill and the copy: a failed attempt
+    leaves its slot unclaimed, and the retry refills it from the host
+    chunk."""
 
     def __init__(self, device: torch.device, ring: int):
         self.device = device
@@ -159,7 +248,7 @@ class _Stager:
         dst[rows:] = 0
 
     def stage(self, leaves: List[np.ndarray], rows: int, chunk_size: int,
-              wire: List[np.dtype]):
+              wire: List[np.dtype], context: str):
         shapes = [(chunk_size,) + x.shape[1:] for x in leaves]
         if not self.cuda:
             out = []
@@ -167,9 +256,9 @@ class _Stager:
                 buf = np.empty(shape, dt)
                 self._fill(buf, x, rows)
                 out.append(torch.from_numpy(buf))
+            inject("ingest.stage", context=context)
             return out, None
         slot = self.next_slot % len(self.ring)
-        self.next_slot += 1
         if self.events[slot] is not None:
             # the copy that last read this pinned buffer must be done
             self.events[slot].synchronize()
@@ -181,6 +270,7 @@ class _Stager:
             self.ring[slot] = bufs
         for buf, x in zip(bufs, leaves):
             self._fill(buf.numpy(), x, rows)
+        inject("ingest.stage", context=context)
         with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
             out = [torch.empty(b.shape, dtype=b.dtype, device=self.device)
                    for b in bufs]
@@ -188,8 +278,30 @@ class _Stager:
                 dst.copy_(src, non_blocking=True)
             event = torch.cuda.Event()
             event.record(self.stream)
+        # the slot is claimed only once its copy is enqueued
         self.events[slot] = event
+        self.next_slot += 1
         return out, event
+
+
+class StreamGeometry(NamedTuple):
+    """A stream's static chunk geometry: what the residency ledger
+    charges, computed without touching the source."""
+
+    chunk_rows: int
+    prefetch_depth: int
+    wire_row_nbytes: float
+    work_row_nbytes: float
+    cast: bool
+
+    def plan_nbytes(self) -> float:
+        """``prefetch_depth`` staged wire chunks, one working chunk at
+        the compute width and, when a cast runs, one transient wire
+        chunk."""
+        wire = self.chunk_rows * self.wire_row_nbytes
+        return (self.prefetch_depth * wire
+                + self.chunk_rows * self.work_row_nbytes
+                + (wire if self.cast else 0.0))
 
 
 class StreamingDataset(Dataset):
@@ -205,7 +317,11 @@ class StreamingDataset(Dataset):
 
     ``n`` (the total item count) may be unknown (None); a completed pass
     pins it. ``hbm_budget`` (bytes), when given, is the residency bound a
-    streamed fit of this stream or of a view of it checks."""
+    streamed fit of this stream or of a view of it checks.
+    ``retry_policy`` (default: the shared default policy) retries
+    staging; ``stall_timeout_s`` (default None: no deadline) arms the
+    consumer's watchdog; ``quarantine`` is the corrupt-record quarantine
+    the source feeds, which a streamed fit checkpoints."""
 
     def __init__(self, chunk_source: Callable[[], Iterator[Any]],
                  chunk_size: int, n: Optional[int] = None,
@@ -213,6 +329,9 @@ class StreamingDataset(Dataset):
                  tag: Optional[str] = None, wire_dtype: Any = None,
                  compute_dtype: Any = None,
                  hbm_budget: Optional[float] = None,
+                 retry_policy: Optional[RetryPolicy] = None,
+                 stall_timeout_s: Optional[float] = None,
+                 quarantine: Any = None,
                  _transforms: Tuple[Callable, ...] = ()):
         if not callable(chunk_source):
             raise TypeError(
@@ -232,6 +351,10 @@ class StreamingDataset(Dataset):
         self.compute_dtype = (None if compute_dtype is None
                               else np.dtype(compute_dtype))
         self.hbm_budget = None if hbm_budget is None else float(hbm_budget)
+        self.retry_policy = retry_policy
+        self.stall_timeout_s = (None if stall_timeout_s is None
+                                else float(stall_timeout_s))
+        self.quarantine = quarantine
         self._chunk_source = chunk_source
         self._transforms = tuple(_transforms)
         # shared between a root stream and every view derived from it:
@@ -249,6 +372,8 @@ class StreamingDataset(Dataset):
             device=self.device, prefetch_depth=self.prefetch_depth,
             tag=self.tag, wire_dtype=self.wire_dtype,
             compute_dtype=self.compute_dtype, hbm_budget=self.hbm_budget,
+            retry_policy=self.retry_policy,
+            stall_timeout_s=self.stall_timeout_s, quarantine=self.quarantine,
             _transforms=self._transforms + (transform,))
         out._residency = self._residency
         out._element = self._element
@@ -290,12 +415,17 @@ class StreamingDataset(Dataset):
         """Iterate device chunks with background prefetch. Each call
         re-opens the source (a fresh epoch); leaving the loop early stops
         the producer thread."""
+        reg = MetricsRegistry.get_or_create()
+        tag = self.tag or "stream"
+        policy = self.retry_policy or default_retry_policy()
         q: queue.Queue = queue.Queue()
         # the bound is the slots, acquired BEFORE staging: gating the
         # queue alone would let the producer stage chunk depth + 1 while
         # it waits for room, putting depth + 2 chunks on the device
-        slots = threading.Semaphore(self.prefetch_depth)
+        slots = TracedSemaphore("stream.slots", self.prefetch_depth)
         stop = threading.Event()
+        live = _LiveIteration(stop, q)
+        _LIVE_STREAMS.add(live)
         ledger = _IterLedger()
         stager = _Stager(self.device, self.prefetch_depth)
 
@@ -307,20 +437,30 @@ class StreamingDataset(Dataset):
 
         def produce():
             try:
+                produced = 0
                 for raw in self._chunk_source():
+                    inject("ingest.produce", context=tag, abort=stop.is_set)
                     if not acquire_slot():
                         return
+                    t0 = time.perf_counter()
+                    raw = corrupt("ingest.stage", raw, context=tag)
                     leaves, rows = self._host_leaves(raw)
                     wire = [self.wire_dtype or x.dtype for x in leaves]
                     target = [self.compute_dtype or x.dtype for x in leaves]
-                    staged, event = stager.stage(leaves, rows,
-                                                 self.chunk_size, wire)
+                    staged, event = policy.call(
+                        stager.stage, leaves, rows, self.chunk_size, wire,
+                        tag, site="ingest.stage")
                     nbytes = float(sum(t.element_size() * t.numel()
                                        for t in staged))
                     work = float(sum(t.numel() * dt.itemsize
                                      for t, dt in zip(staged, target)))
                     cast = [None if dt == w else _torch_dtype(dt)
                             for dt, w in zip(target, wire)]
+                    record_span(f"stage:{tag}", "ingest", t0,
+                                time.perf_counter() - t0,
+                                args={"chunk": produced, "h2d_bytes": nbytes})
+                    produced += 1
+                    reg.counter("streaming.h2d_bytes").inc(nbytes)
                     self._residency.stage(ledger, nbytes)
                     q.put((raw, staged, rows, nbytes, work, cast, event))
                 q.put(_DONE)
@@ -334,25 +474,63 @@ class StreamingDataset(Dataset):
 
         producer = threading.Thread(target=produce, daemon=True,
                                     name="keystone-torch-stream-prefetch")
+        live.producer = producer
         producer.start()
-        rows_seen, complete = 0, False
-        try:
+        seen = rows_seen = 0
+        complete = False
+        trace = current_trace()
+
+        def watchdog_error(reason: str, msg: str, **extra) -> BaseException:
+            record_event("watchdog_trip", source=tag, reason=reason,
+                         chunk=seen, **extra)
+            return attach_postmortem(
+                IngestTimeoutError(f"stream {self.tag or '<untagged>'}: "
+                                   f"{msg}"),
+                "ingest_timeout",
+                {"source": tag, "reason": reason, "chunk": seen, **extra})
+
+        def get_with_watchdog(t0: float):
+            """``q.get`` that wakes once a second to notice a dead
+            producer and, with ``stall_timeout_s``, enforces the ingest
+            deadline. Free while chunks flow."""
+            deadline = (None if self.stall_timeout_s is None
+                        else t0 + self.stall_timeout_s)
             while True:
+                wait = 1.0
+                if deadline is not None:
+                    wait = min(wait, max(deadline - time.perf_counter(),
+                                         0.01))
                 try:
-                    item = q.get(timeout=1.0)
+                    return q.get(timeout=wait)
                 except queue.Empty:
                     if not producer.is_alive() and q.empty():
-                        raise RuntimeError(
-                            f"stream {self.tag or '<untagged>'}: the "
-                            "producer thread died without completing the "
-                            "stream")
-                    continue
+                        raise watchdog_error(
+                            "producer_died", "the producer thread died "
+                            f"without completing the stream (after chunk "
+                            f"{seen})")
+                    if deadline is not None and \
+                            time.perf_counter() >= deadline:
+                        stalled = time.perf_counter() - t0
+                        raise watchdog_error(
+                            "stall_deadline",
+                            f"no chunk from the producer in {stalled:.1f}s "
+                            f"(stall_timeout_s={self.stall_timeout_s:g}, "
+                            f"after chunk {seen}; producer thread alive): "
+                            "a hung source? Raise stall_timeout_s if the "
+                            "source is this slow.", stall_s=stalled)
+
+        try:
+            while True:
+                t0 = time.perf_counter()
+                item = get_with_watchdog(t0)
+                stall = time.perf_counter() - t0
                 if item is _DONE:
                     complete = True
                     break
                 if isinstance(item, _SourceError):
                     raise item.exc
                 raw, staged, rows, nbytes, work, cast, event = item
+                occupancy = q.qsize()
                 needs_cast = any(c is not None for c in cast)
                 self._residency.hand_off(
                     ledger, nbytes, work,
@@ -360,6 +538,19 @@ class StreamingDataset(Dataset):
                 # the chunk left the buffer: the producer may stage the
                 # next one while this one computes
                 slots.release()
+                reg.histogram("streaming.ingest_stall_s").observe(stall)
+                reg.gauge("streaming.prefetch_occupancy").set(occupancy)
+                reg.counter("streaming.chunks_total").inc()
+                reg.gauge("streaming.resident_bytes").set(
+                    self._residency.live())
+                record_span(f"stall:{tag}", "ingest", t0, stall,
+                            args={"chunk": seen})
+                if trace is not None:
+                    trace.record_chunk({
+                        "source": tag, "chunk": seen, "n": rows,
+                        "padded_n": self.chunk_size, "nbytes": work,
+                        "h2d_bytes": nbytes, "ingest_stall_s": stall,
+                        "prefetch_occupancy": occupancy})
                 if event is not None:
                     current = torch.cuda.current_stream(staged[0].device)
                     current.wait_event(event)
@@ -372,6 +563,7 @@ class StreamingDataset(Dataset):
                 for f in self._transforms:
                     out = f(out)
                 yield out
+                seen += 1
                 rows_seen += rows
         finally:
             stop.set()
@@ -379,6 +571,7 @@ class StreamingDataset(Dataset):
             # would otherwise charge the ledger after it was closed
             producer.join(timeout=5.0)
             self._residency.close(ledger)
+            _LIVE_STREAMS.discard(live)
         if complete and self.n is None:
             self.n = rows_seen
 
@@ -402,25 +595,49 @@ class StreamingDataset(Dataset):
         its views."""
         return self._residency.peak
 
-    def static_plan_nbytes(self) -> Optional[float]:
-        """The residency bound of one live iteration, computed without
-        touching the source: ``prefetch_depth`` staged wire-width chunks,
-        one working chunk at the compute width and, when a cast runs,
-        one transient wire chunk. None when the source's items cannot be
-        described without consuming it."""
+    def plan_geometry(self) -> Optional[StreamGeometry]:
+        """The static chunk geometry, or None when the source's items
+        cannot be described without consuming it."""
         if self._element is None:
             return None
-        wire_b = work_b = 0.0
+        wire_row = work_row = 0.0
         cast = False
         for shape, src in self._element:
-            size = float(self.chunk_size * int(np.prod(shape, dtype=np.int64)))
+            size = float(int(np.prod(shape, dtype=np.int64)))
             wire = self.wire_dtype or src
             comp = self.compute_dtype or src
-            wire_b += size * wire.itemsize
-            work_b += size * comp.itemsize
+            wire_row += size * wire.itemsize
+            work_row += size * comp.itemsize
             cast = cast or wire != comp
-        return (self.prefetch_depth * wire_b + work_b
-                + (wire_b if cast else 0.0))
+        return StreamGeometry(self.chunk_size, self.prefetch_depth,
+                              wire_row, work_row, cast)
+
+    def static_plan_nbytes(self) -> Optional[float]:
+        """The residency bound of one live iteration, computed without
+        touching the source (:meth:`StreamGeometry.plan_nbytes`); None
+        for an opaque source."""
+        geom = self.plan_geometry()
+        return None if geom is None else geom.plan_nbytes()
+
+    # -- identity (the resume fingerprint) ----------------------------------
+    def element(self) -> Optional[Tuple[Tuple[tuple, str], ...]]:
+        """Per-leaf ``(item shape, dtype name)`` as consumers see it
+        (the compute dtype where one is set), or None for an opaque
+        source."""
+        if self._element is None:
+            return None
+        return tuple((tuple(int(d) for d in shape),
+                      (self.compute_dtype or src).name)
+                     for shape, src in self._element)
+
+    def wire_dtype_name(self) -> Optional[str]:
+        """The explicit wire dtype's name (None: each leaf's own)."""
+        return None if self.wire_dtype is None else self.wire_dtype.name
+
+    def compute_dtype_name(self) -> Optional[str]:
+        """The explicit compute dtype's name (None: each leaf's own)."""
+        return (None if self.compute_dtype is None
+                else self.compute_dtype.name)
 
     # -- materialization ---------------------------------------------------
     def materialize(self) -> ArrayDataset:
@@ -556,50 +773,178 @@ def _paired_chunks(data: StreamingDataset, labels: Any
             f"len(labels)={host.shape[0]}; refusing to truncate silently")
 
 
-def fit_streaming(estimator: Any, data: StreamingDataset, labels: Any = None):
+def _carry_nbytes(carry: Any) -> float:
+    if isinstance(carry, (tuple, list)):
+        return sum(_carry_nbytes(x) for x in carry)
+    if isinstance(carry, torch.Tensor):
+        return float(carry.element_size() * carry.numel())
+    return 0.0
+
+
+def fit_streaming(estimator: Any, data: StreamingDataset, labels: Any = None,
+                  hbm_budget: Optional[float] = None,
+                  checkpoint_dir: Optional[str] = None,
+                  checkpoint_every: Optional[int] = None,
+                  quarantine: Any = None):
     """Drive a streamable estimator over a chunked dataset: one
     ``accumulate`` per chunk, then ``finalize``. Only the carry (Gram,
     cross products, moments) and the bounded prefetch buffer live on the
     device, never the whole featurized matrix.
 
-    The stream's ``hbm_budget`` (bytes), when it has one, is checked
-    twice: against the stream's static plan before any chunk is
+    ``hbm_budget`` (bytes; default the stream's own ``hbm_budget``) is
+    checked twice: against the stream's static plan before any chunk is
     staged, and against the measured residency after every chunk. Either
-    excess raises MemoryError."""
+    excess raises MemoryError with a post-mortem.
+
+    Checkpoint and resume: with ``checkpoint_dir``, every
+    ``checkpoint_every`` chunks (default 16) the chunk cursor, the
+    carry, the quarantine's state and the drift sketch are snapshotted
+    atomically, under a fingerprint of the fit's configuration. A later
+    call with the same configuration resumes: it replays the source,
+    staging (and, through the stream's transforms, featurizing) the
+    chunks below the cursor but not accumulating them, so the resumed
+    weights have the same bits as an uninterrupted fit's. A snapshot of
+    another configuration raises ``CheckpointMismatchError``; the
+    snapshot is removed after a successful finalize. ``quarantine``
+    (default the stream's) rides the snapshot.
+
+    The numerics plane (``KEYSTONE_TORCH_NUMERICS=0`` turns it off)
+    checks one deferred health word per chunk, raising ``NumericsError``
+    naming the chunk and the stream, checks the fitted model at
+    finalize, and attaches the fit's drift baseline to it as
+    ``model.numerics_baseline``."""
     if not is_streamable(estimator):
         raise _non_streamable_error(estimator)
     if not is_streaming(data):
         raise TypeError(f"fit_streaming needs a StreamingDataset, got "
                         f"{type(data).__name__}")
-    budget = data.hbm_budget
+    if checkpoint_every is not None and checkpoint_dir is None:
+        raise ValueError("checkpoint_every requires checkpoint_dir")
+    from ..observability.numerics import (
+        HealthMonitor,
+        SketchTracker,
+        check_fitted,
+        numerics_active,
+        record_numerics_event,
+    )
+
+    budget = data.hbm_budget if hbm_budget is None else float(hbm_budget)
     tag = data.tag or "stream"
     plan = data.static_plan_nbytes()
     if budget is not None and plan is not None and plan > budget:
-        raise MemoryError(
+        raise attach_postmortem(MemoryError(
             f"streamed fit of {tag} would exceed its HBM budget before any "
             f"chunk is staged: static plan {plan:.0f} B (prefetch_depth x "
             f"staged chunk + working chunk + cast transient) > "
-            f"{budget:.0f} B; shrink chunk_size or prefetch_depth")
-    carry = None
+            f"{budget:.0f} B; shrink chunk_size or prefetch_depth"),
+            "hbm_budget", {"source": tag, "phase": "static_plan",
+                           "static_plan_nbytes": plan, "hbm_budget": budget})
+    if quarantine is None:
+        quarantine = data.quarantine
+    ckpt = fingerprint = numerics_state = carry = None
+    start_chunk = 0
+    if checkpoint_dir is not None:
+        from ..resilience.stream_checkpoint import (
+            StreamCheckpoint,
+            fit_fingerprint,
+            restore_carry,
+        )
+
+        checkpoint_every = (16 if checkpoint_every is None
+                            else int(checkpoint_every))
+        if checkpoint_every < 1:
+            raise ValueError("checkpoint_every must be >= 1")
+        fingerprint = fit_fingerprint(estimator, data, labels)
+        ckpt = StreamCheckpoint(checkpoint_dir)
+        t0 = time.perf_counter()
+        snap = ckpt.load(fingerprint)
+        if snap is not None:
+            start_chunk = int(snap["cursor"])
+            carry = restore_carry(snap["carry"], data.device)
+            if quarantine is not None and snap.get("quarantine"):
+                quarantine.restore(snap["quarantine"])
+            numerics_state = snap.get("numerics")
+            # the file's read and the carry's copy back to the device
+            # (from pageable memory: done when the copy call returns)
+            MetricsRegistry.get_or_create().histogram(
+                "checkpoint.restore_s").observe(time.perf_counter() - t0)
+    reg = MetricsRegistry.get_or_create()
+    active = numerics_active()
+    monitor = HealthMonitor(tag) if active else None
+    sketch = SketchTracker(source=tag) if active else None
+    if sketch is not None:
+        sketch.restore(numerics_state, data.device)
     chunks_seen = 0
+    idx = -1
     pairs = _paired_chunks(data, labels)
     try:
         for chunk, lchunk in pairs:
+            idx += 1
+            if idx < start_chunk:
+                continue  # resume replay: already in the restored carry
+            t0 = time.perf_counter()
             if labels is None:
                 carry = estimator.accumulate(carry, chunk)
             else:
                 carry = estimator.accumulate(carry, chunk, lchunk)
+            # host time of the accumulate's launches; the device work
+            # runs on past it
+            record_span(f"accumulate:{tag}", "compute", t0,
+                        time.perf_counter() - t0, args={"chunk": idx})
+            if monitor is not None:
+                # the pad rows are each chunk's tail
+                monitor.observe(idx, chunk.data,
+                                None if lchunk is None else lchunk.data,
+                                rows=(chunk.n, chunk.padded_n))
+                sketch.update(chunk)
+            reg.gauge("streaming.carry_bytes").set(_carry_nbytes(carry))
             chunks_seen += 1
             if budget is not None:
                 resident = data.buffered_nbytes()
                 if resident > budget:
-                    raise MemoryError(
+                    raise attach_postmortem(MemoryError(
                         f"streamed fit of {tag} exceeded its HBM budget: "
                         f"{resident:.0f} B resident > {budget:.0f} B "
                         f"(chunk {chunks_seen}; shrink chunk_size or "
-                        "prefetch_depth)")
+                        "prefetch_depth)"),
+                        "hbm_budget",
+                        {"source": tag, "phase": "runtime",
+                         "resident_nbytes": resident, "hbm_budget": budget,
+                         "chunk": chunks_seen})
+            if ckpt is not None and (idx + 1) % checkpoint_every == 0:
+                if monitor is not None:
+                    # a snapshot must not hold a carry that a chunk whose
+                    # word is still in flight poisoned
+                    monitor.flush()
+                ckpt.save(fingerprint, idx + 1, carry,
+                          None if quarantine is None else quarantine.state(),
+                          numerics=None if sketch is None
+                          else sketch.state())
     finally:
         pairs.close()
+    if monitor is not None:
+        # the deferred window's tail: a NaN born in the last chunks
+        # trips here, before finalize turns it into garbage weights
+        monitor.flush()
     if carry is None:
         raise ValueError("empty stream: nothing to fit")
-    return estimator.finalize(carry)
+    model = estimator.finalize(carry)
+    check_fitted(model, tag)
+    baseline = None if sketch is None else sketch.baseline()
+    if baseline is not None:
+        try:
+            model.numerics_baseline = baseline
+        except (AttributeError, TypeError):
+            pass  # a transformer with __slots__: nowhere to attach it
+        record_numerics_event("fit_baseline", source=tag, rows=baseline.rows,
+                              cols=int(len(baseline.cols)))
+    if ckpt is not None:
+        ckpt.clear()
+    trace = current_trace()
+    if trace is not None:
+        trace.record_streamed_fit({
+            "source": tag, "chunks": chunks_seen, "resumed_at": start_chunk,
+            "static_plan_nbytes": plan,
+            "peak_device_nbytes": float(data.peak_device_nbytes),
+            "hbm_budget": budget})
+    return model

@@ -5,7 +5,8 @@ served model — the live :class:`ServedModel` record with its QPS window
 and retention value, the host-side :class:`_EvictedModel` remainder that
 readmission restores bit-identically from — and the helpers admission
 and warmup use: the item spec, zero batches, weight-type narrowing, the
-non-finite guard. The drift baseline waits for ROADMAP A9.
+non-finite guard. Scoring served inputs against a fit's drift baseline
+(``model.numerics_baseline``) waits for ROADMAP A10.
 """
 from __future__ import annotations
 

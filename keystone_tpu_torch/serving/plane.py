@@ -36,8 +36,8 @@ and it reports through the port's metrics registry.
   and the ``hbm_charged_bytes`` and ``models_resident`` gauges.
 
 Left out, each to its ROADMAP item: the mesh and ``data_shards`` (A11);
-fault sites and post-mortems, drift scoring (A9); request traces, the
-SLO tracker and flight-recorder spans (a later A10). The JAX package
+the ``serve.*`` fault sites, post-mortems and drift scoring, request
+traces, the SLO tracker and flight-recorder spans (A10). The JAX package
 fences steady-state recompiles; its counterpart here, capturing each
 bucket's apply as a CUDA graph at admission, comes in a later PR: this
 one warms every bucket but does not capture it.

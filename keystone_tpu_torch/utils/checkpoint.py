@@ -19,28 +19,20 @@ from __future__ import annotations
 
 import os
 import pickle
-from typing import Any, Optional, Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..ops.device import DEFAULT_DEVICE, resolve_device
+from ..resilience.stream_checkpoint import (
+    CheckpointCorruptError,
+    atomic_pickle_dump as _atomic_pickle_dump,
+)
 from ..workflow.pipeline import FittedPipeline
 
 _FORMAT = "keystone-checkpoint"
 _VERSION = 1
-
-
-class CheckpointCorruptError(RuntimeError):
-    """A checkpoint file exists but cannot be read back (truncated
-    write, bad bytes, wrong format, kind or version)."""
-
-
-def _atomic_pickle_dump(payload: Any, path: str) -> None:
-    tmp = f"{path}.tmp.{os.getpid()}"
-    with open(tmp, "wb") as f:
-        pickle.dump(payload, f)
-    os.replace(tmp, path)
 
 
 def save_pipeline(pipeline: FittedPipeline, path: str) -> None:

@@ -1,0 +1,81 @@
+"""In-place carry updates: the port's meaning of buffer donation.
+
+Counterpart of ``keystone_tpu/utils/donation.py``. The JAX package
+donates a streamed fit's carry buffers to the accumulate program, so the
+update writes the new carry into the old carry's memory (one carry of
+device memory, not two, and no allocation per chunk). In PyTorch that
+is an in-place update: ``gram_cross`` adds into G and C and the column
+sums use ``+=``. :func:`donates_carry` marks such an update and enters
+it in a registry (:func:`registered_donations`):
+
+* ``nodes/learning/linear.py::accumulate_gram_carry`` (the least-squares
+  estimators' ``(G, C, sx, sy, n)`` carry);
+* ``nodes/stats::StandardScaler.accumulate`` (the ``(S, SQ, n)``
+  moments).
+
+``KEYSTONE_TORCH_DONATE_CARRY=0`` is the debugging switch: each update
+then works on a copy of the carry, and the caller's carry is never
+written. Both settings give the same bits (``clone`` copies every bit,
+-0.0 included). The contract for callers is the JAX one: a carry passed
+to an update is dead after the call, so a checkpoint must copy it
+before the next update (``resilience/stream_checkpoint.py`` does).
+"""
+from __future__ import annotations
+
+import functools
+import os
+from dataclasses import dataclass
+from typing import Any, Callable, List, Tuple
+
+import torch
+
+
+@dataclass(frozen=True)
+class DonationSite:
+    """One registered in-place carry update."""
+
+    name: str
+    module: str
+    carry_arg: int
+
+
+_REGISTRY: List[DonationSite] = []
+
+
+def registered_donations() -> Tuple[DonationSite, ...]:
+    """Every in-place update site registered so far (its module must
+    have been imported)."""
+    return tuple(_REGISTRY)
+
+
+def donation_enabled() -> bool:
+    """False when ``KEYSTONE_TORCH_DONATE_CARRY=0``: updates then copy
+    the carry first. Read at each call, never at import."""
+    return os.environ.get("KEYSTONE_TORCH_DONATE_CARRY", "").strip() != "0"
+
+
+def clone_carry(carry: Any) -> Any:
+    """A carry with every tensor leaf copied (host ints pass through)."""
+    if isinstance(carry, (tuple, list)):
+        return type(carry)(clone_carry(x) for x in carry)
+    return carry.clone() if isinstance(carry, torch.Tensor) else carry
+
+
+def donates_carry(carry_arg: int = 0) -> Callable:
+    """Decorator marking an update that writes its carry (positional
+    argument ``carry_arg``) in place."""
+
+    def wrap(fn: Callable) -> Callable:
+        _REGISTRY.append(DonationSite(fn.__qualname__, fn.__module__,
+                                      carry_arg))
+
+        @functools.wraps(fn)
+        def update(*args: Any, **kwargs: Any) -> Any:
+            if not donation_enabled() and args[carry_arg] is not None:
+                args = (args[:carry_arg] + (clone_carry(args[carry_arg]),)
+                        + args[carry_arg + 1:])
+            return fn(*args, **kwargs)
+
+        return update
+
+    return wrap

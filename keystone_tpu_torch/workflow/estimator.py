@@ -20,16 +20,28 @@ from .pipeline import DataInput, Pipeline, PipelineDataset, _add_data_input
 from .transformer import Transformer
 
 
+def _refuse_stream_opts(est: EstimatorOperator, stream_opts: dict) -> None:
+    if stream_opts:
+        raise TypeError(
+            f"{est.label()}: streaming fit options {sorted(stream_opts)} "
+            "require a StreamingDataset input (a resident fit has no chunk "
+            "loop to checkpoint or budget)")
+
+
 class Estimator(EstimatorOperator):
-    def fit(self, data: Any, device=DEFAULT_DEVICE) -> Transformer:
+    def fit(self, data: Any, device=DEFAULT_DEVICE,
+            **stream_opts: Any) -> Transformer:
         """Eagerly fit on a dataset (raw arrays are staged on ``device``),
         returning the fitted transformer. A StreamingDataset is fitted
-        chunk by chunk through ``fit_streaming``, under the stream's own
-        ``hbm_budget``."""
+        chunk by chunk through ``fit_streaming``; ``stream_opts``
+        (``hbm_budget``, ``checkpoint_dir``, ``checkpoint_every``,
+        ``quarantine``, see ``fit_streaming``) apply only to such a fit
+        and are refused for a resident one."""
         if isinstance(data, PipelineDataset):
             data = data.get()
         if is_streaming(data):
-            return fit_streaming(self, data)
+            return fit_streaming(self, data, **stream_opts)
+        _refuse_stream_opts(self, stream_opts)
         return self._fit(as_dataset(data, device))
 
     def _fit(self, ds: Dataset) -> Transformer:

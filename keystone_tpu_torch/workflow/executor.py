@@ -4,18 +4,49 @@ Counterpart of ``keystone_tpu/workflow/executor.py`` (reference
 ``workflow/graph/GraphExecutor.scala``): optimizes lazily on first
 execution, refuses to execute ids reachable from unconnected sources,
 and saves results of saveable nodes (estimator fits, caches) into the
-global prefix state table. The JAX package's tracing, compile
-attribution and numerics checks around each node are not ported yet.
+global prefix state table.
+
+Instrumentation (``keystone_tpu/workflow/executor.py:100-252``): while a
+:class:`~keystone_tpu_torch.observability.trace.PipelineTrace` is
+active, each node's thunk runs inside
+``torch.profiler.record_function("<label>#<id>")``, is timed into a
+``NodeRecord`` (self time, output bytes), leaves a ``node`` span on the
+flight recorder and has its output health-checked
+(``check_node_output``). The timer synchronises the CUDA device before
+it reads the clock, as the JAX package blocks on the value; that sync is
+an observer effect, since it removes the overlap between a node and the
+next one's launches. An untraced run wraps nothing. The
+``executor.nodes_executed`` and ``executor.memo_hits`` counters are
+always on, outside the optimizers' sampled executions.
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, FrozenSet, Optional
 
+import torch
+
+from ..observability.metrics import MetricsRegistry
+from ..observability.numerics import check_node_output
+from ..observability.timeline import record_span
+from ..observability.trace import NodeRecord, current_trace, \
+    metrics_suppressed
+from ..parallel.dataset import device_nbytes
 from .env import PipelineEnv
-from .expression import Expression
+from .expression import (
+    DatasetExpression,
+    DatumExpression,
+    Expression,
+    TransformerExpression,
+)
 from .graph import Graph
 from .graph_ids import GraphId, NodeId, SinkId
-from .operators import EstimatorOperator, Operator
+from .operators import (
+    DatasetOperator,
+    DatumOperator,
+    EstimatorOperator,
+    Operator,
+)
 from .prefix import compute_prefix
 
 
@@ -23,6 +54,44 @@ def is_saveable(op: Operator) -> bool:
     """Which operators' results enter the global prefix memo (reference
     ``ExtractSaveablePrefixes.scala:8-19``: Cacher or EstimatorOperator)."""
     return isinstance(op, EstimatorOperator) or getattr(op, "saveable", False)
+
+
+def _expression_kind(expr: Expression) -> str:
+    for cls, kind in ((DatasetExpression, "dataset"),
+                      (DatumExpression, "datum"),
+                      (TransformerExpression, "transformer")):
+        if isinstance(expr, cls):
+            return kind
+    return "expression"
+
+
+def _traced_thunk(orig, node_id: int, label: str, kind: str):
+    """Wrap a thunk with trace recording. The active trace is looked up
+    at call time: a saved expression outlives the trace it was made
+    under."""
+
+    def run():
+        trace = current_trace()
+        if trace is None:
+            return orig()
+        scope = f"{label}#{node_id}"
+        record = NodeRecord(node_id=node_id, operator=label, kind=kind)
+        t0 = time.perf_counter()
+        with trace.node_timer(record):
+            with torch.profiler.record_function(scope):
+                value = orig()
+            if torch.cuda.is_available() and torch.cuda.is_initialized():
+                torch.cuda.synchronize()
+            record.output_bytes = device_nbytes(value)
+        record_span(scope, "node", t0, record.total_s,
+                    args={"node_id": node_id, "kind": kind})
+        # after the timer: the health check is the numerics plane's
+        # cost, not the node's
+        check_node_output(value, scope)
+        return value
+
+    run._keystone_traced = True
+    return run
 
 
 class GraphExecutor:
@@ -68,12 +137,21 @@ class GraphExecutor:
             raise ValueError(
                 f"cannot execute {gid!r}: it depends on an unconnected source"
             )
+        metrics = (None if metrics_suppressed()
+                   else MetricsRegistry.get_or_create())
         if gid in self._cache:
+            if metrics is not None:
+                metrics.counter("executor.memo_hits").inc()
             return self._cache[gid]
         assert isinstance(gid, NodeId), gid
         op = graph.get_operator(gid)
         deps = [self.execute(d) for d in graph.get_dependencies(gid)]
         expr = op.execute(deps)
+        if metrics is not None:
+            metrics.counter("executor.nodes_executed").inc()
+        trace = current_trace()
+        if trace is not None:
+            self._instrument(trace, gid, op, expr)
         self._cache[gid] = expr
         if is_saveable(op):
             prefix = compute_prefix(graph, gid)
@@ -83,3 +161,22 @@ class GraphExecutor:
                 # across pipelines (GraphExecutor.scala:66-70).
                 PipelineEnv.get_or_create().state[prefix] = expr
         return expr
+
+    @staticmethod
+    def _instrument(trace, gid: NodeId, op: Operator,
+                    expr: Expression) -> None:
+        """Attach trace recording to ``expr``. A computed expression is
+        recorded at once: a constant as such, anything else (saved
+        state, a prefix-memo hit) as a cache hit."""
+        label = op.label()
+        kind = _expression_kind(expr)
+        if expr.computed:
+            record = NodeRecord(
+                node_id=gid.id, operator=label, kind=kind,
+                cached=not isinstance(op, (DatasetOperator, DatumOperator)))
+            record.output_bytes = device_nbytes(expr.get())
+            trace.record_node(record)
+            return
+        if getattr(expr._thunk, "_keystone_traced", False):
+            return  # a saved lazy handle, wrapped already
+        expr._thunk = _traced_thunk(expr._thunk, gid.id, label, kind)

@@ -13,6 +13,7 @@ from typing import Any, Callable
 from ..ops.device import DEFAULT_DEVICE
 from ..parallel.dataset import Dataset, as_dataset, is_streaming
 from ..parallel.streaming import fit_streaming
+from .estimator import _refuse_stream_opts
 from .graph import Graph
 from .operators import DelegatingOperator, EstimatorOperator
 from .pipeline import DataInput, Pipeline, PipelineDataset, _add_data_input
@@ -20,18 +21,21 @@ from .transformer import Transformer
 
 
 class LabelEstimator(EstimatorOperator):
-    def fit(self, data: Any, labels: Any,
-            device=DEFAULT_DEVICE) -> Transformer:
+    def fit(self, data: Any, labels: Any, device=DEFAULT_DEVICE,
+            **stream_opts: Any) -> Transformer:
         """Eager fit; raw arrays are staged on ``device``. Streamed
         ``data`` is fitted chunk by chunk through ``fit_streaming``
         (``labels`` an aligned StreamingDataset, or resident and sliced
-        chunk-wise), under the data stream's own ``hbm_budget``."""
+        chunk-wise); ``stream_opts`` (``hbm_budget``,
+        ``checkpoint_dir``, ``checkpoint_every``, ``quarantine``) apply
+        only to such a fit and are refused for a resident one."""
         if isinstance(data, PipelineDataset):
             data = data.get()
         if isinstance(labels, PipelineDataset):
             labels = labels.get()
         if is_streaming(data):
-            return fit_streaming(self, data, labels)
+            return fit_streaming(self, data, labels, **stream_opts)
+        _refuse_stream_opts(self, stream_opts)
         self._refuse_streamed_labels(labels)
         return self._fit(as_dataset(data, device), as_dataset(labels, device))
 

@@ -23,8 +23,9 @@ package's. The differences:
 * One device and no mesh: the sample at scale s holds s items, and each
   scale is profiled once (the JAX package's ``num_trials`` is 1 at
   every caller).
-* The JAX package's trace records of the choice (``record_auto_cache``)
-  wait for the port's tracing (ROADMAP A9).
+* The sampled executions run under ``tracing_disabled`` and the choice
+  goes to the active trace (``record_auto_cache``), as in the JAX
+  package.
 
 ``greedy_select`` also serves the serving plane's eviction plan.
 """
@@ -47,6 +48,7 @@ from typing import (
 import numpy as np
 import torch
 
+from ...observability.trace import current_trace, tracing_disabled
 from ...parallel.dataset import (
     ArrayDataset,
     HostDataset,
@@ -220,8 +222,11 @@ def profile_graph(graph: Graph,
             op = sampled.get_operator(node)
             deps = [values[d] for d in sampled.get_dependencies(node)]
             t0 = time.monotonic()
-            expr = op.execute(deps)
-            value = expr.get()
+            with tracing_disabled():
+                # sampled runs share node ids with the real graph: keep
+                # them out of the per-node records and executor metrics
+                expr = op.execute(deps)
+                value = expr.get()
             _synchronize(value)
             elapsed = (time.monotonic() - t0) * 1e9
             values[node] = expr
@@ -361,6 +366,13 @@ class AutoCacheRule(Rule):
             if sum(weights[c] for c in children[n]
                    if c not in downstream_of_source) > 1
         )
+        trace = current_trace()
+        if trace is not None:
+            trace.record_auto_cache({
+                "strategy": self.AGGRESSIVE,
+                "selected": sorted(n.id for n in to_cache),
+                "selected_operators": {
+                    n.id: graph.get_operator(n).label() for n in to_cache}})
         return make_cached_graph(graph, to_cache)
 
     def _greedy(self, graph: Graph) -> Graph:
@@ -392,7 +404,29 @@ class AutoCacheRule(Rule):
             lambda sel: estimate_cached_run_time(
                 graph, children, sel, profiles),
             budget)
-        return make_cached_graph(graph, frozenset(cached - initial))
+        to_cache = frozenset(cached - initial)
+        trace = current_trace()
+        if trace is not None:
+            # what was measured, what was chosen and under what budget,
+            # so "was the cache choice right?" is answerable offline
+            trace.record_auto_cache({
+                "strategy": self.GREEDY,
+                "budget_bytes": float(budget),
+                "mem_used_bytes": float(sum(
+                    profiles.get(n, Profile()).mem for n in cached)),
+                "profiles": {n.id: {"ns": p.ns, "mem": p.mem}
+                             for n, p in sorted(profiles.items(),
+                                                key=lambda kv: kv[0].id)},
+                "profile_scales": list(self.scales),
+                "initially_cached": sorted(n.id for n in initial),
+                "selected": sorted(n.id for n in to_cache),
+                "selected_operators": {
+                    n.id: graph.get_operator(n).label() for n in to_cache},
+                "estimated_uncached_s": estimate_cached_run_time(
+                    graph, children, initial, profiles) / 1e9,
+                "estimated_cached_s": estimate_cached_run_time(
+                    graph, children, frozenset(cached), profiles) / 1e9})
+        return make_cached_graph(graph, to_cache)
 
     def apply(self, graph: Graph) -> Graph:
         if self.strategy == self.AGGRESSIVE:

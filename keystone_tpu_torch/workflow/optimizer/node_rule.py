@@ -32,11 +32,13 @@ up again.
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ...observability.trace import current_trace
 from ...parallel.dataset import (
     ArrayDataset,
     Dataset,
@@ -211,6 +213,27 @@ class NodeOptimizationRule(Rule):
                 return True
         return False
 
+    # -- trace hook -------------------------------------------------------
+    @staticmethod
+    def _record_choice(node: NodeId, op, choice: NodeChoice, n: int,
+                       machines: int, wall_s: float) -> None:
+        """The splice decision, on the active trace (the per-solver cost
+        table is the optimizable node's own record, e.g.
+        ``LeastSquaresEstimator``'s solver decision)."""
+        trace = current_trace()
+        if trace is None:
+            return
+        trace.record_node_choice({
+            "node_id": node.id,
+            "optimizable": type(op).__name__,
+            "chosen": type(choice.node).__name__,
+            "prefix": [type(t).__name__ for t in choice.prefix],
+            "full_n": n,
+            "num_machines": machines,
+            "sample_and_optimize_s": wall_s,
+            "provenance": "sampled",
+        })
+
     # -- rule entry -------------------------------------------------------
     def apply(self, graph: Graph) -> Graph:
         self.splices = 0
@@ -232,6 +255,7 @@ class NodeOptimizationRule(Rule):
                 # exact accumulated shape; a non-streamable one raises
                 # the non-streamable-fit error at fit
                 continue
+            t0 = time.perf_counter()
             if isinstance(op, OptimizableLabelEstimator):
                 (sample, sample_labels), n = self._execute_sampled(
                     graph, graph.get_dependencies(node)[:2], values)
@@ -240,6 +264,8 @@ class NodeOptimizationRule(Rule):
                 (sample,), n = self._execute_sampled(
                     graph, graph.get_dependencies(node)[:1], values)
                 choice = op.optimize(sample, n, machines)
+            self._record_choice(node, op, choice, n, machines,
+                                time.perf_counter() - t0)
             if isinstance(op, OptimizableTransformer):
                 graph = self._splice_transformer(graph, node, choice)
             else:

@@ -752,3 +752,129 @@ def test_cuda_weighted_solver_paths_agree(cuda):
         128, 2, 1e-2, 0.25, solver="woodbury").fit_arrays(X, L, device="cpu")
     assert np.abs(W["woodbury"] - host.weights.numpy()).max() <= \
         1e-4 * scale
+
+
+def _nan_case(name, dev):
+    """(kernel call, plain call, reach) of one kernel on an input with one
+    NaN: an image's first pixel, a Gram row's feature, a served row, a
+    pixel inside SIFT's bands, a descriptor. reach is None where the
+    kernel's non-finite outputs must be the plain version's, else the
+    call giving the banded kernels' live-range reach."""
+    rng = np.random.RandomState(15)
+    if name == "fused_cifar_featurize":
+        imgs, filters, means = (torch.as_tensor(a, device=dev)
+                                for a in _inputs(4, 256, seed=15))
+        imgs[0, 0, 0, 0] = float("nan")
+        return (lambda: kernels.fused_cifar_featurize(
+                    imgs, filters, whitener_means=means),
+                lambda: kernels.fused_cifar_featurize_plain(
+                    imgs, filters, whitener_means=means), None)
+    if name == "gram_cross":
+        X = torch.as_tensor(rng.randn(256, 300).astype(np.float32),
+                            device=dev)
+        Y = torch.as_tensor(rng.randn(256, 10).astype(np.float32),
+                            device=dev)
+        X[7, 11] = float("nan")
+        return (lambda: kernels.gram_cross(X, Y),
+                lambda: kernels.gram_cross_plain(X, Y), None)
+    if name == "quantized_affine":
+        X = torch.as_tensor(rng.randn(64, 512).astype(np.float32),
+                            device=dev)
+        W = torch.as_tensor((rng.randn(512, 10) * 0.01).astype(np.float32),
+                            device=dev)
+        Wq, scale = _quantize_weights(W, "int8")
+        mean, inv, b = (torch.as_tensor(v.astype(np.float32), device=dev)
+                        for v in (rng.randn(512), 1 + rng.rand(512),
+                                  rng.randn(10)))
+        X[3, 100] = float("nan")
+        plan = kernels.quant_plan(Wq, scale, mean, inv, b)
+        return (lambda: kernels.quantized_affine(X, plan),
+                lambda: kernels.quantized_affine_plain(X, Wq, scale, mean,
+                                                       inv, b), None)
+    if name == "banded_matmul":
+        step, bsz, lo = sift._scale_params(0, 4, 6, 5, 0)
+        left, right = sift._smooth_band(120, bsz), sift._smooth_band(90, bsz)
+        X = torch.as_tensor(rng.rand(2, 120, 90).astype(np.float32),
+                            device=dev)
+        X[1, 60, 40] = float("nan")
+        Xo = X[0].clone()
+        Xo[30, 20] = float("inf")
+        return (lambda: (kernels.banded_matmul(left, X, right=right),
+                         kernels.banded_matmul(left, Xo)),
+                lambda: (kernels.banded_matmul_plain(left, X, right=right),
+                         kernels.banded_matmul_plain(left, Xo)),
+                lambda: (kernels.banded_live_reach(left, X, right=right),
+                         kernels.banded_live_reach(left, Xo)))
+    D, K, n = 80, 256, 1000
+    X = torch.as_tensor(rng.randn(D, n).astype(np.float32), device=dev)
+    means = torch.as_tensor(rng.randn(D, K).astype(np.float32), device=dev)
+    var = torch.as_tensor((0.5 + rng.rand(D, K)).astype(np.float32),
+                          device=dev)
+    w = torch.as_tensor(rng.dirichlet(np.ones(K)).astype(np.float32),
+                        device=dev)
+    X[5, 100] = float("nan")
+    return (lambda: kernels.fv_moments(X, means, var, w, 1e-4),
+            lambda: kernels.fv_moments_plain(X, means, var, w, 1e-4), None)
+
+
+@pytest.mark.parametrize("name", ["fused_cifar_featurize", "gram_cross",
+                                  "quantized_affine", "banded_matmul",
+                                  "fv_moments"])
+def test_cuda_kernels_propagate_nan_as_plain(cuda, name):
+    """A NaN (or an infinity) in a kernel's input lands where it lands in
+    the plain version: the same non-finite outputs, none made finite. The
+    banded kernels sum over each tile's live range, as the TPU kernel
+    does, so theirs are exactly that range's reach, inside the plain
+    version's dense reach."""
+    kernel, plain, reach = _nan_case(name, cuda)
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    ref = ([~torch.isfinite(w) for w in want] if reach is None
+           else list(reach()))
+    assert sum(int((~torch.isfinite(g)).sum()) for g in got) > 0
+    for g, w, r in zip(got, want, ref):
+        assert torch.equal(~torch.isfinite(g), r), name
+        assert not bool((~torch.isfinite(g) & torch.isfinite(w)).any()), name
+
+
+def test_cuda_health_monitor_replays_the_eager_word(cuda, tmp_path,
+                                                    monkeypatch):
+    """The numerics monitor's CUDA-graph word (from a geometry's second
+    chunk on) reads as the eager word of the same chunk: counts equal,
+    bounds equal, mean and variance within 1e-6 relative; a ragged tail
+    takes the eager word; a NaN in a replayed chunk trips naming it."""
+    import threading
+
+    from keystone_tpu_torch.observability import numerics as num
+
+    monkeypatch.setenv("KEYSTONE_TORCH_POSTMORTEM_DIR", str(tmp_path))
+    rng = np.random.RandomState(11)
+    chunks = [torch.as_tensor(rng.randn(64, 300).astype(np.float32) * 3 + 1,
+                              device=cuda) for _ in range(5)]
+    labels = torch.as_tensor(rng.randint(0, 10, (64, 1)).astype(np.int32),
+                             device=cuda)
+    monitor = num.HealthMonitor("s", defer=1)
+    num.reset_health_series()
+    for i, X in enumerate(chunks):
+        rows = (40, 64) if i == 4 else (64, 64)
+        monitor.observe(i, X, labels, rows=rows)
+    monitor.flush()
+    series = num.recent_health()
+    key = (64 * 300 + 64, str(chunks[0].device), threading.get_ident())
+    assert key in num._WORD_GRAPHS and len(series) == 5
+    for i, (X, entry) in enumerate(zip(chunks, series)):
+        n = 40 if i == 4 else 64
+        want = num.word_stats(num.health_word(
+            (X[:n], labels[:n])).cpu().numpy())
+        for key in ("finite", "nan", "inf", "min", "max", "absmax"):
+            assert entry[key] == want[key], (i, key)
+        for key in ("mean", "var"):
+            assert abs(entry[key] - want[key]) <= 1e-6 * abs(want[key])
+    chunks[2][3, 7] = float("nan")
+    monitor = num.HealthMonitor("s", defer=1)
+    with pytest.raises(num.NumericsError, match="chunk 2 of stream 's'"):
+        for i, X in enumerate(chunks[:4]):
+            monitor.observe(i, X, labels, rows=(64, 64))
+        monitor.flush()
