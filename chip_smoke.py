@@ -48,7 +48,37 @@ Phases, each of which raises (and so exits non-zero) on failure:
    agreement with phase 4, the quantized parity bars, test errors, a
    refused fourth admission, bit-identical eviction + readmission and
    the HTTP statuses are asserted; rows/s, request latency, batch fill,
-   warmup, charges and device-memory peaks are printed.
+   warmup, charges and device-memory peaks are printed. The plane serves
+   every bucket from a CUDA graph captured at admission, so the traffic's
+   launches are each graph's recorded launches times its replays
+   (``graphs.REPLAYED_LAUNCHES``) plus the wrappers' eager ones (a
+   wrapper called under capture counts in ``kernels.CAPTURED``).
+4m. The serving fleet: three ``python -m keystone_tpu_torch.serving.
+   replica --device cuda`` processes on the one card (each its own CUDA
+   context, measured), behind a ``FleetRouter`` served over HTTP; a
+   ``FleetController`` registers phase 4c's saved model at f32, bf16 and
+   int8 (f32 hot, so it is replicated), places and sha-verifies every
+   copy. Printed and asserted: the captures per replica and model, their
+   seconds, the graph pools' bytes within the pools the admission charge
+   probed and no more than POOL_CHARGE_MARGIN over them; graph
+   replay ``torch.equal`` to the eager apply of the same padded bucket
+   for each weight type (in process, on the score pipelines); a seeded
+   ``generate_trace`` (Poisson, Zipf over the three models, 1-64 rows)
+   replayed through ``HttpServingClient`` to the router by 8 closed-loop
+   clients for FLEET_WINDOW_S seconds, with rows/s, ``request_ms`` p50
+   and p99, availability, ``router.spill_total``, and a
+   ``compile.unexpected_total`` delta of 0 on every replica; mid-trace
+   the busiest replica gets SIGKILL: the reactor's tick classifies the
+   death (``fleet.replica_deaths_total`` 1), the lost models are
+   re-admitted on the survivors with their sha verified, and no outcome
+   is unclassified. The window's launches are the replicas' graph
+   replays (served traffic), and apart from them the eager launches of
+   the re-admission's probes and warm applies. Then the test set through
+   the router holds phase
+   4c's bars. Device ms of a bucket from the graph against the eager
+   apply, and host microseconds a request on each path, at n = 1, 8,
+   64. Then the six single-plane chaos scenarios on a CUDA plane at the
+   catalogue's seed and the JAX floors.
 4d. VOCSIFTFisher: fit + apply at the reference's published defaults
    (80-dim PCA, 256-component GMM, 40,960 Fisher-vector features, 10
    BCD blocks of 4096 over 20 classes, 10^6 PCA and GMM samples, SIFT
@@ -971,6 +1001,25 @@ def _serve_subprocess(model_path, images, want):
     return seen
 
 
+def _path_launches(kernels):
+    """The kernel launches since the last reset of both counts: the
+    wrappers' own (eager calls and captures) plus every graph replay's
+    recorded launches."""
+    from keystone_tpu_torch.serving.graphs import REPLAYED_LAUNCHES
+
+    out = dict(kernels.LAUNCHES)
+    for name, count in REPLAYED_LAUNCHES.items():
+        out[name] = out.get(name, 0) + count
+    return out
+
+
+def _pools_within_charge(what, held, charged):
+    """The graph pools an admission holds lie within the pools its charge
+    probed, and at most POOL_CHARGE_MARGIN below them."""
+    assert 0 < held <= charged <= held * (1 + POOL_CHARGE_MARGIN), (
+        what, held, charged)
+
+
 def _serving_phase(kernels, model_path, te_x, te_y, preds, dev):
     """Phase 4c (see the module docstring). Returns the kernel launch
     counts of the traffic run."""
@@ -981,18 +1030,25 @@ def _serving_phase(kernels, model_path, te_x, te_y, preds, dev):
         ItemSpec,
         ModelNotAdmitted,
         ServingPlane,
-        model_charge,
         serve,
     )
+    from keystone_tpu_torch.serving.batcher import BucketPolicy
+    from keystone_tpu_torch.serving.fleet import canonicalize
+    from keystone_tpu_torch.serving.graphs import reset_replayed_launches
+    from keystone_tpu_torch.serving.plane import graph_rows
     from keystone_tpu_torch.utils.checkpoint import load_pipeline
 
     mib = 1 << 20
     saved = load_pipeline(model_path, device=dev)
     spec = ItemSpec((32, 32, 3), np.float32)
-    one = model_charge(saved, np.zeros((1, 32, 32, 3), np.float32),
-                       SERVE_MAX_BATCH, dev).total_nbytes()
-    budget = 3.5 * one  # three charges, not four
+    rows = graph_rows(BucketPolicy(SERVE_MAX_BATCH), dev)
     models = {"rpc_f32": None, "rpc_bf16": "bf16", "rpc_int8": "int8"}
+    # each model's charge as the plane will take it (the weight type
+    # applied, its graphs' pools probed); the budget holds the three and
+    # not a fourth
+    ones = {name: canonicalize(saved, spec, wd, SERVE_MAX_BATCH, dev)[1]
+            for name, wd in models.items()}
+    budget = sum(ones.values()) + 0.5 * min(ones.values())
     reg = MetricsRegistry.get_or_create()
     plane = ServingPlane(hbm_budget=budget, max_batch=SERVE_MAX_BATCH,
                          device=dev).start()
@@ -1004,13 +1060,18 @@ def _serving_phase(kernels, model_path, te_x, te_y, preds, dev):
         state = plane.state()
         charged = state["hbm_charged_bytes"]
         assert state["ready"] and len(state["models"]) == 3
-        assert charged <= budget < 4 * min(
+        assert charged <= budget < charged + min(
             e.charge.total_nbytes() for e in entries.values()), state
-        # a fourth model, larger than the budget: refused, nothing changed
-        W = np.random.RandomState(SEED).randn(3072, 1000).astype(np.float32)
-        big = BlockLinearMapper([W], 3072).to_pipeline()
+        assert all(entries[n].charge.total_nbytes() == ones[n]
+                   for n in models), (ones, state)
+        # a fourth model whose charge is larger than the budget (its
+        # item is wide: each captured bucket's static input is charged)
+        # is refused, and nothing changes
+        d = int(1.2 * budget / (4 * (SERVE_MAX_BATCH + sum(rows)))) + 1
+        W = np.ones((d, 1), np.float32)
+        big = BlockLinearMapper([W], d).to_pipeline()
         try:
-            plane.admit("big", big, ItemSpec((3072,), np.float32))
+            plane.admit("big", big, ItemSpec((d,), np.float32))
             raise AssertionError("an admission beyond the budget was taken")
         except AdmissionError as exc:
             print(f"[serve] fourth admission refused: {exc}", flush=True)
@@ -1023,12 +1084,16 @@ def _serving_phase(kernels, model_path, te_x, te_y, preds, dev):
         served, walls, peaks = {}, {}, {}
         _sync()
         kernels.reset_launches()
+        reset_replayed_launches()
+        unexpected0 = plane.unexpected_recompiles()
         batches0 = reg.counter("serving.batches_total").value
         for name in models:
             torch.cuda.reset_peak_memory_stats()
             served[name], walls[name] = _drive(plane, name, requests)
             peaks[name] = torch.cuda.max_memory_allocated()
-        launches = dict(kernels.LAUNCHES)
+        launches = _path_launches(kernels)
+        wrapper_launches = dict(kernels.LAUNCHES)
+        unexpected = plane.unexpected_recompiles() - unexpected0
         batches = {m["name"]: m["batches"] for m in plane.state()["models"]}
         total_batches = reg.counter("serving.batches_total").value - batches0
         assert sum(batches.values()) == total_batches, (batches,
@@ -1044,12 +1109,24 @@ def _serving_phase(kernels, model_path, te_x, te_y, preds, dev):
                   f"{h.percentile(99):.3f}, warmup {e.warmup_s:.3f} s, "
                   f"charge {e.charge.total_nbytes() / mib:.3f} MiB "
                   f"(model {e.charge.model_nbytes / mib:.3f} MiB + "
-                  f"{e.charge.item_nbytes:.0f} B x {e.charge.bucket_rows}, "
-                  f"{e.charge.source}), device-memory peak "
-                  f"{peaks[name] / mib:.1f} MiB", flush=True)
+                  f"{e.charge.item_nbytes:.0f} B x {e.charge.bucket_rows}"
+                  f" + graphs {e.charge.graph_nbytes / mib:.3f} MiB, of "
+                  f"which pools {e.charge.pool_nbytes / mib:.3f} MiB, "
+                  f"{e.charge.source}), {e.captures} captures in "
+                  f"{e.capture_s:.3f} s holding "
+                  f"{e.graph_pool_nbytes / mib:.3f} MiB of graph pools, "
+                  f"device-memory peak {peaks[name] / mib:.1f} MiB",
+                  flush=True)
+            _pools_within_charge(name, e.graph_pool_nbytes,
+                                 e.charge.pool_nbytes)
         print(f"[serve] budget {budget / mib:.3f} MiB, charged "
               f"{charged / mib:.3f} MiB; launches during traffic "
-              f"{launches}, served batches {batches}", flush=True)
+              f"{launches} (graph replays x the launches each capture "
+              f"recorded, plus the wrappers' eager ones "
+              f"{wrapper_launches}), "
+              f"served batches {batches}, unexpected captures "
+              f"{unexpected:g}", flush=True)
+        assert unexpected == 0, unexpected
         quant_batches = batches["rpc_bf16"] + batches["rpc_int8"]
         assert launches["quantized_affine"] >= quant_batches > 0, launches
         assert launches["fused_cifar_featurize"] >= total_batches, launches
@@ -1155,6 +1232,439 @@ def _serving_phase(kernels, model_path, te_x, te_y, preds, dev):
     finally:
         server.shutdown()
         plane.close()
+    return launches
+
+
+#: phase 4m, the fleet: replica processes on the one card, each one's
+#: budget in model charges (room for all three models: a migration
+#: admits before it evicts, and a plane short of room evicts by itself),
+#: the models (f32 hot, so it is replicated), the steady window, its
+#: offered load, and when in the window the busiest replica is killed
+FLEET_REPLICAS, FLEET_BUDGET_CHARGES = 3, 3.5
+FLEET_MODELS = {"rpc_f32": None, "rpc_bf16": "bf16", "rpc_int8": "int8"}
+FLEET_WINDOW_S, FLEET_RPS, FLEET_KILL_AT = 15.0, 24.0, 0.6
+#: request rows at which a bucket's graph is timed against the eager
+#: apply (device ms, and host microseconds a request)
+FLEET_TIMING_ROWS = (1, 8, 64)
+#: how far the pools an admission charges (one probe capture a bucket)
+#: may lie above the pools its graphs hold
+POOL_CHARGE_MARGIN = 0.02
+#: the six single-plane chaos scenarios, each window shortened as the
+#: CPU tests shorten it (None: the catalogue's own window)
+CHAOS_WINDOWS = {"burst": 0.6, "diurnal": 0.8, "zipf_churn": None,
+                 "straggler_dispatch": 0.6, "poisoned_batch": 0.6,
+                 "overload_shed": 0.3}
+
+
+def _short_floats(x):
+    """``x`` (float32) as float64 values whose shortest decimal form
+    has at most 9 significant digits, each converting back to exactly
+    ``x``: JSON requests half as long, carrying the same images."""
+    x64 = x.astype(np.float64)
+    mag = np.floor(np.log10(np.maximum(np.abs(x64), 1e-30)))
+    scale = 10.0 ** (8 - mag)
+    out = np.where(x64 == 0, 0.0, np.round(x64 * scale) / scale)
+    assert np.array_equal(out.astype(np.float32), x)
+    return out
+
+
+def _get_json(port, path):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=120) as rsp:
+        return json.loads(rsp.read())
+
+
+def _metric(port, name):
+    """One sample of a replica's ``/metrics`` (0 when absent)."""
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=120) as rsp:
+        for line in rsp.read().decode().splitlines():
+            if line.startswith(name + " "):
+                return float(line.split()[-1])
+    return 0.0
+
+
+def _start_replicas(n, budget, dev):
+    """``n`` replica processes, started together; returns them with their
+    ports once each has printed its ``replica on`` line. A thread per
+    process keeps draining its output."""
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "keystone_tpu_torch.serving.replica",
+         "--port", "0", "--device", dev.type, "--hbm-budget",
+         str(int(budget)), "--max-batch", str(SERVE_MAX_BATCH),
+         "--queue-depth", "256"], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for _ in range(n)]
+    ports = []
+    for proc in procs:
+        lines: "queue.Queue" = queue.Queue()
+
+        def read(proc=proc, lines=lines):
+            for line in proc.stdout:
+                lines.put(line.rstrip())
+            lines.put(None)
+
+        threading.Thread(target=read, daemon=True).start()
+        seen, deadline = [], time.time() + 180
+        while not (seen and seen[-1].startswith("replica on ")):
+            line = lines.get(timeout=max(deadline - time.time(), 1.0))
+            if line is None:
+                raise RuntimeError("a replica exited before it was ready:\n"
+                                   + "\n".join(seen))
+            seen.append(line)
+        ports.append(int(seen[-1].rsplit(":", 1)[1]))
+    return procs, ports
+
+
+def _stop_replicas(procs):
+    for proc in procs:
+        if proc.poll() is None:
+            proc.terminate()
+    for proc in procs:
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def _capture_checks(saved, te_x, dev, smi):
+    """Phase 4m in process: the score pipelines (featurize, scale, the
+    mapper at each weight type) admitted into a CUDA plane; each bucket's
+    graph replay against the eager apply of the same padded bucket
+    (``torch.equal``), the pools against the charge, and the timing of
+    graph against eager at FLEET_TIMING_ROWS."""
+    from keystone_tpu_torch.parallel.dataset import bucketed_dataset
+    from keystone_tpu_torch.serving import ItemSpec, ServingPlane
+
+    mib = 1 << 20
+    ops = {type(op).__name__: op
+           for op in saved.to_pipeline().graph.operators.values()}
+    scores = ops["FusedConvRectifyPool"].and_then(
+        ops["StandardScalerModel"]).and_then(ops["BlockLinearMapper"])
+    spec = ItemSpec((32, 32, 3), np.float32)
+    plane = ServingPlane(max_batch=SERVE_MAX_BATCH, device=dev).start()
+    x = te_x[:SERVE_MAX_BATCH]
+    try:
+        for name, wd in FLEET_MODELS.items():
+            e = plane.admit("scores_" + name.split("_")[1], scores, spec,
+                            weight_dtype=wd)
+            checked = []
+            for n in (SERVE_MAX_BATCH - 14, SERVE_MAX_BATCH, 8, 3):
+                graph_out = plane._execute(e, x[:n], n)[0]
+                eager_out = plane._eager(e, x[:n], n)
+                assert torch.equal(torch.from_numpy(graph_out),
+                                   torch.from_numpy(eager_out)), (name, n)
+                checked.append(n)
+            _pools_within_charge(e.name, e.graph_pool_nbytes,
+                                 e.charge.pool_nbytes)
+            print(f"[fleet] capture {e.name}: {e.captures} graphs in "
+                  f"{e.capture_s:.3f} s, graph pools "
+                  f"{e.graph_pool_nbytes / mib:.3f} MiB against the "
+                  f"{e.charge.pool_nbytes / mib:.3f} MiB of pools their "
+                  f"charge probed (graphs with static inputs "
+                  f"{e.charge.graph_nbytes / mib:.3f} MiB, in all "
+                  f"{e.charge.total_nbytes() / mib:.3f} MiB); replay "
+                  f"torch.equal to the eager apply at n = {checked} | "
+                  f"{smi}", flush=True)
+            for n in FLEET_TIMING_ROWS:
+                bucket = plane.policy.bucket_for(n)
+                bg = plane._graphs.get((e.token, bucket))
+                ds = bucketed_dataset(x[:n], n, bucket, dev)
+                graph_ms = _events_ms(bg.graph.replay, 50)
+                eager_ms = _events_ms(lambda: e.fitted.apply(ds).get(), 20)
+                graph_us = _host_us(lambda: plane._execute(e, x[:n], n), 50)
+                eager_us = _host_us(lambda: plane._eager(e, x[:n], n), 20)
+                print(f"[fleet] timing {e.name} n={n} (bucket {bucket}): "
+                      f"device {graph_ms:.4f} ms from the graph, "
+                      f"{eager_ms:.4f} ms eager; host {graph_us:.1f} us a "
+                      f"request on the graph path, {eager_us:.1f} us "
+                      f"eager (copy in, apply, copy out) | {smi}",
+                      flush=True)
+            del bg  # a held graph keeps its pool
+        token = plane._models["scores_int8"].token
+        pools = [plane._graphs.get(k).graph.pool()
+                 for k in plane._graphs.keys() if k[0] == token]
+        plane.evict("scores_int8")
+        from keystone_tpu_torch.serving.residency import graph_pool_nbytes
+        left = sum(graph_pool_nbytes(p, dev) for p in pools)
+        del pools
+        print(f"[fleet] evicting scores_int8 released its graph pools: "
+              f"{left:.0f} bytes left in them", flush=True)
+        assert left == 0, left
+    finally:
+        plane.close()
+
+
+def _fleet_traffic(kernels, saved, te_x, te_y, preds, dev, smi):
+    """Phase 4m's fleet: replicas, router, controller, the replayed
+    trace, the kill, the bars through the router. Returns the launches
+    the replicas' kernels made in the traffic window: ``replayed`` (the
+    served traffic, each graph replay's recorded launches) and ``eager``
+    (the wrappers' own: the re-admission's probes and warm applies)."""
+    from keystone_tpu_torch.observability.metrics import MetricsRegistry
+    from keystone_tpu_torch.serving import (
+        FleetAutoscaler,
+        FleetController,
+        FleetRouter,
+        HttpReplicaClient,
+        ItemSpec,
+        serve_router,
+    )
+    from keystone_tpu_torch.serving.batcher import BucketPolicy
+    from keystone_tpu_torch.serving.loadgen import (
+        HttpServingClient,
+        LoadSpec,
+        generate_trace,
+        replay,
+    )
+    from keystone_tpu_torch.serving.plane import graph_rows
+
+    mib = 1 << 20
+    reg = MetricsRegistry.get_or_create()
+    spec = ItemSpec((32, 32, 3), np.float32)
+    n_graphs = len(graph_rows(BucketPolicy(SERVE_MAX_BATCH), dev))
+    router = FleetRouter([], spill_queue_depth=8)
+    controller = FleetController(router, bucket_rows=SERVE_MAX_BATCH,
+                                 device=dev)
+    t0 = time.perf_counter()
+    for name, wd in FLEET_MODELS.items():
+        controller.register(name, saved, spec, weight_dtype=wd,
+                            qps=100.0 if wd is None else 0.0, warmup_s=1.0)
+    canon = {m: controller._models[m] for m in FLEET_MODELS}
+    budget = FLEET_BUDGET_CHARGES * max(m.charge_nbytes
+                                        for m in canon.values())
+    print(f"[fleet] registered {list(FLEET_MODELS)} in "
+          f"{time.perf_counter() - t0:.2f} s: charges "
+          f"{ {m: round(c.charge_nbytes / mib, 3) for m, c in canon.items()} }"
+          f" MiB, replica budget {budget / mib:.3f} MiB", flush=True)
+    _sync()
+    free0 = torch.cuda.mem_get_info(dev)[0]
+    t0 = time.perf_counter()
+    procs, ports = _start_replicas(FLEET_REPLICAS, budget, dev)
+    start_s = time.perf_counter() - t0
+    free1 = torch.cuda.mem_get_info(dev)[0]
+    print(f"[fleet] {FLEET_REPLICAS} replica processes up in {start_s:.2f} "
+          f"s; each one's CUDA context (and allocator) holds "
+          f"{(free0 - free1) / FLEET_REPLICAS / mib:.1f} MiB of the card "
+          f"(free memory before and after) | {smi}", flush=True)
+    server = None
+    try:
+        clients = [HttpReplicaClient(f"r{i}", "127.0.0.1", port,
+                                     timeout_s=120.0)
+                   for i, port in enumerate(ports)]
+        by_id = {c.replica_id: (c, port, proc)
+                 for c, port, proc in zip(clients, ports, procs)}
+        for c in clients:
+            router.add_replica(c)
+            controller.set_budget(c.replica_id, budget)
+        t0 = time.perf_counter()
+        steps = controller.rebalance()
+        print(f"[fleet] placement {controller.state()['placement']}: "
+              f"{len(steps)} admissions, every sha verified, in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        for rid, (c, port, _) in sorted(by_id.items()):
+            state = _get_json(port, "/models")
+            assert c.model_shas() == {m["name"]: canon[m["name"]].sha256
+                                      for m in state["models"]}
+            for m in state["models"]:
+                print(f"[fleet] {rid} {m['name']}: {m['captures']} "
+                      f"captures in {m['capture_s']:.3f} s, graph pools "
+                      f"{m['graph_pool_nbytes'] / mib:.3f} MiB against the "
+                      f"charge's probed {m['charge_pool_nbytes'] / mib:.3f}"
+                      f" MiB (graphs {m['charge_graph_nbytes'] / mib:.3f} "
+                      f"MiB) "
+                      f"(charge {m['charge_nbytes'] / mib:.3f} MiB, the "
+                      f"controller's "
+                      f"{canon[m['name']].charge_nbytes / mib:.3f} MiB), "
+                      f"warmup {m['warmup_s']:.3f} s", flush=True)
+                assert m["captures"] == n_graphs, m
+                _pools_within_charge((rid, m["name"]),
+                                     m["graph_pool_nbytes"],
+                                     m["charge_pool_nbytes"])
+
+        # -- the steady window, with a kill in it ---------------------------
+        server = serve_router(router)
+        payload = _short_floats(te_x)
+        picks = iter(range(10 ** 9))
+
+        def input_for(model, n):
+            i = (next(picks) * 97) % (N_TEST - n)
+            return payload[i:i + n]
+
+        trace = generate_trace(LoadSpec(
+            seed=SEED, duration_s=FLEET_WINDOW_S, rate_rps=FLEET_RPS,
+            arrival="poisson", models=tuple(FLEET_MODELS), zipf_s=1.1,
+            sizes=tuple(range(1, SERVE_MAX_BATCH + 1))))
+        for _, port, _ in by_id.values():
+            urllib.request.urlopen(urllib.request.Request(
+                f"http://127.0.0.1:{port}/admin/reset_launches", data=b"{}"),
+                timeout=60).read()
+        before = {rid: (_metric(port, "keystone_compile_unexpected_total_"
+                                "total"),
+                        _metric(port, "keystone_serving_rows_total_total"))
+                  for rid, (_, port, _) in by_id.items()}
+        after, launches = {}, {"replayed": {}, "eager": {}}
+        deaths0 = reg.counter("fleet.replica_deaths_total").value
+        spill0 = reg.counter("router.spill_total").value
+        killed = {}
+
+        def read_replica(rid):
+            port = by_id[rid][1]
+            after[rid] = (_metric(port, "keystone_compile_unexpected_total_"
+                                  "total"),
+                          _metric(port, "keystone_serving_rows_total_total"))
+            got = _get_json(port, "/admin/launches")
+            for part, into in (("replayed", "replayed"),
+                               ("kernels", "eager")):
+                for k, v in got[part].items():
+                    launches[into][k] = launches[into].get(k, 0) + v
+
+        def killer():
+            try:
+                time.sleep(FLEET_WINDOW_S * FLEET_KILL_AT)
+                count = {}
+                for reps in controller.placement.assignments.values():
+                    for rid in reps:
+                        count[rid] = count.get(rid, 0) + 1
+                victim = max(sorted(count), key=lambda r: count[r])
+                read_replica(victim)
+                by_id[victim][2].kill()
+                by_id[victim][2].wait(timeout=30)
+                t_kill = time.perf_counter()
+                killed["action"] = FleetAutoscaler(
+                    controller, sustain_ticks=10 ** 6).tick()
+                killed.update(victim=victim, models=count[victim],
+                              recover_s=time.perf_counter() - t_kill)
+            except BaseException as exc:  # noqa: BLE001 - asserted below
+                killed["error"] = f"{type(exc).__name__}: {exc}"
+
+        kthread = threading.Thread(target=killer, daemon=True)
+        kthread.start()
+        report = replay(trace, HttpServingClient(
+            "127.0.0.1", server.server_port, request_timeout_s=120.0),
+            input_for, senders=CLIENTS, result_timeout_s=120.0)
+        kthread.join(timeout=300)
+        assert "error" not in killed, killed
+        victim = killed["victim"]
+        for rid in by_id:
+            if rid != victim:
+                read_replica(rid)
+        unexpected = {rid: after[rid][0] - before[rid][0] for rid in after}
+        rows = sum(after[rid][1] - before[rid][1] for rid in after)
+        summary = report.summary()
+        deaths = reg.counter("fleet.replica_deaths_total").value - deaths0
+        spill = reg.counter("router.spill_total").value - spill0
+        lat = [_metric(by_id[rid][1], f'keystone_serving_request_ms'
+                       f'{{quantile="{q}"}}') for rid in by_id
+               if rid != victim for q in ("0.5", "0.99")]
+        print(f"[fleet] steady window {FLEET_WINDOW_S:g} s, "
+              f"{len(trace.arrivals)} requests (Poisson {FLEET_RPS:g}/s, "
+              f"Zipf over {list(FLEET_MODELS)}, 1-{SERVE_MAX_BATCH} rows, "
+              f"{CLIENTS} closed-loop clients over HTTP to the router): "
+              f"{rows:.0f} rows served in {report.wall_s:.2f} s "
+              f"({rows / report.wall_s:.1f} rows/s); client request_ms "
+              f"p50 {report.p50_ms():.3f} p99 {report.p99_ms():.3f}; the "
+              f"survivors' serving.request_ms (p50, p99) {lat}; "
+              f"availability {report.availability():.4f}; outcomes "
+              f"{summary['outcomes']}; router.spill_total {spill:g}; "
+              f"compile.unexpected_total delta per replica {unexpected} "
+              f"| {smi}", flush=True)
+        print(f"[fleet] death: {victim} (hosting {killed['models']} models)"
+              f" killed at {FLEET_KILL_AT:.0%} of the window; the reactor "
+              f"classified it as {killed['action']!r}, "
+              f"fleet.replica_deaths_total {deaths:g}, recovery (re-solve, "
+              f"re-admission, sha verified) {killed['recover_s']:.2f} s; "
+              f"placement now {controller.state()['placement']}",
+              flush=True)
+        assert killed["action"] == "death" and deaths == 1, (killed, deaths)
+        assert victim not in router.replica_ids()
+        assert all(router.state()["models"].get(m) for m in FLEET_MODELS), \
+            router.state()
+        for rid in router.replica_ids():
+            c = by_id[rid][0]
+            for m, sha in c.model_shas().items():
+                assert sha == canon[m].sha256, (rid, m)
+        assert summary["outcomes"]["unclassified"] == 0, summary
+        assert all(v == 0 for v in unexpected.values()), unexpected
+        print(f"[fleet] launches in the window: served traffic (graph "
+              f"replays x the launches each capture recorded) "
+              f"{launches['replayed']}; the re-admission's eager launches "
+              f"(its probes and warm applies; a capture only records) "
+              f"{launches['eager']}", flush=True)
+        if dev.type == "cuda":  # a CPU rehearsal runs the plain versions
+            served_launches = launches["replayed"]
+            assert served_launches.get("fused_cifar_featurize", 0) > 0, \
+                launches
+            assert served_launches.get("quantized_affine", 0) > 0, launches
+
+        # -- the test set through the router: phase 4c's bars --------------
+        served = {}
+        base = f"http://127.0.0.1:{server.server_port}"
+        t0 = time.perf_counter()
+        for name in FLEET_MODELS:
+            starts = list(range(0, N_TEST, SERVE_MAX_BATCH))
+            with ThreadPoolExecutor(CLIENTS) as pool:
+                outs = list(pool.map(lambda i: _post(
+                    base, f"/predict/{name}",
+                    {"instances": payload[i:i + SERVE_MAX_BATCH].tolist()}),
+                    starts))
+            assert all(status == 200 for status, _ in outs), outs[:1]
+            served[name] = np.concatenate(
+                [np.asarray(out["predictions"]) for _, out in outs])
+        agree = float(np.mean(served["rpc_f32"] == preds))
+        line = (f"[fleet] the {N_TEST} test images through the router in "
+                f"{time.perf_counter() - t0:.2f} s: f32 agreement with "
+                f"phase 4's batch apply {agree:.4f}")
+        assert agree >= 0.999, agree
+        for name, wd in FLEET_MODELS.items():
+            if wd is None:
+                continue
+            arg = float(np.mean(served[name] == served["rpc_f32"]))
+            line += f", {name} argmax agreement with f32 {arg:.4f}"
+            assert arg >= QUANT_BARS[wd][0], (name, arg)
+        errors = {n: round(float(np.mean(p != te_y)), 4)
+                  for n, p in served.items()}
+        print(f"{line}; test errors {errors}", flush=True)
+    finally:
+        if server is not None:
+            server.shutdown()
+        _stop_replicas(procs)
+    return launches
+
+
+def _chaos_phase(dev, smi):
+    """Phase 4m's six single-plane chaos scenarios on a CUDA plane."""
+    from keystone_tpu_torch.serving.scenarios import (load_catalogue,
+                                                      run_scenario)
+
+    load_catalogue()
+    for name, window in CHAOS_WINDOWS.items():
+        res = run_scenario(name, seed=0, duration_s=window, device=dev)
+        out = res.report.outcomes
+        print(f"[chaos] {name} (seed 0, window "
+              f"{window if window is not None else 'catalogue'}): p99 "
+              f"{res.p99_ms:.2f} ms (floor {res.floors.p99_ms:g}), "
+              f"availability {res.availability:.4f} (floor "
+              f"{res.floors.availability:g}), injections {res.injections},"
+              f" outcomes {out}, wall {res.wall_s:.2f} s | {smi}",
+              flush=True)
+        assert out["unclassified"] == 0 and res.clean, (name,
+                                                         res.violations)
+
+
+def _fleet_phase(kernels, model_path, te_x, te_y, preds, dev, smi):
+    """Phase 4m (see the module docstring). Returns the launches of the
+    fleet's traffic window."""
+    from keystone_tpu_torch.utils.checkpoint import load_pipeline
+
+    saved = load_pipeline(model_path, device=dev)
+    _capture_checks(saved, te_x, dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = _fleet_traffic(kernels, saved, te_x, te_y, preds, dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _chaos_phase(dev, smi)
     return launches
 
 
@@ -3409,9 +3919,14 @@ def _main(workdir: str) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    try:  # the image loaders to come decode with Pillow (ROADMAP A7)
+        import PIL
+        pillow = f"Pillow {PIL.__version__}"
+    except ImportError:
+        pillow = "no Pillow"
     print(f"[device] {torch.cuda.get_device_name(0)} | torch "
-          f"{torch.__version__} cuda {torch.version.cuda} | {smi}",
-          flush=True)
+          f"{torch.__version__} cuda {torch.version.cuda} | {pillow} | "
+          f"{smi}", flush=True)
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.time()
@@ -3701,6 +4216,18 @@ def _main(workdir: str) -> int:
     finally:
         opt_serve.close()
     print(f"[serve] inside the serving phase: {opt_serve.summary()}",
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 4m. the serving fleet ----------------------------------------------
+    t0 = time.time()
+    fleet_launches = _fleet_phase(kernels, model_path, te_x, te_y, preds,
+                                  dev, smi)
+    print(f"[fleet] phase 4m in {time.time() - t0:.1f} s; the replicas' "
+          f"launches in the traffic window: served (graph replays x the "
+          f"launches each capture recorded) {fleet_launches['replayed']}, "
+          f"the re-admission's eager ones {fleet_launches['eager']}",
           flush=True)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4020,6 +4547,10 @@ def _main(workdir: str) -> int:
         "launches_by_path": {"4": launches["fused_cifar_featurize"],
                              "4b": stream_launches["fused_cifar_featurize"],
                              "4c": serve_launches["fused_cifar_featurize"],
+                             "4m": fleet_launches["replayed"][
+                                 "fused_cifar_featurize"],
+                             "4m re-admission": fleet_launches["eager"].get(
+                                 "fused_cifar_featurize", 0),
                              "4e": solver_launches["fused_cifar_featurize"],
                              "4e streamed": solver_stream_launches[
                                  "fused_cifar_featurize"],
@@ -4060,7 +4591,11 @@ def _main(workdir: str) -> int:
         "library_ms": q["library_ms"],
         "device_ms": q["device_ms"],
         "library_device_ms": q["library_device_ms"],
-        "launches_by_path": {"4c": serve_launches["quantized_affine"]},
+        "launches_by_path": {"4c": serve_launches["quantized_affine"],
+                             "4m": fleet_launches["replayed"][
+                                 "quantized_affine"],
+                             "4m re-admission": fleet_launches["eager"].get(
+                                 "quantized_affine", 0)},
     }, {
         "name": "banded_matmul",
         "route": "cuda",

@@ -67,6 +67,33 @@ METRIC_NAMES: FrozenSet[str] = frozenset({
     "serving.request_ms",
     "serving.batch_ms",
     "serving.batch_fill",
+    # observability/compilelog.py: the capture observatory; a capture
+    # recorded under an armed fence is a steady-state capture, a bug
+    "compile.count",
+    "compile.wall_s",
+    "compile.unexpected_total",
+    # observability/slo.py: rolling-window error budgets
+    "serving.availability",
+    "serving.error_budget_burn_rate",
+    "serving.slo_violations_total",
+    # serving/plane.py: the batch-level drift phase
+    "serving.phase_ms.drift_score",
+    # serving/placement.py, router.py, fleet.py: the fleet
+    "placement.solves_total",
+    "placement.infeasible_total",
+    "placement.replicated_models",
+    "router.requests_total",
+    "router.spill_total",
+    "router.unavailable_total",
+    "router.replicas_live",
+    "router.rebalance_total",
+    "fleet.models_placed",
+    "fleet.replica_deaths_total",
+    # serving/scenarios: the chaos catalogue's runs
+    "chaos.runs_total",
+    "chaos.injections_total",
+    "chaos.violations_total",
+    "chaos.clean_total",
 })
 
 METRIC_PREFIXES: Tuple[str, ...] = (
@@ -78,6 +105,11 @@ METRIC_PREFIXES: Tuple[str, ...] = (
     "serving.batch_fill.",
     "serving.rejected_total.",
     "serving.queue_wait_s.",
+    "serving.phase_ms.",   # serving/plane.py: per phase, and per model
+    "serving.availability.",           # observability/slo.py: per model
+    "serving.error_budget_burn_rate.",
+    "slo.",                # observability/slo.py: one counter per event
+    "router.spill_total.",  # serving/router.py: per model
 )
 
 

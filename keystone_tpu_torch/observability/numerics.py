@@ -27,9 +27,11 @@ two planes watch the machine; this one watches the numbers:
   evenly spaced feature columns through a streamed fit; its state rides
   the stream checkpoint, and the frozen :class:`DriftBaseline` rides
   the fitted model (``model.numerics_baseline``), with the PSI of
-  another histogram against it. Scoring apply-time inputs
-  (``score_drift``) comes with the serving plane's drift endpoints
-  (ROADMAP A10).
+  another histogram against it. :func:`score_drift` scores apply-time
+  inputs against it (the serving plane every ``drift_every`` batches),
+  warning past :func:`drift_threshold`. The monitor's CUDA graph capture
+  of the health word is recorded by the capture observatory
+  (``observability/compilelog.py``), once per geometry.
 
 Events go through :func:`record_numerics_event`: the
 ``numerics.<event>`` counter, an instant on the flight recorder and the
@@ -48,6 +50,7 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .compilelog import observed_capture
 from .metrics import MetricsRegistry
 from .timeline import record_instant
 from .trace import current_trace
@@ -288,10 +291,12 @@ def _word_graph(key: Tuple[int, str, int], device: torch.device):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.stream(side):
         health_word(flat)  # lazy initialisation off the graph
-        # thread_local: the stager's thread may copy meanwhile
-        graph.capture_begin(capture_error_mode="thread_local")
-        word = health_word(flat)
-        graph.capture_end()
+        # recorded by the capture observatory, once per geometry
+        with observed_capture("numerics.health_word", "monitor"):
+            # thread_local: the stager's thread may copy meanwhile
+            graph.capture_begin(capture_error_mode="thread_local")
+            word = health_word(flat)
+            graph.capture_end()
     torch.cuda.current_stream(device).wait_stream(side)
     _WORD_GRAPHS[key] = hit = (graph, flat, word)
     if len(_WORD_GRAPHS) > _WORD_GRAPHS_KEPT:
@@ -703,6 +708,97 @@ class SketchTracker:
         return DriftBaseline(self.cols, self.interior,
                              self._counts.cpu().numpy().astype(np.float32),
                              self.rows, self.source)
+
+
+def drift_threshold() -> float:
+    """PSI warn threshold (``KEYSTONE_TORCH_DRIFT_THRESHOLD``, default
+    0.2, the classical boundary of a significant population shift)."""
+    raw = os.environ.get("KEYSTONE_TORCH_DRIFT_THRESHOLD")
+    if not raw:
+        return 0.2
+    try:
+        value = float(raw)
+    except ValueError:
+        raise ValueError(f"KEYSTONE_TORCH_DRIFT_THRESHOLD must be a float, "
+                         f"got {raw!r}") from None
+    if value <= 0:
+        raise ValueError("KEYSTONE_TORCH_DRIFT_THRESHOLD must be > 0")
+    return value
+
+
+def _sketch_counts(baseline: DriftBaseline, data) -> Tuple[np.ndarray,
+                                                           float]:
+    """Histogram ``data``'s live rows with the baseline's geometry (the
+    comparable half of a PSI pair). ``data``: an ArrayDataset, a
+    StreamingDataset (chunk by chunk) or a host array."""
+    from ..parallel.dataset import ArrayDataset
+
+    if isinstance(data, np.ndarray):
+        data = ArrayDataset.from_numpy(np.asarray(data, np.float32), "cpu")
+    chunks = data.chunks() if hasattr(data, "chunks") else [data]
+    counts = None
+    rows = 0.0
+    geometry = None
+    for chunk in chunks:
+        X = chunk.data
+        if not isinstance(X, torch.Tensor) or X.dim() != 2:
+            raise ValueError(
+                "drift scoring needs a single 2-D feature leaf (the shape "
+                "the baseline was built from)")
+        if int(X.shape[1]) <= int(baseline.cols.max()):
+            raise ValueError(
+                f"drift scoring: data has {int(X.shape[1])} feature "
+                f"column(s) but the baseline sketches column "
+                f"{int(baseline.cols.max())}: the apply-time input is not "
+                "the feature space this baseline was built from")
+        if counts is None:
+            dev = X.device
+            counts = torch.zeros(baseline.counts.shape, dtype=torch.float32,
+                                 device=dev)
+            # the fit-time derivation: the bins are the same bits on
+            # both sides of the PSI pair
+            start, step = _bin_geometry(baseline.interior)
+            geometry = (torch.as_tensor(start, device=dev),
+                        torch.as_tensor(step, device=dev),
+                        torch.as_tensor(baseline.cols.astype(np.int64),
+                                        device=dev))
+        _sketch_update(counts, *geometry, X[:chunk.n])
+        rows += float(chunk.n)
+    if counts is None:
+        raise ValueError("empty dataset: nothing to score")
+    return counts.cpu().numpy().astype(np.float32), rows
+
+
+def score_drift(baseline: DriftBaseline, data,
+                threshold: Optional[float] = None) -> Dict[str, Any]:
+    """Score apply-time ``data`` against a fit-time baseline: PSI per
+    sketched column, the largest published as the
+    ``numerics.drift_score`` gauge, and a ``drift_warn`` event past the
+    threshold (:func:`drift_threshold`). Returns ``{psi_max, psi_mean,
+    warned, threshold, rows, per_col}``."""
+    if baseline is None:
+        raise ValueError(
+            "no drift baseline: the fit did not build a feature sketch "
+            "(non-2-D data, or numerics disabled during the fit)")
+    threshold = drift_threshold() if threshold is None else float(threshold)
+    counts, rows = _sketch_counts(baseline, data)
+    per_col = baseline.psi(counts)
+    psi_max = float(per_col.max())
+    psi_mean = float(per_col.mean())
+    warned = psi_max > threshold
+    if numerics_active():
+        MetricsRegistry.get_or_create().gauge(
+            "numerics.drift_score").set(psi_max)
+        record_numerics_event("drift_score", score=psi_max, mean=psi_mean,
+                              rows=rows, source=baseline.source)
+        if warned:
+            record_numerics_event(
+                "drift_warn", score=psi_max, threshold=threshold,
+                worst_col=int(baseline.cols[int(per_col.argmax())]),
+                source=baseline.source)
+    return {"psi_max": psi_max, "psi_mean": psi_mean, "warned": warned,
+            "threshold": threshold, "rows": rows,
+            "per_col": per_col.tolist()}
 
 
 def health_snapshot() -> Dict[str, Any]:

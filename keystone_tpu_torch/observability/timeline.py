@@ -13,7 +13,16 @@ says when everything ran and on which thread. It is fed by:
   accumulate's launches; the device work runs on past them);
 * the resilience and numerics event funnels, as instant events;
 * contended :class:`~keystone_tpu_torch.utils.guarded.TracedLock`
-  acquires (one span per lost race, on the losing thread).
+  acquires (one span per lost race, on the losing thread);
+* the serving plane's ``request:<model>`` / ``batch:<model>`` spans and
+  the capture observatory's ``compile:<site>`` spans.
+
+The serving worker does not build its spans on the request path: it
+queues one thunk a batch (:meth:`FlightRecorder.defer`), and every view
+of the ring (and the idle worker, and the HTTP scrape surface) runs the
+queued thunks first (:meth:`FlightRecorder.flush`). A request span's
+``flow_out`` and its batch span's ``flow_in`` export as Chrome flow
+events, so the trace viewer draws each request into the batch it rode.
 
 The ring holds ``KEYSTONE_TORCH_FLIGHT_SPANS`` spans (default 8192):
 recording is a lock and two list writes, and old spans fall off the
@@ -35,7 +44,9 @@ import json
 import os
 import threading
 import time
-from typing import Any, Dict, Iterator, List, NamedTuple, Optional
+from collections import deque
+from typing import Any, Callable, Deque, Dict, Iterator, List, NamedTuple, \
+    Optional
 
 from ..utils.guarded import guarded_by
 
@@ -84,21 +95,48 @@ class FlightRecorder:
         self._idx = 0
         self._total = 0
         self._lock = threading.Lock()  # plain: TracedLock reports in here
+        #: queued materializers (deque appends and pops are atomic)
+        self._deferred: Deque[Callable[[], None]] = deque(
+            maxlen=self.capacity)
         #: perf_counter epoch of the exported timestamps
         self.t0_s = time.perf_counter()
 
     def record(self, name: str, cat: str, start_s: float, dur_s: float,
                args: Optional[Dict[str, Any]] = None,
-               ph: str = "X") -> None:
+               ph: str = "X", tid: Optional[int] = None,
+               thread: Optional[str] = None) -> None:
+        """Append one span. ``tid`` / ``thread`` replace the recording
+        thread's identity (a deferred thunk passes the identity it
+        captured, so its spans land on their thread's lane)."""
         if not self.enabled:
             return
-        t = threading.current_thread()
-        span = Span(name, cat, float(start_s), float(dur_s), t.ident or 0,
-                    t.name, args, ph)
+        if tid is None or thread is None:
+            t = threading.current_thread()
+            tid = (t.ident or 0) if tid is None else tid
+            thread = t.name if thread is None else thread
+        span = Span(name, cat, float(start_s), float(dur_s), tid, thread,
+                    args, ph)
         with self._lock:
             self._ring[self._idx] = span
             self._idx = (self._idx + 1) % self.capacity
             self._total += 1
+
+    def defer(self, materialize: Callable[[], None]) -> None:
+        """Queue a zero-argument thunk that records when the ring is
+        next viewed. It must capture immutable data and its thread's
+        identity."""
+        if self.enabled:
+            self._deferred.append(materialize)
+
+    def flush(self) -> None:
+        """Run the queued thunks, oldest first (outside the ring
+        lock: they call :meth:`record`)."""
+        while True:
+            try:
+                fn = self._deferred.popleft()
+            except IndexError:
+                return
+            fn()
 
     def record_instant(self, name: str, cat: str,
                        args: Optional[Dict[str, Any]] = None) -> None:
@@ -116,7 +154,8 @@ class FlightRecorder:
                         args or None)
 
     def spans(self) -> List[Span]:
-        """Retained spans, oldest first."""
+        """Retained spans, oldest first (queued thunks run first)."""
+        self.flush()
         with self._lock:
             ring, idx, total = list(self._ring), self._idx, self._total
         if total < self.capacity:
@@ -134,6 +173,7 @@ class FlightRecorder:
             return max(0, self._total - self.capacity)
 
     def clear(self) -> None:
+        self._deferred.clear()
         with self._lock:
             self._ring = [None] * self.capacity
             self._idx = 0
@@ -145,7 +185,9 @@ class FlightRecorder:
         sub-lanes (longer first at equal start, so a nested child
         overflows and not its parent), so no exported lane holds two
         overlapping ``"X"`` events. Instants ride lane 0 of their
-        thread."""
+        thread. A span with ``flow_out`` in its args starts a flow
+        (``ph: "s"``) at its own place; one with ``flow_in`` ends one
+        flow (``ph: "f"``) per id there."""
         events: List[Dict[str, Any]] = []
         lane_ids: Dict[tuple, int] = {}
         lane_names: Dict[int, str] = {}
@@ -173,11 +215,22 @@ class FlightRecorder:
                 if sub == len(lane_end):
                     lane_end.append(0.0)
                 lane_end[sub] = s.start_s + s.dur_s
+                lid = lane(tid, s.thread, sub)
                 events.append({"name": s.name, "cat": s.cat, "ph": "X",
                                "ts": us(s.start_s),
                                "dur": round(s.dur_s * 1e6, 3), "pid": 1,
-                               "tid": lane(tid, s.thread, sub),
-                               "args": s.args or {}})
+                               "tid": lid, "args": s.args or {}})
+                args = s.args or {}
+                if "flow_out" in args:
+                    events.append({"name": "req", "cat": s.cat, "ph": "s",
+                                   "id": int(args["flow_out"]),
+                                   "ts": us(s.start_s), "pid": 1,
+                                   "tid": lid})
+                for fid in args.get("flow_in", ()):
+                    events.append({"name": "req", "cat": s.cat, "ph": "f",
+                                   "bp": "e", "id": int(fid),
+                                   "ts": us(s.start_s), "pid": 1,
+                                   "tid": lid})
             for s in spans:
                 if s.ph == "i":
                     events.append({"name": s.name, "cat": s.cat, "ph": "i",

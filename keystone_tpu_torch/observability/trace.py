@@ -11,15 +11,17 @@ active (:func:`current_trace` returns it) the workflow stack feeds it:
 * optimizer records: the auto-cache rule's report, the node rule's
   splice choices and the least-squares solver decisions;
 * streamed-ingest chunks, streamed fits, resilience and numerics events,
-  and contended-lock waits.
+  CUDA graph captures (``observability/compilelog.py``) and
+  contended-lock waits.
 
 Self times: a node's wall time minus the time spent in nested
 instrumented nodes (a parent's first ``get()`` computes its ancestors),
 so self times sum to the traced compute with no double counting.
 
 Tracing costs nothing when no trace is active: every hook returns at
-once and the executor wraps no thunk. The port has no XLA compiles, so
-the JAX trace's compile stream is not kept; :func:`profiler_trace` is
+once and the executor wraps no thunk. The JAX trace's compile stream
+holds XLA compiles; the port's holds CUDA graph captures.
+:func:`profiler_trace` is
 the counterpart of ``xprof_trace``, a ``torch.profiler`` capture with
 pipeline node names as ``record_function`` ranges.
 """
@@ -109,6 +111,7 @@ class PipelineTrace:
     STREAMED_FIT_TAIL = 512
     RESILIENCE_TAIL = 512
     NUMERICS_TAIL = 512
+    COMPILE_TAIL = 512
 
     def __init__(self, name: str = "pipeline"):
         self.name = name
@@ -127,6 +130,9 @@ class PipelineTrace:
         self.numerics: List[Dict[str, Any]] = []
         self.numerics_stats: Dict[str, float] = {}
         self._numerics_lock = TracedLock("trace.numerics")
+        #: CUDA graph captures; they may come from serving threads
+        self.compiles: List[Dict[str, Any]] = []
+        self._compile_lock = threading.Lock()
         #: {lock name: {"count": n, "wait_s": total}}; a plain guard,
         #: because TracedLock reports in here
         self.lock_waits: Dict[str, Dict[str, float]] = {}
@@ -236,6 +242,13 @@ class PipelineTrace:
             if len(self.numerics) > self.NUMERICS_TAIL:
                 del self.numerics[: len(self.numerics) - self.NUMERICS_TAIL]
 
+    def record_compile(self, entry: Dict[str, Any]) -> None:
+        """One CUDA graph capture (``observability/compilelog.py``)."""
+        with self._compile_lock:
+            self.compiles.append(entry)
+            if len(self.compiles) > self.COMPILE_TAIL:
+                del self.compiles[: len(self.compiles) - self.COMPILE_TAIL]
+
     def record_lock_wait(self, name: str, wait_s: float) -> None:
         with self._lock_wait_lock:
             entry = self.lock_waits.setdefault(name,
@@ -256,7 +269,7 @@ class PipelineTrace:
     # -- export ---------------------------------------------------------------
     _LISTS = ("auto_cache", "node_choices",
               "solver_decisions", "chunks", "streamed_fits", "resilience",
-              "numerics")
+              "numerics", "compiles")
     _DICTS = ("meta", "chunk_stats", "resilience_stats", "numerics_stats")
 
     def to_dict(self) -> Dict[str, Any]:

@@ -15,7 +15,10 @@ fallback from a failed build or launch, and a shape the kernel does not
 take raises.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; a run can
-reset it and read it back to show the path went through the kernels.
+reset it and read it back to show the path went through the kernels. A
+call made while the current stream captures a CUDA graph only records
+the launch into the graph, where each replay runs it: it is counted in
+``CAPTURED`` instead (``serving/graphs.py`` counts the replays).
 
 Kernels (Pallas TPU kernel replaced -> file here):
 
@@ -68,12 +71,24 @@ LAUNCHES: Dict[str, int] = {"fused_cifar_featurize": 0, "gram_cross": 0,
                             "quantized_affine": 0, "banded_matmul": 0,
                             "fv_moments": 0}
 
+#: wrapper name -> launches recorded into CUDA graphs under capture
+CAPTURED: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def _count_launch(name: str) -> None:
+    """One launch by ``name``'s wrapper: in ``LAUNCHES`` when it runs
+    now, in ``CAPTURED`` when the stream is capturing a graph."""
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED[name] += 1
+    else:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:
@@ -400,7 +415,7 @@ def fused_cifar_featurize(imgs, filters, img_size=32, patch_size=6,
             float(var_constant), float(alpha), _current_stream(imgs))
     if rc != 0:
         raise RuntimeError(f"fused_cifar_featurize: CUDA error {rc} at launch")
-    LAUNCHES["fused_cifar_featurize"] += 1
+    _count_launch("fused_cifar_featurize")
     return out
 
 
@@ -475,7 +490,7 @@ def gram_cross(X, Y, G=None, C=None):
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gram_cross: CUDA error {rc} at launch")
-    LAUNCHES["gram_cross"] += 1
+    _count_launch("gram_cross")
     return G, C
 
 
@@ -669,7 +684,7 @@ def quantized_affine(X, *params):
                         sps, _current_stream(X))
     if rc != 0:
         raise RuntimeError(f"quantized_affine: CUDA error {rc} at launch")
-    LAUNCHES["quantized_affine"] += 1
+    _count_launch("quantized_affine")
     return out
 
 
@@ -873,7 +888,7 @@ def banded_matmul(band: np.ndarray, X: torch.Tensor,
                 m, l, r, w, pair.KL, pair.KR, stream)
     if rc != 0:
         raise RuntimeError(f"banded_matmul: CUDA error {rc} at launch")
-    LAUNCHES["banded_matmul"] += 1
+    _count_launch("banded_matmul")
     return out
 
 
@@ -999,5 +1014,5 @@ def fv_moments(X, means, variances, weights, threshold, terms=None):
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fv_moments: CUDA error {rc} at launch")
-    LAUNCHES["fv_moments"] += 1
+    _count_launch("fv_moments")
     return s0, s1, s2

@@ -49,8 +49,9 @@ the chunks it accumulates, and feeds the flight recorder's
 (consumer) lanes and the ``streaming.*`` metrics. An interpreter exit
 under a live stream stops its producer and dumps a post-mortem.
 
-Left out of this port so far: the compile fence (ROADMAP A9b), the
-distributed world loop and per-shard staging onto a mesh (A11).
+``fit_streaming`` arms the capture observatory's fence after its warm
+chunks. Left out of this port so far: the distributed world loop and
+per-shard staging onto a mesh (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -72,6 +73,7 @@ from typing import (
 import numpy as np
 import torch
 
+from ..observability.compilelog import compile_observatory
 from ..observability.metrics import MetricsRegistry
 from ..observability.postmortem import attach_postmortem, dump_postmortem
 from ..observability.timeline import record_span
@@ -781,6 +783,12 @@ def _carry_nbytes(carry: Any) -> float:
     return 0.0
 
 
+#: chunks a streamed fit runs before it arms its capture fence: the
+#: numerics monitor computes the first chunk's health word eagerly and
+#: captures the word's CUDA graph at the second
+_WARM_CHUNKS = 2
+
+
 def fit_streaming(estimator: Any, data: StreamingDataset, labels: Any = None,
                   hbm_budget: Optional[float] = None,
                   checkpoint_dir: Optional[str] = None,
@@ -807,6 +815,11 @@ def fit_streaming(estimator: Any, data: StreamingDataset, labels: Any = None,
     another configuration raises ``CheckpointMismatchError``; the
     snapshot is removed after a successful finalize. ``quarantine``
     (default the stream's) rides the snapshot.
+
+    The capture fence (``observability/compilelog.py``): after the warm
+    chunks (``_WARM_CHUNKS``) the fit arms ``fit_streaming:<tag>``, and
+    disarms it when the chunk loop ends, so a CUDA graph captured in the
+    steady chunk loop counts in ``compile.unexpected_total``.
 
     The numerics plane (``KEYSTONE_TORCH_NUMERICS=0`` turns it off)
     checks one deferred health word per chunk, raising ``NumericsError``
@@ -876,6 +889,8 @@ def fit_streaming(estimator: Any, data: StreamingDataset, labels: Any = None,
         sketch.restore(numerics_state, data.device)
     chunks_seen = 0
     idx = -1
+    obs = compile_observatory()
+    fence_armed = False
     pairs = _paired_chunks(data, labels)
     try:
         for chunk, lchunk in pairs:
@@ -899,6 +914,11 @@ def fit_streaming(estimator: Any, data: StreamingDataset, labels: Any = None,
                 sketch.update(chunk)
             reg.gauge("streaming.carry_bytes").set(_carry_nbytes(carry))
             chunks_seen += 1
+            if chunks_seen == _WARM_CHUNKS and not fence_armed:
+                # every later chunk of the geometry replays what the
+                # warm chunks built: a capture from here on is a bug
+                obs.arm_fence(f"fit_streaming:{tag}")
+                fence_armed = True
             if budget is not None:
                 resident = data.buffered_nbytes()
                 if resident > budget:
@@ -922,6 +942,8 @@ def fit_streaming(estimator: Any, data: StreamingDataset, labels: Any = None,
                           else sketch.state())
     finally:
         pairs.close()
+        if fence_armed:
+            obs.disarm_fence()
     if monitor is not None:
         # the deferred window's tail: a NaN born in the last chunks
         # trips here, before finalize turns it into garbage weights

@@ -12,6 +12,14 @@ site                  where
                       the host fill, before the copy to the device);
                       ``corrupt`` rules act on the host chunk before it
                       is staged
+``serve.enqueue``     per serving request submit, before the slot gate
+``serve.dispatch``    per micro-batch, before the device work; a
+                      ``corrupt`` rule poisons the merged host batch, a
+                      ``straggler`` stretches the batch
+``serve.admit``       per admission: once before the plane changes, then
+                      once per warmup bucket (a fault there rolls the
+                      admission back)
+``serve.evict``       per explicit eviction, before any change
 ====================  ==================================================
 
 ``inject`` is one global read when no plan is active. Under
@@ -19,7 +27,8 @@ site                  where
 
 * ``kind="error"`` raises (default :class:`InjectedFaultError`, a
   transient failure the retry path absorbs; ``error=`` for others);
-* ``kind="latency"`` sleeps ``delay_s``;
+* ``kind="latency"`` sleeps ``delay_s``; ``kind="straggler"`` does too,
+  with a default of 0.25 s (a sustained slowdown, not a blip);
 * ``kind="hang"`` blocks until the plan exits, the caller's ``abort``
   goes true, or ``delay_s`` passes;
 * ``kind="corrupt"`` mutates the value at a value-carrying site: by
@@ -29,10 +38,9 @@ site                  where
 ``rate`` draws from the plan's ``RandomState(seed)``, one draw per
 visit past ``after`` and under ``count``, as the JAX package draws.
 
-The JAX package's host-level kinds (``host_death``, ``partition``,
-``straggler``, gated by ``process_id``) wait for the multi-GPU slice
-(ROADMAP A11): the port runs one process and has no world to gate them
-by yet.
+The JAX package's world-level kinds (``host_death``, ``partition``) and
+the ``process_id`` gate wait for the multi-GPU slice (ROADMAP A11): the
+port has no world to gate them by yet.
 """
 from __future__ import annotations
 
@@ -52,7 +60,7 @@ class InjectedFaultError(TransientError):
     """The default injected failure: transient, so retries absorb it."""
 
 
-_KINDS = ("error", "latency", "hang", "corrupt")
+_KINDS = ("error", "latency", "hang", "corrupt", "straggler")
 
 
 @dataclass
@@ -114,13 +122,15 @@ class FaultPlan:
     def add(self, site: str, kind: str = "error", rate: float = 1.0,
             after: int = 0, count: Optional[int] = None,
             error: Optional[Callable[[str], BaseException]] = None,
-            delay_s: float = 0.05,
+            delay_s: Optional[float] = None,
             mutate: Optional[Callable[[Any], Any]] = None) -> "FaultPlan":
         if kind not in _KINDS:
             raise ValueError(f"unknown fault kind {kind!r} (the host-level "
                              "kinds wait for the multi-GPU port)")
         if not 0.0 < rate <= 1.0:
             raise ValueError("rate must be in (0, 1]")
+        if delay_s is None:
+            delay_s = 0.25 if kind == "straggler" else 0.05
         self._specs.setdefault(site, []).append(FaultSpec(
             site=site, kind=kind, rate=rate, after=int(after), count=count,
             error=error, delay_s=float(delay_s), mutate=mutate))
@@ -168,7 +178,7 @@ class FaultPlan:
             if spec.kind == "corrupt" or not self._fires(spec, site,
                                                          context):
                 continue
-            if spec.kind == "latency":
+            if spec.kind in ("latency", "straggler"):
                 time.sleep(spec.delay_s)
             elif spec.kind == "hang":
                 deadline = time.perf_counter() + spec.delay_s

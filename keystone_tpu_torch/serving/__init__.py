@@ -1,11 +1,18 @@
-"""Online serving of fitted pipelines on one device.
+"""Online serving of fitted pipelines: the plane and the fleet.
 
-Counterpart of the single-process half of ``keystone_tpu/serving``:
-the plane (``plane.py``), its model records (``models.py``), the
-micro-batcher (``batcher.py``), device-memory admission
-(``residency.py``) and the HTTP surface with the ``serve`` command
-(``http.py``). The fleet, router, placement, replica, load generator
-and chaos scenarios are not ported yet (ROADMAP A10).
+Counterpart of ``keystone_tpu/serving``. One process: the plane
+(``plane.py``, its captured bucket graphs in ``graphs.py``), its model
+records (``models.py``), the micro-batcher (``batcher.py``),
+device-memory admission (``residency.py``) and the HTTP surface with
+the ``serve`` command (``http.py``). The fleet: ``plan_placement``
+packs models onto replicas under per-replica budgets
+(``placement.py``), ``FleetRouter`` fronts N replicas with rendezvous
+routing and honest spill (``router.py``), a replica is a plane that
+takes its models over HTTP (``replica.py``), ``FleetController`` owns
+the canonical model bytes and applies every placement change admit ->
+sha-verify -> evict, and ``FleetAutoscaler`` turns measured telemetry
+into membership changes (``fleet.py``). ``loadgen.py`` generates and
+replays seeded traffic; ``scenarios`` is the chaos catalogue.
 """
 from .batcher import (
     BucketPolicy,
@@ -14,8 +21,17 @@ from .batcher import (
     QueueFullError,
     Request,
 )
+from .fleet import (
+    FleetAutoscaler,
+    FleetController,
+    FleetError,
+    FleetModel,
+    run_reactor,
+)
+from .graphs import CaptureError
 from .http import bind_server, predict_response, serve
 from .models import ItemSpec, ServedModel
+from .placement import ModelDemand, Placement, PlacementError, plan_placement
 from .plane import (
     ModelNotAdmitted,
     ModelWarming,
@@ -29,16 +45,33 @@ from .residency import (
     fitted_model_nbytes,
     model_charge,
 )
+from .router import (
+    FleetRouter,
+    HttpReplicaClient,
+    LocalReplicaClient,
+    serve_router,
+)
 
 __all__ = [
     "AdmissionError",
     "BucketPolicy",
+    "CaptureError",
     "DeadlineExpiredError",
+    "FleetAutoscaler",
+    "FleetController",
+    "FleetError",
+    "FleetModel",
+    "FleetRouter",
+    "HttpReplicaClient",
     "ItemSpec",
+    "LocalReplicaClient",
     "MicroBatcher",
     "ModelCharge",
+    "ModelDemand",
     "ModelNotAdmitted",
     "ModelWarming",
+    "Placement",
+    "PlacementError",
     "PoisonedBatchError",
     "QueueFullError",
     "Request",
@@ -48,6 +81,9 @@ __all__ = [
     "bind_server",
     "fitted_model_nbytes",
     "model_charge",
+    "plan_placement",
     "predict_response",
+    "run_reactor",
     "serve",
+    "serve_router",
 ]

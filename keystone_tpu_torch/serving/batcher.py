@@ -17,8 +17,13 @@ costs barely more than one over a single item.
   same model behind it up to the bucket ceiling, keeping FIFO order for
   everything it leaves.
 
-Thread model: HTTP handler threads (or callers) ``submit``; one plane
-worker ``take``s and calls ``done``. ``_pending`` is guarded by
+Each request carries a :class:`~..observability.reqtrace.ReqTrace`
+(None while tracing is off): the submit stamps its enqueue and
+:meth:`MicroBatcher.take` its pop. ``serve.enqueue`` is the fault site of
+every submit, before the slot gate.
+
+Thread model: HTTP handler threads (or callers) ``submit``; the plane's
+workers ``take`` and call ``done``. ``_pending`` is guarded by
 ``_lock``; ``_closed`` is written under it and read without it.
 """
 from __future__ import annotations
@@ -31,6 +36,8 @@ from dataclasses import dataclass, field
 from typing import Any, Deque, List, Optional, Tuple
 
 from ..observability.metrics import MetricsRegistry
+from ..observability.reqtrace import ReqTrace, tracing_active
+from ..resilience.faults import inject
 
 
 class QueueFullError(RuntimeError):
@@ -89,13 +96,15 @@ class BucketPolicy:
 class Request:
     """One submitted request: ``x`` is a host pytree whose leaves have
     leading dim ``n``; the future resolves to the model output for
-    exactly those rows."""
+    exactly those rows. ``trace`` is its request-path record (None when
+    tracing is off)."""
 
     model: str
     x: Any
     n: int
     enqueued_s: float = field(default_factory=time.perf_counter)
     future: Future = field(default_factory=Future)
+    trace: Optional[ReqTrace] = None
     #: absolute perf_counter deadline (None = none); a request past it
     #: is shed before dispatch
     deadline_s: Optional[float] = None
@@ -146,6 +155,15 @@ class MicroBatcher:
         Raises :class:`QueueFullError` when no slot frees within the
         timeout. ``deadline_ms`` bounds, from now, how long the request
         may wait before dispatch."""
+        return self.submit_request(model, x, n, timeout_s=timeout_s,
+                                   deadline_ms=deadline_ms).future
+
+    def submit_request(self, model: str, x: Any, n: int,
+                       timeout_s: Optional[float] = None,
+                       deadline_ms: Optional[float] = None) -> Request:
+        """:meth:`submit`, returning the whole :class:`Request` (the HTTP
+        surface echoes ``request.trace.trace_id``)."""
+        inject("serve.enqueue", context=model)
         # a closed batcher refuses before the slot gate: shutdown neither
         # costs the submit timeout nor reads as a 429
         if self._closed:
@@ -159,7 +177,14 @@ class MicroBatcher:
                 f"serving queue full ({self.queue_depth} slots) — "
                 f"request for {model!r} rejected after {timeout:.1f}s",
                 retry_after_s=self.retry_after_s())
-        req = Request(model=model, x=x, n=int(n))
+        trace = ReqTrace.new(model, int(n)) if tracing_active() else None
+        if trace is None:
+            req = Request(model=model, x=x, n=int(n))
+        else:
+            # one clock read stamps both: the trace's enqueue IS the
+            # request's
+            req = Request(model=model, x=x, n=int(n),
+                          enqueued_s=trace.enqueued_s, trace=trace)
         if deadline_ms is not None:
             req.deadline_s = req.enqueued_s + float(deadline_ms) / 1e3
         with self._lock:
@@ -171,7 +196,7 @@ class MicroBatcher:
         self._ready.set()
         MetricsRegistry.get_or_create().gauge(
             "serving.queue_depth").set(depth)
-        return req.future
+        return req
 
     # -- consumer side (the plane worker) ----------------------------------
     def take(self, max_rows: int, timeout_s: float = 0.05) -> List[Request]:
@@ -201,6 +226,11 @@ class MicroBatcher:
             if not self._pending:
                 self._ready.clear()
             depth = len(self._pending)
+        taken_s = time.perf_counter()
+        for req in out:
+            if req.trace is not None:
+                # queue_wait ends here; the worker owns later stamps
+                req.trace.taken_s = taken_s
         MetricsRegistry.get_or_create().gauge(
             "serving.queue_depth").set(depth)
         return out

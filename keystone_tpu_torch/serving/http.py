@@ -11,19 +11,25 @@ scrape surface):
   buckets. Response: ``{"model", "rows", "predictions"}``. Errors map
   to statuses: 404 unknown model, 503 warming, 504 deadline shed, 429
   queue full (with a ``Retry-After`` header), 400 bad shape or JSON,
-  500 batch failure.
+  500 batch failure. A traced request's id comes back in the
+  ``X-Keystone-Trace`` header.
 * ``GET /healthz`` — readiness: 503 ``warming`` until every admitted
   and expected model has warmed (``ServingPlane.ready``).
 * ``GET /metrics`` — Prometheus text of the port's registry.
 * ``GET /models`` — JSON plane state.
+* ``GET /slo`` — the SLO tracker's state (``observability/slo.py``).
+* ``GET /debug/slow?n=8&model=M`` — the slowest retained request traces
+  (``observability/reqtrace.py``).
 
-``/slo`` and ``/debug/slow`` come with the request traces (ROADMAP A10).
+Every GET runs the flight recorder's deferred thunks first, so what it
+serves includes the batches served so far.
 
 Command::
 
     python -m keystone_tpu_torch serve NAME=PATH@SHAPE[:DTYPE] ... \\
         [--port P] [--host H] [--hbm-budget BYTES] [--max-batch N] \\
-        [--queue-depth N] [--weight-dtype bf16|int8|f32] [--device D]
+        [--queue-depth N] [--weight-dtype bf16|int8|f32] [--device D] \\
+        [--drift-every N] [--slo-latency-ms MS] [--slo-availability A]
 
 ``PATH`` is a pipeline saved by ``utils.checkpoint.save_pipeline``,
 ``SHAPE`` the per-item shape (comma-separated, e.g. ``32,32,3``),
@@ -31,7 +37,10 @@ Command::
 ``/healthz`` reports warming during the warmups), prints ``serving on
 HOST:PORT``, one ``admitted`` line per model, then ``serving ready (N
 models)``. ``--weight-dtype`` defaults to bf16, the quantized predict;
-``f32`` opts out. ``--device`` defaults to ``cuda``.
+``f32`` opts out. ``--device`` defaults to ``cuda``. ``--drift-every``
+scores a model's inputs against its fit's drift baseline every N batches
+(default 32); ``--slo-latency-ms`` and ``--slo-availability`` set the SLO
+policy's latency threshold and availability target (``GET /slo``).
 """
 from __future__ import annotations
 
@@ -42,9 +51,14 @@ import sys
 import threading
 from typing import Any, Dict, List, Optional, Tuple
 
+from urllib.parse import parse_qs, urlsplit
+
 import numpy as np
 
+from ..observability.reqtrace import exemplar_reservoir
 from ..observability.sampler import _MetricsHandler, _MetricsServer
+from ..observability.slo import SloPolicy
+from ..observability.timeline import flight_recorder
 from ..ops.device import DEFAULT_DEVICE
 from .batcher import DeadlineExpiredError, QueueFullError
 from .models import ItemSpec
@@ -86,11 +100,13 @@ def predict_response(plane: Any, name: str, raw: bytes
         if not isinstance(instances, list) or not instances:
             raise ValueError(
                 'body must be {"instances": [...]} or a JSON array')
-        out = plane.predict(name, np.asarray(instances),
-                            deadline_ms=deadline_ms)
+        out, trace_id = plane.predict_traced(name, np.asarray(instances),
+                                             deadline_ms=deadline_ms)
         body = json.dumps({"model": name, "rows": len(instances),
                            "predictions": _jsonable(out)}).encode()
-        return 200, body, None
+        # the trace id rides a header: the JSON body keeps its shape
+        return 200, body, ({"X-Keystone-Trace": trace_id} if trace_id
+                           else None)
     except ModelNotAdmitted as exc:
         return 404, _err(exc), None
     except ModelWarming as exc:
@@ -115,8 +131,26 @@ class ServingHandler(_JsonReplyHandler):
     plane: Optional[ServingPlane] = None
 
     def do_GET(self):  # noqa: N802 (stdlib handler API)
-        if self.path.split("?")[0] == "/models":
+        # the scrape is a flush point for the workers' deferred telemetry
+        flight_recorder().flush()
+        parts = urlsplit(self.path)
+        if parts.path == "/models":
             self._reply(200, json.dumps(self.plane.state()).encode())
+            return
+        if parts.path == "/slo":
+            self._reply(200, json.dumps(self.plane.slo.state()).encode())
+            return
+        if parts.path == "/debug/slow":
+            try:
+                query = parse_qs(parts.query)
+                n = int(query.get("n", ["8"])[0])
+                model = query.get("model", [None])[0]
+            except (ValueError, TypeError) as exc:
+                self._reply(400, _err(exc))
+                return
+            self._reply(200, json.dumps({
+                "slowest": exemplar_reservoir().slowest_trees(
+                    n, model=model)}).encode())
             return
         super().do_GET()
 
@@ -182,15 +216,8 @@ def serve(plane: ServingPlane, port: int = 0,
 _USAGE = ("usage: python -m keystone_tpu_torch serve "
           "NAME=PATH@SHAPE[:DTYPE] ... [--port P] [--host H] "
           "[--hbm-budget BYTES] [--max-batch N] [--queue-depth N] "
-          "[--weight-dtype bf16|int8|f32] [--device cuda|cpu]")
-
-#: flags of the JAX package's serve command whose machinery the port
-#: does not have yet: accepted, and refused with this reason
-_NOT_PORTED = {
-    "--slo-latency-ms": "the SLO tracker is not ported yet",
-    "--slo-availability": "the SLO tracker is not ported yet",
-    "--drift-every": "drift scoring is not ported yet",
-}
+          "[--weight-dtype bf16|int8|f32] [--device cuda|cpu] "
+          "[--drift-every N] [--slo-latency-ms MS] [--slo-availability A]")
 
 
 def _parse_bytes(text: str) -> float:
@@ -248,9 +275,6 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     argv = list(sys.argv[1:] if argv is None else argv)
     try:
-        for flag, reason in _NOT_PORTED.items():
-            if _pop_flag(argv, flag) is not None:
-                raise ValueError(f"{flag} is refused: {reason}")
         port = int(_pop_flag(argv, "--port", "9100"))
         host = _pop_flag(argv, "--host", "127.0.0.1")
         budget_text = _pop_flag(argv, "--hbm-budget")
@@ -260,6 +284,17 @@ def main(argv: Optional[List[str]] = None) -> int:
         wd = _pop_flag(argv, "--weight-dtype", "bf16")
         weight_dtype = None if wd in ("f32", "none") else wd
         device = _pop_flag(argv, "--device", DEFAULT_DEVICE)
+        drift_every = int(_pop_flag(argv, "--drift-every", "32"))
+        slo_latency = _pop_flag(argv, "--slo-latency-ms")
+        slo_avail = _pop_flag(argv, "--slo-availability")
+        slo_policy = None
+        if slo_latency is not None or slo_avail is not None:
+            kwargs = {}
+            if slo_latency is not None:
+                kwargs["latency_threshold_ms"] = float(slo_latency)
+            if slo_avail is not None:
+                kwargs["availability_target"] = float(slo_avail)
+            slo_policy = SloPolicy(**kwargs)
         specs = [_parse_model_spec(s) for s in argv if not s.startswith("-")]
         unknown = [s for s in argv if s.startswith("-")]
         if unknown:
@@ -277,7 +312,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         signal.signal(signal.SIGTERM, _interrupt)
     plane = ServingPlane(hbm_budget=budget, max_batch=max_batch,
                          queue_depth=queue_depth,
-                         default_weight_dtype=weight_dtype, device=device)
+                         default_weight_dtype=weight_dtype,
+                         drift_every=drift_every, slo_policy=slo_policy,
+                         device=device)
     # readiness waits for every listed model BEFORE the port opens
     plane.expect_models(len(specs))
     plane.start()

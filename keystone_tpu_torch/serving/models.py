@@ -5,11 +5,15 @@ served model — the live :class:`ServedModel` record with its QPS window
 and retention value, the host-side :class:`_EvictedModel` remainder that
 readmission restores bit-identically from — and the helpers admission
 and warmup use: the item spec, zero batches, weight-type narrowing, the
-non-finite guard. Scoring served inputs against a fit's drift baseline
-(``model.numerics_baseline``) waits for ROADMAP A10.
+non-finite guard, and the probe for a fit's drift baseline
+(``model.numerics_baseline``) that the plane scores served inputs
+against.
 """
 from __future__ import annotations
 
+import io
+import itertools
+import pickle
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -30,6 +34,10 @@ from .residency import ModelCharge
 
 #: seconds of request history the QPS estimate looks back over
 _QPS_WINDOW_S = 30.0
+
+#: one token per admission: the key of its captured graphs, so a late
+#: capture for an evicted entry can never serve a readmitted one
+_ADMISSIONS = itertools.count(1)
 
 
 @dataclass(frozen=True)
@@ -67,6 +75,8 @@ class ServedModel:
     charge: ModelCharge
     buckets: Tuple[int, ...]
     weight_dtype: Optional[str] = None
+    baseline: Any = None             # DriftBaseline or None
+    drift_disabled: bool = False
     ready: bool = False
     warmup_s: float = 0.0
     last_used_s: float = field(default_factory=time.perf_counter)
@@ -74,6 +84,12 @@ class ServedModel:
     served_requests: int = 0
     batches: int = 0
     _recent: Deque[Tuple[float, int]] = field(default_factory=deque)
+    token: int = field(default_factory=lambda: next(_ADMISSIONS))
+    #: CUDA graph captures of this admission, their wall seconds and the
+    #: bytes of their private memory pools (0 on the CPU)
+    captures: int = 0
+    capture_s: float = 0.0
+    graph_pool_nbytes: float = 0.0
 
     def note_served(self, rows: int, requests: int, now: float) -> None:
         self.last_used_s = now
@@ -105,7 +121,14 @@ class ServedModel:
             "name": self.name,
             "ready": self.ready,
             "weight_dtype": self.weight_dtype,
+            "drift_baseline": self.baseline is not None
+            and not self.drift_disabled,
             "charge_nbytes": self.charge.total_nbytes(),
+            "charge_graph_nbytes": self.charge.graph_nbytes,
+            "charge_pool_nbytes": self.charge.pool_nbytes,
+            "captures": self.captures,
+            "capture_s": round(self.capture_s, 6),
+            "graph_pool_nbytes": self.graph_pool_nbytes,
             "charge_source": self.charge.source,
             "buckets": list(self.buckets),
             "warmup_s": round(self.warmup_s, 4),
@@ -168,6 +191,52 @@ def _apply_weight_dtype(graph: Any, weight_dtype: Optional[str]) -> int:
         op.__dict__.pop("_eq_key_val", None)
         changed += 1
     return changed
+
+
+def _tensor_from_bytes(data: bytes, dtype: str, shape: Tuple[int, ...],
+                       device: str, requires_grad: bool) -> torch.Tensor:
+    """Rebuild a tensor that :func:`canonical_dumps` wrote."""
+    flat = (torch.frombuffer(bytearray(data), dtype=torch.uint8) if data
+            else torch.empty(0, dtype=torch.uint8))
+    t = flat.view(getattr(torch, dtype)).reshape(shape).to(device)
+    return t.requires_grad_(requires_grad)
+
+
+class _CanonicalPickler(pickle.Pickler):
+    """Pickles a tensor by value: its bytes, type, shape and device.
+    PyTorch's own reduction names each storage by its address, so the
+    same model pickled in two processes (or twice in one) gives other
+    bytes, and a sha256 of them would verify nothing."""
+
+    def reducer_override(self, obj):
+        if isinstance(obj, torch.Tensor):
+            host = obj.detach().cpu().contiguous().reshape(-1)
+            raw = host.view(torch.uint8).numpy().tobytes() \
+                if host.numel() else b""
+            return _tensor_from_bytes, (
+                raw, str(obj.dtype).replace("torch.", ""),
+                tuple(obj.shape), str(obj.device), bool(obj.requires_grad))
+        return NotImplemented
+
+
+def canonical_dumps(obj: Any) -> bytes:
+    """The canonical bytes of a served model: a pickle whose tensors are
+    written by value, so ``canonical_dumps(pickle.loads(b)) == b`` in any
+    process. Its sha256 is the fleet's bit-identity verdict."""
+    buf = io.BytesIO()
+    _CanonicalPickler(buf, protocol=pickle.HIGHEST_PROTOCOL).dump(obj)
+    return buf.getvalue()
+
+
+def _find_baseline(graph: Any) -> Any:
+    """The first fit-time drift sketch riding the fitted operators
+    (``model.numerics_baseline``, attached by ``fit_streaming``)."""
+    for node in graph.nodes:
+        baseline = getattr(graph.get_operator(node), "numerics_baseline",
+                           None)
+        if baseline is not None:
+            return baseline
+    return None
 
 
 def _evicted_record(entry: ServedModel) -> _EvictedModel:

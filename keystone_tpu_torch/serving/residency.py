@@ -11,7 +11,12 @@ already warm.
   which the port does not have yet (ROADMAP A12). So the port takes the
   model bytes from its own :func:`fitted_model_nbytes` and the per-item
   activation from a one-item probe apply, and records
-  ``source="probed"``.
+  ``source="probed"``. On a CUDA device the plane serves each bucket
+  from a captured CUDA graph, and the charge also covers the graphs:
+  each graph owns a private memory pool and a static input. A probe
+  capture of each bucket the plane will capture measures that bucket's
+  pool (:func:`graph_pool_nbytes`) and drops it; the charge takes every
+  probed pool, plus every static input.
 * :class:`ResidencyLedger` — the charged-bytes ledger: admission charges
   the newcomer after re-checking the budget under the ledger lock, or
   raises :class:`AdmissionError` without changing anything.
@@ -24,13 +29,15 @@ from __future__ import annotations
 import threading
 import types
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
+from ..observability.compilelog import capture_lock
 from ..observability.metrics import MetricsRegistry
-from ..parallel.dataset import ArrayDataset, device_nbytes
+from ..parallel.dataset import ArrayDataset, bucketed_dataset, device_nbytes
 
 #: per-instance caches of device copies, not fitted state
 _CACHE_ATTRS = frozenset({"_params_cache", "_eq_key_val"})
@@ -53,12 +60,17 @@ class ModelCharge:
     item_nbytes: float
     bucket_rows: int
     source: str = "probed"
+    #: the captured graphs' pools and static inputs (0 on the CPU)
+    graph_nbytes: float = 0.0
+    #: the pools alone, as the probe captures measured them
+    pool_nbytes: float = 0.0
 
     def activation_nbytes(self) -> float:
         return float(self.item_nbytes) * float(self.bucket_rows)
 
     def total_nbytes(self) -> float:
-        return float(self.model_nbytes) + self.activation_nbytes()
+        return (float(self.model_nbytes) + self.activation_nbytes()
+                + float(self.graph_nbytes))
 
 
 def fitted_model_nbytes(graph: Any) -> float:
@@ -105,19 +117,73 @@ def _probe_item_nbytes(fitted: Any, zero_item: Any, device) -> float:
             + device_nbytes(out) / rows)
 
 
+def graph_pool_nbytes(pool: Any, device) -> float:
+    """Bytes the caching allocator holds for one CUDA graph memory pool
+    (``graph.pool()``): the segments of that pool on ``device``."""
+    dev = torch.device(device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    total = 0.0
+    for seg in torch.cuda.memory_snapshot():
+        if "segment_pool_id" not in seg:
+            raise RuntimeError(
+                "torch.cuda.memory_snapshot() gives no segment_pool_id: "
+                "this PyTorch cannot attribute memory to a graph pool")
+        if (seg.get("device") == index
+                and tuple(seg["segment_pool_id"]) == tuple(pool)):
+            total += float(seg["total_size"])
+    return total
+
+
+def _probe_pool_nbytes(fitted: Any, zero_item: Any, bucket_rows: int,
+                       device: torch.device) -> float:
+    """Capture the apply of a zero bucket of ``bucket_rows`` rows into a
+    private pool, as the plane captures it, read the pool's bytes, then
+    drop the graph and give its pool back. The eager apply before it
+    does the lazy set-up (launch plans, quantized weights) outside the
+    graph, as the plane's warmup does. The capture is a measurement,
+    not a served graph: the observatory does not record it."""
+    from .graphs import capture_apply, warm_apply
+
+    zeros = pytree.tree_map(lambda x: np.repeat(x, bucket_rows, axis=0),
+                            zero_item)
+    ds = bucketed_dataset(zeros, bucket_rows, bucket_rows, device)
+    with capture_lock():
+        warm_apply(fitted, ds.data, bucket_rows, device)
+        graph, out, _ = capture_apply(
+            fitted, ds.data, bucket_rows, device,
+            f"the sizing probe ({bucket_rows} rows)")
+    nbytes = graph_pool_nbytes(graph.pool(), device)
+    del out, graph, ds
+    with capture_lock():
+        torch.cuda.empty_cache()
+    return nbytes
+
+
 def model_charge(fitted: Any, zero_item: Any, bucket_rows: int,
-                 device) -> ModelCharge:
+                 device, graph_rows: Sequence[int] = ()) -> ModelCharge:
     """The admission charge of ``fitted`` (a fitted pipeline) serving
     items like ``zero_item`` (host arrays of one row, leading dim 1) at a
     largest bucket of ``bucket_rows`` rows on ``device``. Model bytes from
     :func:`fitted_model_nbytes`, the per-item activation from a one-item
     probe apply (the static planner the JAX package sizes it with is not
-    ported yet), hence ``source="probed"``."""
+    ported yet), hence ``source="probed"``. ``graph_rows`` lists the
+    bucket rows of every graph the plane will capture (CUDA only): each
+    is charged its own probed pool and its own static input."""
+    dev = torch.device(device)
     graph = fitted.to_pipeline().graph
+    item = _probe_item_nbytes(fitted, zero_item, dev)
+    pools = 0.0
+    static = 0.0
+    if graph_rows and dev.type == "cuda":
+        in_row = sum(float(np.asarray(leaf).nbytes)
+                     for leaf in pytree.tree_leaves(zero_item))
+        for rows in graph_rows:
+            pools += _probe_pool_nbytes(fitted, zero_item, int(rows), dev)
+            static += in_row * int(rows)
     return ModelCharge(model_nbytes=fitted_model_nbytes(graph),
-                       item_nbytes=_probe_item_nbytes(fitted, zero_item,
-                                                      device),
-                       bucket_rows=int(bucket_rows), source="probed")
+                       item_nbytes=item, bucket_rows=int(bucket_rows),
+                       source="probed", graph_nbytes=pools + static,
+                       pool_nbytes=pools)
 
 
 class ResidencyLedger:

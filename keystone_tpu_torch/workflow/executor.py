@@ -9,7 +9,9 @@ global prefix state table.
 Instrumentation (``keystone_tpu/workflow/executor.py:100-252``): while a
 :class:`~keystone_tpu_torch.observability.trace.PipelineTrace` is
 active, each node's thunk runs inside
-``torch.profiler.record_function("<label>#<id>")``, is timed into a
+``torch.profiler.record_function("<label>#<id>")`` and the capture
+observatory's ``compile_context("node:<label>#<id>")`` (a CUDA graph
+captured while the node runs is attributed to it), is timed into a
 ``NodeRecord`` (self time, output bytes), leaves a ``node`` span on the
 flight recorder and has its output health-checked
 (``check_node_output``). The timer synchronises the CUDA device before
@@ -26,6 +28,7 @@ from typing import Dict, FrozenSet, Optional
 
 import torch
 
+from ..observability.compilelog import compile_context
 from ..observability.metrics import MetricsRegistry
 from ..observability.numerics import check_node_output
 from ..observability.timeline import record_span
@@ -78,7 +81,8 @@ def _traced_thunk(orig, node_id: int, label: str, kind: str):
         record = NodeRecord(node_id=node_id, operator=label, kind=kind)
         t0 = time.perf_counter()
         with trace.node_timer(record):
-            with torch.profiler.record_function(scope):
+            with compile_context(f"node:{scope}"), \
+                    torch.profiler.record_function(scope):
                 value = orig()
             if torch.cuda.is_available() and torch.cuda.is_initialized():
                 torch.cuda.synchronize()

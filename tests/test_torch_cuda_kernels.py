@@ -32,6 +32,8 @@ from keystone_tpu_torch.nodes.learning.linear import (
 )
 from keystone_tpu_torch.ops import kernels, sift
 from keystone_tpu_torch.parallel.streaming import StreamingDataset
+from keystone_tpu_torch.serving.graphs import REPLAYED_LAUNCHES
+from keystone_tpu_torch.workflow.transformer import Transformer
 
 RTOL, ATOL_REL = 1e-5, 1e-5
 
@@ -344,11 +346,15 @@ def test_cuda_plane_launches_the_kernel_once_per_served_batch(cuda):
                     weight_dtype="int8")
         batches0 = reg.counter("serving.batches_total").value
         before = kernels.LAUNCHES["quantized_affine"]
+        replayed = REPLAYED_LAUNCHES.get("quantized_affine", 0)
         outs = [plane.predict("m", X[i:i + n])
                 for i, n in ((0, 1), (1, 5), (6, 16), (22, 9))]
         served = reg.counter("serving.batches_total").value - batches0
         assert served == 4
-        assert kernels.LAUNCHES["quantized_affine"] - before == served
+        # every bucket was captured at admission: each batch replays its
+        # bucket's graph, whose capture recorded one launch
+        assert kernels.LAUNCHES["quantized_affine"] == before
+        assert REPLAYED_LAUNCHES["quantized_affine"] - replayed == served
     # the same quantized model applied directly; on the card its params
     # are the kernel's plan alone
     mapper = LinearMapEstimator(1e-2, weight_dtype="int8").fit(
@@ -878,3 +884,221 @@ def test_cuda_health_monitor_replays_the_eager_word(cuda, tmp_path,
         for i, X in enumerate(chunks[:4]):
             monitor.observe(i, X, labels, rows=(64, 64))
         monitor.flush()
+
+
+# -- the serving plane's captured buckets ---------------------------------------
+
+def _served_pipeline(cuda, seed=21, K=32):
+    """A small served model on the card: the featurize node (K filters)
+    then a least-squares mapper over its 8K features."""
+    rng = np.random.RandomState(seed)
+    imgs, filters, _ = _inputs(64, K, seed=seed)
+    node = FusedConvRectifyPool(filters, 32, 6)
+    feats = node.apply_batch(torch.as_tensor(imgs, device=cuda))
+    Y = rng.randn(64, 10).astype(np.float32)
+    mapper = LinearMapEstimator(1e-1).fit(feats.cpu().numpy(), Y,
+                                          device=cuda)
+    return node.and_then(mapper), imgs
+
+
+def _plane(cuda, **kw):
+    from keystone_tpu_torch.serving import ServingPlane
+
+    kw.setdefault("max_batch", 16)
+    return ServingPlane(device=cuda, **kw).start()
+
+
+_SPEC = ((32, 32, 3), np.float32)
+
+
+@pytest.mark.parametrize("weight_dtype", [None, "bf16", "int8"])
+def test_cuda_graph_replay_equals_the_eager_apply(cuda, weight_dtype):
+    """Every bucket is captured at admission, one graph a bucket; a
+    replay gives the eager apply's bits on the same padded bucket at
+    every request size up to it, and adds its capture's launches once
+    per replay."""
+    pipe, imgs = _served_pipeline(cuda)
+    plane = _plane(cuda)
+    try:
+        e = plane.admit("m", pipe, _SPEC, weight_dtype=weight_dtype)
+        assert e.captures == 5 and len(plane._graphs) == 5
+        assert 0 < e.graph_pool_nbytes == e.charge.pool_nbytes
+        for n in (16, 11, 8, 3, 1):
+            got = plane._execute(e, imgs[:n], n)[0]
+            want = plane._eager(e, imgs[:n], n)
+            assert torch.equal(torch.from_numpy(got),
+                               torch.from_numpy(want)), n
+        bg = plane._graphs.get((e.token, 16))
+        assert bg.launches["fused_cifar_featurize"] == 1
+        assert bg.launches.get("quantized_affine", 0) == (
+            0 if weight_dtype is None else 1)
+        before = dict(REPLAYED_LAUNCHES)
+        plane.predict("m", imgs[:13])
+        assert {k: REPLAYED_LAUNCHES[k] - before.get(k, 0)
+                for k in bg.launches} == bg.launches
+    finally:
+        plane.close()
+
+
+def test_cuda_steady_traffic_captures_nothing(cuda):
+    """After admission the steady-state fence is armed; traffic over
+    every request size captures nothing, from several client threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from keystone_tpu_torch.observability.compilelog import \
+        compile_observatory
+
+    pipe, imgs = _served_pipeline(cuda)
+    plane = _plane(cuda, workers=2)
+    try:
+        plane.admit("m", pipe, _SPEC, weight_dtype="int8")
+        assert compile_observatory().fenced
+        u0 = plane.unexpected_recompiles()
+        c0 = compile_observatory().count_total()
+        with ThreadPoolExecutor(4) as pool:
+            outs = list(pool.map(lambda n: plane.predict("m", imgs[:n]),
+                                 [n % 16 + 1 for n in range(64)]))
+        assert [len(o) for o in outs] == [n % 16 + 1 for n in range(64)]
+        assert plane.unexpected_recompiles() == u0
+        assert compile_observatory().count_total() == c0
+    finally:
+        plane.close()
+
+
+def test_cuda_forced_bucket_miss_is_counted_once(cuda):
+    from keystone_tpu_torch.observability.compilelog import \
+        compile_observatory
+
+    pipe, imgs = _served_pipeline(cuda)
+    plane = _plane(cuda)
+    try:
+        e = plane.admit("m", pipe, _SPEC, weight_dtype="bf16")
+        want = plane._eager(e, imgs[:5], 5)
+        assert plane._graphs.pop_where(
+            lambda k: k == (e.token, 8))
+        u0 = plane.unexpected_recompiles()
+        l0 = kernels.LAUNCHES["fused_cifar_featurize"]
+        c0 = kernels.CAPTURED["fused_cifar_featurize"]
+        got = plane.predict("m", imgs[:5])
+        # the miss's warm apply ran the kernel; its capture only recorded
+        # it, and the replay is counted apart
+        assert kernels.LAUNCHES["fused_cifar_featurize"] - l0 == 1
+        assert kernels.CAPTURED["fused_cifar_featurize"] - c0 == 1
+        plane.predict("m", imgs[:6])
+        assert plane.unexpected_recompiles() - u0 == 1
+        rec = compile_observatory().unexpected_records()[-1]
+        assert rec["trigger"] == "bucket_miss"
+        assert rec["fence"] == "serving:steady-state"
+        assert rec["name"] == "serve:m:8"
+        assert np.array_equal(got, want)
+    finally:
+        plane.close()
+
+
+def test_cuda_admission_under_live_traffic(cuda):
+    """A second model is captured while the first one serves from its
+    graphs on other threads: both answer right, nothing unexpected."""
+    import threading
+
+    pipe_a, imgs = _served_pipeline(cuda, seed=21)
+    pipe_b, _ = _served_pipeline(cuda, seed=22)
+    plane = _plane(cuda, workers=2)
+    errors, stop = [], threading.Event()
+    try:
+        ea = plane.admit("a", pipe_a, _SPEC, weight_dtype="int8")
+        want = {n: plane._eager(ea, imgs[:n], n) for n in (1, 5, 12)}
+        u0 = plane.unexpected_recompiles()
+
+        def client():
+            while not stop.is_set():
+                for n in (1, 5, 12):
+                    if not np.array_equal(plane.predict("a", imgs[:n]),
+                                          want[n]):
+                        errors.append(n)
+
+        threads = [threading.Thread(target=client) for _ in range(3)]
+        for t in threads:
+            t.start()
+        eb = plane.admit("b", pipe_b, _SPEC, weight_dtype="bf16")
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        assert not errors and eb.captures == 5
+        assert np.array_equal(plane.predict("b", imgs[:7]),
+                              plane._eager(eb, imgs[:7], 7))
+        assert plane.unexpected_recompiles() == u0
+    finally:
+        stop.set()
+        plane.close()
+
+
+def test_cuda_eviction_frees_the_graph_pools(cuda):
+    from keystone_tpu_torch.serving.residency import graph_pool_nbytes
+
+    pipe, imgs = _served_pipeline(cuda)
+    plane = _plane(cuda)
+    try:
+        e = plane.admit("m", pipe, _SPEC, weight_dtype="int8")
+        pools = [plane._graphs.get(k).graph.pool()
+                 for k in plane._graphs.keys() if k[0] == e.token]
+        held = sum(graph_pool_nbytes(p, cuda) for p in pools)
+        assert held == e.graph_pool_nbytes > 0
+        plane.predict("m", imgs[:3])
+        plane.evict("m")
+        assert len(plane._graphs) == 0
+        assert sum(graph_pool_nbytes(p, cuda) for p in pools) == 0
+        plane.readmit("m")
+        assert len(plane._graphs) == 5
+    finally:
+        plane.close()
+
+
+class _HostRead(Transformer):
+    """A stage that reads a device value on the host: not capturable."""
+
+    def apply(self, x):
+        return x
+
+    def apply_batch(self, X):
+        return X * float(X.abs().max().item() > -1.0)
+
+
+def test_cuda_a_failed_capture_refuses_the_admission_naming_the_op(cuda):
+    from keystone_tpu_torch.serving import CaptureError
+
+    pipe, imgs = _served_pipeline(cuda)
+    bad = pipe.and_then(_HostRead())
+    plane = _plane(cuda)
+    try:
+        with pytest.raises(CaptureError, match=r"test_torch_cuda_kernels"
+                           r"\.py:\d+ \(apply_batch: .*\.item\(\)"):
+            plane.admit("bad", bad, _SPEC)
+        state = plane.state()
+        assert state["models"] == [] and state["warming"] == 0
+        assert plane.ledger.used() == 0 and len(plane._graphs) == 0
+        plane.admit("m", pipe, _SPEC)
+        assert len(plane.predict("m", imgs[:2])) == 2
+    finally:
+        plane.close()
+
+
+def test_cuda_streamed_fit_fence_sees_the_word_capture_once(cuda):
+    """The numerics monitor captures its word's graph at a geometry's
+    second chunk, before the fit's fence arms: the observatory records
+    it once (not unexpected), and a second fit of the geometry replays
+    it and captures nothing."""
+    from keystone_tpu_torch.observability.compilelog import \
+        compile_observatory
+
+    rng = np.random.RandomState(12)
+    X = rng.randn(37 * 6, 29).astype(np.float32)   # a geometry of its own
+    Y = rng.randn(37 * 6, 3).astype(np.float32)
+    obs = compile_observatory()
+    words0 = obs.by_name().get("numerics.health_word", 0)
+    unexpected0 = obs.unexpected_total()
+    for _ in range(2):
+        LinearMapEstimator(lam=0.1).fit(
+            StreamingDataset.from_numpy(X, 37, device=cuda), Y)
+    assert obs.by_name().get("numerics.health_word", 0) - words0 == 1
+    assert obs.unexpected_total() == unexpected0
+    assert not obs.fenced

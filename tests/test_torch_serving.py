@@ -625,11 +625,69 @@ def test_serve_command_drives_a_saved_model(tmp_path):
     assert proc.returncode in (0, -15)
 
 
+def test_serve_flags_set_the_slo_policy_and_drift_cadence(tmp_path):
+    """``--slo-latency-ms``, ``--slo-availability`` and ``--drift-every``
+    are accepted and reach the plane: ``GET /slo`` carries the policy,
+    and a served request lands in its window."""
+    fitted, X, _ = _make_fitted(24, 3, seed=13)
+    path = str(tmp_path / "m.pkl")
+    save_pipeline(fitted, path)
+    proc = _serve_cmd(f"m={path}@24", "--port", "0", "--device", "cpu",
+                      "--slo-latency-ms", "123", "--slo-availability",
+                      "0.75", "--drift-every", "4")
+    lines: "queue.Queue[str]" = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout],
+                     daemon=True).start()
+    try:
+        seen = []
+        while not seen or not seen[-1].startswith("serving ready"):
+            seen.append(lines.get(timeout=60))
+        base = f"http://127.0.0.1:{int(seen[0].rsplit(':', 1)[1])}"
+        status, _ = _post(base, "/predict/m", {"instances": X[:2].tolist()})
+        assert status == 200
+        with urllib.request.urlopen(base + "/slo", timeout=TIMEOUT) as rsp:
+            slo = json.loads(rsp.read())
+        assert slo["policy"]["latency_threshold_ms"] == 123.0
+        assert slo["policy"]["availability_target"] == 0.75
+        assert slo["models"]["m"]["count"] == 1
+    finally:
+        proc.terminate()
+        proc.wait(timeout=TIMEOUT)
+    assert proc.returncode in (0, -15)
+
+
+def test_workers_serve_concurrently_and_state_reports_the_plane(
+        plane_factory, monkeypatch):
+    """``KEYSTONE_TORCH_SERVE_WORKERS`` sets the worker count; every
+    request is answered with its own rows; a CPU plane captures no
+    graph."""
+    monkeypatch.setenv("KEYSTONE_TORCH_SERVE_WORKERS", "3")
+    fitted, X, _ = _make_fitted(8, 2, seed=14)
+    plane = plane_factory(max_batch=4)
+    assert plane.workers == 3 and not plane.captures_graphs
+    plane.start()
+    plane.admit("m", fitted, _sample(8))
+    want = _apply(fitted, X[:12])
+    futures = [plane.submit("m", X[i:i + 1]) for i in range(12)]
+    got = np.concatenate([f.result(timeout=TIMEOUT) for f in futures])
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    state = plane.state()
+    assert state["graphs"] == 0
+    assert state["models"][0]["captures"] == 0
+    assert state["models"][0]["charge_graph_nbytes"] == 0.0
+    assert plane.unexpected_recompiles() == MetricsRegistry.get_or_create(
+    ).counter("compile.unexpected_total").value
+
+
 def test_serve_command_refuses_what_is_not_ported(tmp_path):
+    """The SLO and drift flags are ported and validate their values; an
+    option the port does not have (the mesh's) is refused."""
     from keystone_tpu_torch.__main__ import main
 
-    assert main(["serve", "m=x.pkl@3", "--slo-latency-ms", "50"]) == 2
-    assert main(["serve", "m=x.pkl@3", "--drift-every", "8"]) == 2
+    assert main(["serve", "m=x.pkl@3", "--slo-availability", "1.5"]) == 2
+    assert main(["serve", "m=x.pkl@3", "--slo-latency-ms", "-1"]) == 2
+    assert main(["serve", "m=x.pkl@3", "--drift-every", "x"]) == 2
+    assert main(["serve", "m=x.pkl@3", "--data-shards", "2"]) == 2
     assert main(["serve"]) == 2
     assert main(["fit"]) == 2
 
