@@ -207,6 +207,28 @@ Phases, each of which raises (and so exits non-zero) on failure:
    a traced pipeline fit's Chrome trace with stage, stall, accumulate
    and node spans on their lanes. Checkpoint and restore seconds are
    printed beside the card's name and power limit.
+4n. The loaders, from archives to the device (written under the run's
+   temporary directory, read back only through the port's loaders and
+   entry points): (a) right after 4d, its surrogate rounded to uint8 as
+   JPEG at quality 90 in tars under ``VOCdevkit/VOC2007/JPEGImages/``
+   with a labels CSV, through ``python -m keystone_tpu_torch
+   voc.sift_fisher`` in process at the published defaults: the MAP in
+   4d's band, 4d's launches exactly, and a sample of loaded items equal
+   to PIL's decode of their bytes with the surrogate's labels; (b)
+   ``bench.py::loader_bench``'s path: 512 JPEGs of 128 x 128 in one tar,
+   decode-only, serial (``iter_decoded_chunks``, a copy, SIFT) and
+   streamed (``stream_tar_images``, uint8 wire, depth 2) images/s, the
+   stall share, 49,152 wire bytes an image, and a truncated member
+   quarantined with the other 512 delivered; (e) HOG and DAISY on a 375 x
+   500 image (card against CPU, the same bits twice, ms an image) and
+   the approximate PCA (the card's subspace against the CPU's, ms a
+   fit); (d) after 4f, MnistRandomFFT through ``python -m
+   keystone_tpu_torch mnist.random_fft`` from CSV files (4,096 / 1,024
+   rows, 200 FFTs): train error at most 0.05, the parse seconds; (c)
+   inside 4j, its 1,000 test images as JPEG tars through
+   ``imagenet_loader`` and 4j's fitted predictor: the top-5 error below
+   the random scores' - 0.30, 10,000 banded and 2,000 FV launches, and
+   200 of them as PNG giving 4j's in-memory top-5 sets.
 5. Timing: each kernel, its plain version and a library yardstick with
    CUDA events at the main path's shapes, one call at a time (the
    ``kernels`` line); for every kernel also the device time alone of the
@@ -236,13 +258,16 @@ from __future__ import annotations
 import contextlib
 import functools
 import gc
+import io
 import json
 import os
 import pickle
 import queue
+import shutil
 import statistics
 import subprocess
 import sys
+import tarfile
 import tempfile
 import threading
 import time
@@ -464,6 +489,31 @@ INET_RANDOM_MARGIN, INET_F64_TOL, INET_TOP_AGREE = 0.30, 5e-3, 0.99
 #: the FV kernel's descriptor counts on 4j's path: 44,023 SIFT descriptors
 #: (5 scales, scale_step 1) and 112 x 152 LCS keypoints of a 480 x 640 image
 INET_FV_N = (44023, 17024)
+
+#: Phase 4n, the tar and CSV loaders on the card: phase 4d's and 4j's
+#: surrogate images as JPEG at JPEG_QUALITY in VOC_TARS (train, test) and
+#: INET_TARS tars (and 4j's first INET_PNG test images as PNG, whose
+#: top-5 sets must be the in-memory apply's); bench.py::loader_bench's
+#: streamed tar -> SIFT path
+#: (LOADER_N JPEGs of LOADER_SIDE x LOADER_SIDE in one tar, chunks of
+#: LOADER_CHUNK, prefetch depth LOADER_DEPTH, medians of LOADER_REPS
+#: passes) and LOADER_SAMPLE VOC items held against PIL; MnistRandomFFT
+#: from CSVs cut to MNIST_CSV_TRAIN / MNIST_CSV_TEST rows, so that the
+#: parse stays near a second (phase 4f keeps the full depth in memory).
+#: HOG and DAISY on the card against the same code on the CPU, both in
+#: float32 in other summation orders, at features of at most 1:
+#: HOG_DAISY_TOL absolute (2.4e-7 read against the JAX package on the
+#: CPU, tests/test_torch_image_nodes.py). The approximate PCA on seeded
+#: (APCA_N, APCA_D) rows with spectrum APCA_DECAY^i: the card's and the
+#: CPU's projectors within APCA_TOL (a float32 fit reads 7.5e-7 from a
+#: float64 one on the CPU)
+JPEG_QUALITY = 90
+VOC_TARS, INET_TARS, INET_PNG = (4, 2), 4, 200
+LOADER_N, LOADER_SIDE, LOADER_CHUNK, LOADER_DEPTH = 512, 128, 64, 2
+LOADER_REPS, LOADER_SAMPLE = 3, 16
+MNIST_CSV_TRAIN, MNIST_CSV_TEST = 4096, 1024
+HOG_DAISY_TOL = 1e-5
+APCA_N, APCA_D, APCA_DIMS, APCA_DECAY, APCA_TOL = 131072, 128, 80, 0.95, 1e-4
 #: the weighted solve at the rehearsal shape (bench.py:1131, 1217-1230):
 #: randn X (n, d), labels drawn at random over INET_CLASSES. The JAX
 #: package holds "woodbury" against "cholesky" within 2e-3 of the largest
@@ -2151,7 +2201,8 @@ def _release():
 
 def _voc_phase(kernels, dev):
     """Phase 4d (see the module docstring). Returns the kernel launch
-    counts of the main pass's fit + apply."""
+    counts of the main pass's fit + apply, and the surrogate, its MAP,
+    the random scores' MAP and the fit and apply seconds for 4n(a)."""
     from keystone_tpu_torch.evaluation.mean_average_precision import (
         evaluate_mean_average_precision,
     )
@@ -2263,7 +2314,406 @@ def _voc_phase(kernels, dev):
           f"seconds per stage: {stages}", flush=True)
     del fitted
     _release()
+    return launches, (train, test, vmap, rand_map, fit_s, apply_s)
+
+
+def _image_bytes(img, fmt="JPEG"):
+    """One uint8 (H, W, 3) image as JPEG bytes at JPEG_QUALITY, or as
+    PNG bytes (lossless)."""
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format=fmt, **(
+        {"quality": JPEG_QUALITY} if fmt == "JPEG" else {"compress_level": 1}))
+    return buf.getvalue()
+
+
+def _add_member(tf, name, data):
+    info = tarfile.TarInfo(name)
+    info.size = len(data)
+    tf.addfile(info, io.BytesIO(data))
+
+
+def _write_tars(directory, members, n_tars):
+    """``members`` (name, uint8 image) encoded as JPEG on a thread pool
+    and written in order into ``n_tars`` tars under ``directory``.
+    Returns the JPEG bytes of each member, in order."""
+    os.makedirs(directory, exist_ok=True)
+    with ThreadPoolExecutor(8) as pool:
+        data = list(pool.map(lambda m: _image_bytes(m[1]), members))
+    per = -(-len(members) // n_tars)
+    for t in range(n_tars):
+        with tarfile.open(os.path.join(directory, f"part{t:02d}.tar"),
+                          "w") as tf:
+            for i in range(t * per, min(len(members), (t + 1) * per)):
+                _add_member(tf, members[i][0], data[i])
+    return data
+
+
+def _run_cli(argv, timer):
+    """``python -m keystone_tpu_torch`` in process: its exit code, its
+    standard output (echoed, indented) and its wall seconds, the card
+    synchronized at the end; ``timer``'s wrappers in place during it."""
+    from keystone_tpu_torch import __main__ as cli
+
+    out = io.StringIO()
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        _sync()
+    finally:
+        timer.close()
+    wall = time.time() - t0
+    text = out.getvalue()
+    for line in text.splitlines():
+        print(f"    | {line}", flush=True)
+    return rc, text, wall
+
+
+def _printed_number(text, prefix):
+    line = next(ln for ln in text.splitlines() if ln.startswith(prefix))
+    return float(line[len(prefix):].strip().rstrip("%"))
+
+
+def _voc_tar_phase(kernels, ref, launches_4d, workdir, dev):
+    """Phase 4n(a) (see the module docstring). Returns the kernel launch
+    counts of the run."""
+    from PIL import Image
+
+    from keystone_tpu_torch.loaders import VOCDataPath, VOCLabelPath
+    from keystone_tpu_torch.pipelines.images.voc import voc_sift_fisher as voc
+    from keystone_tpu_torch.workflow.pipeline import Pipeline
+
+    train, test, vmap_4d, rand_map, fit_4d, apply_4d = ref
+    root = os.path.join(workdir, "voc")
+    rows = ["name,cls,x,y,file"]
+    t0 = time.time()
+    for split, ds, n_tars in (("train", train, VOC_TARS[0]),
+                              ("test", test, VOC_TARS[1])):
+        members = []
+        for i, it in enumerate(ds.collect()):
+            name = f"{split}{i:05d}.jpg"
+            members.append((voc.IMAGES_PREFIX + name,
+                            np.rint(it.image).astype(np.uint8)))
+            rows += [f'x,{c + 1},a,b,"{name}"' for c in it.labels]
+        jpegs = _write_tars(os.path.join(root, split), members, n_tars)
+    labels = os.path.join(root, "labels.csv")
+    with open(labels, "w") as f:
+        f.write("\n".join(rows) + "\n")
+    print(f"[voc-tar] {VOC_TRAIN} / {VOC_TEST} phase 4d images as JPEG "
+          f"(quality {JPEG_QUALITY}) in {VOC_TARS[0]} / {VOC_TARS[1]} tars "
+          f"under {voc.IMAGES_PREFIX}, labels CSV: written in "
+          f"{time.time() - t0:.1f} s", flush=True)
+
+    _release()
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    timer = _StageTimer(timed=True)
+    timer.wrap(voc, "voc_loader", "load")
+    timer.wrap(Pipeline, "fit", "fit")
+    rc, text, wall = _run_cli(
+        ["voc.sift_fisher", "--trainLocation", os.path.join(root, "train"),
+         "--testLocation", os.path.join(root, "test"), "--labelPath", labels],
+        timer)
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    vmap = _printed_number(text, "TEST MAP is:")
+    load_s, fit_s = timer.seconds["load"], timer.seconds["fit"]
+    print(f"[voc-tar] python -m keystone_tpu_torch voc.sift_fisher at the "
+          f"published defaults, {VOC_TRAIN} / {VOC_TEST} images from tars: "
+          f"exit {rc}, {wall:.2f} s in all: load {load_s:.2f} s (both "
+          f"splits, {(VOC_TRAIN + VOC_TEST) / load_s:.0f} img/s), fit "
+          f"{fit_s:.2f} s, apply and evaluation {wall - load_s - fit_s:.2f}"
+          f" s (phase 4d, from memory: fit {fit_4d:.2f} s, apply "
+          f"{apply_4d:.2f} s); test MAP {vmap:.4f} (phase 4d {vmap_4d:.4f}, "
+          f"seeded random scores {rand_map:.4f}); device-memory peak "
+          f"{peak / 2**30:.2f} GiB; launches {launches} (phase 4d "
+          f"{launches_4d})", flush=True)
+    assert rc == 0, rc
+    assert np.isfinite(vmap) and vmap > rand_map + VOC_MAP_MARGIN, (
+        vmap, rand_map)
+    for name in ("banded_matmul", "fv_moments"):
+        assert launches[name] == launches_4d[name], (launches, launches_4d)
+
+    # a sample of the loaded test items against PIL's decode of the same
+    # bytes, bit for bit, with the surrogate's labels
+    _release()
+    items = voc.voc_loader(VOCDataPath(os.path.join(root, "test"),
+                                       voc.IMAGES_PREFIX),
+                           VOCLabelPath(labels)).collect()
+    want = test.collect()
+    assert len(items) == VOC_TEST, len(items)
+    picks = np.linspace(0, VOC_TEST - 1, LOADER_SAMPLE).astype(int)
+    for i in picks:
+        got = items[i]
+        pil = np.asarray(Image.open(io.BytesIO(jpegs[i])).convert("RGB"),
+                         np.float32)
+        assert got.filename == f"{voc.IMAGES_PREFIX}test{i:05d}.jpg", \
+            got.filename
+        assert got.image.dtype == np.float32 and np.array_equal(
+            got.image, pil), i
+        assert got.labels == want[i].labels, (got.labels, want[i].labels)
+    print(f"[voc-tar] {len(picks)} loaded test items equal PIL's decode of "
+          f"their JPEG bytes bit for bit, with the surrogate's labels",
+          flush=True)
+    del items, want
+    _release()
     return launches
+
+
+def _tar_stream_phase(kernels, workdir, dev):
+    """Phase 4n(b) (see the module docstring). Returns the kernel launch
+    counts of the traced streamed pass."""
+    from keystone_tpu_torch.loaders.image_loader_utils import (
+        iter_decoded_chunks,
+        stream_tar_images,
+    )
+    from keystone_tpu_torch.nodes.images.extractors import SIFTExtractor
+    from keystone_tpu_torch.observability.trace import PipelineTrace
+
+    rng = np.random.RandomState(SEED)
+    base = (rng.rand(LOADER_SIDE, LOADER_SIDE, 3) * 255).astype(np.uint8)
+    members = [(f"class{i % 10}/img{i:05d}.jpg",
+                np.roll(base, 3 * i, axis=0)) for i in range(LOADER_N)]
+    root = os.path.join(workdir, "loader")
+    jpegs = _write_tars(root, members, 1)
+    tar = os.path.join(root, "part00.tar")
+    sift = SIFTExtractor(step=8, bin_size=4, num_scales=2, scale_step=1)
+
+    def featurize(imgs_u8):
+        # NTSC grayscale on the card (uint8 wire, float32 compute), one
+        # sum an image to keep the copy back small
+        f = imgs_u8.to(torch.float32) / 255.0
+        gray = 0.299 * f[..., 0] + 0.587 * f[..., 1] + 0.114 * f[..., 2]
+        return torch.stack([sift.apply(g).sum() for g in gray])
+
+    def prepare(batch):
+        return np.stack([img for _, img in batch]).astype(np.uint8)
+
+    def serial():
+        outs = []
+        for batch in iter_decoded_chunks([tar], LOADER_CHUNK):
+            outs.append(featurize(torch.as_tensor(prepare(batch)).to(dev)))
+        out = torch.cat(outs)
+        _sync()
+        return out
+
+    def streamed(paths, n=None):
+        stream = stream_tar_images(paths, LOADER_CHUNK, prepare=prepare, n=n,
+                                   prefetch_depth=LOADER_DEPTH, device=dev)
+        out = torch.cat([featurize(c.data[:c.n]) for c in stream.chunks()])
+        _sync()
+        return out, stream
+
+    def wall(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
+    want = serial()                      # warm: the kernels' first launches
+    streamed([tar], LOADER_N)
+    decode_s = wall(lambda: sum(len(b) for b in iter_decoded_chunks(
+        [tar], LOADER_CHUNK)))
+    serial_s = statistics.median(wall(serial) for _ in range(LOADER_REPS))
+    streamed_s = statistics.median(wall(lambda: streamed([tar], LOADER_N))
+                                   for _ in range(LOADER_REPS))
+    kernels.reset_launches()
+    with PipelineTrace("tar-stream") as tr:
+        t0 = time.perf_counter()
+        got, stream = streamed([tar], LOADER_N)
+        traced_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    stall = sum(c["ingest_stall_s"] for c in tr.chunks)
+    wire = sum(c["h2d_bytes"] for c in tr.chunks) / LOADER_N
+    out = {"decode_img_s": LOADER_N / decode_s,
+           "serial_img_s": LOADER_N / serial_s,
+           "streamed_img_s": LOADER_N / streamed_s,
+           "stall_share": stall / traced_s, "wire_bytes": wire}
+    err = float((got - want).abs().max() / want.abs().max())
+    print(f"[tar-stream] bench.py::loader_bench's path, {LOADER_N} JPEGs of "
+          f"{LOADER_SIDE}x{LOADER_SIDE} in one tar, chunks of {LOADER_CHUNK},"
+          f" SIFT step 8 bin 4 at 2 scales, medians of {LOADER_REPS}: "
+          f"decode only {out['decode_img_s']:.0f} img/s, serial "
+          f"(iter_decoded_chunks, copy, SIFT) {out['serial_img_s']:.0f} "
+          f"img/s, streamed (stream_tar_images, depth {LOADER_DEPTH}) "
+          f"{out['streamed_img_s']:.0f} img/s; the traced streamed pass: "
+          f"ingest stall share {out['stall_share']:.4f}, wire "
+          f"{wire:.0f} bytes an image ({tr.chunks[0]['nbytes']:.0f} bytes a "
+          f"chunk on the card), launches {launches}; streamed against "
+          f"serial SIFT sums, max |delta| / max {err:.3e}", flush=True)
+    assert wire == LOADER_SIDE * LOADER_SIDE * 3, wire
+    assert got.shape == (LOADER_N,) and err <= 1e-6, err
+    assert launches["banded_matmul"] == 4 * LOADER_N, launches
+    assert stream.n == LOADER_N and stream.quarantine.bad_count == 0
+
+    # one corrupt member, a truncated JPEG, appended to a copy of the tar
+    bad = os.path.join(root, "with_corrupt.tar")
+    shutil.copy(tar, bad)
+    with tarfile.open(bad, "a") as tf:
+        _add_member(tf, "class0/truncated.jpg", jpegs[0][:200])
+    got_bad, stream_bad = streamed([bad])
+    q = stream_bad.quarantine
+    print(f"[tar-stream] {LOADER_N + 1} members, one a truncated JPEG: "
+          f"{got_bad.shape[0]} images delivered, quarantine bad {q.bad_count}"
+          f", ok {q.ok_count}, source {q.records[0]['source']}", flush=True)
+    assert q.bad_count == 1 and q.ok_count == LOADER_N, (q.bad_count,
+                                                         q.ok_count)
+    assert got_bad.shape[0] == stream_bad.n == LOADER_N
+    assert float((got_bad - got).abs().max() / got.abs().max()) <= 1e-6
+    return launches
+
+
+def _imagenet_tar_check(kernels, inet, fitted, test, top_4j, err_4j,
+                        rand_err, workdir, dev):
+    """Phase 4n(c) (see the module docstring), inside phase 4j with its
+    fitted predictor. Returns the kernel launch counts of the apply."""
+    from keystone_tpu_torch.loaders import imagenet_loader
+    from keystone_tpu_torch.workflow.env import PipelineEnv
+
+    root = os.path.join(workdir, "imagenet")
+    items = test.collect()
+    t0 = time.time()
+    _write_tars(os.path.join(root, "test"), [
+        (f"n{it.label:05d}/test{i:05d}.JPEG", np.asarray(it.image))
+        for i, it in enumerate(items)], INET_TARS)
+    labels = os.path.join(root, "labels.txt")
+    with open(labels, "w") as f:
+        f.write("".join(f"n{c:05d} {c}\n" for c in range(INET_CLASSES)))
+    write_s = time.time() - t0
+    # the fit's memo of every training image's descriptors is not needed
+    # by the apply
+    PipelineEnv.reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    loaded = imagenet_loader(os.path.join(root, "test"), labels)
+    load_s = time.time() - t0
+    test_labels = np.array([it.label for it in loaded.collect()])
+    assert np.array_equal(test_labels, [it.label for it in items])
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    _sync()
+    t0 = time.time()
+    top = torch.stack(fitted(inet.images_on(loaded, dev)).get().collect())
+    _sync()
+    apply_s = time.time() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    err = _top_k_error(top.cpu().numpy(), test_labels)
+    print(f"[imagenet-tar] phase 4j's {INET_TEST} test images as JPEG "
+          f"(quality {JPEG_QUALITY}) under n<class>/ in {INET_TARS} tars: "
+          f"written in {write_s:.1f} s, imagenet_loader {load_s:.2f} s "
+          f"({INET_TEST / load_s:.0f} img/s), apply of 4j's fitted predictor "
+          f"{apply_s:.2f} s ({INET_TEST / apply_s:.1f} img/s, device-memory "
+          f"peak {peak / 2**30:.2f} GiB); test top-{INET_TOP_K} error "
+          f"{err:.4f} (phase 4j from memory {err_4j:.4f}, seeded random "
+          f"scores {rand_err:.4f}); launches {launches}", flush=True)
+    assert err < rand_err - INET_RANDOM_MARGIN, (err, rand_err)
+    assert launches["banded_matmul"] == 10 * INET_TEST, launches
+    assert launches["fv_moments"] == 2 * INET_TEST, launches
+    del loaded, top
+    # the first INET_PNG test images again, lossless: the loader's path
+    # must give the in-memory apply's top-k sets
+    with ThreadPoolExecutor(8) as pool:
+        pngs = list(pool.map(lambda it: _image_bytes(np.asarray(it.image),
+                                                     "PNG"), items[:INET_PNG]))
+    png_dir = os.path.join(root, "png")
+    os.makedirs(png_dir)
+    with tarfile.open(os.path.join(png_dir, "part00.tar"), "w") as tf:
+        for i, (it, raw) in enumerate(zip(items, pngs)):
+            _add_member(tf, f"n{it.label:05d}/test{i:05d}.png", raw)
+    loaded = imagenet_loader(png_dir, labels)
+    top = torch.stack(fitted(inet.images_on(loaded, dev)).get().collect())
+    agree = float(np.mean([set(a) == set(b) for a, b in zip(
+        top.cpu().numpy(), top_4j[:INET_PNG])]))
+    print(f"[imagenet-tar] the first {INET_PNG} test images as PNG through "
+          f"the loader: top-{INET_TOP_K} sets equal to phase 4j's in-memory "
+          f"apply on {agree:.4f} of them", flush=True)
+    assert agree >= INET_TOP_AGREE, agree
+    del loaded, top, pngs
+    return launches
+
+
+def _mnist_csv_phase(workdir):
+    """Phase 4n(d) (see the module docstring)."""
+    from keystone_tpu_torch.loaders.surrogate import make_surrogate_mnist
+    from keystone_tpu_torch.pipelines.images.mnist import random_fft
+    from keystone_tpu_torch.workflow.pipeline import Pipeline
+
+    t0 = time.time()
+    paths = []
+    for split, (X, y) in zip(("train", "test"), make_surrogate_mnist(
+            MNIST_CSV_TRAIN, MNIST_CSV_TEST)):
+        # MNIST's CSV form: a 1-based label, then 784 pixels in [0, 255]
+        rows = np.concatenate([(y + 1)[:, None], np.rint(X * 255)], axis=1)
+        paths.append(os.path.join(workdir, f"mnist_{split}.csv"))
+        np.savetxt(paths[-1], rows.astype(np.int64), delimiter=",", fmt="%d")
+    write_s = time.time() - t0
+    _release()
+    timer = _StageTimer(timed=True)
+    timer.wrap(random_fft, "csv_labeled_loader", "parse")
+    timer.wrap(Pipeline, "fit", "fit")
+    rc, text, wall = _run_cli(
+        ["mnist.random_fft", "--trainLocation", paths[0], "--testLocation",
+         paths[1], "--numFFTs", str(MNIST_FFTS), "--blockSize",
+         str(MNIST_BLOCK), "--lambda", str(MNIST_LAM)], timer)
+    train_err = _printed_number(text, "TRAIN Error is") / 100.0
+    test_err = _printed_number(text, "TEST Error is") / 100.0
+    parse_s, fit_s = timer.seconds["parse"], timer.seconds["fit"]
+    print(f"[mnist-csv] python -m keystone_tpu_torch mnist.random_fft, "
+          f"{MNIST_FFTS} FFTs, block {MNIST_BLOCK}, lam {MNIST_LAM}, "
+          f"{MNIST_CSV_TRAIN} / {MNIST_CSV_TEST} CSV rows (written in "
+          f"{write_s:.1f} s): exit {rc}, {wall:.2f} s in all: CSV parse "
+          f"{parse_s:.2f} s (both files), fit {fit_s:.2f} s; train error "
+          f"{train_err:.4f}, test error {test_err:.4f}", flush=True)
+    assert rc == 0, rc
+    assert train_err <= MNIST_TRAIN_ERROR, train_err
+    _release()
+
+
+def _image_nodes_phase(image, dev):
+    """Phase 4n(e) (see the module docstring)."""
+    from keystone_tpu_torch.nodes.images import DaisyExtractor, HogExtractor
+    from keystone_tpu_torch.nodes.learning import ApproximatePCAEstimator
+
+    x = torch.as_tensor(image, device=dev)
+    for name, node in (("HOG", HogExtractor()), ("DAISY", DaisyExtractor())):
+        first, second = node.apply(x), node.apply(x)
+        _sync()
+        same = torch.equal(first, second)
+        want = node.apply(torch.as_tensor(image))
+        err = float((first.cpu() - want).abs().max())
+        ms = _time_ms(lambda: node.apply(x), reps=10)
+        print(f"[image-nodes] {name} on one {image.shape[0]}x{image.shape[1]}"
+              f" image: output {tuple(first.shape)}, {ms:.3f} ms an image on "
+              f"the card (median of 10, CUDA events), max |card - CPU| "
+              f"{err:.3e} (bar {HOG_DAISY_TOL}), same bits on a second card "
+              f"call: {same}", flush=True)
+        assert same and err <= HOG_DAISY_TOL, (name, same, err)
+    rng = np.random.RandomState(SEED)
+    basis = np.linalg.qr(rng.randn(APCA_D, APCA_D))[0]
+    X = ((rng.randn(APCA_N, APCA_D) * APCA_DECAY ** np.arange(APCA_D))
+         @ basis.T + 5.0).astype(np.float32)
+    est = ApproximatePCAEstimator(APCA_DIMS, seed=SEED)
+    Xd = torch.as_tensor(X, device=dev)
+    on_card = est.approximate_pca(Xd)
+    times = []
+    for _ in range(3):
+        _sync()
+        t0 = time.perf_counter()
+        est.approximate_pca(Xd)
+        _sync()
+        times.append(1e3 * (time.perf_counter() - t0))
+    on_cpu = est.approximate_pca(X)
+    proj = float(np.abs(on_card @ on_card.T - on_cpu @ on_cpu.T).max())
+    print(f"[image-nodes] ApproximatePCAEstimator(dims={APCA_DIMS}, q=10, p=5)"
+          f" on seeded ({APCA_N}, {APCA_D}) rows (spectrum "
+          f"{APCA_DECAY}^i): {statistics.median(times):.1f} ms a fit on the"
+          f" card (median of 3, host clock, synchronized); the card's "
+          f"subspace against the CPU fit's, max |P_card - P_cpu| {proj:.3e}"
+          f" (bar {APCA_TOL})", flush=True)
+    assert proj <= APCA_TOL, proj
 
 
 def _lanes_disjoint(events):
@@ -3411,9 +3861,10 @@ def _top_k_error(top, labels):
     return float(1.0 - np.any(top == labels[:, None], axis=1).mean())
 
 
-def _imagenet_phase(kernels, dev):
-    """Phase 4j (see the module docstring). Returns the kernel launch
-    counts of the main pass's fit + apply."""
+def _imagenet_phase(kernels, workdir, dev):
+    """Phase 4j (see the module docstring), with 4n(c) on its fitted
+    predictor. Returns the kernel launch counts of the main pass's fit +
+    apply and of 4n(c)'s apply, and 4n(c)'s seconds."""
     from keystone_tpu_torch.loaders.surrogate import make_surrogate_imagenet
     from keystone_tpu_torch.nodes.learning.block_weighted import (
         BlockWeightedLeastSquaresEstimator,
@@ -3515,7 +3966,13 @@ def _imagenet_phase(kernels, dev):
     del X, L, F_test, m64, W32, W64, scores64, scores32, solves, applies
     assert agree >= INET_TOP_AGREE, agree
     assert w_err <= INET_F64_TOL, w_err
-    del fitted, model
+    del model
+    # 4n(c): the same test images from tar archives through the loader
+    t0 = time.time()
+    tar_launches = _imagenet_tar_check(kernels, inet, fitted, test, top,
+                                       err, rand_err, workdir, dev)
+    tar_s = time.time() - t0
+    del fitted
     _release()
 
     # a second, instrumented pass for the per-stage split
@@ -3529,7 +3986,7 @@ def _imagenet_phase(kernels, dev):
           f"seconds per stage: {stages}", flush=True)
     del fitted
     _release()
-    return launches
+    return launches, tar_launches, tar_s
 
 
 def _weighted_rehearsal(dev):
@@ -3919,14 +4376,11 @@ def _main(workdir: str) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    try:  # the image loaders to come decode with Pillow (ROADMAP A7)
-        import PIL
-        pillow = f"Pillow {PIL.__version__}"
-    except ImportError:
-        pillow = "no Pillow"
+    import PIL  # the tar loaders decode with Pillow (phase 4n)
+
     print(f"[device] {torch.cuda.get_device_name(0)} | torch "
-          f"{torch.__version__} cuda {torch.version.cuda} | {pillow} | "
-          f"{smi}", flush=True)
+          f"{torch.__version__} cuda {torch.version.cuda} | Pillow "
+          f"{PIL.__version__} | {smi}", flush=True)
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.time()
@@ -4233,7 +4687,19 @@ def _main(workdir: str) -> int:
     torch.cuda.empty_cache()
 
     # -- 4d. VOCSIFTFisher ----------------------------------------------------
-    voc_launches = _voc_phase(kernels, dev)
+    voc_launches, voc_ref = _voc_phase(kernels, dev)
+
+    # -- 4n. the loaders: VOC from tars, the streamed tar path, HOG, DAISY
+    # and the approximate PCA (4n(c) runs inside 4j, 4n(d) after 4f) ---------
+    t0 = time.time()
+    voc_tar_launches = _voc_tar_phase(kernels, voc_ref, voc_launches, workdir,
+                                      dev)
+    stream_tar_launches = _tar_stream_phase(kernels, workdir, dev)
+    _image_nodes_phase(
+        np.rint(voc_ref[1].collect()[0].image).astype(np.float32), dev)
+    del voc_ref
+    _release()
+    loader_s = time.time() - t0
 
     # -- 4e. the cost-model solver choice --------------------------------------
     solver_launches, solver_stream_launches = _solver_phase(
@@ -4246,6 +4712,11 @@ def _main(workdir: str) -> int:
     mnist_launches = dict(kernels.LAUNCHES)
     print(f"[mnist] kernel launches {mnist_launches} (the path runs none of "
           "the five)", flush=True)
+
+    # -- 4n(d). MnistRandomFFT from CSV -----------------------------------------
+    t0 = time.time()
+    _mnist_csv_phase(workdir)
+    loader_s += time.time() - t0
 
     # -- 4g. TIMIT --------------------------------------------------------------
     kernels.reset_launches()
@@ -4264,7 +4735,10 @@ def _main(workdir: str) -> int:
                                        filters, whitener, config, dev)
 
     # -- 4j. ImageNetSiftLcsFV, and the weighted solve at the rehearsal shape
-    inet_launches = _imagenet_phase(kernels, dev)
+    inet_launches, inet_tar_launches, inet_tar_s = _imagenet_phase(
+        kernels, workdir, dev)
+    loader_s += inet_tar_s
+    print(f"[loaders] phase 4n took {loader_s:.1f} s in all", flush=True)
     kernels.reset_launches()
     _weighted_rehearsal(dev)
     print(f"[rehearsal] kernel launches {dict(kernels.LAUNCHES)} (the solve "
@@ -4611,7 +5085,13 @@ def _main(workdir: str) -> int:
         "device_ms": b_dev["kernel"],
         "library_device_ms": b_dev["library"],
         "launches_by_path": {"4d": voc_launches["banded_matmul"],
-                             "4j": inet_launches["banded_matmul"]},
+                             "4j": inet_launches["banded_matmul"],
+                             "4n(a) VOC from tars":
+                                 voc_tar_launches["banded_matmul"],
+                             "4n(b) streamed tar": stream_tar_launches[
+                                 "banded_matmul"],
+                             "4n(c) ImageNet test from tars":
+                                 inet_tar_launches["banded_matmul"]},
         "imagenet": inet_times["banded_matmul"],
     }, {
         "name": "fv_moments",
@@ -4628,7 +5108,11 @@ def _main(workdir: str) -> int:
         "device_ms": f_dev["kernel"],
         "library_device_ms": f_dev["library"],
         "launches_by_path": {"4d": voc_launches["fv_moments"],
-                             "4j": inet_launches["fv_moments"]},
+                             "4j": inet_launches["fv_moments"],
+                             "4n(a) VOC from tars":
+                                 voc_tar_launches["fv_moments"],
+                             "4n(c) ImageNet test from tars":
+                                 inet_tar_launches["fv_moments"]},
         "imagenet": [inet_times[f"fv_moments n={n}"] for n in INET_FV_N],
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 """CSV loading and the LabeledData wrapper.
 
-Counterpart of ``load_csv`` and ``LabeledData`` in
-``keystone_tpu/loaders/csv_loader.py`` (reference
-``loaders/CsvDataLoader.scala:10-30`` and ``loaders/LabeledData.scala``).
+Counterpart of ``keystone_tpu/loaders/csv_loader.py`` (reference
+``loaders/CsvDataLoader.scala:10-30`` and ``loaders/LabeledData.scala``):
+the files are parsed on the host and the datasets staged on ``device``.
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..ops.device import DEFAULT_DEVICE
 from ..parallel.dataset import ArrayDataset
 
 
@@ -37,3 +38,21 @@ class LabeledData:
     def to(self, device) -> "LabeledData":
         """Both datasets on ``device``."""
         return LabeledData(self.data.to(device), self.labels.to(device))
+
+
+def csv_data_loader(path: str, device=DEFAULT_DEVICE) -> ArrayDataset:
+    """The rows of one CSV file, a directory or a glob, on ``device``."""
+    return ArrayDataset.from_numpy(load_csv(path), device)
+
+
+def csv_labeled_loader(path: str, label_col: int = 0, label_offset: int = 0,
+                       device=DEFAULT_DEVICE) -> LabeledData:
+    """Rows of ``[label, features...]`` (the label in ``label_col``):
+    float32 features and int32 labels less ``label_offset`` (MNIST's CSVs
+    count from 1, reference ``MnistRandomFFT.scala:35-38``), both on
+    ``device``."""
+    raw = load_csv(path)
+    labels = raw[:, label_col].astype(np.int32) - label_offset
+    feats = np.delete(raw, label_col, axis=1)
+    return LabeledData(ArrayDataset.from_numpy(feats, device),
+                       ArrayDataset.from_numpy(labels, device))

@@ -9,10 +9,28 @@ from .linear import (
     LinearMapEstimator,
     LinearMapper,
 )
+from .pca import (
+    ApproximatePCAEstimator,
+    BatchPCATransformer,
+    ColumnPCAEstimator,
+    DistributedColumnPCAEstimator,
+    DistributedPCAEstimator,
+    LocalColumnPCAEstimator,
+    PCAEstimator,
+    PCATransformer,
+)
 from .per_class_weighted import PerClassWeightedLeastSquaresEstimator
 from .zca import ZCAWhitener, ZCAWhitenerEstimator
 
 __all__ = [
+    "ApproximatePCAEstimator",
+    "BatchPCATransformer",
+    "ColumnPCAEstimator",
+    "DistributedColumnPCAEstimator",
+    "DistributedPCAEstimator",
+    "LocalColumnPCAEstimator",
+    "PCAEstimator",
+    "PCATransformer",
     "BlockLeastSquaresEstimator",
     "BlockWeightedLeastSquaresEstimator",
     "BlockLinearMapper",

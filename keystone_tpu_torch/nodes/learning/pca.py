@@ -4,8 +4,11 @@ Counterpart of ``keystone_tpu/nodes/learning/pca.py`` (reference
 ``nodes/learning/PCA.scala`` and ``DistributedPCA.scala``): the local PCA
 is a centered SVD on the data's device; the distributed one keeps the
 TSQR structure (center, R factor of the QR, SVD of the small R on the
-host), which on one device is a single QR. Both run in true float32.
-``ApproximatePCAEstimator`` is not ported yet.
+host), which on one device is a single QR. The approximate PCA is the
+randomized sketch (Gaussian sketch drawn on the host from
+``RandomState(seed)`` as the JAX package draws it, power iterations with
+QRs, SVD of the projection) on the data's device. All run in true
+float32.
 """
 from __future__ import annotations
 
@@ -129,6 +132,47 @@ class DistributedPCAEstimator(Estimator):
         network = d * d * log2m
         return (max(cpu_w * flops, mem_w * bytes_scanned) + net_w * network
                 + lat_w * self.DISPATCH_ROUNDS)
+
+
+def _randomized_svd_vt(X: torch.Tensor, omega: torch.Tensor,
+                       q: int) -> torch.Tensor:
+    """Right singular vectors (ell, d) of the centered rows of X seen
+    through the sketch ``omega`` (d, ell), after ``q`` power iterations,
+    each with two QRs (Halko, Martinsson and Tropp, algorithms 4.4 and
+    5.1)."""
+    A = X - X.mean(dim=0)
+    Q, _ = torch.linalg.qr(A @ omega)
+    for _ in range(q):
+        Q, _ = torch.linalg.qr(A.T @ Q)
+        Q, _ = torch.linalg.qr(A @ Q)
+    _, _, vt = torch.linalg.svd(Q.T @ A, full_matrices=False)
+    return vt
+
+
+class ApproximatePCAEstimator(Estimator):
+    """Randomized-sketch PCA (reference ApproximatePCA.scala:38-86): a
+    Gaussian sketch of ``dims + p`` columns, ``q`` power iterations,
+    then the SVD of the projected matrix, on the data's device. The same
+    ``seed`` gives the JAX package's sketch."""
+
+    def __init__(self, dims: int, q: int = 10, p: int = 5, seed: int = 0):
+        self.dims = dims
+        self.q = q
+        self.p = p
+        self.seed = seed
+
+    def _fit(self, ds: Dataset) -> PCATransformer:
+        return PCATransformer(self.approximate_pca(_as_matrix(ds)))
+
+    def approximate_pca(self, X) -> np.ndarray:
+        """The sign-fixed (d, dims) basis of the rows of X, on the host."""
+        X = torch.as_tensor(X).to(torch.float32)
+        rng = np.random.RandomState(self.seed)
+        omega = rng.randn(X.shape[1], self.dims + self.p).astype(np.float32)
+        vt = _randomized_svd_vt(X, torch.as_tensor(omega, device=X.device),
+                                 self.q)
+        pca = enforce_matlab_sign_convention(vt.T.cpu().numpy())
+        return pca[:, : self.dims]
 
 
 class LocalColumnPCAEstimator(Estimator):

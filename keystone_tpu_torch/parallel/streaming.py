@@ -63,10 +63,12 @@ import weakref
 from typing import (
     Any,
     Callable,
+    Iterable,
     Iterator,
     List,
     NamedTuple,
     Optional,
+    Sequence,
     Tuple,
 )
 
@@ -90,6 +92,8 @@ from ..utils.guarded import TracedLock, TracedSemaphore, guarded_by
 from .dataset import (
     ArrayDataset,
     Dataset,
+    HostDataset,
+    _host,
     _pad_rows,
     is_streaming,
     to_numpy,
@@ -682,6 +686,50 @@ class StreamingDataset(Dataset):
         out = StreamingDataset(chunked, chunk_size, n=total, **kw)
         out._element = [(x.shape[1:], x.dtype) for x in leaves]
         return out
+
+    @staticmethod
+    def from_items(items: Optional[Sequence[Any]] = None, *,
+                   source: Optional[Callable[[], Iterable[Any]]] = None,
+                   chunk_size: int = 256, **kw) -> "StreamingDataset":
+        """Stream per-item arrays (or tuples of them): a sequence, or
+        ``source=``, a callable returning a fresh iterable of items. The
+        items are stacked into host chunks of ``chunk_size`` rows with
+        numpy, in their own dtype, so uint8 items cross the link as
+        uint8 whatever ``compute_dtype`` the consumers see."""
+        if (items is None) == (source is None):
+            raise TypeError("pass exactly one of items or source=")
+        seq: List[Any] = []
+        if source is None:
+            seq = list(items)
+            source = lambda: iter(seq)  # noqa: E731
+            kw.setdefault("n", len(seq))
+
+        def stack(buf):
+            return tree_map(lambda *xs: np.stack([_host(x) for x in xs]),
+                            *buf)
+
+        def chunked():
+            buf: List[Any] = []
+            for it in source():
+                buf.append(it)
+                if len(buf) == chunk_size:
+                    yield stack(buf)
+                    buf = []
+            if buf:
+                yield stack(buf)
+
+        out = StreamingDataset(chunked, chunk_size, **kw)
+        if seq:
+            out._element = [(_host(x).shape, _host(x).dtype)
+                            for x in tree_leaves(seq[0])]
+        return out
+
+    @staticmethod
+    def from_host_dataset(ds: HostDataset, chunk_size: int,
+                          **kw) -> "StreamingDataset":
+        """Stream a HostDataset of fixed-shape items."""
+        return StreamingDataset.from_items(ds.items, chunk_size=chunk_size,
+                                           **kw)
 
 
 # -- accumulate/finalize protocol ------------------------------------------

@@ -10,6 +10,7 @@ fuses into one node; it runs no kernel of the port.
 """
 from __future__ import annotations
 
+import argparse
 import time
 from dataclasses import dataclass
 from typing import Optional
@@ -113,3 +114,25 @@ def run(config: RandomCifarConfig, train: Optional[LabeledData] = None,
     print(f"Test error is: {test_eval.total_error:.4f}")
     print(f"Pipeline took {time.time() - start:.1f} s")
     return pipeline, train_eval, test_eval
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser("RandomCifar")
+    p.add_argument("--trainLocation", required=True)
+    p.add_argument("--testLocation", required=True)
+    p.add_argument("--numFilters", type=int, default=100)
+    p.add_argument("--patchSize", type=int, default=6)
+    p.add_argument("--poolSize", type=int, default=14)
+    p.add_argument("--poolStride", type=int, default=13)
+    p.add_argument("--alpha", type=float, default=0.25)
+    p.add_argument("--lambda", dest="lam", type=float, default=None)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default=DEFAULT_DEVICE)
+    a = p.parse_args(argv)
+    run(RandomCifarConfig(
+        a.trainLocation, a.testLocation, a.numFilters, a.patchSize,
+        a.poolSize, a.poolStride, a.alpha, a.lam, a.seed), device=a.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -13,6 +13,7 @@ no kernel of the port.
 """
 from __future__ import annotations
 
+import argparse
 import time
 from dataclasses import dataclass
 from typing import Optional
@@ -126,3 +127,32 @@ def run(config: AugmentedConfig, train: Optional[LabeledData] = None,
     print(f"Test error is: {test_eval.total_error:.4f}")
     print(f"Pipeline took {time.time() - start:.1f} s")
     return pipeline, test_eval
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser("RandomPatchCifarAugmented")
+    p.add_argument("--trainLocation", required=True)
+    p.add_argument("--testLocation", required=True)
+    p.add_argument("--numFilters", type=int, default=100)
+    p.add_argument("--whiteningEpsilon", type=float, default=0.1)
+    p.add_argument("--patchSize", type=int, default=6)
+    p.add_argument("--patchSteps", type=int, default=1)
+    p.add_argument("--poolSize", type=int, default=14)
+    p.add_argument("--poolStride", type=int, default=13)
+    p.add_argument("--alpha", type=float, default=0.25)
+    p.add_argument("--lambda", dest="lam", type=float, default=0.0)
+    p.add_argument("--numRandomPatchesAugment", type=int, default=10)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default=DEFAULT_DEVICE)
+    a = p.parse_args(argv)
+    run(AugmentedConfig(
+        train_location=a.trainLocation, test_location=a.testLocation,
+        num_filters=a.numFilters, whitening_epsilon=a.whiteningEpsilon,
+        patch_size=a.patchSize, patch_steps=a.patchSteps,
+        pool_size=a.poolSize, pool_stride=a.poolStride, alpha=a.alpha,
+        lam=a.lam, num_random_patches_augment=a.numRandomPatchesAugment,
+        seed=a.seed), device=a.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -11,12 +11,15 @@ mixtureWeight = 0.25) and evaluated by top-5 error over 1000 classes.
 
 On the card every SIFT band contraction runs in ``banded_matmul`` (10
 launches an image at 5 scales) and every Fisher vector, of either
-branch, in ``fv_moments``. The tar loader, and so ``main``, waits for
-the port's image decoding: ``run`` takes the images as HostDatasets of
-``LabeledImage``.
+branch, in ``fv_moments``. ``run`` reads the train and test images
+from the ImageNet tar archives and the labels file its config names
+(``loaders.imagenet``) unless the caller passes HostDatasets of
+``LabeledImage``; ``main`` is ``python -m keystone_tpu_torch
+imagenet.sift_lcs_fv``.
 """
 from __future__ import annotations
 
+import argparse
 import time
 from dataclasses import dataclass
 from typing import Optional
@@ -24,7 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ....loaders.imagenet import NUM_CLASSES
+from ....loaders.imagenet import NUM_CLASSES, imagenet_loader
 from ....nodes.images.core import GrayScaler, PixelScaler
 from ....nodes.images.extractors import LCSExtractor, SIFTExtractor
 from ....nodes.images.fisher_vector import (
@@ -175,13 +178,15 @@ def run(config: ImageNetSiftLcsFVConfig, train: Optional[Dataset] = None,
         top_k: int = 5, sift_kwargs: Optional[dict] = None,
         device=DEFAULT_DEVICE):
     """Fit on ``train`` and evaluate on ``test`` (HostDatasets of
-    LabeledImage, their images staged on ``device``). Returns the fitted
+    LabeledImage, read from the config's tar archives and labels file
+    when not given), the images staged on ``device``. Returns the fitted
     predictor and the test top-k error in percent."""
-    if train is None or test is None:
-        raise ValueError("ImageNetSiftLcsFV: pass train and test datasets; "
-                         "the ImageNet tar loader is not ported yet")
     dev = resolve_device(device)
     start = time.time()
+    if train is None:
+        train = imagenet_loader(config.train_location, config.label_path)
+    if test is None:
+        test = imagenet_loader(config.test_location, config.label_path)
     train_labels = np.asarray([it.label for it in train.collect()], np.int64)
     labels = ClassLabelIndicatorsFromIntLabels(num_classes).apply_dataset(
         ArrayDataset.from_numpy(train_labels, dev))
@@ -195,3 +200,32 @@ def run(config: ImageNetSiftLcsFVConfig, train: Optional[Dataset] = None,
     print(f"TEST top-{top_k} error is {err:.2f}%")
     print(f"Pipeline took {time.time() - start:.1f} s")
     return predictor, err
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser("ImageNetSiftLcsFV")
+    p.add_argument("--trainLocation", required=True)
+    p.add_argument("--testLocation", required=True)
+    p.add_argument("--labelPath", required=True)
+    p.add_argument("--lambda", dest="lam", type=float, default=6e-5)
+    p.add_argument("--mixtureWeight", type=float, default=0.25)
+    p.add_argument("--descDim", type=int, default=64)
+    p.add_argument("--vocabSize", type=int, default=16)
+    for flag in ("siftPcaFile", "siftGmmMeanFile", "siftGmmVarFile",
+                 "siftGmmWtsFile", "lcsPcaFile", "lcsGmmMeanFile",
+                 "lcsGmmVarFile", "lcsGmmWtsFile"):
+        p.add_argument("--" + flag, default=None)
+    p.add_argument("--device", default=DEFAULT_DEVICE)
+    a = p.parse_args(argv)
+    run(ImageNetSiftLcsFVConfig(
+        a.trainLocation, a.testLocation, a.labelPath, a.lam,
+        a.mixtureWeight, a.descDim, a.vocabSize,
+        sift_pca_file=a.siftPcaFile, sift_gmm_mean_file=a.siftGmmMeanFile,
+        sift_gmm_var_file=a.siftGmmVarFile, sift_gmm_wts_file=a.siftGmmWtsFile,
+        lcs_pca_file=a.lcsPcaFile, lcs_gmm_mean_file=a.lcsGmmMeanFile,
+        lcs_gmm_var_file=a.lcsGmmVarFile, lcs_gmm_wts_file=a.lcsGmmWtsFile),
+        device=a.device)
+
+
+if __name__ == "__main__":
+    main()

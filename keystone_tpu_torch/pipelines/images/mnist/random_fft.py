@@ -5,19 +5,22 @@ Counterpart of ``keystone_tpu/pipelines/images/mnist/random_fft.py``
 gather(num_ffts x [RandomSign -> PaddedFFT -> LinearRectifier]) ->
 VectorCombiner -> BlockLeastSquares(block_size, 1, lambda) ->
 MaxClassifier. Each branch maps a 784-pixel image to 512 features, so
-the published 200 branches give 102,400 features. ``run`` takes the
-data as LabeledData; the CSV-reading ``main`` waits for the port's CSV
-loader.
+the published 200 branches give 102,400 features. ``run`` reads the
+train and test CSVs its config names (rows of a 1-based label and 784
+pixels, ``loaders.csv_loader.csv_labeled_loader``) unless the caller
+passes LabeledData; ``main`` is ``python -m keystone_tpu_torch
+mnist.random_fft``.
 """
 from __future__ import annotations
 
+import argparse
 import time
 from dataclasses import dataclass
 
 import numpy as np
 
 from ....evaluation.multiclass import evaluate_multiclass
-from ....loaders.csv_loader import LabeledData
+from ....loaders.csv_loader import LabeledData, csv_labeled_loader
 from ....nodes.learning import BlockLeastSquaresEstimator
 from ....nodes.stats import LinearRectifier, PaddedFFT, RandomSignNode
 from ....nodes.util import (
@@ -66,14 +69,17 @@ def build_pipeline(config: MnistRandomFFTConfig, train: LabeledData):
 def run(config: MnistRandomFFTConfig, train: LabeledData = None,
         test: LabeledData = None, device=DEFAULT_DEVICE):
     """Fit on ``train`` and evaluate on both sets (LabeledData of (n, 784)
-    float32 images in [0, 1] and int labels, moved to ``device``).
-    Returns (fitted pipeline, train metrics, test metrics)."""
-    if train is None or test is None:
-        raise ValueError("MnistRandomFFT: pass train and test LabeledData; "
-                         "the CSV loader is not ported yet")
+    float32 images and int labels, read from the config's CSV files when
+    not given), on ``device``. Returns (fitted pipeline, train metrics,
+    test metrics)."""
     dev = resolve_device(device)
     start = time.time()
-    train, test = train.to(dev), test.to(dev)
+    train = (csv_labeled_loader(config.train_location, label_offset=1,
+                                device=dev) if train is None
+             else train.to(dev))
+    test = (csv_labeled_loader(config.test_location, label_offset=1,
+                               device=dev) if test is None
+            else test.to(dev))
     pipeline = build_pipeline(config, train).fit()
     train_eval = evaluate_multiclass(pipeline(train.data), train.labels,
                                      NUM_CLASSES)
@@ -83,3 +89,23 @@ def run(config: MnistRandomFFTConfig, train: LabeledData = None,
     print(f"TEST Error is {100 * test_eval.total_error:.2f}%")
     print(f"Pipeline took {time.time() - start:.1f} s")
     return pipeline, train_eval, test_eval
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser("MnistRandomFFT")
+    p.add_argument("--trainLocation", required=True)
+    p.add_argument("--testLocation", required=True)
+    p.add_argument("--numFFTs", type=int, default=200)
+    p.add_argument("--blockSize", type=int, default=2048)
+    p.add_argument("--lambda", dest="lam", type=float, default=0.0)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default=DEFAULT_DEVICE)
+    a = p.parse_args(argv)
+    run(MnistRandomFFTConfig(
+        train_location=a.trainLocation, test_location=a.testLocation,
+        num_ffts=a.numFFTs, block_size=a.blockSize, lam=a.lam, seed=a.seed),
+        device=a.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -10,12 +10,14 @@ mean average precision over the 20 VOC classes.
 On the card every SIFT band contraction runs in ``banded_matmul`` (10
 launches an image at 5 scales) and every Fisher vector in
 ``fv_moments`` (one launch an image, with the GMM's kernel terms cached
-per device). The tar loader, and so ``main``,
-waits for the port's image decoding: ``run`` takes the images as
-HostDatasets of ``MultiLabeledImage``.
+per device). ``run`` reads the train and test images from the VOC tar
+archives and the labels CSV its config names (``loaders.voc``) unless
+the caller passes HostDatasets of ``MultiLabeledImage``; ``main`` is
+``python -m keystone_tpu_torch voc.sift_fisher``.
 """
 from __future__ import annotations
 
+import argparse
 import time
 from dataclasses import dataclass
 from typing import Optional
@@ -25,7 +27,12 @@ import numpy as np
 from ....evaluation.mean_average_precision import (
     evaluate_mean_average_precision,
 )
-from ....loaders.voc import NUM_CLASSES
+from ....loaders.voc import (
+    NUM_CLASSES,
+    VOCDataPath,
+    VOCLabelPath,
+    voc_loader,
+)
 from ....nodes.images.core import GrayScaler, PixelScaler
 from ....nodes.images.extractors import SIFTExtractor
 from ....nodes.images.fisher_vector import (
@@ -51,8 +58,15 @@ from ....parallel.dataset import Dataset
 from ....workflow.common import Cacher
 
 
+#: where the VOC 2007 tars keep their images
+IMAGES_PREFIX = "VOCdevkit/VOC2007/JPEGImages/"
+
+
 @dataclass
 class SIFTFisherConfig:
+    train_location: str = ""
+    test_location: str = ""
+    label_path: str = ""
     lam: float = 0.5
     desc_dim: int = 80
     vocab_size: int = 256
@@ -114,13 +128,17 @@ def run(config: SIFTFisherConfig, train: Optional[Dataset] = None,
         test: Optional[Dataset] = None, sift_kwargs: Optional[dict] = None,
         device=DEFAULT_DEVICE):
     """Fit on ``train`` and evaluate on ``test`` (HostDatasets of
-    MultiLabeledImage, their images staged on ``device``). Returns the
-    fitted pipeline and the per-class AP array."""
-    if train is None or test is None:
-        raise ValueError("VOCSIFTFisher: pass train and test datasets; the "
-                         "VOC tar loader is not ported yet")
+    MultiLabeledImage, read from the config's tar archives and labels CSV
+    when not given), the images staged on ``device``. Returns the fitted
+    pipeline and the per-class AP array."""
     dev = resolve_device(device)
     start = time.time()
+    if train is None:
+        train = voc_loader(VOCDataPath(config.train_location, IMAGES_PREFIX),
+                           VOCLabelPath(config.label_path))
+    if test is None:
+        test = voc_loader(VOCDataPath(config.test_location, IMAGES_PREFIX),
+                          VOCLabelPath(config.label_path))
     label_grabber = (
         MultiLabelExtractor(dev)
         >> ClassLabelIndicatorsFromIntArrayLabels(NUM_CLASSES)
@@ -140,3 +158,30 @@ def run(config: SIFTFisherConfig, train: Optional[Dataset] = None,
     print(f"TEST MAP is: {float(np.mean(ap))}")
     print(f"Pipeline took {time.time() - start:.1f} s")
     return fitted, ap
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser("VOCSIFTFisher")
+    p.add_argument("--trainLocation", required=True)
+    p.add_argument("--testLocation", required=True)
+    p.add_argument("--labelPath", required=True)
+    p.add_argument("--lambda", dest="lam", type=float, default=0.5)
+    p.add_argument("--descDim", type=int, default=80)
+    p.add_argument("--vocabSize", type=int, default=256)
+    p.add_argument("--scaleStep", type=int, default=0)
+    p.add_argument("--numPcaSamples", type=int, default=1_000_000)
+    p.add_argument("--numGmmSamples", type=int, default=1_000_000)
+    for flag in ("pcaFile", "gmmMeanFile", "gmmVarFile", "gmmWtsFile"):
+        p.add_argument("--" + flag, default=None)
+    p.add_argument("--device", default=DEFAULT_DEVICE)
+    a = p.parse_args(argv)
+    run(SIFTFisherConfig(
+        a.trainLocation, a.testLocation, a.labelPath, a.lam, a.descDim,
+        a.vocabSize, a.scaleStep, a.numPcaSamples, a.numGmmSamples,
+        pca_file=a.pcaFile, gmm_mean_file=a.gmmMeanFile,
+        gmm_var_file=a.gmmVarFile, gmm_wts_file=a.gmmWtsFile),
+        device=a.device)
+
+
+if __name__ == "__main__":
+    main()

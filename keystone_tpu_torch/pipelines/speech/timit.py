@@ -8,11 +8,13 @@ MaxClassifier over 147 phone classes. The published 50 branches give
 204,800 features. The optimizer fuses the branches, their gather and the
 combiner into one node, which writes each branch's features into its
 column block of the gathered matrix. ``run`` takes the data as
-``TimitFeaturesData`` (``loaders/timit.py`` reads the CSV files); the
-command-line ``main`` waits for the port's CLI.
+``TimitFeaturesData``, or reads the CSV files its config names
+(``loaders/timit.py``); ``main`` is ``python -m keystone_tpu_torch
+speech.timit``.
 """
 from __future__ import annotations
 
+import argparse
 import time
 from dataclasses import dataclass
 from typing import Optional
@@ -100,3 +102,26 @@ def run(config: TimitConfig, data: Optional[TimitFeaturesData] = None,
     print(f"TEST Error is {100 * test_eval.total_error:.2f}%")
     print(f"Pipeline took {time.time() - start:.1f} s")
     return pipeline, test_eval
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser("Timit")
+    p.add_argument("--trainDataLocation", required=True)
+    p.add_argument("--trainLabelsLocation", required=True)
+    p.add_argument("--testDataLocation", required=True)
+    p.add_argument("--testLabelsLocation", required=True)
+    p.add_argument("--numCosines", type=int, default=50)
+    p.add_argument("--gamma", type=float, default=0.05555)
+    p.add_argument("--rfType", default="gaussian")
+    p.add_argument("--lambda", dest="lam", type=float, default=0.0)
+    p.add_argument("--numEpochs", type=int, default=5)
+    p.add_argument("--device", default=DEFAULT_DEVICE)
+    a = p.parse_args(argv)
+    run(TimitConfig(
+        a.trainDataLocation, a.trainLabelsLocation, a.testDataLocation,
+        a.testLabelsLocation, a.numCosines, a.gamma, a.rfType, a.lam,
+        a.numEpochs), device=a.device)
+
+
+if __name__ == "__main__":
+    main()

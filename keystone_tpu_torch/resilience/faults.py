@@ -7,6 +7,10 @@ calls :func:`inject` (and :func:`corrupt`) at named sites:
 ====================  ==================================================
 site                  where
 ====================  ==================================================
+``ingest.read``       per tar-member raw read attempt
+                      (``loaders.image_loader_utils._iter_tar_entries``)
+``ingest.decode``     per image decode attempt (the tar decode pool,
+                      ``loaders.image_loader_utils._decode_with_retry``)
 ``ingest.produce``    per chunk in the prefetch producer loop
 ``ingest.stage``      per chunk staging attempt (``_Stager.stage``, after
                       the host fill, before the copy to the device);

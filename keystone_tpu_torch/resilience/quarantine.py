@@ -7,8 +7,8 @@ file), the ``resilience.quarantine`` counter and the active trace. The
 fit fails loudly, naming the last quarantined source, once bad records
 pass ``max_bad_fraction`` of ``max(seen, min_records)``. Records are
 keyed by source identity, so a resumed pass that meets the same bad
-record again counts it once. The ingest user is the tar loader of a
-later slice (ROADMAP A7); ``fit_streaming`` carries a quarantine's
+record again counts it once. The ingest user is the tar loader
+(``loaders/image_loader_utils.py``); ``fit_streaming`` carries a quarantine's
 ``state`` in its checkpoints.
 """
 from __future__ import annotations

@@ -7,27 +7,14 @@ device; ``load_image`` and ``write_image`` go through PIL on the host.
 """
 from __future__ import annotations
 
-import io
 from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
+from ..loaders.image_loader_utils import decode_image
 from ..ops.device import DEFAULT_DEVICE, resolve_device
 from ..ops.image_ops import to_grayscale as _to_grayscale
-
-
-def decode_image(data: bytes, dtype=np.float32) -> Optional[np.ndarray]:
-    """JPEG / PNG bytes -> ``dtype`` (H, W, 3) RGB in [0, 255] on the host,
-    None if undecodable (the reference's ``loadImage`` returns an
-    Option)."""
-    from PIL import Image as PILImage
-
-    try:
-        img = PILImage.open(io.BytesIO(data)).convert("RGB")
-        return np.asarray(img, dtype=dtype)
-    except (OSError, ValueError, SyntaxError):
-        return None
 
 
 def load_image(path: str, device=DEFAULT_DEVICE) -> Optional[torch.Tensor]:

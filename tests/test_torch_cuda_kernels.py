@@ -1102,3 +1102,62 @@ def test_cuda_streamed_fit_fence_sees_the_word_capture_once(cuda):
     assert obs.by_name().get("numerics.health_word", 0) - words0 == 1
     assert obs.unexpected_total() == unexpected0
     assert not obs.fenced
+
+
+# -- HOG, DAISY and the tar stream on the card ---------------------------------
+# HOG's histograms are two matrix products (no scatter-add, no atomics) and
+# DAISY's maps cuDNN convolutions with TF32 off: the same bits on a second
+# launch, and the CPU's float32 result within 1e-5 absolute (features of at
+# most 1, other summation orders).
+
+def _image_375x500():
+    rng = np.random.RandomState(13)
+    return (rng.rand(375, 500, 3) * 255).astype(np.float32)
+
+
+@pytest.mark.parametrize("node", ["hog", "daisy"])
+def test_cuda_hog_and_daisy_are_reproducible_and_match_the_cpu(cuda, node):
+    from keystone_tpu_torch.nodes.images import DaisyExtractor, HogExtractor
+
+    ext = HogExtractor() if node == "hog" else DaisyExtractor()
+    img = _image_375x500()
+    x = torch.as_tensor(img, device=cuda)
+    first, second = ext.apply(x), ext.apply(x)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    want = ext.apply(torch.as_tensor(img)).numpy()
+    np.testing.assert_allclose(first.cpu().numpy(), want, rtol=0, atol=1e-5)
+
+
+def test_cuda_uint8_wire_stream_gives_the_float32_wire_chunks(cuda, tmp_path):
+    """A tar of PNGs streamed uint8 over the link and cast on the card
+    gives the chunks a float32-wire stream of the same tar gives, bit for
+    bit, at a quarter of the staged bytes."""
+    import io
+    import tarfile
+
+    from PIL import Image
+
+    from keystone_tpu_torch.loaders.image_loader_utils import (
+        stream_tar_images,
+    )
+
+    rng = np.random.RandomState(14)
+    path = str(tmp_path / "imgs.tar")
+    with tarfile.open(path, "w") as tf:
+        for i in range(10):
+            buf = io.BytesIO()
+            Image.fromarray(rng.randint(0, 256, (16, 12, 3)).astype(
+                np.uint8)).save(buf, format="PNG")
+            info = tarfile.TarInfo(f"img{i:02d}.png")
+            info.size = len(buf.getvalue())
+            tf.addfile(info, io.BytesIO(buf.getvalue()))
+    narrow = stream_tar_images([path], 4, device=cuda)
+    wide = stream_tar_images([path], 4, decode_dtype=np.float32, device=cuda)
+    got = [(c.n, c.data.clone()) for c in narrow.chunks()]
+    want = [(c.n, c.data.clone()) for c in wide.chunks()]
+    assert [n for n, _ in got] == [n for n, _ in want] == [4, 4, 2]
+    for (_, g), (_, w) in zip(got, want):
+        assert g.dtype == w.dtype == torch.float32 and g.is_cuda
+        assert torch.equal(g, w)
+    assert narrow.chunk_nbytes() * 4 == wide.chunk_nbytes()

@@ -328,9 +328,15 @@ def test_gmm_preload_needs_all_three_files(data):
             tin.ImageNetSiftLcsFVConfig(), 1, 1, gmm_mean_file="m.csv")
 
 
-def test_run_needs_the_datasets():
-    with pytest.raises(ValueError, match="tar loader"):
-        tin.run(tin.ImageNetSiftLcsFVConfig(), device="cpu")
+def test_run_needs_the_datasets(tmp_path):
+    """Without datasets, ``run`` reads the config's tar archives: a
+    location that does not exist raises."""
+    missing = str(tmp_path / "missing")
+    labels = tmp_path / "labels.txt"
+    labels.write_text("n00000 0\n")
+    with pytest.raises(FileNotFoundError, match="missing"):
+        tin.run(tin.ImageNetSiftLcsFVConfig(missing, missing, str(labels)),
+                device="cpu")
 
 
 def test_config_defaults_are_the_reference_ones():

@@ -177,9 +177,15 @@ def test_csv_preload_skips_both_fits(runs, data, tmp_path, monkeypatch):
     np.testing.assert_allclose(ap, tap, atol=1e-4)
 
 
-def test_run_needs_the_datasets():
-    with pytest.raises(ValueError, match="tar loader"):
-        tvoc.run(tvoc.SIFTFisherConfig(), device="cpu")
+def test_run_needs_the_datasets(tmp_path):
+    """Without datasets, ``run`` reads the config's tar archives: a
+    location that does not exist raises."""
+    missing = str(tmp_path / "missing")
+    labels = tmp_path / "labels.csv"
+    labels.write_text('header\nx,1,a,b,"im0.jpg"\n')
+    with pytest.raises(FileNotFoundError, match="missing"):
+        tvoc.run(tvoc.SIFTFisherConfig(missing, missing, str(labels)),
+                 device="cpu")
 
 
 def test_label_nodes():
