@@ -8,7 +8,8 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper card:
 Phases, each of which raises (and so exits non-zero) on failure:
 
 1. Device: require CUDA; print the card's name and power limit.
-2. Build: compile every kernel from the checkout's CUDA sources.
+2. Build: compile every kernel from the checkout's CUDA sources, and the
+   native host shim from its C++ source, into ``build/keystone_tpu_torch``.
 3. Kernel against plain: each kernel's wrapper on card tensors at the
    shapes the main path gives it (and ragged ones, and the geometries
    the featurize and FV kernels take past the main path's), held against
@@ -229,6 +230,35 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ``imagenet_loader`` and 4j's fitted predictor: the top-5 error below
    the random scores' - 0.30, 10,000 banded and 2,000 FV launches, and
    200 of them as PNG giving 4j's in-memory top-5 sets.
+4o. The text and NLP apps on the card (written under the run's
+   temporary directory): (a) the surrogate 20 Newsgroups corpus at the
+   "bydate" split sizes (TEXT_NEWS), one file a document in the 20news
+   layout, through ``python -m keystone_tpu_torch text.newsgroups`` in
+   process at the published defaults (bigrams, 100,000 common features,
+   20 classes, naive Bayes with lam 1): the test error inside (0.02,
+   0.90) and TEXT_RANDOM_MARGIN below a seeded random score matrix's;
+   the naive Bayes sums, parameters and the scores of TEXT_SCORE_DOCS
+   test documents the same bits on a second fit on the card from the
+   fit's own inputs; the same documents through ``run(device="cpu")``
+   in process: the same feature -> index map, scores within
+   NB_CPU_SCORE_TOL of the largest, the same argmax; (b) surrogate
+   Amazon reviews (TEXT_AMAZON) as JSON lines through
+   ``text.amazon_reviews`` at the published defaults (bigrams, 100,000
+   features, logistic regression, 20 iterations): the test error inside
+   AMAZON_ERROR_BAND, the weights the same bits on a second fit, and within
+   LR_F64_TOL of the largest from a float64 run of the same L-BFGS on
+   the same CSR matrix with the same iteration count; (c)
+   StupidBackoff through ``run`` at n = 3 on TEXT_BACKOFF_LINES Zipf
+   lines: the scores equal to a ``device="cpu"`` run's; (d) the
+   lemmatizing Newsgroups variant (perceptron POS and NER) on the first
+   TEXT_LEMMA_DOCS training and test documents of (a); (e) the native
+   host shim: built from ``native/keystone_native.cpp`` under
+   ``build/keystone_tpu_torch/``, its n-gram hash features equal to the
+   pure-Python ones on TEXT_HASH_DOCS documents of (a), and its branch
+   counter showing the native branch served every hashing call. Each
+   stage's seconds, documents/s, features, nnz, L-BFGS iterations and
+   evaluations and scored n-grams/s are printed beside the card's name
+   and power limit; none of the five kernels runs on this path.
 5. Timing: each kernel, its plain version and a library yardstick with
    CUDA events at the main path's shapes, one call at a time (the
    ``kernels`` line); for every kernel also the device time alone of the
@@ -540,6 +570,35 @@ AUG_TRAIN, AUG_ERROR_BAND = 4096, (0.02, 0.90)
 #: memory read beside it, within this many bytes (the driver reports free
 #: memory in whole pages)
 AUTO_CACHE_BUDGET_SLACK = 2 * 2**20
+
+
+#: Phase 4o, the text apps: the 20 Newsgroups "bydate" split sizes; the
+#: test documents whose scores are held card against card and card
+#: against CPU; Amazon reviews, cut from the dataset's millions for the
+#: host featurizer's time (about 0.5 ms a document in Python); the
+#: StupidBackoff corpus's lines; the lemmatized and the hashed documents
+TEXT_NEWS = (11_314, 7_532)
+TEXT_SCORE_DOCS = 256
+TEXT_AMAZON = (65_536, 16_384)
+TEXT_BACKOFF_LINES = 40_000
+TEXT_LEMMA_DOCS = 1_024
+TEXT_HASH_DOCS = 1_000
+#: the test error must beat a seeded random score matrix's by this margin
+TEXT_RANDOM_MARGIN = 0.30
+#: the Amazon test error's band. The surrogate review draws binomial(10,
+#: 0.6) words of its polarity's 60-word window, 30 of which the other
+#: polarity shares, so a review all of whose own words are shared cannot
+#: be told apart: the Bayes error is 0.5 x (0.4 + 0.6 / 2)^10 = 0.0141,
+#: and a fit on 65,536 reviews comes near it. The lower end sits below
+#: it: a lower reading would mean the labels leaked into the features.
+AMAZON_ERROR_BAND = (0.01, 0.90)
+#: naive Bayes scores of the card's fit against the CPU's, max |delta| /
+#: max |score|: float64 sums of term presences are exact on both, and the
+#: float32 scoring gathers sum ~80 terms in another order
+NB_CPU_SCORE_TOL = 1e-5
+#: the float32 logistic regression against the same L-BFGS in float64 on
+#: the same CSR matrix and iteration count, max |delta| / max |W64|
+LR_F64_TOL = 5e-3
 
 
 def _sync():
@@ -2716,6 +2775,351 @@ def _image_nodes_phase(image, dev):
     assert proj <= APCA_TOL, proj
 
 
+def _text_stage_timer(app_module, loader, estimator, model):
+    """A timed _StageTimer on a text app's stages: the loader, the host
+    featurizer (every host stage but the vectorizer), the vectorizer's
+    fit and apply, the model's fit and its sparse scoring."""
+    from keystone_tpu_torch.nodes.util import (
+        CommonSparseFeatures,
+        SparseFeatureVectorizer,
+    )
+    from keystone_tpu_torch.workflow.transformer import HostTransformer
+
+    timer = _StageTimer(timed=True)
+    timer.wrap(app_module, loader, "load")
+    # the vectorizer first: its own wrapper then calls the unwrapped
+    # host-stage path, which the next line wraps for the other stages
+    timer.wrap(SparseFeatureVectorizer, "apply_dataset", "vectorize")
+    timer.wrap(HostTransformer, "apply_dataset", "featurize")
+    timer.wrap(CommonSparseFeatures, "_fit", "vectorizer fit")
+    timer.wrap(estimator, "_fit", "model fit")
+    timer.wrap(model, "apply_dataset", "model apply")
+    return timer
+
+
+def _stage_line(timer):
+    return ", ".join(f"{stage} {s:.2f} s" for stage, s in
+                     timer.seconds.items())
+
+
+def _newsgroups_text_phase(workdir, dev, smi):
+    """Phase 4o(a) (see the module docstring). Returns the corpus and the
+    fitted featurizer's pieces for 4o(d) and (e)."""
+    from keystone_tpu_torch.loaders.csv_loader import LabeledData
+    from keystone_tpu_torch.loaders.newsgroups import CLASSES
+    from keystone_tpu_torch.loaders.surrogate import (
+        make_newsgroups_corpus,
+        write_newsgroups_split,
+    )
+    from keystone_tpu_torch.nodes.learning import (
+        NaiveBayesEstimator,
+        NaiveBayesModel,
+    )
+    from keystone_tpu_torch.nodes.learning.classifiers import (
+        sparse_class_sums,
+    )
+    from keystone_tpu_torch.nodes.util import CommonSparseFeatures
+    from keystone_tpu_torch.nodes.util.sparse import pack_sparse_fit_inputs
+    from keystone_tpu_torch.parallel.dataset import ArrayDataset, HostDataset
+    from keystone_tpu_torch.pipelines.text import newsgroups as ng
+
+    n_train, n_test = TEXT_NEWS
+    t0 = time.time()
+    train_docs, train_y = make_newsgroups_corpus(n_train, 1)
+    test_docs, test_y = make_newsgroups_corpus(n_test, 2)
+    dirs = [os.path.join(workdir, "20news", s) for s in ("train", "test")]
+    for d, docs, y in zip(dirs, (train_docs, test_docs), (train_y, test_y)):
+        write_newsgroups_split(d, docs, y)
+    print(f"[text] (a) surrogate 20 Newsgroups corpus, {n_train} / {n_test} "
+          f"documents of 40 words, made and written one file a document in "
+          f"{time.time() - t0:.1f} s", flush=True)
+
+    _release()
+    vec_rec = _Recorder(CommonSparseFeatures, "_fit")
+    fit_rec = _Recorder(NaiveBayesEstimator, "_fit")
+    timer = _text_stage_timer(ng, "newsgroups_loader", NaiveBayesEstimator,
+                              NaiveBayesModel)
+    try:
+        rc, text, wall = _run_cli(
+            ["text.newsgroups", "--trainLocation", dirs[0], "--testLocation",
+             dirs[1]], timer)
+    finally:
+        fit_rec.close()
+        vec_rec.close()
+    assert rc == 0, rc
+    err = _printed_number(text, "TEST Error is") / 100.0
+    vec = vec_rec.results[0][1]
+    (train_sv, labels), (est, model) = fit_rec.calls[0], fit_rec.results[0]
+    idx, vals, d, y = pack_sparse_fit_inputs(train_sv, labels)
+    nnz = int(np.count_nonzero(vals))
+    # the loader reads a split class by class, so its labels are sorted
+    rand_err = float(np.mean(np.random.RandomState(SEED).rand(
+        n_test, len(CLASSES)).argmax(1) != np.sort(test_y)))
+    print(f"[text] (a) python -m keystone_tpu_torch text.newsgroups "
+          f"(bigrams, {len(vec.feature_space)} features kept of 100,000, "
+          f"naive Bayes lam {est.lam} on the card): exit {rc}, {wall:.2f} s "
+          f"in all, {(n_train + n_test) / wall:.0f} documents/s; "
+          f"{_stage_line(timer)}; training nnz {nnz}; test error {err:.4f} "
+          f"(seeded random scores {rand_err:.4f}) | {smi}", flush=True)
+    assert 0.02 < err < 0.90, err
+    assert err <= rand_err - TEXT_RANDOM_MARGIN, (err, rand_err)
+
+    # the fit again from its own inputs: the sums and the model's bits
+    sums = [sparse_class_sums(idx, vals, d, y, est.num_classes, dev)
+            for _ in range(2)]
+    again = est._fit(train_sv, labels)
+    score_pairs = ng.featurizer(ng.NewsgroupsConfig())(
+        HostDataset(test_docs[:TEXT_SCORE_DOCS])).get()
+    score_sv = vec.apply_dataset(score_pairs)
+    scores = [m.apply_dataset(score_sv).data[:TEXT_SCORE_DOCS]
+              for m in (model, again)]
+    _sync()
+    same = (torch.equal(sums[0], sums[1])
+            and torch.equal(model.pi, again.pi)
+            and torch.equal(model.theta, again.theta)
+            and torch.equal(scores[0], scores[1]))
+    print(f"[text] (a) a second naive Bayes fit on the card: float64 class "
+          f"sums ({tuple(sums[0].shape)}), pi, theta and the scores of "
+          f"{TEXT_SCORE_DOCS} test documents the same bits: {same}",
+          flush=True)
+    assert same
+
+    # the same documents through the CPU path, in process
+    _release()
+    vec_rec = _Recorder(CommonSparseFeatures, "_fit")
+    fit_rec = _Recorder(NaiveBayesEstimator, "_fit")
+    try:
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()):
+            ng.run(ng.NewsgroupsConfig(dirs[0]), test=LabeledData(
+                HostDataset(test_docs[:TEXT_SCORE_DOCS]),
+                ArrayDataset.from_numpy(test_y[:TEXT_SCORE_DOCS], "cpu")),
+                device="cpu")
+        cpu_s = time.time() - t0
+    finally:
+        fit_rec.close()
+        vec_rec.close()
+    vec_cpu = vec_rec.results[0][1]
+    model_cpu = fit_rec.results[0][1]
+    same_map = (list(vec_cpu.feature_space.items())
+                == list(vec.feature_space.items()))
+    cpu_scores = model_cpu.apply_dataset(
+        vec_cpu.apply_dataset(score_pairs)).data[:TEXT_SCORE_DOCS]
+    card = scores[0].cpu()
+    score_err = float((card - cpu_scores).abs().max()
+                      / cpu_scores.abs().max())
+    same_argmax = torch.equal(card.argmax(1), cpu_scores.argmax(1))
+    print(f"[text] (a) the same {TEXT_SCORE_DOCS} test documents through "
+          f"run(device='cpu') ({cpu_s:.2f} s, the fit included): the same "
+          f"feature -> index map: {same_map}; scores card against CPU "
+          f"{score_err:.3e} of the largest (bar {NB_CPU_SCORE_TOL}), the "
+          f"same argmax: {same_argmax}", flush=True)
+    assert same_map and same_argmax and score_err <= NB_CPU_SCORE_TOL
+    _release()
+    return {"train_docs": train_docs, "train_y": train_y,
+            "test_docs": test_docs, "test_y": test_y}
+
+
+def _amazon_text_phase(workdir, dev, smi):
+    """Phase 4o(b) (see the module docstring)."""
+    from keystone_tpu_torch.loaders.surrogate import (
+        make_amazon_corpus,
+        write_amazon_reviews,
+    )
+    from keystone_tpu_torch.nodes.learning import (
+        LogisticRegressionEstimator,
+        LogisticRegressionModel,
+    )
+    from keystone_tpu_torch.nodes.learning.classifiers import (
+        sparse_logistic_objective,
+    )
+    from keystone_tpu_torch.nodes.util import CommonSparseFeatures
+    from keystone_tpu_torch.nodes.util.sparse import (
+        CSRMatrix,
+        pack_sparse_fit_inputs,
+    )
+    from keystone_tpu_torch.ops.lbfgs import lbfgs
+    from keystone_tpu_torch.pipelines.text import amazon_reviews as am
+
+    n_train, n_test = TEXT_AMAZON
+    t0 = time.time()
+    paths = [os.path.join(workdir, f"amazon_{s}.json")
+             for s in ("train", "test")]
+    for path, (n, seed) in zip(paths, ((n_train, 1), (n_test, 2))):
+        reviews, y = make_amazon_corpus(n, seed)
+        write_amazon_reviews(path, reviews, y, seed=seed)
+    print(f"[text] (b) surrogate Amazon reviews, {n_train} / {n_test} "
+          f"reviews of 40 words, made and written as JSON lines in "
+          f"{time.time() - t0:.1f} s", flush=True)
+
+    _release()
+    vec_rec = _Recorder(CommonSparseFeatures, "_fit")
+    fit_rec = _Recorder(LogisticRegressionEstimator, "_fit")
+    timer = _text_stage_timer(am, "amazon_reviews_loader",
+                              LogisticRegressionEstimator,
+                              LogisticRegressionModel)
+    try:
+        rc, text, wall = _run_cli(
+            ["text.amazon_reviews", "--trainLocation", paths[0],
+             "--testLocation", paths[1]], timer)
+    finally:
+        fit_rec.close()
+        vec_rec.close()
+    assert rc == 0, rc
+    err = _printed_number(text, "TEST Error is") / 100.0
+    vec = vec_rec.results[0][1]
+    (train_sv, labels), (est, model) = fit_rec.calls[0], fit_rec.results[0]
+    stats = model._solve_stats
+    idx, vals, d, y = pack_sparse_fit_inputs(train_sv, labels)
+    print(f"[text] (b) python -m keystone_tpu_torch text.amazon_reviews "
+          f"(bigrams, {len(vec.feature_space)} features, logistic "
+          f"regression, {est.num_iters} iterations at most, on the card): "
+          f"exit {rc}, {wall:.2f} s in all, {(n_train + n_test) / wall:.0f} "
+          f"documents/s; {_stage_line(timer)}; L-BFGS {stats['iterations']} "
+          f"iterations, {stats['evaluations']} evaluations, "
+          f"{stats['line_search_steps']} backtracking steps; training nnz "
+          f"{int(np.count_nonzero(vals))}; test error {err:.4f} | {smi}",
+          flush=True)
+    assert AMAZON_ERROR_BAND[0] < err < AMAZON_ERROR_BAND[1], err
+
+    again = est._fit(train_sv, labels)
+    same = torch.equal(model.weights, again.weights)
+    A = CSRMatrix.from_padded(idx, vals, d, dev, torch.float64)
+    t0 = time.time()
+    res = lbfgs(sparse_logistic_objective(A, A.transpose(), y,
+                                          est.num_classes,
+                                          float(est.reg_param)),
+                torch.zeros((d, est.num_classes), dtype=torch.float64,
+                            device=dev),
+                max_iters=stats["iterations"], tol=0.0)
+    _sync()
+    f64_s = time.time() - t0
+    W64 = res.x
+    rel = float((model.weights.double() - W64).abs().max()
+                / W64.abs().max())
+    print(f"[text] (b) a second fit on the card the same bits: {same}; the "
+          f"same L-BFGS in float64 on the same CSR matrix ({res.num_iters} "
+          f"iterations, {f64_s:.2f} s): weights {rel:.3e} of the largest "
+          f"from it (bar {LR_F64_TOL})", flush=True)
+    assert same and res.num_iters == stats["iterations"]
+    assert rel <= LR_F64_TOL, rel
+    _release()
+
+
+def _backoff_text_phase(workdir, dev, smi):
+    """Phase 4o(c) (see the module docstring)."""
+    from keystone_tpu_torch.loaders.surrogate import make_backoff_corpus
+    from keystone_tpu_torch.pipelines.nlp import stupid_backoff_pipeline as sb
+
+    path = os.path.join(workdir, "backoff.txt")
+    with open(path, "w") as f:
+        f.write("\n".join(make_backoff_corpus(TEXT_BACKOFF_LINES)) + "\n")
+    config = sb.StupidBackoffConfig(path, n=3)
+    models, walls = {}, {}
+    for device in ("card", "cpu"):
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()):
+            models[device] = sb.run(config, device=(
+                dev if device == "card" else "cpu"))
+        walls[device] = time.time() - t0
+    model = models["card"]
+    same = (model.scores == models["cpu"].scores
+            and model.num_tokens == models["cpu"].num_tokens)
+    print(f"[text] (c) StupidBackoff run(device={str(dev)!r}), n = 3 on "
+          f"{TEXT_BACKOFF_LINES} Zipf lines of 20 words: {model.num_tokens} "
+          f"tokens, vocabulary {len(model.unigram_counts)}, "
+          f"{len(model.scores)} n-grams scored in {walls['card']:.2f} s, "
+          f"{len(model.scores) / walls['card']:.0f} n-grams/s (host work); "
+          f"scores equal to run(device='cpu')'s ({walls['cpu']:.2f} s): "
+          f"{same} | {smi}", flush=True)
+    assert same
+
+
+def _lemma_text_phase(news, dev, smi):
+    """Phase 4o(d) (see the module docstring)."""
+    from keystone_tpu_torch.loaders.csv_loader import LabeledData
+    from keystone_tpu_torch.parallel.dataset import ArrayDataset, HostDataset
+    from keystone_tpu_torch.pipelines.text import newsgroups as ng
+
+    n = TEXT_LEMMA_DOCS
+    train, test = (LabeledData(HostDataset(news[f"{s}_docs"][:n]),
+                               ArrayDataset.from_numpy(news[f"{s}_y"][:n],
+                                                       dev))
+                   for s in ("train", "test"))
+    _release()
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, ev = ng.run(ng.NewsgroupsConfig(lemmatize=True), train, test,
+                       num_classes=20, device=dev)
+    _sync()
+    wall = time.time() - t0
+    print(f"[text] (d) lemmatized Newsgroups (perceptron POS and NER, "
+          f"bigrams) on the first {n} training and {n} test documents of "
+          f"(a): {wall:.2f} s, {1e3 * wall / (2 * n):.2f} ms a document; "
+          f"test error {ev.total_error:.4f} | {smi}", flush=True)
+    assert 0.02 < ev.total_error < 0.90, ev.total_error
+    _release()
+
+
+def _native_text_phase(news, hashing_calls, smi):
+    """Phase 4o(e) (see the module docstring)."""
+    from keystone_tpu_torch import native
+    from keystone_tpu_torch.nodes.nlp import NGramsHashingTF, Tokenizer
+    from keystone_tpu_torch.nodes.nlp.hashing import ngram_feature_indices
+
+    assert native.available(), native.build_error()
+    path = native.loaded_path()
+    build_dir = os.path.join(REPO, "build", "keystone_tpu_torch")
+    assert os.path.realpath(os.path.dirname(path)) == os.path.realpath(
+        build_dir), path
+    tokens = [Tokenizer().apply(d.lower())
+              for d in news["train_docs"][:TEXT_HASH_DOCS]]
+    width = 1 << 20
+    native.reset_calls()
+    t0 = time.perf_counter()
+    fast = [native.ngram_hash_features(t, [1, 2], width) for t in tokens]
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    slow = [ngram_feature_indices(t, 1, 2, width) for t in tokens]
+    python_s = time.perf_counter() - t0
+    equal = all(np.array_equal(a, b) for a, b in zip(fast, slow))
+    node = NGramsHashingTF([1, 2], width)
+    for t in tokens:
+        node.apply(t)
+    calls = native.CALLS["ngram_hash_features"]
+    print(f"[text] (e) native host shim {os.path.relpath(path, REPO)}: "
+          f"n-gram hash features of {TEXT_HASH_DOCS} documents of (a) "
+          f"native {1e3 * native_s:.1f} ms, pure Python "
+          f"{1e3 * python_s:.1f} ms, equal: {equal}; NGramsHashingTF's "
+          f"calls by branch {calls}; (a)'s own hashing calls by branch "
+          f"{hashing_calls} (the Newsgroups path hashes nothing) | {smi}",
+          flush=True)
+    assert equal
+    assert calls == {"native": 2 * TEXT_HASH_DOCS, "python": 0}, calls
+    assert hashing_calls["python"] == 0, hashing_calls
+
+
+def _text_phase(kernels, workdir, dev, smi):
+    """Phase 4o (see the module docstring). Returns its seconds."""
+    from keystone_tpu_torch import native
+
+    t0 = time.time()
+    kernels.reset_launches()
+    native.reset_calls()
+    news = _newsgroups_text_phase(workdir, dev, smi)
+    hashing_calls = dict(native.CALLS["ngram_hash_features"])
+    _amazon_text_phase(workdir, dev, smi)
+    _backoff_text_phase(workdir, dev, smi)
+    _lemma_text_phase(news, dev, smi)
+    launches = dict(kernels.LAUNCHES)
+    _native_text_phase(news, hashing_calls, smi)
+    seconds = time.time() - t0
+    print(f"[text] phase 4o took {seconds:.1f} s; kernel launches "
+          f"{launches} (the text path runs none of the five)", flush=True)
+    assert not any(launches.values()), launches
+    return seconds
+
+
 def _lanes_disjoint(events):
     """True when no lane of a Chrome trace holds two overlapping spans."""
     by_lane = {}
@@ -3805,18 +4209,22 @@ def _imagenet_stage_timer(timed):
 
 class _Recorder:
     """Keeps the arguments of calls to a class's method (the card's
-    tensors, by reference) while ``on``; ``close`` removes the wrapper."""
+    tensors, by reference), and each call's object and result, while
+    ``on``; ``close`` removes the wrapper. Made before a _StageTimer
+    wraps the same method, it is closed after it."""
 
     def __init__(self, owner, attr):
         self.owner, self.attr = owner, attr
         self.real = getattr(owner, attr)
-        self.calls, self.on = [], True
+        self.calls, self.results, self.on = [], [], True
         real = self.real
 
         def wrapped(obj, *args, **kwargs):
+            out = real(obj, *args, **kwargs)
             if self.on:
                 self.calls.append(args)
-            return real(obj, *args, **kwargs)
+                self.results.append((obj, out))
+            return out
 
         setattr(owner, attr, wrapped)
 
@@ -4347,6 +4755,7 @@ def main() -> int:
 
 
 def _main(workdir: str) -> int:
+    from keystone_tpu_torch import native
     from keystone_tpu_torch.evaluation.multiclass import evaluate_multiclass
     from keystone_tpu_torch.loaders.csv_loader import LabeledData
     from keystone_tpu_torch.loaders.surrogate import make_surrogate_cifar
@@ -4383,10 +4792,17 @@ def _main(workdir: str) -> int:
           f"{PIL.__version__} | {smi}", flush=True)
 
     # -- 2. build -----------------------------------------------------------
+    # the native host shim (g++) alongside the kernel libraries (nvcc)
     t0 = time.time()
-    logs = kernels.build_kernels()
+    with ThreadPoolExecutor(1) as pool:
+        shim = pool.submit(native.build)
+        logs = kernels.build_kernels()
+        kernels_s = time.time() - t0
+        shim_path = shim.result()
     print(f"[build] {len(kernels.SOURCES)} kernel libraries in "
-          f"{time.time() - t0:.1f} s", flush=True)
+          f"{kernels_s:.1f} s; the native host shim "
+          f"{os.path.relpath(shim_path, REPO)} in {time.time() - t0:.1f} s",
+          flush=True)
     for name, log in logs.items():
         regs = [int(w) for line in log.splitlines() if "registers" in line
                 for w, nxt in zip(line.split(), line.split()[1:])
@@ -4749,6 +5165,9 @@ def _main(workdir: str) -> int:
     _augmented_phase(tr_x, tr_y, te_x, te_y, rc_err, dev)
     print(f"[augmented] kernel launches {dict(kernels.LAUNCHES)} (the path "
           "runs none of the five)", flush=True)
+
+    # -- 4o. the text and NLP apps --------------------------------------------
+    _text_phase(kernels, workdir, dev, smi)
 
     # -- 5. timing ------------------------------------------------------------
     B = K = 1024

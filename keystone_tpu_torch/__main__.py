@@ -15,8 +15,8 @@ recorder's Chrome trace instead), with a per-node summary on stderr.
 ``serve`` is the serving plane's command (``serving/http.py``).
 
 What the port does not have yet exits 2 naming its ROADMAP item: the
-text and NLP apps (A8), the ``check`` and ``numerics`` subcommands
-(A12), ``benchdiff`` (A9b) and the multi-process launch
+``check`` and ``numerics`` subcommands (A12), ``benchdiff`` (A9b) and
+the multi-process launch
 (``--coordinator``, ``--num-processes``, ``--process-id``,
 ``KEYSTONE_DISTRIBUTED``; A11).
 """
@@ -42,14 +42,15 @@ APPS = {
     "voc.sift_fisher":
         "keystone_tpu_torch.pipelines.images.voc.voc_sift_fisher",
     "speech.timit": "keystone_tpu_torch.pipelines.speech.timit",
+    "text.newsgroups": "keystone_tpu_torch.pipelines.text.newsgroups",
+    "text.amazon_reviews": "keystone_tpu_torch.pipelines.text.amazon_reviews",
+    "nlp.stupid_backoff":
+        "keystone_tpu_torch.pipelines.nlp.stupid_backoff_pipeline",
 }
 
 #: the JAX package's commands and launch switches the port has not yet,
 #: with the ROADMAP item that brings each
 NOT_PORTED = {
-    "text.newsgroups": "A8",
-    "text.amazon_reviews": "A8",
-    "nlp.stupid_backoff": "A8",
     "check": "A12",
     "numerics": "A12",
     "benchdiff": "A9b",

@@ -1,9 +1,10 @@
 """Data loaders (reference ``loaders/``).
 
 Counterpart of ``keystone_tpu/loaders``: CIFAR binaries, CSV files,
-TIMIT features and tar archives of images (VOC, ImageNet). The text
-loaders (20 Newsgroups, Amazon reviews) come with ROADMAP A8.
+TIMIT features, tar archives of images (VOC, ImageNet), and text (20
+Newsgroups directories, Amazon reviews as JSON lines).
 """
+from .amazon import amazon_reviews_loader
 from .cifar_loader import cifar_loader, load_cifar_numpy
 from .csv_loader import (
     LabeledData,
@@ -20,10 +21,14 @@ from .image_loader_utils import (
     load_tar_files,
 )
 from .imagenet import imagenet_loader, parse_imagenet_labels
+from .newsgroups import CLASSES as NEWSGROUPS_CLASSES, newsgroups_loader
 from .timit import TimitFeaturesData, timit_features_loader
 from .voc import VOCDataPath, VOCLabelPath, parse_voc_labels, voc_loader
 
 __all__ = [
+    "amazon_reviews_loader",
+    "NEWSGROUPS_CLASSES",
+    "newsgroups_loader",
     "cifar_loader",
     "load_cifar_numpy",
     "LabeledData",

@@ -13,7 +13,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..ops.device import DEFAULT_DEVICE
-from ..parallel.dataset import ArrayDataset
+from ..parallel.dataset import ArrayDataset, HostDataset
 
 
 def load_csv(path: str, dtype=np.float32) -> np.ndarray:
@@ -36,8 +36,11 @@ class LabeledData:
     labels: ArrayDataset
 
     def to(self, device) -> "LabeledData":
-        """Both datasets on ``device``."""
-        return LabeledData(self.data.to(device), self.labels.to(device))
+        """Both datasets on ``device``; host items (texts, SparseVectors)
+        stay on the host."""
+        data = (self.data if isinstance(self.data, HostDataset)
+                else self.data.to(device))
+        return LabeledData(data, self.labels.to(device))
 
 
 def csv_data_loader(path: str, device=DEFAULT_DEVICE) -> ArrayDataset:

@@ -9,14 +9,20 @@ importing ``bench.py``; a test holds the two bit-identical.
 ``make_surrogate_mnist`` the copy of ``bench.py::mnist_bench``'s and
 ``make_surrogate_timit`` of ``bench.py::timit_bench``'s.
 ``make_surrogate_imagenet`` makes ImageNet-sized images with a class
-signal both of the ImageNet app's branches (SIFT and LCS) can see.
+signal both of the ImageNet app's branches (SIFT and LCS) can see. The
+text corpora are copies of ``bench.py``'s for the text apps, with
+writers that lay them out as the text loaders read them.
 """
 from __future__ import annotations
+
+import json
+import os
 
 import numpy as np
 
 from ..parallel.dataset import HostDataset
 from .image_loader_utils import LabeledImage, MultiLabeledImage
+from .newsgroups import CLASSES as NEWSGROUPS_CLASSES
 
 #: VOC2007's two common image sizes, (height, width): landscape, portrait
 VOC_SIZES = ((375, 500), (500, 375))
@@ -193,3 +199,99 @@ def make_surrogate_imagenet(n_train, n_test, seed=0, num_classes=1000,
 
     return (split(n_train, np.random.RandomState(seed + 1)),
             split(n_test, np.random.RandomState(seed + 2)))
+
+
+# -- text corpora ------------------------------------------------------------
+#
+# The port's copies of the corpora ``bench.py`` builds for the text apps
+# (``newsgroups_bench``, ``amazon_bench``, ``stupid_backoff_bench``); a
+# test holds each equal to the JAX package's run of the same code.
+
+#: words a surrogate document or review holds
+TEXT_WORDS = 40
+
+
+def make_newsgroups_corpus(n, seed):
+    """``bench.py::newsgroups_bench``'s corpus: each class's 50 words a
+    window of a shared sliding vocabulary (adjacent classes share half
+    of theirs), a document a binomial(10, 0.6) draw of its class's words
+    and the rest from 2,000 common words, shuffled. Returns ``(docs,
+    labels)``: a list of strings and int32 labels, from ``seed``. The
+    vocabularies are arrays once, where the bench converts its lists at
+    every draw: the same draws, in a fraction of the time."""
+    num_classes = len(NEWSGROUPS_CLASSES)
+    common = np.array([f"word{i}" for i in range(2_000)])
+    class_vocab = [
+        np.array([f"g{(c * 25 + i) % (num_classes * 25)}" for i in range(50)])
+        for c in range(num_classes)
+    ]
+    r = np.random.RandomState(seed)
+    y = r.randint(0, num_classes, n)
+    docs = []
+    for i in range(n):
+        own = r.choice(class_vocab[y[i]], r.binomial(TEXT_WORDS // 4, 0.6))
+        noise = r.choice(common, TEXT_WORDS - len(own))
+        doc = np.concatenate([own, noise])
+        r.shuffle(doc)
+        docs.append(" ".join(doc))
+    return docs, y.astype(np.int32)
+
+
+def make_amazon_corpus(n, seed):
+    """``bench.py::amazon_bench``'s corpus: two overlapping 60-word
+    sentiment windows over a 90-word affect vocabulary (30 words
+    ambiguous), a review a binomial(10, 0.6) draw of its polarity's
+    words and the rest from 2,000 common words, shuffled. Returns
+    ``(reviews, labels)``, 1 positive, from ``seed``."""
+    common = np.array([f"word{i}" for i in range(2_000)])
+    affect = [f"s{i}" for i in range(90)]
+    polarity_vocab = [np.array(affect[:60]), np.array(affect[30:])]
+    r = np.random.RandomState(seed)
+    y = r.randint(0, 2, n)
+    docs = []
+    for i in range(n):
+        own = r.choice(polarity_vocab[y[i]], r.binomial(TEXT_WORDS // 4, 0.6))
+        noise = r.choice(common, TEXT_WORDS - len(own))
+        doc = np.concatenate([own, noise])
+        r.shuffle(doc)
+        docs.append(" ".join(doc))
+    return docs, y.astype(np.int32)
+
+
+def make_backoff_corpus(n_lines):
+    """``bench.py::stupid_backoff_bench``'s corpus: lines of 20 words
+    drawn from a Zipf law of exponent 1.1 over 5,000 words, from seed
+    0."""
+    rng = np.random.RandomState(0)
+    vocab = np.array([f"w{i}" for i in range(5_000)])
+    probs = 1.0 / np.arange(1, len(vocab) + 1) ** 1.1
+    probs /= probs.sum()
+    return [" ".join(rng.choice(vocab, 20, p=probs)) for _ in range(n_lines)]
+
+
+def write_newsgroups_split(directory, docs, labels):
+    """Lay documents out as ``newsgroups_loader`` reads a split: one file
+    a document under ``directory/<class name>/``, named by its position
+    in ``docs`` (zero-padded, so a class's files load in that order)."""
+    width = len(str(max(len(docs) - 1, 0)))
+    for c in sorted(set(int(v) for v in labels)):
+        os.makedirs(os.path.join(directory, NEWSGROUPS_CLASSES[c]),
+                    exist_ok=True)
+    for i, (doc, c) in enumerate(zip(docs, labels)):
+        path = os.path.join(directory, NEWSGROUPS_CLASSES[int(c)],
+                            f"{i:0{width}d}.txt")
+        with open(path, "w") as f:
+            f.write(doc)
+
+
+def write_amazon_reviews(path, reviews, labels, seed=0):
+    """Write reviews as JSON lines with ``reviewText`` and ``overall``,
+    as ``amazon_reviews_loader`` reads them: a positive review rated 4 or
+    5 stars, a negative one 1, 2 or 3, drawn from ``seed`` (so the
+    loader's threshold of 3.5 gives ``labels`` back)."""
+    r = np.random.RandomState(seed)
+    with open(path, "w") as f:
+        for text, y in zip(reviews, labels):
+            stars = r.choice([4.0, 5.0]) if y else r.choice([1.0, 2.0, 3.0])
+            f.write(json.dumps({"reviewText": text,
+                                "overall": float(stars)}) + "\n")

@@ -1,6 +1,14 @@
 """Learning nodes: solvers and models (reference ``nodes/learning``)."""
 from .block_weighted import BlockWeightedLeastSquaresEstimator
-from .classifiers import SparseLinearMapper
+from .classifiers import (
+    LinearDiscriminantAnalysis,
+    LocalLeastSquaresEstimator,
+    LogisticRegressionEstimator,
+    LogisticRegressionModel,
+    NaiveBayesEstimator,
+    NaiveBayesModel,
+    SparseLinearMapper,
+)
 from .lbfgs import DenseLBFGSwithL2, SparseLBFGSwithL2
 from .least_squares import LeastSquaresEstimator
 from .linear import (
@@ -36,8 +44,14 @@ __all__ = [
     "BlockLinearMapper",
     "DenseLBFGSwithL2",
     "LeastSquaresEstimator",
+    "LinearDiscriminantAnalysis",
     "LinearMapEstimator",
     "LinearMapper",
+    "LocalLeastSquaresEstimator",
+    "LogisticRegressionEstimator",
+    "LogisticRegressionModel",
+    "NaiveBayesEstimator",
+    "NaiveBayesModel",
     "PerClassWeightedLeastSquaresEstimator",
     "SparseLBFGSwithL2",
     "SparseLinearMapper",

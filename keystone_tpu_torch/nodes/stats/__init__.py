@@ -6,8 +6,9 @@ maps, the random-FFT nodes and the random cosine features of
 ``stats/StandardScaler.scala``, ``NormalizeRows.scala``,
 ``SignedHellingerMapper.scala``, ``RandomSignNode.scala``,
 ``PaddedFFT.scala``, ``LinearRectifier.scala``,
-``CosineRandomFeatures.scala``). Each node's batch form
-is one tensor function over the batch on its device.
+``CosineRandomFeatures.scala``), and the text path's host stage
+``TermFrequency`` (``stats/TermFrequency.scala``). Each numeric node's
+batch form is one tensor function over the batch on its device.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from ...parallel.dataset import ArrayDataset, Dataset
 from ...utils.donation import donates_carry
 from ...workflow.estimator import Estimator
 from ...workflow.operators import tensor_token
-from ...workflow.transformer import Transformer
+from ...workflow.transformer import HostTransformer, Transformer
 
 EPS = 2.2e-16  # the reference's floor on a row norm
 
@@ -242,3 +243,22 @@ class StandardScaler(Estimator):
         std = np.where(bad, 1.0, std)
         return StandardScalerModel(mean.astype(np.float32),
                                    std.astype(np.float32))
+
+
+class TermFrequency(HostTransformer):
+    """Sequence of terms -> (unique term, weighting(count)) pairs in
+    order of first appearance (reference ``stats/TermFrequency.scala:20-22``).
+    A host stage; list terms are keyed as tuples."""
+
+    def __init__(self, fun=None):
+        self.fun = fun or (lambda x: x)
+
+    def eq_key(self):
+        return (TermFrequency, self.fun)
+
+    def apply(self, terms):
+        counts = {}
+        for t in terms:
+            key = tuple(t) if isinstance(t, list) else t
+            counts[key] = counts.get(key, 0) + 1
+        return [(k, float(self.fun(c))) for k, c in counts.items()]

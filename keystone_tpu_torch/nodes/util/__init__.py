@@ -1,8 +1,9 @@
 """Utility nodes (reference ``nodes/util``).
 
 Counterpart of ``keystone_tpu/nodes/util/__init__.py``: the label,
-classifier, combiner, splitting, casting and densifying nodes, and the
-label augmenter of the augmented CIFAR app.
+classifier, combiner, splitting, casting and densifying nodes, the
+label augmenter of the augmented CIFAR app, and (from ``sparse.py``)
+the sparse vectors and text vectorizers.
 """
 from __future__ import annotations
 
@@ -207,6 +208,16 @@ class Densify(Transformer):
         dense = [np.asarray(it.todense() if hasattr(it, "todense") else it,
                             dtype=np.float32).ravel() for it in items]
         return ArrayDataset.from_numpy(np.stack(dense), self._host_device())
+
+
+from .sparse import (  # noqa: E402
+    AllSparseFeatures,
+    CommonSparseFeatures,
+    SparseFeatureVectorizer,
+    SparseVector,
+    Sparsify,
+    sparse_batch,
+)
 
 
 class LabelAugmenter(Transformer):

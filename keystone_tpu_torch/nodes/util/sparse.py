@@ -1,11 +1,15 @@
-"""Sparse feature vectors, their packed forms, and Sparsify.
+"""Sparse feature vectors, their packed forms, Sparsify and the text
+vectorizers.
 
 Counterpart of ``keystone_tpu/nodes/util/sparse.py`` (reference
-``nodes/util/Sparsify.scala``): a host :class:`SparseVector` (sorted
-int32 indices + float32 values) per item; :func:`sparse_batch`, which
-packs a batch into fixed-width padded COO arrays (the row-wise gather
-form of a sparse apply); and :class:`CSRMatrix`, the row-compressed form
-the sparse solver multiplies by.
+``nodes/util/Sparsify.scala``, ``SparseFeatureVectorizer.scala``,
+``CommonSparseFeatures.scala``, ``AllSparseFeatures.scala``): a host
+:class:`SparseVector` (sorted int32 indices + float32 values) per item;
+:func:`sparse_batch`, which packs a batch into fixed-width padded COO
+arrays (the row-wise gather form of a sparse apply); :class:`CSRMatrix`,
+the row-compressed form the sparse solvers and the sparse naive Bayes
+fit multiply by; and the vectorizers that map (feature, value) pairs to
+SparseVectors over a feature space fitted on the host.
 
 A ``CSRMatrix`` product sums each row's terms in a fixed order: the
 terms of a row are cut into runs of ``SEGMENT_WIDTH``, each run summed
@@ -13,15 +17,13 @@ by one padded gather, and the run sums summed the same way until one
 value a row is left. No product scatters, so none depends on the order
 of atomic adds: the same inputs give the same bits on every run. The
 sparse solver multiplies by both X and Xᵀ, so it forms Xᵀ once per fit
-(``transpose``) and both products are row sums.
-
-The text vectorizers of the JAX module (``SparseFeatureVectorizer``,
-``CommonSparseFeatures``, ``AllSparseFeatures``) come with the text
-pipelines.
+(``transpose``) and both products are row sums. A matrix holds float32
+values unless it is made with ``dtype=torch.float64`` (the naive Bayes
+sums, and float64 references of the solvers).
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,7 +34,9 @@ from ...parallel.dataset import (
     HostDataset,
     is_streaming,
 )
-from ...workflow.transformer import Transformer
+from ...workflow.estimator import Estimator
+from ...workflow.operators import data_token
+from ...workflow.transformer import HostTransformer, Transformer
 
 #: terms summed by one padded gather in a CSRMatrix product
 SEGMENT_WIDTH = 32
@@ -160,17 +164,23 @@ def _run_index(lens: np.ndarray, width: int, groups: np.ndarray,
 
 
 class CSRMatrix:
-    """A sparse (rows, cols) float32 matrix stored row by row: the column
-    index and value of every stored term, and the terms of each row.
-    ``matmul`` sums each row's products in a fixed order (see the module
-    docstring); the gather tables are built once, on the host."""
+    """A sparse (rows, cols) matrix stored row by row: the column index
+    and value of every stored term, and the terms of each row, in
+    float32 or (``dtype=torch.float64``) float64. ``matmul`` sums each
+    row's products in a fixed order (see the module docstring); the
+    gather tables are built once, on the host."""
 
     def __init__(self, counts: np.ndarray, cols: np.ndarray,
-                 values: np.ndarray, shape: Tuple[int, int], device):
+                 values: np.ndarray, shape: Tuple[int, int], device,
+                 dtype: torch.dtype = torch.float32):
+        if dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"CSRMatrix holds float32 or float64, not {dtype}")
         self.shape = (int(shape[0]), int(shape[1]))
         self.counts = np.asarray(counts, np.int64)
         self._cols_host = np.asarray(cols, np.int64)
-        self._values_host = np.asarray(values, np.float32)
+        self.dtype = dtype
+        self._values_host = np.asarray(
+            values, np.float32 if dtype == torch.float32 else np.float64)
         self.device = torch.device(device)
         self.cols = torch.as_tensor(self._cols_host, device=self.device)
         self.values = torch.as_tensor(self._values_host, device=self.device)
@@ -182,12 +192,13 @@ class CSRMatrix:
 
     @staticmethod
     def from_padded(indices: np.ndarray, values: np.ndarray, size: int,
-                    device) -> "CSRMatrix":
+                    device, dtype: torch.dtype = torch.float32
+                    ) -> "CSRMatrix":
         """From padded COO arrays (``sparse_batch``), dropping the padding
         (and any stored zero, which adds nothing to a product)."""
         live = values != 0
         return CSRMatrix(live.sum(axis=1), indices[live], values[live],
-                         (indices.shape[0], size), device)
+                         (indices.shape[0], size), device, dtype)
 
     def _plan(self) -> List[torch.Tensor]:
         levels, lens = [], self.counts
@@ -220,7 +231,8 @@ class CSRMatrix:
         order = np.argsort(self._cols_host, kind="stable")
         counts = np.bincount(self._cols_host, minlength=self.shape[1])
         return CSRMatrix(counts, rows[order], self._values_host[order],
-                         (self.shape[1], self.shape[0]), self.device)
+                         (self.shape[1], self.shape[0]), self.device,
+                         self.dtype)
 
 
 class Sparsify(Transformer):
@@ -246,3 +258,81 @@ class Sparsify(Transformer):
         if isinstance(ds, ArrayDataset):
             return HostDataset([self.apply(row) for row in ds.numpy()])
         return ds.map(self.apply)
+
+
+# -- text vectorizers -------------------------------------------------------
+
+def _key(feat: Any) -> Any:
+    # list-like n-gram keys become hashable tuples
+    return tuple(feat) if isinstance(feat, list) else feat
+
+
+def _iter_pairs(ds: Dataset):
+    for item in ds.collect():
+        for feat, value in item:
+            yield _key(feat), float(value)
+
+
+class SparseFeatureVectorizer(HostTransformer):
+    """(feature, value) pairs -> SparseVector over a fixed feature space
+    (reference ``util/SparseFeatureVectorizer.scala:7-18``); features
+    outside the space are dropped. Keyed for common-subexpression
+    elimination by a token of this vectorizer (``data_token``): the JAX
+    package keys it by ``id()`` of its feature space, which a freed
+    space can hand on to a new one (ROADMAP C1)."""
+
+    def __init__(self, feature_space: Dict[Any, int]):
+        self.feature_space = dict(feature_space)
+
+    def eq_key(self):
+        return (SparseFeatureVectorizer, data_token(self))
+
+    def apply(self, pairs: Sequence[Tuple[Any, float]]) -> SparseVector:
+        space = self.feature_space
+        tf: Dict[int, float] = {}
+        for feat, value in pairs:
+            j = space.get(_key(feat))
+            if j is not None:
+                tf[j] = tf.get(j, 0.0) + float(value)
+        return SparseVector.from_dict(tf, len(space))
+
+    def __getstate__(self):
+        state = super().__getstate__()
+        state.pop("_keystone_token", None)
+        return state
+
+
+class CommonSparseFeatures(Estimator):
+    """Keep the ``num_features`` most frequent features, ordered by count
+    descending, then by first appearance (reference
+    ``CommonSparseFeatures.scala:20-64``: a count and the least unique
+    id per feature, merged across partitions; here one host pass). This
+    order is every later stage's feature index."""
+
+    def __init__(self, num_features: int):
+        self.num_features = int(num_features)
+
+    def _fit(self, ds: Dataset) -> SparseFeatureVectorizer:
+        counts: Dict[Any, int] = {}
+        first: Dict[Any, int] = {}
+        i = 0
+        for feat, _ in _iter_pairs(ds):
+            counts[feat] = counts.get(feat, 0) + 1
+            if feat not in first:
+                first[feat] = i
+            i += 1
+        top = sorted(counts, key=lambda f: (-counts[f], first[f]))
+        top = top[: self.num_features]
+        return SparseFeatureVectorizer({f: j for j, f in enumerate(top)})
+
+
+class AllSparseFeatures(Estimator):
+    """Keep every observed feature, in order of first appearance
+    (reference ``AllSparseFeatures.scala:15-27``)."""
+
+    def _fit(self, ds: Dataset) -> SparseFeatureVectorizer:
+        space: Dict[Any, int] = {}
+        for feat, _ in _iter_pairs(ds):
+            if feat not in space:
+                space[feat] = len(space)
+        return SparseFeatureVectorizer(space)

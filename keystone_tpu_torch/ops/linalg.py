@@ -141,6 +141,23 @@ def normal_equations(A: torch.Tensor, Y: torch.Tensor,
     return ridge_cho_solve(G, C, float(lam))
 
 
+def local_least_squares_dual(A: torch.Tensor, Y: torch.Tensor,
+                             lam: float) -> torch.Tensor:
+    """Dual-form ridge for d >> n, W = Aᵀ ((A Aᵀ + lam I) \\ Y)
+    (reference ``LocalLeastSquaresEstimator.scala:38-58``): a Cholesky
+    solve of the (n, n) kernel behind the same health gate and
+    eigendecomposition fallback as ``ridge_cho_solve``, recorded under
+    ``dual_solve``."""
+    n = A.shape[0]
+    K = A @ A.T + lam * torch.eye(n, dtype=A.dtype, device=A.device)
+    L, ok, ratio = cholesky_health(K)
+    alpha = torch.cholesky_solve(Y, L)
+    ok = ok and bool(torch.isfinite(alpha).all())
+    record_solve_health("dual_solve", ok, ratio)
+    alpha = finite_or_eigh_solve(alpha, lambda: K, Y, ok)
+    return A.T @ alpha
+
+
 def bcd_core(blocks: Sequence[torch.Tensor], Y: torch.Tensor, lam: float,
              num_passes: int) -> List[torch.Tensor]:
     """Block coordinate descent for ridge regression over feature blocks

@@ -28,7 +28,13 @@ from typing import Any, Callable, Sequence
 
 import torch
 
-from ..parallel.dataset import ArrayDataset, Dataset, is_streaming, map_rows
+from ..parallel.dataset import (
+    ArrayDataset,
+    Dataset,
+    HostDataset,
+    is_streaming,
+    map_rows,
+)
 from .graph import Graph
 from .operators import TransformerOperator
 from .pipeline import Chainable, Pipeline
@@ -96,6 +102,27 @@ class Transformer(TransformerOperator, Chainable):
         state.pop("_params_cache", None)
         state.pop("_eq_key_val", None)
         return state
+
+
+class HostTransformer(Transformer):
+    """A transformer whose ``apply`` runs host-side Python on host items
+    (tokenizers, string and n-gram work). Its batch path maps ``apply``
+    over the items of a host dataset; an array dataset is collected to
+    host items first, and a stream is refused (its chunks lie on the
+    device). Never fused: a fused node runs ``apply_batch`` on tensors."""
+
+    fusable = False
+
+    def apply_dataset(self, ds: Dataset) -> Dataset:
+        if is_streaming(ds):
+            raise TypeError(
+                f"host stage {self.label()!r} cannot consume a "
+                "StreamingDataset: its chunks are device-resident and a host "
+                "stage would copy every chunk back. Run host stages before "
+                "building the stream, or materialize() it.")
+        if isinstance(ds, ArrayDataset):
+            ds = HostDataset(ds.collect())
+        return ds.map(self.apply)
 
 
 class LambdaTransformer(Transformer):

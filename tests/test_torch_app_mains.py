@@ -9,7 +9,8 @@ x 80; MNIST: 96 / 48 rows), with ``--device cpu`` and small widths. Each
 datasets the loader returns (the same fit on the same data: equal
 scores, no tolerance). The mains take the JAX package's flags and
 defaults (their configs compared field by field), plus ``--device``;
-what the port has not yet exits 2 naming its ROADMAP item.
+what the port has not yet exits 2 naming its ROADMAP item. The text
+apps' mains are driven from files in ``tests/test_torch_text_apps.py``.
 """
 import importlib
 import io
@@ -216,13 +217,14 @@ def test_mnist_main_reads_csvs(tmp_path, capsys):
 
 PORTED = ["cifar.linear_pixels", "cifar.random_cifar", "cifar.random_patch",
           "cifar.random_patch_augmented", "imagenet.sift_lcs_fv",
-          "mnist.random_fft", "speech.timit", "voc.sift_fisher"]
+          "mnist.random_fft", "nlp.stupid_backoff", "speech.timit",
+          "text.amazon_reviews", "text.newsgroups", "voc.sift_fisher"]
 
 
 def test_the_registry_is_the_jax_one_less_the_text_apps():
+    """The text apps are ported too: the JAX registry less nothing."""
     assert sorted(tmain.APPS) == PORTED
-    assert set(jmain.APPS) - set(tmain.APPS) == {
-        "text.newsgroups", "text.amazon_reviews", "nlp.stupid_backoff"}
+    assert sorted(jmain.APPS) == PORTED
     for app, module in tmain.APPS.items():
         assert module == jmain.APPS[app].replace("keystone_tpu.",
                                                  "keystone_tpu_torch.", 1)
@@ -240,9 +242,10 @@ def test_python_dash_m_lists_the_apps():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["text.newsgroups", "--trainLocation", "x"], "A8"),
-    (["text.amazon_reviews"], "A8"),
-    (["nlp.stupid_backoff"], "A8"),
+    (["text.newsgroups", "--trainLocation", "x", "--coordinator",
+      "localhost:1234"], "A11"),
+    (["text.amazon_reviews", "--num-processes", "2"], "A11"),
+    (["nlp.stupid_backoff", "--process-id=0"], "A11"),
     (["check", "--all"], "A12"),
     (["numerics", "pm.json"], "A12"),
     (["benchdiff", "a.json", "b.json"], "A9b"),
@@ -292,6 +295,11 @@ def _configs(module, argv, monkeypatch):
     ("speech.timit", ["--trainDataLocation", "a", "--trainLabelsLocation",
                       "b", "--testDataLocation", "c",
                       "--testLabelsLocation", "d", "--rfType", "cauchy"]),
+    ("text.newsgroups", ["--trainLocation", "a", "--testLocation", "b",
+                         "--nGrams", "3", "--lemmatize"]),
+    ("text.amazon_reviews", ["--trainLocation", "a", "--testLocation", "b",
+                             "--threshold", "4"]),
+    ("nlp.stupid_backoff", ["--trainData", "a", "--n", "4"]),
 ])
 def test_mains_take_the_jax_flags_and_defaults(app, argv, monkeypatch):
     jcfg, tcfg, default_device, device = _configs(app, argv, monkeypatch)

@@ -648,6 +648,105 @@ def test_cuda_sparse_lbfgs_matches_the_cpu_fit_and_repeats_its_bits(cuda):
     assert torch.equal(card.intercept, again.intercept)
 
 
+def _text_rows(n, d, nnz, seed, binary):
+    """Padded COO rows like the text path's (``sparse_batch``): term
+    presences (binary) or weighted terms, and 20-class labels."""
+    from keystone_tpu_torch.nodes.util.sparse import SparseVector, sparse_batch
+
+    rng = np.random.RandomState(seed)
+    items = [SparseVector(rng.choice(d, nnz, replace=False),
+                          np.ones(nnz) if binary else rng.rand(nnz) * 3, d)
+             for _ in range(n)]
+    idx, vals, size = sparse_batch(items)
+    return idx, vals, size, rng.randint(0, 20, n)
+
+
+@pytest.mark.parametrize("binary", [True, False])
+def test_cuda_naive_bayes_class_sums_repeat_and_match_the_cpu(cuda, binary):
+    """The naive Bayes sums on the card (float64 Xᵀ times a one-hot, row
+    sums in a fixed order, no atomics): the same bits on a second
+    launch; equal to the CPU path for term presences (integer sums) and
+    within 1e-12 of the largest sum for weighted terms."""
+    from keystone_tpu_torch.nodes.learning.classifiers import (
+        sparse_class_sums,
+    )
+
+    idx, vals, d, y = _text_rows(2048, 5000, 60, seed=1, binary=binary)
+    card = sparse_class_sums(idx, vals, d, y, 20, cuda)
+    again = sparse_class_sums(idx, vals, d, y, 20, cuda)
+    host = sparse_class_sums(idx, vals, d, y, 20, "cpu")
+    assert card.dtype == torch.float64 and card.device.type == "cuda"
+    assert torch.equal(card, again)
+    if binary:
+        assert torch.equal(card.cpu(), host)
+    else:
+        err = float((card.cpu() - host).abs().max())
+        assert err <= 1e-12 * float(host.abs().max()), err
+
+
+def test_cuda_sparse_logistic_gradient_repeats_and_matches_the_cpu(cuda):
+    """The logistic regression objective on the card (logits A W and
+    gradient Aᵀ G through the transposed ``CSRMatrix``, no scatter): the
+    same bits on a second evaluation, and the CPU's loss and gradient
+    within 1e-5 of the largest."""
+    from keystone_tpu_torch.nodes.learning.classifiers import (
+        sparse_logistic_objective,
+    )
+    from keystone_tpu_torch.nodes.util.sparse import CSRMatrix
+
+    idx, vals, d, y = _text_rows(4096, 8000, 80, seed=2, binary=True)
+    y = y % 2
+    W = np.random.RandomState(3).randn(d, 2).astype(np.float32) * 0.1
+    out = {}
+    for dev in (cuda, "cpu"):
+        A = CSRMatrix.from_padded(idx, vals, d, dev)
+        vg = sparse_logistic_objective(A, A.transpose(), y, 2, 1e-3)
+        Wd = torch.as_tensor(W, device=dev)
+        out[str(dev)] = (vg(Wd), vg(Wd))
+    (f1, g1), (f2, g2) = out[str(cuda)]
+    assert torch.equal(f1, f2) and torch.equal(g1, g2)
+    fh, gh = out["cpu"][0]
+    assert abs(float(f1) - float(fh)) <= 1e-5 * abs(float(fh))
+    err = float((g1.cpu() - gh).abs().max())
+    assert err <= 1e-5 * float(gh.abs().max()), err
+
+
+def test_cuda_text_classifier_fits_repeat_and_match_the_cpu(cuda):
+    """Naive Bayes and logistic regression fitted on the card from host
+    SparseVectors: the same bits on a second fit; the CPU fit's NB
+    parameters within 1e-6 and LR weights within 1e-4 of the largest,
+    the same predictions."""
+    from keystone_tpu_torch.nodes.learning import (
+        LogisticRegressionEstimator,
+        NaiveBayesEstimator,
+    )
+    from keystone_tpu_torch.nodes.util.sparse import SparseVector
+    from keystone_tpu_torch.parallel.dataset import ArrayDataset, HostDataset
+
+    idx, vals, d, y = _text_rows(1024, 3000, 40, seed=4, binary=True)
+    items = HostDataset([SparseVector(i[v != 0], v[v != 0], d)
+                         for i, v in zip(idx, vals)])
+    for est, labels, tol in (
+            (NaiveBayesEstimator(20), y, 1e-6),
+            (LogisticRegressionEstimator(2, reg_param=1e-3, num_iters=15,
+                                         convergence_tol=0.0), y % 2, 1e-4)):
+        fits = [est.fit(items, ArrayDataset.from_numpy(
+            labels.astype(np.int32), dev)) for dev in (cuda, cuda, "cpu")]
+        card, again, host = fits
+        params = ((lambda m: (m.pi, m.theta))
+                  if isinstance(est, NaiveBayesEstimator)
+                  else (lambda m: (m.weights,)))
+        for a, b, h in zip(params(card), params(again), params(host)):
+            assert a.device.type == "cuda" and torch.equal(a, b)
+            err = float((a.cpu() - h).abs().max())
+            assert err <= tol * max(float(h.abs().max()), 1.0), err
+        preds = [m.apply_dataset(items).numpy() for m in (card, host)]
+        np.testing.assert_array_equal(preds[0].argmax(-1) if preds[0].ndim > 1
+                                      else preds[0],
+                                      preds[1].argmax(-1) if preds[1].ndim > 1
+                                      else preds[1])
+
+
 # -- ImageNetSiftLcsFV's shapes -------------------------------------------------
 
 def _sift_pair_step1(h, w, scale, which):

@@ -147,14 +147,31 @@ NOT_FUSABLE = {
     "nodes.images.extractors.BatchSIFTExtractor",
     "nodes.images.multilabel.MultiLabelExtractor",
     "nodes.images.multilabel.MultiLabeledImageExtractor",
+    "nodes.learning.classifiers.LogisticRegressionModel",
+    "nodes.learning.classifiers.NaiveBayesModel",
     "nodes.learning.classifiers.SparseLinearMapper",
+    "nodes.nlp.corenlp.CoreNLPFeatureExtractor",
+    "nodes.nlp.corenlp.NER",
+    "nodes.nlp.corenlp.POSTagger",
+    "nodes.nlp.hashing.HashingTF",
+    "nodes.nlp.hashing.NGramsHashingTF",
+    "nodes.nlp.ngrams.NGramsCounts",
+    "nodes.nlp.ngrams.NGramsFeaturizer",
+    "nodes.nlp.stupid_backoff.StupidBackoffModel",
+    "nodes.nlp.text.LowerCase",
+    "nodes.nlp.text.Tokenizer",
+    "nodes.nlp.text.Trim",
+    "nodes.nlp.word_freq.WordFrequencyTransformer",
+    "nodes.stats.TermFrequency",
     "nodes.stats.sampling.Sampler",
     "nodes.util.Densify",
     "nodes.util.LabelAugmenter",
+    "nodes.util.sparse.SparseFeatureVectorizer",
     "nodes.util.sparse.Sparsify",
     "workflow.common.Cacher",
     "workflow.common.Identity",
     "workflow.optimizable.OptimizableTransformer",
+    "workflow.transformer.HostTransformer",
 }
 
 
