@@ -96,18 +96,19 @@ Phases, each of which raises (and so exits non-zero) on failure:
    are held against float64.
    Fit and apply seconds, images/s, EM iterations and the device-memory
    peak are printed from that pass, which has no stage timers. The fit
-   runs the node-level rule, which runs SIFT once on a sample of up to
-   96 training images (counted with the other SIFT applications) for
-   both the PCA's and the GMM's choice, and must keep the distributed
-   column PCA; its seconds per node and the device memory it leaves
-   allocated are printed. A second
+   runs the node-level rule, which takes both the PCA's and the GMM's
+   choice from the analyzer's shapes (no sample: SIFT runs on the 768
+   images alone) and must keep the distributed column PCA; its seconds
+   per node and the device memory it leaves allocated are printed. A
+   second
    fit + apply then times each stage, the card synchronized around every
    stage call; its seconds per stage are printed, and its totals apart.
 4e. The cost-model solver choice on the CIFAR path (phase 4's data,
    filters, 8192 features after the scaler, lam = 10):
    - resident: ``LeastSquaresEstimator`` through ``Pipeline.fit``, where
-     the node-level rule samples 96 images (``fused_cifar_featurize``
-     launched for the sample and for the fit) and must splice Densify ->
+     the node-level rule chooses from the analyzer's (n, d, k) and
+     structural density (``fused_cifar_featurize`` launched for the fit
+     alone; the sampled path is driven in 4p) and must splice Densify ->
      ``BlockLeastSquaresEstimator(1000, 3)``; its test error in phase 4's
      bands, its weights against the float64 BCD of its own input;
    - the candidates (dense L-BFGS, BCD(1000, 3), exact) fitted on the
@@ -123,9 +124,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
      on the densified copy at lam = 1, the same bits on a second fit, and
      at lam = 10 the weights against the exact float64 solve, where the
      JAX package's solver stops as far from it;
-   - streamed: the same pipeline over chunks of 1024; the rule leaves
-     the node in place and ``finalize`` must choose the resident choice,
-     with ``gram_cross`` once per chunk; weights against the resident
+   - streamed: the same pipeline over chunks of 1024; the stream's n is
+     known, so the rule's static path must choose the resident choice
+     among the one-pass solvers, with ``gram_cross`` once per chunk; weights against the resident
      fit's and against the float64 Gram-form solve, test errors within
      0.01.
 4f. MnistRandomFFT through ``run`` at the app's published width (200
@@ -259,6 +260,26 @@ Phases, each of which raises (and so exits non-zero) on failure:
    stage's seconds, documents/s, features, nnz, L-BFGS iterations and
    evaluations and scored n-grams/s are printed beside the card's name
    and power limit; none of the five kernels runs on this path.
+4p. The static analyzer (after 4k): 4e's resident fit again with
+   ``KEYSTONE_TORCH_STATIC_NODE_OPT=0``, the sampled path: provenance
+   sampled, the static path's choice, one featurize launch more (the
+   sample's); the node rule's choices on 4d and 4j, each static, with
+   their banded and FV launches (no sample); ``check --all --json`` through
+   ``__main__.main`` in process: exit 0, 11 apps clean, the device
+   memory allocated unchanged and no launch; ``cifar.random_patch
+   --trace-out`` at the bench configuration on phase 4's surrogate written
+   as CIFAR binary files: the featurize nodes' annotated kernel FLOPs
+   equal to the wrapper's counted work, every annotated ``mfu`` in (0,
+   1], a per-node MFU and bandwidth table; ``numerics`` on 4l's
+   poisoned-chunk post-mortem (exit 0, chunk 5 named) and ``benchdiff``
+   on ``BENCH_r02.json`` -> ``BENCH_r01.json`` (exit 2, the JAX
+   command's). Phases 4, 4b, 4d and 4f also print the static plan's
+   fit-path peak beside their measured fit peak (``_PlanProbe``); 4b's
+   stream charge in the plan must equal ``static_plan_nbytes`` and hold
+   its budget. 4e, 4d and 4j hold the node rule's default, the static
+   path: their choices come from the analyzer's shapes, so 4e launches
+   the featurize kernel for the fit alone and 4d and 4j run SIFT on no
+   sample.
 5. Timing: each kernel, its plain version and a library yardstick with
    CUDA events at the main path's shapes, one call at a time (the
    ``kernels`` line); for every kernel also the device time alone of the
@@ -308,11 +329,25 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-#: Published H100 SXM peaks (NVIDIA data sheet): float32 outside the
-#: tensor cores, dense TF32 on the tensor cores, and HBM3 bandwidth.
-PEAK_F32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12
-PEAK_HBM_BYTES = 3.35e12
+#: phase -> (the node rule's choices, the phase's launches, its images),
+#: filled by phases 4d and 4j and printed by phase 4p
+RULE_RECORDS = {}
+
+#: the kernels' work counts (FLOPs and bytes of a launch from its shapes)
+#: and the bounds from the published H100 SXM peaks: one source, the
+#: library's, which each wrapper counts its launches' work with
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from keystone_tpu_torch.ops.work import (  # noqa: E402
+    PEAK_TF32_FLOPS,
+    banded_work as _banded_work,
+    bound as _bound,
+    featurize_bound as _featurize_bound,
+    fv_bound as _fv_bound,
+    fv_work as _fv_work,
+    gram_bound as _gram_bound,
+    gram_work as _gram_work,
+    quant_work as _quant_work,
+)
 
 #: Kernel vs plain version: max |kernel - plain| <= FEATURIZE_TOL *
 #: max |plain|. The plain version runs in float32, the kernel's product
@@ -650,65 +685,16 @@ def _featurize_inputs(rng, B, K, device, S=6, C=3):
     return imgs, filters, means
 
 
-def _featurize_work(B, K, P=729, F=108, R=4, region_hits=4 * 196):
-    """(product operations, other operations, bytes) of
-    fused_cifar_featurize on B images and K filters: the patch-by-filter
-    products (2 P F K); the patch sums and sums of squares (3 P F),
-    normalize + rectify (9 P K) and the pooled adds (2 K per patch-region
-    membership; the four 14 x 14 regions hold 784 memberships). Bytes:
-    each input read once, the output written once."""
-    product = B * 2 * P * F * K
-    rest = B * (3 * P * F + 9 * P * K + 2 * K * region_hits)
-    nbytes = 4 * (B * 32 * 32 * 3 + K * F + F + B * R * 2 * K)
-    return product, rest, nbytes
 
 
-def _featurize_bound(B, K, **work):
-    """(operations, bound ms, bound by) of fused_cifar_featurize: the
-    kernel runs its product in 3xTF32, three TF32 products at the TF32
-    tensor-core peak, and the rest in float32 at the float32 peak, one
-    after the other; the bound is the larger of that time and the
-    bytes'."""
-    product, rest, nbytes = _featurize_work(B, K, **work)
-    t_ops = (3 * product / PEAK_TF32_FLOPS + rest / PEAK_F32_FLOPS) * 1e3
-    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-    return (product + rest, max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes")
 
 
-def _gram_work(n, d, k):
-    """(operations, bytes) of gram_cross on X (n, d), Y (n, k): the upper
-    triangle of X^T X plus X^T Y, 2 n (d (d + 1) / 2 + d k) operations;
-    X and Y read once, G and C read and written once (in place)."""
-    ops = 2 * n * (d * (d + 1) // 2 + d * k)
-    nbytes = 4 * (n * d + n * k + 2 * d * d + 2 * d * k)
-    return ops, nbytes
 
 
-def _gram_bound(n, d, k):
-    """(operations, bound ms, bound by) of gram_cross: the kernel runs its
-    products in 3xTF32, three TF32 products at the TF32 tensor-core peak
-    for each float32 one; the bound is the larger of that time and the
-    bytes'."""
-    ops, nbytes = _gram_work(n, d, k)
-    bound_ms, bound_by = _bound(3 * ops, nbytes, PEAK_TF32_FLOPS)
-    return ops, bound_ms, bound_by
 
 
-def _quant_work(n, d, k, itemsize):
-    """(operations, bytes) of quantized_affine on X (n, d) and Wq (d, k):
-    the product (2 n d k) and the normalization (3 n d: subtract, scale,
-    and the widening of each weight is not counted); X read once, Wq at
-    its width, the four vectors and the output once."""
-    ops = 2 * n * d * k + 3 * n * d
-    nbytes = 4 * n * d + d * k * itemsize + 4 * (2 * d + 2 * k) + 4 * n * k
-    return ops, nbytes
 
 
-def _bound(ops, nbytes, peak=PEAK_F32_FLOPS):
-    t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
 
 
 def _host_us(fn, reps=50):
@@ -1889,10 +1875,12 @@ def _check_fv(kernels, rng, dev):
 
 
 class _RuleClock:
-    """What the node-level rule does per optimizable node: the seconds of
-    its sampled execution (the card synchronized after it) and of the
-    node's ``optimize``, the kernel launches the sampled execution makes,
-    and the choice; also every ``LeastSquaresEstimator._choose`` call
+    """What the node-level rule does per optimizable node: whether the
+    choice came from the analyzer's shapes (``optimize_static``) or from a
+    sampled execution, the seconds of the sampled execution (the card
+    synchronized after it) and of the node's hook, the kernel launches the
+    sampled execution makes, and the choice; also every
+    ``LeastSquaresEstimator._choose`` call
     (the rule's and a streamed finalize's) with its arguments, so the
     density and each candidate's cost can be printed; and, per
     application of the rule that splices, its seconds, the device memory
@@ -1915,6 +1903,7 @@ class _RuleClock:
 
         self.nodes, self.choices, self.applies, self._undo = [], [], [], []
         self._sample = None
+        self._static_depth = 0
         self._values_held = 0
         clock = self
 
@@ -1953,28 +1942,53 @@ class _RuleClock:
                 return out
             return run
 
+        def record(node, choice, t0, provenance):
+            seconds, launches = clock._sample or (0.0, {})
+            clock._sample = None
+            clock.nodes.append({
+                "node": type(node).__name__,
+                "chosen": type(choice.node).__name__,
+                "prefix": [type(t).__name__ for t in choice.prefix],
+                "provenance": provenance,
+                "sample_s": seconds,
+                "optimize_s": time.perf_counter() - t0,
+                "sample_launches": launches})
+
         def optimize(real):
-            def run(node, *args):
+            def run(node, *args, **kw):
                 t0 = time.perf_counter()
-                choice = real(node, *args)
-                seconds, launches = clock._sample or (0.0, {})
-                clock._sample = None
-                clock.nodes.append({
-                    "node": type(node).__name__,
-                    "chosen": type(choice.node).__name__,
-                    "prefix": [type(t).__name__ for t in choice.prefix],
-                    "sample_s": seconds,
-                    "optimize_s": time.perf_counter() - t0,
-                    "sample_launches": launches})
+                # a sampled execution ran for this node, or the static
+                # hook called ``optimize`` itself (the GMM's choice
+                # depends on k alone)
+                provenance = "sampled" if clock._sample else "static"
+                choice = real(node, *args, **kw)
+                if not clock._static_depth:
+                    record(node, choice, t0, provenance)
+                return choice
+            return run
+
+        def optimize_static(real):
+            def run(node, *args, **kw):
+                t0 = time.perf_counter()
+                clock._static_depth += 1
+                try:
+                    choice = real(node, *args, **kw)
+                finally:
+                    clock._static_depth -= 1
+                if choice is not None:
+                    record(node, choice, t0, "static")
                 return choice
             return run
 
         def choose(real):
-            def run(est, n, d, k, sparsity, machines, streaming=False):
-                choice = real(est, n, d, k, sparsity, machines, streaming)
+            def run(est, n, d, k, sparsity, machines, streaming=False,
+                    **kw):
+                choice = real(est, n, d, k, sparsity, machines, streaming,
+                              **kw)
                 clock.choices.append({
                     "args": (n, d, k, sparsity, machines),
                     "streaming": streaming,
+                    "shape_source": kw.get("shape_source"),
                     "costs": {type(solver).__name__: cost for cost, solver, _
                               in est.costs(n, d, k, sparsity, machines,
                                            streaming)},
@@ -1989,6 +2003,7 @@ class _RuleClock:
         for cls in (LeastSquaresEstimator, ColumnPCAEstimator,
                     GMMFisherVectorEstimator):
             self._wrap(cls, "optimize", optimize)
+            self._wrap(cls, "optimize_static", optimize_static)
         self._wrap(LeastSquaresEstimator, "_choose", choose)
 
     def _wrap(self, owner, attr, make):
@@ -2003,10 +2018,10 @@ class _RuleClock:
 
     def summary(self):
         return "; ".join(
-            [f"{n['node']} -> {' -> '.join(n['prefix'] + [n['chosen']])}: "
-             f"sampled execution {n['sample_s']:.3f} s (launches "
-             f"{n['sample_launches']}), optimize {n['optimize_s']:.4f} s"
-             for n in self.nodes]
+            [f"{n['node']} -> {' -> '.join(n['prefix'] + [n['chosen']])} "
+             f"({n['provenance']}): sampled execution {n['sample_s']:.3f} s "
+             f"(launches {n['sample_launches']}), optimize "
+             f"{n['optimize_s']:.4f} s" for n in self.nodes]
             + [f"rule applied in {a['seconds']:.3f} s; its values on the "
                f"sample held {a['values'] / 2**20:+.1f} MiB at its last "
                f"splice, {a['held'] / 2**20:+.1f} MiB left allocated when "
@@ -2101,7 +2116,9 @@ class _StageTimer:
     ``timed``, also seconds, the card synchronized on both sides of every
     call. Those synchronizations remove the overlap of host and device
     work that the path relies on, so a timed pass's totals are not the
-    path's own. ``close`` removes the wrappers."""
+    path's own. A call on meta tensors (the node rule's analyzer running
+    the stage for its output shape) is not a stage call and is not
+    counted. ``close`` removes the wrappers."""
 
     def __init__(self, timed):
         self.timed = timed
@@ -2113,6 +2130,9 @@ class _StageTimer:
         self.calls.setdefault(stage, 0)
 
         def wrapped(*args, **kwargs):
+            if any(isinstance(a, torch.Tensor) and a.device.type == "meta"
+                   for a in args):
+                return real(*args, **kwargs)
             self.calls[stage] += 1
             if not self.timed:
                 return real(*args, **kwargs)
@@ -2313,10 +2333,11 @@ def _voc_phase(kernels, dev):
           flush=True)
     print(f"[voc] node-level rule (seconds inside the fit): "
           f"{rule.summary()}", flush=True)
-    assert [(n["node"], n["chosen"]) for n in rule.nodes] == [
-        ("ColumnPCAEstimator", "DistributedColumnPCAEstimator"),
-        ("GMMFisherVectorEstimator", "EncEvalGMMFisherVectorEstimator")], \
-        rule.nodes
+    assert [(n["node"], n["chosen"], n["provenance"]) for n in rule.nodes] \
+        == [("ColumnPCAEstimator", "DistributedColumnPCAEstimator",
+             "static"),
+            ("GMMFisherVectorEstimator", "EncEvalGMMFisherVectorEstimator",
+             "static")], rule.nodes
     print(f"[voc] EM iterations {counter.calls['EM iteration']}; SIFT "
           f"applications {sift_apps} ({fit_calls['SIFT']} in the fit), FV "
           f"applications {fv_apps}", flush=True)
@@ -2327,7 +2348,11 @@ def _voc_phase(kernels, dev):
           f"{peak / 2**30:.2f} GiB; launches {launches}", flush=True)
     assert scores.shape == (VOC_TEST, NUM_CLASSES)
     assert bool(torch.isfinite(scores).all())
-    assert sift_apps >= VOC_TRAIN + VOC_TEST, sift_apps
+    # the analyzer resolves both choices (as the JAX package's default
+    # does on the same graph, tests/test_torch_static_analysis.py): SIFT
+    # runs on no sample
+    assert sift_apps == VOC_TRAIN + VOC_TEST, sift_apps
+    RULE_RECORDS["4d"] = (rule.nodes, launches, VOC_TRAIN + VOC_TEST)
     assert launches["banded_matmul"] == 10 * sift_apps, (launches, sift_apps)
     assert launches["banded_matmul"] >= 10 * (VOC_TRAIN + VOC_TEST)
     assert launches["fv_moments"] == fv_apps >= VOC_TRAIN + VOC_TEST, \
@@ -3523,10 +3548,239 @@ def _chosen_cifar(rpc, filters, whitener, config, train, labels):
             >> MaxClassifier())
 
 
+class _PlanProbe:
+    """Each ``Pipeline.fit`` while it is open: the raw graph it was given,
+    the device memory allocated when it started and the device-memory peak
+    when it returned (the peak counter the phase resets before its fit).
+    ``plan`` runs the static planner over one recorded graph and lets the
+    graph go; ``close`` removes the wrapper."""
+
+    def __init__(self):
+        from keystone_tpu_torch.workflow.pipeline import Pipeline
+
+        self.fits = []
+        self._real = Pipeline.__dict__["fit"]
+        probe = self
+
+        def fit(pipe):
+            base = torch.cuda.memory_allocated()
+            out = probe._real(pipe)
+            _sync()
+            probe.fits.append({"graph": pipe.graph, "base": base,
+                               "peak": torch.cuda.max_memory_allocated()})
+            return out
+
+        Pipeline.fit = fit
+
+    def close(self):
+        from keystone_tpu_torch.workflow.pipeline import Pipeline
+
+        Pipeline.fit = self._real
+
+    def plan(self, label, index=0):
+        """(plan, base, peak) of the recorded fit at ``index``; every
+        recorded graph is dropped."""
+        from keystone_tpu_torch.analysis import analyze, plan_graph
+
+        rec = self.fits[index]
+        t0 = time.time()
+        plan = plan_graph(analyze(rec["graph"]), label)
+        plan.seconds = time.time() - t0
+        self.fits = []
+        return plan, rec["base"], rec["peak"]
+
+
+def _plan_line(label, plan, base, peak):
+    mib = 2 ** 20
+    print(f"[4p] plan against the card, {label}: static fit-path peak "
+          f"{plan.fit_peak_nbytes / mib:.1f} MiB (node {plan.peak_node}; "
+          f"{len(plan.unresolved)} unresolved; planned in "
+          f"{plan.seconds:.2f} s), measured device-memory peak "
+          f"{peak / mib:.1f} MiB ({(peak - base) / mib:.1f} MiB above the "
+          f"{base / mib:.1f} MiB allocated when the fit began); plan / "
+          f"peak {plan.fit_peak_nbytes / max(peak, 1):.3f}", flush=True)
+
+
+def _analysis_phase(kernels, rpc, tr_x, tr_y, te_x, te_y, filters, whitener,
+                    config, static_4e, rules, workdir, dev):
+    """Phase 4p (see the module docstring): the node rule's sampled
+    opt-out on 4e's resident fit, the provenance of 4d's and 4j's
+    choices, ``check --all`` in process, a traced CIFAR run through the
+    command line and its per-node MFU, and the ``numerics`` and
+    ``benchdiff`` commands."""
+    from keystone_tpu_torch import __main__ as cli
+    from keystone_tpu_torch.evaluation.multiclass import evaluate_multiclass
+    from keystone_tpu_torch.nodes.learning import BlockLeastSquaresEstimator
+    from keystone_tpu_torch.nodes.util import ClassLabelIndicatorsFromIntLabels
+    from keystone_tpu_torch.ops import work
+    from keystone_tpu_torch.parallel.dataset import ArrayDataset
+    from keystone_tpu_torch.workflow.common import Cacher
+    from keystone_tpu_torch.workflow.env import PipelineEnv
+
+    t_phase = time.time()
+    # (a) the sampled path, driven on 4e's resident fit
+    train_x = ArrayDataset.from_numpy(tr_x, dev)
+    labels = (ClassLabelIndicatorsFromIntLabels(rpc.NUM_CLASSES)
+              >> Cacher("labels"))(
+        ArrayDataset.from_numpy(tr_y.astype(np.int32), dev))
+    PipelineEnv.reset()
+    os.environ["KEYSTONE_TORCH_STATIC_NODE_OPT"] = "0"
+    clock = _RuleClock(kernels)
+    kernels.reset_launches()
+    t0 = time.time()
+    try:
+        fitted = _chosen_cifar(rpc, filters, whitener, config, train_x,
+                               labels).fit()
+        _sync()
+    finally:
+        clock.close()
+        del os.environ["KEYSTONE_TORCH_STATIC_NODE_OPT"]
+    fit_s = time.time() - t0
+    launches = dict(kernels.LAUNCHES)
+    (rule,) = [c for c in clock.choices if not c["streaming"]]
+    (node,) = [c for c in clock.nodes if c["node"] == "LeastSquaresEstimator"]
+    n, d, k, density, _ = rule["args"]
+    choice = rule["choice"]
+    sample_fz = node["sample_launches"].get("fused_cifar_featurize", 0)
+    pred = fitted.apply(ArrayDataset.from_numpy(te_x, dev)).get()
+    err = evaluate_multiclass(pred, te_y, rpc.NUM_CLASSES).total_error
+    print(f"[4p] KEYSTONE_TORCH_STATIC_NODE_OPT=0 on 4e's resident fit: "
+          f"provenance {node['provenance']}, sampled density {density:.6f} "
+          f"(static: {static_4e['density']}), chose "
+          f"{type(choice.node).__name__}({choice.node.block_size}, "
+          f"{choice.node.num_iter}) behind "
+          f"{[type(t).__name__ for t in choice.prefix]} (static: "
+          f"{static_4e['chosen']}); featurize launches {launches['fused_cifar_featurize']} "
+          f"({sample_fz} for the sample) against the static path's "
+          f"{static_4e['featurize']}; fit {fit_s:.2f} s (static "
+          f"{static_4e['fit_s']:.2f} s); test error {err:.4f} (static "
+          f"{static_4e['error']:.4f})", flush=True)
+    assert node["provenance"] == "sampled", node
+    assert (n, d, k) == (N_TRAIN, 8 * NUM_FILTERS, 10), rule
+    assert type(choice.node) is BlockLeastSquaresEstimator
+    assert (choice.node.block_size, choice.node.num_iter) == (
+        SOLVER_BLOCK, SOLVER_PASSES), choice.node
+    assert sample_fz >= 1, node
+    assert launches["fused_cifar_featurize"] - sample_fz == \
+        static_4e["featurize"], (launches, static_4e)
+    del fitted, pred, train_x, labels
+    PipelineEnv.reset()
+    _release()
+    for phase, (nodes, counts, n_img) in rules.items():
+        print(f"[4p] {phase}: the node rule's choices "
+              f"{[(x['node'], x['chosen'], x['provenance']) for x in nodes]}"
+              f"; banded_matmul {counts['banded_matmul']}, fv_moments "
+              f"{counts['fv_moments']} ({n_img} images, no sample)",
+              flush=True)
+
+    # (c) check --all in process: nothing allocated, nothing launched
+    _sync()
+    before = torch.cuda.memory_allocated()
+    kernels.reset_launches()
+    report = os.path.join(workdir, "check.json")
+    out = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rc = cli.main(["check", "--all", "--json", report])
+    check_s = time.time() - t0
+    with open(report) as f:
+        apps = json.load(f)["apps"]
+    _sync()
+    after = torch.cuda.memory_allocated()
+    clean = sum(not a["diagnostics"] for a in apps)
+    print(f"[4p] check --all: exit {rc}, {clean} of {len(apps)} apps clean "
+          f"in {check_s:.2f} s; device memory allocated {before} B before, "
+          f"{after} B after; launches {dict(kernels.LAUNCHES)}; "
+          f"{out.getvalue().splitlines()[-4]}", flush=True)
+    assert rc == 0 and len(apps) == clean == 11, (rc, len(apps), clean)
+    assert after == before, (before, after)
+    assert not any(kernels.LAUNCHES.values()), kernels.LAUNCHES
+
+    # (d) the command line's --trace-out at the bench configuration, on the
+    # surrogate written in the CIFAR binary layout the loader reads
+    paths = []
+    for name, x, y in (("train", tr_x, tr_y), ("test", te_x, te_y)):
+        pixels = np.clip(np.rint(x), 0, 255).astype(np.uint8)
+        rec = np.concatenate([y.astype(np.uint8)[:, None],
+                              pixels.transpose(0, 3, 1, 2).reshape(
+                                  len(x), -1)], axis=1)
+        path = os.path.join(workdir, f"cifar_{name}.bin")
+        rec.tofile(path)
+        paths.append(path)
+    trace_path = os.path.join(workdir, "cifar_trace.json")
+    PipelineEnv.reset()
+    kernels.reset_launches()
+    out = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(out):
+        rc = cli.main(["cifar.random_patch", "--trainLocation", paths[0],
+                       "--testLocation", paths[1], "--numFilters",
+                       str(NUM_FILTERS), "--lambda", str(config.lam),
+                       "--device", "cuda", "--trace-out", trace_path])
+    trace_s = time.time() - t0
+    fz_launches = kernels.LAUNCHES["fused_cifar_featurize"]
+    fz_flops = kernels.WORK["fused_cifar_featurize"]["flops"]
+    with open(trace_path) as f:
+        nodes = json.load(f)
+    annotated = [x for x in nodes["nodes"] if x["flops"] > 0]
+    fz_nodes = [x for x in annotated
+                if x["kernel_launches"].get("fused_cifar_featurize")]
+    node_fz = sum(x["kernel_flops"] for x in fz_nodes)
+    print(f"[4p] python -m keystone_tpu_torch cifar.random_patch "
+          f"--trace-out ({NUM_FILTERS} filters, {N_TRAIN} / {N_TEST} images "
+          f"from CIFAR binary files): exit {rc} in {trace_s:.2f} s; "
+          f"featurize launched {fz_launches} times, the wrapper's work "
+          f"{fz_flops / 1e9:.3f} GFLOP ({work.featurize_work(1, NUM_FILTERS)[0] / 1e9 + work.featurize_work(1, NUM_FILTERS)[1] / 1e9:.4f} "
+          f"GFLOP an image), the featurize nodes' annotated kernel FLOPs "
+          f"{node_fz / 1e9:.3f} GFLOP; {len(annotated)} nodes annotated, "
+          f"uncovered {nodes['uncovered']}", flush=True)
+    print("[4p] per-node MFU and bandwidth (H100 peaks: 989e12 FLOP/s, "
+          "3350e9 B/s):", flush=True)
+    for x in annotated:
+        print(f"[4p]   {x['operator'][:36]:<36} #{x['node_id']:<4} self "
+              f"{x['wall_s'] * 1e3:9.3f} ms  {x['flops'] / 1e9:10.3f} GFLOP"
+              f" (kernel {x['kernel_flops'] / 1e9:.3f}, torch "
+              f"{x['torch_flops'] / 1e9:.3f})  mfu {x['mfu']:.5f}  membw "
+              f"{x['membw_util']:.5f}  {x['kernel_launches']}", flush=True)
+    assert rc == 0, out.getvalue()[-2000:]
+    assert fz_launches > 0 and fz_nodes, (fz_launches, annotated)
+    assert node_fz == fz_flops, (node_fz, fz_flops)
+    assert all(0 < x["mfu"] <= 1 for x in annotated), annotated
+    del nodes
+    PipelineEnv.reset()
+    _release()
+
+    # (e) numerics renders 4l's poisoned-chunk post-mortem; benchdiff on
+    # the repository's artifacts exits as the JAX command does (pinned in
+    # tests/test_torch_benchdiff.py)
+    pm_dir = os.environ["KEYSTONE_TORCH_POSTMORTEM_DIR"]
+    pms = sorted(f for f in os.listdir(pm_dir)
+                 if f.startswith("postmortem-numerics_tripwire"))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc_num = cli.main(["numerics", os.path.join(pm_dir, pms[0])])
+    text = out.getvalue()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rc_bd = cli.main(["benchdiff", os.path.join(REPO, "BENCH_r02.json"),
+                          os.path.join(REPO, "BENCH_r01.json")])
+    print(f"[4p] numerics {pms[0]}: exit {rc_num}, "
+          f"{text.splitlines()[0]}; {[l.strip() for l in text.splitlines() if l.strip().startswith('chunk:')]}; "
+          f"benchdiff BENCH_r02 -> BENCH_r01: exit {rc_bd}, "
+          f"{out.getvalue().strip().splitlines()[-1]}", flush=True)
+    assert rc_num == 0 and "chunk: 5" in text, text[:2000]
+    assert rc_bd == 2, rc_bd
+    print(f"[4p] phase 4p in {time.time() - t_phase:.1f} s", flush=True)
+
+
 def _solver_phase(kernels, rpc, tr_x, tr_y, te_x, te_y, filters, whitener,
                   config, lin_test, dev):
     """Phase 4e (see the module docstring). Returns the kernel launch
-    counts of the resident fit and of the streamed fit."""
+    counts of the resident fit and of the streamed fit, and the static
+    choice's readings phase 4p compares the sampled path with."""
     from keystone_tpu_torch.evaluation.multiclass import evaluate_multiclass
     from keystone_tpu_torch.nodes.images.core import (
         GrayScaler,
@@ -3572,8 +3826,8 @@ def _solver_phase(kernels, rpc, tr_x, tr_y, te_x, te_y, filters, whitener,
     choice = rule["choice"]
     (node,) = [c for c in clock.nodes if c["node"] == "LeastSquaresEstimator"]
     print(f"[solver] resident RandomPatchCifar with LeastSquaresEstimator("
-          f"lam={lam}): sampled (n, d, k) = ({n}, {d}, {k}), density "
-          f"{density:.6f}, {machines} machine; EC2 costs "
+          f"lam={lam}): {node['provenance']} (n, d, k) = ({n}, {d}, {k}), "
+          f"density {density:.6f}, {machines} machine; EC2 costs "
           f"{ {name: f'{c:.4g}' for name, c in rule['costs'].items()} }; "
           f"chose {type(choice.node).__name__}("
           f"{getattr(choice.node, 'block_size', '')}, "
@@ -3586,9 +3840,13 @@ def _solver_phase(kernels, rpc, tr_x, tr_y, te_x, te_y, filters, whitener,
     assert type(choice.node) is type(want.node) is BlockLeastSquaresEstimator
     assert (choice.node.block_size, choice.node.num_iter) == (
         SOLVER_BLOCK, SOLVER_PASSES), choice.node
-    sample_fz = node["sample_launches"].get("fused_cifar_featurize", 0)
-    assert sample_fz >= 1, node
-    assert launches["fused_cifar_featurize"] > sample_fz, launches
+    # the rule's default: the analyzer's shapes, no sampled execution, so
+    # the featurize kernel launches for the fit alone (the sampled path is
+    # driven in phase 4p)
+    assert node["provenance"] == "static", node
+    assert rule["shape_source"] == "static" and density == 1.0, rule
+    assert node["sample_launches"] == {}, node
+    assert launches["fused_cifar_featurize"] >= 1, launches
     mapper = _operator(fitted, "BlockLinearMapper")
     assert mapper.block_size == SOLVER_BLOCK
     test_pred = fitted.apply(test_x).get()
@@ -3598,6 +3856,12 @@ def _solver_phase(kernels, rpc, tr_x, tr_y, te_x, te_y, filters, whitener,
     assert 0.02 < r_test < 0.90, r_test
     assert r_test < lin_test - 0.15, (r_test, lin_test)
     assert abs(r_test - SOLVER_ERROR_FIRST) <= SOLVER_ERROR_DRIFT, r_test
+    static_4e = {"density": density, "featurize":
+                 launches["fused_cifar_featurize"], "fit_s": fit_s,
+                 "error": r_test,
+                 "chosen": f"{type(choice.node).__name__}("
+                           f"{choice.node.block_size}, "
+                           f"{choice.node.num_iter})"}
     featurizer = _operator(fitted, "FusedConvRectifyPool")
     r_scaler = _operator(fitted, "StandardScalerModel")
     r_W = torch.as_tensor(mapper.weights).float()
@@ -3707,7 +3971,9 @@ def _solver_phase(kernels, rpc, tr_x, tr_y, te_x, te_y, filters, whitener,
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- 4. streamed: the rule leaves the node; finalize chooses
+    # -- 4. streamed: the stream's n is known, so the rule's static path
+    # chooses among the one-pass solvers before the fit (as the JAX
+    # package's default does)
     stream = StreamingDataset.from_numpy(
         tr_x, CHUNK, device=dev, prefetch_depth=DEPTH, tag="cifar-train")
     labels = (ClassLabelIndicatorsFromIntLabels(rpc.NUM_CLASSES)
@@ -3731,7 +3997,7 @@ def _solver_phase(kernels, rpc, tr_x, tr_y, te_x, te_y, filters, whitener,
     s_pred = fitted_s.apply(test_x).get().numpy()
     s_test = evaluate_multiclass(s_pred, te_y, rpc.NUM_CLASSES).total_error
     print(f"[solver] streamed ({n_chunks} chunks of {CHUNK}): the rule "
-          f"sampled {len(clock.nodes)} nodes; finalize chose "
+          f"{[(x['node'], x['provenance']) for x in clock.nodes]} chose "
           f"{type(final['choice'].node).__name__}("
           f"{final['choice'].node.block_size}, "
           f"{final['choice'].node.num_iter}) at {final['args']} among "
@@ -3740,8 +4006,9 @@ def _solver_phase(kernels, rpc, tr_x, tr_y, te_x, te_y, filters, whitener,
           f"{r_test:.4f}); max |W_stream - W_resident| / max |W_resident| "
           f"{_rel(s_W, r_W):.3e}; predictions agree on "
           f"{float(np.mean(s_pred == r_preds)):.4f}", flush=True)
-    assert not clock.nodes, clock.nodes
-    assert final["streaming"]
+    assert [(x["node"], x["provenance"]) for x in clock.nodes] == [
+        ("LeastSquaresEstimator", "static")], clock.nodes
+    assert final["streaming"] and final["shape_source"] == "static", final
     assert type(final["choice"].node) is type(choice.node)
     assert (final["choice"].node.block_size, final["choice"].node.num_iter) \
         == (choice.node.block_size, choice.node.num_iter)
@@ -3766,7 +4033,7 @@ def _solver_phase(kernels, rpc, tr_x, tr_y, te_x, te_y, filters, whitener,
     PipelineEnv.reset()
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, stream_launches
+    return launches, stream_launches, static_4e
 
 
 def _mnist_phase(dev):
@@ -4343,8 +4610,12 @@ def _imagenet_phase(kernels, workdir, dev):
           flush=True)
     print(f"[imagenet] test top-{INET_TOP_K} error {err:.4f} (seeded random "
           f"scores {rand_err:.4f})", flush=True)
+    print(f"[4p] 4j device-memory peak {peak / 2**30:.2f} GiB (PR 10, "
+          f"with the sampled values: 64.72 GiB)", flush=True)
     assert top.shape == (INET_TEST, INET_TOP_K)
-    assert sift_apps >= n_img and lcs_apps >= n_img, (sift_apps, lcs_apps)
+    assert {n["provenance"] for n in rule.nodes} == {"static"}, rule.nodes
+    assert sift_apps == lcs_apps == n_img, (sift_apps, lcs_apps)
+    RULE_RECORDS["4j"] = (rule.nodes, launches, n_img)
     assert launches["banded_matmul"] == 10 * sift_apps, (launches, sift_apps)
     assert launches["fv_moments"] == fv_apps == 2 * n_img, (launches, fv_apps)
     assert stats["solver"] == "woodbury", stats
@@ -4648,8 +4919,8 @@ def _time_imagenet_kernels(kernels, sift, dev):
         }
         call = {name: _time_ms(fn, reps=20) for name, fn in fns.items()}
         devt = {name: _device_ms(fn) for name, fn in fns.items()}
-        ops = 3 * 8 * n * D * K
-        nbytes = 4 * (D * n + 3 * D * K + K + K + 2 * D * K)
+        ops, nbytes = _fv_work(D, K, n)
+        ops *= 3  # 3xTF32: each product three times at the TF32 peak
         bound_ms, bound_by = _bound(ops, nbytes, PEAK_TF32_FLOPS)
         out[f"fv_moments n={n}"] = {
             "shape": f"(D, K, n) = ({D}, {K}, {n})",
@@ -4695,17 +4966,6 @@ def _banded_image_calls(kernels, sift, dev, shape=(375, 500),
     return calls
 
 
-def _banded_work(calls):
-    """(operations, bytes) of an image's two-sided band contractions: the
-    band work of the factored form (2 nonzeros of the left band x w x C,
-    then 2 x m x nonzeros of the right band x C); each X read once and
-    each output written once."""
-    ops = sum(2 * X.shape[0] * (int((band != 0).sum()) * X.shape[-1]
-                                + band.shape[0] * int((right != 0).sum()))
-              for band, X, right in calls)
-    nbytes = sum(4 * (X.numel() + X.shape[0] * band.shape[0]
-                      * right.shape[0]) for band, X, right in calls)
-    return ops, nbytes
 
 
 def _profile(label, fn):
@@ -4904,8 +5164,12 @@ def _main(workdir: str) -> int:
     train_labels = (ClassLabelIndicatorsFromIntLabels(rpc.NUM_CLASSES)
                     >> Cacher("labels"))(train.labels)
     filters, whitener = rpc.learn_filters(train.data, config)
-    fitted = rpc.build_pipeline(filters, whitener, config, train.data,
-                                train_labels).fit()
+    probe = _PlanProbe()
+    try:
+        fitted = rpc.build_pipeline(filters, whitener, config, train.data,
+                                    train_labels).fit()
+    finally:
+        probe.close()
     _sync()
     fit_s = time.time() - t0
     peak_resident = torch.cuda.max_memory_allocated()
@@ -4943,6 +5207,7 @@ def _main(workdir: str) -> int:
     assert abs(rp_test - CIFAR_ERROR_FIRST) <= CIFAR_ERROR_DRIFT, rp_test
     assert launches["fused_cifar_featurize"] > 0, \
         "fused_cifar_featurize was not launched on the main path"
+    _plan_line("phase 4 (resident CIFAR fit)", *probe.plan("4"))
     if "--profile" in sys.argv[1:]:
         _profile_main_path(rpc, config, train, test, train_labels)
     resident_W = torch.as_tensor(
@@ -4977,7 +5242,11 @@ def _main(workdir: str) -> int:
     torch.cuda.reset_peak_memory_stats()
     base_stream = torch.cuda.memory_allocated()
     t0 = time.time()
-    fitted_s = streamed_fit()
+    probe = _PlanProbe()
+    try:
+        fitted_s = streamed_fit()
+    finally:
+        probe.close()
     _sync()
     stream_s = time.time() - t0
     peak_stream = torch.cuda.max_memory_allocated()
@@ -4995,6 +5264,19 @@ def _main(workdir: str) -> int:
           f"{budget:.0f} B", flush=True)
     assert stream.peak_device_nbytes <= budget
     assert stream.buffered_nbytes() == 0.0
+    plan_4b = probe.plan("4b")
+    _plan_line("phase 4b (streamed CIFAR fit)", *plan_4b)
+    # the raw graph holds the stream once for each fit that reads it
+    # (CSE merges them when the fit optimizes)
+    charges = {e["node_id"]: e["out_nbytes"] for e in plan_4b[0].entries
+               if e["note"] == "stream residency bound"}
+    print(f"[4p] 4b's stream in the plan: {charges} B at its nodes; "
+          f"StreamingDataset.static_plan_nbytes "
+          f"{stream.static_plan_nbytes():.0f} B; budget {budget:.0f} B",
+          flush=True)
+    assert charges and set(charges.values()) == {
+        stream.static_plan_nbytes()}, charges
+    assert stream.static_plan_nbytes() <= budget, budget
     print(f"[mem] device-memory peak: resident fit {peak_resident / 2**20:.1f}"
           f" MiB ({base_resident / 2**20:.1f} MiB allocated before it: "
           f"train and test images, labels), streamed fit "
@@ -5103,7 +5385,12 @@ def _main(workdir: str) -> int:
     torch.cuda.empty_cache()
 
     # -- 4d. VOCSIFTFisher ----------------------------------------------------
-    voc_launches, voc_ref = _voc_phase(kernels, dev)
+    probe = _PlanProbe()
+    try:
+        voc_launches, voc_ref = _voc_phase(kernels, dev)
+    finally:
+        probe.close()
+    _plan_line("phase 4d (VOCSIFTFisher fit)", *probe.plan("4d"))
 
     # -- 4n. the loaders: VOC from tars, the streamed tar path, HOG, DAISY
     # and the approximate PCA (4n(c) runs inside 4j, 4n(d) after 4f) ---------
@@ -5118,13 +5405,19 @@ def _main(workdir: str) -> int:
     loader_s = time.time() - t0
 
     # -- 4e. the cost-model solver choice --------------------------------------
-    solver_launches, solver_stream_launches = _solver_phase(
+    solver_launches, solver_stream_launches, static_4e = _solver_phase(
         kernels, rpc, tr_x, tr_y, te_x, te_y, filters, whitener, config,
         lin_test, dev)
 
     # -- 4f. MnistRandomFFT ---------------------------------------------------
     kernels.reset_launches()
-    _mnist_phase(dev)
+    probe = _PlanProbe()
+    try:
+        _mnist_phase(dev)
+    finally:
+        probe.close()
+    # the phase's second fit, which it times and whose peak it resets for
+    _plan_line("phase 4f (MnistRandomFFT fit)", *probe.plan("4f", -1))
     mnist_launches = dict(kernels.LAUNCHES)
     print(f"[mnist] kernel launches {mnist_launches} (the path runs none of "
           "the five)", flush=True)
@@ -5165,6 +5458,12 @@ def _main(workdir: str) -> int:
     _augmented_phase(tr_x, tr_y, te_x, te_y, rc_err, dev)
     print(f"[augmented] kernel launches {dict(kernels.LAUNCHES)} (the path "
           "runs none of the five)", flush=True)
+
+    # -- 4p. the analyzer: the rule's static path and its opt-out, the plan,
+    # check, the traced run's MFU, numerics and benchdiff ----------------------
+    _analysis_phase(kernels, rpc, tr_x, tr_y, te_x, te_y, filters, whitener,
+                    config, static_4e, RULE_RECORDS, workdir, dev)
+    _release()
 
     # -- 4o. the text and NLP apps --------------------------------------------
     _text_phase(kernels, workdir, dev, smi)
@@ -5351,8 +5650,8 @@ def _main(workdir: str) -> int:
                                       ("kernel", "plain", "library"))
     # 3xTF32: each of the two products (4 n D K operations each) three
     # times at the TF32 tensor-core peak
-    f_ops = 3 * 8 * n * D * K
-    f_bytes = 4 * (D * n + 3 * D * K + K + K + 2 * D * K)
+    f_ops, f_bytes = _fv_work(D, K, n)
+    f_ops *= 3
     f_bound_ms, f_bound_by = _bound(f_ops, f_bytes, PEAK_TF32_FLOPS)
     f_host = _host_us(f_fns["kernel"])
     print(f"[time] fv_moments D={D} K={K} n={n}: one call at a time kernel "
@@ -5414,7 +5713,7 @@ def _main(workdir: str) -> int:
           f"time alone (CUDA graph): kernel {w_dev['kernel']:.4f} ms, plain "
           f"{w_dev['plain']:.4f} ms, torch.addmm x2 {w_dev['library']:.4f} "
           f"ms; bound "
-          f"{_bound(3 * 8 * n * D * K, 4 * D * n, PEAK_TF32_FLOPS)[0]:.4f} ms "
+          f"{_fv_bound(D, K, n)[1]:.4f} ms "
           f"(3xTF32, one llh and one moment product); against plain on the "
           f"{Xc.shape[1]} of {n} descriptors clear of the threshold, "
           f"relative to the largest sum: {', '.join(w_errs)}", flush=True)

@@ -31,8 +31,10 @@ def cifar_decode(raw: bytes, rows: int = NROW, cols: int = NCOL,
     arr = np.frombuffer(raw, np.uint8).reshape(len(raw) // rec, rec)
     labels = arr[:, 0].astype(np.int32)
     planes = arr[:, 1:].reshape(-1, chans, rows, cols).transpose(0, 2, 3, 1)
-    images = (np.ascontiguousarray(planes) if packed
-              else planes.astype(np.float32))
+    # row-major (n, rows, cols, chans): ``astype`` would keep the planes'
+    # transposed strides, and the device kernels read rows in place
+    images = np.ascontiguousarray(planes,
+                                  dtype=np.uint8 if packed else np.float32)
     return images, labels
 
 

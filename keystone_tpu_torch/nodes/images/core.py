@@ -221,10 +221,12 @@ class FusedConvRectifyPool(Transformer):
 
     def apply_with_params(self, params, imgs):
         filters, means = params
+        # the kernel reads (B, H, W, C) rows in place; a view of another
+        # layout (a transposed decode) is copied once here
         return fused_cifar_featurize(
-            imgs, filters, self.img_size, self.patch_size, self.channels,
-            self.pool_stride, self.pool_size, self.var_constant, self.alpha,
-            whitener_means=means)
+            imgs.contiguous(), filters, self.img_size, self.patch_size,
+            self.channels, self.pool_stride, self.pool_size,
+            self.var_constant, self.alpha, whitener_means=means)
 
     def apply_batch(self, imgs):
         return self.apply_with_params(self.apply_params(imgs.device), imgs)
@@ -296,6 +298,11 @@ class RandomPatcher(Transformer):
         return ArrayDataset(_flatten_leading(self.apply_batch(ds.data)),
                             ds.n * self.num_patches)
 
+    def abstract_eval(self, dep_specs):
+        return _patcher_abstract_eval(
+            self, dep_specs, self.patch_size_x, self.patch_size_y,
+            self.num_patches)
+
 
 class CenterCornerPatcher(Transformer):
     """The four corner crops and the center crop, each also flipped when
@@ -331,6 +338,33 @@ class CenterCornerPatcher(Transformer):
         assert isinstance(ds, ArrayDataset)
         return ArrayDataset(_flatten_leading(self.apply_batch(ds.data)),
                             ds.n * self.patches_per_image)
+
+    def abstract_eval(self, dep_specs):
+        return _patcher_abstract_eval(
+            self, dep_specs, self.patch_size_x, self.patch_size_y,
+            self.patches_per_image)
+
+
+def _patcher_abstract_eval(op, dep_specs, px, py, patches_per_image):
+    """Static semantics of the cropping augmenters: each (H, W, C) image
+    becomes ``patches_per_image`` items of (px, py, C), multiplying the
+    dataset's item count."""
+    from ...analysis.spec import DatasetSpec, ShapeDtype, Unknown
+
+    (d,) = dep_specs
+    if not isinstance(d, DatasetSpec):
+        return Unknown(f"{type(op).__name__} is dataset-only")
+    e = d.element
+    if not (isinstance(e, ShapeDtype) and len(e.shape) == 3):
+        return Unknown("patcher input not an (H, W, C) image element")
+    H, W, C = e.shape
+    if H < px or W < py:
+        raise ValueError(
+            f"{type(op).__name__}: patch ({px}, {py}) larger than "
+            f"input image ({H}, {W})")
+    n = None if d.n is None else d.n * patches_per_image
+    return DatasetSpec(ShapeDtype((px, py, C), e.dtype), n=n, host=d.host,
+                       sparsity=1.0)
 
 
 def flip_horizontal(imgs: torch.Tensor) -> torch.Tensor:

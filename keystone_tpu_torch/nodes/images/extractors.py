@@ -41,6 +41,32 @@ class SIFTExtractor(Transformer):
             height, width, self.step, self.bin_size,
             self.num_scales, self.scale_step)
 
+    # -- static HBM planning (analysis.resources) --------------------------
+    def resource_effect(self, dep_specs, out_spec, data_shards=1):
+        """A SIFT node charges its configuration's band operators, held on
+        the card by the banded kernel's cache across every image of the
+        configuration, once, as a transient of the node."""
+        import dataclasses
+
+        from ...analysis.resources import (
+            sift_band_operator_nbytes,
+            spec_effect,
+        )
+        from ...analysis.spec import ShapeDtype
+
+        element = (getattr(dep_specs[0], "element", None)
+                   if dep_specs else None)
+        if not (isinstance(element, ShapeDtype) and len(element.shape) >= 2):
+            return None
+        base = spec_effect(out_spec, data_shards)
+        extra = sift_band_operator_nbytes(
+            int(element.shape[0]), int(element.shape[1]), self.step,
+            self.bin_size, self.num_scales, self.scale_step)
+        return dataclasses.replace(
+            base, transient_nbytes=base.transient_nbytes + extra,
+            note=(base.note + "; " if base.note else "")
+            + "SIFT band-operator constants")
+
 
 class BatchSIFTExtractor(SIFTExtractor):
     """SIFT over a dataset of images, one image at a time."""

@@ -82,6 +82,56 @@ class FisherVector(Transformer):
     def apply(self, x):
         return self.apply_with_params(self.apply_params(x.device), x)
 
+    # -- static HBM planning (analysis.resources) --------------------------
+    def resource_effect(self, dep_specs, out_spec, data_shards=1):
+        """A fitted FV node charges the workspace the estimator's
+        Delegate node would."""
+        from ...analysis.resources import transform_workspace_effect
+
+        return transform_workspace_effect(
+            _fisher_apply_transient(self.gmm.k), dep_specs, out_spec,
+            data_shards)
+
+
+def _fisher_abstract_fit(k: int):
+    """The FV's static semantics: a (D, nDesc) descriptor matrix becomes
+    a (D, 2K) float32 matrix."""
+    from ...analysis.spec import ShapeDtype, Unknown
+
+    def apply_element(element):
+        if isinstance(element, ShapeDtype) and len(element.shape) == 2:
+            return ShapeDtype((int(element.shape[0]), 2 * k), torch.float32)
+        return Unknown("fisher-vector input not a (D, nDesc) matrix")
+
+    return apply_element
+
+
+def _fisher_fitted_nbytes(k: int, dep_specs):
+    """The fitted GMM: means and variances (D, K) float32 each and
+    weights (K,), D the input element's descriptor axis."""
+    from ...analysis.spec import ShapeDtype
+
+    element = getattr(dep_specs[0], "element", None) if dep_specs else None
+    if not (isinstance(element, ShapeDtype) and len(element.shape) == 2):
+        return None
+    return 4.0 * (2.0 * float(element.shape[0]) * k + k)
+
+
+def _fisher_apply_transient(k: int):
+    """The apply's per-item workspace for the planner: the
+    ``fv_moments`` kernel's moment sums
+    (``analysis.resources.fv_apply_transient_nbytes``)."""
+    from ...analysis.resources import fv_apply_transient_nbytes
+    from ...analysis.spec import ShapeDtype
+
+    def workspace(element):
+        if not (isinstance(element, ShapeDtype) and len(element.shape) == 2):
+            return None
+        return fv_apply_transient_nbytes(
+            int(element.shape[0]), k, int(element.shape[1]))
+
+    return workspace
+
 
 def _gmm_from_columns(ds: Dataset, k: int, seed: int = 0
                       ) -> GaussianMixtureModel:
@@ -95,6 +145,16 @@ def _gmm_from_columns(ds: Dataset, k: int, seed: int = 0
 class ScalaGMMFisherVectorEstimator(Estimator):
     """FV estimator (reference ``FisherVector.scala:67-73``; the name
     mirrors the reference's scala implementation)."""
+
+    def abstract_fit(self, dep_specs):
+        return _fisher_abstract_fit(self.k)
+
+    # -- static HBM planning (analysis.resources) --------------------------
+    def fitted_nbytes(self, dep_specs):
+        return _fisher_fitted_nbytes(self.k, dep_specs)
+
+    def abstract_apply_transient(self, dep_specs):
+        return _fisher_apply_transient(self.k)
 
     def __init__(self, k: int):
         self.k = k
@@ -115,6 +175,16 @@ class GMMFisherVectorEstimator(OptimizableEstimator):
     and apply identically; without the node-level rule it fits through
     its ``default``."""
 
+    def abstract_fit(self, dep_specs):
+        return _fisher_abstract_fit(self.k)
+
+    # -- static HBM planning (analysis.resources) --------------------------
+    def fitted_nbytes(self, dep_specs):
+        return _fisher_fitted_nbytes(self.k, dep_specs)
+
+    def abstract_apply_transient(self, dep_specs):
+        return _fisher_apply_transient(self.k)
+
     def __init__(self, k: int):
         self.k = k
 
@@ -127,3 +197,7 @@ class GMMFisherVectorEstimator(OptimizableEstimator):
         if self.k >= 32:
             return NodeChoice(EncEvalGMMFisherVectorEstimator(self.k))
         return NodeChoice(ScalaGMMFisherVectorEstimator(self.k))
+
+    def optimize_static(self, spec, n: int, num_machines: int):
+        # the choice depends only on k: always statically resolvable
+        return self.optimize(None, n, num_machines)

@@ -65,6 +65,17 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
     ``BlockLinearMapper`` whose ``_solve_stats`` record the solver that
     ran, the class chunk, the chunk count and the repairs."""
 
+    def abstract_fit(self, dep_specs):
+        from ...analysis.spec import labels_width_fit
+
+        return labels_width_fit(dep_specs)
+
+    # -- static HBM planning (analysis.resources) --------------------------
+    def fitted_nbytes(self, dep_specs):
+        from ...analysis.resources import linear_model_nbytes
+
+        return linear_model_nbytes(dep_specs)
+
     def __init__(self, block_size: int, num_iter: int, lam: float,
                  mixture_weight: float, num_features: Optional[int] = None,
                  solver: str = "auto", checkpoint_path: Optional[str] = None):

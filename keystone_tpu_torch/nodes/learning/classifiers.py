@@ -420,6 +420,11 @@ class LocalLeastSquaresEstimator(LabelEstimator):
     labels, W = A_zmᵀ ((A_zm A_zmᵀ + lam I) \\ b_zm) on the data's device
     (``ops.linalg.local_least_squares_dual``)."""
 
+    def abstract_fit(self, dep_specs):
+        from ...analysis.spec import labels_width_fit
+
+        return labels_width_fit(dep_specs)
+
     def __init__(self, lam: float):
         self.lam = lam
 

@@ -119,6 +119,11 @@ class GaussianMixtureModelEstimator(Estimator):
     floor max(small_var_thresh * global_var, abs_var_thresh), incremental
     LSE log-likelihood stopping, min-cluster-size abort."""
 
+    def abstract_fit(self, dep_specs):
+        from ...analysis.spec import map_last_dim
+
+        return map_last_dim(self.k)
+
     def __init__(
         self,
         k: int,

@@ -56,6 +56,11 @@ class KMeansPlusPlusEstimator(Estimator):
     KMeansPlusPlus.scala:82-181). One round is pure k-means++ init.
     Deterministic under ``seed``."""
 
+    def abstract_fit(self, dep_specs):
+        from ...analysis.spec import map_last_dim
+
+        return map_last_dim(self.num_means)
+
     def __init__(self, num_means: int, max_iterations: int,
                  stop_tolerance: float = 1e-3, seed: int = 0):
         self.num_means = num_means

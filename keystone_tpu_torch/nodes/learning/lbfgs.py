@@ -44,6 +44,11 @@ class DenseLBFGSwithL2(LabelEstimator):
     ``fit_intercept`` mean-centers features and labels and stores the
     means on the returned LinearMapper, as the reference does."""
 
+    def abstract_fit(self, dep_specs):
+        from ...analysis.spec import labels_width_fit
+
+        return labels_width_fit(dep_specs)
+
     def __init__(self, fit_intercept: bool = True, num_corrections: int = 10,
                  convergence_tol: float = 1e-4, num_iterations: int = 100,
                  lam: float = 0.0):
@@ -115,6 +120,11 @@ class SparseLBFGSwithL2(LabelEstimator):
     ``LBFGS.scala:209-262`` and ``Gradient.scala:58-119``). Fits a host
     dataset of SparseVectors on the labels' device (the default device
     when the labels are host items) and returns a SparseLinearMapper."""
+
+    def abstract_fit(self, dep_specs):
+        from ...analysis.spec import labels_width_fit
+
+        return labels_width_fit(dep_specs)
 
     def __init__(self, fit_intercept: bool = True, num_corrections: int = 10,
                  convergence_tol: float = 1e-4, num_iterations: int = 100,

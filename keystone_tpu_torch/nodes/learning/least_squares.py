@@ -164,6 +164,24 @@ class LeastSquaresEstimator(OptimizableLabelEstimator):
     come from ``load_calibration``; ``num_machines`` defaults to the
     rule's count (1: one GPU)."""
 
+    def abstract_fit(self, dep_specs):
+        from ...analysis.spec import labels_width_fit
+
+        return labels_width_fit(dep_specs)
+
+    # -- static HBM planning (analysis.resources) --------------------------
+    def carry_nbytes(self, dep_specs):
+        # every Gram-capable candidate finishes from the one shared
+        # Gram/cross carry, so the carry is solver-independent
+        from ...analysis.resources import gram_carry_nbytes
+
+        return gram_carry_nbytes(dep_specs)
+
+    def fitted_nbytes(self, dep_specs):
+        from ...analysis.resources import linear_model_nbytes
+
+        return linear_model_nbytes(dep_specs)
+
     def __init__(self, lam: float = 0.0, num_machines: Optional[int] = None,
                  cpu_weight: Optional[float] = None,
                  mem_weight: Optional[float] = None,
@@ -238,7 +256,7 @@ class LeastSquaresEstimator(OptimizableLabelEstimator):
         G, C, _, _, n = carry
         d, k = int(G.shape[0]), int(C.shape[1])
         choice = self._choose(n, d, k, 1.0, self.num_machines or 1,
-                              streaming=True)
+                              streaming=True, shape_source="streamed")
         return choice.node.finalize(carry)
 
     def optimize(self, sample: Dataset, sample_labels: Dataset, n: int,
@@ -247,7 +265,31 @@ class LeastSquaresEstimator(OptimizableLabelEstimator):
         k = _item_dim(sample_labels)
         sparsity = estimate_sparsity(sample)
         return self._choose(n, d, k, sparsity,
-                            self.num_machines or num_machines)
+                            self.num_machines or num_machines,
+                            shape_source="sampled")
+
+    def optimize_static(self, spec, n: int, num_machines: int,
+                        labels_spec=None) -> Optional[NodeChoice]:
+        """The cost-model choice from statically inferred (n, d, k,
+        sparsity): no sampled execution, no device time. ``sparsity`` is
+        the analyzer's STRUCTURAL density (1.0 for dense-stored
+        elements), not the value-level density ``estimate_sparsity``
+        measures, so dense-stored data ranks as dense. A stream's choice
+        is restricted to the solvers that finish from the one-pass carry.
+        None (the sampled fallback) when a cost input is unresolved, such
+        as sparse host elements of unknown density."""
+        from ...analysis.spec import element_feature_dim
+
+        d = element_feature_dim(spec)
+        k = element_feature_dim(labels_spec) if labels_spec is not None \
+            else None
+        sparsity = getattr(spec, "sparsity", None)
+        if d is None or k is None or sparsity is None:
+            return None
+        return self._choose(n, d, k, sparsity,
+                            self.num_machines or num_machines,
+                            streaming=getattr(spec, "streaming", False),
+                            shape_source="static")
 
     def costs(self, n: int, d: int, k: int, sparsity: float, machines: int,
               streaming: bool = False):
@@ -265,7 +307,12 @@ class LeastSquaresEstimator(OptimizableLabelEstimator):
                 for solver, choice in options]
 
     def _choose(self, n: int, d: int, k: int, sparsity: float,
-                machines: int, streaming: bool = False) -> NodeChoice:
+                machines: int, streaming: bool = False,
+                shape_source: Optional[str] = None) -> NodeChoice:
+        """The cheapest candidate; the decision goes on the active trace
+        with where its shape came from (``shape_source``: ``static``,
+        ``sampled`` or ``streamed``; by default ``streamed`` for a
+        streaming choice, else ``sampled``)."""
         costs = self.costs(n, d, k, sparsity, machines, streaming)
         _, best = min((cost, i) for i, (cost, _, _) in enumerate(costs))
         choice = costs[best][2]
@@ -285,7 +332,8 @@ class LeastSquaresEstimator(OptimizableLabelEstimator):
                             "network_weight": self.network_weight,
                             "lat_weight": self.lat_weight},
                 "provenance": dict(self._weight_provenance),
-                "shape_source": "streamed" if streaming else "sampled",
+                "shape_source": shape_source or (
+                    "streamed" if streaming else "sampled"),
                 "streaming_restricted": streaming,
             })
         return choice

@@ -226,6 +226,22 @@ class LinearMapEstimator(LabelEstimator):
     """OLS/ridge via normal equations on mean-centered features and
     labels; intercept = label mean (reference ``LinearMapper.scala:71-98``)."""
 
+    def abstract_fit(self, dep_specs):
+        from ...analysis.spec import labels_width_fit
+
+        return labels_width_fit(dep_specs)
+
+    # -- static HBM planning (analysis.resources) --------------------------
+    def carry_nbytes(self, dep_specs):
+        from ...analysis.resources import gram_carry_nbytes
+
+        return gram_carry_nbytes(dep_specs)
+
+    def fitted_nbytes(self, dep_specs):
+        from ...analysis.resources import linear_model_nbytes
+
+        return linear_model_nbytes(dep_specs)
+
     def __init__(self, lam: Optional[float] = None,
                  weight_dtype: Optional[str] = None):
         self.lam = lam
@@ -351,6 +367,22 @@ class BlockLeastSquaresEstimator(LabelEstimator):
     """The workhorse solver (reference ``BlockLinearMapper.scala:196-257``):
     per-block mean-centering, label mean-centering, block coordinate
     descent with L2, intercept from the joint means."""
+
+    def abstract_fit(self, dep_specs):
+        from ...analysis.spec import labels_width_fit
+
+        return labels_width_fit(dep_specs)
+
+    # -- static HBM planning (analysis.resources) --------------------------
+    def carry_nbytes(self, dep_specs):
+        from ...analysis.resources import gram_carry_nbytes
+
+        return gram_carry_nbytes(dep_specs)
+
+    def fitted_nbytes(self, dep_specs):
+        from ...analysis.resources import linear_model_nbytes
+
+        return linear_model_nbytes(dep_specs)
 
     def __init__(self, block_size: int, num_iter: int, lam: float = 0.0,
                  weight_dtype: Optional[str] = None):

@@ -62,6 +62,36 @@ class BatchPCATransformer(_PcaProjection):
     (reference PCA.scala:38-43)."""
 
 
+class _PcaAbstractFitMixin:
+    """The static semantics shared by the PCA estimators: the fitted
+    projection replaces the leading (descriptor) axis with ``dims``."""
+
+    def abstract_fit(self, dep_specs):
+        from ...analysis.spec import ShapeDtype, Unknown
+
+        dims = self.dims
+
+        def apply_element(element):
+            if isinstance(element, ShapeDtype) and element.shape:
+                return ShapeDtype((dims,) + tuple(element.shape[1:]),
+                                  element.dtype)
+            return Unknown("pca input not an array element")
+
+        return apply_element
+
+    # -- static HBM planning (analysis.resources) --------------------------
+    def fitted_nbytes(self, dep_specs):
+        """The fitted projection: (d, dims) float32, d the input
+        element's leading (descriptor) axis."""
+        from ...analysis.spec import ShapeDtype
+
+        element = getattr(dep_specs[0], "element", None) if dep_specs \
+            else None
+        if not (isinstance(element, ShapeDtype) and element.shape):
+            return None
+        return 4.0 * float(element.shape[0]) * self.dims
+
+
 def _svd_pca(X: torch.Tensor, dims: int) -> np.ndarray:
     """Centered SVD of the rows of X on its device, sign-fixed basis (d,
     dims) on the host."""
@@ -71,7 +101,7 @@ def _svd_pca(X: torch.Tensor, dims: int) -> np.ndarray:
     return pca[:, :dims]
 
 
-class PCAEstimator(Estimator):
+class PCAEstimator(_PcaAbstractFitMixin, Estimator):
     """Local PCA: collect the (sampled) data, center, SVD
     (reference PCA.scala:163-210)."""
 
@@ -100,7 +130,7 @@ class PCAEstimator(Estimator):
                 + lat_w * self.DISPATCH_ROUNDS)
 
 
-class DistributedPCAEstimator(Estimator):
+class DistributedPCAEstimator(_PcaAbstractFitMixin, Estimator):
     """PCA via TSQR: center by the column means, R factor of the QR, SVD
     of R on the host (reference DistributedPCA.scala:34-57)."""
 
@@ -149,7 +179,7 @@ def _randomized_svd_vt(X: torch.Tensor, omega: torch.Tensor,
     return vt
 
 
-class ApproximatePCAEstimator(Estimator):
+class ApproximatePCAEstimator(_PcaAbstractFitMixin, Estimator):
     """Randomized-sketch PCA (reference ApproximatePCA.scala:38-86): a
     Gaussian sketch of ``dims + p`` columns, ``q`` power iterations,
     then the SVD of the projected matrix, on the data's device. The same
@@ -175,7 +205,7 @@ class ApproximatePCAEstimator(Estimator):
         return pca[:, : self.dims]
 
 
-class LocalColumnPCAEstimator(Estimator):
+class LocalColumnPCAEstimator(_PcaAbstractFitMixin, Estimator):
     """Fits PCA treating each column of per-item matrices as a sample
     (reference PCA.scala:51-76); emits BatchPCATransformer."""
 
@@ -187,7 +217,7 @@ class LocalColumnPCAEstimator(Estimator):
             PCAEstimator(self.dims).compute_pca(_stack_item_columns(ds)))
 
 
-class DistributedColumnPCAEstimator(Estimator):
+class DistributedColumnPCAEstimator(_PcaAbstractFitMixin, Estimator):
     """The TSQR variant of the column PCA (reference PCA.scala:78-102)."""
 
     def __init__(self, dims: int):
@@ -198,7 +228,7 @@ class DistributedColumnPCAEstimator(Estimator):
             self.dims).compute_pca(_stack_item_columns(ds)))
 
 
-class ColumnPCAEstimator(OptimizableEstimator):
+class ColumnPCAEstimator(_PcaAbstractFitMixin, OptimizableEstimator):
     """Optimizable column PCA (reference PCA.scala:118-156): the
     node-level rule picks the local or the distributed PCA by the
     reference's cost models at the sampled item geometry; without the
@@ -239,6 +269,17 @@ class ColumnPCAEstimator(OptimizableEstimator):
         items = sample.collect()
         cols_per_item = int(items[0].shape[-1]) if items else 1
         d = int(items[0].shape[0]) if items else 1
+        return self._choose(d, cols_per_item, n, num_machines)
+
+    def optimize_static(self, spec, n: int, num_machines: int):
+        """Static form: the (d, cols) item geometry comes from the
+        analyzer's element spec instead of a sampled matrix."""
+        from ...analysis.spec import ShapeDtype
+
+        element = getattr(spec, "element", None)
+        if not (isinstance(element, ShapeDtype) and len(element.shape) == 2):
+            return None
+        d, cols_per_item = int(element.shape[0]), int(element.shape[1])
         return self._choose(d, cols_per_item, n, num_machines)
 
     def _choose(self, d: int, cols_per_item: int, n: int,

@@ -30,6 +30,11 @@ from .linear import BlockLinearMapper
 
 
 class PerClassWeightedLeastSquaresEstimator(LabelEstimator):
+    def abstract_fit(self, dep_specs):
+        from ...analysis.spec import labels_width_fit
+
+        return labels_width_fit(dep_specs)
+
     def __init__(self, block_size: int, num_iter: int, lam: float,
                  mixture_weight: float, num_features: Optional[int] = None):
         self.block_size = block_size

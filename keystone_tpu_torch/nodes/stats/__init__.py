@@ -202,6 +202,23 @@ class StandardScaler(Estimator):
     as in the reference.
     """
 
+    def abstract_fit(self, dep_specs):
+        from ...analysis.spec import identity_fit
+
+        return identity_fit(dep_specs)
+
+    # -- static HBM planning (analysis.resources) --------------------------
+    def carry_nbytes(self, dep_specs):
+        from ...analysis.resources import moments_carry_nbytes
+
+        return moments_carry_nbytes(dep_specs)
+
+    def fitted_nbytes(self, dep_specs):
+        from ...analysis.resources import moments_carry_nbytes
+
+        # the fitted model (mean + std) has the moment carry's footprint
+        return moments_carry_nbytes(dep_specs)
+
     def __init__(self, normalize_std_dev: bool = True, eps: float = 1e-12):
         self.normalize_std_dev = normalize_std_dev
         self.eps = eps

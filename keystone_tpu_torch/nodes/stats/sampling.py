@@ -45,6 +45,15 @@ class Sampler(Transformer):
         items = ds.collect()
         return HostDataset([items[i] for i in idx])
 
+    def abstract_eval(self, dep_specs):
+        from ...analysis.spec import DatasetSpec
+
+        out = super().abstract_eval(dep_specs)
+        if isinstance(out, DatasetSpec) and out.n is not None:
+            return DatasetSpec(out.element, n=min(self.size, out.n),
+                               host=out.host, sparsity=out.sparsity)
+        return out
+
 
 class ColumnSampler(Transformer):
     """Sample ``num_cols`` columns of each per-item (d, cols) matrix

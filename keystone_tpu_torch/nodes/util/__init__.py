@@ -209,6 +209,16 @@ class Densify(Transformer):
                             dtype=np.float32).ravel() for it in items]
         return ArrayDataset.from_numpy(np.stack(dense), self._host_device())
 
+    def abstract_single(self, elements):
+        from ...analysis.spec import ShapeDtype, SparseSpec, Unknown
+
+        (e,) = elements
+        if isinstance(e, SparseSpec):
+            if e.size is None:
+                return Unknown("sparse element of unknown size")
+            return ShapeDtype((e.size,), torch.float32)
+        return super().abstract_single(elements)
+
 
 from .sparse import (  # noqa: E402
     AllSparseFeatures,
@@ -234,6 +244,15 @@ class LabelAugmenter(Transformer):
 
     def apply(self, x):
         return x
+
+    def abstract_eval(self, dep_specs):
+        from ...analysis.spec import DatasetSpec
+
+        out = super().abstract_eval(dep_specs)
+        if isinstance(out, DatasetSpec) and out.n is not None:
+            return DatasetSpec(out.element, n=out.n * self.mult,
+                               host=out.host, sparsity=out.sparsity)
+        return out
 
     def apply_dataset(self, ds: Dataset) -> Dataset:
         if isinstance(ds, ArrayDataset):

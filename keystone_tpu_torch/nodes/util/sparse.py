@@ -36,7 +36,7 @@ from ...parallel.dataset import (
 )
 from ...workflow.estimator import Estimator
 from ...workflow.operators import data_token
-from ...workflow.transformer import HostTransformer, Transformer
+from ...workflow.transformer import HostTransformer
 
 #: terms summed by one padded gather in a CSRMatrix product
 SEGMENT_WIDTH = 32
@@ -235,12 +235,22 @@ class CSRMatrix:
                          self.dtype)
 
 
-class Sparsify(Transformer):
+class Sparsify(HostTransformer):
     """Dense vector -> SparseVector (reference ``util/Sparsify.scala``).
     A host stage: a dense batch is copied to the host once and cut into
     items; SparseVectors pass through."""
 
     fusable = False
+
+    def abstract_single(self, elements):
+        from ...analysis.spec import ShapeDtype, SparseSpec
+
+        (e,) = elements
+        if isinstance(e, SparseSpec):
+            return e
+        if isinstance(e, ShapeDtype) and len(e.shape) == 1:
+            return SparseSpec(int(e.shape[0]))
+        return super().abstract_single(elements)
 
     def apply(self, x) -> SparseVector:
         if isinstance(x, SparseVector):

@@ -6,9 +6,10 @@ catalogue), ``timeline.py`` (the flight recorder and its Chrome trace),
 ``trace.py`` (``PipelineTrace``), ``postmortem.py``, ``numerics.py`` (the
 data-health plane), ``sampler.py`` (``TelemetrySampler`` and the
 scrape handler), ``compilelog.py`` (the capture observatory and its
-fence), ``reqtrace.py`` (request traces and the exemplar reservoir)
-and ``slo.py`` (the SLO tracker). ``utilization.py`` and
-``benchdiff.py`` come later (ROADMAP A9b).
+fence, and its per-site table), ``reqtrace.py`` (request traces and the
+exemplar reservoir), ``slo.py`` (the SLO tracker), ``utilization.py``
+(MFU and the roofline from counted work) and ``benchdiff.py`` (the
+bench-regression gate).
 """
 from .metrics import Counter, Gauge, Histogram, MetricsRegistry
 

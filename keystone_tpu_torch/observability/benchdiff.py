@@ -1,0 +1,380 @@
+"""Statistical bench-regression gate: ``python -m keystone_tpu_torch benchdiff``.
+
+Counterpart of ``keystone_tpu/observability/benchdiff.py``, over the same
+artifact format (the repo's ``BENCH_r*.json`` / ``MULTICHIP_r*.json``:
+one JSON object with a stdout ``tail`` of metric lines and a ``parsed``
+summary). It derives a per-metric NOISE BAND from the run-to-run spread
+of the artifact history and classifies every metric shared by a base
+and a current artifact:
+
+* **improved**: moved in the better direction by more than the band;
+* **in-band**: within the band (run-to-run noise, not a change);
+* **regressed**: moved in the worse direction by more than the band.
+
+The band is ``max(8%, 1.5 x the MEDIAN |run-to-run delta| the metric has
+shown across consecutive historical rounds)``: the median is the typical
+wiggle, robust to the one real step an improving history contains, and
+the 1.5x margin says a swing must clearly exceed it to count. History is
+every artifact of the current one's family beside it, minus the current
+artifact itself (a regressed run must not widen its own band).
+
+Metrics measured at reduced size (a ``"scaled"`` key) are excluded from
+classification and from band history; artifacts from different hosts
+refuse to compare without ``--force``; a metric present on one side only
+is reported ``absent`` or ``new``, never fatal.
+
+Exit codes: 0 nothing regressed, 1 usage or load error or cross-host
+refusal, 2 at least one regression beyond its band.
+"""
+from __future__ import annotations
+
+import glob
+import json
+import os
+import re
+import statistics
+import sys
+from typing import Any, Dict, List, Optional, Tuple
+
+#: the floor band (the CIFAR end-to-end run-to-run noise the JAX
+#: package's PERFORMANCE.md quantifies); every metric gets at least this
+DEFAULT_BAND = 0.08
+
+#: margin over the median observed consecutive-run swing: a delta must
+#: clearly exceed typical historical wiggle, not merely tie it
+BAND_MARGIN = 1.5
+
+#: metric-name markers for "lower is better": errors, stalls, latency
+#: (``_ms``, ``_p99``, ``_latency``: a p99 that rises is the
+#: regression), byte counts (fewer host-to-device bytes an image is a
+#: gain), the numerics-health totals, the drift score, the measured
+#: overhead share, phase shares of the request wall (``_share``) and the
+#: error budget's ``burn_rate``
+_LOWER_BETTER_MARKERS = ("error", "stall", "_ms", "_p99", "_latency",
+                         "_bytes", "_nan_total", "_breakdown_total",
+                         "drift_score", "overhead_share", "_share",
+                         "burn_rate")
+
+#: markers that force "higher is better" and WIN over any lower-better
+#: marker in the same name: a throughput line (``serve_qps_per_chip``),
+#: batch fill, availability, scaling efficiency and overlap occupancy
+#: must never flip direction because another substring matches the
+#: lower-better list (a flip would bless a collapse as an improvement)
+_HIGHER_BETTER_MARKERS = ("_qps", "_fill", "availability",
+                          "_efficiency", "_occupancy")
+
+#: metrics banded in ABSOLUTE units (plain difference, not percent of
+#: base): signed shares near zero, where a relative band explodes. The
+#: absolute floor is 0.02, two percentage points
+_ABSOLUTE_BAND_MARKERS = ("overhead_share",)
+ABSOLUTE_BAND_FLOOR = 0.02
+
+
+def absolute_band(metric: str) -> bool:
+    """True when ``metric`` is banded/classified in absolute units."""
+    return any(m in metric for m in _ABSOLUTE_BAND_MARKERS)
+
+
+#: ``parsed`` summary keys that are metric metadata, never metrics
+_NON_METRIC_KEYS = frozenset({
+    "metric", "value", "unit", "vs_baseline", "summary", "scaled",
+    "timing_reps", "timing_window_mult", "timing_spread",
+    "accuracy_dataset", "dataset", "linear_pixels_contrast_baseline",
+})
+
+
+def lower_is_better(metric: str) -> bool:
+    if any(m in metric for m in _HIGHER_BETTER_MARKERS):
+        return False
+    return any(m in metric for m in _LOWER_BETTER_MARKERS)
+
+
+class Artifact:
+    """One parsed ``BENCH_r*.json``: per-metric values + scaled flags
+    + the ``bench_meta`` block (None on artifacts that predate it)."""
+
+    def __init__(self, path: str, round_n: Optional[int],
+                 metrics: Dict[str, Dict[str, Any]],
+                 meta: Optional[Dict[str, Any]]):
+        self.path = path
+        self.round_n = round_n
+        self.metrics = metrics  # name -> {"value": float, "scaled": bool}
+        self.meta = meta
+
+    def value(self, name: str) -> Optional[float]:
+        entry = self.metrics.get(name)
+        return None if entry is None else entry["value"]
+
+    def scaled(self, name: str) -> bool:
+        entry = self.metrics.get(name)
+        return bool(entry and entry["scaled"])
+
+
+def _looks_like_metric(key: str, value: Any) -> bool:
+    """Summary-dict keys that carry other sections' headline values
+    (``_emit_summary`` folds them in as plain keys)."""
+    if key in _NON_METRIC_KEYS or isinstance(value, bool) \
+            or not isinstance(value, (int, float)):
+        return False
+    return ("_per_" in key or key.endswith(
+        ("_per_sec", "_tflops", "_error", "_map", "_qps", "_p99_ms",
+         "_mfu", "_membw_util")))
+
+
+def load_artifact(path: str) -> Artifact:
+    """Parse one bench artifact. Metric lines in the stdout ``tail``
+    are authoritative (they carry ``scaled`` flags); the ``parsed``
+    summary dict backfills metrics whose lines scrolled out of the
+    bounded tail (scaled state unknown there -> treated as unscaled,
+    matching how summaries are read by humans today)."""
+    with open(path) as f:
+        blob = json.load(f)
+    if not isinstance(blob, dict):
+        raise ValueError(f"{path}: expected a JSON object artifact")
+    metrics: Dict[str, Dict[str, Any]] = {}
+    meta: Optional[Dict[str, Any]] = None
+    for line in str(blob.get("tail", "")).splitlines():
+        line = line.strip()
+        if not line.startswith("{"):
+            continue
+        try:
+            obj = json.loads(line)
+        except json.JSONDecodeError:
+            continue
+        if not isinstance(obj, dict):
+            continue
+        if isinstance(obj.get("bench_meta"), dict):
+            meta = obj["bench_meta"]
+            continue
+        if obj.get("summary"):
+            continue  # restatement; per-metric lines carry the flags
+        name, value = obj.get("metric"), obj.get("value")
+        if isinstance(name, str) and isinstance(value, (int, float)) \
+                and not isinstance(value, bool):
+            metrics[name] = {"value": float(value),
+                             "scaled": "scaled" in obj}
+            # companion keys riding the metric line (*_mfu,
+            # *_membw_util, other *_per_* evidence) band like
+            # first-class metrics, inheriting the line's scaled flag
+            for key, extra in obj.items():
+                if _looks_like_metric(key, extra):
+                    metrics.setdefault(key, {
+                        "value": float(extra),
+                        "scaled": "scaled" in obj})
+    parsed = blob.get("parsed")
+    if isinstance(parsed, dict):
+        headline = parsed.get("metric")
+        if isinstance(headline, str) and isinstance(
+                parsed.get("value"), (int, float)):
+            metrics.setdefault(headline, {
+                "value": float(parsed["value"]),
+                "scaled": "scaled" in parsed})
+        for key, value in parsed.items():
+            if _looks_like_metric(key, value):
+                metrics.setdefault(key, {"value": float(value),
+                                         "scaled": False})
+    round_n = blob.get("n") if isinstance(blob.get("n"), int) else None
+    if round_n is None:
+        m = re.search(r"r(\d+)", os.path.basename(path))
+        round_n = int(m.group(1)) if m else None
+    return Artifact(path, round_n, metrics, meta)
+
+
+def artifact_prefix(path: str) -> str:
+    """The artifact-family prefix of one ``<PREFIX>_r<N>.json`` bench
+    artifact (``BENCH_r05.json`` -> ``BENCH``, ``MULTICHIP_r05.json``
+    -> ``MULTICHIP``); unrecognized names fall back to ``BENCH`` so the
+    historical behaviour is preserved."""
+    m = re.match(r"(?P<prefix>.+?)_r\d+\.json$", os.path.basename(path))
+    return m.group("prefix") if m else "BENCH"
+
+
+def discover_history(current_path: str,
+                     prefix: Optional[str] = None) -> List[Artifact]:
+    """Every ``<prefix>_r*.json`` in the current artifact's directory,
+    EXCLUDING the current artifact (its own value must not widen its
+    own band), ordered by round. ``prefix`` defaults to the current
+    artifact's own family (:func:`artifact_prefix`), so comparing two
+    ``MULTICHIP_r*.json`` artifacts draws its noise bands from the
+    MULTICHIP history, never from the BENCH one."""
+    if prefix is None:
+        prefix = artifact_prefix(current_path)
+    directory = os.path.dirname(os.path.abspath(current_path)) or "."
+    out: List[Artifact] = []
+    cur = os.path.abspath(current_path)
+    for path in sorted(glob.glob(
+            os.path.join(directory, glob.escape(prefix) + "_r*.json"))):
+        if os.path.abspath(path) == cur:
+            continue
+        try:
+            out.append(load_artifact(path))
+        except (OSError, ValueError, json.JSONDecodeError):
+            continue  # a corrupt historical artifact shrinks the history
+    out.sort(key=lambda a: (a.round_n is None, a.round_n))
+    return out
+
+
+def noise_band(metric: str, history: List[Artifact],
+               floor: float = DEFAULT_BAND) -> Tuple[float, int]:
+    """``(band, n_points)``: the relative band for ``metric`` from the
+    consecutive-round |deltas| its unscaled history shows. The
+    statistic is the MEDIAN swing (x ``BAND_MARGIN``): the typical
+    run-to-run wiggle, robust to the one genuine step-change a history
+    of improving rounds always contains (one round that doubles a metric —
+    a max-based band would have let a later 2x regression through as
+    "noise"). With fewer than two usable points the floor band applies
+    alone."""
+    values = [a.value(metric) for a in history
+              if a.value(metric) is not None and not a.scaled(metric)]
+    if absolute_band(metric):
+        deltas = [abs(cur - prev) for prev, cur in zip(values, values[1:])]
+        floor = ABSOLUTE_BAND_FLOOR
+    else:
+        deltas = [abs(cur - prev) / abs(prev)
+                  for prev, cur in zip(values, values[1:]) if prev]
+    if not deltas:
+        return floor, len(values)
+    return max(floor, BAND_MARGIN * statistics.median(deltas)), len(values)
+
+
+def classify(metric: str, base: float, current: float,
+             band: float) -> Tuple[str, float]:
+    """``(classification, signed delta)`` where positive delta always
+    means "better" (direction-normalized). The delta is relative
+    (fraction of base) except for :func:`absolute_band` metrics, whose
+    delta — and band — are plain differences (a zero base is a
+    meaningful value for those, not a new baseline)."""
+    if absolute_band(metric):
+        delta = current - base
+    else:
+        if base == 0:
+            return ("in-band" if current == base else "new-baseline"), 0.0
+        delta = (current - base) / abs(base)
+    if lower_is_better(metric):
+        delta = -delta
+    if delta > band:
+        return "improved", delta
+    if delta < -band:
+        return "regressed", delta
+    return "in-band", delta
+
+
+def compare(base: Artifact, current: Artifact,
+            history: Optional[List[Artifact]] = None,
+            floor: float = DEFAULT_BAND) -> List[Dict[str, Any]]:
+    """Per-metric classification rows for every metric either artifact
+    carries, most-regressed first."""
+    history = [] if history is None else history
+    rows: List[Dict[str, Any]] = []
+    for metric in sorted(set(base.metrics) | set(current.metrics)):
+        b, c = base.value(metric), current.value(metric)
+        row: Dict[str, Any] = {"metric": metric, "base": b, "current": c}
+        if b is None:
+            row.update(classification="new", delta=None, band=None)
+        elif c is None:
+            row.update(classification="absent", delta=None, band=None)
+        elif base.scaled(metric) or current.scaled(metric):
+            row.update(classification="scaled (excluded)", delta=None,
+                       band=None)
+        else:
+            band, n = noise_band(metric, history, floor)
+            cls, delta = classify(metric, b, c, band)
+            row.update(classification=cls, delta=delta, band=band,
+                       band_points=n)
+        rows.append(row)
+    order = {"regressed": 0, "improved": 1, "in-band": 2}
+    rows.sort(key=lambda r: (order.get(r["classification"], 3),
+                             r["delta"] if r["delta"] is not None else 0.0))
+    return rows
+
+
+def format_table(rows: List[Dict[str, Any]]) -> str:
+    lines = [f"{'metric':<44} {'base':>12} {'current':>12} "
+             f"{'delta':>8} {'band':>7}  class"]
+    for r in rows:
+        base = "-" if r["base"] is None else f"{r['base']:.4g}"
+        cur = "-" if r["current"] is None else f"{r['current']:.4g}"
+        delta = ("-" if r["delta"] is None
+                 else f"{100.0 * r['delta']:+.1f}%")
+        band = ("-" if r["band"] is None
+                else f"{100.0 * r['band']:.1f}%")
+        lines.append(f"{r['metric'][:44]:<44} {base:>12} {cur:>12} "
+                     f"{delta:>8} {band:>7}  {r['classification']}")
+    return "\n".join(lines)
+
+
+def _hosts_comparable(base: Artifact, current: Artifact,
+                      force: bool) -> Tuple[bool, str]:
+    bm, cm = base.meta, current.meta
+    if bm is None or cm is None:
+        return True, ("note: artifact(s) predate the bench_meta block — "
+                      "host identity unverified")
+    bh, ch = bm.get("hostname"), cm.get("hostname")
+    if bh and ch and bh != ch and not force:
+        return False, (
+            f"refusing cross-host comparison: base ran on {bh!r}, "
+            f"current on {ch!r} — throughput numbers from different "
+            "hosts are not the same experiment. Pass --force to "
+            "compare anyway.")
+    note = ""
+    if bh and ch and bh != ch:
+        note = f"note: cross-host comparison forced ({bh!r} vs {ch!r})"
+    bd, cd = bm.get("device_kind"), cm.get("device_kind")
+    if bd and cd and bd != cd:
+        note = (note + "; " if note else "note: ") + (
+            f"device kind differs ({bd!r} vs {cd!r})")
+    return True, note
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    force = "--force" in argv
+    if force:
+        argv.remove("--force")
+    floor = DEFAULT_BAND
+    if "--band" in argv:
+        i = argv.index("--band")
+        if i + 1 >= len(argv):
+            print("--band requires a fraction (e.g. 0.08)",
+                  file=sys.stderr)
+            return 1
+        try:
+            floor = float(argv[i + 1])
+        except ValueError:
+            print(f"--band expects a fraction, got {argv[i + 1]!r}",
+                  file=sys.stderr)
+            return 1
+        del argv[i:i + 2]
+    if len(argv) != 2 or argv[0].startswith("-"):
+        print("usage: python -m keystone_tpu_torch benchdiff BASE.json "
+              "CURRENT.json [--band FRACTION] [--force]\n"
+              "exit: 0 in-band/improved, 1 usage/cross-host, "
+              "2 regression beyond band", file=sys.stderr)
+        return 1
+    try:
+        base = load_artifact(argv[0])
+        current = load_artifact(argv[1])
+    except (OSError, ValueError, json.JSONDecodeError) as exc:
+        print(f"benchdiff: cannot load artifact: {exc}", file=sys.stderr)
+        return 1
+    ok, note = _hosts_comparable(base, current, force)
+    if note:
+        print(note, file=sys.stderr)
+    if not ok:
+        return 1
+    history = discover_history(argv[1])
+    rows = compare(base, current, history, floor)
+    print(format_table(rows))
+    regressed = [r for r in rows if r["classification"] == "regressed"]
+    improved = [r for r in rows if r["classification"] == "improved"]
+    inband = [r for r in rows if r["classification"] == "in-band"]
+    print(f"\nbenchdiff: {len(regressed)} regressed, "
+          f"{len(improved)} improved, {len(inband)} in-band "
+          f"(band = max({100 * floor:.0f}%, {BAND_MARGIN:g}x median "
+          f"historical run-to-run swing; history: "
+          f"{len(history)} artifact(s))")
+    return 2 if regressed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

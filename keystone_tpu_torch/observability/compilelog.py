@@ -32,9 +32,14 @@ steady-state capture, counted unexpected), and ``fit_streaming`` arms
 ``fit_streaming:<tag>`` after its warm chunks. The executor's traced
 node thunks run inside ``compile_context("node:<label>#<id>")``.
 
-Left out, being XLA's: the ``jax.monitoring`` listener, ``watch_jit`` /
-``observed_jit`` and the jit-site signature classification, and
-``executable_table`` with its XLA cost and memory analysis. Observation
+:func:`executable_table` is the per-site table in torch terms: each
+capture site's captures, the replays of its graphs (``calls``, noted by
+the replay sites through :func:`note_replay`) and its graph pool's
+bytes. Every post-mortem embeds it, so a device-OOM dump says which
+captured graphs held memory. Left out, being XLA's: the
+``jax.monitoring`` listener, ``watch_jit`` / ``observed_jit``, the
+jit-site signature classification and XLA's cost and memory analysis.
+Observation
 has no off switch here: a capture is rare and its record is cheap
 beside it.
 
@@ -93,7 +98,7 @@ def _context_label() -> Optional[str]:
 
 
 @guarded_by("_lock", "records", "_wall_s", "_count", "_unexpected",
-            "_fence_labels", "_by_name")
+            "_fence_labels", "_by_name", "_sites")
 class CompileObservatory:
     """Process-global capture log: a bounded record tail, exact
     aggregates, and the fence."""
@@ -107,6 +112,8 @@ class CompileObservatory:
         self._unexpected = 0
         self._fence_labels: List[str] = []
         self._by_name: Dict[str, int] = {}
+        #: per capture site: captures, replays (calls), pool bytes
+        self._sites: Dict[str, Dict[str, float]] = {}
         self._lock = threading.Lock()
 
     # -- the fence -------------------------------------------------------
@@ -152,6 +159,10 @@ class CompileObservatory:
             self._count += 1
             self._wall_s += wall_s
             self._by_name[name] = self._by_name.get(name, 0) + 1
+            site = self._site(name)
+            site["captures"] += 1
+            if stats and "pool_nbytes" in stats:
+                site["pool_nbytes"] = float(stats["pool_nbytes"])
             self.records.append(entry)
             if len(self.records) > self.RECORD_TAIL:
                 del self.records[: len(self.records) - self.RECORD_TAIL]
@@ -166,6 +177,22 @@ class CompileObservatory:
         tr = current_trace()
         if tr is not None:
             tr.record_compile(dict(entry))
+
+    def _site(self, name: str) -> Dict[str, float]:
+        site = self._sites.get(name)
+        if site is None:
+            site = self._sites[name] = {
+                "calls": 0, "captures": 0, "pool_nbytes": 0.0}
+        return site
+
+    def note_replay(self, name: str) -> None:
+        """One replay of a graph captured at site ``name``."""
+        with self._lock:
+            self._site(name)["calls"] += 1
+
+    def sites(self) -> Dict[str, Dict[str, float]]:
+        with self._lock:
+            return {k: dict(v) for k, v in self._sites.items()}
 
     # -- views -----------------------------------------------------------
     def wall_s_total(self) -> float:
@@ -247,6 +274,22 @@ def observed_capture(name: str, trigger: str,
                                  context=_context_label(), t_start=t0,
                                  stats=dict(stats) or None)
     stats["wall_s"] = wall_s
+
+
+def note_replay(name: str) -> None:
+    """Count one replay of the graph captured at site ``name`` (the
+    ``calls`` column of :func:`executable_table`)."""
+    compile_observatory().note_replay(name)
+
+
+def executable_table() -> List[Dict[str, Any]]:
+    """Per capture site, in the JAX package's ``executable_table``
+    shape: ``name``, ``calls`` (replays), ``captures`` and
+    ``pool_nbytes`` (the site's last captured graph pool, as the capture
+    measured it), for every site that captured or replayed."""
+    return [{"name": name, **site}
+            for name, site in sorted(compile_observatory().sites().items())
+            if site["calls"] or site["captures"]]
 
 
 @contextlib.contextmanager

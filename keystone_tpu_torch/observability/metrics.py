@@ -8,9 +8,12 @@ handler threads, callers), so every read-modify-write takes a plain
 """
 from __future__ import annotations
 
+import contextlib
 import re
 import threading
-from typing import Dict, List, Optional
+import time
+import warnings
+from typing import Dict, Iterator, List, Optional
 
 
 class Counter:
@@ -208,3 +211,45 @@ def _prometheus_value(value: float) -> str:
         # gauge must not break the scrape
         return "NaN" if v != v else ("+Inf" if v > 0 else "-Inf")
     return str(int(v)) if v == int(v) and abs(v) < 1e15 else repr(v)
+
+
+class StepTimer:
+    """DEPRECATED wall-clock step timing, kept API-compatible with the JAX
+    package's (constructing one warns, as there). Use
+    ``MetricsRegistry.get_or_create().timer(name)`` instead: the samples
+    land in the process histograms (p50/p99, Prometheus exposition)
+    instead of a private dict. ``timed(name, fn, ...)`` waits for the
+    CUDA device before it reads the clock, as the JAX package blocks on
+    the result; ``step(name)`` times the block as it is."""
+
+    def __init__(self) -> None:
+        warnings.warn(
+            "StepTimer is deprecated; use MetricsRegistry.get_or_create()"
+            ".timer(name) (observability/metrics.py): the same block-style "
+            "timing, recorded into the process histograms",
+            DeprecationWarning, stacklevel=2)
+        self.times: Dict[str, list] = {}
+
+    @contextlib.contextmanager
+    def step(self, name: str) -> Iterator[None]:
+        t0 = time.perf_counter()
+        yield
+        self.times.setdefault(name, []).append(time.perf_counter() - t0)
+
+    def timed(self, name: str, fn, *args, **kwargs):
+        import torch
+
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        self.times.setdefault(name, []).append(time.perf_counter() - t0)
+        return out
+
+    def summary(self) -> str:
+        lines = []
+        for name, ts in self.times.items():
+            lines.append(
+                f"{name}: n={len(ts)} mean={sum(ts)/len(ts)*1e3:.2f}ms "
+                f"min={min(ts)*1e3:.2f}ms max={max(ts)*1e3:.2f}ms")
+        return "\n".join(lines)

@@ -40,6 +40,7 @@ active trace's numerics stream.
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import threading
 import time
@@ -50,7 +51,7 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .compilelog import observed_capture
+from .compilelog import note_replay, observed_capture
 from .metrics import MetricsRegistry
 from .timeline import record_instant
 from .trace import current_trace
@@ -343,6 +344,7 @@ class HealthMonitor:
         graph, flat, word = _word_graph(key, leaves[0].device)
         torch.cat([x.reshape(-1) for x in leaves], out=flat)
         graph.replay()
+        note_replay("numerics.health_word")
         return word
 
     def observe(self, chunk_idx: int, *trees: Any,
@@ -806,3 +808,47 @@ def health_snapshot() -> Dict[str, Any]:
     state."""
     return {"enabled": numerics_enabled(), "recent_health": recent_health(),
             "last_health_age_s": last_health_age_s()}
+
+
+def postmortem_report(argv: Sequence[str]) -> int:
+    """``python -m keystone_tpu_torch numerics <postmortem.json>``: render
+    a health post-mortem (the JAX package's ``numerics`` command over the
+    port's artifacts, ``observability/postmortem.py``): the reason and
+    context, the numerics counters of the metrics snapshot, and the
+    embedded health series as a table. Exit 0 rendered, 1 unreadable."""
+    argv = [a for a in argv if not a.startswith("-")]
+    if len(argv) != 1:
+        print("usage: python -m keystone_tpu_torch numerics POSTMORTEM.json")
+        return 1
+    try:
+        with open(argv[0]) as f:
+            blob = json.load(f)
+    except (OSError, json.JSONDecodeError) as exc:
+        print(f"numerics: cannot load {argv[0]!r}: {exc}")
+        return 1
+    print(f"post-mortem: {blob.get('reason')} (pid {blob.get('pid')})")
+    ctx = dict(blob.get("context") or {})
+    series = ctx.pop("recent_health", None) or (
+        blob.get("numerics") or {}).get("recent_health") or []
+    for k, v in sorted(ctx.items()):
+        print(f"  {k}: {v}")
+    counters = (blob.get("metrics") or {}).get("counters") or {}
+    numeric = {k: v for k, v in counters.items()
+               if k.startswith("numerics.")}
+    if numeric:
+        print("numerics counters: " + " ".join(
+            f"{k.split('.', 1)[1]}={v:g}" for k, v in sorted(
+                numeric.items())))
+    if series:
+        print(f"health series (last {len(series)}):")
+        print(f"{'source':<28} {'chunk':>6} {'nan':>8} {'inf':>8} "
+              f"{'min':>11} {'max':>11} {'mean':>11}")
+        for e in series:
+            print(f"{str(e.get('source', '?'))[:28]:<28} "
+                  f"{str(e.get('chunk', '-')):>6} "
+                  f"{e.get('nan', 0):>8.0f} {e.get('inf', 0):>8.0f} "
+                  f"{e.get('min', 0):>11.4g} {e.get('max', 0):>11.4g} "
+                  f"{e.get('mean', 0):>11.4g}")
+    else:
+        print("no health series in this artifact")
+    return 0

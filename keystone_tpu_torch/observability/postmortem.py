@@ -7,8 +7,10 @@ die with the process. So the failure paths dump them first:
 
 * :func:`dump_postmortem` writes one JSON artifact: the reason and its
   context, a :meth:`MetricsRegistry.snapshot`, the flight recorder's
-  Chrome trace (Perfetto loads it as it is) and the numerics plane's
-  recent health series, to ``$KEYSTONE_TORCH_POSTMORTEM_DIR`` (default
+  Chrome trace (Perfetto loads it as it is), the capture observatory's
+  snapshot and per-site table (``compilelog.executable_table``: which
+  captured CUDA graphs held pool memory, for a device OOM) and the
+  numerics plane's recent health series, to ``$KEYSTONE_TORCH_POSTMORTEM_DIR`` (default
   ``~/.keystone_tpu_torch/postmortems``). ``KEYSTONE_TORCH_POSTMORTEM=0``
   turns dumping off.
 * :func:`attach_postmortem` dumps, stores the path on the exception
@@ -64,6 +66,13 @@ def dump_postmortem(reason: str,
             seq = _SEQ
         path = directory / f"postmortem-{reason}-{os.getpid()}-{seq}.json"
         try:
+            from .compilelog import compile_observatory, executable_table
+
+            compiles = compile_observatory().snapshot()
+            executables = executable_table()
+        except Exception:
+            compiles, executables = None, []
+        try:
             from .numerics import health_snapshot
 
             numerics = health_snapshot()
@@ -76,6 +85,8 @@ def dump_postmortem(reason: str,
             "context": context or {},
             "metrics": MetricsRegistry.get_or_create().snapshot(),
             "flight_recorder": flight_recorder().to_chrome_trace(),
+            "compiles": compiles,
+            "executables": executables,
             "numerics": numerics,
         }
         tmp = path.with_name(path.name + f".tmp{os.getpid()}")

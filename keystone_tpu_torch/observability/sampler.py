@@ -212,3 +212,27 @@ class _MetricsServer(ThreadingHTTPServer):
         if t is not None and t is not threading.current_thread():
             t.join(timeout=5.0)
         self.server_close()
+
+
+def serve_metrics(port: int = 0, host: str = "127.0.0.1",
+                  registry: Optional[MetricsRegistry] = None,
+                  ready_probe: Optional[Callable[[], bool]] = None
+                  ) -> ThreadingHTTPServer:
+    """Serve ``GET /metrics`` (Prometheus text exposition of the process
+    registry) and ``GET /healthz`` on ``host:port`` from a daemon thread.
+    ``port=0`` binds an ephemeral port (read it back from
+    ``server.server_port``). Returns the server; ``.shutdown()`` stops
+    it, joins the serve thread and releases the port. ``ready_probe``
+    (zero arguments -> bool) makes ``/healthz`` a readiness gate: 503
+    until it returns True; without one the endpoint is a liveness
+    ping."""
+    handler = type("_BoundMetricsHandler", (_MetricsHandler,),
+                   {"registry": registry,
+                    "ready_probe": (staticmethod(ready_probe)
+                                    if ready_probe is not None else None)})
+    server = _MetricsServer((host, port), handler)
+    t = threading.Thread(target=server.serve_forever,
+                         name="keystone-metrics-http", daemon=True)
+    server._keystone_thread = t
+    t.start()
+    return server

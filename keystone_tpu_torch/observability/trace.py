@@ -18,12 +18,22 @@ Self times: a node's wall time minus the time spent in nested
 instrumented nodes (a parent's first ``get()`` computes its ancestors),
 so self times sum to the traced compute with no double counting.
 
+Work: a trace made with ``count_flops=True`` (the command line's
+``--trace-out``) runs each node under ``torch.utils.flop_counter.
+FlopCounterMode`` and notes the kernels' counted work of its launches
+(``ops/kernels.py::WORK``); each record gets its self torch FLOPs,
+kernel FLOPs, kernel bytes and launches, charged like self time.
+``observability/utilization.py::annotate_trace`` turns them into
+``flops``, ``mfu`` and ``membw_util``. The counter routes every torch op
+through Python, so a counting trace runs slower than a plain one.
+
 Tracing costs nothing when no trace is active: every hook returns at
 once and the executor wraps no thunk. The JAX trace's compile stream
 holds XLA compiles; the port's holds CUDA graph captures.
 :func:`profiler_trace` is
-the counterpart of ``xprof_trace``, a ``torch.profiler`` capture with
-pipeline node names as ``record_function`` ranges.
+the counterpart of ``xprof_trace`` (also exported under that name), a
+``torch.profiler`` capture with pipeline node names as
+``record_function`` ranges.
 """
 from __future__ import annotations
 
@@ -31,7 +41,7 @@ import contextlib
 import json
 import threading
 import time
-from dataclasses import asdict, dataclass
+from dataclasses import asdict, dataclass, field
 from typing import Any, Dict, Iterator, List, Optional
 
 from ..utils.guarded import TracedLock, guarded_by
@@ -81,13 +91,29 @@ class NodeRecord:
     cached: bool = False       # value came from the prefix/state memo
     shards: int = 1            # data shards of the output dataset
     kind: str = ""             # expression kind (dataset/datum/transformer)
+    # counted work, self (count_flops traces; zero otherwise)
+    torch_flops: float = 0.0   # FlopCounterMode FLOPs of torch ops
+    kernel_flops: float = 0.0  # the CUDA kernels' counted FLOPs
+    kernel_bytes: float = 0.0  # the CUDA kernels' counted bytes
+    kernel_launches: Dict[str, float] = field(default_factory=dict)
+    # utilization annotations (observability/utilization.py
+    # ``annotate_trace``; zero = not annotated)
+    flops: float = 0.0         # kernel + torch FLOPs
+    mfu: float = 0.0           # achieved FLOP/s over the card's peak
+    membw_util: float = 0.0    # achieved bytes/s over the HBM rate
+
+
+#: the work a node's inclusive run is charged with
+_WORK_KEYS = ("torch_flops", "kernel_flops", "kernel_bytes")
 
 
 class _Frame:
-    __slots__ = ("child_s",)
+    __slots__ = ("child_s", "child_work", "child_launches")
 
     def __init__(self) -> None:
         self.child_s = 0.0
+        self.child_work = dict.fromkeys(_WORK_KEYS, 0.0)
+        self.child_launches: Dict[str, float] = {}
 
 
 @guarded_by("_resilience_lock", "resilience", "resilience_stats")
@@ -113,8 +139,12 @@ class PipelineTrace:
     NUMERICS_TAIL = 512
     COMPILE_TAIL = 512
 
-    def __init__(self, name: str = "pipeline"):
+    def __init__(self, name: str = "pipeline", count_flops: bool = False):
         self.name = name
+        #: run nodes under a FlopCounterMode and note kernel work
+        self.count_flops = count_flops
+        #: nodes with no counted work, set by ``annotate_trace``
+        self.uncovered: List[str] = []
         self.nodes: List[NodeRecord] = []
         self.auto_cache: List[Dict[str, Any]] = []
         self.node_choices: List[Dict[str, Any]] = []
@@ -146,11 +176,19 @@ class PipelineTrace:
     # -- context ------------------------------------------------------------
     def __enter__(self) -> "PipelineTrace":
         global _ACTIVE
+        import torch
+
+        if self.count_flops:
+            # the counter's first dispatched op pays a one-off set-up of
+            # seconds; pay it here, outside the trace's wall and nodes
+            from torch.utils.flop_counter import FlopCounterMode
+
+            with FlopCounterMode(display=False):
+                x = torch.zeros((2, 2))
+                (x @ x + 1.0).sum()
         self._prev = _ACTIVE
         _ACTIVE = self
         self._t0 = time.perf_counter()
-        import torch
-
         if torch.cuda.is_available():
             self.meta.setdefault("backend", "cuda")
             self.meta.setdefault("device_kind",
@@ -183,8 +221,25 @@ class PipelineTrace:
             self._stack.pop()
             record.total_s = total
             record.wall_s = max(total - frame.child_s, 0.0)
+            work = getattr(record, "_inclusive_work", None)
+            if work is not None:
+                incl, launches = work
+                for key in _WORK_KEYS:
+                    setattr(record, key,
+                            max(incl[key] - frame.child_work[key], 0.0))
+                record.kernel_launches = {
+                    k: v - frame.child_launches.get(k, 0.0)
+                    for k, v in launches.items()
+                    if v > frame.child_launches.get(k, 0.0)}
             if self._stack:
-                self._stack[-1].child_s += total
+                parent = self._stack[-1]
+                parent.child_s += total
+                if work is not None:
+                    for key in _WORK_KEYS:
+                        parent.child_work[key] += incl[key]
+                    for k, v in launches.items():
+                        parent.child_launches[k] = (
+                            parent.child_launches.get(k, 0.0) + v)
             self.nodes.append(record)
 
     def record_node(self, record: NodeRecord) -> None:
@@ -269,7 +324,7 @@ class PipelineTrace:
     # -- export ---------------------------------------------------------------
     _LISTS = ("auto_cache", "node_choices",
               "solver_decisions", "chunks", "streamed_fits", "resilience",
-              "numerics", "compiles")
+              "numerics", "compiles", "uncovered")
     _DICTS = ("meta", "chunk_stats", "resilience_stats", "numerics_stats")
 
     def to_dict(self) -> Dict[str, Any]:
@@ -369,3 +424,8 @@ def profiler_trace(log_dir: str, name: str = "pipeline"
         with torch.profiler.profile(activities=acts) as prof:
             yield tr
         prof.export_chrome_trace(os.path.join(log_dir, f"{name}.json"))
+
+
+#: the JAX package's name for :func:`profiler_trace` (its capture is the
+#: XLA profiler; the port's is ``torch.profiler``)
+xprof_trace = profiler_trace

@@ -50,6 +50,7 @@ from typing import Dict, Iterable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from . import work
 from .image_ops import patch_matrix, patch_stats, pool_image, pool_regions
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
@@ -74,21 +75,38 @@ LAUNCHES: Dict[str, int] = {"fused_cifar_featurize": 0, "gram_cross": 0,
 #: wrapper name -> launches recorded into CUDA graphs under capture
 CAPTURED: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 
+#: wrapper name -> the work of the launches in ``LAUNCHES``: FLOPs and
+#: bytes summed from each launch's shapes (``ops/work.py``); the traced
+#: run's per-node MFU reads them (``observability/utilization.py``)
+WORK: Dict[str, Dict[str, float]] = {
+    name: {"flops": 0.0, "bytes": 0.0} for name in LAUNCHES}
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+#: devices whose tensors take a wrapper's plain version: the CPU, and the
+#: meta device, whose tensors carry only a shape and a dtype (the static
+#: analyzer's shape inference); a CUDA tensor launches the kernel
+PLAIN_DEVICES = ("cpu", "meta")
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+        WORK[name] = {"flops": 0.0, "bytes": 0.0}
 
 
-def _count_launch(name: str) -> None:
-    """One launch by ``name``'s wrapper: in ``LAUNCHES`` when it runs
-    now, in ``CAPTURED`` when the stream is capturing a graph."""
+def _count_launch(name: str, flops: float, nbytes: float) -> None:
+    """One launch by ``name``'s wrapper, of ``flops`` and ``nbytes``
+    (``ops/work.py``): in ``LAUNCHES`` and ``WORK`` when it runs now, in
+    ``CAPTURED`` when the stream is capturing a graph."""
     if torch.cuda.is_current_stream_capturing():
         CAPTURED[name] += 1
     else:
         LAUNCHES[name] += 1
+        work = WORK[name]
+        work["flops"] += float(flops)
+        work["bytes"] += float(nbytes)
 
 
 def _nvcc() -> str:
@@ -249,6 +267,7 @@ class _FeaturizeEnds(NamedTuple):
     ends: torch.Tensor  # int32 (patches, 2)
     nry: int            # regions along a row
     R: int              # regions
+    hits: int           # patch memberships of the regions
 
 
 def region_map(dim: int, pool_stride: int, pool_size: int):
@@ -305,7 +324,8 @@ def _featurize_ends_on(img_size, channels, patch_size, pool_stride,
         return hit
     lib = _library("fused_featurize")
     out_dim = img_size - patch_size + 1
-    nry = len(pool_regions(out_dim, pool_stride, pool_size))
+    ranges = pool_regions(out_dim, pool_stride, pool_size)
+    nry = len(ranges)
     R = nry * nry
     smem = lib.fused_featurize_smem_bytes(img_size, img_size, channels,
                                           patch_size, R)
@@ -316,7 +336,7 @@ def _featurize_ends_on(img_size, channels, patch_size, pool_stride,
     hit = _FeaturizeEnds(torch.as_tensor(
         featurize_ends(out_dim, out_dim, pool_stride, pool_size,
                        lib.fused_featurize_run_cut()), device=imgs.device),
-        nry, R)
+        nry, R, sum(hi - lo for lo, hi in ranges) ** 2)
     _ENDS[key] = hit
     if len(_ENDS) > _ENDS_KEPT:
         _ENDS.popitem(last=False)
@@ -376,7 +396,7 @@ def fused_cifar_featurize(imgs, filters, img_size=32, patch_size=6,
                 or plan.filt.device != imgs.device:
             raise ValueError("fused_cifar_featurize: the plan is not of (K, "
                              f"{F}) filters on the CUDA images' device")
-    elif imgs.device.type == "cpu":
+    elif imgs.device.type in PLAIN_DEVICES:
         return fused_cifar_featurize_plain(
             imgs, filters, img_size, patch_size, channels, pool_stride,
             pool_size, var_constant, alpha, whitener_means)
@@ -415,7 +435,10 @@ def fused_cifar_featurize(imgs, filters, img_size=32, patch_size=6,
             float(var_constant), float(alpha), _current_stream(imgs))
     if rc != 0:
         raise RuntimeError(f"fused_cifar_featurize: CUDA error {rc} at launch")
-    _count_launch("fused_cifar_featurize")
+    product, rest, nbytes = work.featurize_work(
+        B, K, P=(img_size - patch_size + 1) ** 2, F=F, R=geo.R,
+        region_hits=geo.hits, pixels=img_size * img_size * channels)
+    _count_launch("fused_cifar_featurize", product + rest, nbytes)
     return out
 
 
@@ -463,7 +486,7 @@ def gram_cross(X, Y, G=None, C=None):
     so; its products run in 3xTF32 on the tensor cores (the precision
     rule of ``ops/device.py``)."""
     X, Y, G, C = _gram_operands(X, Y, G, C)
-    if X.device.type == "cpu":
+    if X.device.type in PLAIN_DEVICES:
         return gram_cross_plain(X, Y, G, C)
     if X.device.type != "cuda":
         raise ValueError(f"gram_cross: unsupported device {X.device}")
@@ -490,7 +513,7 @@ def gram_cross(X, Y, G=None, C=None):
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gram_cross: CUDA error {rc} at launch")
-    _count_launch("gram_cross")
+    _count_launch("gram_cross", *work.gram_work(n, d, k))
     return G, C
 
 
@@ -654,7 +677,7 @@ def quantized_affine(X, *params):
             raise ValueError(f"quantized_affine: X {tuple(X.shape)} is not "
                              f"(n, {plan.d})")
     elif len(params) == 5:
-        if X.device.type == "cpu":
+        if X.device.type in PLAIN_DEVICES:
             return quantized_affine_plain(X, *params)
         if X.device.type != "cuda":
             raise ValueError(f"quantized_affine: unsupported device "
@@ -684,7 +707,8 @@ def quantized_affine(X, *params):
                         sps, _current_stream(X))
     if rc != 0:
         raise RuntimeError(f"quantized_affine: CUDA error {rc} at launch")
-    _count_launch("quantized_affine")
+    _count_launch("quantized_affine", *work.quant_work(
+        n, d, k, plan.Wt.element_size()))
     return out
 
 
@@ -708,6 +732,7 @@ class _BandPair(NamedTuple):
     KR: int                             # widest live range of right
     ptrs: Tuple[int, int, int]          # launch arguments: dense, rdense,
                                         # maps device pointers (0: none)
+    nnz: Tuple[int, int]                # nonzeros of band and right
 
 
 def band_tile_rows() -> int:
@@ -773,7 +798,9 @@ def _band_pair_on(band: np.ndarray, right: Optional[np.ndarray],
         rdense = None if right is None else on(right)
         ptrs = tuple(0 if t is None else t.data_ptr()
                      for t in (dense, rdense, maps))
-        hit = _BandPair(band, right, dense, rdense, maps, *widths, ptrs)
+        nnz = (int(np.count_nonzero(band)),
+               0 if right is None else int(np.count_nonzero(right)))
+        hit = _BandPair(band, right, dense, rdense, maps, *widths, ptrs, nnz)
         _BANDS[key] = hit
         if len(_BANDS) > _BANDS_KEPT:
             _BANDS.popitem(last=False)
@@ -854,7 +881,7 @@ def banded_matmul(band: np.ndarray, X: torch.Tensor,
     channel strides are taken; a transposed view is not). The output is a
     contiguous float32 tensor. Every shape is taken."""
     _band_operands(band, X, right)
-    if X.device.type == "cpu":
+    if X.device.type in PLAIN_DEVICES:
         return banded_matmul_plain(band, X, right)
     if X.device.type != "cuda":
         raise ValueError(f"banded_matmul: unsupported device {X.device}")
@@ -888,7 +915,12 @@ def banded_matmul(band: np.ndarray, X: torch.Tensor,
                 m, l, r, w, pair.KL, pair.KR, stream)
     if rc != 0:
         raise RuntimeError(f"banded_matmul: CUDA error {rc} at launch")
-    _count_launch("banded_matmul")
+    if right is None:
+        flops, nbytes = 2 * pair.nnz[0] * w, 4 * (l * w + m * w)
+    else:
+        flops, nbytes = work.banded_call_work(pair.nnz[0], m, pair.nnz[1], r,
+                                              C, l, w)
+    _count_launch("banded_matmul", flops, nbytes)
     return out
 
 
@@ -970,7 +1002,7 @@ def fv_moments(X, means, variances, weights, threshold, terms=None):
     computed here when not given. X must be float32 with unit column
     stride; the GMM tensors float32 on X's device."""
     _fv_operands(X, means, variances, weights)
-    if X.device.type == "cpu":
+    if X.device.type in PLAIN_DEVICES:
         return fv_moments_plain(X, means, variances, weights, threshold)
     if X.device.type != "cuda":
         raise ValueError(f"fv_moments: unsupported device {X.device}")
@@ -1014,5 +1046,5 @@ def fv_moments(X, means, variances, weights, threshold, terms=None):
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fv_moments: CUDA error {rc} at launch")
-    _count_launch("fv_moments")
+    _count_launch("fv_moments", *work.fv_work(D, K, n))
     return s0, s1, s2

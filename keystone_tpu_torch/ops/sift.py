@@ -240,8 +240,9 @@ def dense_sift(img_gray: torch.Tensor, step: int = 4, bin_size: int = 6,
     """Multi-scale dense SIFT of a grayscale (H, W) image in [0, 1].
     Returns (128, numDesc) float32, scales concatenated in order. A CUDA
     image goes through the banded kernel (2 launches a scale, at every
-    image size); a CPU image through the einsum form, the plain path."""
-    if img_gray.device.type == "cpu":
+    image size); a CPU image through the einsum form, the plain path (a
+    meta image too: the static analyzer's shapes)."""
+    if img_gray.device.type in ("cpu", "meta"):
         return dense_sift_plain(img_gray, step, bin_size, num_scales,
                                 scale_step)
     return _dense_sift(img_gray, step, bin_size, num_scales, scale_step,

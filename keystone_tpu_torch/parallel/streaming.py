@@ -66,7 +66,6 @@ from typing import (
     Iterable,
     Iterator,
     List,
-    NamedTuple,
     Optional,
     Sequence,
     Tuple,
@@ -288,26 +287,6 @@ class _Stager:
         self.events[slot] = event
         self.next_slot += 1
         return out, event
-
-
-class StreamGeometry(NamedTuple):
-    """A stream's static chunk geometry: what the residency ledger
-    charges, computed without touching the source."""
-
-    chunk_rows: int
-    prefetch_depth: int
-    wire_row_nbytes: float
-    work_row_nbytes: float
-    cast: bool
-
-    def plan_nbytes(self) -> float:
-        """``prefetch_depth`` staged wire chunks, one working chunk at
-        the compute width and, when a cast runs, one transient wire
-        chunk."""
-        wire = self.chunk_rows * self.wire_row_nbytes
-        return (self.prefetch_depth * wire
-                + self.chunk_rows * self.work_row_nbytes
-                + (wire if self.cast else 0.0))
 
 
 class StreamingDataset(Dataset):
@@ -601,9 +580,13 @@ class StreamingDataset(Dataset):
         its views."""
         return self._residency.peak
 
-    def plan_geometry(self) -> Optional[StreamGeometry]:
-        """The static chunk geometry, or None when the source's items
-        cannot be described without consuming it."""
+    def plan_geometry(self):
+        """The static chunk geometry
+        (:class:`~keystone_tpu_torch.analysis.resources.StreamGeometry`),
+        or None when the source's items cannot be described without
+        consuming it."""
+        from ..analysis.resources import StreamGeometry
+
         if self._element is None:
             return None
         wire_row = work_row = 0.0
@@ -620,10 +603,12 @@ class StreamingDataset(Dataset):
 
     def static_plan_nbytes(self) -> Optional[float]:
         """The residency bound of one live iteration, computed without
-        touching the source (:meth:`StreamGeometry.plan_nbytes`); None
-        for an opaque source."""
-        geom = self.plan_geometry()
-        return None if geom is None else geom.plan_nbytes()
+        touching the source: the static planner's charge at this
+        stream's node (``analysis.resources.stream_plan_nbytes``, one
+        sizer for both); None for an opaque source."""
+        from ..analysis.resources import stream_plan_nbytes
+
+        return stream_plan_nbytes(self)
 
     # -- identity (the resume fingerprint) ----------------------------------
     def element(self) -> Optional[Tuple[Tuple[tuple, str], ...]]:

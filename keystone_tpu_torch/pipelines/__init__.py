@@ -1,0 +1,427 @@
+"""Bundled application registry for static checking.
+
+Counterpart of ``keystone_tpu/pipelines/__init__.py``. Every bundled app
+(``python -m keystone_tpu_torch <app>``) registers a *check target*
+here: a builder that constructs the app's whole pipeline DAG, estimator
+stages included, with :class:`~keystone_tpu_torch.analysis.SpecDataset`
+placeholders standing in for the training data, plus the input spec of
+one runtime item. ``python -m keystone_tpu_torch check <app>`` runs the
+static analyzer over these targets; nothing here loads data or
+allocates device memory.
+
+Each builder is the JAX package's, with the same spec-only inputs and
+the same scaled-down widths (branch and filter counts) where the real
+configs only change repetition, not graph structure: the analyzer
+checks every distinct edge either way and stays fast.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict
+
+import numpy as np
+import torch
+
+
+@dataclass
+class CheckTarget:
+    """One statically checkable app pipeline."""
+
+    name: str
+    pipeline: Any          # workflow.pipeline.Pipeline
+    input_spec: Any        # per-item spec for the runtime source
+
+
+def _int_labels(n: int):
+    from ..analysis import ShapeDtype, spec_dataset
+
+    return spec_dataset((), torch.int32, n=n)
+
+
+def _mnist_random_fft() -> CheckTarget:
+    from ..analysis import ShapeDtype, spec_dataset
+    from ..nodes.learning import BlockLeastSquaresEstimator
+    from ..nodes.util import (
+        ClassLabelIndicatorsFromIntLabels,
+        MaxClassifier,
+    )
+    from .images.mnist.random_fft import (
+        MNIST_IMAGE_SIZE,
+        MnistRandomFFTConfig,
+        NUM_CLASSES,
+        build_featurizer,
+    )
+
+    cfg = MnistRandomFFTConfig(num_ffts=4, block_size=512)
+    train = spec_dataset((MNIST_IMAGE_SIZE,), torch.float32, n=60_000)
+    labels = ClassLabelIndicatorsFromIntLabels(NUM_CLASSES)(
+        _int_labels(60_000))
+    pipeline = build_featurizer(cfg).and_then(
+        BlockLeastSquaresEstimator(cfg.block_size, 1, cfg.lam),
+        train, labels,
+    ) >> MaxClassifier()
+    return CheckTarget(
+        "mnist.random_fft", pipeline,
+        ShapeDtype((MNIST_IMAGE_SIZE,), torch.float32))
+
+
+def _cifar_linear_pixels() -> CheckTarget:
+    from ..analysis import ShapeDtype, spec_dataset
+    from ..nodes.images.core import GrayScaler, ImageVectorizer
+    from ..nodes.learning import LinearMapEstimator
+    from ..nodes.util import (
+        ClassLabelIndicatorsFromIntLabels,
+        MaxClassifier,
+    )
+    from .images.cifar.linear_pixels import NUM_CLASSES
+
+    train = spec_dataset((32, 32, 3), torch.float32, n=50_000)
+    labels = ClassLabelIndicatorsFromIntLabels(NUM_CLASSES)(
+        _int_labels(50_000))
+    pipeline = (GrayScaler() >> ImageVectorizer()).and_then(
+        LinearMapEstimator(0.0), train, labels) >> MaxClassifier()
+    return CheckTarget(
+        "cifar.linear_pixels", pipeline,
+        ShapeDtype((32, 32, 3), torch.float32))
+
+
+def _cifar_random() -> CheckTarget:
+    from ..analysis import ShapeDtype, spec_dataset
+    from ..nodes.images.core import (
+        Convolver,
+        ImageVectorizer,
+        Pooler,
+        SymmetricRectifier,
+    )
+    from ..nodes.learning import LinearMapEstimator
+    from ..nodes.stats import StandardScaler
+    from ..nodes.util import (
+        ClassLabelIndicatorsFromIntLabels,
+        MaxClassifier,
+    )
+    from ..workflow.common import Cacher
+    from .images.cifar.random_cifar import (
+        IMAGE_SIZE,
+        NUM_CHANNELS,
+        NUM_CLASSES,
+        RandomCifarConfig,
+    )
+
+    cfg = RandomCifarConfig(num_filters=8)
+    train = spec_dataset(
+        (IMAGE_SIZE, IMAGE_SIZE, NUM_CHANNELS), torch.float32, n=50_000)
+    labels = (ClassLabelIndicatorsFromIntLabels(NUM_CLASSES)
+              >> Cacher("labels"))(_int_labels(50_000))
+    filters = np.random.RandomState(cfg.seed).randn(
+        cfg.num_filters,
+        cfg.patch_size * cfg.patch_size * NUM_CHANNELS).astype(np.float32)
+    featurizer = (
+        Convolver(filters, IMAGE_SIZE, IMAGE_SIZE, NUM_CHANNELS,
+                  whitener=None, normalize_patches=True)
+        >> SymmetricRectifier(alpha=cfg.alpha)
+        >> Pooler(cfg.pool_stride, cfg.pool_size, "identity", "sum")
+        >> ImageVectorizer()
+        >> Cacher()
+    )
+    pipeline = (
+        featurizer.and_then(StandardScaler(), train) >> Cacher()
+    ).and_then(LinearMapEstimator(cfg.lam), train, labels) >> MaxClassifier()
+    return CheckTarget(
+        "cifar.random_cifar", pipeline,
+        ShapeDtype((IMAGE_SIZE, IMAGE_SIZE, NUM_CHANNELS),
+                             torch.float32))
+
+
+def _cifar_random_patch() -> CheckTarget:
+    from ..analysis import ShapeDtype, spec_dataset
+    from ..nodes.learning.zca import ZCAWhitener
+    from ..nodes.util import ClassLabelIndicatorsFromIntLabels
+    from .images.cifar.random_patch_cifar import (
+        IMAGE_SIZE,
+        NUM_CHANNELS,
+        NUM_CLASSES,
+        RandomCifarConfig,
+        build_pipeline,
+    )
+
+    cfg = RandomCifarConfig(num_filters=8)
+    d = cfg.patch_size * cfg.patch_size * NUM_CHANNELS
+    rng = np.random.RandomState(cfg.seed)
+    filters = rng.randn(cfg.num_filters, d).astype(np.float32)
+    whitener = ZCAWhitener(np.eye(d, dtype=np.float32),
+                           np.zeros(d, dtype=np.float32))
+    train = spec_dataset(
+        (IMAGE_SIZE, IMAGE_SIZE, NUM_CHANNELS), torch.float32, n=50_000)
+    labels = ClassLabelIndicatorsFromIntLabels(NUM_CLASSES)(
+        _int_labels(50_000))
+    pipeline = build_pipeline(filters, whitener, cfg, train, labels)
+    return CheckTarget(
+        "cifar.random_patch", pipeline,
+        ShapeDtype((IMAGE_SIZE, IMAGE_SIZE, NUM_CHANNELS),
+                             torch.float32))
+
+
+def _cifar_random_patch_augmented() -> CheckTarget:
+    from ..analysis import ShapeDtype, spec_dataset
+    from ..nodes.images.core import (
+        Convolver,
+        ImageVectorizer,
+        Pooler,
+        RandomFlipper,
+        RandomPatcher,
+        SymmetricRectifier,
+    )
+    from ..nodes.learning import BlockLeastSquaresEstimator
+    from ..nodes.learning.zca import ZCAWhitener
+    from ..nodes.stats import StandardScaler
+    from ..nodes.util import (
+        ClassLabelIndicatorsFromIntLabels,
+        LabelAugmenter,
+        MaxClassifier,
+    )
+    from ..workflow.common import Cacher
+    from .images.cifar.random_patch_cifar_augmented import (
+        AUGMENT_IMG_SIZE,
+        AugmentedConfig,
+        FLIP_CHANCE,
+        NUM_CHANNELS,
+        NUM_CLASSES,
+    )
+
+    cfg = AugmentedConfig(num_filters=8, num_random_patches_augment=2)
+    d = cfg.patch_size * cfg.patch_size * NUM_CHANNELS
+    rng = np.random.RandomState(cfg.seed)
+    filters = rng.randn(cfg.num_filters, d).astype(np.float32)
+    whitener = ZCAWhitener(np.eye(d, dtype=np.float32),
+                           np.zeros(d, dtype=np.float32))
+    train = spec_dataset((32, 32, NUM_CHANNELS), torch.float32, n=50_000)
+    train_aug = (
+        RandomPatcher(cfg.num_random_patches_augment, AUGMENT_IMG_SIZE,
+                      AUGMENT_IMG_SIZE, seed=cfg.seed)
+        >> RandomFlipper(FLIP_CHANCE, seed=cfg.seed))(train)
+    labels_aug = (
+        ClassLabelIndicatorsFromIntLabels(NUM_CLASSES)
+        >> LabelAugmenter(cfg.num_random_patches_augment))(
+            _int_labels(50_000))
+    featurizer = (
+        Convolver(filters, AUGMENT_IMG_SIZE, AUGMENT_IMG_SIZE, NUM_CHANNELS,
+                  whitener=whitener, normalize_patches=True)
+        >> SymmetricRectifier(alpha=cfg.alpha)
+        >> Pooler(cfg.pool_stride, cfg.pool_size, "identity", "sum")
+        >> ImageVectorizer()
+        >> Cacher("features")
+    )
+    pipeline = featurizer.and_then(
+        StandardScaler(), train_aug
+    ).and_then(
+        BlockLeastSquaresEstimator(4096, 1, cfg.lam), train_aug, labels_aug,
+    ) >> Cacher() >> MaxClassifier()
+    return CheckTarget(
+        "cifar.random_patch_augmented", pipeline,
+        ShapeDtype((AUGMENT_IMG_SIZE, AUGMENT_IMG_SIZE,
+                              NUM_CHANNELS), torch.float32))
+
+
+def _timit() -> CheckTarget:
+    from ..analysis import ShapeDtype, spec_dataset
+    from ..nodes.learning import BlockLeastSquaresEstimator
+    from ..nodes.util import (
+        ClassLabelIndicatorsFromIntLabels,
+        MaxClassifier,
+    )
+    from .speech.timit import TimitConfig, build_featurizer
+
+    cfg = TimitConfig(num_cosines=3, num_epochs=2)
+    cfg.num_cosine_features = 64
+    input_dim = 440
+    train = spec_dataset((input_dim,), torch.float32, n=100_000)
+    labels = ClassLabelIndicatorsFromIntLabels(147)(_int_labels(100_000))
+    pipeline = build_featurizer(cfg, input_dim).and_then(
+        BlockLeastSquaresEstimator(
+            cfg.num_cosine_features, cfg.num_epochs, cfg.lam),
+        train, labels,
+    ) >> MaxClassifier()
+    return CheckTarget(
+        "speech.timit", pipeline,
+        ShapeDtype((input_dim,), torch.float32))
+
+
+def _imagenet_sift_lcs_fv() -> CheckTarget:
+    from ..analysis import DatasetSpec, ShapeDtype, SpecDataset
+    from ..nodes.images.core import GrayScaler, PixelScaler
+    from ..nodes.images.extractors import LCSExtractor, SIFTExtractor
+    from ..nodes.learning.block_weighted import (
+        BlockWeightedLeastSquaresEstimator,
+    )
+    from ..nodes.stats import BatchSignedHellingerMapper
+    from ..nodes.util import (
+        ClassLabelIndicatorsFromIntLabels,
+        TopKClassifier,
+        VectorCombiner,
+    )
+    from ..workflow.common import Cacher
+    from ..workflow.pipeline import Pipeline
+    from .images.imagenet.sift_lcs_fv import (
+        ImageNetSiftLcsFVConfig,
+        compute_pca_fisher_branch,
+    )
+    cfg = ImageNetSiftLcsFVConfig(desc_dim=8, vocab_size=4, block_size=512)
+    img = ShapeDtype((64, 64, 3), torch.float32)
+    train = SpecDataset(img, n=1000, host=True)
+    labels = ClassLabelIndicatorsFromIntLabels(1000)(_int_labels(1000))
+
+    sift_prefix = (
+        PixelScaler() >> GrayScaler()
+        >> SIFTExtractor(scale_step=cfg.sift_scale_step)
+        >> BatchSignedHellingerMapper()
+    )
+    lcs_prefix = Pipeline.identity() >> LCSExtractor(
+        cfg.lcs_stride, cfg.lcs_border, cfg.lcs_patch)
+    sift_branch = compute_pca_fisher_branch(sift_prefix, train, cfg, 16, 16)
+    lcs_branch = compute_pca_fisher_branch(lcs_prefix, train, cfg, 16, 16)
+    featurizer = Pipeline.gather([sift_branch, lcs_branch]) \
+        >> VectorCombiner() >> Cacher()
+    pipeline = featurizer.and_then(
+        BlockWeightedLeastSquaresEstimator(
+            cfg.block_size, 1, cfg.lam, cfg.mixture_weight),
+        train, labels,
+    ) >> TopKClassifier(5)
+    return CheckTarget("imagenet.sift_lcs_fv", pipeline,
+                       DatasetSpec(img, n=None, host=True))
+
+
+def _voc_sift_fisher() -> CheckTarget:
+    from ..analysis import DatasetSpec, ShapeDtype, SpecDataset
+    from ..nodes.images.core import GrayScaler, PixelScaler
+    from ..nodes.images.extractors import SIFTExtractor
+    from ..nodes.images.fisher_vector import GMMFisherVectorEstimator
+    from ..nodes.learning import BlockLeastSquaresEstimator, ColumnPCAEstimator
+    from ..nodes.stats import (
+        NormalizeRows,
+        SignedHellingerMapper,
+    )
+    from ..nodes.stats.sampling import ColumnSampler
+    from ..nodes.util import (
+        ClassLabelIndicatorsFromIntArrayLabels,
+        FloatToDouble,
+        MatrixVectorizer,
+        TopKClassifier,
+    )
+    from ..workflow.common import Cacher
+    from .images.voc.voc_sift_fisher import NUM_CLASSES, SIFTFisherConfig
+
+    cfg = SIFTFisherConfig(desc_dim=8, vocab_size=4, block_size=512)
+    img = ShapeDtype((64, 64, 3), torch.float32)
+    train = SpecDataset(img, n=5000, host=True)
+    # VOC labels are fixed-width padded multi-label int arrays
+    labels = ClassLabelIndicatorsFromIntArrayLabels(NUM_CLASSES)(
+        SpecDataset(ShapeDtype((4,), torch.int32), n=5000))
+
+    sift = SIFTExtractor(scale_step=cfg.scale_step)
+    sift_extractor = PixelScaler() >> GrayScaler() >> Cacher() >> sift
+    pca_sample = (sift_extractor >> ColumnSampler(16))(train)
+    pca_featurizer = sift_extractor.and_then(
+        ColumnPCAEstimator(cfg.desc_dim).with_data(pca_sample)) >> Cacher()
+    gmm_sample = (pca_featurizer >> ColumnSampler(16))(train)
+    fisher = pca_featurizer.and_then(
+        GMMFisherVectorEstimator(cfg.vocab_size).with_data(gmm_sample))
+    fisher_featurizer = fisher >> FloatToDouble() >> MatrixVectorizer() \
+        >> NormalizeRows() >> SignedHellingerMapper() >> NormalizeRows() \
+        >> Cacher()
+    pipeline = fisher_featurizer.and_then(
+        BlockLeastSquaresEstimator(cfg.block_size, 1, cfg.lam),
+        train, labels,
+    ) >> TopKClassifier(5)
+    return CheckTarget("voc.sift_fisher", pipeline,
+                       DatasetSpec(img, n=None, host=True))
+
+
+def _newsgroups() -> CheckTarget:
+    from ..analysis import DatasetSpec, SpecDataset, Unknown
+    from ..nodes.learning import NaiveBayesEstimator
+    from ..nodes.nlp import LowerCase, NGramsFeaturizer, Tokenizer, Trim
+    from ..nodes.stats import TermFrequency
+    from ..nodes.util import CommonSparseFeatures, MaxClassifier
+    from .text.newsgroups import NewsgroupsConfig
+
+    cfg = NewsgroupsConfig(n_grams=2, common_features=1000)
+    text = SpecDataset(Unknown("raw text"), n=11_000, host=True)
+    labels = SpecDataset(Unknown("int labels"), n=11_000, host=True)
+    featurizer = (
+        Trim() >> LowerCase() >> Tokenizer()
+        >> NGramsFeaturizer(list(range(1, cfg.n_grams + 1)))
+    )
+    predictor = (featurizer >> TermFrequency(lambda x: 1)).and_then(
+        CommonSparseFeatures(cfg.common_features), text)
+    pipeline = predictor.and_then(
+        NaiveBayesEstimator(20), text, labels) >> MaxClassifier()
+    return CheckTarget(
+        "text.newsgroups", pipeline,
+        DatasetSpec(Unknown("raw text"), n=None, host=True))
+
+
+def _amazon_reviews() -> CheckTarget:
+    from ..analysis import DatasetSpec, SpecDataset, Unknown
+    from ..nodes.learning.classifiers import LogisticRegressionEstimator
+    from ..nodes.nlp import LowerCase, NGramsFeaturizer, Tokenizer, Trim
+    from ..nodes.stats import TermFrequency
+    from ..nodes.util import CommonSparseFeatures
+    from .text.amazon_reviews import AmazonReviewsConfig
+
+    cfg = AmazonReviewsConfig()
+    text = SpecDataset(Unknown("raw text"), n=10_000, host=True)
+    labels = SpecDataset(Unknown("binary labels"), n=10_000, host=True)
+    predictor = (
+        Trim() >> LowerCase() >> Tokenizer()
+        >> NGramsFeaturizer(list(range(1, cfg.n_grams + 1)))
+        >> TermFrequency(lambda x: 1)
+    ).and_then(CommonSparseFeatures(1000), text)
+    pipeline = predictor.and_then(
+        LogisticRegressionEstimator(num_classes=2, num_iters=5),
+        text, labels)
+    return CheckTarget(
+        "text.amazon_reviews", pipeline,
+        DatasetSpec(Unknown("raw text"), n=None, host=True))
+
+
+def _stupid_backoff() -> CheckTarget:
+    from ..analysis import DatasetSpec, Unknown
+    from ..nodes.nlp import NGramsFeaturizer, Tokenizer
+
+    # the app's language-model fit is imperative (run() fits eagerly);
+    # the checkable DAG is its tokenize->ngram featurization prefix
+    pipeline = Tokenizer() >> NGramsFeaturizer([2, 3])
+    return CheckTarget(
+        "nlp.stupid_backoff", pipeline,
+        DatasetSpec(Unknown("raw text"), n=None, host=True))
+
+
+#: app name -> lazy CheckTarget builder (aligned with ``__main__.APPS``)
+CHECK_APPS: Dict[str, Callable[[], CheckTarget]] = {
+    "mnist.random_fft": _mnist_random_fft,
+    "cifar.linear_pixels": _cifar_linear_pixels,
+    "cifar.random_cifar": _cifar_random,
+    "cifar.random_patch": _cifar_random_patch,
+    "cifar.random_patch_augmented": _cifar_random_patch_augmented,
+    "imagenet.sift_lcs_fv": _imagenet_sift_lcs_fv,
+    "voc.sift_fisher": _voc_sift_fisher,
+    "speech.timit": _timit,
+    "text.newsgroups": _newsgroups,
+    "text.amazon_reviews": _amazon_reviews,
+    "nlp.stupid_backoff": _stupid_backoff,
+}
+
+
+def resolve_check_app(name: str) -> Callable[[], CheckTarget]:
+    """Look up a check target by app name, tolerant of separator style
+    (``mnist.random_fft`` == ``mnist_random_fft``)."""
+    import re
+
+    def canon(s: str) -> str:
+        return re.sub(r"[^a-z0-9]", "", s.lower())
+
+    wanted = canon(name)
+    for key, builder in CHECK_APPS.items():
+        if canon(key) == wanted:
+            return builder
+    raise KeyError(name)

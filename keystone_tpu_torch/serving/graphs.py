@@ -48,6 +48,8 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from ..observability.compilelog import note_replay
+
 #: kernel name -> launches made by graph replays since the last reset
 #: (each replay adds the launches its graph's capture recorded)
 REPLAYED_LAUNCHES: Dict[str, int] = {}
@@ -181,8 +183,10 @@ class BucketGraph:
 
     def __init__(self, graph: torch.cuda.CUDAGraph, inputs: Any,
                  outputs: Any, bucket: int, launches: Dict[str, int],
-                 pool_nbytes: float):
+                 pool_nbytes: float, site: str = ""):
         self.graph = graph
+        #: the capture site, whose replays the observatory counts
+        self.site = site
         self.inputs = _leaves(inputs)
         self.outputs = outputs
         self.bucket = int(bucket)
@@ -207,6 +211,8 @@ class BucketGraph:
             self.graph.replay()
             out = pytree.tree_map(lambda t: t[:n].cpu().numpy(),
                                   self.outputs)
+        if self.site:
+            note_replay(self.site)
         if self.launches:
             with _REPLAY_LOCK:
                 for name, count in self.launches.items():

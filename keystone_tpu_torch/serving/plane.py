@@ -529,7 +529,8 @@ class ServingPlane:
             pool = graph_pool_nbytes(graph.pool(), self.device)
             stats.update({"bucket": bucket, "pool_nbytes": pool,
                           "launches": float(sum(launches.values()))})
-        bg = BucketGraph(graph, static, out.data, bucket, launches, pool)
+        bg = BucketGraph(graph, static, out.data, bucket, launches, pool,
+                         site)
         if self._graphs.put((entry.token, bucket), bg):
             self._release_pools()
         with self._lock:

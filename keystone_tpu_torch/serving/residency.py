@@ -7,11 +7,12 @@ per-item activation times the largest bucket, fits beside the models
 already warm.
 
 * :func:`model_charge` — one model's :class:`ModelCharge`. The JAX
-  package sizes it from its static planner (``analysis/resources.py``),
-  which the port does not have yet (ROADMAP A12). So the port takes the
-  model bytes from its own :func:`fitted_model_nbytes` and the per-item
-  activation from a one-item probe apply, and records
-  ``source="probed"``. On a CUDA device the plane serves each bucket
+  package sizes it from its static planner (``analysis/resources.py``).
+  The port's planner (``keystone_tpu_torch/analysis/resources.py``)
+  sizes the static part for ``check --replicas``, but cannot see a CUDA
+  graph's pool; so admission takes the model bytes from its own
+  :func:`fitted_model_nbytes` and the per-item activation from a
+  one-item probe apply, and records ``source="probed"``. On a CUDA device the plane serves each bucket
   from a captured CUDA graph, and the charge also covers the graphs:
   each graph owns a private memory pool and a static input. A probe
   capture of each bucket the plane will capture measures that bucket's

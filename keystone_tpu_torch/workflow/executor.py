@@ -23,6 +23,7 @@ always on, outside the optimizers' sampled executions.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Dict, FrozenSet, Optional
 
@@ -34,6 +35,8 @@ from ..observability.numerics import check_node_output
 from ..observability.timeline import record_span
 from ..observability.trace import NodeRecord, current_trace, \
     metrics_suppressed
+from ..observability.utilization import kernel_work_delta, \
+    kernel_work_snapshot
 from ..parallel.dataset import device_nbytes
 from .env import PipelineEnv
 from .expression import (
@@ -79,14 +82,29 @@ def _traced_thunk(orig, node_id: int, label: str, kind: str):
             return orig()
         scope = f"{label}#{node_id}"
         record = NodeRecord(node_id=node_id, operator=label, kind=kind)
+        counter, work0 = None, None
+        if trace.count_flops:
+            from torch.utils.flop_counter import FlopCounterMode
+
+            counter = FlopCounterMode(display=False)
+            work0 = kernel_work_snapshot()
         t0 = time.perf_counter()
         with trace.node_timer(record):
             with compile_context(f"node:{scope}"), \
-                    torch.profiler.record_function(scope):
+                    torch.profiler.record_function(scope), \
+                    (counter or contextlib.nullcontext()):
                 value = orig()
             if torch.cuda.is_available() and torch.cuda.is_initialized():
                 torch.cuda.synchronize()
             record.output_bytes = device_nbytes(value)
+            if counter is not None:
+                # inclusive here; the timer charges children's to them
+                kernel = kernel_work_delta(work0)
+                record._inclusive_work = ({
+                    "torch_flops": float(counter.get_total_flops()),
+                    "kernel_flops": sum(w["flops"] for w in kernel.values()),
+                    "kernel_bytes": sum(w["bytes"] for w in kernel.values()),
+                }, {k: w["launches"] for k, w in kernel.items()})
         record_span(scope, "node", t0, record.total_s,
                     args={"node_id": node_id, "kind": kind})
         # after the timer: the health check is the numerics plane's

@@ -61,11 +61,40 @@ def _hashable(v: Any) -> Any:
         return id(v)
 
 
+def _shared_geometry(dataset_specs):
+    """Chunk geometry propagated through a stream-consuming node, marked
+    shared: the derived view rides the root stream's residency ledger,
+    so the HBM planner must not charge the prefetch buffer again at this
+    node (it charges one transformed chunk instead)."""
+    for d in dataset_specs:
+        if getattr(d, "streaming", False) and d.geometry is not None:
+            return d.geometry.as_shared()
+    return None
+
+
 class Operator:
     """A unit of computation stored at a graph node."""
 
     def execute(self, deps: Sequence[Expression]) -> Expression:
         raise NotImplementedError
+
+    def abstract_eval(self, dep_specs: Sequence[Any]) -> Any:
+        """Static analogue of ``execute``: map the dependencies' abstract
+        values (``analysis.spec``) to this node's output spec without
+        touching a device. The default declines: the analyzer treats
+        that as Unknown and propagates it silently."""
+        from ..analysis.spec import Unknown
+
+        return Unknown(f"{type(self).__name__} has no abstract_eval")
+
+    def resource_effect(self, dep_specs: Sequence[Any],
+                        out_spec: Any, data_shards: int = 1) -> Any:
+        """Static resource annotation for the HBM planner
+        (``analysis.resources.plan_graph``): a ``ResourceEffect``, or
+        None to let the planner derive it from ``out_spec``. Estimators
+        add their accumulator carry and fitted model; Delegate nodes add
+        the fitted transformer's declared apply workspace."""
+        return None
 
     def label(self) -> str:
         return type(self).__name__
@@ -131,6 +160,11 @@ class DatasetOperator(Operator):
         assert not deps
         return DatasetExpression(self.dataset, eager=True)
 
+    def abstract_eval(self, dep_specs: Sequence[Any]) -> Any:
+        from ..analysis.spec import dataset_spec
+
+        return dataset_spec(self.dataset)
+
     def label(self) -> str:
         return "Dataset"
 
@@ -148,6 +182,11 @@ class DatumOperator(Operator):
     def execute(self, deps: Sequence[Expression]) -> Expression:
         assert not deps
         return DatumExpression(self.datum, eager=True)
+
+    def abstract_eval(self, dep_specs: Sequence[Any]) -> Any:
+        from ..analysis.spec import datum_spec
+
+        return datum_spec(self.datum)
 
     def label(self) -> str:
         return "Datum"
@@ -172,6 +211,58 @@ class TransformerOperator(Operator):
             lambda: self.single_transform([d.get() for d in deps])
         )
 
+    # -- static analysis ---------------------------------------------------
+    def abstract_single(self, elements: Sequence[Any]) -> Any:
+        """Per-item shape propagation: ``single_transform`` run on meta
+        tensors (no memory, no launch). Raises on shape and dtype errors
+        and on host reads, which the interpreter classifies. Nodes whose
+        per-item function cannot run on meta tensors (host stages)
+        override this."""
+        from ..analysis.spec import (
+            Unknown,
+            element_has_unknown,
+            run_on_meta,
+        )
+
+        if any(element_has_unknown(e) for e in elements):
+            return Unknown("input element not fully specified")
+        return run_on_meta(lambda *xs: self.single_transform(list(xs)),
+                           *elements)
+
+    def abstract_eval(self, dep_specs: Sequence[Any]) -> Any:
+        """Type dispatch mirroring ``execute``: dataset in, dataset out
+        (element-wise ``abstract_single``), else a datum. Operators whose
+        batch path changes the item count (samplers, augmenters)
+        override it to adjust ``n``."""
+        from ..analysis.spec import (
+            DatasetSpec,
+            DatumSpec,
+            Unknown,
+            dense_sparsity,
+            is_unknown,
+        )
+
+        if any(is_unknown(d) for d in dep_specs):
+            return Unknown("unknown input")
+        if not all(isinstance(d, (DatasetSpec, DatumSpec))
+                   for d in dep_specs):
+            return Unknown("non-data input")
+        out = self.abstract_single([d.element for d in dep_specs])
+        datasets = [d for d in dep_specs if isinstance(d, DatasetSpec)]
+        if not datasets:
+            return DatumSpec(out)
+        ns = [d.n for d in datasets if d.n is not None]
+        return DatasetSpec(
+            out,
+            n=min(ns) if ns else None,  # zip semantics across inputs
+            host=all(d.host for d in datasets),
+            sparsity=dense_sparsity(out),
+            # mapping a stream yields a stream (chunk-wise application)
+            streaming=any(d.streaming for d in datasets),
+            geometry=_shared_geometry(datasets),
+            sharded=any(d.sharded for d in datasets),
+        )
+
 
 class EstimatorOperator(Operator):
     """Fits on datasets, yielding a TransformerOperator
@@ -184,6 +275,38 @@ class EstimatorOperator(Operator):
         return TransformerExpression(
             lambda: self.fit_datasets([d.get() for d in deps])
         )
+
+    # -- static analysis ---------------------------------------------------
+    def resource_effect(self, dep_specs: Sequence[Any],
+                        out_spec: Any, data_shards: int = 1) -> Any:
+        """The accumulator carry (the Gram / cross / moment buffers a
+        streamed fit keeps resident, the workspace a resident solve
+        makes) is charged during the fit step, the fitted model as the
+        output that stays live. Sizes come from the optional
+        ``carry_nbytes(dep_specs)`` / ``fitted_nbytes(dep_specs)`` hooks
+        of concrete estimators."""
+        from ..analysis.resources import estimator_resource_effect
+
+        return estimator_resource_effect(self, dep_specs)
+
+    def abstract_fit(self, dep_specs: Sequence[Any]):
+        """A callable mapping an input element spec to the fitted
+        transformer's output element spec, or None when this estimator
+        does not describe it (the Delegate's output is then Unknown)."""
+        return None
+
+    def abstract_apply_transient(self, dep_specs: Sequence[Any]):
+        """A callable mapping an input element spec to the fitted apply's
+        per-item device workspace in bytes, or None when none is
+        declared."""
+        return None
+
+    def abstract_eval(self, dep_specs: Sequence[Any]) -> Any:
+        from ..analysis.spec import TransformerSpec
+
+        return TransformerSpec(
+            self.abstract_fit(dep_specs), label=self.label(),
+            apply_transient_nbytes=self.abstract_apply_transient(dep_specs))
 
 
 class DelegatingOperator(Operator):
@@ -203,6 +326,38 @@ class DelegatingOperator(Operator):
             lambda: t.get().single_transform([d.get() for d in data])
         )
 
+    def abstract_eval(self, dep_specs: Sequence[Any]) -> Any:
+        from ..analysis.spec import (
+            DatasetSpec,
+            DatumSpec,
+            TransformerSpec,
+            Unknown,
+            dense_sparsity,
+        )
+
+        if not dep_specs or not isinstance(dep_specs[0], TransformerSpec):
+            return Unknown("delegating without a transformer spec")
+        t, data = dep_specs[0], dep_specs[1:]
+        if t.apply_element is None:
+            return Unknown(f"opaque fitted transformer {t.label}")
+        if len(data) != 1 or not isinstance(
+                data[0], (DatasetSpec, DatumSpec)):
+            return Unknown("delegating input not resolvable")
+        out = t.apply_element(data[0].element)
+        if isinstance(data[0], DatumSpec):
+            return DatumSpec(out)
+        return DatasetSpec(out, n=data[0].n, host=data[0].host,
+                           sparsity=dense_sparsity(out),
+                           streaming=data[0].streaming,
+                           geometry=_shared_geometry([data[0]]),
+                           sharded=data[0].sharded)
+
+    def resource_effect(self, dep_specs: Sequence[Any],
+                        out_spec: Any, data_shards: int = 1) -> Any:
+        from ..analysis.resources import delegate_resource_effect
+
+        return delegate_resource_effect(dep_specs, out_spec, data_shards)
+
     def label(self) -> str:
         return "Delegate"
 
@@ -219,6 +374,13 @@ class ExpressionOperator(Operator):
 
     def execute(self, deps: Sequence[Expression]) -> Expression:
         return self.expression
+
+    def abstract_eval(self, dep_specs: Sequence[Any]) -> Any:
+        from ..analysis.spec import Unknown, value_spec
+
+        if self.expression.computed:
+            return value_spec(self.expression.get())
+        return Unknown("saved expression not yet computed")
 
     def label(self) -> str:
         return "Saved"

@@ -9,10 +9,12 @@ implementation the cost model prefers, plus a transformer prefix applied
 both to the training data and to the runtime input (``Sparsify`` before
 a sparse solver, reference ``LeastSquaresEstimator.scala:36-53``).
 
-``NodeOptimizationRule`` (``optimizer/node_rule.py``) calls the hook on
-a sampled execution and splices the choice into the DAG. The JAX
-package's ``optimize_static`` (choices from statically inferred shapes)
-waits for the port's analyzer.
+``optimize_static(spec, n, num_machines)`` is the same choice from the
+static analyzer's input spec (``analysis.spec.DatasetSpec``) instead of
+a sample; it returns None where the cost inputs are not statically
+derivable. ``NodeOptimizationRule`` (``optimizer/node_rule.py``) asks
+``optimize_static`` first and falls back to ``optimize`` on a sampled
+execution, then splices the choice into the DAG.
 """
 from __future__ import annotations
 
@@ -55,6 +57,13 @@ class OptimizableTransformer(Transformer):
                  num_machines: int) -> NodeChoice:
         raise NotImplementedError
 
+    def optimize_static(self, spec, n: int, num_machines: int):
+        """The cost-model choice from the static analyzer's input spec
+        instead of a sampled execution: a NodeChoice, or None to fall back
+        to sampling (the default: nodes whose cost inputs are not
+        statically derivable)."""
+        return None
+
 
 class OptimizableEstimator(Estimator):
     """An estimator with implementation choices
@@ -71,6 +80,10 @@ class OptimizableEstimator(Estimator):
                  num_machines: int) -> NodeChoice:
         raise NotImplementedError
 
+    def optimize_static(self, spec, n: int, num_machines: int):
+        """See :meth:`OptimizableTransformer.optimize_static`."""
+        return None
+
 
 class OptimizableLabelEstimator(LabelEstimator):
     """A label estimator with implementation choices
@@ -86,3 +99,9 @@ class OptimizableLabelEstimator(LabelEstimator):
     def optimize(self, sample: Dataset, sample_labels: Dataset, n: int,
                  num_machines: int) -> NodeChoice:
         raise NotImplementedError
+
+    def optimize_static(self, spec, n: int, num_machines: int,
+                        labels_spec=None):
+        """See :meth:`OptimizableTransformer.optimize_static`; label
+        estimators also receive the labels' DatasetSpec."""
+        return None

@@ -1,13 +1,10 @@
 """Node-level optimization rule.
 
 Counterpart of ``keystone_tpu/workflow/optimizer/node_rule.py``
-(reference ``workflow/NodeOptimizationRule.scala``), on its sampled
-path. For every optimizable operator that is not downstream of the
-pipeline's runtime source, execute its dependency prefix on *sampled*
-source datasets (the analogue of the reference's per-partition sample
-execution, ``NodeOptimizationRule.scala:337-350``), call the node's
-``optimize`` hook with the sample and the workload shape, and splice the
-returned choice into the graph:
+(reference ``workflow/NodeOptimizationRule.scala``). For every
+optimizable operator that is not downstream of the pipeline's runtime
+source, the rule resolves the node's choice and splices it into the
+graph:
 
 * the chosen operator replaces the optimizable one;
 * the choice's prefix transformers are inserted on the fit-path data
@@ -15,23 +12,36 @@ returned choice into the graph:
   same two-endpoint splice the reference performs on its instruction
   list (``NodeOptimizationRule.scala:82-299``).
 
-An optimizable node fed by a stream is left in place: a streamable
-estimator makes its choice at ``finalize`` from the exact accumulated
-shape. The JAX package's static path (choices from the analyzer's
-inferred shapes, ``static_shapes=True``) waits for the port's analyzer,
-so this rule is JAX's ``NodeOptimizationRule(static_shapes=False)``.
-The machine count is 1: one GPU, no mesh.
+Static first, as the JAX package's default: the rule runs the abstract
+interpreter (``analysis.interpreter.analyze``, meta tensors, no device
+work) once per graph state, a splice dropping it. Where the node's data
+(and labels) dependencies resolve to dataset specs of known n, the
+node's ``optimize_static`` hook is asked; a choice it returns is taken
+with no data loaded and no kernel run, and the trace's choice record
+says ``"provenance": "static"``. Where the analyzer or the node
+declines, the rule executes the dependency prefix on *sampled* source
+datasets (the reference's per-partition sample execution,
+``NodeOptimizationRule.scala:337-350``) and calls ``optimize``
+(``"sampled"``). The static path's density is STRUCTURAL (1.0 for dense
+storage), not the sampled value-level one; ``static_shapes=False`` or
+``KEYSTONE_TORCH_STATIC_NODE_OPT=0`` gives the sampled path everywhere,
+JAX's ``static_shapes=False``.
+
+An optimizable node fed by a stream whose shape the analyzer cannot
+resolve is left in place: a streamable estimator makes its choice at
+``finalize`` from the exact accumulated shape. The machine count is 1:
+one GPU, no mesh.
 
 Unlike the JAX rule, which runs a fresh executor over a sampled copy of
 the graph for every optimizable node, one rule application computes each
 node's value on the sample once and shares it with every optimizable
-node downstream (VOC's PCA and GMM share one SIFT pass over the sampled
-images), and keeps those values to itself: nothing enters the global
-prefix memo, where a key holding a sampled dataset would never be looked
-up again.
+node downstream that the analyzer does not resolve, and keeps those
+values to itself: nothing enters the global prefix memo, where a key
+holding a sampled dataset would never be looked up again.
 """
 from __future__ import annotations
 
+import os
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -59,6 +69,9 @@ from ..optimizable import (
 from .rule import Rule
 
 DEFAULT_SAMPLE_SIZE = 96  # reference: samplesPerPartition=3 over many partitions
+
+#: the switch of the static path (on unless set to 0, false or no)
+STATIC_ENV = "KEYSTONE_TORCH_STATIC_NODE_OPT"
 
 _OPTIMIZABLE = (OptimizableLabelEstimator, OptimizableEstimator,
                 OptimizableTransformer)
@@ -127,9 +140,14 @@ class _SampledValues:
 
 class NodeOptimizationRule(Rule):
     def __init__(self, sample_size: int = DEFAULT_SAMPLE_SIZE,
-                 num_machines: Optional[int] = None):
+                 num_machines: Optional[int] = None,
+                 static_shapes: Optional[bool] = None):
         self.sample_size = sample_size
         self.num_machines = num_machines
+        if static_shapes is None:
+            static_shapes = os.environ.get(STATIC_ENV, "1").strip().lower() \
+                not in ("0", "false", "no")
+        self.static_shapes = static_shapes
         #: splices made by the last ``apply``
         self.splices = 0
 
@@ -213,10 +231,36 @@ class NodeOptimizationRule(Rule):
                 return True
         return False
 
+    # -- static path ------------------------------------------------------
+    @staticmethod
+    def _static_choice(analysis, graph: Graph, node: NodeId, op,
+                       machines: int) -> Optional[Tuple[NodeChoice, int]]:
+        """The node's choice from statically inferred shapes, or None
+        when the analyzer (or the node) declines."""
+        from ...analysis.spec import DatasetSpec
+
+        deps = graph.get_dependencies(node)
+        data_spec = analysis.value(deps[0]) if deps else None
+        if not isinstance(data_spec, DatasetSpec) or data_spec.n is None:
+            return None
+        n = data_spec.n
+        if isinstance(op, OptimizableLabelEstimator):
+            if len(deps) < 2:
+                return None
+            labels_spec = analysis.value(deps[1])
+            if not isinstance(labels_spec, DatasetSpec):
+                return None
+            choice = op.optimize_static(data_spec, n, machines,
+                                        labels_spec=labels_spec)
+        else:
+            choice = op.optimize_static(data_spec, n, machines)
+        return None if choice is None else (choice, n)
+
     # -- trace hook -------------------------------------------------------
     @staticmethod
     def _record_choice(node: NodeId, op, choice: NodeChoice, n: int,
-                       machines: int, wall_s: float) -> None:
+                       machines: int, wall_s: float,
+                       provenance: str) -> None:
         """The splice decision, on the active trace (the per-solver cost
         table is the optimizable node's own record, e.g.
         ``LeastSquaresEstimator``'s solver decision)."""
@@ -231,7 +275,7 @@ class NodeOptimizationRule(Rule):
             "full_n": n,
             "num_machines": machines,
             "sample_and_optimize_s": wall_s,
-            "provenance": "sampled",
+            "provenance": provenance,
         })
 
     # -- rule entry -------------------------------------------------------
@@ -244,32 +288,50 @@ class NodeOptimizationRule(Rule):
         downstream = graph.source_descendants()
         machines = self.num_machines or 1
         values = _SampledValues(self.sample_size)
+        # one abstract interpretation serves every optimizable node on the
+        # same graph state; a splice changes the graph and drops it. The
+        # memo keeps the specs of unchanged transformers across splices
+        analysis, memo = None, {}
         for node in graph.linearize():
             if not isinstance(node, NodeId) or node not in graph.operators:
                 continue
             op = graph.get_operator(node)
             if node in downstream or not isinstance(op, _OPTIMIZABLE):
                 continue
-            if self._feeds_streaming(graph, node):
+            t0 = time.perf_counter()
+            static = None
+            if self.static_shapes:
+                if analysis is None:
+                    from ...analysis.interpreter import analyze
+
+                    analysis = analyze(graph, memo=memo)
+                static = self._static_choice(analysis, graph, node, op,
+                                             machines)
+            if static is not None:
+                choice, n = static
+                provenance = "static"
+            elif self._feeds_streaming(graph, node):
                 # a streamable estimator chooses at finalize from the
                 # exact accumulated shape; a non-streamable one raises
                 # the non-streamable-fit error at fit
                 continue
-            t0 = time.perf_counter()
-            if isinstance(op, OptimizableLabelEstimator):
-                (sample, sample_labels), n = self._execute_sampled(
-                    graph, graph.get_dependencies(node)[:2], values)
-                choice = op.optimize(sample, sample_labels, n, machines)
             else:
-                (sample,), n = self._execute_sampled(
-                    graph, graph.get_dependencies(node)[:1], values)
-                choice = op.optimize(sample, n, machines)
+                provenance = "sampled"
+                if isinstance(op, OptimizableLabelEstimator):
+                    (sample, sample_labels), n = self._execute_sampled(
+                        graph, graph.get_dependencies(node)[:2], values)
+                    choice = op.optimize(sample, sample_labels, n, machines)
+                else:
+                    (sample,), n = self._execute_sampled(
+                        graph, graph.get_dependencies(node)[:1], values)
+                    choice = op.optimize(sample, n, machines)
             self._record_choice(node, op, choice, n, machines,
-                                time.perf_counter() - t0)
+                                time.perf_counter() - t0, provenance)
             if isinstance(op, OptimizableTransformer):
                 graph = self._splice_transformer(graph, node, choice)
             else:
                 graph = self._splice_estimator(graph, node, choice)
             values.drop(graph, node)
+            analysis = None
             self.splices += 1
         return graph

@@ -150,6 +150,21 @@ class Chainable:
         return self.bind_datum(data, device)
 
 
+    def check(self, sample: Any = None, name: str = "pipeline",
+              hbm_budget: Optional[float] = None):
+        """Statically check this stage or pipeline: propagate shape and
+        dtype specs from ``sample`` (a ``ShapeDtype``, ``(shape, dtype)``
+        pair, tensor, Dataset or ``analysis`` spec describing ONE input
+        item) through every node on meta tensors, run the graph lints and
+        fold per-node resource effects into a static device-memory plan
+        (``report.plan``). ``hbm_budget`` (bytes) turns a predicted
+        over-budget fit into an ``hbm-budget`` error before anything runs.
+        Returns an :class:`~keystone_tpu_torch.analysis.AnalysisReport`."""
+        from ..analysis import check_pipeline
+
+        return check_pipeline(self, sample, name=name, hbm_budget=hbm_budget)
+
+
 class Pipeline(Chainable):
     """A DAG with one dangling source (input) and one sink (output)."""
 

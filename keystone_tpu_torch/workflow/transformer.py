@@ -124,6 +124,28 @@ class HostTransformer(Transformer):
             ds = HostDataset(ds.collect())
         return ds.map(self.apply)
 
+    def abstract_single(self, elements: Sequence[Any]) -> Any:
+        """Host stages run arbitrary Python on host items: not something
+        meta tensors can describe. Subclasses with a known output
+        (``Sparsify``) override this."""
+        from ..analysis.spec import Unknown
+
+        return Unknown(f"host stage {self.label()}")
+
+    def abstract_eval(self, dep_specs: Sequence[Any]) -> Any:
+        from ..analysis.spec import DatasetSpec
+
+        out = super().abstract_eval(dep_specs)
+        if isinstance(out, DatasetSpec):
+            # the batch path collects to host before mapping; streaming
+            # is kept so the host-stage-on-stream lint sees where the
+            # data came from (at run time this combination raises)
+            return DatasetSpec(out.element, n=out.n, host=True,
+                               sparsity=out.sparsity,
+                               streaming=out.streaming,
+                               sharded=out.sharded)
+        return out
+
 
 class LambdaTransformer(Transformer):
     """Function lift (reference ``Transformer.apply(f)``)."""

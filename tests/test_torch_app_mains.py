@@ -9,7 +9,9 @@ x 80; MNIST: 96 / 48 rows), with ``--device cpu`` and small widths. Each
 datasets the loader returns (the same fit on the same data: equal
 scores, no tolerance). The mains take the JAX package's flags and
 defaults (their configs compared field by field), plus ``--device``;
-what the port has not yet exits 2 naming its ROADMAP item. The text
+what the port has not yet exits 2 naming its ROADMAP item, and the
+``check``, ``benchdiff`` and ``numerics`` subcommands exit as the JAX
+package's do on the same arguments. The text
 apps' mains are driven from files in ``tests/test_torch_text_apps.py``.
 """
 import importlib
@@ -246,9 +248,8 @@ def test_python_dash_m_lists_the_apps():
       "localhost:1234"], "A11"),
     (["text.amazon_reviews", "--num-processes", "2"], "A11"),
     (["nlp.stupid_backoff", "--process-id=0"], "A11"),
-    (["check", "--all"], "A12"),
-    (["numerics", "pm.json"], "A12"),
-    (["benchdiff", "a.json", "b.json"], "A9b"),
+    (["check", "--all", "--shards", "8"], "A11"),
+    (["check", "cifar.linear_pixels", "--xla"], "A12b"),
     (["voc.sift_fisher", "--coordinator", "localhost:1234"], "A11"),
     (["voc.sift_fisher", "--num-processes", "2"], "A11"),
     (["mnist.random_fft", "--process-id=0"], "A11"),
@@ -257,6 +258,37 @@ def test_what_is_not_ported_exits_2_naming_its_item(argv, item, capsys):
     assert tmain.main(argv) == 2
     err = capsys.readouterr().err
     assert f"ROADMAP {item}" in err and "not ported" in err
+
+
+def _postmortem(tmp_path, monkeypatch):
+    from keystone_tpu_torch.observability.postmortem import dump_postmortem
+
+    monkeypatch.setenv("KEYSTONE_TORCH_POSTMORTEM_DIR", str(tmp_path))
+    return dump_postmortem("numerics_nan", {"chunk": 5})
+
+
+@pytest.mark.parametrize("argv,code", [
+    (["check", "cifar.linear_pixels"], 0),
+    (["check", "cifar.linear_pixels", "--budget", "1MiB"], 2),
+    (["benchdiff", "BENCH_r02.json", "BENCH_r01.json"], 2),
+    (["numerics", "POSTMORTEM"], 0),
+])
+def test_the_subcommands_exit_as_the_jax_ones(argv, code, tmp_path,
+                                              monkeypatch, capsys):
+    argv = [os.path.join(REPO, a) if a.startswith("BENCH") else a
+            for a in argv]
+    if "POSTMORTEM" in argv:
+        argv[argv.index("POSTMORTEM")] = _postmortem(tmp_path, monkeypatch)
+    assert tmain.main(list(argv)) == code
+    port_out = capsys.readouterr().out
+    assert jmain.main(list(argv)) == code
+    if argv[0] == "check":
+        # the JAX command adds the tree-wide scans the port refers to
+        # ROADMAP A12b / A11
+        assert "not ported (ROADMAP A12b)" in port_out
+        assert "concurrency: clean" not in port_out
+    else:
+        assert port_out == capsys.readouterr().out
 
 
 def test_keystone_distributed_exits_2(monkeypatch, capsys):

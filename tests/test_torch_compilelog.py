@@ -220,7 +220,7 @@ def test_a_launch_under_capture_counts_as_captured(monkeypatch, capturing):
     launched = dict(kernels.LAUNCHES)
     captured = dict(kernels.CAPTURED)
     try:
-        kernels._count_launch("quantized_affine")
+        kernels._count_launch("quantized_affine", 0.0, 0.0)
         assert (kernels.CAPTURED["quantized_affine"]
                 - captured["quantized_affine"]) == int(capturing)
         assert (kernels.LAUNCHES["quantized_affine"]

@@ -1260,3 +1260,35 @@ def test_cuda_uint8_wire_stream_gives_the_float32_wire_chunks(cuda, tmp_path):
         assert g.dtype == w.dtype == torch.float32 and g.is_cuda
         assert torch.equal(g, w)
     assert narrow.chunk_nbytes() * 4 == wide.chunk_nbytes()
+
+
+def test_cuda_each_wrapper_counts_its_launchs_work(cuda):
+    """Each wrapper adds the FLOPs and bytes of its launch, from the
+    launch's shapes (``ops/work.py``), to ``kernels.WORK``: the per-node
+    MFU of a traced run reads them."""
+    from keystone_tpu_torch.ops import work
+
+    def delta(name, fn):
+        before = dict(kernels.WORK[name])
+        fn()
+        torch.cuda.synchronize()
+        return (kernels.WORK[name]["flops"] - before["flops"],
+                kernels.WORK[name]["bytes"] - before["bytes"])
+
+    imgs, filters, means = (torch.as_tensor(a, device=cuda)
+                            for a in _inputs(3, 100, seed=5))
+    product, rest, nbytes = work.featurize_work(3, 100)
+    assert delta("fused_cifar_featurize", lambda: kernels.fused_cifar_featurize(
+        imgs, filters, whitener_means=means)) == (product + rest, nbytes)
+    X = torch.randn(96, 40, device=cuda)
+    Y = torch.randn(96, 3, device=cuda)
+    assert delta("gram_cross", lambda: kernels.gram_cross(X, Y)) == \
+        work.gram_work(96, 40, 3)
+    g = torch.Generator().manual_seed(0)
+    D, K, n = 8, 5, 33
+    Xd = torch.randn(D, n, generator=g).to(cuda)
+    m = torch.randn(D, K, generator=g).to(cuda)
+    v = (torch.rand(D, K, generator=g) + 0.5).to(cuda)
+    w = torch.full((K,), 1.0 / K, device=cuda)
+    assert delta("fv_moments", lambda: kernels.fv_moments(
+        Xd, m, v, w, 1e-4)) == work.fv_work(D, K, n)

@@ -152,6 +152,8 @@ def test_cifar_loader_matches_reference(mesh8, tmp_path, packed):
     assert got.data.n == want.data.n == 7
     gx, wx = got.data.numpy(), want.data.numpy()
     assert gx.dtype == wx.dtype and gx.shape == (7, 32, 32, 3)
+    # row-major, as the featurize kernel reads the images
+    assert got.data.data.is_contiguous()
     np.testing.assert_array_equal(gx, wx)
     np.testing.assert_array_equal(got.labels.numpy(), want.labels.numpy())
     assert got.data.tag == want.data.tag

@@ -142,11 +142,17 @@ def test_node_params_on_the_cpu_are_the_filters_and_means():
                                       whitener_means=m)
 
 
-def test_other_devices_raise():
+def test_other_devices_raise(monkeypatch):
     imgs = torch.empty((1, 32, 32, 3), device="meta")
+    filters = torch.empty((4, 108), device="meta")
+    # a meta tensor (the static analyzer's shapes) takes the plain
+    # version's shape logic and never a launch
+    out = kernels.fused_cifar_featurize(imgs, filters)
+    assert out.device.type == "meta" and tuple(out.shape) == (1, 4 * 2 * 4)
+    # a device that is neither a plain device nor CUDA raises
+    monkeypatch.setattr(kernels, "PLAIN_DEVICES", ("cpu",))
     with pytest.raises(ValueError, match="unsupported device"):
-        kernels.fused_cifar_featurize(imgs, torch.empty((4, 108),
-                                                        device="meta"))
+        kernels.fused_cifar_featurize(imgs, filters)
 
 
 def test_sources_and_build_paths_are_in_the_package():

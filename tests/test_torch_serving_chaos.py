@@ -23,6 +23,7 @@ import pytest
 from keystone_tpu.serving.scenarios import load_catalogue as jcatalogue
 from keystone_tpu_torch.nodes.learning.linear import LinearMapEstimator
 from keystone_tpu_torch.observability.metrics import MetricsRegistry
+from keystone_tpu_torch.observability.timeline import reset_flight_recorder
 from keystone_tpu_torch.parallel.dataset import ArrayDataset
 from keystone_tpu_torch.resilience import FaultPlan
 from keystone_tpu_torch.resilience.retry import TransientError
@@ -43,6 +44,13 @@ WINDOWS = {"burst": 0.6, "diurnal": 0.8, "straggler_dispatch": 0.6,
 @pytest.fixture(autouse=True)
 def _postmortems(tmp_path, monkeypatch):
     monkeypatch.setenv("KEYSTONE_TORCH_POSTMORTEM_DIR", str(tmp_path))
+    # each post-mortem embeds the whole process-global flight recorder
+    # and is written on the plane's worker thread (a poisoned batch, an
+    # SLO trip): with the ring filled by the test files that ran before
+    # in the same process, every dump stalls the worker for a large
+    # share of a second and the p99 floors fail by schedule, not by
+    # the plane. Each test starts from an empty recorder.
+    reset_flight_recorder()
 
 
 def test_catalogue_matches_the_jax_catalogue():

@@ -3,11 +3,12 @@
 Cost models, the least-squares and column-PCA choices, the calibration
 loader, the node-level rule's splices, L-BFGS (dense and sparse) and the
 streamed least-squares fit, on the same seeded numpy inputs in both
-packages. The port's rule is the JAX package's sampled path, so the JAX
-side runs ``NodeOptimizationRule(static_shapes=False)``; both sides get
-the reference's EC2 weights and one machine explicitly (the JAX
-package's defaults are its own calibration and its test mesh has eight
-devices).
+packages. Both rules run their sampled paths here
+(``static_shapes=False`` and both packages' switches set to 0; the
+static defaults are held in ``test_torch_static_analysis.py``); both
+sides get the reference's EC2 weights and one machine explicitly (the
+JAX package's defaults are its own calibration and its test mesh has
+eight devices).
 
 Tolerances: cost values 1e-12 relative (the same float64 formulas);
 L-BFGS weights and objectives 1e-4 relative and iteration counts within
@@ -87,8 +88,11 @@ COST_SHAPES = [shape for shape, _ in CHOICE_TABLE] + [
 
 @pytest.fixture(autouse=True)
 def _port_env(monkeypatch):
-    # the JAX rule's static path off: the port's rule is the sampled one
+    # both rules' static paths off: this file holds the sampled paths
+    # against each other (tests/test_torch_static_analysis.py holds the
+    # static defaults)
     monkeypatch.setenv("KEYSTONE_STATIC_NODE_OPT", "0")
+    monkeypatch.setenv("KEYSTONE_TORCH_STATIC_NODE_OPT", "0")
     PipelineEnv.reset()
     tls.clear_calibration_cache()
     yield

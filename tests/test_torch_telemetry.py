@@ -207,7 +207,10 @@ def test_streamed_pipeline_fit_feeds_trace_and_timeline():
             LeastSquaresEstimator(lam=0.1), train, labels).fit()
     assert tr.chunk_stats["count"] == 10  # two fits of 5 chunks
     assert [f["source"] for f in tr.streamed_fits] == ["tl", "tl"]
-    assert tr.solver_decisions[-1]["shape_source"] == "streamed"
+    # the stream's n is known: the node rule's static path chooses among
+    # the one-pass solvers before the fit, as the JAX default does
+    assert tr.solver_decisions[-1]["shape_source"] == "static"
+    assert tr.solver_decisions[-1]["streaming_restricted"]
     spans = flight_recorder().spans()
     kinds = {s.name.split(":")[0] for s in spans if ":" in s.name}
     assert {"stage", "stall", "accumulate"} <= kinds
@@ -226,7 +229,9 @@ def test_optimizer_records_go_to_the_trace():
         LeastSquaresEstimator(lam=0.1).with_data(train, labels).fit()
     assert tr.node_choices and tr.node_choices[0]["optimizable"] == \
         "LeastSquaresEstimator"
-    assert tr.solver_decisions[0]["shape_source"] == "sampled"
+    # the rule's default, as the JAX package's: shapes from the analyzer
+    assert tr.node_choices[0]["provenance"] == "static"
+    assert tr.solver_decisions[0]["shape_source"] == "static"
     assert set(tr.solver_decisions[0]["costs"]) >= {"LinearMapEstimator"}
     PipelineEnv.reset()
     rule = AutoCacheRule(AutoCacheRule.GREEDY, max_mem=1e9)
