@@ -279,7 +279,22 @@ Phases, each of which raises (and so exits non-zero) on failure:
    its budget. 4e, 4d and 4j hold the node rule's default, the static
    path: their choices come from the analyzer's shapes, so 4e launches
    the featurize kernel for the fit alone and 4d and 4j run SIFT on no
-   sample.
+   sample. The plans printed against the measured peaks are the
+   memo-held ones (``plan_graph(memo_held=True)``, what the executor
+   holds); ``check`` prints the JAX package's liveness.
+4q. The tree-wide scans and the gates (after 4o): the concurrency and
+   hot-path scans over ``keystone_tpu_torch/`` each timed, with no
+   finding and the hot-path scan inside ``HOTPATH_SCAN_BUDGET_S``, and
+   ``check --all --json`` in process carrying both keys; ``check --xla``
+   on ``cifar.random_patch`` and ``voc.sift_fisher`` on the card (each
+   per-item node run once on a zero item: its plan charge, the bytes it
+   output and its allocation peak, as ``plan_vs_device``; the featurize
+   and banded kernels launched); then ``python -m
+   keystone_tpu_torch.tools.ci --device cuda --chaos-seeds 1`` in a
+   subprocess: lint, ``check --all``, the advisory benchdiffs and the
+   recompile, numerics, serving, chaos and fleet gates and the
+   schedule suite, each stage's seconds printed; any failing stage fails
+   the run.
 5. Timing: each kernel, its plain version and a library yardstick with
    CUDA events at the main path's shapes, one call at a time (the
    ``kernels`` line); for every kernel also the device time alone of the
@@ -3584,7 +3599,8 @@ class _PlanProbe:
 
         rec = self.fits[index]
         t0 = time.time()
-        plan = plan_graph(analyze(rec["graph"]), label)
+        # what the port's executor holds: every value to the end
+        plan = plan_graph(analyze(rec["graph"]), label, memo_held=True)
         plan.seconds = time.time() - t0
         self.fits = []
         return plan, rec["base"], rec["peak"]
@@ -3774,6 +3790,106 @@ def _analysis_phase(kernels, rpc, tr_x, tr_y, te_x, te_y, filters, whitener,
     assert rc_num == 0 and "chunk: 5" in text, text[:2000]
     assert rc_bd == 2, rc_bd
     print(f"[4p] phase 4p in {time.time() - t_phase:.1f} s", flush=True)
+
+
+def _scans_gates_phase(kernels, workdir, dev, smi):
+    """Phase 4q (see the module docstring): the tree-wide scans and
+    ``check --all`` in process, ``check --xla`` on the card for two apps,
+    and ``tools/ci.py`` with every gate on the card."""
+    from keystone_tpu_torch import __main__ as cli
+    from keystone_tpu_torch.analysis.concurrency import \
+        scan_package as scan_concurrency
+    from keystone_tpu_torch.analysis.hotpath import (HOTPATH_SCAN_BUDGET_S,
+                                                     scan_package as
+                                                     scan_hotpath)
+
+    t_phase = time.time()
+    pkg = os.path.join(REPO, "keystone_tpu_torch")
+    # (a) each scan alone, then check --all with both in its report
+    seconds = {}
+    for name, scan in (("concurrency", scan_concurrency),
+                       ("hotpath", scan_hotpath)):
+        t0 = time.time()
+        hits = scan(pkg)
+        seconds[name] = time.time() - t0
+        assert hits == [], (name, hits[:3])
+    report = os.path.join(workdir, "check_4q.json")
+    out = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rc = cli.main(["check", "--all", "--json", report])
+    check_s = time.time() - t0
+    with open(report) as f:
+        blob = json.load(f)
+    summary = [line for line in out.getvalue().splitlines()
+               if line.split(":")[0] in ("concurrency", "hotpath", "spmd",
+                                          "metrics names")]
+    print(f"[4q] concurrency scan {seconds['concurrency']:.2f} s, hotpath "
+          f"scan {seconds['hotpath']:.2f} s (budget "
+          f"{HOTPATH_SCAN_BUDGET_S:.0f} s), 0 findings each; check --all: "
+          f"exit {rc} in {check_s:.2f} s, {summary}, --json keys "
+          f"{sorted(blob)}; {smi}", flush=True)
+    assert rc == 0 and blob["concurrency"] == [] and blob["hotpath"] == []
+    assert seconds["hotpath"] < HOTPATH_SCAN_BUDGET_S, seconds
+
+    # (b) check --xla on the card: each per-item node once on a zero item
+    kernels.reset_launches()
+    for app in ("cifar.random_patch", "voc.sift_fisher"):
+        report = os.path.join(workdir, f"xla_{app}.json")
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc = cli.main(["check", app, "--xla", "--device", "cuda",
+                           "--json", report])
+        xla_s = time.time() - t0
+        with open(report) as f:
+            rows = json.load(f)["xla_verify"]
+        ok = [r for r in rows if r["status"] == "ok"]
+        print(f"[4q] check {app} --xla on the card: exit {rc} in "
+              f"{xla_s:.2f} s, {len(ok)} of {len(rows)} nodes run once and "
+              "byte-checked", flush=True)
+        seen = set()
+        for r in ok:
+            key = (r["operator"], r["plan_item_nbytes"],
+                   r["device_peak_bytes"])
+            if key in seen:
+                continue
+            seen.add(key)
+            peak = r["device_peak_bytes"]
+            print(f"[4q]   {r['operator']:<34} plan "
+                  f"{r['plan_item_nbytes']:.0f} B/item, device out "
+                  f"{r['device_output_bytes']:.0f} B, peak "
+                  + ("not measured" if peak is None else
+                     f"{peak:.0f} B above the run's start")
+                  + f", plan_vs_device {r['plan_vs_device']}", flush=True)
+        assert rc == 0 and ok, (app, rc, rows[:3])
+    xla_launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    print(f"[4q] check --xla kernel launches {xla_launches}", flush=True)
+    assert xla_launches.get("fused_cifar_featurize", 0) >= 1, xla_launches
+    assert xla_launches.get("banded_matmul", 0) >= 1, xla_launches
+    _release()
+
+    # (c) the CI chain, every gate on the card, the chaos gate at one seed
+    log = os.path.join(workdir, "ci_4q.log")
+    t0 = time.time()
+    with open(log, "w") as f:
+        proc = subprocess.run(
+            [sys.executable, "-m", "keystone_tpu_torch.tools.ci",
+             "--device", "cuda", "--chaos-seeds", "1"], cwd=REPO,
+            stdout=f, stderr=subprocess.STDOUT, timeout=900)
+    ci_s = time.time() - t0
+    with open(log) as f:
+        text = f.read()
+    keep = ("ci: ", "recompile gate: ", "numerics gate: ", "serving gate: ",
+            "chaos gate: ", "fleet gate: ")
+    for line in text.splitlines():
+        if line.startswith(keep) and not line.startswith("chaos gate:   "):
+            print(f"[4q] {line}", flush=True)
+    print(f"[4q] tools/ci.py --device cuda --chaos-seeds 1: exit "
+          f"{proc.returncode} in {ci_s:.1f} s; {smi}", flush=True)
+    assert proc.returncode == 0, text[-4000:]
+    print(f"[4q] phase 4q in {time.time() - t_phase:.1f} s", flush=True)
 
 
 def _solver_phase(kernels, rpc, tr_x, tr_y, te_x, te_y, filters, whitener,
@@ -5467,6 +5583,9 @@ def _main(workdir: str) -> int:
 
     # -- 4o. the text and NLP apps --------------------------------------------
     _text_phase(kernels, workdir, dev, smi)
+
+    # -- 4q. the tree-wide scans, check --xla and the CI gates ---------------------
+    _scans_gates_phase(kernels, workdir, dev, smi)
 
     # -- 5. timing ------------------------------------------------------------
     B = K = 1024

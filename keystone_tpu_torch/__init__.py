@@ -7,9 +7,21 @@ package's Pallas TPU kernels rewritten by hand in CUDA C++. The port
 never imports JAX or the JAX package. Entry points run on ``"cuda"``
 unless the caller passes ``device="cpu"``.
 """
+from .observability import (
+    MetricsRegistry,
+    PipelineTrace,
+    current_trace,
+    xprof_trace,
+)
 from .ops.device import resolve_device
 from .parallel.dataset import ArrayDataset, Dataset, HostDataset, as_dataset
-from .parallel.streaming import StreamingDataset, fit_streaming
+from .parallel.streaming import StreamingDataset, fit_streaming, is_streamable
+from .resilience import (
+    FaultPlan,
+    IngestTimeoutError,
+    Quarantine,
+    RetryPolicy,
+)
 from .workflow import (
     Cacher,
     Estimator,
@@ -24,14 +36,27 @@ from .workflow import (
     transformer,
 )
 
+__version__ = "0.1.0"
+
+# the JAX package's public names less the mesh helpers (ROADMAP A11:
+# get_mesh, make_mesh, mesh_scope, set_mesh); `resolve_device`, the
+# port's device choice, is imported above and stays importable here
 __all__ = [
-    "resolve_device",
+    "MetricsRegistry",
+    "PipelineTrace",
+    "current_trace",
+    "xprof_trace",
     "ArrayDataset",
     "Dataset",
     "HostDataset",
-    "as_dataset",
     "StreamingDataset",
+    "as_dataset",
     "fit_streaming",
+    "is_streamable",
+    "FaultPlan",
+    "IngestTimeoutError",
+    "Quarantine",
+    "RetryPolicy",
     "Cacher",
     "Estimator",
     "FittedPipeline",
@@ -43,4 +68,5 @@ __all__ = [
     "PipelineEnv",
     "Transformer",
     "transformer",
+    "__version__",
 ]

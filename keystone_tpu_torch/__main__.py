@@ -5,6 +5,7 @@
                                        [--trace-out PATH]
     python -m keystone_tpu_torch check <app>|--all [--json PATH]
                                        [--budget BYTES] [--replicas N]
+                                       [--xla [--device cuda|cpu]]
     python -m keystone_tpu_torch benchdiff BASE.json CURRENT.json [--force]
     python -m keystone_tpu_torch numerics POSTMORTEM.json
     python -m keystone_tpu_torch serve NAME=PATH@SHAPE[:DTYPE] ... [--port P]
@@ -23,12 +24,19 @@ summary and MFU table on stderr.
 ``check`` analyzes an app's pipeline DAG without loading data or
 touching a device (``keystone_tpu_torch/analysis``): shape and dtype
 propagation on meta tensors, the graph lints, the static device-memory
-plan and the metric-name catalogue. Exit 0 clean, 1 diagnostics, 2 a
-predicted budget violation or a usage error. ``--budget BYTES``
+plan and the metric-name catalogue, plus the tree-wide concurrency scan
+(``analysis/concurrency.py``, the ``concurrency`` key in ``--json``) and
+hot-path scan (``analysis/hotpath.py``, the ``hotpath`` key). Exit 0
+clean, 1 diagnostics (a scan finding included), 2 a predicted budget
+violation or a usage error. ``--budget BYTES``
 (``MiB``/``GiB`` suffixes) gates each app's fit-path peak; ``--replicas
 N`` (with ``--budget`` as each replica's budget) solves the apps' static
 serving charges into an N-replica placement (``serving/placement.py``).
-``--json PATH`` writes the full report. ``benchdiff`` is the
+``--json PATH`` writes the full report. ``--xla`` is the counterpart
+of the JAX ``check --xla``: each planner-resolved per-item node runs
+once on one zero item on ``--device`` (default ``cuda``), and its plan
+charge is set against the bytes it outputs (``plan_vs_device``, the
+``xla_verify`` rows of ``--json``; advisory). ``benchdiff`` is the
 bench-regression gate over ``BENCH_r*.json`` artifacts
 (``observability/benchdiff.py``), ``numerics`` renders a numerics
 post-mortem (``observability/numerics.py``), ``serve`` is the serving
@@ -36,8 +44,8 @@ plane's command (``serving/http.py``).
 
 What the port does not have yet exits 2 naming its ROADMAP item:
 ``check --shards`` and the multi-process launch (``--coordinator``,
-``--num-processes``, ``--process-id``, ``KEYSTONE_DISTRIBUTED``; A11),
-``check --xla`` (A12b).
+``--num-processes``, ``--process-id``, ``KEYSTONE_DISTRIBUTED``; A11);
+the ``spmd`` scan's summary line says "not ported (ROADMAP A11)".
 """
 from __future__ import annotations
 
@@ -70,19 +78,19 @@ APPS = {
 
 #: the check command's switches the port has not yet, with the ROADMAP
 #: item that brings each
-CHECK_NOT_PORTED = {"--shards": "A11", "--xla": "A12b"}
+CHECK_NOT_PORTED = {"--shards": "A11"}
 DISTRIBUTED_FLAGS = ("--coordinator", "--num-processes", "--process-id")
 
 #: the tree-wide scans of the JAX ``check`` the port has not yet: their
 #: summary lines say so, and ``--json`` leaves their keys out
-SCANS_NOT_PORTED = (("concurrency", "A12b"), ("spmd", "A11"),
-                    ("hotpath", "A12b"))
+SCANS_NOT_PORTED = (("spmd", "A11"),)
 
 
 def _usage() -> None:
     print("usage: python -m keystone_tpu_torch <app> [--flags] "
           "[--device cuda|cpu] [--trace-out PATH]\n"
-          "       python -m keystone_tpu_torch check <app>|--all\n"
+          "       python -m keystone_tpu_torch check <app>|--all "
+          "[--xla [--device cuda|cpu]]\n"
           "       python -m keystone_tpu_torch benchdiff BASE.json "
           "CURRENT.json\n"
           "       python -m keystone_tpu_torch numerics POSTMORTEM.json\n"
@@ -132,20 +140,34 @@ def _take_value(rest, flag: str, what: str):
 
 def check_main(rest) -> int:
     """``python -m keystone_tpu_torch check <app>|--all [--json PATH]
-    [--budget BYTES] [--replicas N]``: the JAX package's ``check``
-    (``keystone_tpu/__main__.py::check_main``) over the port's apps, with
-    its exit codes: 0 clean, 1 diagnostics, 2 a predicted budget
-    violation or a usage error. ``--budget`` gates each app's static
-    fit-path peak; ``--replicas N`` with ``--budget`` as each replica's
-    budget solves the apps' static serving charges into an N-replica
-    placement (``serving/placement.py``), exit 2 naming the first app no
-    replica can host. ``--shards`` (A11) and ``--xla`` (A12b) exit 2."""
+    [--budget BYTES] [--replicas N] [--xla [--device cuda|cpu]]``: the
+    JAX package's ``check`` (``keystone_tpu/__main__.py::check_main``)
+    over the port's apps and tree, with its exit codes: 0 clean, 1
+    diagnostics (a concurrency or hot-path finding included), 2 a
+    predicted budget violation or a usage error. ``--budget`` gates each
+    app's static fit-path peak; ``--replicas N`` with ``--budget`` as
+    each replica's budget solves the apps' static serving charges into
+    an N-replica placement (``serving/placement.py``), exit 2 naming the
+    first app no replica can host. ``--xla`` runs each per-item node once
+    on ``--device`` against its plan charge
+    (``analysis/resources.py::device_verify_plan``). ``--shards`` (A11)
+    exits 2."""
     rest = list(rest)
     for flag, item in CHECK_NOT_PORTED.items():
         if flag in rest:
             return _refuse(f"check {flag}", item)
     found, json_out = _take_value(rest, "--json", "a path")
     if found and json_out is None:
+        return 2
+    verify = "--xla" in rest
+    if verify:
+        rest.remove("--xla")
+    found, device = _take_value(rest, "--device", "cuda or cpu")
+    if found and device is None:
+        return 2
+    if device is not None and not verify:
+        print("--device applies to check --xla (the node runs); the rest "
+              "of check touches no device", file=sys.stderr)
         return 2
     found, text = _take_value(rest, "--budget", "a byte count (e.g. 16GiB)")
     budget = None
@@ -177,12 +199,15 @@ def check_main(rest) -> int:
               file=sys.stderr)
         return 2
 
+    from .analysis.concurrency import scan_package as scan_concurrency
     from .analysis.diagnostics import scan_metric_names
+    from .analysis.hotpath import scan_package as scan_hotpath
     from .pipelines import CHECK_APPS, resolve_check_app
 
     if not rest or rest[0] in ("-h", "--help"):
         print("usage: python -m keystone_tpu_torch check <app>|--all "
-              "[--json PATH] [--budget BYTES] [--replicas N]\n\napps:")
+              "[--json PATH] [--budget BYTES] [--replicas N] "
+              "[--xla [--device cuda|cpu]]\n\napps:")
         for name in sorted(CHECK_APPS):
             print(f"  {name}")
         return 0
@@ -196,14 +221,28 @@ def check_main(rest) -> int:
                   "arguments to list apps", file=sys.stderr)
             return 2
 
-    # metric-name drift: every counter/gauge/histogram call site must use
-    # a catalogued name (observability/names.py)
+    if verify:
+        from .ops.device import resolve_device
+
+        try:
+            device = resolve_device("cuda" if device is None else device)
+        except (RuntimeError, ValueError) as exc:
+            print(f"check --xla: {exc}", file=sys.stderr)
+            return 2
     pkg_root = os.path.dirname(os.path.abspath(__file__))
-    metrics_names = scan_metric_names(pkg_root)
-    for hit in metrics_names:
-        print(f"{hit['file']}:{hit['lineno']}: {hit['code']}: "
-              f"{hit['message']}", file=sys.stderr)
-    failed = 1 if metrics_names else 0
+    # the tree-wide scans: guarded-by races, lock order, blocking under a
+    # lock and split guarded sequences; metric-name drift against the
+    # catalogue (observability/names.py); the hot path's hazards from
+    # every @hotpath entry point and the @published_by discipline
+    scans = {}
+    for key, scan in (("concurrency", scan_concurrency),
+                      ("metrics_names", scan_metric_names),
+                      ("hotpath", scan_hotpath)):
+        scans[key] = scan(pkg_root)
+        for hit in scans[key]:
+            print(f"{hit['file']}:{hit['lineno']}: {hit['code']}: "
+                  f"{hit['message']}", file=sys.stderr)
+    failed = sum(1 for hits in scans.values() if hits)
     over_budget = 0
     reports = []
     for build in builders:
@@ -212,6 +251,14 @@ def check_main(rest) -> int:
                                        hbm_budget=budget)
         reports.append(report)
         print(report.summary(), file=sys.stderr)
+        if verify:
+            from .analysis.resources import (device_verify_plan,
+                                             format_device_verify)
+
+            report.xla_verify = device_verify_plan(report.analysis,
+                                                   report.plan, device)
+            print(format_device_verify(report.xla_verify, target.name,
+                                       device), file=sys.stderr)
         violated = any(d.code == "hbm-budget" for d in report.diagnostics)
         over_budget += violated
         if not report.ok:
@@ -229,16 +276,24 @@ def check_main(rest) -> int:
     if replicas is not None:
         fleet_placement = _fleet_placement(reports, replicas, budget)
         over_budget += "infeasible" in fleet_placement
-    print(f"metrics names: {'clean' if not metrics_names else f'{len(metrics_names)} diagnostic(s)'}")
+    for key, label in (("concurrency", "concurrency"),
+                       ("metrics_names", "metrics names")):
+        print(f"{label}: {_verdict(scans[key])}")
     for scan, item in SCANS_NOT_PORTED:
         print(f"{scan}: not ported (ROADMAP {item})")
+    print(f"hotpath: {_verdict(scans['hotpath'])}")
     if json_out is not None:
+        def dump(report):
+            d = report.to_dict()
+            if getattr(report, "xla_verify", None) is not None:
+                d["xla_verify"] = report.xla_verify
+            return d
+
         if len(reports) == 1:
-            blob = reports[0].to_dict()
-            blob["metrics_names"] = metrics_names
+            blob = dump(reports[0])
+            blob.update(scans)
         else:
-            blob = {"apps": [r.to_dict() for r in reports],
-                    "metrics_names": metrics_names}
+            blob = {"apps": [dump(r) for r in reports], **scans}
         if fleet_placement is not None:
             blob["fleet_placement"] = fleet_placement
         with open(json_out, "w") as f:
@@ -247,6 +302,10 @@ def check_main(rest) -> int:
     if over_budget:
         return 2  # a predicted device-memory violation, before any work
     return 1 if failed else 0
+
+
+def _verdict(hits) -> str:
+    return "clean" if not hits else f"{len(hits)} diagnostic(s)"
 
 
 def _fleet_placement(reports, replicas: int, budget: float) -> dict:

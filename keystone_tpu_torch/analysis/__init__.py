@@ -13,16 +13,35 @@ Entry points:
 * ``python -m keystone_tpu_torch check <app>``     the command over the
   app registry (``keystone_tpu_torch.pipelines.CHECK_APPS``)
 
-The tree-wide AST scans of the JAX package (``concurrency``, ``hotpath``
-and the AST-only lints of ``diagnostics``) are ROADMAP A12b; ``spmd``
-and ``sharding_flow_lint`` come with the multi-GPU port, A11.
+* ``python -m keystone_tpu_torch.tools.lint``     the tree-wide static
+  gate: the AST-only lints of ``diagnostics``, the concurrency passes
+  (``concurrency``) and the hot-path and publication passes (``hotpath``)
+
+``spmd`` and ``sharding_flow_lint`` come with the multi-GPU port
+(ROADMAP A11).
 """
+from .concurrency import (
+    blocking_under_lock,
+    find_lock_cycles,
+    guarded_field_races,
+    guarded_sequence_hazards,
+    lock_order_edges,
+    scan_package,
+)
 from .diagnostics import (
     AnalysisReport,
     apply_body_host_coercions,
     check_graph,
     check_pipeline,
     scan_metric_names,
+)
+from .hotpath import (
+    HOTPATH_SCAN_BUDGET_S,
+    build_package,
+    hotpath_hazards,
+    published_field_hazards,
+    scan_package as scan_package_hotpath,
+    scan_source as scan_source_hotpath,
 )
 from .interpreter import Analysis, Diagnostic, analyze
 from .resources import (
@@ -45,15 +64,18 @@ from .spec import (
     spec_dataset,
 )
 
+# the JAX package's public names less the SPMD scan's (ROADMAP A11);
+# ShapeDtype, element_feature_dim, scan_metric_names and
+# serving_residency_nbytes are imported above and stay importable here
 __all__ = [
     "Analysis",
     "AnalysisReport",
     "DatasetSpec",
     "DatumSpec",
     "Diagnostic",
+    "HOTPATH_SCAN_BUDGET_S",
     "HbmPlan",
     "ResourceEffect",
-    "ShapeDtype",
     "SparseSpec",
     "SpecDataset",
     "StreamGeometry",
@@ -62,11 +84,19 @@ __all__ = [
     "analyze",
     "apply_body_host_coercions",
     "as_input_spec",
+    "blocking_under_lock",
+    "build_package",
     "check_graph",
     "check_pipeline",
-    "element_feature_dim",
+    "find_lock_cycles",
+    "guarded_field_races",
+    "guarded_sequence_hazards",
+    "hotpath_hazards",
+    "lock_order_edges",
     "plan_graph",
-    "scan_metric_names",
-    "serving_residency_nbytes",
+    "published_field_hazards",
+    "scan_package",
+    "scan_package_hotpath",
+    "scan_source_hotpath",
     "spec_dataset",
 ]

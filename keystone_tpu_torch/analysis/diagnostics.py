@@ -26,10 +26,12 @@ structural lints:
                            lie on the device
 
 plus :func:`scan_metric_names`, the metric-name drift check against
-``observability/names.py``. ``sharding_flow_lint`` comes with the
-multi-GPU port (ROADMAP A11); the AST-only lints of the JAX module
-(casts before transfer, swallow-all handlers, NaN silencers, donation
-and recompile hazards) with ROADMAP A12b.
+``observability/names.py``, and the AST-only lints over source trees
+(``python -m keystone_tpu_torch.tools.lint`` runs them):
+:func:`float_casts_before_transfer`, :func:`swallow_all_handlers`,
+:func:`silent_nan_silencers`, :func:`donation_hazards` (in-place carry
+updates) and :func:`recompile_hazards` (CUDA-graph captures).
+``sharding_flow_lint`` comes with the multi-GPU port (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -320,6 +322,461 @@ def scan_metric_names(pkg_root) -> List[dict]:
             out.append({"file": str(rel), "lineno": lineno,
                         "code": code, "message": msg})
     return out
+
+
+# -- AST-only lints ----------------------------------------------------------------
+#
+# Source-level rules over the port's tree, run by
+# ``python -m keystone_tpu_torch.tools.lint`` (each scoped by the
+# directories its ``*_SCOPES`` names, the rest tree-wide). Textual order
+# per function scope: a nested def is its own scope, so a cast in one
+# scope and a transfer in an unrelated closure are never conflated. False
+# positives break a gate on legitimate code, so each rule is
+# conservative.
+
+#: directories (under ``keystone_tpu_torch/``) where a silent swallow-all
+#: handler is banned: ingest, staging, serving and workflow code, where
+#: "skip the error and keep going" turns a flaky disk or a corrupt record
+#: into silent data loss (the resilience layer is the sanctioned way)
+SWALLOW_ALL_SCOPES = ("loaders", "parallel", "serving", "workflow")
+
+#: directories where the cast-before-transfer rule applies: loader and
+#: device-staging code, where a host-side float widening right before
+#: the transfer ships 4x the bytes the source held
+CAST_BEFORE_TRANSFER_SCOPES = ("loaders", "parallel")
+
+#: directories where NaN-suppressing code must be paired with a recorded
+#: ``numerics.*`` event (observability/numerics.py)
+NAN_SILENCER_SCOPES = ("nodes", "ops", "parallel", "workflow")
+
+#: dtype spellings that count as a float widening target
+_FLOAT_DTYPE_NAMES = {
+    "float16", "float32", "float64", "bfloat16", "float_", "double",
+    "half", "float",
+}
+
+
+def _is_float_dtype_expr(node) -> bool:
+    """Syntactically a float dtype: ``np.float32`` / ``torch.float32`` /
+    the builtin ``float`` / a ``"float32"``-style string literal."""
+    if isinstance(node, ast.Attribute):
+        return node.attr in _FLOAT_DTYPE_NAMES
+    if isinstance(node, ast.Name):
+        return node.id in _FLOAT_DTYPE_NAMES
+    if isinstance(node, ast.Constant) and isinstance(node.value, str):
+        return node.value in _FLOAT_DTYPE_NAMES
+    return False
+
+
+def _own_scope_nodes(fdef):
+    """A function body's nodes WITHOUT nested function definitions (each
+    nested def is linted as its own scope)."""
+    stack = list(fdef.body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            continue
+        yield node
+        stack.extend(ast.iter_child_nodes(node))
+
+
+def _kw(call: ast.Call, name: str):
+    for kw in call.keywords:
+        if kw.arg == name:
+            return kw.value
+    return None
+
+
+def _names_a_device(node) -> bool:
+    """Syntactically a device: a name or attribute holding ``dev``
+    (``device``, ``dev``, ``self.device``), ``torch.device(...)``, or a
+    ``"cuda..."`` / ``"cpu"`` literal."""
+    if isinstance(node, ast.Constant) and isinstance(node.value, str):
+        return node.value == "cpu" or node.value.startswith("cuda")
+    if isinstance(node, ast.Name):
+        return "dev" in node.id.lower()
+    if isinstance(node, ast.Attribute):
+        return "dev" in node.attr.lower()
+    if isinstance(node, ast.Call):
+        f = node.func
+        return isinstance(f, ast.Attribute) and f.attr == "device"
+    return False
+
+
+def _is_transfer(call: ast.Call) -> bool:
+    """A host-to-device transfer in torch terms: ``x.to(device)`` (a
+    device positional or ``device=``), ``x.cuda()``, or
+    ``torch.as_tensor`` / ``torch.tensor`` with ``device=``."""
+    f = call.func
+    if not isinstance(f, ast.Attribute):
+        return False
+    if f.attr == "cuda":
+        return True
+    if f.attr == "to":
+        if _kw(call, "device") is not None:
+            return True
+        return bool(call.args) and _names_a_device(call.args[0])
+    return f.attr in ("as_tensor", "tensor") and \
+        _kw(call, "device") is not None
+
+
+def float_casts_before_transfer(tree) -> List[tuple]:
+    """``(lineno, description)`` for host float-widening casts in the same
+    function scope as a host-to-device transfer: widening uint8 records
+    to float on the HOST and then shipping the wide copy quadruples the
+    wire bytes. Detected syntactically, per function scope, as the
+    co-occurrence of (a) a transfer (``.to(device)``, ``.cuda()``,
+    ``torch.as_tensor(..., device=)``) and (b) an ``.astype(<float
+    dtype>)``, a numpy ``asarray``/``array``/``stack``/
+    ``ascontiguousarray(..., dtype=<float dtype>)``, or a
+    ``torch.as_tensor``/``tensor(..., dtype=<float dtype>, device=)``
+    (numpy widens before the copy). Fix: ship the source dtype and cast
+    on the device (``StreamingDataset``'s ``wire_dtype`` /
+    ``compute_dtype``)."""
+    hits = []
+    for fdef in ast.walk(tree):
+        if not isinstance(fdef, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            continue
+        puts = False
+        casts = []
+        for node in _own_scope_nodes(fdef):
+            if not isinstance(node, ast.Call):
+                continue
+            f = node.func
+            if not isinstance(f, ast.Attribute):
+                continue
+            if _is_transfer(node):
+                puts = True
+                if f.attr in ("as_tensor", "tensor") and \
+                        _is_float_dtype_expr(_kw(node, "dtype")):
+                    casts.append((node.lineno,
+                                  f"{f.attr}(dtype=float, device=...)"))
+            elif f.attr == "astype":
+                dtype_args = list(node.args[:1]) + [
+                    kw.value for kw in node.keywords if kw.arg == "dtype"]
+                if any(_is_float_dtype_expr(a) for a in dtype_args):
+                    casts.append((node.lineno, "astype(float)"))
+            elif f.attr in ("asarray", "array", "stack",
+                            "ascontiguousarray"):
+                if _is_float_dtype_expr(_kw(node, "dtype")):
+                    casts.append((node.lineno, f"{f.attr}(dtype=float)"))
+        if puts and casts:
+            hits.extend(casts)
+    return sorted(set(hits))
+
+
+def swallow_all_handlers(tree) -> List[tuple]:
+    """``(lineno, description)`` for exception handlers that swallow
+    everything silently: a bare ``except:`` (any body), or an
+    ``except Exception/BaseException`` handler whose body is only
+    ``pass``/``...``. Handlers that narrow the type, re-raise, log or
+    compute a fallback are fine."""
+    hits = []
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.ExceptHandler):
+            continue
+        if node.type is None:
+            hits.append((node.lineno, "bare `except:`"))
+            continue
+        exc_type = node.type
+        elts = (exc_type.elts if isinstance(exc_type, ast.Tuple)
+                else [exc_type])
+        names = [e.attr if isinstance(e, ast.Attribute)
+                 else getattr(e, "id", "") for e in elts]
+        if not any(n in ("Exception", "BaseException") for n in names):
+            continue
+        body_is_noop = all(
+            isinstance(stmt, ast.Pass)
+            or (isinstance(stmt, ast.Expr)
+                and isinstance(stmt.value, ast.Constant)
+                and (stmt.value.value is Ellipsis
+                     or isinstance(stmt.value.value, str)))
+            for stmt in node.body)
+        if body_is_noop:
+            hits.append((node.lineno,
+                         f"`except {'/'.join(names)}: pass`"))
+    return hits
+
+
+#: call names that count as recording into the numerics event funnel
+_NUMERICS_RECORDERS = frozenset({
+    "record_numerics_event", "record_solve_health", "record_block_health",
+})
+
+
+def _errstate_ignores(call) -> bool:
+    """True when an ``errstate(...)`` call suppresses: a keyword whose
+    value is the literal ``'ignore'``."""
+    return any(isinstance(kw.value, ast.Constant)
+               and kw.value.value == "ignore" for kw in call.keywords)
+
+
+def silent_nan_silencers(tree) -> List[tuple]:
+    """``(lineno, description)`` for NaN-suppressing calls with no
+    recorded numerics event in the same function scope: a
+    ``nan_to_num(...)`` (``torch.nan_to_num``, ``np.nan_to_num`` or the
+    tensor method) or an ``errstate(...='ignore')``, with no
+    :data:`_NUMERICS_RECORDERS` call and no metric factory call with a
+    ``"numerics."`` name in scope. Suppression can be the right
+    recovery; unaccounted suppression hides a real breakdown."""
+    hits = []
+    for fdef in ast.walk(tree):
+        if not isinstance(fdef, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            continue
+        silencers = []
+        recorded = False
+        for node in _own_scope_nodes(fdef):
+            if not isinstance(node, ast.Call):
+                continue
+            fname = _call_name(node)
+            if fname in ("nan_to_num", "nan_to_num_"):
+                silencers.append((node.lineno, f"{fname}(...)"))
+            elif fname == "errstate" and _errstate_ignores(node):
+                silencers.append((node.lineno, "errstate(...='ignore')"))
+            elif fname in _NUMERICS_RECORDERS:
+                recorded = True
+            elif fname in _METRIC_FACTORIES and node.args:
+                arg = node.args[0]
+                if isinstance(arg, ast.Constant) \
+                        and isinstance(arg.value, str) \
+                        and arg.value.startswith("numerics."):
+                    recorded = True
+        if silencers and not recorded:
+            hits.extend(silencers)
+    return sorted(set(hits))
+
+
+# -- donation hazards ------------------------------------------------------------
+#
+# The port's donation is an in-place carry update: a function decorated
+# ``@donates_carry(i)`` (utils/donation.py) writes positional argument
+# ``i`` in place, so the caller's name for that carry is dead after the
+# call (with ``KEYSTONE_TORCH_DONATE_CARRY=0`` it is alive and stale,
+# which hides the bug in exactly the runs that debug it):
+#
+# * ``use-after-donate``        the carry's name is read after the call
+#                               without a rebind in between
+# * ``checkpoint-after-donate`` the read is inside a ``*.save(...)``: the
+#                               snapshot holds a carry an update has
+#                               already overwritten
+#
+# The safe form ``carry = update(carry, ...)`` rebinds at the call.
+
+def donating_names(tree) -> Dict[str, frozenset]:
+    """``{function name: call-site positions of the carry}`` for every
+    def in ``tree`` decorated ``@donates_carry(i)``. A method's position
+    counts ``self`` in the decorator and not at the call site
+    (``obj.update(carry)``), so its call position is ``i - 1``."""
+    out: Dict[str, frozenset] = {}
+    for fdef in ast.walk(tree):
+        if not isinstance(fdef, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            continue
+        for dec in fdef.decorator_list:
+            if not (isinstance(dec, ast.Call)
+                    and _call_name(dec) == "donates_carry"):
+                continue
+            arg = dec.args[0] if dec.args else _kw(dec, "carry_arg")
+            try:
+                pos = 0 if arg is None else int(ast.literal_eval(arg))
+            except (ValueError, SyntaxError):
+                continue  # a computed position: nothing static to track
+            params = [a.arg for a in fdef.args.args]
+            if params and params[0] in ("self", "cls"):
+                pos -= 1
+            if pos >= 0:
+                out[fdef.name] = frozenset({pos})
+    return out
+
+
+def donation_hazards(tree, donors: Optional[Mapping[str, frozenset]] = None
+                     ) -> List[tuple]:
+    """``(lineno, code, description)`` for use-after-donate and
+    checkpoint-after-donate (see the block comment above). ``donors``
+    maps a callee's name to its carry's call-site positions: by default
+    :func:`donating_names` of ``tree``; the lint passes the whole
+    package's, so a call into another module counts too."""
+    donors = donating_names(tree) if donors is None else donors
+    hits: List[tuple] = []
+    if not donors:
+        return hits
+    for fdef in ast.walk(tree):
+        if not isinstance(fdef, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            continue
+        own = list(_own_scope_nodes(fdef))
+        save_reads = set()
+        for node in own:
+            if (isinstance(node, ast.Call)
+                    and isinstance(node.func, ast.Attribute)
+                    and node.func.attr == "save"):
+                for sub in ast.walk(node):
+                    if isinstance(sub, ast.Name) and isinstance(
+                            sub.ctx, ast.Load):
+                        save_reads.add(id(sub))
+        stores = [(n.id, n.lineno) for n in own
+                  if isinstance(n, ast.Name) and isinstance(
+                      n.ctx, ast.Store)]
+        loads = [(n.id, n.lineno, id(n) in save_reads) for n in own
+                 if isinstance(n, ast.Name) and isinstance(
+                     n.ctx, ast.Load)]
+        for node in own:
+            if not isinstance(node, ast.Call):
+                continue
+            fname = _call_name(node)
+            if fname not in donors:
+                continue
+            call_end = getattr(node, "end_lineno", node.lineno)
+            for i in sorted(donors[fname]):
+                if i >= len(node.args) or not isinstance(
+                        node.args[i], ast.Name):
+                    continue
+                name = node.args[i].id
+                for lname, lline, in_save in loads:
+                    if lname != name or lline <= call_end:
+                        continue
+                    # a rebind between the call and the read (the call's
+                    # own assignment targets included) kills the old name
+                    if any(sn == name and node.lineno <= sl <= lline
+                           for sn, sl in stores):
+                        continue
+                    code = ("checkpoint-after-donate" if in_save
+                            else "use-after-donate")
+                    hits.append((
+                        lline, code,
+                        f"`{name}` was updated in place by {fname}() at "
+                        f"line {node.lineno} and is "
+                        + ("snapshotted by a checkpoint save"
+                           if in_save else "read")
+                        + " afterwards: it holds the updated carry (or, "
+                        "with KEYSTONE_TORCH_DONATE_CARRY=0, a stale "
+                        "one). Copy it before the call, or rebind the "
+                        "name from the call's result"))
+                    break  # one report per donated name per call
+    return sorted(set(hits))
+
+
+# -- recompile hazards -------------------------------------------------------------
+#
+# The port's counterpart of a compile is a CUDA-graph capture: a graph is
+# captured once per key and replayed. Two hazards capture again what
+# should be replayed:
+#
+# * ``per-instance-capture-memo`` a captured graph memoized on ``self``
+#                                 with no shared memo behind it: each new
+#                                 instance (a refit, a rebuilt plane)
+#                                 captures again. ``self`` may hold it as
+#                                 a fast path when the same scope also
+#                                 ``put``\ s it into a shared memo
+# * ``unstable-capture-key``      a captured graph stored under a key
+#                                 computed per call (``id(...)``, a clock,
+#                                 a counter, a fresh object): the key
+#                                 never repeats, so the memo never hits
+#                                 and every call captures
+
+#: calls that capture a CUDA graph (``serving/graphs.py::capture_apply``
+#: and torch's own)
+_CAPTURE_CALLS = {"capture_apply", "CUDAGraph", "make_graphed_callables"}
+
+#: calls whose value differs on every call: a key holding one never hits
+_VOLATILE_KEY_CALLS = {"id", "time", "perf_counter", "monotonic",
+                       "time_ns", "uuid1", "uuid4", "random", "object",
+                       "next", "getrandbits"}
+
+
+def _call_name(call: ast.Call) -> str:
+    f = call.func
+    return f.attr if isinstance(f, ast.Attribute) else getattr(f, "id", "")
+
+
+def _self_target(t) -> bool:
+    if isinstance(t, ast.Subscript):
+        t = t.value
+    return (isinstance(t, ast.Attribute) and isinstance(t.value, ast.Name)
+            and t.value.id == "self")
+
+
+def _volatile(key) -> Optional[str]:
+    for sub in ast.walk(key):
+        if isinstance(sub, ast.Call) and \
+                _call_name(sub) in _VOLATILE_KEY_CALLS:
+            return _call_name(sub)
+    return None
+
+
+def recompile_hazards(tree) -> List[tuple]:
+    """``(lineno, code, description)`` for the capture hazards (see the
+    block comment above), per function scope. A name holds a capture
+    when it is bound from a :data:`_CAPTURE_CALLS` call (a tuple target
+    binds each element) or from an expression over such a name."""
+    hits: List[tuple] = []
+    for fdef in ast.walk(tree):
+        if not isinstance(fdef, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            continue
+        own = sorted((n for n in _own_scope_nodes(fdef)
+                      if isinstance(n, (ast.Assign, ast.Call))),
+                     key=lambda n: (n.lineno, n.col_offset))
+        captured: set = set()
+        shared: set = set()
+
+        def holds_capture(value) -> bool:
+            for sub in ast.walk(value):
+                if isinstance(sub, ast.Call) and \
+                        _call_name(sub) in _CAPTURE_CALLS:
+                    return True
+                if isinstance(sub, ast.Name) and sub.id in captured:
+                    return True
+            return False
+
+        for node in own:
+            if isinstance(node, ast.Assign) and holds_capture(node.value):
+                for t in node.targets:
+                    for e in (t.elts if isinstance(t, ast.Tuple) else [t]):
+                        if isinstance(e, ast.Name):
+                            captured.add(e.id)
+                        elif isinstance(e, ast.Subscript) and \
+                                not _self_target(e):
+                            key = _volatile(e.slice)
+                            if key is not None:
+                                hits.append((
+                                    node.lineno, "unstable-capture-key",
+                                    f"a captured graph is stored under a "
+                                    f"key holding `{key}()`, which "
+                                    "differs on every call: the memo "
+                                    "never hits and every call captures "
+                                    "again. Key it on structure (model, "
+                                    "bucket, shape)"))
+            elif isinstance(node, ast.Call) and \
+                    isinstance(node.func, ast.Attribute) and \
+                    node.func.attr == "put" and len(node.args) >= 2 and \
+                    holds_capture(node.args[1]):
+                shared.update(n.id for n in ast.walk(node.args[1])
+                              if isinstance(n, ast.Name))
+                key = _volatile(node.args[0])
+                if key is not None:
+                    hits.append((
+                        node.lineno, "unstable-capture-key",
+                        f"a captured graph is memoized under a key "
+                        f"holding `{key}()`, which differs on every "
+                        "call: the memo never hits and every call "
+                        "captures again. Key it on structure (model, "
+                        "bucket, shape)"))
+        for node in own:
+            if not (isinstance(node, ast.Assign)
+                    and holds_capture(node.value)):
+                continue
+            if not any(_self_target(t) for t in node.targets):
+                continue
+            names = {n.id for n in ast.walk(node.value)
+                     if isinstance(n, ast.Name)}
+            if names & shared:
+                continue  # a fast path over a shared memo
+            hits.append((
+                node.lineno, "per-instance-capture-memo",
+                "a captured CUDA graph memoized on self with no shared "
+                "memo behind it: every new instance (a refit, a rebuilt "
+                "plane) captures again. Keep it in a memo keyed on "
+                "structure (serving/plane.py's LruMemo of bucket graphs, "
+                "observability/numerics.py's health-word graphs)"))
+    return sorted(set(hits))
 
 
 # -- streaming lints ---------------------------------------------------------------

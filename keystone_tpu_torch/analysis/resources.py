@@ -11,10 +11,16 @@ The plan sizes what the port holds, which differs from the JAX package
 in three places:
 
 * **The executor memo.** The port's ``GraphExecutor`` memoizes every
-  node's value for the life of the fit (``workflow/executor.py``), so an
-  output stays live to the end of the plan; the JAX planner releases a
-  value after its last consumer. ``plan_graph(memo_held=False)`` gives
-  the JAX package's liveness.
+  node's value for the life of the fit (``workflow/executor.py``), so at
+  run time an output stays live to the end. So does the JAX package's
+  own executor (``keystone_tpu/workflow/executor.py`` keeps every node
+  in its cache), yet the JAX planner releases a value after its last
+  consumer: its liveness is the JAX ``check``'s model, not its runtime.
+  ``plan_graph`` defaults to that liveness, so ``check`` prints the JAX
+  package's peaks; ``plan_graph(memo_held=True)`` is the plan of what
+  the port's executor holds, which ``chip_smoke.py`` sets against the
+  measured peaks. Releasing the memo at run time is a ROADMAP Queue B
+  item.
 * **SIFT band operators.** On the card each scale's two band pairs
   (smoothing, then keypoint-major sampling) are held as float32 device
   copies in the banded kernel's 256-pair LRU cache
@@ -372,12 +378,12 @@ class HbmPlan:
 
 def plan_graph(analysis: Any, name: str = "graph",
                data_shards: Optional[int] = None,
-               memo_held: bool = True) -> HbmPlan:
+               memo_held: bool = False) -> HbmPlan:
     """Fold per-node :class:`ResourceEffect` s into an :class:`HbmPlan`
-    over the topo order (``Graph.linearize``). With ``memo_held`` (the
-    port's executor) an output stays live to the end; without it, the
-    JAX package's liveness, an output is released after its last
-    consumer's step (sink-held values stay). A node's transient and
+    over the topo order (``Graph.linearize``). By default, the JAX
+    package's liveness, an output is released after its last consumer's
+    step (sink-held values stay); with ``memo_held`` (what the port's
+    executor holds) an output stays live to the end. A node's transient and
     carry are charged at its own step. Reads only specs and integer
     geometry. ``data_shards`` is 1 on one GPU (ROADMAP A11)."""
     data_shards = 1 if data_shards is None else int(data_shards)
@@ -450,3 +456,135 @@ def stream_plan_nbytes(stream: Any) -> Optional[float]:
         return None
     return spec_effect(spec, 1).out_nbytes
 
+
+
+# -- the plan against a device run ----------------------------------------------
+
+def _out_nbytes(value: Any) -> Optional[float]:
+    """Bytes of a per-item output's arrays (tensors or numpy), None when
+    a leaf is neither."""
+    import numpy as np
+    import torch
+
+    if isinstance(value, (tuple, list)):
+        parts = [_out_nbytes(v) for v in value]
+        return None if any(p is None for p in parts) else float(sum(parts))
+    if isinstance(value, torch.Tensor):
+        return float(value.numel() * value.element_size())
+    if isinstance(value, (np.ndarray, np.generic)):
+        return float(value.nbytes)
+    return None
+
+
+def device_verify_plan(analysis: Any, plan: Optional[HbmPlan] = None,
+                       device: Any = "cuda") -> List[Dict[str, Any]]:
+    """The port's counterpart of the JAX package's ``xla_verify_plan``
+    (``check --xla``): where JAX compiles each node's per-item program
+    without running it and reads XLA's memory analysis, the port runs
+    each planner-resolved per-item node ONCE, on one zero item of its
+    input spec, on ``device``, and compares the plan's per-item charge
+    with the bytes the node actually outputs (``plan_vs_device = plan
+    item bytes / device output bytes``: 1.0 means the two agree, above
+    it the plan over-charges, below it under-charges). On a CUDA device
+    the row also gives the run's allocation peak above what was
+    allocated before it (``device_peak_bytes``: the output plus the
+    node's workspace, which the per-item charge leaves out). Advisory,
+    as ``plan_vs_xla`` is: nothing fails on it.
+
+    One row per node: ``status`` is ``"ok"`` when the node ran and both
+    byte counts resolved, else a named skip (sources have no per-item
+    program; a host stage's items are not arrays; a node that cannot
+    run on a zero item says why). The numerics gauges are suppressed
+    (a zero item is not traffic)."""
+    import torch
+
+    from ..observability.numerics import numerics_suppressed
+    from ..ops.device import resolve_device
+    from ..workflow.operators import TransformerOperator
+    from .spec import Unknown, element_has_unknown, element_map
+
+    dev = resolve_device(device)
+    on_cuda = dev.type == "cuda"
+    graph = analysis.graph
+    plan_items: Dict[int, float] = {}
+    for e in (plan.entries if plan is not None else []):
+        if e.get("item_nbytes"):
+            plan_items[int(e["node_id"])] = float(e["item_nbytes"])
+    rows: List[Dict[str, Any]] = []
+    for gid in [g for g in graph.linearize() if not isinstance(g, SinkId)]:
+        spec = analysis.value(gid)
+        row: Dict[str, Any] = {"node_id": gid.id}
+        rows.append(row)
+        if not isinstance(gid, NodeId):
+            row.update(operator="Source", status="skip:source")
+            continue
+        op = graph.get_operator(gid)
+        row["operator"] = op.label()
+        if isinstance(spec, Unknown):
+            row["status"] = "skip:unresolved"
+            continue
+        if not isinstance(op, TransformerOperator):
+            row["status"] = "skip:no-per-item-program"
+            continue
+        dep_specs = [analysis.value(d) for d in graph.get_dependencies(gid)]
+        if not dep_specs or not all(
+                isinstance(d, (DatasetSpec, DatumSpec)) for d in dep_specs):
+            row["status"] = "skip:non-data-input"
+            continue
+        elements = [d.element for d in dep_specs]
+        if any(element_has_unknown(e) for e in elements):
+            row["status"] = "skip:input-element-unknown"
+            continue
+        plan_item = plan_items.get(gid.id) or (
+            element_nbytes(spec.element)
+            if isinstance(spec, (DatasetSpec, DatumSpec)) else None)
+        items = [element_map(
+            lambda leaf: torch.zeros(leaf.shape, dtype=leaf.dtype,
+                                     device=dev), e) for e in elements]
+        base = 0
+        if on_cuda:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+        try:
+            with torch.no_grad(), numerics_suppressed():
+                out = op.single_transform(items)
+        except Exception as exc:  # a node that cannot take a zero item
+            row["status"] = f"skip:unrunnable ({type(exc).__name__})"
+            continue
+        peak = None
+        if on_cuda:
+            torch.cuda.synchronize(dev)
+            peak = float(torch.cuda.max_memory_allocated(dev) - base)
+        out_bytes = _out_nbytes(out)
+        row.update(
+            plan_item_nbytes=plan_item,
+            device_output_bytes=out_bytes,
+            device_peak_bytes=peak,
+            plan_vs_device=(round(plan_item / out_bytes, 3)
+                            if plan_item and out_bytes else None),
+            status=("ok" if plan_item and out_bytes
+                    else "skip:bytes-unresolved"),
+        )
+    return rows
+
+
+def format_device_verify(rows: List[Dict[str, Any]], name: str = "",
+                         device: Any = "") -> str:
+    """Human-readable table of :func:`device_verify_plan` rows."""
+    ok = [r for r in rows if r.get("status") == "ok"]
+    lines = [f"device verify {name!r}"
+             + (f" on {device}" if device else "")
+             + f": {len(ok)}/{len(rows)} nodes run once and byte-checked"]
+    for r in rows:
+        head = f"  node {r['node_id']:>3} [{r.get('operator', '?')}]: "
+        if r.get("status") != "ok":
+            lines.append(head + str(r.get("status")))
+            continue
+        peak = r.get("device_peak_bytes")
+        lines.append(
+            head + f"plan {r['plan_item_nbytes']:.0f} B/item vs device out "
+            f"{r['device_output_bytes']:.0f} B"
+            + (f" (peak {peak:.0f} B)" if peak is not None else "")
+            + f" -> plan_vs_device {r['plan_vs_device']}")
+    return "\n".join(lines)

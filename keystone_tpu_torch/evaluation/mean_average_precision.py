@@ -64,3 +64,13 @@ def evaluate_mean_average_precision(
         _ap_11point(precisions[:, c], recalls[:, c])
         for c in range(num_classes)
     ])
+
+
+class MeanAveragePrecisionEvaluator:
+    """The evaluator object over :func:`evaluate_mean_average_precision`
+    (the JAX package's ``MeanAveragePrecisionEvaluator``)."""
+
+    def evaluate(self, actual: Any, predicted: Any,
+                 num_classes: int) -> np.ndarray:
+        return evaluate_mean_average_precision(actual, predicted,
+                                               num_classes)

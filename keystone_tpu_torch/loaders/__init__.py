@@ -27,8 +27,6 @@ from .voc import VOCDataPath, VOCLabelPath, parse_voc_labels, voc_loader
 
 __all__ = [
     "amazon_reviews_loader",
-    "NEWSGROUPS_CLASSES",
-    "newsgroups_loader",
     "cifar_loader",
     "load_cifar_numpy",
     "LabeledData",
@@ -43,6 +41,8 @@ __all__ = [
     "load_tar_files",
     "imagenet_loader",
     "parse_imagenet_labels",
+    "NEWSGROUPS_CLASSES",
+    "newsgroups_loader",
     "TimitFeaturesData",
     "timit_features_loader",
     "VOCDataPath",

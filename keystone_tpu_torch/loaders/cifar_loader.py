@@ -1,8 +1,8 @@
 """CIFAR-10 binary loader (reference ``loaders/CifarLoader.scala:14-51``).
 
 Counterpart of ``keystone_tpu/loaders/cifar_loader.py``, decoding with
-numpy (the JAX package's pure-Python decode branch; its native C++ shim
-is not used by the port). Record layout: 1 label byte + 3072 pixel bytes
+``native.cifar_decode_u8`` (numpy, as the JAX package's: the records
+stay bytes until the caller asks for floats). Record layout: 1 label byte + 3072 pixel bytes
 (1024 R, 1024 G, 1024 B, each a row-major 32x32 plane). Pixels stay in
 [0, 255] as float32, or uint8 with ``packed=True``.
 """
@@ -13,6 +13,7 @@ import os
 
 import numpy as np
 
+from ..native import cifar_decode_u8
 from ..ops.device import DEFAULT_DEVICE
 from ..parallel.dataset import ArrayDataset
 from .csv_loader import LabeledData
@@ -24,17 +25,13 @@ RECORD = 1 + NROW * NCOL * NCHAN
 def cifar_decode(raw: bytes, rows: int = NROW, cols: int = NCOL,
                  chans: int = NCHAN, packed: bool = False):
     """CIFAR binary records -> (images (n, rows, cols, chans), labels
-    int32 (n,)); images float32 in [0, 255], or uint8 when ``packed``."""
-    rec = 1 + rows * cols * chans
-    if len(raw) % rec:
-        raise ValueError("corrupt CIFAR buffer")
-    arr = np.frombuffer(raw, np.uint8).reshape(len(raw) // rec, rec)
-    labels = arr[:, 0].astype(np.int32)
-    planes = arr[:, 1:].reshape(-1, chans, rows, cols).transpose(0, 2, 3, 1)
-    # row-major (n, rows, cols, chans): ``astype`` would keep the planes'
-    # transposed strides, and the device kernels read rows in place
-    images = np.ascontiguousarray(planes,
-                                  dtype=np.uint8 if packed else np.float32)
+    int32 (n,)); images float32 in [0, 255], or uint8 when ``packed``.
+    Decoded by ``native.cifar_decode_u8`` into row-major bytes, widened
+    only when not ``packed`` (the widened copy is row-major too: the
+    device kernels read rows in place)."""
+    images, labels = cifar_decode_u8(raw, rows, cols, chans)
+    if not packed:
+        images = images.astype(np.float32)
     return images, labels
 
 

@@ -2,7 +2,7 @@
 
 Counterpart of ``keystone_tpu/native/__init__.py`` (the reference loads
 its C++ code over JNI). Host code, not a device kernel: the CIFAR record
-decode, the JVM string hash and the rolling MurmurHash3 n-gram hash of
+decode (and ``cifar_decode_u8``, numpy only, which keeps the bytes), the JVM string hash and the rolling MurmurHash3 n-gram hash of
 ``nodes/nlp/hashing.py``, and a float32 CSV parse.
 
 The library is compiled from the repository's C++ source with ``g++``
@@ -34,8 +34,8 @@ GXX_FLAGS = ("-O3", "-fPIC", "-fopenmp", "-std=c++17", "-shared")
 #: entry point -> calls served by each branch
 CALLS: Dict[str, Dict[str, int]] = {
     name: {"native": 0, "python": 0}
-    for name in ("cifar_decode", "java_hash_tokens", "ngram_hash_features",
-                 "csv_parse")}
+    for name in ("cifar_decode", "cifar_decode_u8", "java_hash_tokens",
+                 "ngram_hash_features", "csv_parse")}
 
 _lib: Optional[ctypes.CDLL] = None
 _load_failed = False
@@ -160,6 +160,26 @@ def cifar_decode(raw: bytes, rows: int = 32, cols: int = 32, chans: int = 3):
     labels = arr[:, 0].astype(np.int32)
     planes = arr[:, 1:].reshape(n, chans, rows, cols)
     return planes.transpose(0, 2, 3, 1).astype(np.float32), labels
+
+
+def cifar_decode_u8(raw: bytes, rows: int = 32, cols: int = 32,
+                    chans: int = 3):
+    """CIFAR binary records -> (images uint8 (n, rows, cols, chans),
+    labels int32 (n,)), without widening the pixels to float: the
+    byte-packed form the JAX package's ``cifar_decode_u8`` keeps (the
+    reference's ``RowColumnMajorByteArrayVectorizedImage``); the float
+    cast happens on the device. The images are row-major and contiguous
+    (the device kernels read rows in place). numpy only, as in the JAX
+    package."""
+    rec = 1 + rows * cols * chans
+    if len(raw) % rec:
+        raise ValueError("corrupt CIFAR buffer: not a whole number of "
+                         f"{rec}-byte records")
+    _served("cifar_decode_u8", "python")
+    arr = np.frombuffer(raw, np.uint8).reshape(len(raw) // rec, rec)
+    labels = arr[:, 0].astype(np.int32)
+    planes = arr[:, 1:].reshape(-1, chans, rows, cols)
+    return np.ascontiguousarray(planes.transpose(0, 2, 3, 1)), labels
 
 
 # ---------------- text hashing ----------------

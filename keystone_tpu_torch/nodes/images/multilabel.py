@@ -27,7 +27,8 @@ class MultiLabelExtractor(Transformer):
         self.device = str(resolve_device(device))
 
     def apply(self, item):
-        return torch.as_tensor(np.asarray(item.labels, dtype=np.int32),
+        # the item is a host record: staged straight from its label list
+        return torch.as_tensor(item.labels, dtype=torch.int32,
                                device=self.device)
 
     def apply_dataset(self, ds: Dataset) -> Dataset:
@@ -49,7 +50,8 @@ class MultiLabeledImageExtractor(Transformer):
         self.device = str(resolve_device(device))
 
     def apply(self, item):
-        return torch.as_tensor(np.asarray(item.image, np.float32),
+        # the item is a host record: staged straight from its image
+        return torch.as_tensor(item.image, dtype=torch.float32,
                                device=self.device)
 
     def apply_dataset(self, ds: Dataset) -> Dataset:

@@ -9,6 +9,13 @@ from .classifiers import (
     NaiveBayesModel,
     SparseLinearMapper,
 )
+from .gmm import (
+    KMEANS_PLUS_PLUS_INITIALIZATION,
+    RANDOM_INITIALIZATION,
+    GaussianMixtureModel,
+    GaussianMixtureModelEstimator,
+)
+from .kmeans import KMeansModel, KMeansPlusPlusEstimator
 from .lbfgs import DenseLBFGSwithL2, SparseLBFGSwithL2
 from .least_squares import LeastSquaresEstimator
 from .linear import (
@@ -31,30 +38,36 @@ from .per_class_weighted import PerClassWeightedLeastSquaresEstimator
 from .zca import ZCAWhitener, ZCAWhitenerEstimator
 
 __all__ = [
-    "ApproximatePCAEstimator",
-    "BatchPCATransformer",
-    "ColumnPCAEstimator",
-    "DistributedColumnPCAEstimator",
-    "DistributedPCAEstimator",
-    "LocalColumnPCAEstimator",
-    "PCAEstimator",
-    "PCATransformer",
     "BlockLeastSquaresEstimator",
-    "BlockWeightedLeastSquaresEstimator",
     "BlockLinearMapper",
-    "DenseLBFGSwithL2",
-    "LeastSquaresEstimator",
-    "LinearDiscriminantAnalysis",
     "LinearMapEstimator",
     "LinearMapper",
-    "LocalLeastSquaresEstimator",
-    "LogisticRegressionEstimator",
-    "LogisticRegressionModel",
-    "NaiveBayesEstimator",
-    "NaiveBayesModel",
-    "PerClassWeightedLeastSquaresEstimator",
-    "SparseLBFGSwithL2",
-    "SparseLinearMapper",
+    "DenseLBFGSwithL2",
+    "KMeansModel",
+    "KMeansPlusPlusEstimator",
+    "GaussianMixtureModel",
+    "GaussianMixtureModelEstimator",
+    "KMEANS_PLUS_PLUS_INITIALIZATION",
+    "RANDOM_INITIALIZATION",
+    "PCAEstimator",
+    "PCATransformer",
+    "BatchPCATransformer",
+    "ColumnPCAEstimator",
+    "LocalColumnPCAEstimator",
+    "DistributedColumnPCAEstimator",
+    "DistributedPCAEstimator",
+    "ApproximatePCAEstimator",
     "ZCAWhitener",
     "ZCAWhitenerEstimator",
+    "NaiveBayesEstimator",
+    "NaiveBayesModel",
+    "LogisticRegressionEstimator",
+    "LogisticRegressionModel",
+    "LinearDiscriminantAnalysis",
+    "LocalLeastSquaresEstimator",
+    "SparseLinearMapper",
+    "SparseLBFGSwithL2",
+    "LeastSquaresEstimator",
+    "BlockWeightedLeastSquaresEstimator",
+    "PerClassWeightedLeastSquaresEstimator",
 ]

@@ -471,7 +471,19 @@ def block_least_squares(X, Y, n, lam, bounds, num_iter, mask=None):
 # accumulation is a pure sum: the chunk order changes the result only by
 # float32 rounding.
 
-@donates_carry(0)
+def _gram_carry_probe():
+    """A (G, C, sx, sy, n) carry and a chunk pair on the meta device."""
+    n, d, k = 8, 6, 3
+
+    def meta(*shape):
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+
+    carry = (meta(d, d), meta(d, k), meta(d), meta(k), 0)
+    return (carry, ArrayDataset(meta(n, d), n),
+            ArrayDataset(meta(n, k), n)), {}
+
+
+@donates_carry(0, probe=_gram_carry_probe)
 def accumulate_gram_carry(carry, chunk, labels):
     """Fold one (features, labels) chunk pair into the
     ``(G, C, sx, sy, n)`` carry, in place: the fused Gram kernel adds

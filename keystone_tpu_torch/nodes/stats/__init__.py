@@ -227,7 +227,7 @@ class StandardScaler(Estimator):
         return self.finalize(self.accumulate(None, ds))
 
     # -- streaming fit (accumulate/finalize protocol) ----------------------
-    @donates_carry(1)
+    @donates_carry(1, probe=lambda: _moments_carry_probe())
     def accumulate(self, carry, chunk):
         """Fold one chunk's column sums and sums of squares into the
         ``(S, SQ, n)`` carry, in place. Padded rows are zero, so the
@@ -260,6 +260,16 @@ class StandardScaler(Estimator):
         std = np.where(bad, 1.0, std)
         return StandardScalerModel(mean.astype(np.float32),
                                    std.astype(np.float32))
+
+
+def _moments_carry_probe():
+    """``StandardScaler.accumulate``'s arguments on the meta device: the
+    estimator, an ``(S, SQ, n)`` carry and a chunk."""
+    n, d = 8, 6
+    S = torch.empty(d, dtype=torch.float32, device="meta")
+    chunk = ArrayDataset(torch.empty(n, d, dtype=torch.float32,
+                                     device="meta"), n)
+    return (StandardScaler(), (S, torch.empty_like(S), 0), chunk), {}
 
 
 class TermFrequency(HostTransformer):

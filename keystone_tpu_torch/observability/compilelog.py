@@ -97,6 +97,11 @@ def _context_label() -> Optional[str]:
     return stack[-1] if stack else None
 
 
+def _new_site() -> Dict[str, float]:
+    """A capture site's tallies before its first capture or replay."""
+    return {"calls": 0, "captures": 0, "pool_nbytes": 0.0}
+
+
 @guarded_by("_lock", "records", "_wall_s", "_count", "_unexpected",
             "_fence_labels", "_by_name", "_sites")
 class CompileObservatory:
@@ -159,7 +164,7 @@ class CompileObservatory:
             self._count += 1
             self._wall_s += wall_s
             self._by_name[name] = self._by_name.get(name, 0) + 1
-            site = self._site(name)
+            site = self._sites.setdefault(name, _new_site())
             site["captures"] += 1
             if stats and "pool_nbytes" in stats:
                 site["pool_nbytes"] = float(stats["pool_nbytes"])
@@ -178,17 +183,10 @@ class CompileObservatory:
         if tr is not None:
             tr.record_compile(dict(entry))
 
-    def _site(self, name: str) -> Dict[str, float]:
-        site = self._sites.get(name)
-        if site is None:
-            site = self._sites[name] = {
-                "calls": 0, "captures": 0, "pool_nbytes": 0.0}
-        return site
-
     def note_replay(self, name: str) -> None:
         """One replay of a graph captured at site ``name``."""
         with self._lock:
-            self._site(name)["calls"] += 1
+            self._sites.setdefault(name, _new_site())["calls"] += 1
 
     def sites(self) -> Dict[str, Dict[str, float]]:
         with self._lock:

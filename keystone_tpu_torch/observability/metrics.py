@@ -15,7 +15,10 @@ import time
 import warnings
 from typing import Dict, Iterator, List, Optional
 
+from ..utils.guarded import guarded_by
 
+
+@guarded_by("_lock", "value")
 class Counter:
     """Monotonically increasing count."""
 
@@ -44,6 +47,7 @@ class Gauge:
         self.value = float(value)
 
 
+@guarded_by("_lock", "count", "total", "min", "max", "_tail")
 class Histogram:
     """Streaming count / total / min / max plus a bounded tail of the
     most recent ``TAIL`` observations for percentiles, so a long-lived
@@ -108,6 +112,7 @@ class Histogram:
 _REGISTRY_LOCK = threading.Lock()
 
 
+@guarded_by("_lock", "_counters", "_gauges", "_histograms")
 class MetricsRegistry:
     """Process-wide named metrics (``MetricsRegistry.get_or_create()``).
     The lazy per-name creates are double-checked under a lock."""

@@ -39,7 +39,7 @@ import threading
 import time
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
-from ..utils.guarded import guarded_by
+from ..utils.guarded import guarded_by, hotpath, published_by
 
 #: the phases, in lifecycle order (the batch-level ``drift_score`` phase
 #: runs after the futures resolve, outside the per-request sum)
@@ -120,6 +120,7 @@ class ReqTrace:
         return f"req-{_PID_HEX}-{self.flow_id:x}"
 
     @classmethod
+    @hotpath
     def new(cls, model: str, n: int) -> "ReqTrace":
         return cls(next(_SEQ), model, int(n), time.perf_counter())
 
@@ -181,6 +182,7 @@ def _env_cap() -> int:
     return cap
 
 
+@published_by("_lock", "_floor")
 @guarded_by("_lock", "_by_model")
 class ExemplarReservoir:
     """The slowest N completed traces per model (N =
@@ -198,6 +200,7 @@ class ExemplarReservoir:
         self._floor: Dict[str, float] = {}
         self._lock = threading.Lock()
 
+    @hotpath
     def offer(self, trace: ReqTrace) -> bool:
         """Keep ``trace`` if it is among the slowest ``cap`` of its model;
         returns whether it was kept."""

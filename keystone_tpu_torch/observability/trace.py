@@ -119,6 +119,7 @@ class _Frame:
 @guarded_by("_resilience_lock", "resilience", "resilience_stats")
 @guarded_by("_numerics_lock", "numerics", "numerics_stats")
 @guarded_by("_lock_wait_lock", "lock_waits")
+@guarded_by("_compile_lock", "compiles")
 class PipelineTrace:
     """One run's execution telemetry; see the module docstring.
 

@@ -39,6 +39,9 @@ from .stream_checkpoint import (
     fit_fingerprint,
 )
 
+# the JAX package's public names less the world-level ones (ROADMAP
+# A11: HOST_DEATH_EXIT_CODE, PartitionError, set_process_dimension);
+# `corrupt` is imported above and stays importable from here
 __all__ = [
     "AttemptTimeoutError",
     "CheckpointCorruptError",
@@ -50,13 +53,12 @@ __all__ = [
     "InjectedFaultError",
     "Quarantine",
     "QuarantineBudgetExceededError",
+    "drop_quarantined_rows",
     "RetryExhaustedError",
     "RetryPolicy",
     "StreamCheckpoint",
     "TransientError",
-    "corrupt",
     "default_retry_policy",
-    "drop_quarantined_rows",
     "fit_fingerprint",
     "inject",
     "record_event",

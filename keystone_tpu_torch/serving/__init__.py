@@ -52,10 +52,12 @@ from .router import (
     serve_router,
 )
 
+# the JAX package's public names; the port's own (CaptureError,
+# ItemSpec, bind_server, fitted_model_nbytes, predict_response, serve)
+# are imported above and stay importable from here
 __all__ = [
     "AdmissionError",
     "BucketPolicy",
-    "CaptureError",
     "DeadlineExpiredError",
     "FleetAutoscaler",
     "FleetController",
@@ -63,7 +65,6 @@ __all__ = [
     "FleetModel",
     "FleetRouter",
     "HttpReplicaClient",
-    "ItemSpec",
     "LocalReplicaClient",
     "MicroBatcher",
     "ModelCharge",
@@ -78,12 +79,8 @@ __all__ = [
     "ResidencyLedger",
     "ServedModel",
     "ServingPlane",
-    "bind_server",
-    "fitted_model_nbytes",
     "model_charge",
     "plan_placement",
-    "predict_response",
     "run_reactor",
-    "serve",
     "serve_router",
 ]

@@ -38,6 +38,7 @@ from typing import Any, Deque, List, Optional, Tuple
 from ..observability.metrics import MetricsRegistry
 from ..observability.reqtrace import ReqTrace, tracing_active
 from ..resilience.faults import inject
+from ..utils.guarded import guarded_by, hotpath, published_by
 
 
 class QueueFullError(RuntimeError):
@@ -117,6 +118,8 @@ class Request:
             > self.deadline_s
 
 
+@published_by("_lock", "_closed")
+@guarded_by("_lock", "_pending")
 class MicroBatcher:
     """Slot-gated bounded request queue; see the module docstring."""
 
@@ -148,6 +151,7 @@ class MicroBatcher:
         return min(max(max(depth, 1) / rate, 0.05), 10.0)
 
     # -- producer side (handler threads) -----------------------------------
+    @hotpath
     def submit(self, model: str, x: Any, n: int,
                timeout_s: Optional[float] = None,
                deadline_ms: Optional[float] = None) -> Future:
@@ -158,6 +162,7 @@ class MicroBatcher:
         return self.submit_request(model, x, n, timeout_s=timeout_s,
                                    deadline_ms=deadline_ms).future
 
+    @hotpath
     def submit_request(self, model: str, x: Any, n: int,
                        timeout_s: Optional[float] = None,
                        deadline_ms: Optional[float] = None) -> Request:
@@ -199,6 +204,7 @@ class MicroBatcher:
         return req
 
     # -- consumer side (the plane worker) ----------------------------------
+    @hotpath
     def take(self, max_rows: int, timeout_s: float = 0.05) -> List[Request]:
         """Pop the oldest pending request plus every later request for
         the same model that fits within ``max_rows`` rows in all; other
@@ -235,6 +241,7 @@ class MicroBatcher:
             "serving.queue_depth").set(depth)
         return out
 
+    @hotpath
     def done(self, count: int) -> None:
         """Free ``count`` slots once their requests' futures resolved,
         and feed the drain-rate average (one writer: the worker)."""

@@ -40,6 +40,7 @@ Everything here is CUDA only; a CPU plane runs the eager apply.
 from __future__ import annotations
 
 import os
+import queue
 import threading
 import traceback
 from typing import Any, Dict, List, Optional, Tuple
@@ -49,6 +50,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from ..observability.compilelog import note_replay
+from ..utils.guarded import guarded_by
 
 #: kernel name -> launches made by graph replays since the last reset
 #: (each replay adds the launches its graph's capture recorded)
@@ -153,14 +155,17 @@ def capture_apply(fitted: Any, inputs: Any, n: int, device: torch.device,
         try:
             out = fitted.apply(ArrayDataset(inputs, n)).get()
         except BaseException as exc:
-            try:  # end the broken capture; its own error adds nothing
+            # end the broken capture; the first error is the one named
+            also = ""
+            try:
                 graph.capture_end()
-            except Exception:  # noqa: BLE001
-                pass
+            except Exception as end_exc:  # noqa: BLE001
+                also = (f" (ending the capture then raised "
+                        f"{type(end_exc).__name__})")
             raise CaptureError(
                 f"CUDA graph capture of {what} failed at "
                 f"{_failing_operation(exc)}: {type(exc).__name__}: "
-                f"{exc}") from exc
+                f"{exc}{also}") from exc
         try:
             graph.capture_end()
         except Exception as exc:
@@ -178,8 +183,15 @@ def _leaves(tree: Any) -> List[Any]:
     return pytree.tree_leaves(tree)
 
 
+def _pinned_like(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+    return [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            for t in tensors]
+
+
+@guarded_by("_lock", "inputs", "outputs")
 class BucketGraph:
-    """One captured bucket apply; see the module docstring."""
+    """One captured bucket apply; see the module docstring. ``_lock``
+    guards the static buffers: one replay of a graph at a time."""
 
     def __init__(self, graph: torch.cuda.CUDAGraph, inputs: Any,
                  outputs: Any, bucket: int, launches: Dict[str, int],
@@ -189,28 +201,48 @@ class BucketGraph:
         self.site = site
         self.inputs = _leaves(inputs)
         self.outputs = outputs
+        self._out_leaves, self._out_spec = pytree.tree_flatten(outputs)
         self.bucket = int(bucket)
         self.launches = dict(launches)
         self.pool_nbytes = float(pool_nbytes)
-        self._staging = [torch.empty(x.shape, dtype=x.dtype,
-                                     pin_memory=True) for x in self.inputs]
         self._lock = threading.Lock()
+        #: pinned staging sets (inputs, outputs, an event) not in use: a
+        #: replay takes one for its copies and gives it back once it has
+        #: read its outputs, so one set serves while replays of this
+        #: graph do not overlap (a SimpleQueue: no lock of its own)
+        self._free: "queue.SimpleQueue" = queue.SimpleQueue()
 
     def replay(self, x_tree: Any, n: int) -> Any:
         """The graph's outputs for the ``n`` rows of the host batch
-        ``x_tree``, as host numpy (the eager path's ``.numpy()``)."""
+        ``x_tree``, as host numpy (the eager path's ``.numpy()``). The
+        lock covers what touches the static buffers: the copies in, the
+        replay and the copies out into a pinned staging set, all enqueued
+        on the stream; the wait for them and the read of the staged rows
+        run after it is released. The next replay of this graph is
+        enqueued after those copies on the same stream, so it cannot
+        overwrite the outputs before they are staged, and it stages
+        through another set while this one is being read."""
         leaves = _leaves(x_tree)
+        try:
+            staging = self._free.get_nowait()
+        except queue.Empty:
+            staging = (_pinned_like(self.inputs),
+                       _pinned_like(self._out_leaves), torch.cuda.Event())
+        ins, outs, done = staging
         with self._lock:
-            for dst, host, src in zip(self.inputs, self._staging, leaves):
+            for dst, host, src in zip(self.inputs, ins, leaves):
                 host[:n].copy_(torch.from_numpy(np.ascontiguousarray(src)))
-                # the pinned staging makes the copy asynchronous; the
-                # next write to it follows this replay's read-back
                 dst[:n].copy_(host[:n], non_blocking=True)
                 if n < self.bucket:
                     dst[n:].zero_()
             self.graph.replay()
-            out = pytree.tree_map(lambda t: t[:n].cpu().numpy(),
-                                  self.outputs)
+            for host, t in zip(outs, self._out_leaves):
+                host[:n].copy_(t[:n], non_blocking=True)
+            done.record()
+        done.synchronize()
+        out = pytree.tree_unflatten([h[:n].numpy().copy() for h in outs],
+                                    self._out_spec)
+        self._free.put_nowait(staging)
         if self.site:
             note_replay(self.site)
         if self.launches:

@@ -60,6 +60,7 @@ from ..observability.sampler import _MetricsHandler, _MetricsServer
 from ..observability.slo import SloPolicy
 from ..observability.timeline import flight_recorder
 from ..ops.device import DEFAULT_DEVICE
+from ..utils.guarded import hotpath
 from .batcher import DeadlineExpiredError, QueueFullError
 from .models import ItemSpec
 from .plane import ModelNotAdmitted, ModelWarming, ServingPlane
@@ -154,6 +155,7 @@ class ServingHandler(_JsonReplyHandler):
             return
         super().do_GET()
 
+    @hotpath
     def do_POST(self):  # noqa: N802 (stdlib handler API)
         path = self.path.split("?")[0]
         if not path.startswith("/predict/"):

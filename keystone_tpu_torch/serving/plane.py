@@ -51,7 +51,7 @@ flight recorder, request traces and SLO tracker.
   (``serve.dispatch`` is the fault site, where a ``corrupt`` rule
   poisons the merged batch), apply, fail the batch if the outputs are
   not finite (:class:`PoisonedBatchError`, with a throttled
-  post-mortem), and resolve each request's future with its rows.
+  post-mortem written off the worker), and resolve each request's future with its rows.
 * **Observability.** ``serving.request_ms`` / ``serving.queue_wait_s`` /
   ``serving.batch_fill`` (aggregate and per model), ``serving.batch_ms``
   and the counters; each request's :class:`~..observability.reqtrace.
@@ -87,13 +87,15 @@ from torch.utils import _pytree as pytree
 from ..observability.compilelog import (capture_lock, compile_observatory,
                                         observed_capture)
 from ..observability.metrics import MetricsRegistry
+from ..observability.postmortem import attach_postmortem_async, \
+    wait_postmortems
 from ..observability.reqtrace import PHASES, exemplar_reservoir, \
     mint_flow_id
 from ..observability.timeline import flight_recorder
 from ..ops.device import DEFAULT_DEVICE, resolve_device
 from ..parallel.dataset import bucketed_dataset
 from ..resilience.faults import corrupt, inject
-from ..utils.guarded import TracedLock, guarded_by
+from ..utils.guarded import TracedLock, guarded_by, hotpath, published_by
 from ..utils.lru import LruMemo
 from ..workflow.common import Identity
 from ..workflow.executor import is_saveable
@@ -144,6 +146,7 @@ def graph_rows(policy: BucketPolicy, device) -> List[int]:
     return list(policy.rows())
 
 
+@published_by("_lock", "_live")
 @guarded_by("_lock", "_models", "_evicted", "_warming", "_expected",
             "_admitted_total")
 class ServingPlane:
@@ -264,8 +267,10 @@ class ServingPlane:
                 req.future.set_exception(RuntimeError("serving plane closed"))
         if self._graphs.clear():
             self._release_pools()
-        # the workers are gone: materialize what they deferred
+        # the workers are gone: materialize what they deferred, and let
+        # their batch-failure post-mortems reach the disk
         flight_recorder().flush()
+        wait_postmortems(10.0)
 
     # -- readiness ---------------------------------------------------------
     def expect_models(self, count: int) -> None:
@@ -570,6 +575,7 @@ class ServingPlane:
                 torch.cuda.empty_cache()
 
     # -- request path ------------------------------------------------------
+    @hotpath
     def submit(self, name: str, x: Any, timeout_s: Optional[float] = None,
                deadline_ms: Optional[float] = None) -> Future:
         """Queue one request; returns a Future of the model output for
@@ -580,6 +586,7 @@ class ServingPlane:
         return self.submit_request(name, x, timeout_s=timeout_s,
                                    deadline_ms=deadline_ms).future
 
+    @hotpath
     def submit_request(self, name: str, x: Any,
                        timeout_s: Optional[float] = None,
                        deadline_ms: Optional[float] = None) -> Request:
@@ -602,12 +609,14 @@ class ServingPlane:
                                            timeout_s=timeout_s,
                                            deadline_ms=deadline_ms)
 
+    @hotpath
     def predict(self, name: str, x: Any, timeout_s: float = 60.0,
                 deadline_ms: Optional[float] = None):
         """Submit and wait."""
         return self.submit(name, x, deadline_ms=deadline_ms).result(
             timeout=timeout_s)
 
+    @hotpath
     def predict_traced(self, name: str, x: Any, timeout_s: float = 60.0,
                        deadline_ms: Optional[float] = None):
         """:meth:`predict`, returning ``(output, trace_id)``; the trace id
@@ -666,6 +675,7 @@ class ServingPlane:
             "tuple of them), (shape, dtype), or an array")
 
     # -- execution ---------------------------------------------------------
+    @hotpath
     def _execute(self, entry: ServedModel, x_tree: Any, n: int
                  ) -> Tuple[Any, int]:
         """One padded-bucket apply; returns the outputs for exactly n
@@ -729,6 +739,7 @@ class ServingPlane:
                 # idle: materialize the deferred telemetry
                 flight_recorder().flush()
 
+    @hotpath
     def _serve_batch(self, requests: List[Request]) -> None:
         taken = len(requests)
         reg = MetricsRegistry.get_or_create()
@@ -857,14 +868,16 @@ class ServingPlane:
             now = time.perf_counter()
             if now - self._last_batch_pm_s >= self.postmortem_min_interval_s:
                 self._last_batch_pm_s = now
-                from ..observability.postmortem import attach_postmortem
-
-                attach_postmortem(exc, "serving_batch_failure", context={
-                    "model": name,
-                    "requests": len(requests),
-                    "rows": sum(r.n for r in requests),
-                    "error": f"{type(exc).__name__}: {exc}",
-                })
+                # written off the worker: the queue behind this batch
+                # must not wait for the dump
+                attach_postmortem_async(exc, "serving_batch_failure",
+                                        context={
+                                            "model": name,
+                                            "requests": len(requests),
+                                            "rows": sum(r.n for r in requests),
+                                            "error": f"{type(exc).__name__}: "
+                                                     f"{exc}",
+                                        })
         for req in requests:
             if not req.future.done():
                 req.future.set_exception(exc)

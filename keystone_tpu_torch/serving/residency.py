@@ -39,6 +39,7 @@ from torch.utils import _pytree as pytree
 from ..observability.compilelog import capture_lock
 from ..observability.metrics import MetricsRegistry
 from ..parallel.dataset import ArrayDataset, bucketed_dataset, device_nbytes
+from ..utils.guarded import guarded_by
 
 #: per-instance caches of device copies, not fitted state
 _CACHE_ATTRS = frozenset({"_params_cache", "_eq_key_val"})
@@ -187,6 +188,7 @@ def model_charge(fitted: Any, zero_item: Any, bucket_rows: int,
                        pool_nbytes=pools)
 
 
+@guarded_by("_lock", "_charges")
 class ResidencyLedger:
     """Charged-bytes accounting for warm served models. :meth:`admit`
     re-checks the budget and charges in one lock hold, raising

@@ -38,7 +38,7 @@ import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from ..observability.metrics import MetricsRegistry
-from ..utils.guarded import TracedLock, guarded_by
+from ..utils.guarded import TracedLock, guarded_by, hotpath, published_by
 from .batcher import QueueFullError, Request
 from .http import _JsonReplyHandler, _err, bind_server, predict_response
 from .plane import ModelNotAdmitted, ModelWarming, ServingPlane
@@ -62,12 +62,14 @@ class LocalReplicaClient:
         self.replica_id = replica_id
         self.plane = plane
 
+    @hotpath
     def submit_request(self, name: str, x: Any,
                        timeout_s: Optional[float] = None,
                        deadline_ms: Optional[float] = None) -> Request:
         return self.plane.submit_request(name, x, timeout_s=timeout_s,
                                          deadline_ms=deadline_ms)
 
+    @hotpath
     def predict_raw(self, name: str, raw: bytes
                     ) -> Tuple[int, bytes, Optional[Dict[str, str]]]:
         return predict_response(self.plane, name, raw)
@@ -145,6 +147,7 @@ class HttpReplicaClient:
         finally:
             conn.close()
 
+    @hotpath
     def predict_raw(self, name: str, raw: bytes
                     ) -> Tuple[int, bytes, Optional[Dict[str, str]]]:
         status, body, headers = self._request(
@@ -219,6 +222,7 @@ class HttpReplicaClient:
         return "ready" if status == 200 else "warming"
 
 
+@published_by("_lock", "_table")
 @guarded_by("_lock", "_clients")
 class FleetRouter:
     """The routing core both surfaces share; see the module docstring.
@@ -288,6 +292,7 @@ class FleetRouter:
             sum(len(cs) for cs in frozen.values()))
 
     # -- routing core -------------------------------------------------------
+    @hotpath
     def _route(self, name: str) -> Tuple[List[Any], Any]:
         """Candidate replicas for ``name`` in try-order, plus the
         rendezvous primary (for spill accounting). Lock-free read of
@@ -324,6 +329,7 @@ class FleetRouter:
             order = [rest[0], primary] + rest[1:]
         return order, primary
 
+    @hotpath
     def submit_request(self, name: str, x: Any,
                        timeout_s: Optional[float] = None,
                        deadline_ms: Optional[float] = None) -> Request:
@@ -360,6 +366,7 @@ class FleetRouter:
             f"({len(order)} tried, all unreachable)",
             retry_after_s=1.0)
 
+    @hotpath
     def predict_raw(self, name: str, raw: bytes
                     ) -> Tuple[int, bytes, Optional[Dict[str, str]]]:
         """The HTTP-forwarding surface: same routing/spill decisions,
@@ -435,6 +442,7 @@ class RouterHandler(_JsonReplyHandler):
             return
         super().do_GET()
 
+    @hotpath
     def do_POST(self):  # noqa: N802 (stdlib handler API)
         path = self.path.split("?")[0]
         if not path.startswith("/predict/"):

@@ -19,24 +19,36 @@ written. Both settings give the same bits (``clone`` copies every bit,
 -0.0 included). The contract for callers is the JAX one: a carry passed
 to an update is dead after the call, so a checkpoint must copy it
 before the next update (``resilience/stream_checkpoint.py`` does).
+
+Each site registers a shape ``probe``: a zero-argument callable giving
+example arguments on the ``meta`` device. :func:`donation_shape_mismatches`
+runs the update on them (no device memory, no kernel launch) and checks
+that every carry tensor comes back updated in place, as the same tensor
+with its shape and dtype: the static gate of
+``python -m keystone_tpu_torch.tools.lint``.
 """
 from __future__ import annotations
 
 import functools
 import os
 from dataclasses import dataclass
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
 
 @dataclass(frozen=True)
 class DonationSite:
-    """One registered in-place carry update."""
+    """One registered in-place carry update: the raw update ``fn``, its
+    carry's positional index and its shape ``probe`` (a zero-argument
+    callable returning ``(args, kwargs)`` on the ``meta`` device, or
+    None)."""
 
     name: str
     module: str
     carry_arg: int
+    fn: Optional[Callable] = None
+    probe: Optional[Callable[[], Tuple]] = None
 
 
 _REGISTRY: List[DonationSite] = []
@@ -46,6 +58,40 @@ def registered_donations() -> Tuple[DonationSite, ...]:
     """Every in-place update site registered so far (its module must
     have been imported)."""
     return tuple(_REGISTRY)
+
+
+def _tensor_leaves(tree: Any) -> List[Any]:
+    if isinstance(tree, (tuple, list)):
+        return [leaf for x in tree for leaf in _tensor_leaves(x)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def donation_shape_mismatches(site: DonationSite) -> List[str]:
+    """The carry tensors of ``site`` the update does not write in place,
+    found by running the raw update on its probe's ``meta`` tensors: a
+    carry tensor with no output of its shape and dtype, or one whose
+    output is another tensor (the update allocated a new carry where it
+    must write the old one). Sites without a probe return ``[]``."""
+    if site.probe is None or site.fn is None:
+        return []
+    args, kwargs = site.probe()
+    carry = _tensor_leaves(args[site.carry_arg])
+    out = _tensor_leaves(site.fn(*args, **kwargs))
+    available = [(tuple(t.shape), t.dtype) for t in out]
+    mismatches = []
+    for i, t in enumerate(carry):
+        key = (tuple(t.shape), t.dtype)
+        if key not in available:
+            mismatches.append(
+                f"{site.name} carry leaf {i} {str(t.dtype).replace('torch.', '')}"
+                f"{list(key[0])} has no shape-compatible output")
+            continue
+        available.remove(key)
+        if not any(o is t for o in out):
+            mismatches.append(
+                f"{site.name} carry leaf {i} is not updated in place (the "
+                "update returns a new tensor)")
+    return mismatches
 
 
 def donation_enabled() -> bool:
@@ -61,13 +107,15 @@ def clone_carry(carry: Any) -> Any:
     return carry.clone() if isinstance(carry, torch.Tensor) else carry
 
 
-def donates_carry(carry_arg: int = 0) -> Callable:
+def donates_carry(carry_arg: int = 0,
+                  probe: Optional[Callable[[], Tuple]] = None) -> Callable:
     """Decorator marking an update that writes its carry (positional
-    argument ``carry_arg``) in place."""
+    argument ``carry_arg``) in place; ``probe`` gives example arguments
+    on the ``meta`` device for :func:`donation_shape_mismatches`."""
 
     def wrap(fn: Callable) -> Callable:
         _REGISTRY.append(DonationSite(fn.__qualname__, fn.__module__,
-                                      carry_arg))
+                                      carry_arg, fn=fn, probe=probe))
 
         @functools.wraps(fn)
         def update(*args: Any, **kwargs: Any) -> Any:

@@ -8,7 +8,8 @@ activity) of everything in scope and writes it as a Chrome trace into
 captured timeline is an untraced run's: a pipeline trace synchronises
 the device after every node, which changes overlap.
 ``observability.trace.profiler_trace`` is the capture with pipeline node
-names.
+names. :class:`StepTimer` is re-exported from ``observability.metrics``
+(deprecated there), as the JAX module does.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ import os
 from typing import Iterator
 
 import torch
+
+from ..observability.metrics import StepTimer  # noqa: F401 (re-export)
 
 
 @contextlib.contextmanager

@@ -33,7 +33,12 @@ from .pipeline import (
     PipelineDatum,
     PipelineResult,
 )
-from .transformer import LambdaTransformer, Transformer, transformer
+from .transformer import (
+    HostTransformer,
+    LambdaTransformer,
+    Transformer,
+    transformer,
+)
 
 __all__ = [
     "Cacher",
@@ -68,6 +73,7 @@ __all__ = [
     "FittedPipeline",
     "GatherTransformerOperator",
     "Transformer",
+    "HostTransformer",
     "LambdaTransformer",
     "transformer",
 ]

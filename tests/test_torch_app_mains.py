@@ -249,7 +249,6 @@ def test_python_dash_m_lists_the_apps():
     (["text.amazon_reviews", "--num-processes", "2"], "A11"),
     (["nlp.stupid_backoff", "--process-id=0"], "A11"),
     (["check", "--all", "--shards", "8"], "A11"),
-    (["check", "cifar.linear_pixels", "--xla"], "A12b"),
     (["voc.sift_fisher", "--coordinator", "localhost:1234"], "A11"),
     (["voc.sift_fisher", "--num-processes", "2"], "A11"),
     (["mnist.random_fft", "--process-id=0"], "A11"),
@@ -270,6 +269,7 @@ def _postmortem(tmp_path, monkeypatch):
 @pytest.mark.parametrize("argv,code", [
     (["check", "cifar.linear_pixels"], 0),
     (["check", "cifar.linear_pixels", "--budget", "1MiB"], 2),
+    (["check", "cifar.linear_pixels", "--xla"], 0),
     (["benchdiff", "BENCH_r02.json", "BENCH_r01.json"], 2),
     (["numerics", "POSTMORTEM"], 0),
 ])
@@ -279,14 +279,30 @@ def test_the_subcommands_exit_as_the_jax_ones(argv, code, tmp_path,
             for a in argv]
     if "POSTMORTEM" in argv:
         argv[argv.index("POSTMORTEM")] = _postmortem(tmp_path, monkeypatch)
-    assert tmain.main(list(argv)) == code
-    port_out = capsys.readouterr().out
-    assert jmain.main(list(argv)) == code
+    port_argv, jax_argv = list(argv), list(argv)
     if argv[0] == "check":
-        # the JAX command adds the tree-wide scans the port refers to
-        # ROADMAP A12b / A11
-        assert "not ported (ROADMAP A12b)" in port_out
-        assert "concurrency: clean" not in port_out
+        port_argv += ["--json", str(tmp_path / "port.json")]
+        jax_argv += ["--json", str(tmp_path / "jax.json")]
+        if "--xla" in argv:
+            # the port runs each node once; on the CPU here
+            port_argv += ["--device", "cpu"]
+    assert tmain.main(port_argv) == code
+    port_out = capsys.readouterr().out
+    assert jmain.main(jax_argv) == code
+    if argv[0] == "check":
+        # the tree-wide scans run in both; the SPMD scan waits for A11
+        for line in ("concurrency: clean", "metrics names: clean",
+                     "hotpath: clean", "spmd: not ported (ROADMAP A11)"):
+            assert line in port_out
+        port_blob = json.loads((tmp_path / "port.json").read_text())
+        jax_blob = json.loads((tmp_path / "jax.json").read_text())
+        assert set(port_blob) == set(jax_blob) - {"spmd"}
+        if "--xla" in argv:
+            rows = port_blob["xla_verify"]
+            assert [r["node_id"] for r in rows] == \
+                [r["node_id"] for r in jax_blob["xla_verify"]]
+            assert all(r["plan_vs_device"] == 1.0 for r in rows
+                       if r["status"] == "ok")
     else:
         assert port_out == capsys.readouterr().out
 

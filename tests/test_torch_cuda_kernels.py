@@ -1292,3 +1292,45 @@ def test_cuda_each_wrapper_counts_its_launchs_work(cuda):
     w = torch.full((K,), 1.0 / K, device=cuda)
     assert delta("fv_moments", lambda: kernels.fv_moments(
         Xd, m, v, w, 1e-4)) == work.fv_work(D, K, n)
+
+
+def test_cuda_check_xla_runs_on_the_card(cuda):
+    """``check --xla`` on the card: each per-item node of the CIFAR app
+    runs once on a zero item, the plan's charge equals the bytes it
+    outputs, the allocation peak is measured, and the featurize node
+    launches its kernel."""
+    from keystone_tpu_torch import pipelines
+    from keystone_tpu_torch.analysis.resources import device_verify_plan
+
+    target = pipelines.CHECK_APPS["cifar.random_patch"]()
+    report = target.pipeline.check(target.input_spec, name=target.name)
+    before = kernels.LAUNCHES["fused_cifar_featurize"]
+    rows = device_verify_plan(report.analysis, report.plan, cuda)
+    ok = [r for r in rows if r["status"] == "ok"]
+    assert ok and all(r["plan_vs_device"] == 1.0 for r in ok)
+    # a pass-through (a Cache) allocates nothing; the featurize node
+    # allocates at least its output
+    assert all(r["device_peak_bytes"] >= 0 for r in ok)
+    fz = [r for r in ok if r["operator"] == "FusedConvRectifyPool"]
+    assert fz and all(r["device_peak_bytes"] >= r["device_output_bytes"]
+                      for r in fz)
+    assert kernels.LAUNCHES["fused_cifar_featurize"] > before
+
+
+def test_cuda_gates_pass_on_the_card(cuda):
+    """The recompile, numerics and serving gates on the card, each as a
+    subprocess under its own time limit: every bucket captured at
+    admission and nothing after it, the tripwire both ways."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    for gate in ("recompile_gate", "numerics_gate", "serving_gate"):
+        proc = subprocess.run(
+            [sys.executable, "-m", f"keystone_tpu_torch.tools.{gate}",
+             "--device", "cuda"], cwd=repo, capture_output=True, text=True,
+            timeout=600)
+        assert proc.returncode == 0, (gate, proc.stdout[-3000:],
+                                      proc.stderr[-3000:])
+        assert "PASS" in proc.stdout
