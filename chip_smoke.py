@@ -294,7 +294,30 @@ Phases, each of which raises (and so exits non-zero) on failure:
    subprocess: lint, ``check --all``, the advisory benchdiffs and the
    recompile, numerics, serving, chaos and fleet gates and the
    schedule suite, each stage's seconds printed; any failing stage fails
-   the run.
+   the run. The chain's elastic gate is phase 4r(c).
+4r. The multi-process world (after 4q): (a) ``cifar.random_patch``'s
+   ``main`` in a 2-rank gloo world on the one card (two ranks cannot
+   share a device under NCCL), from 4p's CIFAR binary files at phase 4's
+   configuration: each rank fits its block of the training rows, the
+   featurize kernel on its rows and the block solve's Grams through
+   ``gram_cross`` summed over the ranks in rank order; test error within
+   0.002 of phase 4's, predictions agreeing on >= 0.99 of phase 4's,
+   weights within 5e-3 of the largest of the same ``main`` on the same
+   files in one process (the files round the surrogate's pixels to
+   bytes, so the app learns other filters than phase 4: its weights'
+   distance to phase 4's is printed); each rank's launches and fit
+   seconds and the backend printed. (b) Phase 4b's streamed fit
+   (20 chunks of 1024, depth 2) in the same world, 10 chunks a rank
+   through the world loop of ``fit_streaming``: ``gram_cross`` 10
+   launches a rank, weights within 5e-3 of 4b's, the carry merge's
+   seconds and ``coord.overlap_occupancy`` printed. (c) The elastic
+   gate on the card (run by 4q's CI chain, its lines read back): a rank
+   killed entering round 3 and at round 2's await, each relaunched to
+   ``torch.equal`` weights, and a resume at world size 1 refused. (d) An
+   NCCL world of 1 in this process: ``merge_carries``, the rank-sharded
+   ``gram`` and ``sharded_apply`` of 4c's float32 and int8 models,
+   ``torch.equal`` to the same calls without a world. Multi-rank NCCL
+   needs more than one card and is not exercised here.
 5. Timing: each kernel, its plain version and a library yardstick with
    CUDA events at the main path's shapes, one call at a time (the
    ``kernels`` line); for every kernel also the device time alone of the
@@ -3882,7 +3905,7 @@ def _scans_gates_phase(kernels, workdir, dev, smi):
     with open(log) as f:
         text = f.read()
     keep = ("ci: ", "recompile gate: ", "numerics gate: ", "serving gate: ",
-            "chaos gate: ", "fleet gate: ")
+            "chaos gate: ", "fleet gate: ", "elastic gate: ")
     for line in text.splitlines():
         if line.startswith(keep) and not line.startswith("chaos gate:   "):
             print(f"[4q] {line}", flush=True)
@@ -3890,6 +3913,7 @@ def _scans_gates_phase(kernels, workdir, dev, smi):
           f"{proc.returncode} in {ci_s:.1f} s; {smi}", flush=True)
     assert proc.returncode == 0, text[-4000:]
     print(f"[4q] phase 4q in {time.time() - t_phase:.1f} s", flush=True)
+    return text
 
 
 def _solver_phase(kernels, rpc, tr_x, tr_y, te_x, te_y, filters, whitener,
@@ -5585,7 +5609,12 @@ def _main(workdir: str) -> int:
     _text_phase(kernels, workdir, dev, smi)
 
     # -- 4q. the tree-wide scans, check --xla and the CI gates ---------------------
-    _scans_gates_phase(kernels, workdir, dev, smi)
+    ci_log = _scans_gates_phase(kernels, workdir, dev, smi)
+
+    # -- 4r. the multi-process world ---------------------------------------------
+    world_launches = _world_phase(
+        kernels, rpc, tr_x, tr_y, te_x, filters, whitener, config, preds,
+        rp_test, resident_W, stream_W, model_path, ci_log, workdir, dev, smi)
 
     # -- 5. timing ------------------------------------------------------------
     B = K = 1024
@@ -5867,7 +5896,11 @@ def _main(workdir: str) -> int:
                                  "fused_cifar_featurize"],
                              "4i default fit": cache_launches["default"],
                              "4i auto-cache fit": cache_launches[
-                                 "auto-cache"]},
+                                 "auto-cache"],
+                             "4r(a) rank 0": world_launches["a"][
+                                 "fused_cifar_featurize"],
+                             "4r(b) rank 0": world_launches["b"][
+                                 "fused_cifar_featurize"]},
     }, {
         "name": "gram_cross",
         "route": "cuda",
@@ -5887,7 +5920,12 @@ def _main(workdir: str) -> int:
                              "4e": solver_launches["gram_cross"],
                              "4e streamed": solver_stream_launches[
                                  "gram_cross"],
-                             "4l resumed": resilience_gram},
+                             "4l resumed": resilience_gram,
+                             "4r(a) rank 0": world_launches["a"][
+                                 "gram_cross"],
+                             "4r(b) rank 0": world_launches["b"][
+                                 "gram_cross"],
+                             "4r(d)": world_launches["d"]["gram_cross"]},
     }, {
         "name": "quantized_affine",
         "route": "cuda",
@@ -5906,7 +5944,9 @@ def _main(workdir: str) -> int:
                              "4m": fleet_launches["replayed"][
                                  "quantized_affine"],
                              "4m re-admission": fleet_launches["eager"].get(
-                                 "quantized_affine", 0)},
+                                 "quantized_affine", 0),
+                             "4r(d)": world_launches["d"][
+                                 "quantized_affine"]},
     }, {
         "name": "banded_matmul",
         "route": "cuda",
@@ -5958,6 +5998,305 @@ def _main(workdir: str) -> int:
     return 0
 
 
+#: phase 4r's bars against phases 4 and 4b (see the module docstring)
+WORLD_ERROR_DRIFT, WORLD_AGREE, WORLD_W_TOL = 0.002, 0.99, 5e-3
+WORLD_RANKS, WORLD_TIMEOUT_S = 2, 600
+
+
+def _world_member(spec_path, pid, nproc, store) -> int:
+    """One rank of phase 4r's world (``chip_smoke.py --world-member SPEC
+    <pid> <nproc> <store>``, launched by ``DryrunWorld``): (a) the CIFAR
+    app's ``main`` on the binary files, (b) phase 4b's streamed fit over
+    the rank's block. Rank 0 writes the weights and predictions; every
+    rank prints its launches and seconds. A failure ends the rank at
+    once (its peer then fails in its next gather)."""
+    sys.path.insert(0, REPO)
+    try:
+        return _world_member_run(spec_path, int(pid), int(nproc), store)
+    except BaseException:
+        import traceback
+
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+
+
+def _world_member_run(spec_path, pid, nproc, store) -> int:
+    import torch.distributed as dist
+
+    from keystone_tpu_torch.loaders.cifar_loader import cifar_loader
+    from keystone_tpu_torch.nodes.learning.zca import ZCAWhitener
+    from keystone_tpu_torch.nodes.util import (
+        ClassLabelIndicatorsFromIntLabels,
+    )
+    from keystone_tpu_torch.observability.metrics import MetricsRegistry
+    from keystone_tpu_torch.ops import kernels
+    from keystone_tpu_torch.parallel.dataset import ArrayDataset
+    from keystone_tpu_torch.parallel.mesh import (
+        initialize_distributed,
+        local_mesh,
+        mesh_scope,
+        shard_bounds,
+        shutdown_distributed,
+    )
+    from keystone_tpu_torch.parallel.streaming import StreamingDataset
+    from keystone_tpu_torch.pipelines.images.cifar import (
+        random_patch_cifar as rpc,
+    )
+    from keystone_tpu_torch.workflow.common import Cacher
+    from keystone_tpu_torch.workflow.env import PipelineEnv
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    w = initialize_distributed(store, nproc, pid, device="cuda")
+    dev = w.device
+    # rank 0 builds (a hit on the parent's build), the others after it
+    if pid == 0:
+        kernels.build_kernels()
+    dist.barrier(group=w.cpu_group)
+    kernels.build_kernels()
+    tag = f"[4r] rank {pid} of {nproc}"
+    print(f"{tag}: backend {w.backend} ({w.rule}), device {dev}",
+          flush=True)
+
+    # (a) the app's main: each rank fits its block of the rows
+    kernels.reset_launches()
+    _sync()
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        pipeline, _, test_eval = rpc.main(spec["app_argv"])
+    _sync()
+    app_s = time.time() - t0
+    launches_a = dict(kernels.LAUNCHES)
+    test = cifar_loader(spec["test_bin"], device=dev)
+    preds = pipeline.apply(test.data).get().numpy()
+    W_a = torch.as_tensor(_operator(pipeline, "BlockLinearMapper").weights)
+    print(f"{tag} (a): cifar.random_patch main {app_s:.2f} s (load, filter "
+          f"learning, fit on its rows, evaluation), test error "
+          f"{test_eval.total_error:.4f}, launches {launches_a}; "
+          f"{out.getvalue().splitlines()[-1]}", flush=True)
+    del pipeline, test
+    PipelineEnv.reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) phase 4b's streamed fit: this rank's block of the chunks
+    X = np.load(spec["tr_x"], mmap_mode="r")
+    y = np.load(spec["tr_y"])
+    b = shard_bounds(X.shape[0], nproc)
+    lo, hi = int(b[pid]), int(b[pid + 1])
+    blob = np.load(spec["filters"])
+    filters = blob["filters"]
+    whitener = ZCAWhitener(blob["whitener"], blob["means"])
+    config = rpc.RandomCifarConfig(num_filters=filters.shape[0],
+                                   lam=float(spec["lam"]), seed=SEED)
+    reg = MetricsRegistry.get_or_create()
+    with mesh_scope(local_mesh()):
+        stream = StreamingDataset.from_numpy(
+            np.ascontiguousarray(X[lo:hi]), spec["chunk"], device=dev,
+            prefetch_depth=spec["depth"], tag="cifar-train")
+        labels = (ClassLabelIndicatorsFromIntLabels(rpc.NUM_CLASSES)
+                  >> Cacher("labels"))(ArrayDataset.from_numpy(
+                      y[lo:hi].astype(np.int32), dev))
+        kernels.reset_launches()
+        merges = reg.histogram("coord.merge_s").snapshot()
+        _sync()
+        t0 = time.time()
+        fitted = rpc.build_pipeline(filters, whitener, config, stream,
+                                    labels).fit()
+        _sync()
+        stream_s = time.time() - t0
+    launches_b = dict(kernels.LAUNCHES)
+    after = reg.histogram("coord.merge_s").snapshot()
+    merge_s = after["total"] - merges["total"]
+    occ = reg.snapshot()["gauges"].get("coord.overlap_occupancy")
+    W_b = torch.as_tensor(_operator(fitted, "BlockLinearMapper").weights)
+    print(f"{tag} (b): streamed fit of rows [{lo}, {hi}) "
+          f"({-(-(hi - lo) // spec['chunk'])} chunks of {spec['chunk']}, "
+          f"depth {spec['depth']}) {stream_s:.2f} s, the carries' merges "
+          f"{merge_s:.3f} s ({after['count'] - merges['count']} merges: the "
+          f"scaler's moments and the 8192 x 8192 Gram carry), "
+          f"coord.overlap_occupancy {occ}, launches {launches_b}", flush=True)
+    if pid == 0:
+        np.savez(spec["out"], W_a=W_a.float().cpu().numpy(), preds=preds,
+                 test_error=np.array(test_eval.total_error),
+                 W_b=W_b.float().cpu().numpy(),
+                 launches=json.dumps({"a": launches_a, "b": launches_b}),
+                 merge_s=np.array(merge_s), app_s=np.array(app_s),
+                 stream_s=np.array(stream_s),
+                 occupancy=np.array(-1.0 if occ is None else occ))
+    dist.barrier(group=w.cpu_group)
+    shutdown_distributed()
+    return 0
+
+
+def _world_phase(kernels, rpc, tr_x, tr_y, te_x, filters, whitener, config,
+                 preds, rp_test, resident_W, stream_W, model_path, ci_log,
+                 workdir, dev, smi):
+    """Phase 4r (see the module docstring). Returns each kernel's
+    launches on 4r's paths (rank 0's for the world)."""
+    from keystone_tpu_torch.nodes.learning.linear import BlockLinearMapper
+    from keystone_tpu_torch.ops import linalg
+    from keystone_tpu_torch.parallel.distributed import (
+        DryrunWorld,
+        WorldCoordinator,
+    )
+    from keystone_tpu_torch.parallel.mesh import (
+        initialize_distributed,
+        shutdown_distributed,
+        world_data_mesh,
+    )
+    from keystone_tpu_torch.parallel.spmd_apply import sharded_apply
+    from keystone_tpu_torch.utils.checkpoint import load_pipeline
+
+    t_phase = time.time()
+    _release()
+    train_bin = os.path.join(workdir, "cifar_train.bin")
+    test_bin = os.path.join(workdir, "cifar_test.bin")
+    assert os.path.exists(train_bin) and os.path.exists(test_bin)
+    spec = {
+        "app_argv": ["--trainLocation", train_bin, "--testLocation",
+                     test_bin, "--numFilters", str(config.num_filters),
+                     "--lambda", str(config.lam), "--seed",
+                     str(config.seed), "--device", "cuda"],
+        "test_bin": test_bin, "tr_x": os.path.join(workdir, "w_tr_x.npy"),
+        "tr_y": os.path.join(workdir, "w_tr_y.npy"),
+        "filters": os.path.join(workdir, "w_filters.npz"),
+        "chunk": CHUNK, "depth": DEPTH, "lam": config.lam,
+        "out": os.path.join(workdir, "w_out.npz")}
+    np.save(spec["tr_x"], tr_x)
+    np.save(spec["tr_y"], tr_y)
+    np.savez(spec["filters"], filters=filters, whitener=whitener.whitener,
+             means=whitener.means)
+    spec_path = os.path.join(workdir, "w_spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    # the same main on the same files in this process, without a world:
+    # the binary files hold the surrogate's pixels rounded to bytes, so
+    # the filters the app learns, and with them the weights, are not
+    # phase 4's; the world's weights are held against this fit's
+    kernels.reset_launches()
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):
+        solo_fit, _, solo_eval = rpc.main(spec["app_argv"])
+    _sync()
+    solo_s = time.time() - t0
+    solo_W = torch.as_tensor(
+        _operator(solo_fit, "BlockLinearMapper").weights).float().cpu()
+    solo_launches = dict(kernels.LAUNCHES)
+    del solo_fit
+    _release()
+
+    # (a) and (b): one world of 2 ranks on this card
+    world = DryrunWorld(WORLD_RANKS, workdir=os.path.join(workdir, "world"),
+                        grace_s=60)
+    t0 = time.time()
+    world.launch([sys.executable, os.path.abspath(__file__),
+                  "--world-member", spec_path])
+    codes = world.wait(timeout_s=WORLD_TIMEOUT_S)
+    world_s = time.time() - t0
+    for p in range(WORLD_RANKS):
+        for line in world.output(p).splitlines():
+            if line.startswith(("[4r]", "world:")):
+                print(line if line.startswith("[4r]") else f"[4r] {line}",
+                      flush=True)
+    assert codes == [0] * WORLD_RANKS, (
+        codes, [world.output(p)[-3000:] for p in range(WORLD_RANKS)])
+    got = np.load(spec["out"])
+    launches = json.loads(str(got["launches"]))
+    W_a = torch.from_numpy(got["W_a"])
+    test_err = float(got["test_error"])
+    agree = float(np.mean(got["preds"] == preds))
+    wa_rel = float((W_a - solo_W).abs().max() / solo_W.abs().max())
+    w4_rel = float((W_a - resident_W.cpu()).abs().max()
+                   / resident_W.abs().max())
+    solo4_rel = float((solo_W - resident_W.cpu()).abs().max()
+                      / resident_W.abs().max())
+    print(f"[4r] (a) world of {WORLD_RANKS} (launch to exit {world_s:.1f} s):"
+          f" test error {test_err:.4f} against phase 4's {rp_test:.4f}, "
+          f"predictions agree with phase 4's on {agree:.4f} of test images, "
+          f"max |W_world - W_one| / max |W_one| {wa_rel:.3e} against the "
+          f"same main on the same files in one process ({solo_s:.2f} s, "
+          f"test error {solo_eval.total_error:.4f}, launches "
+          f"{solo_launches}); against phase 4's weights: the world "
+          f"{w4_rel:.3e}, the one-process run {solo4_rel:.3e} (the files' "
+          f"pixels are rounded to bytes, so the filters differ); rank 0 "
+          f"launches {launches['a']}", flush=True)
+    assert abs(test_err - rp_test) <= WORLD_ERROR_DRIFT, (test_err, rp_test)
+    assert agree >= WORLD_AGREE, agree
+    assert wa_rel <= WORLD_W_TOL, wa_rel
+    assert launches["a"]["fused_cifar_featurize"] > 0, launches
+    assert launches["a"]["gram_cross"] > 0, launches
+    W_b = torch.from_numpy(got["W_b"])
+    wb_rel = float((W_b - stream_W.cpu()).abs().max() / stream_W.abs().max())
+    n_local = -(-(N_TRAIN // WORLD_RANKS) // CHUNK)
+    print(f"[4r] (b) streamed world fit: max |W_world - W_4b| / max |W_4b| "
+          f"{wb_rel:.3e}, carry merges {float(got['merge_s']):.3f} s, "
+          f"coord.overlap_occupancy {float(got['occupancy']):.4f}, rank 0 "
+          f"launches {launches['b']}", flush=True)
+    assert launches["b"]["gram_cross"] == n_local, launches
+    assert launches["b"]["fused_cifar_featurize"] == 2 * n_local, launches
+    assert wb_rel <= WORLD_W_TOL, wb_rel
+
+    # (c) the elastic gate, run on the card by 4q's CI chain
+    gate = [line for line in ci_log.splitlines()
+            if line.startswith("elastic gate: ")]
+    for line in gate:
+        print(f"[4r] (c) {line}", flush=True)
+    assert "elastic gate: PASS" in gate, gate
+    assert any("on cuda" in line for line in gate), gate
+
+    # (d) an NCCL world of 1 here: each result against the same call
+    # without a world
+    fitted = load_pipeline(model_path, device=dev)
+    mapper = _operator(fitted, "BlockLinearMapper")
+    featurizer = _operator(fitted, "FusedConvRectifyPool")
+    scaler = _operator(fitted, "StandardScalerModel")
+    X = scaler.apply_batch(featurizer.apply_batch(
+        torch.as_tensor(te_x, device=dev))).contiguous()
+    int8 = BlockLinearMapper(mapper.block_weights, mapper.block_size,
+                             intercept=mapper.intercept,
+                             feature_means=mapper.feature_means,
+                             weight_dtype="int8")
+    carry = (X.T @ X, X.sum(dim=0), int(X.shape[0]))
+    solo = {"f32": sharded_apply(mapper, X), "int8": sharded_apply(int8, X),
+            "gram": kernels.gram_cross(X, X[:, :0])[0]}
+    kernels.reset_launches()
+    store = "file://" + os.path.join(workdir, "nccl_store")
+    w = initialize_distributed(store, 1, 0, device="cuda", quiet=True)
+    try:
+        mesh = world_data_mesh()
+        t0 = time.time()
+        merged = WorldCoordinator("4r").merge_carries(carry)
+        gram = linalg.gram(X, mesh)
+        f32 = sharded_apply(mapper, X, mesh)
+        q8 = sharded_apply(int8, X, mesh)
+        _sync()
+        nccl_s = time.time() - t0
+        backend, rule = w.backend, w.rule
+    finally:
+        shutdown_distributed()
+    same = {"merge_carries": torch.equal(merged[0], carry[0])
+            and torch.equal(merged[1], carry[1]) and merged[2] == carry[2],
+            "gram": torch.equal(gram, solo["gram"]),
+            "sharded_apply f32": torch.equal(f32, solo["f32"]),
+            "sharded_apply int8": torch.equal(q8, solo["int8"])}
+    d_launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    print(f"[4r] (d) world of 1, backend {backend} ({rule}): torch.equal to "
+          f"the calls without a world {same}, {nccl_s:.3f} s, launches "
+          f"{d_launches}; multi-rank NCCL needs more than one card", flush=True)
+    assert backend == "nccl", backend
+    assert all(same.values()), same
+    assert d_launches.get("gram_cross") == 1 and d_launches.get(
+        "quantized_affine") == 1, d_launches
+    del fitted, mapper, int8, X, carry, solo, merged, gram, f32, q8
+    _release()
+    print(f"[4r] phase 4r in {time.time() - t_phase:.1f} s; {smi}",
+          flush=True)
+    return {"a": launches["a"], "b": launches["b"], "d": d_launches}
+
+
 def _stages(op):
     """The operator and, for a fused node, its stages and branches, in
     order."""
@@ -5975,4 +6314,6 @@ def _operator(fitted, type_name):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--world-member"]:
+        sys.exit(_world_member(*sys.argv[2:]))
     sys.exit(main())

@@ -2,7 +2,8 @@
 
 The same pipeline framework as the JAX package ``keystone_tpu`` —
 composable Transformer/Estimator pipelines over an optimizing DAG —
-working on torch tensors on one NVIDIA Hopper GPU, with the JAX
+working on torch tensors on NVIDIA Hopper GPUs (one process per GPU,
+``torch.distributed`` between them), with the JAX
 package's Pallas TPU kernels rewritten by hand in CUDA C++. The port
 never imports JAX or the JAX package. Entry points run on ``"cuda"``
 unless the caller passes ``device="cpu"``.
@@ -15,6 +16,7 @@ from .observability import (
 )
 from .ops.device import resolve_device
 from .parallel.dataset import ArrayDataset, Dataset, HostDataset, as_dataset
+from .parallel.mesh import get_mesh, make_mesh, mesh_scope, set_mesh
 from .parallel.streaming import StreamingDataset, fit_streaming, is_streamable
 from .resilience import (
     FaultPlan,
@@ -38,9 +40,8 @@ from .workflow import (
 
 __version__ = "0.1.0"
 
-# the JAX package's public names less the mesh helpers (ROADMAP A11:
-# get_mesh, make_mesh, mesh_scope, set_mesh); `resolve_device`, the
-# port's device choice, is imported above and stays importable here
+# the JAX package's public names; `resolve_device`, the port's device
+# choice, is imported above and stays importable here
 __all__ = [
     "MetricsRegistry",
     "PipelineTrace",
@@ -57,6 +58,10 @@ __all__ = [
     "IngestTimeoutError",
     "Quarantine",
     "RetryPolicy",
+    "get_mesh",
+    "make_mesh",
+    "mesh_scope",
+    "set_mesh",
     "Cacher",
     "Estimator",
     "FittedPipeline",

@@ -4,7 +4,8 @@
     python -m keystone_tpu_torch <app> [--flags] [--device cuda|cpu]
                                        [--trace-out PATH]
     python -m keystone_tpu_torch check <app>|--all [--json PATH]
-                                       [--budget BYTES] [--replicas N]
+                                       [--budget BYTES] [--shards N]
+                                       [--replicas N]
                                        [--xla [--device cuda|cpu]]
     python -m keystone_tpu_torch benchdiff BASE.json CURRENT.json [--force]
     python -m keystone_tpu_torch numerics POSTMORTEM.json
@@ -25,11 +26,14 @@ summary and MFU table on stderr.
 touching a device (``keystone_tpu_torch/analysis``): shape and dtype
 propagation on meta tensors, the graph lints, the static device-memory
 plan and the metric-name catalogue, plus the tree-wide concurrency scan
-(``analysis/concurrency.py``, the ``concurrency`` key in ``--json``) and
-hot-path scan (``analysis/hotpath.py``, the ``hotpath`` key). Exit 0
-clean, 1 diagnostics (a scan finding included), 2 a predicted budget
-violation or a usage error. ``--budget BYTES``
-(``MiB``/``GiB`` suffixes) gates each app's fit-path peak; ``--replicas
+(``analysis/concurrency.py``, the ``concurrency`` key in ``--json``),
+SPMD scan (``analysis/spmd.py``, the ``spmd`` key) and hot-path scan
+(``analysis/hotpath.py``, the ``hotpath`` key). Exit 0 clean, 1
+diagnostics (a scan finding included), 2 a predicted budget violation or
+a usage error. ``--budget BYTES`` (``MiB``/``GiB`` suffixes) gates each
+app's fit-path peak; ``--shards N`` plans one rank's share of an
+N-shard world (resident batches padded to N, serving charges under the
+sharded apply); ``--replicas
 N`` (with ``--budget`` as each replica's budget) solves the apps' static
 serving charges into an N-replica placement (``serving/placement.py``).
 ``--json PATH`` writes the full report. ``--xla`` is the counterpart
@@ -42,10 +46,12 @@ bench-regression gate over ``BENCH_r*.json`` artifacts
 post-mortem (``observability/numerics.py``), ``serve`` is the serving
 plane's command (``serving/http.py``).
 
-What the port does not have yet exits 2 naming its ROADMAP item:
-``check --shards`` and the multi-process launch (``--coordinator``,
-``--num-processes``, ``--process-id``, ``KEYSTONE_DISTRIBUTED``; A11);
-the ``spmd`` scan's summary line says "not ported (ROADMAP A11)".
+A world of several processes (``parallel/mesh.py``): every rank runs
+the same command with ``--coordinator HOST:PORT`` (or ``file://PATH``),
+``--num-processes N`` and its own ``--process-id``, or with
+``KEYSTONE_DISTRIBUTED=1`` and torchrun's environment (``MASTER_ADDR``,
+``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``). The world starts before the
+app on the app's ``--device`` and ends after it.
 """
 from __future__ import annotations
 
@@ -76,21 +82,17 @@ APPS = {
         "keystone_tpu_torch.pipelines.nlp.stupid_backoff_pipeline",
 }
 
-#: the check command's switches the port has not yet, with the ROADMAP
-#: item that brings each
-CHECK_NOT_PORTED = {"--shards": "A11"}
-DISTRIBUTED_FLAGS = ("--coordinator", "--num-processes", "--process-id")
-
-#: the tree-wide scans of the JAX ``check`` the port has not yet: their
-#: summary lines say so, and ``--json`` leaves their keys out
-SCANS_NOT_PORTED = (("spmd", "A11"),)
+#: the multi-process flags: flag -> (initialize_distributed keyword, type)
+DISTRIBUTED_FLAGS = {"--coordinator": ("coordinator_address", str),
+                     "--num-processes": ("num_processes", int),
+                     "--process-id": ("process_id", int)}
 
 
 def _usage() -> None:
     print("usage: python -m keystone_tpu_torch <app> [--flags] "
           "[--device cuda|cpu] [--trace-out PATH]\n"
           "       python -m keystone_tpu_torch check <app>|--all "
-          "[--xla [--device cuda|cpu]]\n"
+          "[--shards N] [--xla [--device cuda|cpu]]\n"
           "       python -m keystone_tpu_torch benchdiff BASE.json "
           "CURRENT.json\n"
           "       python -m keystone_tpu_torch numerics POSTMORTEM.json\n"
@@ -98,12 +100,6 @@ def _usage() -> None:
           "NAME=PATH@SHAPE[:DTYPE] ...\n\napps:")
     for name in sorted(APPS):
         print(f"  {name}")
-
-
-def _refuse(what: str, item: str) -> int:
-    print(f"{what} is not ported to keystone_tpu_torch yet (ROADMAP {item})",
-          file=sys.stderr)
-    return 2
 
 
 def _parse_bytes(text: str) -> float:
@@ -150,12 +146,9 @@ def check_main(rest) -> int:
     an N-replica placement (``serving/placement.py``), exit 2 naming the
     first app no replica can host. ``--xla`` runs each per-item node once
     on ``--device`` against its plan charge
-    (``analysis/resources.py::device_verify_plan``). ``--shards`` (A11)
-    exits 2."""
+    (``analysis/resources.py::device_verify_plan``). ``--shards N`` plans
+    one rank's share of an N-shard world."""
     rest = list(rest)
-    for flag, item in CHECK_NOT_PORTED.items():
-        if flag in rest:
-            return _refuse(f"check {flag}", item)
     found, json_out = _take_value(rest, "--json", "a path")
     if found and json_out is None:
         return 2
@@ -180,6 +173,19 @@ def check_main(rest) -> int:
             return 2
         if budget is None:
             return 2
+    found, text = _take_value(rest, "--shards", "a data-shard count (e.g. 8)")
+    shards = None
+    if found:
+        try:
+            shards = int(text) if text is not None else None
+            if shards is not None and shards < 1:
+                raise ValueError(shards)
+        except ValueError:
+            print(f"--shards expects a positive integer, got {text!r}",
+                  file=sys.stderr)
+            return 2
+        if shards is None:
+            return 2
     found, text = _take_value(rest, "--replicas", "a replica count (e.g. 3)")
     replicas = None
     if found:
@@ -202,11 +208,12 @@ def check_main(rest) -> int:
     from .analysis.concurrency import scan_package as scan_concurrency
     from .analysis.diagnostics import scan_metric_names
     from .analysis.hotpath import scan_package as scan_hotpath
+    from .analysis.spmd import scan_package as scan_spmd
     from .pipelines import CHECK_APPS, resolve_check_app
 
     if not rest or rest[0] in ("-h", "--help"):
         print("usage: python -m keystone_tpu_torch check <app>|--all "
-              "[--json PATH] [--budget BYTES] [--replicas N] "
+              "[--json PATH] [--budget BYTES] [--shards N] [--replicas N] "
               "[--xla [--device cuda|cpu]]\n\napps:")
         for name in sorted(CHECK_APPS):
             print(f"  {name}")
@@ -232,11 +239,13 @@ def check_main(rest) -> int:
     pkg_root = os.path.dirname(os.path.abspath(__file__))
     # the tree-wide scans: guarded-by races, lock order, blocking under a
     # lock and split guarded sequences; metric-name drift against the
-    # catalogue (observability/names.py); the hot path's hazards from
+    # catalogue (observability/names.py); the SPMD contract of the
+    # collective sites (analysis/spmd.py); the hot path's hazards from
     # every @hotpath entry point and the @published_by discipline
     scans = {}
     for key, scan in (("concurrency", scan_concurrency),
                       ("metrics_names", scan_metric_names),
+                      ("spmd", scan_spmd),
                       ("hotpath", scan_hotpath)):
         scans[key] = scan(pkg_root)
         for hit in scans[key]:
@@ -248,7 +257,7 @@ def check_main(rest) -> int:
     for build in builders:
         target = build()
         report = target.pipeline.check(target.input_spec, name=target.name,
-                                       hbm_budget=budget)
+                                       hbm_budget=budget, data_shards=shards)
         reports.append(report)
         print(report.summary(), file=sys.stderr)
         if verify:
@@ -274,14 +283,13 @@ def check_main(rest) -> int:
         print(f"{target.name}: {status}")
     fleet_placement = None
     if replicas is not None:
-        fleet_placement = _fleet_placement(reports, replicas, budget)
+        fleet_placement = _fleet_placement(reports, replicas, budget,
+                                           shards or 1)
         over_budget += "infeasible" in fleet_placement
     for key, label in (("concurrency", "concurrency"),
-                       ("metrics_names", "metrics names")):
+                       ("metrics_names", "metrics names"),
+                       ("spmd", "spmd"), ("hotpath", "hotpath")):
         print(f"{label}: {_verdict(scans[key])}")
-    for scan, item in SCANS_NOT_PORTED:
-        print(f"{scan}: not ported (ROADMAP {item})")
-    print(f"hotpath: {_verdict(scans['hotpath'])}")
     if json_out is not None:
         def dump(report):
             d = report.to_dict()
@@ -308,21 +316,28 @@ def _verdict(hits) -> str:
     return "clean" if not hits else f"{len(hits)} diagnostic(s)"
 
 
-def _fleet_placement(reports, replicas: int, budget: float) -> dict:
-    """The checked apps' static serving charges at a 64-row bucket,
-    solved into ``replicas`` replicas of ``budget`` bytes. The CUDA
-    graphs' pools a CUDA plane charges at admission are measured only by
-    a probe capture on the card (``serving/residency.py``), so the static
-    charge leaves them out."""
-    from .analysis.resources import serving_residency_nbytes
+def _fleet_placement(reports, replicas: int, budget: float,
+                     shards: int = 1) -> dict:
+    """The checked apps' static serving charges at a 64-row bucket (one
+    rank's share under the sharded apply when ``shards > 1``), solved
+    into ``replicas`` replicas of ``budget`` bytes. The CUDA graphs'
+    pools a CUDA plane charges at admission are measured only by a probe
+    capture on the card (``serving/residency.py``), so the static charge
+    leaves them out."""
+    from .analysis.resources import (serving_residency_nbytes,
+                                     sharded_apply_nbytes)
     from .serving.placement import ModelDemand, PlacementError, \
         plan_placement
 
     bucket_rows = 64
     demands, unsized = [], []
     for report in reports:
+        shardable, gather = (sharded_apply_nbytes(report.analysis.graph)
+                             if shards > 1 else (0.0, 0.0))
         charge = serving_residency_nbytes(
-            report.plan.model_nbytes, report.plan, bucket_rows)
+            report.plan.model_nbytes, report.plan, bucket_rows,
+            data_shards=shards, shardable_nbytes=shardable,
+            gather_nbytes=gather)
         if charge is None:
             unsized.append(report.name)
             continue
@@ -370,12 +385,58 @@ def main(argv=None) -> int:
         from .observability.numerics import postmortem_report
 
         return postmortem_report(rest)
-    for flag in DISTRIBUTED_FLAGS:
-        if any(a == flag or a.startswith(flag + "=") for a in rest):
-            return _refuse(f"the multi-process launch ({flag})", "A11")
-    if os.environ.get("KEYSTONE_DISTRIBUTED"):
-        return _refuse("the multi-process launch (KEYSTONE_DISTRIBUTED)",
-                       "A11")
+    dist_args = {}
+    for flag, (key, cast) in DISTRIBUTED_FLAGS.items():
+        found = [i for i, a in enumerate(rest)
+                 if a == flag or a.startswith(flag + "=")]
+        if not found:
+            continue
+        i = found[0]
+        if rest[i] == flag:
+            if i + 1 >= len(rest):
+                print(f"{flag} requires a value", file=sys.stderr)
+                return 2
+            text = rest[i + 1]
+            del rest[i:i + 2]
+        else:
+            text = rest[i].split("=", 1)[1]
+            del rest[i]
+        try:
+            dist_args[key] = cast(text)
+        except ValueError:
+            print(f"{flag} expects {cast.__name__}, got {text!r}",
+                  file=sys.stderr)
+            return 2
+    if dist_args and "coordinator_address" not in dist_args:
+        print("--num-processes/--process-id require --coordinator "
+              "(without it the world comes from torchrun's environment: "
+              "set KEYSTONE_DISTRIBUTED=1 instead)", file=sys.stderr)
+        return 2
+    world_started = False
+    if os.environ.get("KEYSTONE_DISTRIBUTED") or dist_args:
+        # every rank runs the same command; the world starts before the
+        # app touches a device, on the app's own --device
+        from .parallel.mesh import initialize_distributed
+
+        device = "cuda"
+        if "--device" in rest and rest.index("--device") + 1 < len(rest):
+            device = rest[rest.index("--device") + 1]
+        try:
+            initialize_distributed(device=device, **dist_args)
+        except ValueError as exc:
+            print(f"multi-process launch: {exc}", file=sys.stderr)
+            return 2
+        world_started = True
+    try:
+        return _run_app(app, rest)
+    finally:
+        if world_started:
+            from .parallel.mesh import shutdown_distributed
+
+            shutdown_distributed()
+
+
+def _run_app(app: str, rest) -> int:
     trace_out = None
     if "--trace-out" in rest:
         i = rest.index("--trace-out")

@@ -17,8 +17,11 @@ Entry points:
   gate: the AST-only lints of ``diagnostics``, the concurrency passes
   (``concurrency``) and the hot-path and publication passes (``hotpath``)
 
-``spmd`` and ``sharding_flow_lint`` come with the multi-GPU port
-(ROADMAP A11).
+* :mod:`.spmd`                                   the SPMD-safety passes
+  over the port's ``torch.distributed`` sites (collective divergence,
+  barrier and payload stability, collective axes, world checkpoints,
+  unawaited rounds) and ``sharding_flow_lint``, the graph lint over
+  rank-local streams
 """
 from .concurrency import (
     blocking_under_lock,
@@ -63,9 +66,16 @@ from .spec import (
     element_feature_dim,
     spec_dataset,
 )
+from .spmd import (
+    barrier_stability,
+    collective_axis_bindings,
+    collective_divergence,
+    scan_package as scan_package_spmd,
+    sharding_flow_lint,
+    world_checkpoint_consistency,
+)
 
-# the JAX package's public names less the SPMD scan's (ROADMAP A11);
-# ShapeDtype, element_feature_dim, scan_metric_names and
+# the JAX package's public names; ShapeDtype, element_feature_dim, scan_metric_names and
 # serving_residency_nbytes are imported above and stay importable here
 __all__ = [
     "Analysis",
@@ -84,10 +94,13 @@ __all__ = [
     "analyze",
     "apply_body_host_coercions",
     "as_input_spec",
+    "barrier_stability",
     "blocking_under_lock",
     "build_package",
     "check_graph",
     "check_pipeline",
+    "collective_axis_bindings",
+    "collective_divergence",
     "find_lock_cycles",
     "guarded_field_races",
     "guarded_sequence_hazards",
@@ -97,6 +110,9 @@ __all__ = [
     "published_field_hazards",
     "scan_package",
     "scan_package_hotpath",
+    "scan_package_spmd",
     "scan_source_hotpath",
+    "sharding_flow_lint",
     "spec_dataset",
+    "world_checkpoint_consistency",
 ]

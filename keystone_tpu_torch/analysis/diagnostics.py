@@ -31,7 +31,9 @@ plus :func:`scan_metric_names`, the metric-name drift check against
 :func:`float_casts_before_transfer`, :func:`swallow_all_handlers`,
 :func:`silent_nan_silencers`, :func:`donation_hazards` (in-place carry
 updates) and :func:`recompile_hazards` (CUDA-graph captures).
-``sharding_flow_lint`` comes with the multi-GPU port (ROADMAP A11).
+``sharding_flow_lint`` (``analysis/spmd.py``) runs in ``check_graph``
+too: a rank-local stream collapsed into a resident value, or zipped
+with a non-sharded input.
 """
 from __future__ import annotations
 
@@ -836,17 +838,31 @@ def non_streamable_fit_lint(analysis: Analysis) -> List[Diagnostic]:
                     for d in graph.get_dependencies(n)]
         if not any(streamed):
             continue
+        # a rank-local share (stream_tar_shards) holds one rank's rows:
+        # say so, since materialize() would give only that share
+        sharded = any(
+            isinstance(analysis.value(d), DatasetSpec)
+            and analysis.value(d).sharded
+            for d in graph.get_dependencies(n))
         if not is_streamable(op):
+            hint = ("Use a streamable estimator (the least-squares family, "
+                    "StandardScaler) or materialize() the stream")
+            if sharded:
+                hint = ("Use a streamable estimator (the least-squares "
+                        "family, StandardScaler): the world's streamed fit "
+                        "merges the ranks' carries, while materialize() "
+                        "would hold only this rank's shard (README "
+                        "'Resilience' documents the world's streamed fit)")
             out.append(Diagnostic(
                 code="non-streamable-fit", severity=SEVERITY_ERROR,
                 node_id=n.id, operator=op.label(),
                 message=(
-                    f"estimator {op.label()!r} fits on a streaming dataset "
-                    "but implements no accumulate(carry, chunk[, labels]) / "
-                    "finalize(carry) protocol; the fit would have to "
-                    "materialize the whole stream on the device. Use a "
-                    "streamable estimator (the least-squares family, "
-                    "StandardScaler) or materialize() the stream")))
+                    f"estimator {op.label()!r} fits on a "
+                    f"{'shard-local streaming' if sharded else 'streaming'}"
+                    " dataset but implements no accumulate(carry, chunk["
+                    ", labels]) / finalize(carry) protocol; the fit would "
+                    f"have to materialize the whole stream on the device. "
+                    f"{hint}")))
         elif not streamed[0]:
             out.append(Diagnostic(
                 code="non-streamable-fit", severity=SEVERITY_ERROR,
@@ -982,6 +998,7 @@ def check_graph(
     source_specs: Optional[Mapping[SourceId, AbstractValue]] = None,
     name: str = "graph",
     hbm_budget: Optional[float] = None,
+    data_shards: Optional[int] = None,
 ) -> AnalysisReport:
     """The abstract interpreter, every graph lint and the static HBM
     planner over ``graph``. ``hbm_budget`` (bytes) adds an ``hbm-budget``
@@ -999,7 +1016,10 @@ def check_graph(
     diagnostics += fusion_prefix_lint(graph)
     diagnostics += non_streamable_fit_lint(analysis)
     diagnostics += host_stage_on_stream_lint(analysis)
-    plan = plan_graph(analysis, name=name)
+    from .spmd import sharding_flow_lint
+
+    diagnostics += sharding_flow_lint(analysis)
+    plan = plan_graph(analysis, name=name, data_shards=data_shards)
     if plan.over_budget(hbm_budget):
         mib = 1 << 20
         diagnostics.append(Diagnostic(
@@ -1017,7 +1037,8 @@ def check_graph(
 
 
 def check_pipeline(pipeline, sample: Any = None, name: str = "pipeline",
-                   hbm_budget: Optional[float] = None) -> AnalysisReport:
+                   hbm_budget: Optional[float] = None,
+                   data_shards: Optional[int] = None) -> AnalysisReport:
     """``Pipeline.check``'s engine: bind ``sample`` (an input spec, see
     ``spec.as_input_spec``) to the pipeline's dangling source and check
     the whole graph."""
@@ -1025,4 +1046,5 @@ def check_pipeline(pipeline, sample: Any = None, name: str = "pipeline",
     specs = {}
     if sample is not None:
         specs[p._source] = as_input_spec(sample)
-    return check_graph(p._graph, specs, name=name, hbm_budget=hbm_budget)
+    return check_graph(p._graph, specs, name=name, hbm_budget=hbm_budget,
+                       data_shards=data_shards)

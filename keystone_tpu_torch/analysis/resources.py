@@ -307,20 +307,52 @@ def estimator_resource_effect(estimator: Any,
 
 # -- serving residency --------------------------------------------------------------
 
+def sharded_apply_nbytes(graph: Any) -> tuple:
+    """``(shardable_nbytes, gather_nbytes)`` under the sharded apply
+    (``parallel/spmd_apply.py``): the graph's fitted bytes that
+    row-shard over the data axis at rest, and the largest transient one
+    gather makes whole (the matrix of a ``LinearMapper``, one block of a
+    ``BlockLinearMapper``). Operators opt in with a
+    ``sharded_apply_nbytes()`` hook; the rest stays replicated."""
+    shardable = gather = 0.0
+    for node in graph.nodes:
+        hook = getattr(graph.get_operator(node), "sharded_apply_nbytes",
+                       None)
+        if callable(hook):
+            s, u = hook()
+            shardable += float(s)
+            gather = max(gather, float(u))
+    return shardable, gather
+
+
 def serving_residency_nbytes(model_nbytes: float, plan: "HbmPlan",
                              bucket_rows: int,
-                             graph_nbytes: float = 0.0) -> Optional[float]:
+                             graph_nbytes: float = 0.0,
+                             data_shards: int = 1,
+                             shardable_nbytes: float = 0.0,
+                             gather_nbytes: float = 0.0) -> Optional[float]:
     """The admission charge of one served model at its largest bucket:
     ``model_nbytes + bucket_rows x apply_item_nbytes``, plus the CUDA
     graphs' pools and static inputs (``graph_nbytes``) where the plane
     captures them, which only a probe capture on the card measures
     (``serving/residency.py::model_charge``); a device-free check passes
-    0. None when the plan could not size the per-item activation: the
-    caller must probe rather than admit on an invented number."""
+    0. With ``data_shards > 1`` the charge is one rank's under the
+    sharded apply: the shardable bytes divide over the data axis, one
+    gather transient is charged, and the activation is the rank's row
+    shard of the bucket. None when the plan could not size the per-item
+    activation: the caller must probe rather than admit on an invented
+    number."""
     item = float(plan.apply_item_nbytes)
     if item <= 0.0 and plan.unresolved:
         return None
-    return (float(model_nbytes) + float(bucket_rows) * item
+    shards = max(int(data_shards), 1)
+    if shards == 1:
+        return (float(model_nbytes) + float(bucket_rows) * item
+                + float(graph_nbytes))
+    shardable = min(float(shardable_nbytes), float(model_nbytes))
+    resident = float(model_nbytes) - shardable + shardable / shards
+    rows = -(-int(bucket_rows) // shards)
+    return (resident + float(gather_nbytes) + float(rows) * item
             + float(graph_nbytes))
 
 
@@ -385,7 +417,8 @@ def plan_graph(analysis: Any, name: str = "graph",
     step (sink-held values stay); with ``memo_held`` (what the port's
     executor holds) an output stays live to the end. A node's transient and
     carry are charged at its own step. Reads only specs and integer
-    geometry. ``data_shards`` is 1 on one GPU (ROADMAP A11)."""
+    geometry. ``data_shards`` (default 1) is the width of the data axis
+    a resident batch pads to (``check --shards``)."""
     data_shards = 1 if data_shards is None else int(data_shards)
     graph = analysis.graph
     order = [g for g in graph.linearize() if not isinstance(g, SinkId)]

@@ -123,8 +123,9 @@ class DatasetSpec(AbstractValue):
     ``element`` reports. ``geometry`` (streams) is the static chunk
     geometry (:class:`~keystone_tpu_torch.analysis.resources.StreamGeometry`)
     the HBM planner charges, None for an opaque source. ``sharded``
-    marks a process-local share of a stream; the one-GPU port makes none
-    yet (ROADMAP A11), so it stays False."""
+    marks a rank-local share of a stream (``stream_tar_shards``): its
+    ``n`` is one rank's rows, and only the world loop of
+    ``fit_streaming`` understands it."""
 
     element: Any
     n: Optional[int] = None
@@ -255,7 +256,8 @@ def dataset_spec(ds: Dataset) -> AbstractValue:
             element, n=ds.n, host=False,
             sparsity=dense_sparsity(element),
             streaming=True, wire_dtype=ds.wire_dtype_name(),
-            geometry=ds.plan_geometry())
+            geometry=ds.plan_geometry(),
+            sharded=bool(getattr(ds, "process_sharded", False)))
     if isinstance(ds, HostDataset):
         items = ds.items
         if not items:

@@ -17,8 +17,9 @@ accounted, the load failing once the bad-record budget is passed.
 ``stream_tar_images`` feeds the decode pool into a `StreamingDataset`:
 with no ``prepare`` hook it decodes uint8, ships uint8 over the link
 (a quarter of the float32 bytes) and hands float32 chunks to the
-consumers, cast on the device. ``stream_tar_shards`` (each process's
-share on a multi-GPU mesh) comes with ROADMAP A11.
+consumers, cast on the device. ``stream_tar_shards`` streams this
+rank's rank-strided share of the archives onto its local mesh: the
+ingest half of the world's streamed fit (``parallel/distributed.py``).
 """
 from __future__ import annotations
 
@@ -81,13 +82,10 @@ def decode_image(data: bytes, dtype=np.float32) -> Optional[np.ndarray]:
 
 
 def _process_share():
-    """``(rank, world size)`` of an initialized ``torch.distributed``
-    process group, else ``(0, 1)``."""
-    import torch.distributed as dist
+    """``(rank, world size)`` of the live world, else ``(0, 1)``."""
+    from ..parallel.mesh import process_count, process_index
 
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+    return process_index(), process_count()
 
 
 def list_archive_paths(data_path: str,
@@ -95,8 +93,8 @@ def list_archive_paths(data_path: str,
     """Every non-directory file under a path, sorted (reference
     ``ImageLoaderUtils.getFilePathsRDD`` filters only directories);
     :func:`load_tar_files` skips the non-archives (labels, READMEs) when
-    it opens them. With an initialized ``torch.distributed`` process
-    group of more than one process, each process keeps its rank-strided
+    it opens them. In a world of more than one rank
+    (``parallel.mesh.initialize_distributed``), each rank keeps its strided
     share of the archives (``process_shard=False``: the full listing),
     and a process left with none raises."""
     if os.path.isfile(data_path):
@@ -390,3 +388,31 @@ def load_tar_files(
             f"None of {len(archive_paths)} file(s) under the data path could "
             f"be opened as tar archives (first: {archive_paths[0]})")
     return HostDataset(items)
+
+
+def stream_tar_shards(data_path: str, chunk_size: int, **stream_kw):
+    """Shard-local tar streaming: this rank's rank-strided share of the
+    archives under ``data_path`` (:func:`list_archive_paths`) through
+    :func:`stream_tar_images` on this rank's local mesh, the ingest half
+    of the world's streamed fit (each rank decodes only its archives and
+    the carries merge at finalize).
+
+    The stream is tagged ``tarshard:h<rank>/<world>`` and marked
+    ``process_sharded`` (its row count is this rank's share: the static
+    analyzer reports the flag, and only the world loop of
+    ``fit_streaming`` understands it); ``shard_archives`` lists its
+    archives. Keyword arguments pass through to
+    :func:`stream_tar_images`. Without a world this is the plain tar
+    stream of the whole listing. An empty share raises at listing time:
+    repack the data into at least as many archives as ranks."""
+    from ..parallel.mesh import local_mesh, process_count, process_index
+
+    paths = list_archive_paths(data_path, process_shard=True)
+    pid, nproc = process_index(), process_count()
+    if "mesh" not in stream_kw and nproc > 1:
+        stream_kw["mesh"] = local_mesh()
+    stream = stream_tar_images(paths, chunk_size, **stream_kw)
+    stream.tag = f"tarshard:h{pid}/{nproc}"
+    stream.process_sharded = True
+    stream.shard_archives = list(paths)
+    return stream

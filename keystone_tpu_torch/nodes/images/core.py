@@ -173,7 +173,7 @@ class Windower(Transformer):
         w = image_ops.extract_windows(ds.data, self.window_size, self.stride)
         B, nH, nW = w.shape[:3]
         flat = w.reshape((B * nH * nW,) + tuple(w.shape[3:]))
-        return ArrayDataset(flat, ds.n * nH * nW, ds.shards)
+        return ArrayDataset(flat, ds.n * nH * nW, ds.shards, mesh=ds.mesh)
 
 
 class FusedConvRectifyPool(Transformer):
@@ -296,7 +296,7 @@ class RandomPatcher(Transformer):
     def apply_dataset(self, ds: Dataset) -> Dataset:
         assert isinstance(ds, ArrayDataset)
         return ArrayDataset(_flatten_leading(self.apply_batch(ds.data)),
-                            ds.n * self.num_patches)
+                            ds.n * self.num_patches, mesh=ds.mesh)
 
     def abstract_eval(self, dep_specs):
         return _patcher_abstract_eval(
@@ -337,7 +337,7 @@ class CenterCornerPatcher(Transformer):
     def apply_dataset(self, ds: Dataset) -> Dataset:
         assert isinstance(ds, ArrayDataset)
         return ArrayDataset(_flatten_leading(self.apply_batch(ds.data)),
-                            ds.n * self.patches_per_image)
+                            ds.n * self.patches_per_image, mesh=ds.mesh)
 
     def abstract_eval(self, dep_specs):
         return _patcher_abstract_eval(

@@ -1,4 +1,4 @@
-"""Weighted block-coordinate least squares, on one device.
+"""Weighted block-coordinate least squares.
 
 Counterpart of ``keystone_tpu/nodes/learning/block_weighted.py``
 (reference ``nodes/learning/BlockWeightedLeastSquares.scala``). Each
@@ -30,12 +30,27 @@ reports failure, or a non-finite result) is repaired on the same device
 through ``ops.linalg.clamped_eigh``, as the JAX package repairs a
 non-finite one; the fitted model's ``_solve_stats`` counts the repairs.
 
+Rank-sharded rows (a dataset marked by ``shard_dataset``, the JAX
+package's slots over ``data``): each rank lays out its own rows class
+major, and every reduction over examples (the class counts, the
+population and class statistics, each pass's cross products, each
+class's Gram on the direct path) sums over the mesh's data group in rank
+order (``parallel/distributed.py::world_sum``). The low-rank path needs
+each class's rows themselves: a chunk's slots are gathered from the
+ranks, each rank's padded to the largest rank's (pad slots give zero
+rows of V and identity rows of the inner system, so nothing changes).
+The solver choice and the class chunks follow the largest class count of
+the whole, so every rank runs the same collectives; every rank solves to
+the same weights, and the residual stays with the rank's rows.
+
 Checkpoints (``checkpoint_path``): after every pass but the last the
 model blocks and the class-major residual are written atomically
 (``utils.checkpoint.SolverCheckpoint``); a fit of the same problem
 resumes after the last saved pass and gives the same bits as an
 uninterrupted fit. The JAX package keeps the model blocks only and
-rebuilds the residual from them, which rounds differently.
+rebuilds the residual from them, which rounds differently. Over
+rank-sharded rows each rank keeps its own file (``<path>.rank<r>``), and
+a resume happens only where every rank saved the same pass.
 """
 from __future__ import annotations
 
@@ -101,7 +116,8 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
     def _fit(self, ds: Dataset, labels: Dataset) -> BlockLinearMapper:
         ds = ensure_array(ds)
         labels = ensure_array(labels, ds.device)
-        return self._solve(ds.data, labels.data, ds.n, ds.tag, labels.tag)
+        return self._solve(ds.data, labels.data, ds.n, ds.tag, labels.tag,
+                           ds.mesh)
 
     def fit_arrays(self, X, L, device=DEFAULT_DEVICE) -> BlockLinearMapper:
         """Fit on (n, d) features and (n, k) +-1 indicators given as
@@ -117,17 +133,23 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
         return self._solve(X, L.to(X.device, X.dtype), X.shape[0])
 
     def _solve(self, X: torch.Tensor, L: torch.Tensor, n: int,
-               ds_tag=None, labels_tag=None) -> BlockLinearMapper:
+               ds_tag=None, labels_tag=None, mesh=None) -> BlockLinearMapper:
         d, k = X.shape[1], L.shape[1]
         dt, dev = X.dtype, X.device
         w, lam, bs = float(self.mixture_weight), float(self.lam), \
             self.block_size
         bounds = [(i, min(d, i + bs)) for i in range(0, d, bs)]
+        rows = _Rows(mesh)
 
         # label metadata on the host: O(n) class ids
         class_idx = torch.argmax(L[:n], dim=1).cpu().numpy()
-        counts = np.bincount(class_idx, minlength=k).astype(np.int64)
-        perm, S = _class_major_perm(class_idx, counts, k)
+        local_counts = np.bincount(class_idx, minlength=k).astype(np.int64)
+        perm, S = _class_major_perm(class_idx, local_counts, k)
+        # the whole's counts and row count: every rank's decisions follow
+        # them, so every rank runs the same collectives
+        counts = rows.total(torch.as_tensor(local_counts)).numpy()
+        n = int(rows.total(torch.tensor([int(n)]))[0])
+        S = max(int(counts.max()) if counts.size else 1, 1)
         # joint label mean (reference :148-156)
         joint_label_mean = torch.as_tensor(
             2.0 * w + 2.0 * (1 - w) * counts / n - 1.0, dtype=dt, device=dev)
@@ -150,14 +172,22 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
         if self.checkpoint_path:
             from ...utils.checkpoint import SolverCheckpoint
 
-            ckpt = SolverCheckpoint(self.checkpoint_path)
+            ckpt = SolverCheckpoint(self.checkpoint_path if mesh is None
+                                    else f"{self.checkpoint_path}.rank"
+                                    f"{mesh.coords()[0]}")
             # untagged data get a content fingerprint, so a checkpoint of
             # other data of the same shape never warm-starts this solve
             ckpt_key = (n, d, k, bs, self.num_iter, lam, w, self.solver,
                         str(dt), ds_tag or _data_fingerprint(Xcm),
                         labels_tag or _data_fingerprint(Rcm))
             saved = ckpt.load(ckpt_key)
-            if saved is not None and saved["pass"] + 1 < self.num_iter:
+            resume = saved is not None and saved["pass"] + 1 < self.num_iter
+            if rows.mesh is not None:
+                # resume only where every rank saved the same pass
+                mine = saved["pass"] if resume else -1
+                got = rows.gather(torch.tensor([mine]))
+                resume = resume and all(int(p[0]) == mine for p in got)
+            if resume:
                 models = [torch.as_tensor(m, dtype=dt, device=dev)
                           for m in saved["models"]]
                 Rcm = torch.as_tensor(saved["residual"], dtype=dt,
@@ -168,7 +198,7 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
             for b, (lo, hi) in enumerate(bounds):
                 models[b], Rcm, stats[b], factors[b] = _block_pass_cm(
                     Xcm, Rcm, models[b], mask, counts_t, lo, hi, n, w, lam,
-                    self.solver, stats[b], factors[b], info)
+                    self.solver, stats[b], factors[b], info, rows)
             if ckpt is not None and pass_idx + 1 < self.num_iter:
                 # a final-pass checkpoint has no consumer
                 ckpt.save(ckpt_key, pass_idx, models, residual=Rcm)
@@ -182,6 +212,42 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
         model = BlockLinearMapper(models, bs, intercept=final_b)
         model._solve_stats = info
         return model
+
+
+class _Rows:
+    """Sums and gathers over the ranks' rows of one solve: the identity
+    for a dataset that is not rank-sharded."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def total(self, t: torch.Tensor) -> torch.Tensor:
+        if self.mesh is None:
+            return t
+        from ...parallel.distributed import world_sum
+
+        return world_sum(t, self.mesh)
+
+    def gather(self, t: torch.Tensor):
+        """Every rank of the data group's ``t``, in rank order."""
+        from ...parallel.distributed import world_gather
+        from ...parallel.mesh import DATA_AXIS
+
+        parts = world_gather(t)
+        return [parts[r] for r in self.mesh.group(DATA_AXIS)]
+
+    def class_rows(self, Xb: torch.Tensor) -> torch.Tensor:
+        """A chunk's (chunk, S, d_b) class-major rows with every rank's
+        slots, each rank's padded to the largest rank's count (zero pad
+        slots)."""
+        if self.mesh is None:
+            return Xb
+        pad = max(int(p[0]) for p in self.gather(
+            torch.tensor([Xb.shape[1]])))
+        if Xb.shape[1] < pad:
+            Xb = torch.cat([Xb, Xb.new_zeros(
+                (Xb.shape[0], pad - Xb.shape[1], Xb.shape[2]))], dim=1)
+        return torch.cat(self.gather(Xb.contiguous()), dim=1)
 
 
 def _data_fingerprint(t: torch.Tensor) -> str:
@@ -228,13 +294,14 @@ def _class_chunk(C: int, d_b: int, S: int = 0, itemsize: int = 4) -> int:
     return min(max(int(_CLASS_CHUNK_BYTES // max(per_class, 1)), 1), C)
 
 
-def _block_stats_cm(Xb, counts, n, w):
+def _block_stats_cm(Xb, counts, n, w, rows):
     """Population mean and covariance and per-class joint means
     (reference :195-206); pad slots of Xb are zero."""
     flat = Xb.reshape(-1, Xb.shape[2])
-    pop_mean = flat.sum(dim=0) / n
-    pop_cov = flat.T @ flat / n - torch.outer(pop_mean, pop_mean)
-    class_means = Xb.sum(dim=1) / torch.clamp_min(counts, 1.0)[:, None]
+    pop_mean = rows.total(flat.sum(dim=0)) / n
+    pop_cov = rows.total(flat.T @ flat) / n - torch.outer(pop_mean, pop_mean)
+    class_means = rows.total(Xb.sum(dim=1)) / torch.clamp_min(
+        counts, 1.0)[:, None]
     joint_means = w * class_means + (1 - w) * pop_mean
     return pop_mean, pop_cov, joint_means
 
@@ -262,13 +329,14 @@ def _pop_cholesky(pop_cov, w, lam, info):
 
 
 def _block_pass_cm(Xcm, Rcm, model_b, mask, counts, lo, hi, n, w, lam,
-                   solver, stats, pop_factor, info):
+                   solver, stats, pop_factor, info, rows):
     """One coordinate-descent step for one block (reference :237-292):
     block statistics and the population factor (first pass only; they
     are pass-invariant), the pass globals, the chunked per-class solves,
     and the residual update. Returns ``(model_b, Rcm, stats,
     pop_factor)``."""
-    C, S, _ = Xcm.shape
+    C = Xcm.shape[0]
+    S = info["S"]       # the whole's largest class: the same on every rank
     d_b, k = hi - lo, Rcm.shape[2]
     if solver == "auto":
         solver = ("woodbury" if (S + 2) * 2 <= d_b and lam > 0.0
@@ -283,7 +351,7 @@ def _block_pass_cm(Xcm, Rcm, model_b, mask, counts, lo, hi, n, w, lam,
 
     Xb = Xcm[:, :, lo:hi].contiguous()
     if stats is None:
-        stats = _block_stats_cm(Xb, counts, n, w)
+        stats = _block_stats_cm(Xb, counts, n, w, rows)
         pop_factor = (_pop_cholesky(stats[1], w, lam, info)
                       if solver == "woodbury" else stats[1])
     pop_mean, _, joint_means = stats
@@ -291,8 +359,8 @@ def _block_pass_cm(Xcm, Rcm, model_b, mask, counts, lo, hi, n, w, lam,
     # pass globals: population cross-products, residual means and each
     # class's own residual column (pad slots of Rcm are zero)
     flat = Xb.reshape(-1, d_b)
-    pop_xtr = flat.T @ Rcm.reshape(-1, k) / n                  # (d_b, k)
-    residual_mean = Rcm.sum(dim=(0, 1)) / n                    # (k,)
+    pop_xtr = rows.total(flat.T @ Rcm.reshape(-1, k)) / n      # (d_b, k)
+    residual_mean = rows.total(Rcm.sum(dim=(0, 1))) / n        # (k,)
     c_ids = torch.clamp_max(torch.arange(C, device=Xb.device), k - 1)
     res = Rcm[torch.arange(C, device=Xb.device), :, c_ids]     # (C, S)
 
@@ -304,22 +372,23 @@ def _block_pass_cm(Xcm, Rcm, model_b, mask, counts, lo, hi, n, w, lam,
         delta[c0:c1] = solve(
             Xb[c0:c1], res[c0:c1], counts[c0:c1], joint_means[c0:c1],
             model_b[:, ids].T, pop_xtr[:, ids].T, residual_mean[ids],
-            pop_mean, pop_factor, w, lam, info)
+            pop_mean, pop_factor, w, lam, info, rows)
     delta = delta[:k].T                                        # (d_b, k)
     model_b = model_b + delta
-    Rcm = Rcm - (flat @ delta).reshape(C, S, k) * mask[..., None]
+    Rcm = Rcm - (flat @ delta).reshape(Rcm.shape) * mask[..., None]
     return model_b, Rcm, stats, pop_factor
 
 
 def _chunk_stats(Xb, res, counts, joint_means, model_c, pop_xtr_c,
-                 residual_mean_c, pop_mean, w, lam):
+                 residual_mean_c, pop_mean, w, lam, rows):
     """Shared per-chunk statistics: class means, the mean difference from
     the population and the regularized right-hand side."""
     cnt = torch.clamp_min(counts, 1.0)
-    class_means = Xb.sum(dim=1) / cnt[:, None]
-    class_xtr = torch.bmm(res[:, None, :], Xb)[:, 0] / cnt[:, None]
+    class_means = rows.total(Xb.sum(dim=1)) / cnt[:, None]
+    class_xtr = rows.total(torch.bmm(res[:, None, :], Xb)[:, 0]) \
+        / cnt[:, None]
     mean_diff = class_means - pop_mean                         # (chunk, d_b)
-    res_class_mean = res.sum(dim=1) / cnt
+    res_class_mean = rows.total(res.sum(dim=1)) / cnt
     mean_mixture_wt = residual_mean_c * (1 - w) + w * res_class_mean
     joint_xtr = ((1 - w) * pop_xtr_c + w * class_xtr
                  - joint_means * mean_mixture_wt[:, None])
@@ -327,7 +396,7 @@ def _chunk_stats(Xb, res, counts, joint_means, model_c, pop_xtr_c,
 
 
 def _chunk_solve(Xb, res, counts, joint_means, model_c, pop_xtr_c,
-                 residual_mean_c, pop_mean, pop_cov, w, lam, info):
+                 residual_mean_c, pop_mean, pop_cov, w, lam, info, rows):
     """Direct path: each class's (d_b, d_b) joint covariance
 
         (1-w) pop_cov + w class_cov + (1-w) w (mu_c - mu)(mu_c - mu)^T
@@ -339,8 +408,8 @@ def _chunk_solve(Xb, res, counts, joint_means, model_c, pop_xtr_c,
     d_b = Xb.shape[2]
     cnt, class_means, mean_diff, rhs = _chunk_stats(
         Xb, res, counts, joint_means, model_c, pop_xtr_c, residual_mean_c,
-        pop_mean, w, lam)
-    A = torch.bmm(Xb.transpose(1, 2), Xb)
+        pop_mean, w, lam, rows)
+    A = rows.total(torch.bmm(Xb.transpose(1, 2), Xb))
     A.mul_((w / cnt)[:, None, None])
     A.baddbmm_(class_means[:, :, None], class_means[:, None, :], alpha=-w)
     A.baddbmm_(mean_diff[:, :, None], mean_diff[:, None, :],
@@ -359,7 +428,8 @@ def _chunk_solve(Xb, res, counts, joint_means, model_c, pop_xtr_c,
 
 
 def _chunk_solve_woodbury(Xb, res, counts, joint_means, model_c, pop_xtr_c,
-                          residual_mean_c, pop_mean, pop_chol, w, lam, info):
+                          residual_mean_c, pop_mean, pop_chol, w, lam, info,
+                          rows):
     """Low-rank path: each class's system is A_c = M + V_c^T D V_c with
     M = (1-w) pop_cov + lam I (factored once a block) and
 
@@ -371,10 +441,11 @@ def _chunk_solve_woodbury(Xb, res, counts, joint_means, model_c, pop_xtr_c,
     batched (S + 2) x (S + 2) solve: A^-1 = M^-1 - M^-1 V^T (D + V M^-1
     V^T)^-1 V M^-1. Pad slots give zero rows of V and identity rows of
     the inner system."""
-    chunk, S, d_b = Xb.shape
     cnt, class_means, mean_diff, rhs = _chunk_stats(
         Xb, res, counts, joint_means, model_c, pop_xtr_c, residual_mean_c,
-        pop_mean, w, lam)
+        pop_mean, w, lam, rows)
+    Xb = rows.class_rows(Xb)          # every rank's slots of the class
+    chunk, S, d_b = Xb.shape
     V = torch.cat([Xb * torch.sqrt(w / cnt)[:, None, None],
                    math.sqrt(w) * class_means[:, None, :],
                    math.sqrt((1 - w) * w) * mean_diff[:, None, :]], dim=1)

@@ -252,10 +252,15 @@ class LeastSquaresEstimator(OptimizableLabelEstimator):
     def finalize(self, carry):
         """The cost-model choice among the solvers that can finish from
         the one-pass carry, at the accumulated shape (density 1.0), then
-        that solver's finalize."""
+        that solver's finalize. In a world the workload was spread over
+        every rank (each accumulated its shard), so the cost sees the
+        world's rank count, the same number on every rank."""
+        from ...parallel.mesh import process_count
+
         G, C, _, _, n = carry
         d, k = int(G.shape[0]), int(C.shape[1])
-        choice = self._choose(n, d, k, 1.0, self.num_machines or 1,
+        choice = self._choose(n, d, k, 1.0,
+                              self.num_machines or process_count(),
                               streaming=True, shape_source="streamed")
         return choice.node.finalize(carry)
 

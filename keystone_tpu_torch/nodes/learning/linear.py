@@ -212,6 +212,16 @@ class LinearMapper(Transformer):
             return quantized_affine(X, *params)
         return _affine(params, X)
 
+    def sharded_apply_nbytes(self):
+        """(bytes sharded at rest, gather transient) under the sharded
+        apply (``parallel/spmd_apply.py``): W row-shards and gathers
+        whole for each GEMM. A quantized mapper shards only its batch:
+        nothing at rest, nothing gathered."""
+        if self.weight_dtype is not None:
+            return 0.0, 0.0
+        nb = float(np.asarray(_host(self.weights)).nbytes)
+        return nb, nb
+
     def __getstate__(self):
         # device tensors pickle as host copies
         d = super().__getstate__()
@@ -286,14 +296,18 @@ class LinearMapEstimator(LabelEstimator):
     def _fit(self, ds: Dataset, labels: Dataset) -> LinearMapper:
         ds = ensure_array(ds)
         labels = ensure_array(labels, ds.device)
-        n = ds.n
+        n, mesh = ds.n, ds.mesh
         X, Y = ds.data.to(torch.float32), labels.data.to(torch.float32)
         m = ds.mask[:, None].to(X.dtype)
-        x_mean = (X * m).sum(dim=0) / n
-        y_mean = (Y * m).sum(dim=0) / n
+        # over rank-sharded rows the sums and Grams add over the data
+        # group (ops/linalg.py); padded rows are zero, so the plain means
+        # equal the masked ones
+        x_mean = linalg.distributed_mean(X * m, n, mesh)
+        y_mean = linalg.distributed_mean(Y * m, n, mesh)
         Xc = (X - x_mean) * m
         Yc = (Y - y_mean) * m
-        W = linalg.ridge_cho_solve(linalg.gram(Xc), linalg.cross(Xc, Yc),
+        W = linalg.ridge_cho_solve(linalg.gram(Xc, mesh),
+                                   linalg.cross(Xc, Yc, mesh),
                                    float(self.lam or 0.0))
         return LinearMapper(W, intercept=y_mean,
                             feature_scaler=StandardScalerModel(
@@ -351,6 +365,18 @@ class BlockLinearMapper(Transformer):
         if self.weight_dtype is not None:
             return quantized_affine(X, *params)
         return _affine(params, X)
+
+    def sharded_apply_nbytes(self):
+        """(bytes sharded at rest, gather transient) under the sharded
+        apply: every block row-shards, the concatenated view with them,
+        and the gather makes one block whole at a time, so the transient
+        is the largest block. A quantized mapper shards nothing."""
+        if self.weight_dtype is not None:
+            return 0.0, 0.0
+        blocks = [float(np.asarray(_host(w)).nbytes)
+                  for w in self.block_weights]
+        total = float(np.asarray(_host(self.weights)).nbytes) + sum(blocks)
+        return total, max(blocks)
 
     def __getstate__(self):
         # device tensors pickle as host copies
@@ -441,26 +467,29 @@ class BlockLeastSquaresEstimator(LabelEstimator):
         bounds = [(i, min(d, i + bs)) for i in range(0, d, bs)]
         Ws, x_mean, y_mean = block_least_squares(
             ds.data, labels.data, ds.n, float(self.lam), bounds,
-            self.num_iter, mask=ds.mask)
+            self.num_iter, mask=ds.mask, mesh=ds.mesh)
         # apply() centers x by the means, so the intercept is y_mean
         return BlockLinearMapper(Ws, bs, intercept=y_mean,
                                  feature_means=x_mean,
                                  weight_dtype=self.weight_dtype)
 
 
-def block_least_squares(X, Y, n, lam, bounds, num_iter, mask=None):
+def block_least_squares(X, Y, n, lam, bounds, num_iter, mask=None,
+                        mesh=None):
     """Column means over the true ``n`` rows + mean-centered block
     coordinate descent. Returns ``(per-block weights, x_mean, y_mean)``;
-    prediction is ``(x - x_mean) @ concat(Ws) + y_mean``."""
+    prediction is ``(x - x_mean) @ concat(Ws) + y_mean``. With ``mesh``
+    the rows are this rank's share and the means and the solve reduce
+    over the data group (``ops/linalg.py``)."""
     X, Y = X.to(torch.float32), Y.to(torch.float32)
     if mask is None:
         mask = torch.ones(X.shape[0], dtype=torch.bool, device=X.device)
-    x_mean = linalg.distributed_mean(X, n)
-    y_mean = linalg.distributed_mean(Y, n)
+    x_mean = linalg.distributed_mean(X, n, mesh)
+    y_mean = linalg.distributed_mean(Y, n, mesh)
     m = mask[:, None].to(X.dtype)
     Yc = (Y - y_mean) * m
     blocks = [(X[:, lo:hi] - x_mean[lo:hi]) * m for lo, hi in bounds]
-    Ws = linalg.bcd_core(blocks, Yc, lam, num_passes=num_iter)
+    Ws = linalg.bcd_core(blocks, Yc, lam, num_passes=num_iter, mesh=mesh)
     return Ws, x_mean, y_mean
 
 

@@ -224,7 +224,17 @@ class StandardScaler(Estimator):
         self.eps = eps
 
     def _fit(self, ds: Dataset) -> StandardScalerModel:
-        return self.finalize(self.accumulate(None, ds))
+        carry = self.accumulate(None, ds)
+        mesh = getattr(ds, "mesh", None)
+        if mesh is not None:
+            # rank-sharded rows: the sums and the count add over the data
+            # group, in rank order
+            from ...parallel.distributed import world_scalar_sum, world_sum
+
+            S, SQ, n = carry
+            carry = (world_sum(S, mesh), world_sum(SQ, mesh),
+                     int(world_scalar_sum(n, mesh)))
+        return self.finalize(carry)
 
     # -- streaming fit (accumulate/finalize protocol) ----------------------
     @donates_carry(1, probe=lambda: _moments_carry_probe())

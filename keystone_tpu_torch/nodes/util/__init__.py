@@ -258,6 +258,6 @@ class LabelAugmenter(Transformer):
         if isinstance(ds, ArrayDataset):
             data = tree_map(lambda x: torch.repeat_interleave(
                 x[: ds.n], self.mult, dim=0), ds.data)
-            return ArrayDataset(data, ds.n * self.mult)
+            return ArrayDataset(data, ds.n * self.mult, mesh=ds.mesh)
         return HostDataset(
             [it for it in ds.collect() for _ in range(self.mult)])

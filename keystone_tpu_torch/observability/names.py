@@ -31,6 +31,12 @@ METRIC_NAMES: FrozenSet[str] = frozenset({
     "checkpoint.d2h_s",
     "checkpoint.write_s",
     "checkpoint.restore_s",
+    # parallel/distributed.py: the world's coordination rounds
+    "coord.world_size",         # gauge: ranks in the live world
+    "coord.rounds_total",       # counter: rounds awaited
+    "coord.barrier_wait_s",     # histogram: blocked at an await/barrier
+    "coord.overlap_occupancy",  # gauge: 1 - blocked await / round wall
+    "coord.merge_s",            # histogram: the finalize carry merge
     # utils/guarded.py: lock contention
     "lock.contended_total",
     # observability/sampler.py: probes, published as gauges

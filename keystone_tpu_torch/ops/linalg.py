@@ -1,7 +1,6 @@
-"""Dense linear algebra for the solvers, on one device.
+"""Dense linear algebra for the solvers.
 
-Counterpart of ``keystone_tpu/ops/linalg.py`` on one device: Gram and
-cross products, column means over zero-padded rows, the ridge Cholesky
+Counterpart of ``keystone_tpu/ops/linalg.py``: Gram and cross products, column means over zero-padded rows, the ridge Cholesky
 solve with its breakdown gate and eigendecomposition fallback, the
 normal equations through the fused Gram kernel, and block coordinate
 descent. Everything runs in true float32
@@ -12,10 +11,25 @@ which run in 3xTF32 behind float64 bars (``ops/device.py``).
 Inputs follow the ArrayDataset convention: the row count may exceed the
 true ``n`` with zero padding, which is exact for every Gram and cross
 product here; operations needing the true count (means) take ``n``.
+
+Rank-sharded rows. Every function taking ``mesh`` reads its input as this
+rank's rows of a matrix sharded over the mesh's ``data`` axis
+(``parallel/dataset.py::shard_dataset``), and returns the whole matrix's
+result on every rank: the JAX package's "local GEMM + all-reduce",
+written out, in a live world (of any size, one included). The local product of a Gram goes through the fused Gram
+kernel (``gram_cross``) on a CUDA tensor, and each reduction is one
+gather followed by a sum in rank order
+(``parallel/distributed.py::world_sum``), never an all-reduce, so the
+result is the same bits on every rank and on every relaunch. With
+``mesh`` None, or a mesh of one data shard, the functions are the
+single-device ones, unchanged. TSQR gathers only the R factors; block
+coordinate descent sums each block's Gram once and its cross product
+every pass, and splits the label columns over the ``model`` axis where
+the mesh has one that divides them (``_class_split``).
 """
 from __future__ import annotations
 
-from typing import Callable, List, Sequence
+from typing import Any, Callable, List, Optional, Sequence
 
 import torch
 
@@ -24,22 +38,51 @@ from ..observability.numerics import record_block_health, record_solve_health
 from .kernels import gram_cross
 
 
-def gram(A: torch.Tensor) -> torch.Tensor:
-    """A^T A."""
-    return A.T @ A
+def _sharded(mesh: Any) -> bool:
+    """True when the rows are a rank's share under ``mesh`` in a live
+    world (a world of one included: its reductions still go through the
+    backend)."""
+    from ..parallel.mesh import world
+
+    return mesh is not None and world() is not None
 
 
-def cross(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """A^T B."""
-    return A.T @ B
+def _world_sum(t: torch.Tensor, mesh: Any) -> torch.Tensor:
+    from ..parallel.distributed import world_sum
+
+    return world_sum(t, mesh)
 
 
-def distributed_mean(A: torch.Tensor, n: int) -> torch.Tensor:
+def gram(A: torch.Tensor, mesh: Any = None) -> torch.Tensor:
+    """A^T A. Over rank-sharded rows: the fused Gram kernel on this
+    rank's rows, then the sum over the data group in rank order."""
+    if not _sharded(mesh):
+        return A.T @ A
+    G, _ = gram_cross(A, A[:, :0])
+    return _world_sum(G, mesh)
+
+
+def cross(A: torch.Tensor, B: torch.Tensor, mesh: Any = None
+          ) -> torch.Tensor:
+    """A^T B, over rank-sharded rows co-sharded with ``B``."""
+    if not _sharded(mesh):
+        return A.T @ B
+    return _world_sum(A.T @ B, mesh)
+
+
+def distributed_mean(A: torch.Tensor, n: int, mesh: Any = None
+                     ) -> torch.Tensor:
     """Column means of a zero-padded matrix with true row count ``n``
-    (reference ``MatrixUtils.computeMean``)."""
+    (reference ``MatrixUtils.computeMean``). Over rank-sharded rows ``n``
+    is this rank's count, and sums and counts add over the data group."""
     if not torch.is_floating_point(A):
         A = A.to(torch.float32)
-    return A.sum(dim=0) / n
+    if not _sharded(mesh):
+        return A.sum(dim=0) / n
+    from ..parallel.distributed import world_scalar_sum
+
+    total = world_scalar_sum(n, mesh)
+    return _world_sum(A.sum(dim=0), mesh) / total
 
 
 #: Collapsed-pivot threshold on the scale-free ratio L_ii / sqrt(G_ii)
@@ -132,12 +175,15 @@ def ridge_cho_solve(AtA: torch.Tensor, Atb: torch.Tensor, lam: float,
 
 
 def normal_equations(A: torch.Tensor, Y: torch.Tensor,
-                     lam: float = 0.0) -> torch.Tensor:
+                     lam: float = 0.0, mesh: Any = None) -> torch.Tensor:
     """Least squares / ridge by the normal equations,
     W = (A^T A + lam I)^-1 A^T Y (mlmatrix ``NormalEquations``): one pass
     of the fused Gram kernel over A (its plain version for CPU tensors)
-    into zeroed G and C, then ``ridge_cho_solve``."""
+    into zeroed G and C, summed over the data group for rank-sharded
+    rows, then ``ridge_cho_solve``."""
     G, C = gram_cross(A, Y)
+    if _sharded(mesh):
+        G, C = _world_sum(G, mesh), _world_sum(C, mesh)
     return ridge_cho_solve(G, C, float(lam))
 
 
@@ -158,8 +204,25 @@ def local_least_squares_dual(A: torch.Tensor, Y: torch.Tensor,
     return A.T @ alpha
 
 
+def _class_split(k: int, mesh: Any):
+    """``(lo, hi)`` of the label columns this rank solves when ``mesh``
+    has a ``model`` axis of size m > 1 dividing k (the JAX package's
+    ``_class_spec``: the Gram and factor work repeats over the model
+    groups, the k-column cross products, solves and prediction updates
+    split over them); None otherwise."""
+    from ..parallel.mesh import MODEL_AXIS, world
+
+    if mesh is None or world() is None:
+        return None
+    m = mesh.shape[MODEL_AXIS]
+    if m <= 1 or k % m:
+        return None
+    _, j = mesh.coords()
+    return j * (k // m), (j + 1) * (k // m)
+
+
 def bcd_core(blocks: Sequence[torch.Tensor], Y: torch.Tensor, lam: float,
-             num_passes: int) -> List[torch.Tensor]:
+             num_passes: int, mesh: Any = None) -> List[torch.Tensor]:
     """Block coordinate descent for ridge regression over feature blocks
     (mlmatrix ``BlockCoordinateDescent.solveLeastSquaresWithL2``):
     maintain P = sum_i A_i W_i; per pass, per block in order, solve
@@ -169,12 +232,21 @@ def bcd_core(blocks: Sequence[torch.Tensor], Y: torch.Tensor, lam: float,
     then update P. Each block's Gram is pass-invariant, so it is factored
     once per solve; a block whose factor fails the health gate takes the
     eigh fallback every pass. The JAX package runs the same block order
-    as a scan for four or more equal blocks and unrolled otherwise."""
+    as a scan for four or more equal blocks and unrolled otherwise.
+
+    Over rank-sharded rows (``mesh``) each block's Gram is the fused
+    kernel's on this rank's rows summed over the data group, each pass's
+    cross product a local product summed likewise, and P stays local;
+    with a ``model`` axis dividing k each model group solves its slice
+    of the label columns and the slices are gathered at the end."""
+    split = _class_split(Y.shape[1], mesh)
+    if split is not None:
+        Y = Y[:, split[0]:split[1]]
     k = Y.shape[1]
     factors, ratios = [], []
     for A in blocks:
-        reg = gram(A) + lam * torch.eye(A.shape[1], dtype=A.dtype,
-                                        device=A.device)
+        reg = gram(A, mesh) + lam * torch.eye(A.shape[1], dtype=A.dtype,
+                                              device=A.device)
         L, ok, ratio = cholesky_health(reg)
         factors.append((reg, L, ok))
         ratios.append(ratio)
@@ -184,22 +256,62 @@ def bcd_core(blocks: Sequence[torch.Tensor], Y: torch.Tensor, lam: float,
     pred = torch.zeros_like(Y)
     for _ in range(num_passes):
         for i, A in enumerate(blocks):
-            rhs = cross(A, Y - pred + A @ Ws[i])
+            rhs = cross(A, Y - pred + A @ Ws[i], mesh)
             reg, L, ok = factors[i]
             Wi = finite_or_eigh_solve(torch.cholesky_solve(rhs, L),
                                       lambda: reg, rhs, ok)
             pred = pred + A @ (Wi - Ws[i])
             Ws[i] = Wi
+    if split is not None:
+        from ..parallel.distributed import world_concat
+        from ..parallel.mesh import MODEL_AXIS
+
+        Ws = [world_concat(W, mesh, MODEL_AXIS) for W in Ws]
     return Ws
 
 
-def tsqr_r(A: torch.Tensor) -> torch.Tensor:
-    """R factor of A (reference: mlmatrix ``TSQR().qrR`` used by
-    DistributedPCA.scala:47; ``keystone_tpu/ops/linalg.py::tsqr_r``). On
-    one device the communication-avoiding tree is a single QR. The sign is
-    normalized so R has a non-negative diagonal, as the JAX package
-    normalizes it."""
-    R = torch.linalg.qr(A.to(torch.float32), mode="r").R
+def block_coordinate_descent(blocks: Sequence[torch.Tensor],
+                             Y: torch.Tensor, lam: float, num_passes: int,
+                             n_true: Optional[int] = None,
+                             mesh: Any = None) -> List[torch.Tensor]:
+    """:func:`bcd_core` over the blocks (the JAX entry point's name;
+    ``n_true`` is accepted for its signature: padded rows are zero and
+    change nothing)."""
+    return bcd_core(blocks, Y, lam, num_passes, mesh)
+
+
+def solve_one_pass_l2(blocks: Sequence[torch.Tensor], Y: torch.Tensor,
+                      lam: float, mesh: Any = None) -> List[torch.Tensor]:
+    """Single-pass BCD (reference ``solveOnePassL2``,
+    BlockLinearMapper.scala:234-236 when numIter == 1)."""
+    return bcd_core(blocks, Y, lam, 1, mesh)
+
+
+def _fix_r_sign(R: torch.Tensor) -> torch.Tensor:
     sign = torch.sign(torch.diagonal(R))
     sign = torch.where(sign == 0, 1.0, sign).to(R.dtype)
     return R * sign[:, None]
+
+
+def tsqr_r(A: torch.Tensor, mesh: Any = None) -> torch.Tensor:
+    """R factor of A (reference: mlmatrix ``TSQR().qrR`` used by
+    DistributedPCA.scala:47; ``keystone_tpu/ops/linalg.py::tsqr_r``). On
+    one device the communication-avoiding tree is a single QR. Over
+    rank-sharded rows each rank factors its rows, the R factors alone
+    are gathered (padded to d rows, zero rows changing nothing), stacked
+    in data order and factored again. The sign is normalized so R has a
+    non-negative diagonal, as the JAX package normalizes it, which makes
+    the result the same for every shard count up to rounding."""
+    A = A.to(torch.float32)
+    R = torch.linalg.qr(A, mode="r").R
+    if not _sharded(mesh):
+        return _fix_r_sign(R)
+    from ..parallel.distributed import world_gather
+    from ..parallel.mesh import DATA_AXIS
+
+    d = A.shape[1]
+    padded = torch.zeros((d, d), dtype=R.dtype, device=R.device)
+    padded[:R.shape[0]] = R
+    parts = world_gather(padded)
+    stacked = torch.cat([parts[r] for r in mesh.group(DATA_AXIS)])
+    return _fix_r_sign(torch.linalg.qr(stacked, mode="r").R)

@@ -1,6 +1,6 @@
 """Dataset: the collection type that flows through pipelines.
 
-Counterpart of ``keystone_tpu/parallel/dataset.py`` on one device:
+Counterpart of ``keystone_tpu/parallel/dataset.py``:
 
 * `ArrayDataset` — a batch-major tensor, or a tuple of them, on one
   device. ``n`` is the true item count. Rows are zero-padded up to a
@@ -9,6 +9,14 @@ Counterpart of ``keystone_tpu/parallel/dataset.py`` on one device:
   padded rows are re-zeroed after every batch map, so sums and Grams
   stay exact and means divide by the true ``n``.
 * `HostDataset` — a plain Python list of items for host-side stages.
+
+Rank-sharded rows. In a world (``parallel/mesh.py``) a dataset whose
+``mesh`` is set holds this rank's block of a larger whole, the block
+:func:`shard_dataset` cuts for the rank's data index; its ``n`` is the
+block's true row count. The resident solvers read ``mesh`` and sum their
+row reductions over the ranks of the data group (``ops/linalg.py``).
+Every batch map keeps the mark; a dataset without it (``mesh`` None) is
+this rank's own, the single-process case.
 
 Datasets are eager; laziness lives in ``workflow.expression``. The
 chunked, prefetched ``StreamingDataset`` lives in ``parallel.streaming``
@@ -109,10 +117,13 @@ class ArrayDataset(Dataset):
     at index >= n are zero."""
 
     def __init__(self, data: Any, n: int, shards: int = 1,
-                 tag: Optional[str] = None):
+                 tag: Optional[str] = None, mesh: Any = None):
         self.n = int(n)
         self.shards = int(shards)
         self.tag = tag  # stable identity for prefix reuse across pipelines
+        #: the mesh whose data shard these rows are (None: not sharded
+        #: over ranks)
+        self.mesh = mesh
         rows = padded_rows(self.n, self.shards)
 
         def fit(x):
@@ -176,13 +187,14 @@ class ArrayDataset(Dataset):
                                   and self.device.type == "cuda"):
             return self
         return ArrayDataset(tree_map(lambda x: x.to(dev), self.data), self.n,
-                            self.shards, self.tag)
+                            self.shards, self.tag, self.mesh)
 
     # -- transforms -------------------------------------------------------
     def map_batch(self, fn: Callable[[Any], Any]) -> "ArrayDataset":
         """Apply a whole-batch function (padded rows included; the rows
         past ``n`` are re-zeroed afterwards)."""
-        return ArrayDataset(fn(self.data), self.n, self.shards)
+        return ArrayDataset(fn(self.data), self.n, self.shards,
+                            mesh=self.mesh)
 
     def map(self, fn: Callable[[Any], Any]) -> "ArrayDataset":
         """Apply a per-item function row by row (the generic batch path
@@ -196,7 +208,8 @@ class ArrayDataset(Dataset):
                 raise ValueError("zip requires equal lengths")
         data = (self.data,) + tuple(o.data for o in others)
         return ArrayDataset(
-            tree_map(lambda x: x[: self.n], data), self.n, self.shards)
+            tree_map(lambda x: x[: self.n], data), self.n, self.shards,
+            mesh=self.mesh)
 
     # -- materialization --------------------------------------------------
     def numpy(self) -> Any:
@@ -229,6 +242,53 @@ def bucketed_dataset(data: Any, n: int, bucket_rows: int,
         return torch.as_tensor(padded, device=dev)
 
     return ArrayDataset(tree_map(put, data), n)
+
+
+def shard_dataset(ds: "ArrayDataset", mesh: Any = None) -> "ArrayDataset":
+    """This rank's block of ``ds``'s true rows under ``mesh``'s data axis
+    (default the global mesh), marked with the mesh: the rows a resident
+    fit in a world holds (the port's counterpart of a batch placed with
+    the JAX ``batch_sharding``). ``ds`` itself on a one-shard mesh."""
+    from .mesh import batch_rows, get_mesh, num_data_shards
+
+    mesh = mesh or get_mesh()
+    shards = num_data_shards(mesh)
+    if shards == 1:
+        return ds
+    lo, hi = batch_rows(ds.n, mesh)
+    # a tag of its own: the block must never be served the whole's
+    # prefix-memo entries
+    tag = None if ds.tag is None else \
+        f"{ds.tag}:shard{mesh.coords()[0]}/{shards}"
+    return ArrayDataset(tree_map(lambda x: x[lo:hi].contiguous(), ds.data),
+                        hi - lo, tag=tag, mesh=mesh)
+
+
+def argmax_labels(L: torch.Tensor) -> torch.Tensor:
+    """Class ids from a one-hot or indicator label matrix, on its
+    device."""
+    return torch.argmax(L, dim=1).to(torch.int32)
+
+
+def fetch_to_host(arr: Any, mesh: Any = None) -> np.ndarray:
+    """A small (metadata-sized) tensor on the host. With a rank-sharded
+    ``mesh`` the ranks' parts are gathered and concatenated in data
+    order, so every rank gets the whole."""
+    from .distributed import world_gather
+    from .mesh import DATA_AXIS, num_data_shards, process_count
+
+    t = torch.as_tensor(arr)
+    if mesh is None or process_count() == 1 or num_data_shards(mesh) == 1:
+        return t.detach().cpu().numpy()
+    # the parts may differ in rows: gather the counts, then padded rows
+    rows = [int(p[0]) for p in world_gather(
+        torch.tensor([t.shape[0]], dtype=torch.int64))]
+    width = max(rows)
+    padded = torch.zeros((width,) + tuple(t.shape[1:]), dtype=t.dtype)
+    padded[:t.shape[0]] = t.detach().cpu()
+    parts = world_gather(padded)
+    return torch.cat([parts[r][:rows[r]] for r in mesh.group(DATA_AXIS)]
+                     ).numpy()
 
 
 class HostDataset(Dataset):

@@ -50,8 +50,22 @@ the chunks it accumulates, and feeds the flight recorder's
 under a live stream stops its producer and dumps a post-mortem.
 
 ``fit_streaming`` arms the capture observatory's fence after its warm
-chunks. Left out of this port so far: the distributed world loop and
-per-shard staging onto a mesh (ROADMAP A11).
+chunks.
+
+The world loop (``parallel/distributed.py``). Under a world of more than
+one rank each rank fits its shard-local stream and the ranks meet every
+``checkpoint_every`` chunks (``_ROUND_LEN``, 16, without checkpoints) in a :class:`~keystone_tpu_torch.parallel.
+distributed.WorldCoordinator` round: a rank dispatches round k, folds
+round k+1's chunks, and only then awaits round k, so every rank runs the
+same rounds and a rank whose shard ends early keeps stepping with
+``done`` until all are done. Checkpoints ride the rounds: at each
+boundary a rank cuts a copy of its carry (``CarrySnapshot``, cloned on
+the compute stream before the next chunk updates the carry in place),
+writes it to its sidecar one boundary later, and reports the durable
+cursor in the next round's payload; rank 0 merges the world snapshot
+after awaiting a round in which every rank reported one. At finalize the
+carries merge in rank order (``merge_carries``), every rank finalizes
+the same merged carry, and the drift sketches merge likewise.
 """
 from __future__ import annotations
 
@@ -88,6 +102,8 @@ from ..resilience.retry import (
     default_retry_policy,
 )
 from ..utils.guarded import TracedLock, TracedSemaphore, guarded_by
+from .distributed import WorldCoordinator, is_distributed
+from .mesh import get_mesh
 from .dataset import (
     ArrayDataset,
     Dataset,
@@ -306,7 +322,10 @@ class StreamingDataset(Dataset):
     ``retry_policy`` (default: the shared default policy) retries
     staging; ``stall_timeout_s`` (default None: no deadline) arms the
     consumer's watchdog; ``quarantine`` is the corrupt-record quarantine
-    the source feeds, which a streamed fit checkpoints."""
+    the source feeds, which a streamed fit checkpoints. ``mesh`` (default
+    the global mesh) must hold this rank alone: in a world each rank
+    streams its own shard (:func:`~keystone_tpu_torch.parallel.mesh.
+    local_mesh`) and the stream is refused otherwise."""
 
     def __init__(self, chunk_source: Callable[[], Iterator[Any]],
                  chunk_size: int, n: Optional[int] = None,
@@ -316,7 +335,7 @@ class StreamingDataset(Dataset):
                  hbm_budget: Optional[float] = None,
                  retry_policy: Optional[RetryPolicy] = None,
                  stall_timeout_s: Optional[float] = None,
-                 quarantine: Any = None,
+                 quarantine: Any = None, mesh: Any = None,
                  _transforms: Tuple[Callable, ...] = ()):
         if not callable(chunk_source):
             raise TypeError(
@@ -327,6 +346,18 @@ class StreamingDataset(Dataset):
             raise ValueError("prefetch_depth must be >= 1")
         if chunk_size < 1:
             raise ValueError("chunk_size must be >= 1")
+        self.mesh = mesh if mesh is not None else get_mesh()
+        if not self.mesh.is_local():
+            # a streamed fit in a world is shard-local: each rank stages
+            # only its own chunks onto its own device, and fit_streaming
+            # merges the carries at finalize
+            raise ValueError(
+                f"StreamingDataset mesh {self.mesh!r} holds other ranks: "
+                "streamed ingest in a world is shard-local (each rank "
+                "stages its own chunks onto its own device and "
+                "fit_streaming merges the carries at finalize). Build the "
+                "stream under parallel.mesh.local_mesh() (mesh_scope or "
+                "mesh=)")
         self.device = resolve_device(device)
         self.chunk_size = int(chunk_size)
         self.n = None if n is None else int(n)
@@ -359,9 +390,12 @@ class StreamingDataset(Dataset):
             compute_dtype=self.compute_dtype, hbm_budget=self.hbm_budget,
             retry_policy=self.retry_policy,
             stall_timeout_s=self.stall_timeout_s, quarantine=self.quarantine,
-            _transforms=self._transforms + (transform,))
+            mesh=self.mesh, _transforms=self._transforms + (transform,))
         out._residency = self._residency
         out._element = self._element
+        if getattr(self, "process_sharded", False):
+            # a view of a rank-local stream is rank-local too
+            out.process_sharded = True
         return out
 
     def map(self, fn: Callable[[Any], Any]) -> "StreamingDataset":
@@ -816,6 +850,11 @@ def _carry_nbytes(carry: Any) -> float:
     return 0.0
 
 
+#: chunks a world folds per coordination round when it does not
+#: checkpoint (with checkpoints, ``checkpoint_every``)
+_ROUND_LEN = 16
+
+
 #: chunks a streamed fit runs before it arms its capture fence: the
 #: numerics monitor computes the first chunk's health word eagerly and
 #: captures the word's CUDA graph at the second
@@ -887,10 +926,16 @@ def fit_streaming(estimator: Any, data: StreamingDataset, labels: Any = None,
                            "static_plan_nbytes": plan, "hbm_budget": budget})
     if quarantine is None:
         quarantine = data.quarantine
+    world = None
+    if is_distributed():
+        world = WorldCoordinator(tag=tag)
+        round_len = (int(checkpoint_every) if checkpoint_every is not None
+                     else _ROUND_LEN)
     ckpt = fingerprint = numerics_state = carry = None
     start_chunk = 0
     if checkpoint_dir is not None:
         from ..resilience.stream_checkpoint import (
+            CarrySnapshot,
             StreamCheckpoint,
             fit_fingerprint,
             restore_carry,
@@ -903,10 +948,12 @@ def fit_streaming(estimator: Any, data: StreamingDataset, labels: Any = None,
         fingerprint = fit_fingerprint(estimator, data, labels)
         ckpt = StreamCheckpoint(checkpoint_dir)
         t0 = time.perf_counter()
-        snap = ckpt.load(fingerprint)
+        snap = (ckpt.load(fingerprint) if world is None
+                else ckpt.load_world(fingerprint, world.pid, world.nproc))
         if snap is not None:
             start_chunk = int(snap["cursor"])
-            carry = restore_carry(snap["carry"], data.device)
+            carry = (None if snap["carry"] is None
+                     else restore_carry(snap["carry"], data.device))
             if quarantine is not None and snap.get("quarantine"):
                 quarantine.restore(snap["quarantine"])
             numerics_state = snap.get("numerics")
@@ -924,55 +971,133 @@ def fit_streaming(estimator: Any, data: StreamingDataset, labels: Any = None,
     idx = -1
     obs = compile_observatory()
     fence_armed = False
+
+    def accumulate_one(chunk, lchunk):
+        """Fold one chunk into the carry: the per-chunk body of the
+        single-process loop and the world's round loop."""
+        nonlocal carry, chunks_seen, fence_armed
+        t0 = time.perf_counter()
+        if labels is None:
+            carry = estimator.accumulate(carry, chunk)
+        else:
+            carry = estimator.accumulate(carry, chunk, lchunk)
+        # host time of the accumulate's launches; the device work
+        # runs on past it
+        record_span(f"accumulate:{tag}", "compute", t0,
+                    time.perf_counter() - t0, args={"chunk": idx})
+        if monitor is not None:
+            # the pad rows are each chunk's tail
+            monitor.observe(idx, chunk.data,
+                            None if lchunk is None else lchunk.data,
+                            rows=(chunk.n, chunk.padded_n))
+            sketch.update(chunk)
+        reg.gauge("streaming.carry_bytes").set(_carry_nbytes(carry))
+        chunks_seen += 1
+        if chunks_seen == _WARM_CHUNKS and not fence_armed:
+            # every later chunk of the geometry replays what the
+            # warm chunks built: a capture from here on is a bug
+            obs.arm_fence(f"fit_streaming:{tag}")
+            fence_armed = True
+        if budget is not None:
+            resident = data.buffered_nbytes()
+            if resident > budget:
+                raise attach_postmortem(MemoryError(
+                    f"streamed fit of {tag} exceeded its HBM budget: "
+                    f"{resident:.0f} B resident > {budget:.0f} B "
+                    f"(chunk {chunks_seen}; shrink chunk_size or "
+                    "prefetch_depth)"),
+                    "hbm_budget",
+                    {"source": tag, "phase": "runtime",
+                     "resident_nbytes": resident, "hbm_budget": budget,
+                     "chunk": chunks_seen})
+
+    def snapshot_states():
+        if monitor is not None:
+            # a snapshot must not hold a carry that a chunk whose word
+            # is still in flight poisoned
+            monitor.flush()
+        return (None if quarantine is None else quarantine.state(),
+                None if sketch is None else sketch.state())
+
     pairs = _paired_chunks(data, labels)
     try:
-        for chunk, lchunk in pairs:
-            idx += 1
-            if idx < start_chunk:
-                continue  # resume replay: already in the restored carry
-            t0 = time.perf_counter()
-            if labels is None:
-                carry = estimator.accumulate(carry, chunk)
-            else:
-                carry = estimator.accumulate(carry, chunk, lchunk)
-            # host time of the accumulate's launches; the device work
-            # runs on past it
-            record_span(f"accumulate:{tag}", "compute", t0,
-                        time.perf_counter() - t0, args={"chunk": idx})
-            if monitor is not None:
-                # the pad rows are each chunk's tail
-                monitor.observe(idx, chunk.data,
-                                None if lchunk is None else lchunk.data,
-                                rows=(chunk.n, chunk.padded_n))
-                sketch.update(chunk)
-            reg.gauge("streaming.carry_bytes").set(_carry_nbytes(carry))
-            chunks_seen += 1
-            if chunks_seen == _WARM_CHUNKS and not fence_armed:
-                # every later chunk of the geometry replays what the
-                # warm chunks built: a capture from here on is a bug
-                obs.arm_fence(f"fit_streaming:{tag}")
-                fence_armed = True
-            if budget is not None:
-                resident = data.buffered_nbytes()
-                if resident > budget:
-                    raise attach_postmortem(MemoryError(
-                        f"streamed fit of {tag} exceeded its HBM budget: "
-                        f"{resident:.0f} B resident > {budget:.0f} B "
-                        f"(chunk {chunks_seen}; shrink chunk_size or "
-                        "prefetch_depth)"),
-                        "hbm_budget",
-                        {"source": tag, "phase": "runtime",
-                         "resident_nbytes": resident, "hbm_budget": budget,
-                         "chunk": chunks_seen})
-            if ckpt is not None and (idx + 1) % checkpoint_every == 0:
-                if monitor is not None:
-                    # a snapshot must not hold a carry that a chunk whose
-                    # word is still in flight poisoned
-                    monitor.flush()
-                ckpt.save(fingerprint, idx + 1, carry,
-                          None if quarantine is None else quarantine.state(),
-                          numerics=None if sketch is None
-                          else sketch.state())
+        if world is None:
+            for chunk, lchunk in pairs:
+                idx += 1
+                if idx < start_chunk:
+                    continue  # resume replay: already in the restored carry
+                accumulate_one(chunk, lchunk)
+                if ckpt is not None and (idx + 1) % checkpoint_every == 0:
+                    q_state, n_state = snapshot_states()
+                    ckpt.save(fingerprint, idx + 1, carry, q_state,
+                              numerics=n_state)
+        else:
+            final_state = None
+            local_done = False
+            last_saved = -1          # this rank's last durable sidecar
+            last_merged = None       # rank 0: sidecar frontier merged
+            pending = None           # dispatched, unawaited round
+            pending_snap = None      # (cursor, CarrySnapshot, states)
+            pinned: List[torch.Tensor] = []
+            while True:
+                in_round = 0
+                while in_round < round_len and not local_done:
+                    try:
+                        chunk, lchunk = next(pairs)
+                    except StopIteration:
+                        local_done = True
+                        break
+                    idx += 1
+                    if idx < start_chunk:
+                        continue  # resume replay
+                    accumulate_one(chunk, lchunk)
+                    in_round += 1
+                # the lagged sidecar: the copy cut at the last boundary
+                # drained behind this round's chunks, and it lands (atomic
+                # rename) before the dispatch below reports its cursor
+                if pending_snap is not None:
+                    snap_cursor, snap, q_state, n_state = pending_snap
+                    ckpt.save_host(fingerprint, world.pid, snap_cursor,
+                                   None if snap is None else snap.host(),
+                                   q_state, numerics=n_state)
+                    last_saved = snap_cursor
+                    pending_snap = None
+                new_pending = world.step_begin(
+                    cursor=idx + 1, done=local_done,
+                    has_carry=carry is not None, saved_cursor=last_saved)
+                if ckpt is not None and idx + 1 != last_saved:
+                    # cut this boundary's copy before the next chunk
+                    # updates the carry in place
+                    q_state, n_state = snapshot_states()
+                    pending_snap = (
+                        idx + 1,
+                        None if carry is None else CarrySnapshot(carry,
+                                                                 pinned),
+                        q_state, n_state)
+                if pending is not None:
+                    state = world.step_await(pending)
+                    if (ckpt is not None and world.pid == 0
+                            and min(state.saved_cursors) >= 0
+                            and state.saved_cursors != last_merged):
+                        ckpt.merge_hosts(world.nproc)
+                        last_merged = state.saved_cursors
+                    if state.all_done:
+                        final_state = state
+                        # every rank saw all_done at the same awaited
+                        # round, so every rank drains the same last one
+                        world.step_await(new_pending)
+                        break
+                pending = new_pending
+            if not all(final_state.carries):
+                # every rank learned it from the same round, so every
+                # rank raises the same error here
+                empty = [p for p, c in enumerate(final_state.carries)
+                         if not c]
+                raise ValueError(
+                    f"empty stream: rank(s) {empty} of {world.nproc} "
+                    f"produced no chunks for {tag!r}; every rank must own "
+                    "at least one chunk (repack the data into >= "
+                    "process_count shards, or shrink the world)")
     finally:
         pairs.close()
         if fence_armed:
@@ -983,9 +1108,19 @@ def fit_streaming(estimator: Any, data: StreamingDataset, labels: Any = None,
         monitor.flush()
     if carry is None:
         raise ValueError("empty stream: nothing to fit")
+    if world is not None:
+        # gather every rank's carry once and sum in rank order: every rank
+        # finalizes the same merged carry into the same weights
+        t0 = time.perf_counter()
+        carry = world.merge_carries(
+            carry, reducer=getattr(estimator, "merge_carries", None))
+        record_span(f"merge:{tag}", "coord", t0, time.perf_counter() - t0)
+        reg.histogram("coord.merge_s").observe(time.perf_counter() - t0)
     model = estimator.finalize(carry)
     check_fitted(model, tag)
     baseline = None if sketch is None else sketch.baseline()
+    if baseline is not None and world is not None:
+        baseline = world.merge_baselines(baseline)
     if baseline is not None:
         try:
             model.numerics_baseline = baseline
@@ -994,12 +1129,21 @@ def fit_streaming(estimator: Any, data: StreamingDataset, labels: Any = None,
         record_numerics_event("fit_baseline", source=tag, rows=baseline.rows,
                               cols=int(len(baseline.cols)))
     if ckpt is not None:
-        ckpt.clear()
+        if world is not None:
+            # every rank is past its finalize before the shared snapshot
+            # goes (a rank lost here would find nothing to resume); rank 0
+            # owns the shared files
+            world.barrier("finalize-clear")
+            if world.pid == 0:
+                ckpt.clear()
+        else:
+            ckpt.clear()
     trace = current_trace()
     if trace is not None:
         trace.record_streamed_fit({
             "source": tag, "chunks": chunks_seen, "resumed_at": start_chunk,
             "static_plan_nbytes": plan,
             "peak_device_nbytes": float(data.peak_device_nbytes),
-            "hbm_budget": budget})
+            "hbm_budget": budget,
+            "processes": 1 if world is None else world.nproc})
     return model

@@ -27,7 +27,7 @@ from ....nodes.stats.sampling import sample_indices, sample_rows
 from ....nodes.util import ClassLabelIndicatorsFromIntLabels, MaxClassifier
 from ....ops.device import DEFAULT_DEVICE, resolve_device
 from ....ops.image_ops import normalize_rows
-from ....parallel.dataset import ArrayDataset
+from ....parallel.dataset import ArrayDataset, shard_dataset
 from ....workflow.common import Cacher
 
 NUM_CLASSES = 10
@@ -113,7 +113,9 @@ def build_pipeline(filters: np.ndarray, whitener: ZCAWhitener,
 def run(config: RandomCifarConfig, train: Optional[LabeledData] = None,
         test: Optional[LabeledData] = None, device=DEFAULT_DEVICE):
     """Fit on ``train``, evaluate on both sets; returns the fitted
-    pipeline and the two evaluations."""
+    pipeline and the two evaluations. In a world of several ranks
+    (``parallel/mesh.py``) each rank fits its block of the training rows
+    and every rank ends with the same fitted pipeline."""
     dev = resolve_device(device)
     start = time.time()
     train = (cifar_loader(config.train_location, device=dev) if train is None
@@ -121,12 +123,17 @@ def run(config: RandomCifarConfig, train: Optional[LabeledData] = None,
     test = (cifar_loader(config.test_location, device=dev) if test is None
             else test.to(dev))
 
+    # in a world each rank fits its block of the training rows (the
+    # scaler's moments and the block solve sum over the ranks,
+    # ops/linalg.py); the filters come from the whole set on every rank,
+    # so every rank featurizes alike
+    fit_images = shard_dataset(train.data)
     train_labels = (
         ClassLabelIndicatorsFromIntLabels(NUM_CLASSES) >> Cacher("labels")
-    )(train.labels)
+    )(shard_dataset(train.labels))
 
     filters, whitener = learn_filters(train.data, config)
-    pipeline = build_pipeline(filters, whitener, config, train.data,
+    pipeline = build_pipeline(filters, whitener, config, fit_images,
                               train_labels).fit()
 
     train_eval = evaluate_multiclass(pipeline(train.data), train.labels,
@@ -154,7 +161,7 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=DEFAULT_DEVICE)
     a = p.parse_args(argv)
-    run(
+    return run(
         RandomCifarConfig(
             train_location=a.trainLocation,
             test_location=a.testLocation,

@@ -1,6 +1,6 @@
 """Resilient execution for the port's streamed fits.
 
-Counterpart of ``keystone_tpu/resilience`` on one process:
+Counterpart of ``keystone_tpu/resilience``:
 
 * :mod:`.retry`: :class:`RetryPolicy` (exponential backoff with seeded
   jitter, per-attempt timeout, retryable classification) around chunk
@@ -11,13 +11,22 @@ Counterpart of ``keystone_tpu/resilience`` on one process:
   :func:`fit_fingerprint`, the atomic snapshot and bit-identical resume
   of a streamed fit;
 * :mod:`.faults`: :class:`FaultPlan` / :func:`inject` /
-  :func:`corrupt`, seeded fault injection at the ingest sites.
+  :func:`corrupt`, seeded fault injection at the ingest, serving and
+  coordination sites, with the host-level kinds of a world.
 
 Every event goes through :mod:`.events` into the ``resilience.*``
 counters, the flight recorder and the active trace.
 """
-from .events import record_event
-from .faults import FaultPlan, FaultSpec, InjectedFaultError, corrupt, inject
+from .events import record_event, set_process_dimension
+from .faults import (
+    HOST_DEATH_EXIT_CODE,
+    FaultPlan,
+    FaultSpec,
+    InjectedFaultError,
+    PartitionError,
+    corrupt,
+    inject,
+)
 from .quarantine import (
     CorruptRecordError,
     Quarantine,
@@ -39,11 +48,11 @@ from .stream_checkpoint import (
     fit_fingerprint,
 )
 
-# the JAX package's public names less the world-level ones (ROADMAP
-# A11: HOST_DEATH_EXIT_CODE, PartitionError, set_process_dimension);
-# `corrupt` is imported above and stays importable from here
+# the JAX package's public names; `corrupt` is imported above and stays
+# importable from here
 __all__ = [
     "AttemptTimeoutError",
+    "HOST_DEATH_EXIT_CODE",
     "CheckpointCorruptError",
     "CheckpointMismatchError",
     "CorruptRecordError",
@@ -51,9 +60,11 @@ __all__ = [
     "FaultSpec",
     "IngestTimeoutError",
     "InjectedFaultError",
+    "PartitionError",
     "Quarantine",
     "QuarantineBudgetExceededError",
     "drop_quarantined_rows",
+    "set_process_dimension",
     "RetryExhaustedError",
     "RetryPolicy",
     "StreamCheckpoint",

@@ -24,6 +24,9 @@ site                  where
                       once per warmup bucket (a fault there rolls the
                       admission back)
 ``serve.evict``       per explicit eviction, before any change
+``coord.step``        per coordination round, at its dispatch
+                      (``parallel.distributed.WorldCoordinator``)
+``coord.await``       per coordination round, at its await point
 ====================  ==================================================
 
 ``inject`` is one global read when no plan is active. Under
@@ -42,9 +45,18 @@ site                  where
 ``rate`` draws from the plan's ``RandomState(seed)``, one draw per
 visit past ``after`` and under ``count``, as the JAX package draws.
 
-The JAX package's world-level kinds (``host_death``, ``partition``) and
-the ``process_id`` gate wait for the multi-GPU slice (ROADMAP A11): the
-port has no world to gate them by yet.
+Host-level kinds, for the world (``parallel/distributed.py``). Every
+spec takes ``process_id=``: the rule fires only on that rank (None:
+every rank), so one plan installed alike on every rank kills exactly
+one:
+
+* ``kind="host_death"`` ends the process at once with ``os._exit``
+  (:data:`HOST_DEATH_EXIT_CODE`), flushing nothing, as a lost machine;
+* ``kind="partition"`` raises :class:`PartitionError`, a
+  ``ConnectionError``: retried at an ingest site, fatal at a
+  coordination site (the world relaunches and resumes);
+* ``kind="straggler"`` sleeps ``delay_s`` per fired visit: one slow
+  rank holds back every round.
 """
 from __future__ import annotations
 
@@ -64,7 +76,25 @@ class InjectedFaultError(TransientError):
     """The default injected failure: transient, so retries absorb it."""
 
 
-_KINDS = ("error", "latency", "hang", "corrupt", "straggler")
+class PartitionError(ConnectionError):
+    """An injected network partition (``kind="partition"``): the rank
+    runs but cannot reach its peers. ``ConnectionError`` is retryable at
+    an ingest site; at a coordination site it ends the step and the
+    world recovers by relaunch and resume."""
+
+
+#: the exit status of a ``kind="host_death"`` injection: the launcher
+#: and the elastic gate tell a deliberately killed rank from a crash by it
+HOST_DEATH_EXIT_CODE = 117
+
+_KINDS = ("error", "latency", "hang", "corrupt", "host_death", "partition",
+          "straggler")
+
+
+def _process_index() -> int:
+    from ..parallel.mesh import process_index
+
+    return process_index()
 
 
 @dataclass
@@ -79,6 +109,7 @@ class FaultSpec:
     error: Optional[Callable[[str], BaseException]] = None
     delay_s: float = 0.05        # latency duration / hang cap
     mutate: Optional[Callable[[Any], Any]] = None
+    process_id: Optional[int] = None  # only this rank fires
     visits: int = field(default=0, compare=False)
     injected: int = field(default=0, compare=False)
 
@@ -127,17 +158,18 @@ class FaultPlan:
             after: int = 0, count: Optional[int] = None,
             error: Optional[Callable[[str], BaseException]] = None,
             delay_s: Optional[float] = None,
-            mutate: Optional[Callable[[Any], Any]] = None) -> "FaultPlan":
+            mutate: Optional[Callable[[Any], Any]] = None,
+            process_id: Optional[int] = None) -> "FaultPlan":
         if kind not in _KINDS:
-            raise ValueError(f"unknown fault kind {kind!r} (the host-level "
-                             "kinds wait for the multi-GPU port)")
+            raise ValueError(f"unknown fault kind {kind!r}")
         if not 0.0 < rate <= 1.0:
             raise ValueError("rate must be in (0, 1]")
         if delay_s is None:
             delay_s = 0.25 if kind == "straggler" else 0.05
         self._specs.setdefault(site, []).append(FaultSpec(
             site=site, kind=kind, rate=rate, after=int(after), count=count,
-            error=error, delay_s=float(delay_s), mutate=mutate))
+            error=error, delay_s=float(delay_s), mutate=mutate,
+            process_id=None if process_id is None else int(process_id)))
         return self
 
     def __enter__(self) -> "FaultPlan":
@@ -160,7 +192,10 @@ class FaultPlan:
 
     def _fires(self, spec: FaultSpec, site: str, context: Any) -> bool:
         """The visit/after/count/rate gate of one spec (one RNG draw per
-        gated visit)."""
+        gated visit). A rule aimed at another rank is dormant here."""
+        if spec.process_id is not None and \
+                spec.process_id != _process_index():
+            return False
         with self._lock:
             spec.visits += 1
             if spec.visits <= spec.after:
@@ -190,6 +225,20 @@ class FaultPlan:
                        and not (abort is not None and abort())
                        and time.perf_counter() < deadline):
                     pass
+            elif spec.kind == "host_death":
+                # a lost machine: no flush, no exit handlers, no goodbye
+                # to the peers, which see a dead rank
+                import os
+                import sys
+
+                print(f"FAULT host_death at {site} (process "
+                      f"{_process_index()}, {context})", file=sys.stderr,
+                      flush=True)
+                os._exit(HOST_DEATH_EXIT_CODE)
+            elif spec.kind == "partition":
+                raise PartitionError(
+                    f"injected network partition at {site} (process "
+                    f"{_process_index()}, {context})")
             else:
                 msg = f"injected fault at {site} ({context})"
                 raise (spec.error(msg) if spec.error is not None

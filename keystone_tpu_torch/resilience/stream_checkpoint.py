@@ -1,7 +1,7 @@
 """Checkpoint and resume of a streamed fit.
 
-Counterpart of ``keystone_tpu/resilience/stream_checkpoint.py`` on one
-process. A streamed fit has one piece of evolving state, the
+Counterpart of ``keystone_tpu/resilience/stream_checkpoint.py``. A
+streamed fit has one piece of evolving state, the
 estimator's carry (Gram, cross products, moments) and the chunk cursor,
 so a snapshot costs O(d (d + k)), not O(n), and a resume is exact:
 
@@ -23,10 +23,16 @@ and C, the scalers' sums use ``+=``), so :func:`snapshot_carry` clones
 each tensor on the current stream before the next accumulate is
 enqueued, and copies the clone into pinned host memory behind an event.
 
-The JAX package's per-host world snapshots (``save_host``,
-``merge_hosts``, ``load_world``) wait for the multi-GPU slice (ROADMAP
-A11). Truncated or foreign files raise :class:`CheckpointCorruptError`
-(shared with ``utils/checkpoint.py``) naming the path.
+A world of N ranks checkpoints as one WORLD snapshot in a shared
+directory: each rank writes its sidecar (``save_host``) and rank 0 folds
+them into the world snapshot (``merge_hosts``), which ``load_world``
+reads back slice by slice. The snapshot records the world size and the
+fingerprint folds it too, so a world resumes only at the size that wrote
+it: a snapshot of 2 ranks loaded by 4 ranks or by one process, or one
+process's snapshot loaded by a world, raises
+:class:`CheckpointMismatchError`. Truncated or foreign files raise
+:class:`CheckpointCorruptError` (shared with ``utils/checkpoint.py``)
+naming the path.
 """
 from __future__ import annotations
 
@@ -102,9 +108,11 @@ def fit_fingerprint(estimator: Any, data: Any, labels: Any = None) -> str:
     policy, and the labels (resident labels by a digest of their
     content, streamed labels by their geometry). ``prefetch_depth`` and
     the retry and watchdog settings change scheduling, not results, and
-    are left out, so a resume may tune them. The fingerprint cannot see
-    a stream's content without consuming it: keep the source the same
-    across a resume."""
+    are left out, so a resume may tune them. Under a world the world
+    size folds in (each rank's stream is its shard, so a resume at
+    another size would replay other rows under the old cursors). The
+    fingerprint cannot see a stream's content without consuming it: keep
+    the source the same across a resume."""
     if labels is None:
         labels_key: Any = None
     elif hasattr(labels, "chunk_size") and hasattr(labels, "chunks"):
@@ -127,6 +135,10 @@ def fit_fingerprint(estimator: Any, data: Any, labels: Any = None) -> str:
         "compute_dtype": data.compute_dtype_name(),
         "labels": labels_key,
     }
+    from ..parallel.mesh import process_count
+
+    if process_count() > 1:
+        parts["topology"] = {"processes": process_count()}
     blob = json.dumps(parts, sort_keys=True, default=str)
     return hashlib.sha256(blob.encode()).hexdigest()[:16]
 
@@ -251,6 +263,15 @@ class StreamCheckpoint:
         if not os.path.exists(self.path):
             return None
         blob = self._read_blob(self.path)
+        topo = blob.get("topology")
+        if topo is not None:
+            raise CheckpointMismatchError(
+                f"stream checkpoint {self.path!r} was written by a "
+                f"{topo.get('processes')}-process world; a single-process "
+                "fit cannot resume it (the per-rank cursors hold only under "
+                "the original shard partition). Relaunch at world size "
+                f"{topo.get('processes')}, or delete the checkpoint "
+                "directory to start over")
         if blob.get("fingerprint") != fingerprint:
             raise CheckpointMismatchError(
                 f"stream checkpoint {self.path!r} was written by a different "
@@ -262,10 +283,98 @@ class StreamCheckpoint:
                      cursor=int(blob["cursor"]))
         return blob
 
+    # -- world snapshots ------------------------------------------------------
+    def host_path(self, process_id: int) -> str:
+        """A rank's sidecar, beside the world snapshot (the directory is
+        shared storage, as the resume needs anyway)."""
+        base, ext = os.path.splitext(self.path)
+        return f"{base}.host{int(process_id)}{ext}"
+
+    def save_host(self, fingerprint: str, process_id: int, cursor: int,
+                  carry: Any,
+                  quarantine_state: Optional[Dict[str, Any]] = None,
+                  numerics: Optional[Dict[str, Any]] = None) -> None:
+        """One rank's part of a coordinated snapshot, written atomically
+        to its sidecar. ``carry`` is already on the host (the world loop
+        lands a :class:`CarrySnapshot` one round after cutting it)."""
+        t0 = time.perf_counter()
+        atomic_pickle_dump({
+            "magic": self.MAGIC, "version": self.VERSION,
+            "fingerprint": fingerprint, "process_id": int(process_id),
+            "cursor": int(cursor), "carry": carry,
+            "quarantine": quarantine_state, "numerics": numerics},
+            self.host_path(process_id))
+        MetricsRegistry.get_or_create().histogram(
+            "checkpoint.write_s").observe(time.perf_counter() - t0)
+        record_event("checkpoint_save", path=self.host_path(process_id),
+                     cursor=int(cursor))
+
+    def merge_hosts(self, processes: int) -> None:
+        """Fold every rank's sidecar into the world snapshot (rank 0,
+        after a round in which every rank reported a durable sidecar).
+        The snapshot holds each rank's cursor, carry and states plus the
+        world size, so a relaunched world restores each rank's place and
+        a world of another size is refused before anything is touched."""
+        hosts = []
+        for p in range(int(processes)):
+            blob = self._read_blob(self.host_path(p))
+            hosts.append({k: blob.get(k) for k in
+                          ("fingerprint", "cursor", "carry", "quarantine",
+                           "numerics")})
+        atomic_pickle_dump({
+            "magic": self.MAGIC, "version": self.VERSION,
+            "topology": {"processes": int(processes)}, "hosts": hosts},
+            self.path)
+        record_event("checkpoint_save", path=self.path,
+                     cursor=min(int(h["cursor"]) for h in hosts),
+                     world=int(processes))
+
+    def load_world(self, fingerprint: str, process_id: int,
+                   processes: int) -> Optional[Dict[str, Any]]:
+        """This rank's slice of the last world snapshot, or None. The
+        world size is checked first: a snapshot of another size, or of
+        one process, raises :class:`CheckpointMismatchError` naming
+        both."""
+        if not os.path.exists(self.path):
+            return None
+        blob = self._read_blob(self.path)
+        topo = blob.get("topology")
+        if topo is None:
+            raise CheckpointMismatchError(
+                f"stream checkpoint {self.path!r} was written by a "
+                f"single-process fit; a {int(processes)}-process world "
+                "cannot resume it (the shard partition differs). Relaunch "
+                "single-process, or delete the checkpoint directory to "
+                "start over")
+        if int(topo.get("processes", -1)) != int(processes):
+            raise CheckpointMismatchError(
+                f"stream checkpoint {self.path!r} was written by a "
+                f"{topo.get('processes')}-process world but this world has "
+                f"{int(processes)} processes; refusing to resume (the "
+                "per-rank cursors hold only under the original shard "
+                f"partition). Relaunch at world size "
+                f"{topo.get('processes')}, or delete the checkpoint "
+                "directory to start over")
+        host = blob["hosts"][int(process_id)]
+        if host.get("fingerprint") != fingerprint:
+            raise CheckpointMismatchError(
+                f"stream checkpoint {self.path!r} (rank {process_id} slice) "
+                f"was written by a different fit configuration (fingerprint "
+                f"{host.get('fingerprint')!r} != {fingerprint!r}); refusing "
+                "to resume. Delete the checkpoint directory to start over, "
+                "or restore the original estimator, chunk size and labels")
+        record_event("checkpoint_restore", path=self.path,
+                     cursor=int(host["cursor"]))
+        return dict(host)
+
     def clear(self) -> None:
-        """Remove the snapshot after a finished fit (a stale snapshot
-        must never seed a later, unrelated fit)."""
-        try:
-            os.remove(self.path)
-        except FileNotFoundError:
-            pass
+        """Remove the snapshot and any rank sidecars after a finished fit
+        (a stale snapshot must never seed a later, unrelated fit)."""
+        import glob
+
+        base, ext = os.path.splitext(self.path)
+        for path in [self.path] + glob.glob(f"{base}.host*{ext}"):
+            try:
+                os.remove(path)
+            except FileNotFoundError:
+                pass

@@ -64,7 +64,12 @@ flight recorder, request traces and SLO tracker.
   drift baseline has its inputs scored (``score_drift``), after the
   batch's futures resolve.
 
-Left out, to its ROADMAP item: the mesh and ``data_shards`` (A11).
+``data_shards > 1`` sizes admission for the sharded apply
+(``parallel/spmd_apply.py``): ``hbm_budget`` then reads as ONE rank's
+budget, each model's mapper weights divide over the data axis at rest
+with one gather transient charged, and the activation is the rank's row
+shard of the bucket (``serving/residency.py``), so a model larger than
+one rank's budget can be placed.
 
 Thread model: caller and handler threads run ``admit`` / ``submit``;
 ``workers`` threads drain the batcher. ``_models``, ``_evicted``,
@@ -165,10 +170,13 @@ class ServingPlane:
                  nonfinite_guard: bool = True,
                  postmortem_min_interval_s: float = 30.0,
                  workers: Optional[int] = None,
-                 device=DEFAULT_DEVICE):
+                 device=DEFAULT_DEVICE, data_shards: int = 1):
         from ..observability.slo import SloTracker
 
         self.device = resolve_device(device)
+        #: >1: admission charges one rank's share under the sharded
+        #: apply (see the module docstring)
+        self.data_shards = max(int(data_shards), 1)
         self.policy = policy or BucketPolicy(max_batch)
         self.ledger = ResidencyLedger(hbm_budget)
         self.batcher = MicroBatcher(queue_depth)
@@ -328,7 +336,8 @@ class ServingPlane:
         with self._admit_lock:
             charge = model_charge(pipeline, _zeros_batch(sample, 1),
                                   buckets[-1], self.device,
-                                  graph_rows(self.policy, self.device))
+                                  graph_rows(self.policy, self.device),
+                                  data_shards=self.data_shards)
         entry = ServedModel(name=name, fitted=pipeline, blob=blob,
                             sample=sample, charge=charge, buckets=buckets,
                             weight_dtype=wd,

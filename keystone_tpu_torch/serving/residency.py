@@ -66,12 +66,26 @@ class ModelCharge:
     graph_nbytes: float = 0.0
     #: the pools alone, as the probe captures measured them
     pool_nbytes: float = 0.0
+    #: >1: the charge is ONE rank's under the sharded apply
+    #: (``parallel/spmd_apply.py``): the shardable fitted bytes divide
+    #: over the data axis, one gather transient is charged, and the
+    #: activation is this rank's row shard of the bucket
+    data_shards: int = 1
+    shardable_nbytes: float = 0.0
+    gather_nbytes: float = 0.0
 
     def activation_nbytes(self) -> float:
-        return float(self.item_nbytes) * float(self.bucket_rows)
+        shards = max(int(self.data_shards), 1)
+        rows = -(-int(self.bucket_rows) // shards)
+        return float(self.item_nbytes) * float(rows)
 
     def total_nbytes(self) -> float:
-        return (float(self.model_nbytes) + self.activation_nbytes()
+        shards = max(int(self.data_shards), 1)
+        shardable = min(float(self.shardable_nbytes),
+                        float(self.model_nbytes))
+        resident = float(self.model_nbytes) - shardable + shardable / shards
+        gather = float(self.gather_nbytes) if shards > 1 else 0.0
+        return (resident + gather + self.activation_nbytes()
                 + float(self.graph_nbytes))
 
 
@@ -162,7 +176,8 @@ def _probe_pool_nbytes(fitted: Any, zero_item: Any, bucket_rows: int,
 
 
 def model_charge(fitted: Any, zero_item: Any, bucket_rows: int,
-                 device, graph_rows: Sequence[int] = ()) -> ModelCharge:
+                 device, graph_rows: Sequence[int] = (),
+                 data_shards: int = 1) -> ModelCharge:
     """The admission charge of ``fitted`` (a fitted pipeline) serving
     items like ``zero_item`` (host arrays of one row, leading dim 1) at a
     largest bucket of ``bucket_rows`` rows on ``device``. Model bytes from
@@ -170,7 +185,13 @@ def model_charge(fitted: Any, zero_item: Any, bucket_rows: int,
     probe apply (the static planner the JAX package sizes it with is not
     ported yet), hence ``source="probed"``. ``graph_rows`` lists the
     bucket rows of every graph the plane will capture (CUDA only): each
-    is charged its own probed pool and its own static input."""
+    is charged its own probed pool and its own static input.
+    ``data_shards > 1`` sizes ONE rank's charge under the sharded apply:
+    the mappers' weights row-shard at rest (their
+    ``sharded_apply_nbytes`` hooks), one gather transient is charged, and
+    the activation is the rank's row shard of the bucket."""
+    from ..analysis.resources import sharded_apply_nbytes
+
     dev = torch.device(device)
     graph = fitted.to_pipeline().graph
     item = _probe_item_nbytes(fitted, zero_item, dev)
@@ -182,10 +203,14 @@ def model_charge(fitted: Any, zero_item: Any, bucket_rows: int,
         for rows in graph_rows:
             pools += _probe_pool_nbytes(fitted, zero_item, int(rows), dev)
             static += in_row * int(rows)
+    shards = max(int(data_shards), 1)
+    shardable, gather = (sharded_apply_nbytes(graph) if shards > 1
+                         else (0.0, 0.0))
     return ModelCharge(model_nbytes=fitted_model_nbytes(graph),
                        item_nbytes=item, bucket_rows=int(bucket_rows),
                        source="probed", graph_nbytes=pools + static,
-                       pool_nbytes=pools)
+                       pool_nbytes=pools, data_shards=shards,
+                       shardable_nbytes=shardable, gather_nbytes=gather)
 
 
 @guarded_by("_lock", "_charges")

@@ -15,8 +15,8 @@
 and, unless ``--no-tests``, the dynamic gates on ``--device`` (default
 ``cuda``):
 
-4. ``recompile_gate``, 5. ``numerics_gate``, 6. the elastic gate, which
-   waits for the multi-GPU port (ROADMAP A11) and says so,
+4. ``recompile_gate``, 5. ``numerics_gate``, 6. ``elastic_gate`` (a
+   2-rank world killed and resumed, bit-identical weights),
 7. ``serving_gate``, 8. ``chaos_gate --seeds N`` (default 2),
 9. ``fleet_gate``, 10. the bounded-seed schedule suite
    (``tests/test_torch_concurrency_sched.py``, which imports nothing of
@@ -137,7 +137,8 @@ def main(argv=None) -> int:
                                 "recompile_gate", *dev]),
             ("numerics gate", ["-m", "keystone_tpu_torch.tools."
                                "numerics_gate", *dev]),
-            ("elastic gate", None),
+            ("elastic gate", ["-m", "keystone_tpu_torch.tools."
+                              "elastic_gate", *dev]),
             ("serving gate", ["-m", "keystone_tpu_torch.tools."
                               "serving_gate", *dev]),
             (f"chaos gate (--seeds {args.chaos_seeds})",
@@ -150,11 +151,6 @@ def main(argv=None) -> int:
               "-p", "no:cacheprovider", "--noconftest"]),
         ]
         for label, cmd in gates_:
-            if cmd is None:
-                print(f"== {NAME}: {label} ==\n{NAME}: {label} waits for "
-                      "the multi-GPU port (ROADMAP A11): no world to kill "
-                      "a host of yet", flush=True)
-                continue
             rc, seconds = _run(label, cmd)
             times.append((label, seconds))
             if rc:

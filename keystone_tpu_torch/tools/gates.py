@@ -4,8 +4,8 @@ small fitted model the serving gates admit.
 
 The gates (each ``python -m keystone_tpu_torch.tools.<gate> [--device
 cuda|cpu]``, default ``cuda``, exit 0 clean and non-zero with a named
-reason): ``recompile_gate``, ``numerics_gate``, ``serving_gate``,
-``chaos_gate`` and ``fleet_gate``; ``ci`` chains them.
+reason): ``recompile_gate``, ``numerics_gate``, ``elastic_gate``,
+``serving_gate``, ``chaos_gate`` and ``fleet_gate``; ``ci`` chains them.
 """
 from __future__ import annotations
 

@@ -18,7 +18,9 @@ failures as ``file:line: code: message``:
 2. **The concurrency passes** (``analysis/concurrency.py``).
 3. **The hot-path and publication passes** (``analysis/hotpath.py``),
    whose full-tree scan must also finish under
-   ``HOTPATH_SCAN_BUDGET_S``.
+   ``HOTPATH_SCAN_BUDGET_S``, and **the SPMD passes**
+   (``analysis/spmd.py``): collective divergence, barrier and payload
+   stability, collective axes, world checkpoints, unawaited rounds.
 4. **The donation shape gate** (``utils/donation.py``): every
    registered in-place update runs on its probe's meta tensors and must
    write each carry tensor in place; a site without a probe fails.
@@ -171,6 +173,14 @@ def run_hotpath_rules() -> int:
     return failures
 
 
+def run_spmd_rules() -> int:
+    from keystone_tpu_torch.analysis.spmd import scan_package
+
+    failures, elapsed = _scan(scan_package)
+    print(f"spmd passes: {failures} failure(s) in {elapsed:.2f}s")
+    return failures
+
+
 def _donating_modules() -> List[str]:
     """Every package module declaring an in-place update, found by the
     same AST pass the hazard rule uses: a new site is probed without a
@@ -256,6 +266,7 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.2f}s")
     failures += run_concurrency_rules()
     failures += run_hotpath_rules()
+    failures += run_spmd_rules()
     failures += run_donation_shape_gate()
     failures += run_ruff()
     if "--skip-apps" not in argv:

@@ -12,7 +12,9 @@ from typing import Any
 __all__ = [
     "donation_enabled",
     "load_pipeline",
+    "load_state",
     "save_pipeline",
+    "save_state",
     "StepTimer",
     "trace",
 ]
@@ -20,7 +22,9 @@ __all__ = [
 _HOMES = {
     "donation_enabled": "donation",
     "load_pipeline": "checkpoint",
+    "load_state": "checkpoint",
     "save_pipeline": "checkpoint",
+    "save_state": "checkpoint",
     "StepTimer": "profiling",
     "trace": "profiling",
 }

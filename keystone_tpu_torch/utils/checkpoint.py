@@ -11,6 +11,9 @@ corrupt, of another kind or another version raises
 :class:`CheckpointCorruptError` naming the path. Unpickling runs code:
 load only files this program wrote.
 
+``save_state`` / ``load_state`` persist the fitted transformers of the
+prefix table (``PipelineEnv.state``) under the same header, so a later
+pipeline with the same prefixes skips refitting them.
 ``save_pca_csv`` writes a fitted PCA projection as the CSV artifact the
 ImageNet and VOC apps' ``pca_file`` options read; ``SolverCheckpoint``
 is the per-pass checkpoint of the weighted block solver.
@@ -41,11 +44,10 @@ def save_pipeline(pipeline: FittedPipeline, path: str) -> None:
                          "kind": "pipeline", "payload": pipeline}, path)
 
 
-def load_pipeline(path: str, device=DEFAULT_DEVICE) -> FittedPipeline:
-    """Read a pipeline written by :func:`save_pipeline` and stage its
-    fitted tensors on ``device`` (default ``"cuda"``; raises when CUDA
-    is asked for and absent)."""
-    dev = resolve_device(device)
+def _load_checked(path: str, kind: str):
+    """The payload of a file written under the header with ``kind``;
+    anything else raises :class:`CheckpointCorruptError` naming the
+    path (a missing file raises ``FileNotFoundError``)."""
     try:
         with open(path, "rb") as f:
             blob = pickle.load(f)
@@ -63,11 +65,19 @@ def load_pipeline(path: str, device=DEFAULT_DEVICE) -> FittedPipeline:
         raise CheckpointCorruptError(
             f"checkpoint {path!r} has format version "
             f"{blob.get('version')!r}; this build reads version {_VERSION}")
-    if blob.get("kind") != "pipeline":
+    if blob.get("kind") != kind:
         raise CheckpointCorruptError(
             f"checkpoint {path!r} holds a {blob.get('kind')!r} artifact, "
-            "not a 'pipeline'")
-    out = blob.get("payload")
+            f"not a {kind!r}")
+    return blob.get("payload")
+
+
+def load_pipeline(path: str, device=DEFAULT_DEVICE) -> FittedPipeline:
+    """Read a pipeline written by :func:`save_pipeline` and stage its
+    fitted tensors on ``device`` (default ``"cuda"``; raises when CUDA
+    is asked for and absent)."""
+    dev = resolve_device(device)
+    out = _load_checked(path, "pipeline")
     if not isinstance(out, FittedPipeline):
         raise CheckpointCorruptError(
             f"checkpoint {path!r} does not hold a FittedPipeline (got "
@@ -78,6 +88,42 @@ def load_pipeline(path: str, device=DEFAULT_DEVICE) -> FittedPipeline:
         if stage is not None:
             stage(dev)
     return out
+
+
+def save_state(path: str) -> int:
+    """Write the fitted transformers of the global prefix table
+    (``PipelineEnv.state``) to ``path`` atomically, under the header;
+    returns how many were saved. Dataset entries are a session's device
+    values and are not saved."""
+    from ..workflow.env import PipelineEnv
+    from ..workflow.expression import TransformerExpression
+
+    out = {prefix: expr.get()
+           for prefix, expr in PipelineEnv.get_or_create().state.items()
+           if isinstance(expr, TransformerExpression) and expr.computed}
+    _atomic_pickle_dump({"format": _FORMAT, "version": _VERSION,
+                         "kind": "state", "payload": out}, path)
+    return len(out)
+
+
+def load_state(path: str) -> int:
+    """Merge the fitted transformers of a :func:`save_state` file into
+    the prefix table; returns how many were loaded. A pipeline whose
+    prefixes match skips refitting them (``SavedStateLoadRule``)."""
+    from ..workflow.env import PipelineEnv
+    from ..workflow.expression import TransformerExpression
+
+    saved = _load_checked(path, "state")
+    if not isinstance(saved, dict):
+        raise CheckpointCorruptError(
+            f"checkpoint {path!r} does not hold a prefix-state table "
+            f"(got {type(saved).__name__})")
+    env = PipelineEnv.get_or_create()
+    for prefix, fitted in saved.items():
+        # a thunk: a fitted transformer is itself callable, and an
+        # Expression would call it
+        env.state[prefix] = TransformerExpression(lambda t=fitted: t)
+    return len(saved)
 
 
 def save_pca_csv(pca_mat, path: str) -> None:

@@ -151,7 +151,8 @@ class Chainable:
 
 
     def check(self, sample: Any = None, name: str = "pipeline",
-              hbm_budget: Optional[float] = None):
+              hbm_budget: Optional[float] = None,
+              data_shards: Optional[int] = None):
         """Statically check this stage or pipeline: propagate shape and
         dtype specs from ``sample`` (a ``ShapeDtype``, ``(shape, dtype)``
         pair, tensor, Dataset or ``analysis`` spec describing ONE input
@@ -159,10 +160,13 @@ class Chainable:
         fold per-node resource effects into a static device-memory plan
         (``report.plan``). ``hbm_budget`` (bytes) turns a predicted
         over-budget fit into an ``hbm-budget`` error before anything runs.
+        ``data_shards`` is the data-axis width the plan pads resident
+        batches to (one rank's charge in a world of that many shards).
         Returns an :class:`~keystone_tpu_torch.analysis.AnalysisReport`."""
         from ..analysis import check_pipeline
 
-        return check_pipeline(self, sample, name=name, hbm_budget=hbm_budget)
+        return check_pipeline(self, sample, name=name, hbm_budget=hbm_budget,
+                              data_shards=data_shards)
 
 
 class Pipeline(Chainable):

@@ -243,20 +243,25 @@ def test_python_dash_m_lists_the_apps():
     assert listed == PORTED
 
 
-@pytest.mark.parametrize("argv,item", [
+@pytest.mark.parametrize("argv,missing", [
     (["text.newsgroups", "--trainLocation", "x", "--coordinator",
-      "localhost:1234"], "A11"),
-    (["text.amazon_reviews", "--num-processes", "2"], "A11"),
-    (["nlp.stupid_backoff", "--process-id=0"], "A11"),
-    (["check", "--all", "--shards", "8"], "A11"),
-    (["voc.sift_fisher", "--coordinator", "localhost:1234"], "A11"),
-    (["voc.sift_fisher", "--num-processes", "2"], "A11"),
-    (["mnist.random_fft", "--process-id=0"], "A11"),
+      "localhost:1234"], "num_processes and process_id"),
+    (["text.amazon_reviews", "--num-processes", "2"], "--coordinator"),
+    (["nlp.stupid_backoff", "--process-id=0"], "--coordinator"),
+    (["voc.sift_fisher", "--coordinator", "localhost:1234"],
+     "num_processes and process_id"),
+    (["voc.sift_fisher", "--num-processes", "2"], "--coordinator"),
+    (["mnist.random_fft", "--process-id=0"], "--coordinator"),
 ])
-def test_what_is_not_ported_exits_2_naming_its_item(argv, item, capsys):
+def test_an_incomplete_multi_process_launch_exits_2(argv, missing, capsys):
+    """The world's flags reach the launch, and an incomplete set exits 2
+    naming what is missing before any world starts (the JAX command's
+    rule: --num-processes / --process-id need --coordinator)."""
     assert tmain.main(argv) == 2
-    err = capsys.readouterr().err
-    assert f"ROADMAP {item}" in err and "not ported" in err
+    assert missing in capsys.readouterr().err
+    from keystone_tpu_torch.parallel.mesh import world
+
+    assert world() is None
 
 
 def _postmortem(tmp_path, monkeypatch):
@@ -290,13 +295,14 @@ def test_the_subcommands_exit_as_the_jax_ones(argv, code, tmp_path,
     port_out = capsys.readouterr().out
     assert jmain.main(jax_argv) == code
     if argv[0] == "check":
-        # the tree-wide scans run in both; the SPMD scan waits for A11
+        # the tree-wide scans run in both, the SPMD scan included
         for line in ("concurrency: clean", "metrics names: clean",
-                     "hotpath: clean", "spmd: not ported (ROADMAP A11)"):
+                     "hotpath: clean", "spmd: clean"):
             assert line in port_out
         port_blob = json.loads((tmp_path / "port.json").read_text())
         jax_blob = json.loads((tmp_path / "jax.json").read_text())
-        assert set(port_blob) == set(jax_blob) - {"spmd"}
+        assert set(port_blob) == set(jax_blob)
+        assert port_blob["spmd"] == []
         if "--xla" in argv:
             rows = port_blob["xla_verify"]
             assert [r["node_id"] for r in rows] == \
@@ -308,10 +314,27 @@ def test_the_subcommands_exit_as_the_jax_ones(argv, code, tmp_path,
 
 
 def test_keystone_distributed_exits_2(monkeypatch, capsys):
+    """KEYSTONE_DISTRIBUTED=1 reads torchrun's environment; without it
+    the launch exits 2 naming the missing variables."""
+    for key in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(key, raising=False)
     monkeypatch.setenv("KEYSTONE_DISTRIBUTED", "1")
     assert tmain.main(["voc.sift_fisher"]) == 2
-    assert "ROADMAP A11" in capsys.readouterr().err
+    assert "MASTER_ADDR" in capsys.readouterr().err
+    monkeypatch.delenv("KEYSTONE_DISTRIBUTED")
     assert tmain.main(["nope"]) == 2
+
+
+def test_check_shards_exits_as_the_jax_one(tmp_path, capsys):
+    """``check --shards N`` plans one rank's share, with the JAX
+    command's exit code and report keys."""
+    argv = ["check", "cifar.linear_pixels", "--shards", "8"]
+    assert tmain.main(argv + ["--json", str(tmp_path / "p.json")]) == 0
+    assert "spmd: clean" in capsys.readouterr().out
+    assert jmain.main(argv + ["--json", str(tmp_path / "j.json")]) == 0
+    assert set(json.loads((tmp_path / "p.json").read_text())) == set(
+        json.loads((tmp_path / "j.json").read_text()))
+    assert tmain.main(["check", "--all", "--shards", "0"]) == 2
 
 
 def _configs(module, argv, monkeypatch):

@@ -27,6 +27,7 @@ import torch
 
 from keystone_tpu_torch.nodes.images.core import FusedConvRectifyPool
 from keystone_tpu_torch.nodes.learning.linear import (
+    BlockLinearMapper,
     LinearMapEstimator,
     _quantize_weights,
 )
@@ -1334,3 +1335,89 @@ def test_cuda_gates_pass_on_the_card(cuda):
         assert proc.returncode == 0, (gate, proc.stdout[-3000:],
                                       proc.stderr[-3000:])
         assert "PASS" in proc.stdout
+
+
+def test_cuda_nccl_world_of_one_matches_no_world(cuda, tmp_path):
+    """An NCCL world of one rank on the card: ``merge_carries``, the
+    rank-sharded ``gram`` (the Gram kernel, then the gather) and
+    ``sharded_apply`` of a float32 and an int8 block mapper give the same
+    bits as the same calls without a world, and the kernels launch."""
+    from keystone_tpu_torch.ops import linalg
+    from keystone_tpu_torch.parallel.distributed import WorldCoordinator
+    from keystone_tpu_torch.parallel.mesh import (
+        initialize_distributed,
+        shutdown_distributed,
+        world_data_mesh,
+    )
+    from keystone_tpu_torch.parallel.spmd_apply import sharded_apply
+
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    X = torch.randn(300, 256, generator=gen).to(cuda)
+    W = torch.randn(256, 10, generator=gen)
+    f32 = BlockLinearMapper([W[:128], W[128:]], 128,
+                            intercept=torch.randn(10, generator=gen),
+                            feature_means=torch.randn(256, generator=gen))
+    q8 = BlockLinearMapper([W[:128], W[128:]], 128,
+                           intercept=f32.intercept,
+                           feature_means=f32.feature_means,
+                           weight_dtype="int8")
+    carry = (X.T @ X, X.sum(dim=0), 300)
+    solo = (sharded_apply(f32, X), sharded_apply(q8, X),
+            kernels.gram_cross(X, X[:, :0])[0])
+    before = dict(kernels.LAUNCHES)
+    w = initialize_distributed("file://" + str(tmp_path / "store"), 1, 0,
+                               device="cuda", quiet=True)
+    try:
+        assert w.backend == "nccl"
+        mesh = world_data_mesh()
+        merged = WorldCoordinator("t").merge_carries(carry)
+        got = (sharded_apply(f32, X, mesh), sharded_apply(q8, X, mesh),
+               linalg.gram(X, mesh))
+        torch.cuda.synchronize()
+    finally:
+        shutdown_distributed()
+    assert torch.equal(merged[0], carry[0]) and merged[2] == 300
+    for a, b in zip(got, solo):
+        assert torch.equal(a, b)
+    assert kernels.LAUNCHES["gram_cross"] == before["gram_cross"] + 1
+    assert kernels.LAUNCHES["quantized_affine"] == \
+        before["quantized_affine"] + 1
+
+
+def test_cuda_gloo_world_gathers_card_tensors_through_pinned_memory(
+        cuda, tmp_path):
+    """Two ranks sharing the card meet over gloo (the backend rule), and
+    the rank-sharded Gram of their card rows equals the whole's."""
+    import sys
+
+    from keystone_tpu_torch.parallel.distributed import DryrunWorld
+
+    src = tmp_path / "in.npz"
+    dst = tmp_path / "out.npz"
+    X = np.random.RandomState(0).randn(64, 12).astype(np.float32)
+    np.savez(src, X=X, Y=X[:, :3].copy())
+    worker = str(tmp_path / "w.py")
+    with open(worker, "w") as f:
+        f.write(
+            "import sys\n"
+            "import numpy as np, torch\n"
+            "from keystone_tpu_torch.ops import linalg\n"
+            "from keystone_tpu_torch.parallel.mesh import *\n"
+            "src, dst, pid, n, store = sys.argv[1:]\n"
+            "w = initialize_distributed(store, int(n), int(pid),\n"
+            "                           device='cuda', quiet=True)\n"
+            "assert w.backend == 'gloo', w.rule\n"
+            "X = np.load(src)['X']\n"
+            "lo, hi = batch_rows(X.shape[0], world_data_mesh())\n"
+            "G = linalg.gram(torch.as_tensor(X[lo:hi], device='cuda'),\n"
+            "                world_data_mesh())\n"
+            "if process_index() == 0:\n"
+            "    np.save(dst, G.cpu().numpy())\n"
+            "shutdown_distributed()\n")
+    world = DryrunWorld(2, workdir=str(tmp_path / "w"), grace_s=30)
+    codes = world.launch([sys.executable, worker, str(src),
+                          str(dst)]).wait(timeout_s=300)
+    assert codes == [0, 0], [world.output(p)[-2000:] for p in range(2)]
+    G = np.load(str(dst) + ".npy")
+    want = X.T.astype(np.float64) @ X
+    assert np.abs(G - want).max() <= 1e-5 * np.abs(want).max()

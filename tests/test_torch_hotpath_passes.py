@@ -443,6 +443,6 @@ def test_check_prints_and_carries_the_hotpath_scan(tmp_path):
         cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "hotpath: clean" in proc.stdout
-    assert "spmd: not ported (ROADMAP A11)" in proc.stdout
+    assert "spmd: clean" in proc.stdout
     blob = json.loads(out.read_text())
-    assert blob["hotpath"] == [] and "spmd" not in blob
+    assert blob["hotpath"] == [] and blob["spmd"] == []

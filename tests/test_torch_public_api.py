@@ -15,38 +15,17 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 
-_A11 = "multi-GPU port, ROADMAP A11"
 _JIT = "a jit helper: the port compiles no programs (its compile is a " \
        "CUDA-graph capture, observability.compilelog.observed_capture)"
 
 #: module (relative to the package) -> {JAX-only name: reason}
 JAX_ONLY = {
-    "": {
-        "get_mesh": _A11, "make_mesh": _A11, "mesh_scope": _A11,
-        "set_mesh": _A11,
-    },
-    "analysis": {
-        "barrier_stability": _A11, "collective_axis_bindings": _A11,
-        "collective_divergence": _A11, "scan_package_spmd": _A11,
-        "sharding_flow_lint": _A11, "world_checkpoint_consistency": _A11,
-    },
     "observability": {"observed_jit": _JIT, "watch_jit": _JIT},
-    "parallel": {
-        "DryrunWorld": _A11, "WorldCoordinator": _A11,
-        "is_distributed": _A11, "process_count": _A11,
-        "process_index": _A11,
-    },
-    "resilience": {
-        "HOST_DEATH_EXIT_CODE": _A11, "PartitionError": _A11,
-        "set_process_dimension": _A11,
-    },
-    "utils": {
-        "donating_jit": _JIT, "load_state": _A11, "save_state": _A11,
-    },
+    "utils": {"donating_jit": _JIT},
 }
 
 #: JAX modules the port has no counterpart of yet, with the reason
-JAX_ONLY_MODULES = {"parallel.spmd_apply": _A11}
+JAX_ONLY_MODULES = {}
 
 
 def _modules_with_all():
