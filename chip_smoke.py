@@ -318,6 +318,26 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ``gram`` and ``sharded_apply`` of 4c's float32 and int8 models,
    ``torch.equal`` to the same calls without a world. Multi-rank NCCL
    needs more than one card and is not exercised here.
+4s. The measurement and calibration tools (after 4r): (a)
+   ``tools.calibrate_cost_model`` at full size into the run's directory:
+   the card's four weights beside the EC2 ones, each validation shape's
+   three measured times, host synchronizations and the model's pick, the
+   agreement; when an artifact was written, ``load_calibration`` of it
+   must report ``source == "artifact"`` with those weights, and when the
+   agreement is at most half, no artifact may exist. (b) The card's
+   weights applied (printed, not asserted): a ``LeastSquaresEstimator``'s
+   choice at 4e's resident and streamed shape beside the EC2 choice and
+   beside the candidate 4e measured fastest, and each app's optimizable
+   node's choice from ``check``'s static shapes under both weight sets.
+   (c) ``tools.profile_solver`` at (50000, 4096, 10). (d)
+   ``tools.profile_imagenet`` at 16 images of 480 x 640: each stage's
+   device ms, host wall ms, launches and idle share, its kernel gates
+   asserted; its launches join the kernels line's paths. (e)
+   ``tools.elastic_bench`` with 2 gloo ranks on the card, its five metric
+   lines printed with a ``[4s]`` prefix. The run pins
+   ``KEYSTONE_TORCH_COST_CALIBRATION`` to a path in its own directory
+   that does not exist, so that an artifact an earlier run of the tool
+   left in the checkout cannot move 4e's and 4p's asserted choices.
 5. Timing: each kernel, its plain version and a library yardstick with
    CUDA events at the main path's shapes, one call at a time (the
    ``kernels`` line); for every kernel also the device time alone of the
@@ -4014,7 +4034,8 @@ def _solver_phase(kernels, rpc, tr_x, tr_y, te_x, te_y, filters, whitener,
         N_TRAIN)
     Y = labels.get()
     est = LeastSquaresEstimator(lam=lam)
-    _, models = _candidates("CIFAR features", est, X, Y, {
+    static_4e["candidate_s"], models = _candidates("CIFAR features", est, X,
+                                                   Y, {
         "DenseLBFGSwithL2": DenseLBFGSwithL2(lam=lam, num_iterations=20),
         "BlockLeastSquaresEstimator": BlockLeastSquaresEstimator(
             SOLVER_BLOCK, SOLVER_PASSES, lam=lam),
@@ -5181,6 +5202,10 @@ def _main(workdir: str) -> int:
     # post-mortems (phase 4l provokes three) stay in the run's directory
     os.environ["KEYSTONE_TORCH_POSTMORTEM_DIR"] = os.path.join(
         workdir, "postmortems")
+    # the shipped weights for every choice this run asserts: a calibration
+    # artifact in the checkout (phase 4s's tool writes one) is not read
+    os.environ["KEYSTONE_TORCH_COST_CALIBRATION"] = os.path.join(
+        workdir, "no-calibration", "cost_model_calibration.json")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -5616,6 +5641,9 @@ def _main(workdir: str) -> int:
         kernels, rpc, tr_x, tr_y, te_x, filters, whitener, config, preds,
         rp_test, resident_W, stream_W, model_path, ci_log, workdir, dev, smi)
 
+    # -- 4s. the measurement and calibration tools ----------------------------
+    tools_launches = _tools_phase(kernels, static_4e, workdir, dev, smi)
+
     # -- 5. timing ------------------------------------------------------------
     B = K = 1024
     imgs, filters, means = _featurize_inputs(rng, B, K, dev)
@@ -5946,7 +5974,9 @@ def _main(workdir: str) -> int:
                              "4m re-admission": fleet_launches["eager"].get(
                                  "quantized_affine", 0),
                              "4r(d)": world_launches["d"][
-                                 "quantized_affine"]},
+                                 "quantized_affine"],
+                             "4s(d) profile_imagenet's gates":
+                                 tools_launches.get("quantized_affine", 0)},
     }, {
         "name": "banded_matmul",
         "route": "cuda",
@@ -5968,7 +5998,9 @@ def _main(workdir: str) -> int:
                              "4n(b) streamed tar": stream_tar_launches[
                                  "banded_matmul"],
                              "4n(c) ImageNet test from tars":
-                                 inet_tar_launches["banded_matmul"]},
+                                 inet_tar_launches["banded_matmul"],
+                             "4s(d) profile_imagenet": tools_launches.get(
+                                 "banded_matmul", 0)},
         "imagenet": inet_times["banded_matmul"],
     }, {
         "name": "fv_moments",
@@ -5989,7 +6021,9 @@ def _main(workdir: str) -> int:
                              "4n(a) VOC from tars":
                                  voc_tar_launches["fv_moments"],
                              "4n(c) ImageNet test from tars":
-                                 inet_tar_launches["fv_moments"]},
+                                 inet_tar_launches["fv_moments"],
+                             "4s(d) profile_imagenet": tools_launches.get(
+                                 "fv_moments", 0)},
         "imagenet": [inet_times[f"fv_moments n={n}"] for n in INET_FV_N],
     }]}))
     print(json.dumps({"ok": True, "device": {
@@ -6295,6 +6329,114 @@ def _world_phase(kernels, rpc, tr_x, tr_y, te_x, filters, whitener, config,
     print(f"[4r] phase 4r in {time.time() - t_phase:.1f} s; {smi}",
           flush=True)
     return {"a": launches["a"], "b": launches["b"], "d": d_launches}
+
+
+#: phase 4s's shapes: profile_solver's CIFAR scale, profile_imagenet's batch
+TOOLS_SOLVER_SHAPE = (50_000, 4_096, 10)
+TOOLS_INET_IMAGES, TOOLS_INET_HW = 16, (480, 640)
+
+
+def _tools_phase(kernels, static_4e, workdir, dev, smi):
+    """Phase 4s (see the module docstring). Returns the kernel launches of
+    ``profile_imagenet`` (its profile and its gates)."""
+    from keystone_tpu_torch.nodes.learning.least_squares import (
+        REFERENCE_EC2_WEIGHTS as EC2,
+        load_calibration,
+    )
+    from keystone_tpu_torch.nodes.learning.linear import (
+        BlockLeastSquaresEstimator,
+        LinearMapEstimator,
+    )
+    from keystone_tpu_torch.tools import (
+        calibrate_cost_model as cal,
+        elastic_bench,
+        profile_imagenet,
+        profile_solver,
+    )
+
+    t_phase = time.time()
+    # -- (a) the calibration, at full size, into the run's directory
+    path = os.path.join(workdir, "calibration", "cost_model_calibration.json")
+    t0 = time.time()
+    res = cal.calibrate(dev, small=False, out_path=path)
+    weights = res["weights"]
+    print(f"[4s(a)] calibration in {time.time() - t0:.1f} s on {smi}: "
+          f"float32 Gram {res['flop_rate'] / 1e12:.3f} TFLOP/s, stream "
+          f"{res['stream_rate'] * 4 / 1e9:.1f} GB/s; weights (card against "
+          "EC2): " + ", ".join(f"{k} {weights[k]:.4e} against {EC2[k]:.4e}"
+                                for k in weights), flush=True)
+    # the rounds the cost model charges lat_w for: one an L-BFGS iteration
+    rounds = {"dense_lbfgs": 20,
+              "block_ls": BlockLeastSquaresEstimator.DISPATCH_ROUNDS,
+              "exact": LinearMapEstimator.DISPATCH_ROUNDS}
+    for r in res["shapes"]:
+        print(f"[4s(a)] ({r['n']}, {r['d']}, {r['k']}): " + ", ".join(
+            f"{name} {sec * 1e3:.2f} ms ({r['host_syncs'][name]} host syncs "
+            f"a fit, the model's rounds {rounds[name]})"
+            for name, sec in r["seconds"].items())
+            + f"; measured fastest {r['measured_fastest']}, the card's "
+            f"model picks {r['model_pick']}", flush=True)
+    print(f"[4s(a)] agreement {res['agreement']}/{res['checked']}; "
+          f"artifact {res['path']}", flush=True)
+    if res["path"] is not None:
+        loaded, provenance = load_calibration(path)
+        print(f"[4s(a)] load_calibration of the artifact: {provenance}",
+              flush=True)
+        assert provenance["source"] == "artifact", provenance
+        assert loaded == weights, (loaded, weights)
+    else:
+        assert 2 * res["agreement"] <= res["checked"], res
+        assert not os.path.exists(path), path
+
+    # -- (b) the card's weights applied (printed, not asserted)
+    n, d, k = N_TRAIN, 8 * NUM_FILTERS, 10
+    for streaming in (False, True):
+        ec2 = cal.choice_at(EC2, n, d, k, streaming=streaming)
+        card = cal.choice_at(weights, n, d, k, streaming=streaming)
+        print(f"[4s(b)] LeastSquaresEstimator(lam=10) at 4e's "
+              f"{'streamed' if streaming else 'resident'} shape ({n}, {d}, "
+              f"{k}), density 1, 1 machine: EC2 weights pick {ec2}, the "
+              f"card's weights pick {card}", flush=True)
+        if not streaming:
+            secs = static_4e["candidate_s"]
+            fastest = min(secs, key=secs.get)
+            print(f"[4s(b)] 4e measured there: " + ", ".join(
+                f"{name} {sec:.4f} s" for name, sec in secs.items())
+                + f"; fastest {fastest}; the card's choice is it: "
+                f"{card.split('(')[0] == fastest}", flush=True)
+    for app, node, shape, picks in cal.app_choices({"EC2": EC2,
+                                                    "card": weights}):
+        print(f"[4s(b)] {app}: {node} at (n, item) = {shape}: EC2 picks "
+              f"{picks['EC2']}, the card's weights pick {picks['card']}",
+              flush=True)
+
+    # -- (c) the block solve's operations at CIFAR scale
+    print(f"[4s(c)] profile_solver at {TOOLS_SOLVER_SHAPE} on {smi}",
+          flush=True)
+    profile_solver.profile(*TOOLS_SOLVER_SHAPE, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (d) the SIFT -> PCA -> FV stage profile, its gates asserted
+    print(f"[4s(d)] profile_imagenet at {TOOLS_INET_IMAGES} images of "
+          f"{TOOLS_INET_HW} on {smi}", flush=True)
+    t0 = time.time()
+    prof = profile_imagenet.run(TOOLS_INET_IMAGES, TOOLS_INET_HW, dev)
+    print(f"[4s(d)] in {time.time() - t0:.1f} s; launches "
+          f"{prof['launches']}", flush=True)
+    assert prof["launches"].get("banded_matmul", 0) > 0, prof["launches"]
+    assert prof["launches"].get("fv_moments", 0) > 0, prof["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (e) the 1-against-2-rank scaling bench, 2 gloo ranks on the card
+    t0 = time.time()
+    for line in elastic_bench.bench(device="cuda"):
+        print(f"[4s] {json.dumps(line)}", flush=True)
+    print(f"[4s(e)] elastic bench in {time.time() - t0:.1f} s", flush=True)
+    print(f"[4s] phase 4s in {time.time() - t_phase:.1f} s; {smi}",
+          flush=True)
+    return prof["launches"]
 
 
 def _stages(op):

@@ -68,6 +68,10 @@ def fresh_planes(tmp_path, monkeypatch):
     to the test's directory."""
     monkeypatch.setenv("KEYSTONE_TORCH_POSTMORTEM_DIR",
                        str(tmp_path / "postmortems"))
+    # the shipped cost weights: a calibration artifact the tool left in
+    # the checkout's build/ must not move a streamed fit's solver here
+    monkeypatch.setenv("KEYSTONE_TORCH_COST_CALIBRATION",
+                       str(tmp_path / "no-calibration.json"))
     MetricsRegistry.reset()
     reset_flight_recorder()
     reset_health_series()

@@ -87,11 +87,15 @@ COST_SHAPES = [shape for shape, _ in CHOICE_TABLE] + [
 
 
 @pytest.fixture(autouse=True)
-def _port_env(monkeypatch):
+def _port_env(monkeypatch, tmp_path):
     # both rules' static paths off: this file holds the sampled paths
     # against each other (tests/test_torch_static_analysis.py holds the
     # static defaults)
     monkeypatch.setenv("KEYSTONE_STATIC_NODE_OPT", "0")
+    # the shipped weights: a calibration artifact the tool left in the
+    # checkout's build/ must not move a choice here
+    monkeypatch.setenv("KEYSTONE_TORCH_COST_CALIBRATION",
+                       str(tmp_path / "no-calibration.json"))
     monkeypatch.setenv("KEYSTONE_TORCH_STATIC_NODE_OPT", "0")
     PipelineEnv.reset()
     tls.clear_calibration_cache()

@@ -63,10 +63,14 @@ APPS = sorted(tpipelines.CHECK_APPS)
 
 
 @pytest.fixture(autouse=True)
-def _defaults(monkeypatch):
+def _defaults(monkeypatch, tmp_path):
     # both rules on their defaults: the static path
     monkeypatch.delenv("KEYSTONE_STATIC_NODE_OPT", raising=False)
     monkeypatch.delenv("KEYSTONE_TORCH_STATIC_NODE_OPT", raising=False)
+    # the shipped weights: a calibration artifact the tool left in the
+    # checkout's build/ must not move a choice here
+    monkeypatch.setenv("KEYSTONE_TORCH_COST_CALIBRATION",
+                       str(tmp_path / "no-calibration.json"))
     PipelineEnv.reset()
     yield
     PipelineEnv.reset()
