@@ -338,6 +338,22 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ``KEYSTONE_TORCH_COST_CALIBRATION`` to a path in its own directory
    that does not exist, so that an artifact an earlier run of the tool
    left in the checkout cannot move 4e's and 4p's asserted choices.
+4t. The members that complete the JAX package's surface (after 4s), on
+   the objects phases 4 and 4f fitted: (a) phase 4's training features
+   (its featurizer and scaler, centered by the block model's feature
+   means) and +-1 labels through ``BlockLeastSquaresEstimator.
+   compute_cost`` at the fitted blocks, and ``LinearMapEstimator.
+   compute_cost`` at their concatenation, each within 1e-4 relative of a
+   float64 evaluation of the same objective; (b) ``BlockLinearMapper.
+   apply_and_evaluate`` over phase 4's test features split at the
+   model's block bounds, the test error after each block printed, the
+   last partial within ``rtol = atol = 2e-3`` of ``apply``'s output and
+   its error within one test image of phase 4's; (c) phase 4f's
+   MnistRandomFFT fit again under a ``PipelineTrace`` and an
+   ``_OptimizerClock``: each rule's rewrites and host seconds from the
+   trace's ``optimizer_rules``, its ``optimizer_runs``, as many as the
+   clock's executions, and the fusion rules' rewrites at most their
+   applications. The card's name and power limit on each line.
 5. Timing: each kernel, its plain version and a library yardstick with
    CUDA events at the main path's shapes, one call at a time (the
    ``kernels`` line); for every kernel also the device time alone of the
@@ -2093,7 +2109,14 @@ class _OptimizerClock:
     wrapping ``Optimizer.execute``, ``EquivalentNodeMergeRule.apply`` and
     the two fusion rules' ``apply``; the card is not synchronized, as all
     are host code. The first execution's input and output graphs are
-    kept in ``first``. ``close`` removes the wrappers."""
+    kept in ``first``. ``close`` removes the wrappers.
+
+    A traced run's rule log (``PipelineTrace.optimizer_rules``) counts
+    other things: only the applications that rewrote the graph, and
+    only outside ``tracing_disabled``. The clock counts every
+    application and every execution, rewriting or not, traced or not;
+    its executions equal the trace's ``meta["optimizer_runs"]`` when no
+    execution ran inside ``tracing_disabled`` (phase 4t(c))."""
 
     def __init__(self):
         from keystone_tpu_torch.workflow.optimizer.fusion import (
@@ -4198,7 +4221,8 @@ def _solver_phase(kernels, rpc, tr_x, tr_y, te_x, te_y, filters, whitener,
 
 
 def _mnist_phase(dev):
-    """Phase 4f (see the module docstring)."""
+    """Phase 4f (see the module docstring). Returns its configuration and
+    its host training images and labels, which phase 4t fits again."""
     from keystone_tpu_torch.evaluation.multiclass import evaluate_multiclass
     from keystone_tpu_torch.loaders.csv_loader import LabeledData
     from keystone_tpu_torch.loaders.surrogate import make_surrogate_mnist
@@ -4310,6 +4334,7 @@ def _mnist_phase(dev):
     PipelineEnv.reset()
     gc.collect()
     torch.cuda.empty_cache()
+    return config, tx, ty
 
 
 def _timit_phase(dev):
@@ -5379,6 +5404,8 @@ def _main(workdir: str) -> int:
         _operator(fitted, "BlockLinearMapper").weights).float()
     resident_scaler = _operator(fitted, "StandardScalerModel")
     featurizer = _operator(fitted, "FusedConvRectifyPool")
+    # phase 4t evaluates this model
+    mapper_4 = _operator(fitted, "BlockLinearMapper")
     model_path = os.path.join(workdir, "rpc.pkl")
     save_pipeline(fitted, model_path)
     del fitted, train, train_labels, test_pred, train_pred
@@ -5521,7 +5548,7 @@ def _main(workdir: str) -> int:
     resilience_gram = _resilience_phase(
         kernels, rpc, tr_x, tr_y, filters, whitener, config, featurizer,
         ref_4b, workdir, dev, smi)
-    del featurizer, ref_4b
+    del ref_4b
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5578,7 +5605,7 @@ def _main(workdir: str) -> int:
     kernels.reset_launches()
     probe = _PlanProbe()
     try:
-        _mnist_phase(dev)
+        mnist_4f = _mnist_phase(dev)
     finally:
         probe.close()
     # the phase's second fit, which it times and whose peak it resets for
@@ -5643,6 +5670,13 @@ def _main(workdir: str) -> int:
 
     # -- 4s. the measurement and calibration tools ----------------------------
     tools_launches = _tools_phase(kernels, static_4e, workdir, dev, smi)
+
+    # -- 4t. the members completing the JAX surface: the objectives, the
+    # per-block evaluation and the optimizer's rule log -------------------------
+    api_launches = _api_phase(kernels, mapper_4, featurizer, resident_scaler,
+                              tr_x, tr_y, te_x, te_y, float(config.lam),
+                              rp_test, mnist_4f, dev, smi)
+    del mapper_4, featurizer, mnist_4f
 
     # -- 5. timing ------------------------------------------------------------
     B = K = 1024
@@ -5928,7 +5962,9 @@ def _main(workdir: str) -> int:
                              "4r(a) rank 0": world_launches["a"][
                                  "fused_cifar_featurize"],
                              "4r(b) rank 0": world_launches["b"][
-                                 "fused_cifar_featurize"]},
+                                 "fused_cifar_featurize"],
+                             "4t": api_launches.get(
+                                 "fused_cifar_featurize", 0)},
     }, {
         "name": "gram_cross",
         "route": "cuda",
@@ -6437,6 +6473,152 @@ def _tools_phase(kernels, static_4e, workdir, dev, smi):
     print(f"[4s] phase 4s in {time.time() - t_phase:.1f} s; {smi}",
           flush=True)
     return prof["launches"]
+
+#: phase 4t's bars (see the module docstring): the objective against
+#: float64, and apply_and_evaluate's last partial against apply (the JAX
+#: test's bar)
+API_COST_RTOL = 1e-4
+API_PARTIAL_TOL = 2e-3
+
+
+def _api_phase(kernels, mapper, featurizer, scaler, tr_x, tr_y, te_x, te_y,
+               lam, rp_test, mnist_4f, dev, smi):
+    """Phase 4t (see the module docstring). Returns its kernel launches
+    (the featurize kernel's, making (a)'s and (b)'s features)."""
+    from keystone_tpu_torch.evaluation.multiclass import evaluate_multiclass
+    from keystone_tpu_torch.loaders.csv_loader import LabeledData
+    from keystone_tpu_torch.nodes.learning.linear import (
+        BlockLeastSquaresEstimator,
+        LinearMapEstimator,
+    )
+    from keystone_tpu_torch.observability.trace import PipelineTrace
+    from keystone_tpu_torch.parallel.dataset import ArrayDataset
+    from keystone_tpu_torch.pipelines.images.mnist import random_fft
+    from keystone_tpu_torch.workflow.env import PipelineEnv
+
+    t_phase = time.time()
+    kernels.reset_launches()
+    PipelineEnv.reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def features(images):
+        return torch.cat([scaler.apply_batch(featurizer.apply_batch(
+            torch.as_tensor(images[i:i + CHUNK], device=dev)))
+            for i in range(0, len(images), CHUNK)])
+
+    # -- (a) the objectives at phase 4's fitted point ------------------------
+    bounds = mapper._block_bounds()
+    Ws = [torch.as_tensor(w, device=dev).float() for w in mapper.block_weights]
+    b = torch.as_tensor(mapper.intercept, device=dev).float()
+    mean = torch.as_tensor(mapper.feature_means, device=dev).float()
+    Xc = features(tr_x) - mean
+    Y = torch.where(torch.arange(10, device=dev) == torch.as_tensor(
+        tr_y, device=dev)[:, None], 1.0, -1.0)
+    t0 = time.time()
+    block_cost = BlockLeastSquaresEstimator.compute_cost(
+        [Xc[:, lo:hi] for lo, hi in bounds], Y, lam, Ws, b)
+    block_s = time.time() - t0
+    t0 = time.time()
+    full_cost = LinearMapEstimator.compute_cost(Xc, Y, lam, torch.cat(Ws), b)
+    full_s = time.time() - t0
+    pred64 = b.double().expand(N_TRAIN, -1).clone()
+    for (lo, hi), w in zip(bounds, Ws):
+        pred64 += Xc[:, lo:hi].double() @ w.double()
+    cost64 = float(((pred64 - Y.double()) ** 2).sum() / (2 * N_TRAIN)
+                   + lam / 2 * sum((w.double() ** 2).sum() for w in Ws))
+    del pred64, Xc, Y
+    gaps = {name: abs(cost - cost64) / abs(cost64)
+            for name, cost in (("block", block_cost), ("linear", full_cost))}
+    print(f"[4t(a)] phase 4's ridge objective at its fitted blocks ({N_TRAIN}"
+          f" training rows, {len(bounds)} blocks of {bounds[0][1]} features,"
+          f" lam {lam:g}): BlockLeastSquaresEstimator.compute_cost "
+          f"{block_cost:.9g} ({block_s * 1e3:.1f} ms), LinearMapEstimator."
+          f"compute_cost on the concatenation {full_cost:.9g} "
+          f"({full_s * 1e3:.1f} ms), float64 {cost64:.9g}; relative gaps "
+          f"{gaps['block']:.3e} and {gaps['linear']:.3e} (bar "
+          f"{API_COST_RTOL:g}); {smi}", flush=True)
+    assert all(np.isfinite([block_cost, full_cost, cost64])), gaps
+    assert max(gaps.values()) <= API_COST_RTOL, gaps
+
+    # -- (b) the per-block evaluation over phase 4's test features -----------
+    Xte = features(te_x)
+    errors, partials = [], []
+
+    def evaluator(ds):
+        out = ds.data[:ds.n]
+        partials.append(out)
+        errors.append(evaluate_multiclass(
+            out.argmax(dim=1).cpu().numpy(), te_y, 10).total_error)
+
+    t0 = time.time()
+    mapper.apply_and_evaluate([Xte[:, lo:hi] for lo, hi in bounds],
+                              evaluator)
+    _sync()
+    aae_s = time.time() - t0
+    full = mapper.apply_batch(Xte)
+    gap = float(((partials[-1] - full).abs()
+                 - API_PARTIAL_TOL * full.abs()).max())
+    err_gap = abs(errors[-1] - rp_test)
+    print(f"[4t(b)] BlockLinearMapper.apply_and_evaluate over phase 4's "
+          f"{N_TEST} test features in {len(bounds)} blocks "
+          f"({aae_s * 1e3:.1f} ms): test error after each block "
+          f"{[round(e, 4) for e in errors]}; the last partial against apply:"
+          f" max(|diff| - {API_PARTIAL_TOL:g} |apply|) {gap:.3e} (bar "
+          f"{API_PARTIAL_TOL:g}); last error {errors[-1]:.4f}, phase 4's "
+          f"{rp_test:.4f} ({err_gap * N_TEST:.0f} test images apart, bar 1);"
+          f" {smi}", flush=True)
+    assert len(errors) == len(bounds)
+    assert bool(torch.isfinite(full).all())
+    assert gap <= API_PARTIAL_TOL, gap
+    assert err_gap <= 1.0 / N_TEST + 1e-12, (errors[-1], rp_test)
+    launches = dict(kernels.LAUNCHES)
+    del Xte, partials, full
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (c) the rule log of 4f's fit, traced -------------------------------
+    config, tx, ty = mnist_4f
+    train = LabeledData(ArrayDataset.from_numpy(tx, dev),
+                        ArrayDataset.from_numpy(ty, dev))
+    PipelineEnv.reset()
+    clock = _OptimizerClock()
+    t0 = time.time()
+    try:
+        with PipelineTrace("4t-mnist") as tr:
+            fitted = random_fft.build_pipeline(config, train).fit()
+            _sync()
+    finally:
+        clock.close()
+    fit_s = time.time() - t0
+    by_rule = {}
+    for e in tr.optimizer_rules:
+        count, secs = by_rule.get(e["rule"], (0, 0.0))
+        by_rule[e["rule"]] = (count + 1, secs + e["wall_s"])
+    runs = tr.meta.get("optimizer_runs", [])
+    fusion = sum(by_rule.get(r, (0, 0.0))[0]
+                 for r in ("MapFusionRule", "GatherFusionRule"))
+    print(f"[4t(c)] MnistRandomFFT fit of phase 4f, traced: {fit_s:.2f} s; "
+          f"rule log: " + ", ".join(
+              f"{r} {c} rewrites {s:.4f} s" for r, (c, s) in
+              sorted(by_rule.items(), key=lambda kv: -kv[1][1]))
+          + f" (host); the clock: {clock.summary()}; {smi}", flush=True)
+    for run in runs:
+        print(f"[4t(c)] optimizer run: {run['optimizer']} batches "
+              f"{run['batches']}, nodes {run['nodes_in']} -> "
+              f"{run['nodes_out']}, {run['wall_s']:.4f} s; {smi}",
+              flush=True)
+    assert len(runs) == clock.counts["execute"] > 0, \
+        (len(runs), clock.counts)
+    assert 0 < fusion <= clock.counts["fusion rule"], (fusion, clock.counts)
+    assert any(r["nodes_in"] > r["nodes_out"] for r in runs), runs
+    del fitted, train, tr
+    PipelineEnv.reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[4t] phase 4t in {time.time() - t_phase:.1f} s; launches "
+          f"{launches}; {smi}", flush=True)
+    return launches
 
 
 def _stages(op):

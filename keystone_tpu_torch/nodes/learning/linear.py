@@ -32,19 +32,23 @@ from ...workflow.transformer import Transformer
 from ..stats import StandardScalerModel
 
 
+def _on(v, device):
+    """A weight, mean or intercept as a float32 tensor on ``device``
+    (no copy when it already is one)."""
+    return torch.as_tensor(v, dtype=torch.float32, device=device)
+
+
 def _affine_params(W, mean, inv_std, b, device):
     """(W, mean, inv_std, b) as float32 tensors on ``device``, with the
     identity filled in for absent terms."""
-    def on(x):
-        return torch.as_tensor(x, dtype=torch.float32, device=device)
-
-    Wd = on(W)
+    Wd = _on(W, device)
     d, k = Wd.shape
     return (
         Wd,
-        torch.zeros(d, device=device) if mean is None else on(mean),
-        torch.ones(d, device=device) if inv_std is None else on(inv_std),
-        torch.zeros(k, device=device) if b is None else on(b),
+        torch.zeros(d, device=device) if mean is None else _on(mean, device),
+        torch.ones(d, device=device) if inv_std is None
+        else _on(inv_std, device),
+        torch.zeros(k, device=device) if b is None else _on(b, device),
     )
 
 
@@ -150,6 +154,26 @@ def _dequant_affine(params, x):
 
 def _host(v):
     return v.cpu() if isinstance(v, torch.Tensor) else v
+
+
+def _objective(sse, weights, n, lam):
+    """``sse / 2n + lam / 2 * sum ||W_i||_F^2`` with one host read: the
+    two float32 device sums come back together and are combined in
+    float64 on the host."""
+    sums = [sse]
+    if lam != 0.0:
+        sums.append(sum(torch.sum(w * w) for w in weights))
+    got = torch.stack(sums).tolist()
+    total = got[0] / (2.0 * n)
+    if lam != 0.0:
+        total += lam / 2.0 * got[1]
+    return total
+
+
+def _masked_sse(pred, Y, b, mask):
+    """Sum of squared residuals ``pred + b - Y`` over the real rows."""
+    resid = (pred + b - Y) * mask[:, None].to(pred.dtype)
+    return torch.sum(resid * resid)
 
 
 class LinearMapper(Transformer):
@@ -293,6 +317,24 @@ class LinearMapEstimator(LabelEstimator):
         return (max(cpu_w * flops, mem_w * bytes_scanned) + net_w * network
                 + lat_w * self.DISPATCH_ROUNDS)
 
+    @staticmethod
+    def compute_cost(ds, labels, lam: float, weights,
+                     intercept=None) -> float:
+        """Ridge objective at (weights, intercept): ``||XW + b - L||_F^2
+        / 2n + lam / 2 ||W||_F^2`` (reference ``LinearMapper.scala:124-161``,
+        ``LinearMapEstimator.computeCost``). ``ds`` and ``labels`` may be
+        datasets or tensors; the residual reduction runs in float32 on
+        their device, and only the objective comes to the host."""
+        ds = ensure_array(ds)
+        labels = ensure_array(labels, ds.device)
+        dev = ds.device
+        W = _on(weights, dev)
+        b = (torch.zeros(W.shape[1], device=dev) if intercept is None
+             else _on(intercept, dev))
+        sse = _masked_sse(ds.data.to(torch.float32) @ W,
+                          labels.data.to(torch.float32), b, ds.mask)
+        return _objective(sse, [W], ds.n, float(lam))
+
     def _fit(self, ds: Dataset, labels: Dataset) -> LinearMapper:
         ds = ensure_array(ds)
         labels = ensure_array(labels, ds.device)
@@ -378,6 +420,45 @@ class BlockLinearMapper(Transformer):
         total = float(np.asarray(_host(self.weights)).nbytes) + sum(blocks)
         return total, max(blocks)
 
+    def _block_bounds(self):
+        """Each block's ``(lo, hi)`` feature columns."""
+        bounds, lo = [], 0
+        for w in self.block_weights:
+            bounds.append((lo, lo + w.shape[0]))
+            lo += w.shape[0]
+        return bounds
+
+    def apply_and_evaluate(self, blocks, evaluator) -> None:
+        """Incremental per-block evaluation (reference
+        ``BlockLinearMapper.scala:105-142``): after adding feature block
+        i's contribution, call ``evaluator`` on the running prediction
+        (the partial sum plus the intercept), so a caller can follow the
+        test error as blocks are added without holding all of them.
+
+        ``blocks`` are the per-block features (datasets or tensors)
+        aligned with ``block_weights``; each is centered by its slice of
+        ``feature_means``. The partial sum stays on the blocks' device;
+        the evaluator gets an ``ArrayDataset`` of the block's rows, whose
+        pad rows the dataset's constructor zeroes."""
+        assert len(blocks) == len(self.block_weights), (
+            f"{len(blocks)} feature blocks vs {len(self.block_weights)} "
+            "weight blocks")
+        partial = None
+        for (lo, hi), w, block in zip(self._block_bounds(),
+                                      self.block_weights, blocks):
+            block = ensure_array(block)
+            dev = block.device
+            x = block.data.to(torch.float32)
+            if self.feature_means is not None:
+                x = x - _on(self.feature_means, dev)[lo:hi]
+            contrib = x @ _on(w, dev)
+            partial = contrib if partial is None else partial + contrib
+            out = partial
+            if self.intercept is not None:
+                out = out + _on(self.intercept, dev)
+            evaluator(ArrayDataset(out, block.n, block.shards,
+                                   mesh=block.mesh))
+
     def __getstate__(self):
         # device tensors pickle as host copies
         d = super().__getstate__()
@@ -458,6 +539,32 @@ class BlockLeastSquaresEstimator(LabelEstimator):
         return self.num_iter * (
             max(cpu_w * flops, mem_w * bytes_scanned) + net_w * network
         ) + lat_w * self.DISPATCH_ROUNDS
+
+    @staticmethod
+    def compute_cost(blocks, labels, lam: float, block_weights,
+                     intercept=None) -> float:
+        """Training objective of a block model (reference
+        ``BlockLinearMapper.scala:144-187``, ``computeCost``):
+        ``||sum_i X_i W_i + b - L||_F^2 / 2n + lam / 2 sum_i ||W_i||_F^2``.
+        ``blocks`` holds the per-block features (datasets or tensors);
+        the products and the residual reduction run in float32 on their
+        device, and only the objective comes to the host."""
+        blocks = [ensure_array(block) for block in blocks]
+        assert blocks and len(blocks) == len(block_weights), (
+            f"{len(blocks)} feature blocks vs {len(block_weights)} weight "
+            "blocks")
+        dev = blocks[0].device
+        labels = ensure_array(labels, dev)
+        Ws = [_on(w, dev) for w in block_weights]
+        partial = None
+        for w, block in zip(Ws, blocks):
+            contrib = block.data.to(torch.float32) @ w
+            partial = contrib if partial is None else partial + contrib
+        b = (torch.zeros(Ws[0].shape[1], device=dev) if intercept is None
+             else _on(intercept, dev))
+        sse = _masked_sse(partial, labels.data.to(torch.float32), b,
+                          labels.mask)
+        return _objective(sse, Ws, labels.n, float(lam))
 
     def _fit(self, ds: Dataset, labels: Dataset) -> BlockLinearMapper:
         ds = ensure_array(ds)

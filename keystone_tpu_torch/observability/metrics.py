@@ -150,6 +150,15 @@ class MetricsRegistry:
     def histogram(self, name: str) -> Histogram:
         return self._get(self._histograms, Histogram, name)
 
+    @contextlib.contextmanager
+    def timer(self, name: str) -> Iterator[None]:
+        """Time the enclosed block into histogram ``name`` (seconds). A
+        block that launches card work must synchronize inside it, or the
+        time is the host's launch time."""
+        t0 = time.perf_counter()
+        yield
+        self.histogram(name).observe(time.perf_counter() - t0)
+
     def _get(self, table, cls, name):
         m = table.get(name)
         if m is None:

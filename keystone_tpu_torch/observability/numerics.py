@@ -583,6 +583,20 @@ class DriftBaseline:
                    rows=float(state["rows"]),
                    source=str(state.get("source", "fit")))
 
+    def merge(self, other: "DriftBaseline") -> "DriftBaseline":
+        """The sum of two sketches of one geometry: fixed bins make
+        per-rank sketches mergeable (the world's ``merge_baselines``)."""
+        if (not np.array_equal(self.cols, other.cols)
+                or not np.array_equal(self.interior, other.interior)):
+            raise ValueError(
+                "cannot merge drift sketches with different geometry "
+                "(columns/bin edges must match — build both from one "
+                "baseline's edges)")
+        return DriftBaseline(
+            cols=self.cols, interior=self.interior,
+            counts=self.counts + other.counts,
+            rows=self.rows + other.rows, source=self.source)
+
     def psi(self, counts: np.ndarray) -> np.ndarray:
         """Per-column Population Stability Index of ``counts`` (same
         geometry) against this baseline, each histogram normalized to

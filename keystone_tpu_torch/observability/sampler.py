@@ -162,6 +162,11 @@ class TelemetrySampler:
         with self._lock:
             return sorted(self._series)
 
+    def snapshot(self) -> Dict[str, List[Tuple[float, float]]]:
+        """Every series' retained points, copied under the lock."""
+        with self._lock:
+            return {k: list(v) for k, v in sorted(self._series.items())}
+
 
 class _MetricsHandler(BaseHTTPRequestHandler):
     registry: Optional[MetricsRegistry] = None

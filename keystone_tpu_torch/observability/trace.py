@@ -8,8 +8,11 @@ active (:func:`current_trace` returns it) the workflow stack feeds it:
   executor's instrumented thunks): self and inclusive wall time, the
   output's device bytes, and whether the value came from a cache or the
   prefix memo;
-* optimizer records: the auto-cache rule's report, the node rule's
-  splice choices and the least-squares solver decisions;
+* optimizer records: every rule application that rewrote the graph
+  (``record_rule``, from ``Optimizer.execute``, with one
+  ``meta["optimizer_runs"]`` entry a whole pass), the auto-cache rule's
+  report, the node rule's splice choices and the least-squares solver
+  decisions;
 * streamed-ingest chunks, streamed fits, resilience and numerics events,
   CUDA graph captures (``observability/compilelog.py``) and
   contended-lock waits.
@@ -147,6 +150,7 @@ class PipelineTrace:
         #: nodes with no counted work, set by ``annotate_trace``
         self.uncovered: List[str] = []
         self.nodes: List[NodeRecord] = []
+        self.optimizer_rules: List[Dict[str, Any]] = []
         self.auto_cache: List[Dict[str, Any]] = []
         self.node_choices: List[Dict[str, Any]] = []
         self.solver_decisions: List[Dict[str, Any]] = []
@@ -247,6 +251,18 @@ class PipelineTrace:
         """A node that ran no timed compute (constants, memo hits)."""
         self.nodes.append(record)
 
+    def record_rule(self, optimizer: str, batch: str, rule: str,
+                    nodes_before: int, nodes_after: int,
+                    wall_s: float) -> None:
+        """One rule application that rewrote the graph: the optimizer
+        and batch it ran in, the graph's node count before and after,
+        and the application's host seconds."""
+        self.optimizer_rules.append({
+            "optimizer": optimizer, "batch": batch, "rule": rule,
+            "nodes_before": nodes_before, "nodes_after": nodes_after,
+            "wall_s": wall_s,
+        })
+
     def record_auto_cache(self, report: Dict[str, Any]) -> None:
         self.auto_cache.append(report)
 
@@ -319,11 +335,15 @@ class PipelineTrace:
     def node_ids(self) -> set:
         return {r.node_id for r in self.nodes}
 
+    def cache_hits(self) -> List[NodeRecord]:
+        """The node records served from the prefix or state memo."""
+        return [r for r in self.nodes if r.cached]
+
     def total_node_wall_s(self) -> float:
         return sum(r.wall_s for r in self.nodes)
 
     # -- export ---------------------------------------------------------------
-    _LISTS = ("auto_cache", "node_choices",
+    _LISTS = ("optimizer_rules", "auto_cache", "node_choices",
               "solver_decisions", "chunks", "streamed_fits", "resilience",
               "numerics", "compiles", "uncovered")
     _DICTS = ("meta", "chunk_stats", "resilience_stats", "numerics_stats")
@@ -371,6 +391,13 @@ class PipelineTrace:
                 f"{r.wall_s * 1e3:>10.2f} ms {pct:>6.1f}% "
                 f"{r.output_bytes / (1 << 20):>9.2f} MiB"
                 f"{' cached' if r.cached else ''}")
+        if self.optimizer_rules:
+            lines.append("optimizer rules fired:")
+            for e in self.optimizer_rules:
+                lines.append(
+                    f"  {e['rule']} [{e['batch']}] nodes "
+                    f"{e['nodes_before']} -> {e['nodes_after']} "
+                    f"({e['wall_s'] * 1e3:.1f} ms)")
         for rep in self.auto_cache:
             lines.append(f"auto-cache[{rep.get('strategy')}]: cached "
                          f"{rep.get('selected', [])}")

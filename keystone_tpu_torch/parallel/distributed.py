@@ -358,22 +358,20 @@ class WorldCoordinator:
                for k, v in leaf.items()}
         rows = [float(p[0]) for p in world_gather(
             torch.tensor([float(st["rows"])], dtype=torch.float64))]
-        counts = np.array(got["counts"][0], np.float32)
-        total_rows = rows[0]
-        merged = 1
-        for p in range(1, self.nproc):
-            if (np.array_equal(got["cols"][p], got["cols"][0])
-                    and np.array_equal(got["interior"][p],
-                                       got["interior"][0])):
-                counts += got["counts"][p]
-                total_rows += rows[p]
-                merged += 1
+        ranks = [DriftBaseline.from_state(
+            {"cols": got["cols"][p], "interior": got["interior"][p],
+             "counts": got["counts"][p], "rows": rows[p],
+             "source": baseline.source}) for p in range(self.nproc)]
+        world, merged = ranks[0], 1
+        for other in ranks[1:]:
+            try:
+                world = world.merge(other)
+            except ValueError:
+                continue  # edges differ from rank 0's: skipped, recorded
+            merged += 1
         record_numerics_event("drift_merge", source=self.tag,
                               merged=merged, hosts=self.nproc)
-        return DriftBaseline(
-            cols=np.asarray(got["cols"][0], np.int32),
-            interior=np.asarray(got["interior"][0], np.float32),
-            counts=counts, rows=total_rows, source=baseline.source)
+        return world
 
 
 # -- the dryrun launcher -----------------------------------------------------

@@ -94,6 +94,12 @@ class Quarantine:
         with self._lock:
             return self.bad_count + self.ok_count
 
+    def bad_fraction(self) -> float:
+        """Bad records over all seen (0 before any), both counts read
+        under one lock hold."""
+        with self._lock:
+            return self.bad_count / max(self.bad_count + self.ok_count, 1)
+
     def _budget_violation(self, last_source: Optional[str] = None
                           ) -> Optional[str]:
         """The violation message, or None; the caller holds ``_lock``."""
@@ -109,6 +115,15 @@ class Quarantine:
                 f"min_records={self.min_records}). Last quarantined source: "
                 f"{last}. The data is worse than the budget allows — fix "
                 "the source or raise max_bad_fraction explicitly.")
+
+    def check_budget(self, last_source: Optional[str] = None) -> None:
+        """Raise :class:`QuarantineBudgetExceededError` when the bad
+        records pass the budget (read under the lock; raised outside
+        it), naming ``last_source`` or the last quarantined one."""
+        with self._lock:
+            violation = self._budget_violation(last_source)
+        if violation is not None:
+            raise QuarantineBudgetExceededError(violation)
 
     def state(self) -> Dict[str, Any]:
         """Checkpoint snapshot: the bad-record manifest and keys. Good

@@ -234,6 +234,11 @@ class ResidencyLedger:
         with self._lock:
             return self._charges.get(name, 0.0)
 
+    def resident(self) -> Dict[str, float]:
+        """A copy of every model's charge, taken under the lock."""
+        with self._lock:
+            return dict(self._charges)
+
     def admit(self, name: str, nbytes: float) -> None:
         """Charge ``nbytes`` for ``name`` after re-checking the budget
         under the ledger lock; raises :class:`AdmissionError`, changing

@@ -9,9 +9,11 @@ debug level after every rewrite.
 from __future__ import annotations
 
 import logging
+import time
 from dataclasses import dataclass
 from typing import Sequence, Union
 
+from ...observability.trace import current_trace
 from ..graph import Graph
 
 logger = logging.getLogger(__name__)
@@ -56,6 +58,8 @@ class Optimizer:
         raise NotImplementedError
 
     def execute(self, graph: Graph) -> Graph:
+        trace = current_trace()
+        t_start = time.perf_counter() if trace is not None else 0.0
         current = graph
         for batch in self.batches:
             if isinstance(batch.strategy, Once):
@@ -65,12 +69,21 @@ class Optimizer:
             for _ in range(iters):
                 before = current
                 for rule in batch.rules:
+                    t0 = time.perf_counter() if trace is not None else 0.0
                     after = rule.apply(current)
-                    if after is not current and logger.isEnabledFor(
-                            logging.DEBUG):
-                        logger.debug(
-                            "rule %s (batch %s) rewrote plan:\n%s",
-                            rule.name, batch.name, after.to_dot(rule.name))
+                    if after is not current:
+                        if trace is not None:
+                            trace.record_rule(
+                                optimizer=type(self).__name__,
+                                batch=batch.name, rule=rule.name,
+                                nodes_before=len(current.nodes),
+                                nodes_after=len(after.nodes),
+                                wall_s=time.perf_counter() - t0)
+                        if logger.isEnabledFor(logging.DEBUG):
+                            logger.debug(
+                                "rule %s (batch %s) rewrote plan:\n%s",
+                                rule.name, batch.name,
+                                after.to_dot(rule.name))
                     current = after
                 if current == before:
                     break
@@ -79,4 +92,12 @@ class Optimizer:
                     logger.warning(
                         "batch %s did not reach fixpoint in %d iterations",
                         batch.name, iters)
+        if trace is not None:
+            trace.meta.setdefault("optimizer_runs", []).append({
+                "optimizer": type(self).__name__,
+                "batches": [b.name for b in self.batches],
+                "nodes_in": len(graph.nodes),
+                "nodes_out": len(current.nodes),
+                "wall_s": time.perf_counter() - t_start,
+            })
         return current
