@@ -289,9 +289,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
    on ``cifar.random_patch`` and ``voc.sift_fisher`` on the card (each
    per-item node run once on a zero item: its plan charge, the bytes it
    output and its allocation peak, as ``plan_vs_device``; the featurize
-   and banded kernels launched); then ``python -m
+   and banded kernels launched); beside them, started first, ``python -m
    keystone_tpu_torch.tools.ci --device cuda --chaos-seeds 2`` in a
-   subprocess: lint, ``check --all``, the advisory benchdiffs and the
+   subprocess: lint, ``check --all``, the advisory benchdiffs (these
+   need no card, and run while the in-process checks do) and the
    recompile, numerics, serving, chaos and fleet gates and the
    schedule suite, each stage's seconds printed; any failing stage fails
    the run. The chain's elastic gate is phase 4r(c).
@@ -379,6 +380,28 @@ Phases, each of which raises (and so exits non-zero) on failure:
    alone (on a model fitted on CHURN_ONLY_TRAIN surrogate images), with
    the package under ROOT if given, and asserts nothing of another
    package: the way to read a parent tree's numbers beside these.
+4v. The JAX package's call signatures and environment contract, in
+   three places: (a) in 4r's world, after 4r(b), each rank runs the same
+   streamed fit again at ``KEYSTONE_TORCH_COORD_ROUND_LEN=4`` and at
+   ``KEYSTONE_TORCH_COORD_OVERLAP=0``: each fit's rounds over its two
+   streamed passes (4, 8 and 4 with the default), ``gram_cross``
+   launches (10 a rank), the rounds whose gather was still in flight
+   when the dispatch returned (every round with overlap, none with it
+   off), ``coord.overlap_occupancy`` (below 1 with overlap off, where
+   the dispatch's waits are the blocked wall) and carry-merge
+   seconds printed, and the weights ``torch.equal`` to 4r(b)'s (a rank
+   folds the same chunks in the same order at any round length, and the
+   carries are summed once, at finalize); (b) in 4e, the exact candidate
+   (``LinearMapEstimator``) fitted again with the numerics plane on: its
+   solve's relative residual below 1e-3 (the JAX package's bar) and in
+   ``numerics.residual_rel``; (c)-(e) after 4u: phase 4's saved pipeline
+   applied twice to the test set, ``executor.prefix_hits`` up by at least
+   one on the second apply and one featurize launch in all; phase 4i's
+   auto-caching fit with ``AutoCacheRule(num_trials=3)``: three trials a
+   scale in the profiles and 4i's predictions; 4d's checked test images
+   through ``dense_sift(kernel_mode="einsum")`` against the default
+   banded path, within 4d's descriptor bars, and ``"banded"`` on a CPU
+   image refused.
 5. Timing: each kernel, its plain version and a library yardstick with
    CUDA events at the main path's shapes, one call at a time (the
    ``kernels`` line); for every kernel also the device time alone of the
@@ -414,6 +437,7 @@ import os
 import pickle
 import queue
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -4282,14 +4306,53 @@ def _scans_gates_phase(kernels, workdir, dev, smi):
     ``check --all`` in process, ``check --xla`` on the card for two apps,
     and ``tools/ci.py`` with every gate on the card."""
     from keystone_tpu_torch import __main__ as cli
+
+    t_phase = time.time()
+    pkg = os.path.join(REPO, "keystone_tpu_torch")
+    # (c) first: the CI chain, every gate on the card, the chaos gate at
+    # the JAX CI's two seeds, in its own process group. Its first stages
+    # (lint, check --all, the benchdiffs) need no card and run on the host
+    # while (a) and (b) run here
+    log = os.path.join(workdir, "ci_4q.log")
+    t_ci = time.time()
+    ci_log = open(log, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "keystone_tpu_torch.tools.ci", "--device",
+         "cuda", "--chaos-seeds", "2"], cwd=REPO, stdout=ci_log,
+        stderr=subprocess.STDOUT, start_new_session=True)
+    try:
+        _scans_and_xla(kernels, cli, pkg, workdir, smi)
+        proc.wait(timeout=900)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        ci_log.close()
+    ci_s = time.time() - t_ci
+    with open(log) as f:
+        text = f.read()
+    keep = ("ci: ", "recompile gate: ", "numerics gate: ", "serving gate: ",
+            "chaos gate: ", "fleet gate: ", "elastic gate: ")
+    for line in text.splitlines():
+        if line.startswith(keep) and not line.startswith("chaos gate:   "):
+            print(f"[4q] {line}", flush=True)
+    print(f"[4q] tools/ci.py --device cuda --chaos-seeds 2: exit "
+          f"{proc.returncode} in {ci_s:.1f} s (its first stages beside (a) "
+          f"and (b)); {smi}", flush=True)
+    assert proc.returncode == 0, text[-4000:]
+    print(f"[4q] phase 4q in {time.time() - t_phase:.1f} s", flush=True)
+    return text
+
+
+def _scans_and_xla(kernels, cli, pkg, workdir, smi):
+    """Phase 4q(a) and (b): the scans and ``check --all`` in process, then
+    ``check --xla`` on the card for two apps."""
     from keystone_tpu_torch.analysis.concurrency import \
         scan_package as scan_concurrency
     from keystone_tpu_torch.analysis.hotpath import (HOTPATH_SCAN_BUDGET_S,
                                                      scan_package as
                                                      scan_hotpath)
 
-    t_phase = time.time()
-    pkg = os.path.join(REPO, "keystone_tpu_torch")
     # (a) each scan alone, then check --all with both in its report
     seconds = {}
     for name, scan in (("concurrency", scan_concurrency),
@@ -4355,28 +4418,57 @@ def _scans_gates_phase(kernels, workdir, dev, smi):
     assert xla_launches.get("banded_matmul", 0) >= 1, xla_launches
     _release()
 
-    # (c) the CI chain, every gate on the card, the chaos gate at the JAX
-    # CI's two seeds
-    log = os.path.join(workdir, "ci_4q.log")
-    t0 = time.time()
-    with open(log, "w") as f:
-        proc = subprocess.run(
-            [sys.executable, "-m", "keystone_tpu_torch.tools.ci",
-             "--device", "cuda", "--chaos-seeds", "2"], cwd=REPO,
-            stdout=f, stderr=subprocess.STDOUT, timeout=900)
-    ci_s = time.time() - t0
-    with open(log) as f:
-        text = f.read()
-    keep = ("ci: ", "recompile gate: ", "numerics gate: ", "serving gate: ",
-            "chaos gate: ", "fleet gate: ", "elastic gate: ")
-    for line in text.splitlines():
-        if line.startswith(keep) and not line.startswith("chaos gate:   "):
-            print(f"[4q] {line}", flush=True)
-    print(f"[4q] tools/ci.py --device cuda --chaos-seeds 2: exit "
-          f"{proc.returncode} in {ci_s:.1f} s; {smi}", flush=True)
-    assert proc.returncode == 0, text[-4000:]
-    print(f"[4q] phase 4q in {time.time() - t_phase:.1f} s", flush=True)
-    return text
+
+#: phase 4v(b): the bar on the exact solve's relative residual (the JAX
+#: package's tests/test_numerics.py bar)
+RESIDUAL_BAR = 1e-3
+
+
+def _residual_check(kernels, X, Y, lam):
+    """Phase 4v(b): phase 4e's exact candidate (``LinearMapEstimator``)
+    fitted once more with the numerics plane on; its one Cholesky solve's
+    relative residual, as ``ridge_cho_solve`` hands it to the ledger, and
+    the ``numerics.residual_rel`` histogram it lands in (the resident
+    Gram is a ``torch.matmul``: the fit launches none of the five)."""
+    from keystone_tpu_torch.nodes.learning import LinearMapEstimator
+    from keystone_tpu_torch.observability.metrics import MetricsRegistry
+    from keystone_tpu_torch.observability.numerics import numerics_active
+    from keystone_tpu_torch.ops import linalg
+
+    assert numerics_active()
+    seen = []
+    real = linalg.record_solve_health
+
+    def spy(site, ok, pivot_ratio, resid_rel=None):
+        seen.append((site, ok, pivot_ratio, resid_rel))
+        return real(site, ok, pivot_ratio, resid_rel)
+
+    hist = MetricsRegistry.get_or_create().histogram("numerics.residual_rel")
+    before = hist.snapshot()
+    linalg.record_solve_health = spy
+    try:
+        kernels.reset_launches()
+        _sync()
+        t0 = time.time()
+        LinearMapEstimator(lam=lam).fit(X, Y)
+        _sync()
+        fit_s = time.time() - t0
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    finally:
+        linalg.record_solve_health = real
+    after = hist.snapshot()
+    print(f"[4v] (b) LinearMapEstimator({lam}) on 4e's ({X.n}, "
+          f"{X.data.shape[1]}, {Y.data.shape[1]}) features, numerics plane "
+          f"on: solves {[(s, ok, f'{r:.3e}') for s, ok, r, _ in seen]}, "
+          f"relative residual {[r for *_, r in seen]} (bar {RESIDUAL_BAR}); "
+          f"numerics.residual_rel count {before['count']} -> "
+          f"{after['count']}, max {after['max']:.3e}; fit {fit_s:.2f} s, "
+          f"launches {launches}", flush=True)
+    assert len(seen) == 1 and seen[0][1], seen
+    resid = seen[0][3]
+    assert resid is not None and 0.0 <= resid < RESIDUAL_BAR, seen
+    assert after["count"] == before["count"] + 1, (before, after)
+    assert after["max"] >= resid, (after, resid)
 
 
 def _solver_phase(kernels, rpc, tr_x, tr_y, te_x, te_y, filters, whitener,
@@ -4488,6 +4580,7 @@ def _solver_phase(kernels, rpc, tr_x, tr_y, te_x, te_y, filters, whitener,
     _solver_accuracy(models, X, Y, ArrayDataset(torch.cat([
         r_scaler.apply_batch(featurizer.apply_batch(test_x.data[i:i + CHUNK]))
         for i in range(0, N_TEST, CHUNK)]), N_TEST), te_y, lam)
+    _residual_check(kernels, X, Y, lam)
     del X, models
     pixels = ArrayDataset((GrayScaler() >> ImageVectorizer()).apply(
         train_x).get().data, N_TRAIN)
@@ -4948,9 +5041,11 @@ def _random_cifar_phase(tr_x, tr_y, te_x, te_y, lin_test, dev):
 
 
 def _auto_cache_phase(kernels, rpc, tr_x, tr_y, te_x, filters, whitener,
-                      config, dev):
-    """Phase 4i (see the module docstring). Returns the featurize kernel's
-    launches in the fit under each optimizer."""
+                      config, dev, optimizer=None):
+    """Phase 4i (see the module docstring), the auto-caching fit under
+    ``optimizer`` (default ``AutoCachingOptimizer()``). Returns the
+    featurize kernel's launches in the fit under each optimizer, the
+    auto-caching fit's test predictions and the nodes it cached."""
     from keystone_tpu_torch.nodes.learning import BlockLeastSquaresEstimator
     from keystone_tpu_torch.nodes.images.core import FusedConvRectifyPool
     from keystone_tpu_torch.nodes.stats import StandardScaler
@@ -4990,7 +5085,8 @@ def _auto_cache_phase(kernels, rpc, tr_x, tr_y, te_x, filters, whitener,
         return real["make_cached_graph"](graph, to_cache)
 
     preds, launches, seconds = {}, {}, {}
-    for name, opt in (("default", None), ("auto-cache", AutoCachingOptimizer())):
+    optimizer = optimizer or AutoCachingOptimizer()
+    for name, opt in (("default", None), ("auto-cache", optimizer)):
         _release()
         if opt is not None:
             PipelineEnv.get_or_create().set_optimizer(opt)
@@ -5031,23 +5127,24 @@ def _auto_cache_phase(kernels, rpc, tr_x, tr_y, te_x, filters, whitener,
         f"{p.mem / 2**20:.1f} MiB" for n, p in sorted(
             profiles.items(), key=lambda kv: kv[0].id))
     budget_b, free_b = seen["budget"]
+    auto_name = type(optimizer).__name__
     print(f"[auto-cache] RandomPatchCifar without Cachers ({NUM_FILTERS} "
-          f"filters, BCD({BLOCK}, {PASSES})), greedy AutoCachingOptimizer: "
+          f"filters, BCD({BLOCK}, {PASSES})), greedy {auto_name}: "
           f"budget {budget_b / 2**30:.3f} GiB read from the card (free "
           f"{free_b / 2**30:.3f} GiB when read); profiles extrapolated to "
           f"{N_TRAIN} images from samples of 2 and 4: {shown}; cached "
           f"{seen['cached']}; fused_cifar_featurize launches in the fit: "
-          f"DefaultOptimizer {launches['default']}, AutoCachingOptimizer "
+          f"DefaultOptimizer {launches['default']}, {auto_name} "
           f"{launches['auto-cache']}; fit / test apply seconds: "
           f"DefaultOptimizer {seconds['default'][0]:.2f} / "
-          f"{seconds['default'][1]:.3f}, AutoCachingOptimizer "
+          f"{seconds['default'][1]:.3f}, {auto_name} "
           f"{seconds['auto-cache'][0]:.2f} / {seconds['auto-cache'][1]:.3f}",
           flush=True)
     assert abs(budget_b - 0.75 * free_b) <= AUTO_CACHE_BUDGET_SLACK, \
         (budget_b, free_b)
     assert np.array_equal(preds["default"], preds["auto-cache"])
     assert launches["default"] > 0 and launches["auto-cache"] > 0, launches
-    return launches
+    return launches, preds["auto-cache"], seen["cached"]
 
 
 def _imagenet_stage_timer(timed):
@@ -5626,6 +5723,15 @@ def main() -> int:
         return _main(workdir)
 
 
+_T0 = time.time()
+
+
+def _clock(phase):
+    """Print when ``phase`` starts, in seconds since the script's imports
+    (the phases' shares of the run's time limit)."""
+    print(f"[clock] {phase} at +{time.time() - _T0:.1f} s", flush=True)
+
+
 def _main(workdir: str) -> int:
     from keystone_tpu_torch import native
     from keystone_tpu_torch.evaluation.multiclass import evaluate_multiclass
@@ -5669,6 +5775,7 @@ def _main(workdir: str) -> int:
 
     # -- 2. build -----------------------------------------------------------
     # the native host shim (g++) alongside the kernel libraries (nvcc)
+    _clock("2")
     t0 = time.time()
     with ThreadPoolExecutor(1) as pool:
         shim = pool.submit(native.build)
@@ -5693,6 +5800,7 @@ def _main(workdir: str) -> int:
     # the main path's shapes (fit featurize, test featurize, datum path)
     # plus a ragged K; the plain version runs in chunks of 512 images, its
     # (B, 27, 27, K) intermediates being too large for 20480 at once
+    _clock("3")
     rng = np.random.RandomState(SEED)
     worst = 0.0
     for B, K in ((256, NUM_FILTERS), (256, 100), (1, NUM_FILTERS),
@@ -5763,6 +5871,7 @@ def _main(workdir: str) -> int:
     _check_nan(kernels, sift, dev)
 
     # -- 4. main path ---------------------------------------------------------
+    _clock("4")
     (tr_x, tr_y), (te_x, te_y) = make_surrogate_cifar(N_TRAIN, N_TEST,
                                                       seed=SEED)
     train = LabeledData(ArrayDataset.from_numpy(tr_x, dev),
@@ -5839,6 +5948,7 @@ def _main(workdir: str) -> int:
     # -- 4b. streamed path ----------------------------------------------------
     # the prefix memo pins the resident fit's features; the streamed fit
     # starts from a clean memo with only the test set on the device
+    _clock("4b")
     PipelineEnv.reset()
     gc.collect()
     torch.cuda.empty_cache()
@@ -5971,6 +6081,7 @@ def _main(workdir: str) -> int:
     torch.cuda.empty_cache()
 
     # -- 4l. resilience and telemetry on the streamed fit ---------------------
+    _clock("4l")
     resilience_gram = _resilience_phase(
         kernels, rpc, tr_x, tr_y, filters, whitener, config, featurizer,
         ref_4b, workdir, dev, smi)
@@ -5979,6 +6090,7 @@ def _main(workdir: str) -> int:
     torch.cuda.empty_cache()
 
     # -- 4c. serving ----------------------------------------------------------
+    _clock("4c")
     opt_serve = _OptimizerClock()
     try:
         serve_launches = _serving_phase(kernels, model_path, te_x, te_y,
@@ -5991,6 +6103,7 @@ def _main(workdir: str) -> int:
     torch.cuda.empty_cache()
 
     # -- 4m. the serving fleet ----------------------------------------------
+    _clock("4m")
     t0 = time.time()
     fleet_launches = _fleet_phase(kernels, model_path, te_x, te_y, preds,
                                   dev, smi)
@@ -6003,6 +6116,7 @@ def _main(workdir: str) -> int:
     torch.cuda.empty_cache()
 
     # -- 4d. VOCSIFTFisher ----------------------------------------------------
+    _clock("4d")
     probe = _PlanProbe()
     try:
         voc_launches, voc_ref = _voc_phase(kernels, dev)
@@ -6012,22 +6126,28 @@ def _main(workdir: str) -> int:
 
     # -- 4n. the loaders: VOC from tars, the streamed tar path, HOG, DAISY
     # and the approximate PCA (4n(c) runs inside 4j, 4n(d) after 4f) ---------
+    _clock("4n")
     t0 = time.time()
     voc_tar_launches = _voc_tar_phase(kernels, voc_ref, voc_launches, workdir,
                                       dev)
     stream_tar_launches = _tar_stream_phase(kernels, workdir, dev)
     _image_nodes_phase(
         np.rint(voc_ref[1].collect()[0].image).astype(np.float32), dev)
+    # phase 4v(e) reads 4d's checked test images again
+    voc_check = [torch.as_tensor(it.image)
+                 for it in voc_ref[1].collect()[:VOC_CHECK]]
     del voc_ref
     _release()
     loader_s = time.time() - t0
 
     # -- 4e. the cost-model solver choice --------------------------------------
+    _clock("4e")
     solver_launches, solver_stream_launches, static_4e = _solver_phase(
         kernels, rpc, tr_x, tr_y, te_x, te_y, filters, whitener, config,
         lin_test, dev)
 
     # -- 4f. MnistRandomFFT ---------------------------------------------------
+    _clock("4f")
     kernels.reset_launches()
     probe = _PlanProbe()
     try:
@@ -6041,27 +6161,32 @@ def _main(workdir: str) -> int:
           "the five)", flush=True)
 
     # -- 4n(d). MnistRandomFFT from CSV -----------------------------------------
+    _clock("4n(d)")
     t0 = time.time()
     _mnist_csv_phase(workdir)
     loader_s += time.time() - t0
 
     # -- 4g. TIMIT --------------------------------------------------------------
+    _clock("4g")
     kernels.reset_launches()
     _timit_phase(dev)
     print(f"[timit] kernel launches {dict(kernels.LAUNCHES)} (the path runs "
           "none of the five)", flush=True)
 
     # -- 4h. RandomCifar --------------------------------------------------------
+    _clock("4h")
     kernels.reset_launches()
     rc_err = _random_cifar_phase(tr_x, tr_y, te_x, te_y, lin_test, dev)
     print(f"[random-cifar] kernel launches {dict(kernels.LAUNCHES)} (the "
           "path runs none of the five)", flush=True)
 
     # -- 4i. auto-caching ---------------------------------------------------------
-    cache_launches = _auto_cache_phase(kernels, rpc, tr_x, tr_y, te_x,
-                                       filters, whitener, config, dev)
+    _clock("4i")
+    cache_launches, *cache_4i = _auto_cache_phase(
+        kernels, rpc, tr_x, tr_y, te_x, filters, whitener, config, dev)
 
     # -- 4j. ImageNetSiftLcsFV, and the weighted solve at the rehearsal shape
+    _clock("4j")
     inet_launches, inet_tar_launches, inet_tar_s = _imagenet_phase(
         kernels, workdir, dev)
     loader_s += inet_tar_s
@@ -6072,6 +6197,7 @@ def _main(workdir: str) -> int:
           "runs none of the five)", flush=True)
 
     # -- 4k. RandomPatchCifarAugmented ----------------------------------------
+    _clock("4k")
     kernels.reset_launches()
     _augmented_phase(tr_x, tr_y, te_x, te_y, rc_err, dev)
     print(f"[augmented] kernel launches {dict(kernels.LAUNCHES)} (the path "
@@ -6079,26 +6205,32 @@ def _main(workdir: str) -> int:
 
     # -- 4p. the analyzer: the rule's static path and its opt-out, the plan,
     # check, the traced run's MFU, numerics and benchdiff ----------------------
+    _clock("4p")
     _analysis_phase(kernels, rpc, tr_x, tr_y, te_x, te_y, filters, whitener,
                     config, static_4e, RULE_RECORDS, workdir, dev)
     _release()
 
     # -- 4o. the text and NLP apps --------------------------------------------
+    _clock("4o")
     _text_phase(kernels, workdir, dev, smi)
 
     # -- 4q. the tree-wide scans, check --xla and the CI gates ---------------------
+    _clock("4q")
     ci_log = _scans_gates_phase(kernels, workdir, dev, smi)
 
     # -- 4r. the multi-process world ---------------------------------------------
+    _clock("4r")
     world_launches = _world_phase(
         kernels, rpc, tr_x, tr_y, te_x, filters, whitener, config, preds,
         rp_test, resident_W, stream_W, model_path, ci_log, workdir, dev, smi)
 
     # -- 4s. the measurement and calibration tools ----------------------------
+    _clock("4s")
     tools_launches = _tools_phase(kernels, static_4e, workdir, dev, smi)
 
     # -- 4t. the members completing the JAX surface: the objectives, the
     # per-block evaluation and the optimizer's rule log -------------------------
+    _clock("4t")
     api_launches = _api_phase(kernels, mapper_4, featurizer, resident_scaler,
                               tr_x, tr_y, te_x, te_y, float(config.lam),
                               rp_test, mnist_4f, dev, smi)
@@ -6106,11 +6238,21 @@ def _main(workdir: str) -> int:
 
     # -- 4u. graph pools under churn: zipf_churn's seeds, phase 4c's model
     # evicted and readmitted under traffic ---------------------------------------
+    _clock("4u")
     gc.collect()
     torch.cuda.empty_cache()
     churn_launches = _churn_phase(kernels, model_path, te_x, dev, smi)
 
+    # -- 4v. the JAX package's call signatures and environment contract:
+    # (a) ran in 4r's world and (b) in 4e; (c)-(e) here
+    _clock("4v")
+    contract_launches = _contract_phase(
+        kernels, sift, rpc, tr_x, tr_y, te_x, filters, whitener, config,
+        model_path, cache_4i, voc_check, dev, smi)
+    del voc_check
+
     # -- 5. timing ------------------------------------------------------------
+    _clock("5")
     B = K = 1024
     imgs, filters, means = _featurize_inputs(rng, B, K, dev)
     # the path's call: the bank's plan made once, as the node's
@@ -6363,6 +6505,7 @@ def _main(workdir: str) -> int:
     inet_times = _time_imagenet_kernels(kernels, sift, dev)
 
     # -- 6. report ------------------------------------------------------------
+    _clock("6")
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "fused_cifar_featurize",
@@ -6398,7 +6541,14 @@ def _main(workdir: str) -> int:
                              "4t": api_launches.get(
                                  "fused_cifar_featurize", 0),
                              "4u(b)": churn_launches[
-                                 "fused_cifar_featurize"]},
+                                 "fused_cifar_featurize"],
+                             **{f"4v(a) rank 0 {label}": n[
+                                 "fused_cifar_featurize"]
+                                for label, n in world_launches["v"].items()},
+                             "4v(c)": contract_launches["c"].get(
+                                 "fused_cifar_featurize", 0),
+                             "4v(d) auto-cache fit": contract_launches[
+                                 "d"]},
     }, {
         "name": "gram_cross",
         "route": "cuda",
@@ -6423,7 +6573,9 @@ def _main(workdir: str) -> int:
                                  "gram_cross"],
                              "4r(b) rank 0": world_launches["b"][
                                  "gram_cross"],
-                             "4r(d)": world_launches["d"]["gram_cross"]},
+                             "4r(d)": world_launches["d"]["gram_cross"],
+                             **{f"4v(a) rank 0 {label}": n["gram_cross"]
+                                for label, n in world_launches["v"].items()}},
     }, {
         "name": "quantized_affine",
         "route": "cuda",
@@ -6471,6 +6623,8 @@ def _main(workdir: str) -> int:
                              "4n(c) ImageNet test from tars":
                                  inet_tar_launches["banded_matmul"],
                              "4s(d) profile_imagenet": tools_launches.get(
+                                 "banded_matmul", 0),
+                             "4v(e)": contract_launches["e"].get(
                                  "banded_matmul", 0)},
         "imagenet": inet_times["banded_matmul"],
     }, {
@@ -6506,13 +6660,157 @@ def _main(workdir: str) -> int:
 #: phase 4r's bars against phases 4 and 4b (see the module docstring)
 WORLD_ERROR_DRIFT, WORLD_AGREE, WORLD_W_TOL = 0.002, 0.99, 5e-3
 WORLD_RANKS, WORLD_TIMEOUT_S = 2, 600
+#: phase 4v(a): 4r(b)'s fit again under each coordination switch; the
+#: rounds a rank of 10 chunks runs under each, over the fit's two
+#: streamed passes (the scaler's and the solver's), each pass at the
+#: default length 16 one round of the ten chunks and the done round, at
+#: length 4 rounds of 4, 4 and 2 chunks, then the done round
+SWITCH_RUNS = (("round_len_4", {"KEYSTONE_TORCH_COORD_ROUND_LEN": "4"}),
+               ("overlap_off", {"KEYSTONE_TORCH_COORD_OVERLAP": "0"}))
+SWITCH_ROUNDS = {"default": 2 * 2, "round_len_4": 2 * 4,
+                 "overlap_off": 2 * 2}
+#: phase 4v(d): the profiling trials a scale of 4i's greedy rule
+CACHE_TRIALS = 3
+
+
+def _contract_phase(kernels, sift, rpc, tr_x, tr_y, te_x, filters, whitener,
+                    config, model_path, cache_4i, voc_check, dev, smi):
+    """Phase 4v(c)-(e) (see the module docstring). Returns the kernels'
+    launches on (c) and (e), and the featurize launches of (d)'s fit."""
+    from keystone_tpu_torch.nodes.images.core import GrayScaler, PixelScaler
+    from keystone_tpu_torch.observability.metrics import MetricsRegistry
+    from keystone_tpu_torch.parallel.dataset import ArrayDataset
+    from keystone_tpu_torch.utils.checkpoint import load_pipeline
+    from keystone_tpu_torch.workflow.env import PipelineEnv
+    from keystone_tpu_torch.workflow.optimizer import auto_cache
+    from keystone_tpu_torch.workflow.optimizer.auto_cache import AutoCacheRule
+    from keystone_tpu_torch.workflow.optimizer.default import (
+        AutoCachingOptimizer,
+    )
+    from keystone_tpu_torch.workflow.optimizer.rule import Batch, Once
+
+    t_phase = time.time()
+    _release()
+    reg = MetricsRegistry.get_or_create()
+
+    def hits():
+        return reg.snapshot()["counters"].get("executor.prefix_hits", 0)
+
+    # (c) phase 4's saved pipeline applied twice to the test set: the
+    # second apply's features come from the Cacher's saved state
+    PipelineEnv.reset()
+    fitted = load_pipeline(model_path, device=dev)
+    test = ArrayDataset.from_numpy(te_x, dev)
+    kernels.reset_launches()
+    h0 = hits()
+    t0 = time.time()
+    first = fitted.apply(test).get().numpy()
+    _sync()
+    t1 = time.time()
+    h1, featurize_1 = hits(), kernels.LAUNCHES["fused_cifar_featurize"]
+    second = fitted.apply(test).get().numpy()
+    _sync()
+    t2 = time.time()
+    h2 = hits()
+    launches_c = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    print(f"[4v] (c) phase 4's pipeline applied twice to the {N_TEST} test "
+          f"images: executor.prefix_hits {h0} -> {h1} -> {h2}, "
+          f"fused_cifar_featurize launches {featurize_1} after the first "
+          f"apply, {launches_c.get('fused_cifar_featurize', 0)} in all; "
+          f"applies {t1 - t0:.3f} s / {t2 - t1:.3f} s; predictions equal "
+          f"{np.array_equal(first, second)}", flush=True)
+    assert h1 == h0 and h2 - h1 >= 1, (h0, h1, h2)
+    assert launches_c.get("fused_cifar_featurize") == 1, launches_c
+    assert np.array_equal(first, second)
+    del fitted, test, first, second
+    PipelineEnv.reset()
+    _release()
+
+    # (d) phase 4i with the greedy rule profiling CACHE_TRIALS trials a
+    # scale; each trial gives generalize_profiles one sample a scale
+    class TrialsOptimizer(AutoCachingOptimizer):
+        @property
+        def batches(self):
+            *default, _ = super().batches
+            return default + [Batch("auto-cache", Once(), [
+                auto_cache.AutoCacheRule(self.strategy, self.max_mem,
+                                         num_trials=CACHE_TRIALS)])]
+
+    samples = []
+    generalize = auto_cache.generalize_profiles
+
+    def counted(full_n, sps):
+        samples.append(len(sps))
+        return generalize(full_n, sps)
+
+    t0 = time.time()
+    auto_cache.generalize_profiles = counted
+    try:
+        launches_d, preds_d, cached_d = _auto_cache_phase(
+            kernels, rpc, tr_x, tr_y, te_x, filters, whitener, config, dev,
+            TrialsOptimizer())
+    finally:
+        auto_cache.generalize_profiles = generalize
+    preds_4i, cached_4i = cache_4i
+    trials = sorted({n // len(AutoCacheRule().scales) for n in samples})
+    same = bool(np.array_equal(preds_d, preds_4i))
+    print(f"[4v] (d) 4i with AutoCacheRule(num_trials={CACHE_TRIALS}): "
+          f"trials a scale in the profiles {trials}; cached {cached_d} "
+          f"(4i's, one trial a scale: {cached_4i}); predictions equal to "
+          f"4i's {same}; {time.time() - t0:.1f} s", flush=True)
+    assert trials == [CACHE_TRIALS], samples
+    assert same
+    _release()
+
+    # (e) 4d's checked test images through both band-product paths
+    worst = {"max": 0.0, "mean": 0.0, "flips": 0, "cols": 0}
+    kernels.reset_launches()
+    same_plain = same_banded = True
+    for img in voc_check:
+        gray = GrayScaler().apply(PixelScaler().apply(img.to(dev)))[..., 0]
+        banded = sift.dense_sift(gray)
+        plain_launches = dict(kernels.LAUNCHES)
+        einsum = sift.dense_sift(gray, kernel_mode="einsum")
+        assert kernels.LAUNCHES == plain_launches, "einsum launched a kernel"
+        same_plain &= torch.equal(einsum, sift.dense_sift_plain(gray))
+        same_banded &= torch.equal(
+            banded, sift.dense_sift(gray, kernel_mode="banded"))
+        za, zb = (banded.sum(0) == 0), (einsum.sum(0) == 0)
+        diff = (banded - einsum).abs()[:, ~(za ^ zb)]
+        worst["max"] = max(worst["max"], float(diff.max()))
+        worst["mean"] = max(worst["mean"], float(diff.mean()))
+        worst["flips"] += int((za ^ zb).sum())
+        worst["cols"] += banded.shape[1]
+    _sync()
+    launches_e = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    try:
+        sift.dense_sift(gray.cpu(), kernel_mode="banded")
+        refused = False
+    except ValueError:
+        refused = True
+    print(f"[4v] (e) {len(voc_check)} of 4d's test images, dense_sift "
+          f"kernel_mode='einsum' against the default banded path: "
+          f"descriptors max |delta| {worst['max']:.3e}, mean "
+          f"{worst['mean']:.3e} (quantized units), contrast-threshold flips "
+          f"{worst['flips']} of {worst['cols']} columns; einsum equal to "
+          f"dense_sift_plain {same_plain}, 'banded' equal to the default "
+          f"{same_banded}; 'banded' on a CPU image refused {refused}; "
+          f"launches {launches_e}", flush=True)
+    assert worst["max"] <= 2.0 and worst["mean"] <= 0.15, worst
+    assert worst["flips"] <= 1e-4 * worst["cols"], worst
+    assert same_plain and same_banded and refused
+    assert launches_e.get("banded_matmul", 0) > 0, launches_e
+    print(f"[4v] phase 4v(c)-(e) in {time.time() - t_phase:.1f} s; {smi}",
+          flush=True)
+    return {"c": launches_c, "d": launches_d["auto-cache"], "e": launches_e}
 
 
 def _world_member(spec_path, pid, nproc, store) -> int:
     """One rank of phase 4r's world (``chip_smoke.py --world-member SPEC
     <pid> <nproc> <store>``, launched by ``DryrunWorld``): (a) the CIFAR
     app's ``main`` on the binary files, (b) phase 4b's streamed fit over
-    the rank's block. Rank 0 writes the weights and predictions; every
+    the rank's block, then 4v(a): the same fit under each of
+    ``SWITCH_RUNS``. Rank 0 writes the weights and predictions; every
     rank prints its launches and seconds. A failure ends the rank at
     once (its peer then fails in its next gather)."""
     sys.path.insert(0, REPO)
@@ -6538,6 +6836,7 @@ def _world_member_run(spec_path, pid, nproc, store) -> int:
     from keystone_tpu_torch.observability.metrics import MetricsRegistry
     from keystone_tpu_torch.ops import kernels
     from keystone_tpu_torch.parallel.dataset import ArrayDataset
+    from keystone_tpu_torch.parallel.distributed import WorldCoordinator
     from keystone_tpu_torch.parallel.mesh import (
         initialize_distributed,
         local_mesh,
@@ -6597,43 +6896,127 @@ def _world_member_run(spec_path, pid, nproc, store) -> int:
     config = rpc.RandomCifarConfig(num_filters=filters.shape[0],
                                    lam=float(spec["lam"]), seed=SEED)
     reg = MetricsRegistry.get_or_create()
-    with mesh_scope(local_mesh()):
-        stream = StreamingDataset.from_numpy(
-            np.ascontiguousarray(X[lo:hi]), spec["chunk"], device=dev,
-            prefetch_depth=spec["depth"], tag="cifar-train")
-        labels = (ClassLabelIndicatorsFromIntLabels(rpc.NUM_CLASSES)
-                  >> Cacher("labels"))(ArrayDataset.from_numpy(
-                      y[lo:hi].astype(np.int32), dev))
-        kernels.reset_launches()
-        merges = reg.histogram("coord.merge_s").snapshot()
-        _sync()
-        t0 = time.time()
-        fitted = rpc.build_pipeline(filters, whitener, config, stream,
-                                    labels).fit()
-        _sync()
-        stream_s = time.time() - t0
-    launches_b = dict(kernels.LAUNCHES)
-    after = reg.histogram("coord.merge_s").snapshot()
-    merge_s = after["total"] - merges["total"]
-    occ = reg.snapshot()["gauges"].get("coord.overlap_occupancy")
-    W_b = torch.as_tensor(_operator(fitted, "BlockLinearMapper").weights)
+    # rounds whose gather was still in flight when the dispatch returned
+    # (every round with overlap, none with it off)
+    in_flight = [0]
+    step_begin = WorldCoordinator.step_begin
+
+    def counted_step_begin(self, *args, **kwargs):
+        pend = step_begin(self, *args, **kwargs)
+        in_flight[0] += pend.result is None
+        return pend
+
+    WorldCoordinator.step_begin = counted_step_begin
+
+    def streamed_fit():
+        """Phase 4b's streamed fit of this rank's rows: its weights and
+        readings."""
+        PipelineEnv.reset()
+        gc.collect()
+        with mesh_scope(local_mesh()):
+            stream = StreamingDataset.from_numpy(
+                np.ascontiguousarray(X[lo:hi]), spec["chunk"], device=dev,
+                prefetch_depth=spec["depth"], tag="cifar-train")
+            labels = (ClassLabelIndicatorsFromIntLabels(rpc.NUM_CLASSES)
+                      >> Cacher("labels"))(ArrayDataset.from_numpy(
+                          y[lo:hi].astype(np.int32), dev))
+            kernels.reset_launches()
+            merges = reg.histogram("coord.merge_s").snapshot()
+            rounds = reg.snapshot()["counters"].get("coord.rounds_total", 0)
+            in_flight[0] = 0
+            _sync()
+            t0 = time.time()
+            fitted = rpc.build_pipeline(filters, whitener, config, stream,
+                                        labels).fit()
+            _sync()
+            stream_s = time.time() - t0
+        after = reg.histogram("coord.merge_s").snapshot()
+        W = torch.as_tensor(_operator(fitted, "BlockLinearMapper").weights)
+        occ = reg.snapshot()["gauges"].get("coord.overlap_occupancy")
+        return W.float().cpu().numpy(), {
+            "launches": dict(kernels.LAUNCHES), "seconds": stream_s,
+            "merge_s": after["total"] - merges["total"],
+            "merges": after["count"] - merges["count"],
+            "rounds": reg.snapshot()["counters"].get(
+                "coord.rounds_total", 0) - rounds,
+            "in_flight": in_flight[0],
+            "occupancy": -1.0 if occ is None else float(occ)}
+
+    W_b, b = streamed_fit()
+    launches_b = b["launches"]
     print(f"{tag} (b): streamed fit of rows [{lo}, {hi}) "
           f"({-(-(hi - lo) // spec['chunk'])} chunks of {spec['chunk']}, "
-          f"depth {spec['depth']}) {stream_s:.2f} s, the carries' merges "
-          f"{merge_s:.3f} s ({after['count'] - merges['count']} merges: the "
+          f"depth {spec['depth']}) {b['seconds']:.2f} s, the carries' "
+          f"merges {b['merge_s']:.3f} s ({b['merges']} merges: the "
           f"scaler's moments and the 8192 x 8192 Gram carry), "
-          f"coord.overlap_occupancy {occ}, launches {launches_b}", flush=True)
+          f"coord.overlap_occupancy {b['occupancy']}, {b['rounds']} rounds, "
+          f"launches {launches_b}", flush=True)
+    # phase 4v(a): the same fit again under each coordination switch (read
+    # when a fit starts), in this world
+    switched = {}
+    for label, env in SWITCH_RUNS:
+        os.environ.update(env)
+        try:
+            W, reading = streamed_fit()
+        finally:
+            for key in env:
+                del os.environ[key]
+        switched[label] = (W, reading)
+        print(f"[4v] (a) rank {pid} of {nproc}, {label}: {reading['seconds']:.2f}"
+              f" s, {reading['rounds']} rounds, gram_cross "
+              f"{reading['launches'].get('gram_cross', 0)} launches, "
+              f"{reading['in_flight']} in flight at dispatch, "
+              f"coord.overlap_occupancy {reading['occupancy']:.4f}, carry "
+              f"merges {reading['merge_s']:.3f} s", flush=True)
     if pid == 0:
         np.savez(spec["out"], W_a=W_a.float().cpu().numpy(), preds=preds,
                  test_error=np.array(test_eval.total_error),
-                 W_b=W_b.float().cpu().numpy(),
+                 W_b=W_b,
                  launches=json.dumps({"a": launches_a, "b": launches_b}),
-                 merge_s=np.array(merge_s), app_s=np.array(app_s),
-                 stream_s=np.array(stream_s),
-                 occupancy=np.array(-1.0 if occ is None else occ))
+                 merge_s=np.array(b["merge_s"]), app_s=np.array(app_s),
+                 stream_s=np.array(b["seconds"]),
+                 occupancy=np.array(b["occupancy"]),
+                 switched=json.dumps({"default": b, **{
+                     label: r for label, (_, r) in switched.items()}}),
+                 **{f"W_{label}": W for label, (W, _) in switched.items()})
     dist.barrier(group=w.cpu_group)
     shutdown_distributed()
     return 0
+
+
+def _switch_worlds_check(got, n_local, smi):
+    """Phase 4v(a) (see the module docstring): rank 0's readings of the
+    default world fit and of the fits under ``SWITCH_RUNS``. The world
+    sums each rank's carry once, at finalize, and a rank folds the same
+    chunks in the same order whatever the round length, so each switched
+    fit must give the default fit's weights bit for bit."""
+    readings = json.loads(str(got["switched"]))
+    W = torch.from_numpy(got["W_b"])
+    for label, r in readings.items():
+        same = "" if label == "default" else (
+            f", weights torch.equal to the default's "
+            f"{torch.equal(torch.from_numpy(got[f'W_{label}']), W)}")
+        print(f"[4v] (a) world of {WORLD_RANKS}, {label}: {r['rounds']} "
+              f"rounds, gram_cross {r['launches'].get('gram_cross', 0)} "
+              f"launches on rank 0, {r['in_flight']} rounds in flight when "
+              f"the dispatch returned, coord.overlap_occupancy "
+              f"{r['occupancy']:.4f}, carry merges {r['merge_s']:.3f} s, "
+              f"fit {r['seconds']:.2f} s{same}; {smi}", flush=True)
+        assert r["rounds"] == SWITCH_ROUNDS[label], (label, r)
+        assert r["launches"].get("gram_cross") == n_local, (label, r)
+        # overlap leaves every round's gather in flight past its
+        # dispatch; with it off the dispatch waits for each one, and
+        # those waits are the blocked wall the gauge reads
+        assert r["in_flight"] == (0 if label == "overlap_off"
+                                  else r["rounds"]), (label, r)
+        assert 0.0 <= r["occupancy"] <= 1.0, (label, r)
+    assert readings["overlap_off"]["occupancy"] < 1.0, readings
+    for label, _ in SWITCH_RUNS:
+        Ws = torch.from_numpy(got[f"W_{label}"])
+        rel = float((Ws - W).abs().max() / W.abs().max())
+        assert rel <= WORLD_W_TOL, (label, rel)
+        assert torch.equal(Ws, W), (label, rel)
+    return {label: readings[label]["launches"] for label, _ in SWITCH_RUNS}
 
 
 def _world_phase(kernels, rpc, tr_x, tr_y, te_x, filters, whitener, config,
@@ -6743,6 +7126,7 @@ def _world_phase(kernels, rpc, tr_x, tr_y, te_x, filters, whitener, config,
     assert launches["b"]["gram_cross"] == n_local, launches
     assert launches["b"]["fused_cifar_featurize"] == 2 * n_local, launches
     assert wb_rel <= WORLD_W_TOL, wb_rel
+    switched = _switch_worlds_check(got, n_local, smi)
 
     # (c) the elastic gate, run on the card by 4q's CI chain
     gate = [line for line in ci_log.splitlines()
@@ -6799,7 +7183,8 @@ def _world_phase(kernels, rpc, tr_x, tr_y, te_x, filters, whitener, config,
     _release()
     print(f"[4r] phase 4r in {time.time() - t_phase:.1f} s; {smi}",
           flush=True)
-    return {"a": launches["a"], "b": launches["b"], "d": d_launches}
+    return {"a": launches["a"], "b": launches["b"], "d": d_launches,
+            "v": switched}
 
 
 #: phase 4s's shapes: profile_solver's CIFAR scale, profile_imagenet's batch

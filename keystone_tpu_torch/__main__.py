@@ -49,7 +49,7 @@ plane's command (``serving/http.py``).
 A world of several processes (``parallel/mesh.py``): every rank runs
 the same command with ``--coordinator HOST:PORT`` (or ``file://PATH``),
 ``--num-processes N`` and its own ``--process-id``, or with
-``KEYSTONE_DISTRIBUTED=1`` and torchrun's environment (``MASTER_ADDR``,
+``KEYSTONE_TORCH_DISTRIBUTED=1`` and torchrun's environment (``MASTER_ADDR``,
 ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``). The world starts before the
 app on the app's ``--device`` and ends after it.
 """
@@ -410,10 +410,10 @@ def main(argv=None) -> int:
     if dist_args and "coordinator_address" not in dist_args:
         print("--num-processes/--process-id require --coordinator "
               "(without it the world comes from torchrun's environment: "
-              "set KEYSTONE_DISTRIBUTED=1 instead)", file=sys.stderr)
+              "set KEYSTONE_TORCH_DISTRIBUTED=1 instead)", file=sys.stderr)
         return 2
     world_started = False
-    if os.environ.get("KEYSTONE_DISTRIBUTED") or dist_args:
+    if os.environ.get("KEYSTONE_TORCH_DISTRIBUTED") or dist_args:
         # every rank runs the same command; the world starts before the
         # app touches a device, on the app's own --device
         from .parallel.mesh import initialize_distributed

@@ -327,10 +327,10 @@ def sharded_apply_nbytes(graph: Any) -> tuple:
 
 def serving_residency_nbytes(model_nbytes: float, plan: "HbmPlan",
                              bucket_rows: int,
-                             graph_nbytes: float = 0.0,
                              data_shards: int = 1,
                              shardable_nbytes: float = 0.0,
-                             gather_nbytes: float = 0.0) -> Optional[float]:
+                             gather_nbytes: float = 0.0, *,
+                             graph_nbytes: float = 0.0) -> Optional[float]:
     """The admission charge of one served model at its largest bucket:
     ``model_nbytes + bucket_rows x apply_item_nbytes``, plus the CUDA
     graphs' pools and static inputs (``graph_nbytes``) where the plane

@@ -352,13 +352,13 @@ def stream_tar_images(
 def load_tar_files(
     archive_paths: Sequence[str],
     labels_map: Callable[[str], object],
-    make_item: Callable[[np.ndarray, object, str], object],
+    image_builder: Callable[[np.ndarray, object, str], object],
     name_prefix: Optional[str] = None,
     quarantine: Optional[Quarantine] = None,
     retry_policy: Optional[RetryPolicy] = None,
 ) -> HostDataset:
     """Every image of every archive, through ``labels_map(member name)``
-    and ``make_item(image, label, member name)`` (reference
+    and ``image_builder(image, label, member name)`` (reference
     ``ImageLoaderUtils.loadFiles``), decoded on the shared pool. A file
     that is not an archive is skipped with a warning, a truncated one
     warned about and kept as far as it was read; when nothing under the
@@ -382,7 +382,7 @@ def load_tar_files(
                                      quarantine=quarantine,
                                      retry_policy=retry_policy):
         opened_any = True
-        items.append(make_item(img, labels_map(name), name))
+        items.append(image_builder(img, labels_map(name), name))
     if archive_paths and not opened_any:
         raise tarfile.ReadError(
             f"None of {len(archive_paths)} file(s) under the data path could "

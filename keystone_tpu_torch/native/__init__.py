@@ -59,21 +59,22 @@ def library_path() -> Path:
     return Path(BUILD_DIR) / f"libkeystone_native-{digest}.so"
 
 
-def build() -> Path:
+def build(quiet: bool = True) -> Path:
     """Compile the library into ``BUILD_DIR`` and return its path. The
     compiler writes a temporary file that is renamed into place, so
-    concurrent first uses never leave a torn library. Raises
-    ``RuntimeError`` with the compiler's output on failure."""
+    concurrent first uses never leave a torn library. ``quiet`` False
+    lets the compiler write to the terminal. Raises ``RuntimeError`` on
+    failure, with the compiler's output where it was captured."""
     target = library_path()
     target.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
     os.close(fd)
     try:
         proc = subprocess.run(["g++", *GXX_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True)
+                              capture_output=quiet, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"g++ failed (exit {proc.returncode}):\n{proc.stderr}")
+                f"g++ failed (exit {proc.returncode}):\n{proc.stderr or ''}")
         os.replace(tmp, target)
     finally:
         if os.path.exists(tmp):

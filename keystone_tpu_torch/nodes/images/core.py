@@ -173,7 +173,7 @@ class Windower(Transformer):
         w = image_ops.extract_windows(ds.data, self.window_size, self.stride)
         B, nH, nW = w.shape[:3]
         flat = w.reshape((B * nH * nW,) + tuple(w.shape[3:]))
-        return ArrayDataset(flat, ds.n * nH * nW, ds.shards, mesh=ds.mesh)
+        return ArrayDataset(flat, ds.n * nH * nW, ds.mesh, shards=ds.shards)
 
 
 class FusedConvRectifyPool(Transformer):
@@ -219,12 +219,13 @@ class FusedConvRectifyPool(Transformer):
 
         return self._params_on(device, build)
 
-    def apply_with_params(self, params, imgs):
+    def apply_with_params(self, params, img):
+        """``img`` is the (B, H, W, C) batch the kernel featurizes."""
         filters, means = params
         # the kernel reads (B, H, W, C) rows in place; a view of another
         # layout (a transposed decode) is copied once here
         return fused_cifar_featurize(
-            imgs.contiguous(), filters, self.img_size, self.patch_size,
+            img.contiguous(), filters, self.img_size, self.patch_size,
             self.channels, self.pool_stride, self.pool_size,
             self.var_constant, self.alpha, whitener_means=means)
 

@@ -361,10 +361,12 @@ class BlockLinearMapper(Transformer):
     """Block-partitioned linear model (reference
     ``BlockLinearMapper.scala:22-73``). The blocks concatenate into one
     weight matrix applied as one GEMM; the per-block view is kept for API
-    parity. ``weight_dtype`` and ``quantized`` as in LinearMapper."""
+    parity. ``weights``, where given, is the blocks' concatenation,
+    which the mapper then keeps instead of concatenating them again.
+    ``weight_dtype`` and ``quantized`` as in LinearMapper."""
 
     def __init__(self, block_weights: Sequence, block_size: int,
-                 intercept=None, feature_means=None,
+                 intercept=None, feature_means=None, weights=None,
                  weight_dtype: Optional[str] = None, quantized=None):
         self.block_weights = list(block_weights)
         self.block_size = block_size
@@ -372,7 +374,9 @@ class BlockLinearMapper(Transformer):
         self.feature_means = feature_means
         self.weight_dtype = _canon_weight_dtype(weight_dtype)
         self.quantized = quantized
-        if any(isinstance(w, torch.Tensor) for w in self.block_weights):
+        if weights is not None:
+            self.weights = weights
+        elif any(isinstance(w, torch.Tensor) for w in self.block_weights):
             self.weights = torch.cat([torch.as_tensor(w)
                                       for w in self.block_weights], dim=0)
         else:
@@ -456,8 +460,8 @@ class BlockLinearMapper(Transformer):
             out = partial
             if self.intercept is not None:
                 out = out + _on(self.intercept, dev)
-            evaluator(ArrayDataset(out, block.n, block.shards,
-                                   mesh=block.mesh))
+            evaluator(ArrayDataset(out, block.n, block.mesh,
+                                   shards=block.shards))
 
     def __getstate__(self):
         # device tensors pickle as host copies

@@ -41,7 +41,7 @@ class Sampler(Transformer):
             # every image, the sample a few MB
             sel = torch.as_tensor(idx, device=ds.device)
             return ArrayDataset(tree_map(lambda x: x[sel], ds.data),
-                                len(idx), ds.shards)
+                                len(idx), shards=ds.shards)
         items = ds.collect()
         return HostDataset([items[i] for i in idx])
 

@@ -18,6 +18,7 @@ METRIC_NAMES: FrozenSet[str] = frozenset({
     # workflow/executor.py: always-on executor counters
     "executor.nodes_executed",
     "executor.memo_hits",
+    "executor.prefix_hits",
     # parallel/streaming.py: streamed ingest and the streamed fit
     "streaming.ingest_stall_s",
     "streaming.prefetch_occupancy",
@@ -49,6 +50,7 @@ METRIC_NAMES: FrozenSet[str] = frozenset({
     "numerics.solves_total",
     "numerics.breakdown_total",
     "numerics.pivot_ratio",
+    "numerics.residual_rel",
     "numerics.health_age_s",
     "numerics.quant_rel_error",
     "numerics.quant_error",

@@ -484,9 +484,13 @@ def check_fitted(model: Any, source: str) -> None:
 
 # -- solver conditioning ledger ----------------------------------------------
 
-def record_solve_health(site: str, ok: bool, pivot_ratio: float) -> None:
+def record_solve_health(site: str, ok: bool, pivot_ratio: float,
+                        resid_rel: Optional[float] = None) -> None:
     """One Cholesky solve's gate, from values the solver already read on
-    the host: ``ok`` False is exactly the eigh fallback taken."""
+    the host: ``ok`` False is exactly the eigh fallback taken.
+    ``resid_rel``, the raw solve's relative residual where the solver
+    computed one, goes to the ``numerics.residual_rel`` histogram and
+    onto the breakdown event; a negative or non-finite one is left out."""
     if not numerics_active():
         return
     reg = MetricsRegistry.get_or_create()
@@ -494,11 +498,17 @@ def record_solve_health(site: str, ok: bool, pivot_ratio: float) -> None:
     ratio = float(pivot_ratio)
     if np.isfinite(ratio):
         reg.histogram("numerics.pivot_ratio").observe(ratio)
+    resid = -1.0 if resid_rel is None else float(resid_rel)
+    has_resid = resid >= 0.0 and np.isfinite(resid)
+    if has_resid:
+        reg.histogram("numerics.residual_rel").observe(resid)
     if not ok:
         reg.counter("numerics.breakdown_total").inc()
         record_numerics_event("breakdown", site=site,
                               pivot_ratio=ratio if np.isfinite(ratio)
-                              else None)
+                              else None,
+                              **({"residual_rel": resid} if has_resid
+                                 else {}))
 
 
 def record_block_health(site: str, oks: Sequence[bool],

@@ -139,9 +139,13 @@ class FlightRecorder:
             fn()
 
     def record_instant(self, name: str, cat: str,
+                       ts_s: Optional[float] = None,
                        args: Optional[Dict[str, Any]] = None) -> None:
-        """A zero-duration marker (resilience and numerics events)."""
-        self.record(name, cat, time.perf_counter(), 0.0, args, ph="i")
+        """A zero-duration marker (resilience and numerics events) at
+        ``ts_s`` (``time.perf_counter()`` seconds; default now)."""
+        self.record(name, cat,
+                    time.perf_counter() if ts_s is None else ts_s,
+                    0.0, args, ph="i")
 
     @contextlib.contextmanager
     def span(self, name: str, cat: str, **args: Any) -> Iterator[None]:

@@ -44,7 +44,7 @@ import contextlib
 import json
 import threading
 import time
-from dataclasses import asdict, dataclass, field
+from dataclasses import KW_ONLY, asdict, dataclass, field
 from typing import Any, Dict, Iterator, List, Optional
 
 from ..utils.guarded import TracedLock, guarded_by
@@ -94,16 +94,18 @@ class NodeRecord:
     cached: bool = False       # value came from the prefix/state memo
     shards: int = 1            # data shards of the output dataset
     kind: str = ""             # expression kind (dataset/datum/transformer)
-    # counted work, self (count_flops traces; zero otherwise)
-    torch_flops: float = 0.0   # FlopCounterMode FLOPs of torch ops
-    kernel_flops: float = 0.0  # the CUDA kernels' counted FLOPs
-    kernel_bytes: float = 0.0  # the CUDA kernels' counted bytes
-    kernel_launches: Dict[str, float] = field(default_factory=dict)
     # utilization annotations (observability/utilization.py
     # ``annotate_trace``; zero = not annotated)
     flops: float = 0.0         # kernel + torch FLOPs
     mfu: float = 0.0           # achieved FLOP/s over the card's peak
     membw_util: float = 0.0    # achieved bytes/s over the HBM rate
+    # the port's own: counted work, self (count_flops traces; zero
+    # otherwise)
+    _: KW_ONLY
+    torch_flops: float = 0.0   # FlopCounterMode FLOPs of torch ops
+    kernel_flops: float = 0.0  # the CUDA kernels' counted FLOPs
+    kernel_bytes: float = 0.0  # the CUDA kernels' counted bytes
+    kernel_launches: Dict[str, float] = field(default_factory=dict)
 
 
 #: the work a node's inclusive run is charged with

@@ -205,10 +205,16 @@ class UtilizationWindow:
         self._counter.__exit__(*exc)
 
     def report(self, elapsed_s: Optional[float] = None,
-               n_devices: int = 1,
+               n_devices: Optional[int] = None,
                peaks: Optional[DevicePeaks] = None) -> Dict[str, Any]:
+        """The window's roofline. ``n_devices`` None means the devices
+        the counted work ran on, as ``jax.devices()`` does in the JAX
+        package: here one, the process's own card, since a rank counts
+        only the kernels it launched."""
         from ..ops import kernels
 
+        if n_devices is None:
+            n_devices = 1
         kernel = kernel_work_delta(self._work0)
         flops = sum(w["flops"] for w in kernel.values())
         nbytes = sum(w["bytes"] for w in kernel.values())

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -236,15 +236,28 @@ def _dense_sift(img_gray, step, bin_size, num_scales, scale_step, one_scale):
 
 
 def dense_sift(img_gray: torch.Tensor, step: int = 4, bin_size: int = 6,
-               num_scales: int = 5, scale_step: int = 0) -> torch.Tensor:
+               num_scales: int = 5, scale_step: int = 0, *,
+               kernel_mode: Optional[str] = None) -> torch.Tensor:
     """Multi-scale dense SIFT of a grayscale (H, W) image in [0, 1].
-    Returns (128, numDesc) float32, scales concatenated in order. A CUDA
-    image goes through the banded kernel (2 launches a scale, at every
-    image size); a CPU image through the einsum form, the plain path (a
-    meta image too: the static analyzer's shapes)."""
-    if img_gray.device.type in ("cpu", "meta"):
+    Returns (128, numDesc) float32, scales concatenated in order.
+    ``kernel_mode`` picks the band products: ``"banded"`` the banded
+    CUDA kernel (2 launches a scale, at every image size; a CPU or meta
+    image raises), ``"einsum"`` the plain form on any device, None by
+    the image's device: the kernel for a CUDA image, the einsum form for
+    a CPU one (a meta image too: the static analyzer's shapes)."""
+    on_host = img_gray.device.type in ("cpu", "meta")
+    if kernel_mode is None:
+        kernel_mode = "einsum" if on_host else "banded"
+    if kernel_mode == "einsum":
         return dense_sift_plain(img_gray, step, bin_size, num_scales,
                                 scale_step)
+    if kernel_mode != "banded":
+        raise ValueError(f"kernel_mode must be 'banded', 'einsum' or None, "
+                         f"got {kernel_mode!r}")
+    if on_host:
+        raise ValueError(
+            "kernel_mode='banded' runs the banded CUDA kernel and needs a "
+            f"CUDA image, got one on {img_gray.device.type!r}")
     return _dense_sift(img_gray, step, bin_size, num_scales, scale_step,
                        _dsift_one_scale_banded)
 

@@ -114,10 +114,12 @@ class ArrayDataset(Dataset):
     """Batch-major, zero-padded dataset of fixed-shape items on one
     device. ``data`` is a tensor or tuple of tensors sharing leading dim
     ``padded_n`` (``padded_rows(n, shards)`` for data staged here); rows
-    at index >= n are zero."""
+    at index >= n are zero. ``data, n, mesh`` take the JAX package's
+    places (its ``_already_sharded`` has no counterpart, so ``tag`` is
+    keyword-only); ``shards``, the padding multiple, is the port's own."""
 
-    def __init__(self, data: Any, n: int, shards: int = 1,
-                 tag: Optional[str] = None, mesh: Any = None):
+    def __init__(self, data: Any, n: int, mesh: Any = None, *,
+                 tag: Optional[str] = None, shards: int = 1):
         self.n = int(n)
         self.shards = int(shards)
         self.tag = tag  # stable identity for prefix reuse across pipelines
@@ -140,8 +142,9 @@ class ArrayDataset(Dataset):
 
     # -- construction -----------------------------------------------------
     @staticmethod
-    def from_numpy(array: Any, device=DEFAULT_DEVICE, shards: int = 1,
-                   tag: Optional[str] = None) -> "ArrayDataset":
+    def from_numpy(array: Any, device=DEFAULT_DEVICE,
+                   tag: Optional[str] = None, *,
+                   shards: int = 1) -> "ArrayDataset":
         """Stage host arrays (or tensors) on ``device``."""
         dev = resolve_device(device)
         data = tree_map(lambda x: _to_tensor(x, dev), array)
@@ -159,7 +162,7 @@ class ArrayDataset(Dataset):
             return np.stack([_host(x) for x in xs])
 
         return ArrayDataset.from_numpy(tree_map(stack, *items), device,
-                                       shards)
+                                       shards=shards)
 
     # -- properties -------------------------------------------------------
     @property
@@ -187,14 +190,14 @@ class ArrayDataset(Dataset):
                                   and self.device.type == "cuda"):
             return self
         return ArrayDataset(tree_map(lambda x: x.to(dev), self.data), self.n,
-                            self.shards, self.tag, self.mesh)
+                            self.mesh, tag=self.tag, shards=self.shards)
 
     # -- transforms -------------------------------------------------------
     def map_batch(self, fn: Callable[[Any], Any]) -> "ArrayDataset":
         """Apply a whole-batch function (padded rows included; the rows
         past ``n`` are re-zeroed afterwards)."""
-        return ArrayDataset(fn(self.data), self.n, self.shards,
-                            mesh=self.mesh)
+        return ArrayDataset(fn(self.data), self.n, self.mesh,
+                            shards=self.shards)
 
     def map(self, fn: Callable[[Any], Any]) -> "ArrayDataset":
         """Apply a per-item function row by row (the generic batch path
@@ -208,8 +211,8 @@ class ArrayDataset(Dataset):
                 raise ValueError("zip requires equal lengths")
         data = (self.data,) + tuple(o.data for o in others)
         return ArrayDataset(
-            tree_map(lambda x: x[: self.n], data), self.n, self.shards,
-            mesh=self.mesh)
+            tree_map(lambda x: x[: self.n], data), self.n, self.mesh,
+            shards=self.shards)
 
     # -- materialization --------------------------------------------------
     def numpy(self) -> Any:

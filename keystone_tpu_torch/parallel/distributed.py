@@ -174,8 +174,8 @@ class PendingStep:
     dispatched_at: float
     flow: int
     work: Any = None
-    parts: Optional[List[torch.Tensor]] = None
     result: Optional[np.ndarray] = None
+    parts: Optional[List[torch.Tensor]] = None
 
 
 class WorldCoordinator:
@@ -194,6 +194,10 @@ class WorldCoordinator:
         self._await_wall = 0.0
         self._round_wall = 0.0
         self._last_boundary: Optional[float] = None
+        # KEYSTONE_TORCH_COORD_OVERLAP=0: each round is awaited as it is
+        # dispatched, the same gathers in the same order
+        self._overlap = os.environ.get(
+            "KEYSTONE_TORCH_COORD_OVERLAP", "1") not in ("0", "false", "off")
         MetricsRegistry.get_or_create().gauge(
             "coord.world_size").set(self.nproc)
 
@@ -202,7 +206,8 @@ class WorldCoordinator:
         """Dispatch one round's ``(cursor, done, has_carry,
         saved_cursor)`` exchange on the gloo group and return the
         in-flight handle; every handle must reach :meth:`step_await`
-        exactly once, in dispatch order."""
+        exactly once, in dispatch order. With overlap off the gather is
+        waited for here, and the handle comes back with its result."""
         inject("coord.step", context=f"{self.tag}:round{self.rounds}")
         t0 = time.perf_counter()
         row = torch.tensor([int(cursor), 1 if done else 0,
@@ -217,6 +222,14 @@ class WorldCoordinator:
             pend.parts = [torch.empty_like(row) for _ in range(self.nproc)]
             pend.work = dist.all_gather(pend.parts, row, group=_cpu_group(),
                                         async_op=True)
+            if not self._overlap:
+                # the blocked wait moves here from the await: the same
+                # coordination overhead, hidden behind nothing
+                t_wait = time.perf_counter()
+                pend.work.wait()
+                self._await_wall += time.perf_counter() - t_wait
+                pend.result = torch.stack(pend.parts).numpy()
+                pend.work = pend.parts = None
         self.rounds += 1
         record_span(f"coord:{self.tag}:dispatch", "coord", t0,
                     time.perf_counter() - t0,
@@ -227,8 +240,9 @@ class WorldCoordinator:
     def step_await(self, pending: PendingStep) -> WorldState:
         """The await point of a dispatched round (``coord.await`` is the
         fault site between dispatch and await): wait on the gather and
-        fold the world's view. Only the time blocked here is
-        coordination overhead (:meth:`overhead_share`)."""
+        fold the world's view. Only time blocked on a gather, here or,
+        with overlap off, at the dispatch, is coordination overhead
+        (:meth:`overhead_share`)."""
         inject("coord.await", context=f"{self.tag}:round{pending.round}")
         t0 = time.perf_counter()
         if pending.result is None:
@@ -269,9 +283,10 @@ class WorldCoordinator:
         return self.step_await(pending)
 
     def overhead_share(self) -> float:
-        """Blocked-await wall over round wall, over the fit so far: the
-        share of coordination the overlap did not hide (0 until the
-        first await)."""
+        """Blocked wall over round wall, over the fit so far: the share
+        of coordination the overlap did not hide (0 until the first
+        await). The blocked wall is every wait on a round's gather: at
+        the await, or at the dispatch with overlap off."""
         if self._round_wall <= 0.0:
             return 0.0
         return min(1.0, self._await_wall / self._round_wall)
@@ -409,7 +424,8 @@ class DryrunWorld:
     to finish and are then killed, as a lost rank wedges its peers in a
     collective; recovery is relaunch and resume."""
 
-    def __init__(self, num_processes: int = 2, workdir: Optional[str] = None,
+    def __init__(self, num_processes: int = 2, *,
+                 workdir: Optional[str] = None,
                  grace_s: float = 20.0, env: Optional[dict] = None):
         self.num_processes = int(num_processes)
         self.grace_s = float(grace_s)

@@ -138,14 +138,21 @@ def set_mesh(mesh: Optional[Mesh]) -> None:
 
 def get_mesh() -> Mesh:
     """The process-global mesh: the one set by :func:`set_mesh` or
-    :func:`mesh_scope`, else the ``data`` mesh over every rank of the
-    live world, built anew each call so that it follows the world; the
-    one-rank mesh without a world. A ``model`` axis is asked for
-    explicitly (``make_mesh(model=k)`` under :func:`mesh_scope`)."""
+    :func:`mesh_scope`, else the mesh over every rank of the live world,
+    built anew each call so that it follows the world; the one-rank mesh
+    without a world. ``KEYSTONE_TORCH_MESH_MODEL=k`` sizes that default
+    mesh's ``model`` axis (1 when unset)."""
     with _lock:
         if _global_mesh is not None:
             return _global_mesh
-    return make_mesh()
+    raw = os.environ.get("KEYSTONE_TORCH_MESH_MODEL") or "1"
+    try:
+        model = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"KEYSTONE_TORCH_MESH_MODEL must be an integer, got {raw!r}"
+        ) from None
+    return make_mesh(model=model)
 
 
 @contextlib.contextmanager
@@ -218,7 +225,7 @@ def replicated_sharding(mesh: Optional[Mesh] = None):
     return lambda n: (0, int(n))
 
 
-def shard_put(arr, sharding, device=None) -> torch.Tensor:
+def shard_put(arr, sharding, *, device=None) -> torch.Tensor:
     """This rank's rows of a host array (every rank passes the same
     global array) on ``device``: the counterpart of the JAX
     ``shard_put``, whose processes each put their own shards. The rows

@@ -54,7 +54,7 @@ chunks.
 
 The world loop (``parallel/distributed.py``). Under a world of more than
 one rank each rank fits its shard-local stream and the ranks meet every
-``checkpoint_every`` chunks (``_ROUND_LEN``, 16, without checkpoints) in a :class:`~keystone_tpu_torch.parallel.
+``checkpoint_every`` chunks (without checkpoints ``KEYSTONE_TORCH_COORD_ROUND_LEN``, 16 by default) in a :class:`~keystone_tpu_torch.parallel.
 distributed.WorldCoordinator` round: a rank dispatches round k, folds
 round k+1's chunks, and only then awaits round k, so every rank runs the
 same rounds and a rank whose shard ends early keeps stepping with
@@ -70,6 +70,7 @@ the same merged carry, and the drift sketches merge likewise.
 from __future__ import annotations
 
 import atexit
+import os
 import queue
 import threading
 import time
@@ -329,14 +330,15 @@ class StreamingDataset(Dataset):
 
     def __init__(self, chunk_source: Callable[[], Iterator[Any]],
                  chunk_size: int, n: Optional[int] = None,
-                 device=DEFAULT_DEVICE, prefetch_depth: int = 2,
-                 tag: Optional[str] = None, wire_dtype: Any = None,
-                 compute_dtype: Any = None,
-                 hbm_budget: Optional[float] = None,
+                 mesh: Any = None, prefetch_depth: int = 2,
+                 tag: Optional[str] = None,
                  retry_policy: Optional[RetryPolicy] = None,
                  stall_timeout_s: Optional[float] = None,
-                 quarantine: Any = None, mesh: Any = None,
-                 _transforms: Tuple[Callable, ...] = ()):
+                 quarantine: Any = None, wire_dtype: Any = None,
+                 compute_dtype: Any = None,
+                 _transforms: Tuple[Callable, ...] = (), *,
+                 device=DEFAULT_DEVICE,
+                 hbm_budget: Optional[float] = None):
         if not callable(chunk_source):
             raise TypeError(
                 "chunk_source must be a callable returning a fresh chunk "
@@ -688,7 +690,8 @@ class StreamingDataset(Dataset):
         return StreamingDataset(factory, chunk_size, n=n, **kw)
 
     @staticmethod
-    def from_numpy(array: Any, chunk_size: int, **kw) -> "StreamingDataset":
+    def from_numpy(array: Any, chunk_size: int, mesh: Any = None,
+                   **kw) -> "StreamingDataset":
         """Chunk a resident host array, or tuple of arrays (the parity
         path, and the way to bound device memory when host memory holds
         what the device cannot)."""
@@ -702,7 +705,7 @@ class StreamingDataset(Dataset):
             for lo in range(0, total, chunk_size):
                 yield tree_map(lambda x: x[lo:lo + chunk_size], array)
 
-        out = StreamingDataset(chunked, chunk_size, n=total, **kw)
+        out = StreamingDataset(chunked, chunk_size, n=total, mesh=mesh, **kw)
         out._element = [(x.shape[1:], x.dtype) for x in leaves]
         return out
 
@@ -851,8 +854,29 @@ def _carry_nbytes(carry: Any) -> float:
 
 
 #: chunks a world folds per coordination round when it does not
-#: checkpoint (with checkpoints, ``checkpoint_every``)
+#: checkpoint (with checkpoints, ``checkpoint_every``) and
+#: ``KEYSTONE_TORCH_COORD_ROUND_LEN`` is unset
 _ROUND_LEN = 16
+
+
+def _coord_round_len(checkpoint_every: Optional[int] = None) -> int:
+    """Chunks a world folds per coordination round: ``checkpoint_every``
+    where the fit checkpoints (a snapshot lands on a round boundary),
+    else ``KEYSTONE_TORCH_COORD_ROUND_LEN`` (default 16). Longer rounds
+    mean fewer gathers and a later view of a dead peer."""
+    if checkpoint_every is not None:
+        return int(checkpoint_every)
+    raw = os.environ.get("KEYSTONE_TORCH_COORD_ROUND_LEN", str(_ROUND_LEN))
+    try:
+        round_len = int(raw)
+    except ValueError:
+        raise ValueError(
+            "KEYSTONE_TORCH_COORD_ROUND_LEN must be an integer (chunks "
+            f"folded per coordination round), got {raw!r}") from None
+    if round_len < 1:
+        raise ValueError(
+            f"KEYSTONE_TORCH_COORD_ROUND_LEN must be >= 1, got {round_len}")
+    return round_len
 
 
 #: chunks a streamed fit runs before it arms its capture fence: the
@@ -929,8 +953,7 @@ def fit_streaming(estimator: Any, data: StreamingDataset, labels: Any = None,
     world = None
     if is_distributed():
         world = WorldCoordinator(tag=tag)
-        round_len = (int(checkpoint_every) if checkpoint_every is not None
-                     else _ROUND_LEN)
+        round_len = _coord_round_len(checkpoint_every)
     ckpt = fingerprint = numerics_state = carry = None
     start_chunk = 0
     if checkpoint_dir is not None:

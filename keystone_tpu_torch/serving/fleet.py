@@ -95,7 +95,8 @@ def canonicalize(fitted: Any, sample: Any,
     served = _without_cachers(pipeline)
     item = _zeros_batch(spec, 1)
     pools = measure_graph_pools(served, item, graph_rows(policy, dev), dev)
-    charge = model_charge(served, item, policy.max_rows(), dev, pools)
+    charge = model_charge(served, item, policy.max_rows(), device=dev,
+                          graph_pools=pools)
     return blob, charge.total_nbytes()
 
 

@@ -55,6 +55,7 @@ from urllib.parse import parse_qs, urlsplit
 
 import numpy as np
 
+from ..observability.metrics import MetricsRegistry
 from ..observability.reqtrace import exemplar_reservoir
 from ..observability.sampler import _MetricsHandler, _MetricsServer
 from ..observability.slo import SloPolicy
@@ -202,14 +203,16 @@ def bind_server(handler_cls: type, attrs: Dict[str, Any], port: int = 0,
     return server
 
 
-def serve(plane: ServingPlane, port: int = 0,
-          host: str = "127.0.0.1") -> _MetricsServer:
+def serve(plane: ServingPlane, port: int = 0, host: str = "127.0.0.1",
+          registry: Optional[MetricsRegistry] = None) -> _MetricsServer:
     """Serve ``plane``'s endpoints on ``host:port`` (``port=0``: an
     ephemeral port, read back from ``server.server_port``) from a daemon
-    thread; ``/healthz`` is gated on ``plane.ready``."""
+    thread; ``/healthz`` is gated on ``plane.ready``; ``/metrics`` reads
+    ``registry`` (default the process registry)."""
     return bind_server(
         ServingHandler,
-        {"plane": plane, "ready_probe": staticmethod(plane.ready)},
+        {"registry": registry, "plane": plane,
+         "ready_probe": staticmethod(plane.ready)},
         port=port, host=host, thread_name="keystone-serving-http")
 
 

@@ -75,14 +75,14 @@ class ServedModel:
     charge: ModelCharge
     buckets: Tuple[int, ...]
     weight_dtype: Optional[str] = None
-    baseline: Any = None             # DriftBaseline or None
-    drift_disabled: bool = False
     ready: bool = False
     warmup_s: float = 0.0
     last_used_s: float = field(default_factory=time.perf_counter)
     served_rows: int = 0
     served_requests: int = 0
     batches: int = 0
+    baseline: Any = None             # DriftBaseline or None
+    drift_disabled: bool = False
     _recent: Deque[Tuple[float, int]] = field(default_factory=deque)
     token: int = field(default_factory=lambda: next(_ADMISSIONS))
     #: CUDA graph captures of this admission, their wall seconds and the

@@ -180,13 +180,13 @@ class ServingPlane:
                  max_batch: int = 64, queue_depth: int = 128,
                  default_weight_dtype: Optional[str] = None,
                  drift_every: int = 32,
-                 policy: Optional[BucketPolicy] = None,
+                 policy: Optional[BucketPolicy] = None, *,
                  steady_fence: bool = True,
-                 slo_policy: Any = None,
+                 slo_policy: Any = None, data_shards: int = 1,
                  nonfinite_guard: bool = True,
                  postmortem_min_interval_s: float = 30.0,
                  workers: Optional[int] = None,
-                 device=DEFAULT_DEVICE, data_shards: int = 1):
+                 device=DEFAULT_DEVICE):
         from ..observability.slo import SloTracker
 
         self.device = resolve_device(device)
@@ -377,9 +377,10 @@ class ServingPlane:
                         name, pipeline, sample, rows, "admission")
                 charge = model_charge(
                     pipeline, _zeros_batch(sample, 1), buckets[-1],
-                    self.device,
-                    {rows: bg.pool_nbytes for rows, bg in graphs.items()},
-                    data_shards=self.data_shards, name=name)
+                    name=name, data_shards=self.data_shards,
+                    device=self.device,
+                    graph_pools={rows: bg.pool_nbytes
+                                 for rows, bg in graphs.items()})
             entry = ServedModel(name=name, fitted=pipeline, blob=blob,
                                 sample=sample, charge=charge,
                                 buckets=buckets, weight_dtype=wd,

@@ -47,6 +47,7 @@ from torch.utils import _pytree as pytree
 
 from ..observability.compilelog import capture_lock
 from ..observability.metrics import MetricsRegistry
+from ..ops.device import DEFAULT_DEVICE
 from ..parallel.dataset import ArrayDataset, bucketed_dataset, device_nbytes
 from ..utils.guarded import guarded_by
 
@@ -72,10 +73,6 @@ class ModelCharge:
     item_nbytes: float
     bucket_rows: int
     source: str = "static-plan"
-    #: the captured graphs' pools and static inputs (0 on the CPU)
-    graph_nbytes: float = 0.0
-    #: the pools alone, as their captures measured them
-    pool_nbytes: float = 0.0
     #: >1: the charge is ONE rank's under the sharded apply
     #: (``parallel/spmd_apply.py``): the shardable fitted bytes divide
     #: over the data axis, one gather transient is charged, and the
@@ -83,6 +80,10 @@ class ModelCharge:
     data_shards: int = 1
     shardable_nbytes: float = 0.0
     gather_nbytes: float = 0.0
+    #: the captured graphs' pools and static inputs (0 on the CPU)
+    graph_nbytes: float = 0.0
+    #: the pools alone, as their captures measured them
+    pool_nbytes: float = 0.0
 
     def activation_nbytes(self) -> float:
         shards = max(int(self.data_shards), 1)
@@ -205,11 +206,14 @@ def measure_graph_pools(fitted: Any, zero_item: Any,
     return out
 
 
-def model_charge(fitted: Any, zero_item: Any, bucket_rows: int,
-                 device, graph_pools: Optional[Mapping[int, float]] = None,
-                 data_shards: int = 1, name: str = "model") -> ModelCharge:
+def model_charge(fitted: Any, sample_struct: Any, bucket_rows: int,
+                 name: str = "model", data_shards: int = 1, *,
+                 device=DEFAULT_DEVICE,
+                 graph_pools: Optional[Mapping[int, float]] = None
+                 ) -> ModelCharge:
     """The admission charge of ``fitted`` (a fitted pipeline) serving
-    items like ``zero_item`` (host arrays of one row, leading dim 1) at a
+    items like ``sample_struct`` (host arrays of ONE item each, leading
+    dim 1, where the JAX package takes a ``ShapeDtypeStruct`` tree) at a
     largest bucket of ``bucket_rows`` rows on ``device``.
 
     Device-free when the static plan resolves, as the JAX package's: the
@@ -228,7 +232,7 @@ def model_charge(fitted: Any, zero_item: Any, bucket_rows: int,
                                       sharded_apply_nbytes)
 
     graph = fitted.to_pipeline().graph
-    report = fitted.check(_item_spec(zero_item), name=f"serve:{name}")
+    report = fitted.check(_item_spec(sample_struct), name=f"serve:{name}")
     model_b = float(fitted_model_nbytes(graph))
     shards = max(int(data_shards), 1)
     shardable = gather = 0.0
@@ -236,7 +240,7 @@ def model_charge(fitted: Any, zero_item: Any, bucket_rows: int,
         shardable, gather = sharded_apply_nbytes(graph)
     pools = {int(r): float(b) for r, b in (graph_pools or {}).items()}
     in_row = sum(float(np.asarray(leaf).nbytes)
-                 for leaf in pytree.tree_leaves(zero_item))
+                 for leaf in pytree.tree_leaves(sample_struct))
     pool_b = float(sum(pools.values()))
     graph_b = pool_b + in_row * sum(pools)
     total = serving_residency_nbytes(
@@ -246,7 +250,7 @@ def model_charge(fitted: Any, zero_item: Any, bucket_rows: int,
     if total is not None:
         item, source = float(report.plan.apply_item_nbytes), "static-plan"
     else:
-        item = _probe_item_nbytes(fitted, zero_item, torch.device(device))
+        item = _probe_item_nbytes(fitted, sample_struct, torch.device(device))
         source = "probed"
     return ModelCharge(model_nbytes=model_b, item_nbytes=item,
                        bucket_rows=int(bucket_rows), source=source,

@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import functools
 import os
-from dataclasses import dataclass
+from dataclasses import KW_ONLY, dataclass
 from typing import Any, Callable, List, Optional, Tuple
 
 import torch
@@ -40,15 +40,16 @@ import torch
 @dataclass(frozen=True)
 class DonationSite:
     """One registered in-place carry update: the raw update ``fn``, its
-    carry's positional index and its shape ``probe`` (a zero-argument
-    callable returning ``(args, kwargs)`` on the ``meta`` device, or
-    None)."""
+    carry's positional index (where the JAX package lists donated
+    argnums) and its shape ``probe`` (a zero-argument callable returning
+    ``(args, kwargs)`` on the ``meta`` device, or None)."""
 
+    fn: Optional[Callable]
+    carry_arg: int
+    _: KW_ONLY
+    probe: Optional[Callable[[], Tuple]]
     name: str
     module: str
-    carry_arg: int
-    fn: Optional[Callable] = None
-    probe: Optional[Callable[[], Tuple]] = None
 
 
 _REGISTRY: List[DonationSite] = []
@@ -114,8 +115,9 @@ def donates_carry(carry_arg: int = 0,
     on the ``meta`` device for :func:`donation_shape_mismatches`."""
 
     def wrap(fn: Callable) -> Callable:
-        _REGISTRY.append(DonationSite(fn.__qualname__, fn.__module__,
-                                      carry_arg, fn=fn, probe=probe))
+        _REGISTRY.append(DonationSite(fn, carry_arg, probe=probe,
+                                      name=fn.__qualname__,
+                                      module=fn.__module__))
 
         @functools.wraps(fn)
         def update(*args: Any, **kwargs: Any) -> Any:

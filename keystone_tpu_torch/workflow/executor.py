@@ -18,8 +18,10 @@ flight recorder and has its output health-checked
 it reads the clock, as the JAX package blocks on the value; that sync is
 an observer effect, since it removes the overlap between a node and the
 next one's launches. An untraced run wraps nothing. The
-``executor.nodes_executed`` and ``executor.memo_hits`` counters are
-always on, outside the optimizers' sampled executions.
+``executor.nodes_executed``, ``executor.memo_hits`` and
+``executor.prefix_hits`` (a node served from saved state or the prefix
+memo) counters are always on, outside the optimizers' sampled
+executions.
 """
 from __future__ import annotations
 
@@ -51,6 +53,7 @@ from .operators import (
     DatasetOperator,
     DatumOperator,
     EstimatorOperator,
+    ExpressionOperator,
     Operator,
 )
 from .prefix import compute_prefix
@@ -171,6 +174,10 @@ class GraphExecutor:
         expr = op.execute(deps)
         if metrics is not None:
             metrics.counter("executor.nodes_executed").inc()
+            if isinstance(op, ExpressionOperator):
+                # saved-state substitution (SavedStateLoadRule / prefix
+                # memo): counted traced or not
+                metrics.counter("executor.prefix_hits").inc()
         trace = current_trace()
         if trace is not None:
             self._instrument(trace, gid, op, expr)

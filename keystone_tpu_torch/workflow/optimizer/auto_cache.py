@@ -191,13 +191,15 @@ def _synchronize(value: Any) -> None:
         torch.cuda.synchronize()
 
 
-def profile_graph(graph: Graph,
-                  scales: Sequence[int]) -> Dict[NodeId, Profile]:
+def profile_graph(graph: Graph, scales: Sequence[int],
+                  num_trials: int = 1) -> Dict[NodeId, Profile]:
     """Run the part of the graph that does not depend on the runtime
     source on sampled datasets at each scale, timing each node and
     measuring its output, then extrapolate to the full size (reference
     ``profileInstructions``, ``AutoCacheRule.scala:132-361``). Each node
-    runs once a scale, its dependencies' values already made."""
+    runs ``num_trials`` times a scale, each trial anew from the sampled
+    sources, its dependencies' values of that trial already made; every
+    trial is one sample of the fit."""
     full_n = 0
     for n in graph.nodes:
         op = graph.get_operator(n)
@@ -217,22 +219,25 @@ def profile_graph(graph: Graph,
             if isinstance(op, DatasetOperator):
                 sampled = sampled.set_operator(
                     n, DatasetOperator(_sample_dataset(op.dataset, items)))
-        values: Dict[NodeId, Any] = {}
-        for node in order:
-            op = sampled.get_operator(node)
-            deps = [values[d] for d in sampled.get_dependencies(node)]
-            t0 = time.monotonic()
-            with tracing_disabled():
-                # sampled runs share node ids with the real graph: keep
-                # them out of the per-node records and executor metrics
-                expr = op.execute(deps)
-                value = expr.get()
-            _synchronize(value)
-            elapsed = (time.monotonic() - t0) * 1e9
-            values[node] = expr
-            samples_by_node.setdefault(node, []).append(
-                SampleProfile(items, Profile(elapsed, _result_mem(value))))
-        del values
+        for _ in range(num_trials):
+            values: Dict[NodeId, Any] = {}
+            for node in order:
+                op = sampled.get_operator(node)
+                deps = [values[d] for d in sampled.get_dependencies(node)]
+                t0 = time.monotonic()
+                with tracing_disabled():
+                    # sampled runs share node ids with the real graph:
+                    # keep them out of the per-node records and executor
+                    # metrics
+                    expr = op.execute(deps)
+                    value = expr.get()
+                _synchronize(value)
+                elapsed = (time.monotonic() - t0) * 1e9
+                values[node] = expr
+                samples_by_node.setdefault(node, []).append(
+                    SampleProfile(items, Profile(elapsed,
+                                                 _result_mem(value))))
+            del values
 
     return {
         node: generalize_profiles(full_n, sps)
@@ -341,7 +346,8 @@ def _device_mem_budget(device=None) -> float:
 
 class AutoCacheRule(Rule):
     """``strategy`` is "aggressive" or "greedy"
-    (reference ``AutoCacheRule.scala:515-523,526-549``)."""
+    (reference ``AutoCacheRule.scala:515-523,526-549``); the greedy
+    strategy profiles ``num_trials`` runs at each of ``scales``."""
 
     AGGRESSIVE = "aggressive"
     GREEDY = "greedy"
@@ -351,11 +357,13 @@ class AutoCacheRule(Rule):
         strategy: str = GREEDY,
         max_mem: Optional[float] = None,
         scales: Sequence[int] = (2, 4),
+        num_trials: int = 1,
     ):
         assert strategy in (self.AGGRESSIVE, self.GREEDY)
         self.strategy = strategy
         self.max_mem = max_mem
         self.scales = tuple(scales)
+        self.num_trials = num_trials
 
     def _aggressive(self, graph: Graph) -> Graph:
         children = _children_with_multiplicity(graph)
@@ -376,7 +384,7 @@ class AutoCacheRule(Rule):
         return make_cached_graph(graph, to_cache)
 
     def _greedy(self, graph: Graph) -> Graph:
-        profiles = profile_graph(graph, self.scales)
+        profiles = profile_graph(graph, self.scales, self.num_trials)
         children = _children_with_multiplicity(graph)
         weights = {n: node_weight(graph.get_operator(n)) for n in graph.nodes}
         # a node downstream of the runtime source runs once per input and

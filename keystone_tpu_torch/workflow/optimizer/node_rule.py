@@ -95,7 +95,7 @@ def _sample_dataset(ds: Dataset, size: int) -> Dataset:
     if isinstance(ds, ArrayDataset):
         rows = torch.as_tensor(idx, device=ds.device)
         return ArrayDataset(tree_map(lambda x: x[rows], ds.data), len(idx),
-                            ds.shards)
+                            shards=ds.shards)
     items = ds.collect()
     return HostDataset([items[i] for i in idx])
 

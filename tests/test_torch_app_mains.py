@@ -314,14 +314,14 @@ def test_the_subcommands_exit_as_the_jax_ones(argv, code, tmp_path,
 
 
 def test_keystone_distributed_exits_2(monkeypatch, capsys):
-    """KEYSTONE_DISTRIBUTED=1 reads torchrun's environment; without it
+    """KEYSTONE_TORCH_DISTRIBUTED=1 reads torchrun's environment; without it
     the launch exits 2 naming the missing variables."""
     for key in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
         monkeypatch.delenv(key, raising=False)
-    monkeypatch.setenv("KEYSTONE_DISTRIBUTED", "1")
+    monkeypatch.setenv("KEYSTONE_TORCH_DISTRIBUTED", "1")
     assert tmain.main(["voc.sift_fisher"]) == 2
     assert "MASTER_ADDR" in capsys.readouterr().err
-    monkeypatch.delenv("KEYSTONE_DISTRIBUTED")
+    monkeypatch.delenv("KEYSTONE_TORCH_DISTRIBUTED")
     assert tmain.main(["nope"]) == 2
 
 

@@ -498,6 +498,30 @@ def test_cuda_dense_sift_takes_the_banded_kernel(cuda):
     assert float(diff.max()) <= 2.0 and float(diff.mean()) <= 0.15
 
 
+def test_cuda_dense_sift_kernel_modes(cuda):
+    """``kernel_mode="banded"`` is the kernel (the default on the card),
+    ``"einsum"`` the plain form with no kernel launch; the two within
+    phase 4d's descriptor bars (max 2, mean 0.15 quantized units, over
+    the columns neither zeroes alone; such flips below 1e-4 of the
+    columns); ``"banded"`` on a CPU image raises."""
+    img = torch.as_tensor(np.random.RandomState(3).rand(375, 500)
+                          .astype(np.float32), device=cuda)
+    before = kernels.LAUNCHES["banded_matmul"]
+    banded = sift.dense_sift(img, kernel_mode="banded")
+    assert kernels.LAUNCHES["banded_matmul"] == before + 10
+    einsum = sift.dense_sift(img, kernel_mode="einsum")
+    assert kernels.LAUNCHES["banded_matmul"] == before + 10
+    torch.cuda.synchronize()
+    assert torch.equal(banded, sift.dense_sift(img))
+    assert torch.equal(einsum, sift.dense_sift_plain(img))
+    za, zb = banded.sum(0) == 0, einsum.sum(0) == 0
+    diff = (banded - einsum).abs()[:, ~(za ^ zb)]
+    assert float(diff.max()) <= 2.0 and float(diff.mean()) <= 0.15
+    assert int((za ^ zb).sum()) <= 1e-4 * banded.shape[1]
+    with pytest.raises(ValueError, match="needs a CUDA image"):
+        sift.dense_sift(img.cpu(), kernel_mode="banded")
+
+
 def _fv_inputs(D, K, n, device, seed=0):
     rng = np.random.RandomState(seed)
     X = rng.randn(D, n).astype(np.float32)

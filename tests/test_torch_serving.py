@@ -83,7 +83,8 @@ def _charge(fitted, d, rows=16):
     """The charge a max_batch=16 plane will compute for ``fitted``."""
     from keystone_tpu_torch.serving.residency import model_charge
 
-    return model_charge(fitted, np.zeros((1, d), np.float32), rows, "cpu")
+    return model_charge(fitted, np.zeros((1, d), np.float32), rows,
+                        device="cpu")
 
 
 @pytest.fixture

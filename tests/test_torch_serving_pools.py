@@ -82,8 +82,8 @@ def test_charge_is_the_jax_packages_static_plan(d, k, seed, shards):
 
     jax = _jax()
     ours, theirs = _linear_pair(d, k, seed)
-    got = model_charge(ours, np.zeros((1, d), np.float32), 16, "cpu",
-                       data_shards=shards)
+    got = model_charge(ours, np.zeros((1, d), np.float32), 16,
+                       data_shards=shards, device="cpu")
     want = jcharge(theirs, jax.ShapeDtypeStruct((d,), np.float32), 16,
                    data_shards=shards)
     assert got.source == "static-plan"
@@ -133,8 +133,8 @@ def test_an_unresolved_plan_is_probed_in_both_packages(shards):
 
     jax = _jax()
     got = model_charge(_HostWiden().to_pipeline(),
-                       np.zeros((1, 0), np.float32), 16, "cpu",
-                       data_shards=shards)
+                       np.zeros((1, 0), np.float32), 16,
+                       data_shards=shards, device="cpu")
     want = jcharge(_jax_host_widen().to_pipeline(),
                    jax.ShapeDtypeStruct((0,), np.float32), 16,
                    data_shards=shards)

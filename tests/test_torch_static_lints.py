@@ -253,8 +253,8 @@ def test_the_ports_donation_sites_declare_probes_and_update_in_place():
 
 
 def _site(fn, probe):
-    return donation.DonationSite(fn.__name__, __name__, 0, fn=fn,
-                                 probe=probe)
+    return donation.DonationSite(fn, 0, probe=probe, name=fn.__name__,
+                                 module=__name__)
 
 
 def test_the_shape_gate_fires_on_a_new_carry_and_a_reshaped_one():

@@ -127,7 +127,7 @@ def test_chrome_trace_lanes_do_not_overlap(tmp_path):
     with flight_span("outer", "node"):
         with flight_span("inner", "node"):
             time.sleep(0.002)
-        rec.record_instant("mark", "resilience", {"k": 1})
+        rec.record_instant("mark", "resilience", args={"k": 1})
 
     def worker():
         record_span("stage:w", "ingest", time.perf_counter(), 0.001)

@@ -248,7 +248,8 @@ def test_row_placements_and_host_fetch_without_a_world():
     assert tmesh.batch_sharding(m)(5) == (0, 2)    # rank 0's block
     assert tmesh.replicated_sharding(m)(5) == (0, 5)
     np.testing.assert_array_equal(
-        tmesh.shard_put(X, tmesh.batch_sharding(m), "cpu").numpy(), X[:2])
+        tmesh.shard_put(X, tmesh.batch_sharding(m), device="cpu").numpy(),
+        X[:2])
     np.testing.assert_array_equal(
         fetch_to_host(torch.from_numpy(X), m), X)  # one process: as is
     L = torch.tensor([[-1.0, 1.0], [1.0, -1.0]])

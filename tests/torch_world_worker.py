@@ -19,7 +19,13 @@ Modes (every rank runs the same one; rank 0 writes ``out.npz``):
   and the per-class weighted solver over this rank's block of a
   ``shard_dataset``-marked dataset;
 * ``app``: ``cifar.random_patch``'s ``main`` with the arguments in
-  ``argv`` (a JSON list in the npz), its weights and test predictions.
+  ``argv`` (a JSON list in the npz), its weights and test predictions;
+* ``streamed``: ``fit_streaming`` of a ``LinearMapEstimator`` over this
+  rank's block of X / Y in chunks of ``chunk``, once under each
+  coordination setting of ``switches`` (a JSON list of environment
+  dicts, read when a fit starts): each fit's weights, rounds,
+  ``coord.overlap_occupancy`` and the rounds whose gather was still in
+  flight when ``WorldCoordinator.step_begin`` returned.
 """
 import json
 import os
@@ -137,6 +143,55 @@ def _app(blob):
             "test_error": np.array(test_eval.total_error)}
 
 
+def _streamed(blob):
+    from keystone_tpu_torch.nodes.learning.linear import LinearMapEstimator
+    from keystone_tpu_torch.observability.metrics import MetricsRegistry
+    from keystone_tpu_torch.parallel.distributed import WorldCoordinator
+    from keystone_tpu_torch.parallel.mesh import (local_mesh, mesh_scope,
+                                                  process_count,
+                                                  process_index, shard_bounds)
+    from keystone_tpu_torch.parallel.streaming import (StreamingDataset,
+                                                       fit_streaming)
+
+    X, Y = blob["X"], blob["Y"]
+    bounds = shard_bounds(X.shape[0], process_count())
+    lo, hi = int(bounds[process_index()]), int(bounds[process_index() + 1])
+    reg = MetricsRegistry.get_or_create()
+    in_flight = [0]
+    real = WorldCoordinator.step_begin
+
+    def step_begin(self, *args, **kwargs):
+        pend = real(self, *args, **kwargs)
+        in_flight[0] += pend.result is None
+        return pend
+
+    WorldCoordinator.step_begin = step_begin
+    out = {}
+    for i, env in enumerate(json.loads(str(blob["switches"]))):
+        os.environ.update(env)
+        in_flight[0] = 0
+        try:
+            rounds = reg.snapshot()["counters"].get("coord.rounds_total", 0)
+            with mesh_scope(local_mesh()):
+                stream = StreamingDataset.from_numpy(
+                    np.ascontiguousarray(X[lo:hi]),
+                    chunk_size=int(blob["chunk"]), tag=f"switch{i}",
+                    device="cpu")
+                model = fit_streaming(LinearMapEstimator(lam=0.1), stream,
+                                      np.ascontiguousarray(Y[lo:hi]))
+        finally:
+            for key in env:
+                del os.environ[key]
+        snap = reg.snapshot()
+        out[f"weights{i}"] = np.asarray(model.weights, np.float32)
+        out[f"rounds{i}"] = np.array(
+            snap["counters"]["coord.rounds_total"] - rounds)
+        out[f"occupancy{i}"] = np.array(
+            snap["gauges"]["coord.overlap_occupancy"])
+        out[f"in_flight{i}"] = np.array(in_flight[0])
+    return out
+
+
 def main(argv):
     mode, src, dst, pid, nproc, store = argv
     from keystone_tpu_torch.parallel.dryrun_worker import (
@@ -163,6 +218,8 @@ def main(argv):
         out = _apply(blob, world_data_mesh())
     elif mode == "weighted":
         out = _weighted(blob, world_data_mesh())
+    elif mode == "streamed":
+        out = _streamed(blob)
     else:
         out = _app(blob)
     if process_index() == 0:
