@@ -22,6 +22,7 @@ import torch
 
 from ...observability.metrics import MetricsRegistry
 from ...observability.numerics import record_block_health
+from ...observability.timeline import flight_span
 from ...ops import linalg
 from ...ops.kernels import gram_cross, quant_plan, quantized_affine
 from ...parallel.dataset import ArrayDataset, Dataset, ensure_array
@@ -677,23 +678,27 @@ def gram_bcd(carry, lam, bounds, num_iter):
     same per-block Cholesky reuse and the same breakdown recovery, so
     streamed and resident fits agree to float32 rounding without the
     (n, d) data ever being resident (``linear.py::_gram_bcd_impl`` in the
-    JAX package). Consumes the carry. Returns ``(per-block weights,
+    JAX package), in ``factor:gram_bcd`` and ``block:gram_bcd`` spans.
+    Consumes the carry. Returns ``(per-block weights,
     x_mean, y_mean)``."""
     x_mean, y_mean, Gc, Cc = _centered_carry(carry)
     d, k = Cc.shape
     factors, ratios = [], []
-    for lo, hi in bounds:
-        reg = Gc[lo:hi, lo:hi] + lam * torch.eye(hi - lo, dtype=Gc.dtype,
-                                                 device=Gc.device)
-        L, ok, ratio = linalg.cholesky_health(reg)
+    for i, (lo, hi) in enumerate(bounds):
+        with flight_span("factor:gram_bcd", "solve", block=i):
+            reg = Gc[lo:hi, lo:hi] + lam * torch.eye(
+                hi - lo, dtype=Gc.dtype, device=Gc.device)
+            L, ok, ratio = linalg.cholesky_health(reg)
         factors.append((reg, L, ok))
         ratios.append(ratio)
     record_block_health("gram_bcd", [f[2] for f in factors], ratios)
     W = torch.zeros((d, k), dtype=Gc.dtype, device=Gc.device)
     for _ in range(num_iter):
-        for (lo, hi), (reg, L, ok) in zip(bounds, factors):
-            rhs = (Cc[lo:hi] - Gc[lo:hi, :] @ W
-                   + Gc[lo:hi, lo:hi] @ W[lo:hi])
-            W[lo:hi] = linalg.finite_or_eigh_solve(
-                torch.cholesky_solve(rhs, L), lambda reg=reg: reg, rhs, ok)
+        for i, ((lo, hi), (reg, L, ok)) in enumerate(zip(bounds, factors)):
+            with flight_span("block:gram_bcd", "solve", block=i):
+                rhs = (Cc[lo:hi] - Gc[lo:hi, :] @ W
+                       + Gc[lo:hi, lo:hi] @ W[lo:hi])
+                W[lo:hi] = linalg.finite_or_eigh_solve(
+                    torch.cholesky_solve(rhs, L), lambda reg=reg: reg, rhs,
+                    ok)
     return [W[lo:hi].clone() for lo, hi in bounds], x_mean, y_mean

@@ -1,4 +1,4 @@
-"""The port's metric-name catalogue.
+"""The port's metric-name and span-name catalogue.
 
 Counterpart of ``keystone_tpu/observability/names.py``. Dashboards, the
 sampler and the scrape surface address metrics by name across process
@@ -9,10 +9,18 @@ walks the port's syntax trees and fails on a name that is not.
 Families with a dynamic tail (``resilience.<event>``,
 ``lock.wait_s.<lock>``) are catalogued as prefixes, which an f-string's
 literal head must fall inside.
+
+The live spans (``timeline.flight_span``, on the device trace's clock
+while a profiler records) are named ``<head>:<tail>``, and the head
+names the program's layer: :data:`SPAN_LAYERS` maps every head to its
+layer, in the words of the benchmark's per-layer metrics
+(``BENCHMARK.json``'s ``layer``). A span whose name holds ``#`` is a
+pipeline node (``<label>#<id>``), of :data:`NODE_SPAN_LAYER`. The same
+test fails on a literal span head that is not listed here.
 """
 from __future__ import annotations
 
-from typing import FrozenSet, Tuple
+from typing import Dict, FrozenSet, Optional, Tuple
 
 METRIC_NAMES: FrozenSet[str] = frozenset({
     # workflow/executor.py: always-on executor counters
@@ -43,6 +51,8 @@ METRIC_NAMES: FrozenSet[str] = frozenset({
     # observability/sampler.py: probes, published as gauges
     "process.rss_bytes",
     "streaming.stage_queue_depth",
+    "prefix.memo_bytes",       # the prefix memo's computed entries'
+    "prefix.memo_entries",     # device bytes, and their count
     # observability/numerics.py: the data-health plane
     "numerics.health_words",
     "numerics.nan_total",
@@ -126,6 +136,39 @@ METRIC_PREFIXES: Tuple[str, ...] = (
     "slo.",                # observability/slo.py: one counter per event
     "router.spill_total.",  # serving/router.py: per model
 )
+
+
+PIPELINE_LAYER = "pipeline API (fit and apply entry points)"
+SOLVER_LAYER = "block solver and library kernels"
+
+#: live span head -> the layer it times
+SPAN_LAYERS: Dict[str, str] = {
+    # workflow/pipeline.py: Pipeline.fit's body and PipelineResult.get
+    "execute": PIPELINE_LAYER,
+    # workflow/optimizer/rule.py: Optimizer.execute, per optimizer class
+    "optimize": "workflow optimizer",
+    # ops/linalg.py::bcd_core and nodes/learning/linear.py::gram_bcd:
+    # each block's factor and each block update, per solver site
+    "factor": SOLVER_LAYER,
+    "block": SOLVER_LAYER,
+    # parallel/streaming.py::fit_streaming: the carry's accumulate and
+    # the world's merge
+    "accumulate": SOLVER_LAYER,
+    "merge": SOLVER_LAYER,
+    # parallel/streaming.py: the consumer's wait for a staged chunk
+    "stall": "streamed ingest",
+}
+
+#: the layer of a node span (``<label>#<id>``, workflow/executor.py)
+NODE_SPAN_LAYER = PIPELINE_LAYER
+
+
+def span_layer(name: str) -> Optional[str]:
+    """The layer a live span of ``name`` times, or None for a name that
+    is no catalogued span."""
+    if "#" in name:
+        return NODE_SPAN_LAYER
+    return SPAN_LAYERS.get(name.split(":", 1)[0]) if ":" in name else None
 
 
 def is_catalogued(name: str) -> bool:

@@ -11,6 +11,11 @@ Counterpart of ``keystone_tpu/observability/sampler.py``:
   (seconds since the numerics plane last read a health word) and
   ``streaming.stage_queue_depth`` (chunks staged and waiting in the live
   streams' queues, in the place of the JAX package's H2D pool queue).
+  The port adds ``prefix.memo_bytes`` and ``prefix.memo_entries``: the
+  device bytes and the count of the computed values the prefix memo
+  (``PipelineEnv.state``) holds, which grow by every ``fitted.apply``
+  call's cached features until ``clear_state()``; read from the
+  sampler's thread, with nothing on the executor's path.
   ``start`` and ``stop`` are idempotent and a stopped sampler can start
   again; a probe that raises is skipped for that tick.
 * ``GET /metrics`` and ``GET /healthz``: the handler and server below,
@@ -56,11 +61,34 @@ def _stage_queue_depth() -> float:
     return float(staged_queue_depth())
 
 
+def _memo_values() -> list:
+    """The computed values in the prefix memo (none before the process's
+    first pipeline)."""
+    from ..workflow.env import PipelineEnv
+
+    env = PipelineEnv._instance
+    if env is None:
+        return []
+    return [e.get() for e in list(env.state.values()) if e.computed]
+
+
+def _prefix_memo_bytes() -> float:
+    from ..parallel.dataset import device_nbytes
+
+    return float(sum(device_nbytes(v) for v in _memo_values()))
+
+
+def _prefix_memo_entries() -> float:
+    return float(len(_memo_values()))
+
+
 #: probes installed on every sampler (name -> zero-argument float fn)
 DEFAULT_PROBES: Dict[str, Callable[[], float]] = {
     "process.rss_bytes": _rss_bytes,
     "numerics.health_age_s": _numerics_health_age_s,
     "streaming.stage_queue_depth": _stage_queue_depth,
+    "prefix.memo_bytes": _prefix_memo_bytes,
+    "prefix.memo_entries": _prefix_memo_entries,
 }
 
 

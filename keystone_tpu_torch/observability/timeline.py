@@ -4,13 +4,18 @@ Counterpart of ``keystone_tpu/observability/timeline.py``. The
 :class:`~.trace.PipelineTrace` says how long each node took; this module
 says when everything ran and on which thread. It is fed by:
 
-* the DAG executor's node spans (only while a trace is active);
-* the streaming prefetcher: one ``stage:<tag>`` span per chunk on the
-  producer thread (host fill and the copy onto the side stream) and one
-  ``stall:<tag>`` span per chunk on the consumer (time the chunk loop
-  waited for it);
-* ``fit_streaming``'s ``accumulate:<tag>`` spans (host time of the
-  accumulate's launches; the device work runs on past them);
+* the program's live spans (:func:`flight_span`), each named after its
+  layer (``observability/names.py::SPAN_LAYERS``): the pipeline API's
+  ``execute:fit`` / ``execute:get`` and its node spans
+  ``<label>#<id>`` (while a trace or a profiler is active), the
+  optimizer's ``optimize:<class>``, the block solver's
+  ``factor:<site>`` and ``block:<site>``, ``fit_streaming``'s
+  ``accumulate:<tag>`` (host time of the accumulate's launches; the
+  device work runs on past them) and ``merge:<tag>``, and the streamed
+  ingest's ``stall:<tag>`` (time the consumer's chunk loop waited for
+  a chunk);
+* the streaming prefetcher's ``stage:<tag>`` spans, one per chunk on
+  the producer thread (host fill and the copy onto the side stream);
 * the resilience and numerics event funnels, as instant events;
 * contended :class:`~keystone_tpu_torch.utils.guarded.TracedLock`
   acquires (one span per lost race, on the losing thread);
@@ -33,9 +38,17 @@ https://ui.perfetto.dev): one lane per thread, with overlapping spans of
 one thread (nested executor nodes) moved to ``<thread> (nested k)``
 lanes, so no lane holds two overlapping spans.
 
+A live span is also a ``torch.profiler.record_function`` range of the
+same name while a profiler records the calling thread, so a profiler
+capture lays the program's layers against the device's kernels on the
+profiler's clock. With no profiler running it costs one flag check
+beside its ring write. (The profiler's flag is on only on the thread
+that started it: the producer thread's ``stage:`` spans, recorded after
+the fact, reach the ring alone.)
+
 The ring's guard is a plain ``threading.Lock``: a contended TracedLock
 reports into this recorder. ``KEYSTONE_TORCH_FLIGHT_RECORDER=0`` turns
-recording off.
+recording off (a live span still opens its profiler range).
 """
 from __future__ import annotations
 
@@ -47,6 +60,8 @@ import time
 from collections import deque
 from typing import Any, Callable, Deque, Dict, Iterator, List, NamedTuple, \
     Optional
+
+import torch
 
 from ..utils.guarded import guarded_by
 
@@ -149,10 +164,16 @@ class FlightRecorder:
 
     @contextlib.contextmanager
     def span(self, name: str, cat: str, **args: Any) -> Iterator[None]:
-        """Record the enclosed block as one span, also when it raises."""
+        """Record the enclosed block as one span, also when it raises;
+        while a profiler records this thread, the block is also a
+        ``record_function`` range named ``name``."""
         t0 = time.perf_counter()
         try:
-            yield
+            if torch.autograd._profiler_enabled():
+                with torch.profiler.record_function(name):
+                    yield
+            else:
+                yield
         finally:
             self.record(name, cat, t0, time.perf_counter() - t0,
                         args or None)
@@ -292,10 +313,13 @@ def record_instant(name: str, cat: str,
     flight_recorder().record_instant(name, cat, args=args)
 
 
-@contextlib.contextmanager
-def flight_span(name: str, cat: str, **args: Any) -> Iterator[None]:
-    with flight_recorder().span(name, cat, **args):
-        yield
+def flight_span(name: str, cat: str, **args: Any
+                ) -> contextlib.AbstractContextManager:
+    """The program's one live span: :meth:`FlightRecorder.span` on the
+    process-global recorder. ``name``'s head (the text before its first
+    ``:``) names the layer, as ``observability/names.py::SPAN_LAYERS``
+    lists; a name holding ``#`` is a pipeline node."""
+    return flight_recorder().span(name, cat, **args)
 
 
 def write_trace_artifact(path: str, trace=None) -> str:

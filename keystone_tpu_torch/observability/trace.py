@@ -31,7 +31,8 @@ kernel FLOPs, kernel bytes and launches, charged like self time.
 through Python, so a counting trace runs slower than a plain one.
 
 Tracing costs nothing when no trace is active: every hook returns at
-once and the executor wraps no thunk. The JAX trace's compile stream
+once and, with no profiler recording either, the executor wraps no
+thunk. The JAX trace's compile stream
 holds XLA compiles; the port's holds CUDA graph captures.
 :func:`profiler_trace` is
 the counterpart of ``xprof_trace`` (also exported under that name), a

@@ -36,6 +36,7 @@ import torch
 from . import device as _device  # noqa: F401  (sets the TF32 policy)
 from ..observability.numerics import numerics_active, record_block_health, \
     record_solve_health
+from ..observability.timeline import flight_span
 from .kernels import gram_cross
 
 
@@ -239,8 +240,11 @@ def bcd_core(blocks: Sequence[torch.Tensor], Y: torch.Tensor, lam: float, *,
 
     then update P. Each block's Gram is pass-invariant, so it is factored
     once per solve; a block whose factor fails the health gate takes the
-    eigh fallback every pass. The JAX package runs the same block order
-    as a scan for four or more equal blocks and unrolled otherwise.
+    eigh fallback every pass. Each factor (the Gram, the ridge term and
+    the gate's host reads) is a ``factor:bcd_core`` span and each block
+    update (with its finiteness read) a ``block:bcd_core`` span. The JAX
+    package runs the same block order as a scan for four or more equal
+    blocks and unrolled otherwise.
 
     Over rank-sharded rows (``mesh``) each block's Gram is the fused
     kernel's on this rank's rows summed over the data group, each pass's
@@ -252,10 +256,11 @@ def bcd_core(blocks: Sequence[torch.Tensor], Y: torch.Tensor, lam: float, *,
         Y = Y[:, split[0]:split[1]]
     k = Y.shape[1]
     factors, ratios = [], []
-    for A in blocks:
-        reg = gram(A, mesh) + lam * torch.eye(A.shape[1], dtype=A.dtype,
-                                              device=A.device)
-        L, ok, ratio = cholesky_health(reg)
+    for i, A in enumerate(blocks):
+        with flight_span("factor:bcd_core", "solve", block=i):
+            reg = gram(A, mesh) + lam * torch.eye(A.shape[1], dtype=A.dtype,
+                                                  device=A.device)
+            L, ok, ratio = cholesky_health(reg)
         factors.append((reg, L, ok))
         ratios.append(ratio)
     record_block_health("bcd_core", [f[2] for f in factors], ratios)
@@ -264,11 +269,12 @@ def bcd_core(blocks: Sequence[torch.Tensor], Y: torch.Tensor, lam: float, *,
     pred = torch.zeros_like(Y)
     for _ in range(num_passes):
         for i, A in enumerate(blocks):
-            rhs = cross(A, Y - pred + A @ Ws[i], mesh)
-            reg, L, ok = factors[i]
-            Wi = finite_or_eigh_solve(torch.cholesky_solve(rhs, L),
-                                      lambda: reg, rhs, ok)
-            pred = pred + A @ (Wi - Ws[i])
+            with flight_span("block:bcd_core", "solve", block=i):
+                rhs = cross(A, Y - pred + A @ Ws[i], mesh)
+                reg, L, ok = factors[i]
+                Wi = finite_or_eigh_solve(torch.cholesky_solve(rhs, L),
+                                          lambda: reg, rhs, ok)
+                pred = pred + A @ (Wi - Ws[i])
             Ws[i] = Wi
     if split is not None:
         from ..parallel.distributed import world_concat

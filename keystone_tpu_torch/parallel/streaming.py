@@ -92,7 +92,7 @@ import torch
 from ..observability.compilelog import compile_observatory
 from ..observability.metrics import MetricsRegistry
 from ..observability.postmortem import attach_postmortem, dump_postmortem
-from ..observability.timeline import record_span
+from ..observability.timeline import flight_span, record_span
 from ..observability.trace import current_trace
 from ..ops.device import DEFAULT_DEVICE, resolve_device
 from ..resilience.events import record_event
@@ -543,7 +543,8 @@ class StreamingDataset(Dataset):
         try:
             while True:
                 t0 = time.perf_counter()
-                item = get_with_watchdog(t0)
+                with flight_span(f"stall:{tag}", "ingest", chunk=seen):
+                    item = get_with_watchdog(t0)
                 stall = time.perf_counter() - t0
                 if item is _DONE:
                     complete = True
@@ -564,8 +565,6 @@ class StreamingDataset(Dataset):
                 reg.counter("streaming.chunks_total").inc()
                 reg.gauge("streaming.resident_bytes").set(
                     self._residency.live())
-                record_span(f"stall:{tag}", "ingest", t0, stall,
-                            args={"chunk": seen})
                 if trace is not None:
                     trace.record_chunk({
                         "source": tag, "chunk": seen, "n": rows,
@@ -999,15 +998,13 @@ def fit_streaming(estimator: Any, data: StreamingDataset, labels: Any = None,
         """Fold one chunk into the carry: the per-chunk body of the
         single-process loop and the world's round loop."""
         nonlocal carry, chunks_seen, fence_armed
-        t0 = time.perf_counter()
-        if labels is None:
-            carry = estimator.accumulate(carry, chunk)
-        else:
-            carry = estimator.accumulate(carry, chunk, lchunk)
-        # host time of the accumulate's launches; the device work
-        # runs on past it
-        record_span(f"accumulate:{tag}", "compute", t0,
-                    time.perf_counter() - t0, args={"chunk": idx})
+        # host time of the accumulate's launches; the device work runs
+        # on past it
+        with flight_span(f"accumulate:{tag}", "compute", chunk=idx):
+            if labels is None:
+                carry = estimator.accumulate(carry, chunk)
+            else:
+                carry = estimator.accumulate(carry, chunk, lchunk)
         if monitor is not None:
             # the pad rows are each chunk's tail
             monitor.observe(idx, chunk.data,
@@ -1135,9 +1132,9 @@ def fit_streaming(estimator: Any, data: StreamingDataset, labels: Any = None,
         # gather every rank's carry once and sum in rank order: every rank
         # finalizes the same merged carry into the same weights
         t0 = time.perf_counter()
-        carry = world.merge_carries(
-            carry, reducer=getattr(estimator, "merge_carries", None))
-        record_span(f"merge:{tag}", "coord", t0, time.perf_counter() - t0)
+        with flight_span(f"merge:{tag}", "coord"):
+            carry = world.merge_carries(
+                carry, reducer=getattr(estimator, "merge_carries", None))
         reg.histogram("coord.merge_s").observe(time.perf_counter() - t0)
     model = estimator.finalize(carry)
     check_fitted(model, tag)

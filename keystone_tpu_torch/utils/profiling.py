@@ -6,7 +6,10 @@ activity) of everything in scope and writes it as a Chrome trace into
 ``log_dir``. It activates no
 :class:`~keystone_tpu_torch.observability.trace.PipelineTrace`, so the
 captured timeline is an untraced run's: a pipeline trace synchronises
-the device after every node, which changes overlap.
+the device after every node, which changes overlap. The capture still
+carries the program's live spans (``observability/timeline.py``): each
+node as a ``<label>#<id>`` range, and the entry points', optimizer's,
+block solver's and streamed ingest's ranges.
 ``observability.trace.profiler_trace`` is the capture with pipeline node
 names. :class:`StepTimer` is re-exported from ``observability.metrics``
 (deprecated there), as the JAX module does.

@@ -8,16 +8,19 @@ global prefix state table.
 
 Instrumentation (``keystone_tpu/workflow/executor.py:100-252``): while a
 :class:`~keystone_tpu_torch.observability.trace.PipelineTrace` is
-active, each node's thunk runs inside
-``torch.profiler.record_function("<label>#<id>")`` and the capture
-observatory's ``compile_context("node:<label>#<id>")`` (a CUDA graph
-captured while the node runs is attributed to it), is timed into a
-``NodeRecord`` (self time, output bytes), leaves a ``node`` span on the
-flight recorder and has its output health-checked
+active, each node's thunk runs inside its node span
+(``flight_span("<label>#<id>")``, a ``record_function`` range while a
+profiler records) and the capture observatory's
+``compile_context("node:<label>#<id>")`` (a CUDA graph captured while
+the node runs is attributed to it), is timed into a ``NodeRecord``
+(self time, output bytes) and has its output health-checked
 (``check_node_output``). The timer synchronises the CUDA device before
 it reads the clock, as the JAX package blocks on the value; that sync is
 an observer effect, since it removes the overlap between a node and the
-next one's launches. An untraced run wraps nothing. The
+next one's launches. While a profiler records and no trace is active,
+the thunk runs inside its node span alone: no record, no sync, no
+health check, so a profiler capture shows each node's own time. A run
+with neither wraps nothing. The
 ``executor.nodes_executed``, ``executor.memo_hits`` and
 ``executor.prefix_hits`` (a node served from saved state or the prefix
 memo) counters are always on, outside the optimizers' sampled
@@ -26,7 +29,6 @@ executions.
 from __future__ import annotations
 
 import contextlib
-import time
 from typing import Dict, FrozenSet, Optional
 
 import torch
@@ -34,7 +36,7 @@ import torch
 from ..observability.compilelog import compile_context
 from ..observability.metrics import MetricsRegistry
 from ..observability.numerics import check_node_output
-from ..observability.timeline import record_span
+from ..observability.timeline import flight_span
 from ..observability.trace import NodeRecord, current_trace, \
     metrics_suppressed
 from ..observability.utilization import kernel_work_delta, \
@@ -75,15 +77,19 @@ def _expression_kind(expr: Expression) -> str:
 
 
 def _traced_thunk(orig, node_id: int, label: str, kind: str):
-    """Wrap a thunk with trace recording. The active trace is looked up
-    at call time: a saved expression outlives the trace it was made
-    under."""
+    """Wrap a thunk with trace recording, or with its node span alone
+    while only a profiler records. The active trace and profiler are
+    looked up at call time: a saved expression outlives the trace it was
+    made under."""
 
     def run():
         trace = current_trace()
-        if trace is None:
-            return orig()
         scope = f"{label}#{node_id}"
+        if trace is None:
+            if not torch.autograd._profiler_enabled():
+                return orig()
+            with flight_span(scope, "node", node_id=node_id, kind=kind):
+                return orig()
         record = NodeRecord(node_id=node_id, operator=label, kind=kind)
         counter, work0 = None, None
         if trace.count_flops:
@@ -91,10 +97,9 @@ def _traced_thunk(orig, node_id: int, label: str, kind: str):
 
             counter = FlopCounterMode(display=False)
             work0 = kernel_work_snapshot()
-        t0 = time.perf_counter()
-        with trace.node_timer(record):
+        with trace.node_timer(record), \
+                flight_span(scope, "node", node_id=node_id, kind=kind):
             with compile_context(f"node:{scope}"), \
-                    torch.profiler.record_function(scope), \
                     (counter or contextlib.nullcontext()):
                 value = orig()
             if torch.cuda.is_available() and torch.cuda.is_initialized():
@@ -108,8 +113,6 @@ def _traced_thunk(orig, node_id: int, label: str, kind: str):
                     "kernel_flops": sum(w["flops"] for w in kernel.values()),
                     "kernel_bytes": sum(w["bytes"] for w in kernel.values()),
                 }, {k: w["launches"] for k, w in kernel.items()})
-        record_span(scope, "node", t0, record.total_s,
-                    args={"node_id": node_id, "kind": kind})
         # after the timer: the health check is the numerics plane's
         # cost, not the node's
         check_node_output(value, scope)
@@ -179,7 +182,7 @@ class GraphExecutor:
                 # memo): counted traced or not
                 metrics.counter("executor.prefix_hits").inc()
         trace = current_trace()
-        if trace is not None:
+        if trace is not None or torch.autograd._profiler_enabled():
             self._instrument(trace, gid, op, expr)
         self._cache[gid] = expr
         if is_saveable(op):
@@ -194,12 +197,15 @@ class GraphExecutor:
     @staticmethod
     def _instrument(trace, gid: NodeId, op: Operator,
                     expr: Expression) -> None:
-        """Attach trace recording to ``expr``. A computed expression is
+        """Attach trace recording (or, with ``trace`` None, the node
+        span alone) to ``expr``. Under a trace a computed expression is
         recorded at once: a constant as such, anything else (saved
         state, a prefix-memo hit) as a cache hit."""
         label = op.label()
         kind = _expression_kind(expr)
         if expr.computed:
+            if trace is None:
+                return
             record = NodeRecord(
                 node_id=gid.id, operator=label, kind=kind,
                 cached=not isinstance(op, (DatasetOperator, DatumOperator)))

@@ -13,6 +13,7 @@ import time
 from dataclasses import dataclass
 from typing import Sequence, Union
 
+from ...observability.timeline import flight_span
 from ...observability.trace import current_trace
 from ..graph import Graph
 
@@ -58,6 +59,12 @@ class Optimizer:
         raise NotImplementedError
 
     def execute(self, graph: Graph) -> Graph:
+        """The batches' rewrites of ``graph``, inside the span
+        ``optimize:<class>``."""
+        with flight_span(f"optimize:{type(self).__name__}", "optimizer"):
+            return self._execute(graph)
+
+    def _execute(self, graph: Graph) -> Graph:
         trace = current_trace()
         t_start = time.perf_counter() if trace is not None else 0.0
         current = graph

@@ -19,6 +19,7 @@ from typing import Any, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..observability.timeline import flight_span
 from ..ops.device import DEFAULT_DEVICE, resolve_device
 from ..parallel.dataset import ArrayDataset, Dataset, HostDataset, as_dataset
 from .executor import GraphExecutor
@@ -40,7 +41,8 @@ class PipelineResult:
         self._sink = sink
 
     def get(self) -> Any:
-        return self._executor.execute(self._sink).get()
+        with flight_span("execute:get", "pipeline"):
+            return self._executor.execute(self._sink).get()
 
     # graph/sink exposed for splicing this result into other pipelines
     @property
@@ -203,17 +205,19 @@ class Pipeline(Chainable):
         branches, and freeze (``graph/Pipeline.scala:38-65``)."""
         from .optimizer.rules import UnusedBranchRemovalRule
 
-        executor = GraphExecutor(self._graph)
-        g = executor.graph
-        out = g
-        for n in sorted(g.nodes, key=lambda x: x.id):
-            if isinstance(g.get_operator(n), DelegatingOperator):
-                deps = g.get_dependencies(n)
-                fitted = executor.execute(deps[0]).get()
-                assert isinstance(fitted, TransformerOperator)
-                out = out.set_operator(n, fitted).set_dependencies(n, deps[1:])
-        out = UnusedBranchRemovalRule().apply(out)
-        return FittedPipeline(out, self._source, self._sink)
+        with flight_span("execute:fit", "pipeline"):
+            executor = GraphExecutor(self._graph)
+            g = executor.graph
+            out = g
+            for n in sorted(g.nodes, key=lambda x: x.id):
+                if isinstance(g.get_operator(n), DelegatingOperator):
+                    deps = g.get_dependencies(n)
+                    fitted = executor.execute(deps[0]).get()
+                    assert isinstance(fitted, TransformerOperator)
+                    out = out.set_operator(n, fitted).set_dependencies(
+                        n, deps[1:])
+            out = UnusedBranchRemovalRule().apply(out)
+            return FittedPipeline(out, self._source, self._sink)
 
     @staticmethod
     def gather(branches: Sequence[Chainable]) -> "Pipeline":

@@ -192,11 +192,40 @@ def test_trace_round_trip_matches_the_jax_node_set():
         r.operator for r in tr.nodes}
 
 
-def test_untraced_runs_wrap_nothing():
+def test_untraced_runs_wrap_nothing(monkeypatch):
+    """With no trace and no profiler the executor wraps no thunk and no
+    span enters a profiler range; under a bare profiler the thunks are
+    wrapped and the spans enter theirs."""
+    import torch
+
+    from keystone_tpu_torch.workflow import executor
+
+    entered, wrapped = [], []
+    enter = torch.autograd.profiler.record_function.__enter__
+    wrap = executor._traced_thunk
+
+    def counting_enter(self):
+        entered.append(self.name)
+        return enter(self)
+
+    def counting_wrap(*args):
+        wrapped.append(args[2])
+        return wrap(*args)
+
+    monkeypatch.setattr(torch.autograd.profiler.record_function,
+                        "__enter__", counting_enter)
+    monkeypatch.setattr(executor, "_traced_thunk", counting_wrap)
     X, Y = _xy()
-    _port_pipeline(X, Y).fit()
+    fitted = _port_pipeline(X, Y).fit()
+    fitted.apply(ArrayDataset.from_numpy(X, "cpu")).get()
     assert current_trace() is None
     assert not [s for s in flight_recorder().spans() if s.cat == "node"]
+    assert not entered and not wrapped
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        fitted.apply(ArrayDataset.from_numpy(X, "cpu")).get()
+    assert wrapped and "execute:get" in entered
+    assert [s for s in flight_recorder().spans() if s.cat == "node"]
     with tracing_disabled():
         assert metrics_suppressed()
     assert not metrics_suppressed()
@@ -327,6 +356,30 @@ def test_sampler_is_idempotent_and_skips_a_broken_probe():
         TelemetrySampler(interval_s=0)
 
 
+def test_prefix_memo_probes_grow_with_applies_and_clear():
+    from keystone_tpu_torch.workflow.common import Cacher
+
+    X, _ = _xy(n=64)
+    sampler = TelemetrySampler(interval_s=1.0)
+    assert sampler.sample_once()["prefix.memo_bytes"] == 0.0
+    fitted = (StandardScaler().with_data(ArrayDataset.from_numpy(X, "cpu"))
+              >> Cacher("features")).fit()
+    PipelineEnv.get_or_create().clear_state()
+    seen = []
+    for i in range(3):
+        fitted.apply(ArrayDataset.from_numpy(X + i, "cpu")).get()
+        values = sampler.sample_once()
+        seen.append((values["prefix.memo_entries"],
+                     values["prefix.memo_bytes"]))
+    # each call's cached features: one entry of the batch's bytes
+    assert seen == [(i + 1.0, (i + 1.0) * X.nbytes) for i in range(3)]
+    assert sampler.series("prefix.memo_bytes")[-1][1] == seen[2][1]
+    PipelineEnv.get_or_create().clear_state()
+    values = sampler.sample_once()
+    assert values["prefix.memo_bytes"] == 0.0
+    assert values["prefix.memo_entries"] == 0.0
+
+
 # -- the catalogue and the import boundary ---------------------------------------
 
 def _port_files():
@@ -368,6 +421,47 @@ def test_every_literal_metric_name_is_catalogued():
     assert not missing, missing
     assert names.is_catalogued("resilience.retry")
     assert not names.is_catalogued("streaming.chunks")
+
+
+def _span_literals(tree):
+    """The literal name (a string, or an f-string's literal parts joined
+    with ``{}``) of every ``flight_span``, ``.span`` and
+    ``record_function`` call."""
+    for node in ast.walk(tree):
+        if not (isinstance(node, ast.Call) and node.args):
+            continue
+        func = node.func
+        called = (func.id if isinstance(func, ast.Name)
+                  else func.attr if isinstance(func, ast.Attribute) else "")
+        if called not in ("flight_span", "span", "record_function"):
+            continue
+        arg = node.args[0]
+        if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
+            yield arg.value
+        elif isinstance(arg, ast.JoinedStr):
+            yield "".join(v.value if isinstance(v, ast.Constant) else "{}"
+                          for v in arg.values)
+
+
+def test_every_literal_span_head_is_catalogued():
+    """Each live span's head names a catalogued layer (or the name is a
+    node's ``<label>#<id>``), as the per-layer metrics read them."""
+    seen, missing = set(), []
+    for path in _port_files():
+        tree = ast.parse(open(path).read(), path)
+        for name in _span_literals(tree):
+            seen.add(name)
+            if names.span_layer(name) is None or name.startswith("{}:"):
+                missing.append((os.path.relpath(path, REPO), name))
+    assert not missing, missing
+    assert {"execute:fit", "execute:get", "optimize:{}", "factor:bcd_core",
+            "block:bcd_core", "factor:gram_bcd", "block:gram_bcd",
+            "stall:{}", "accumulate:{}", "merge:{}"} <= seen
+    assert set(names.SPAN_LAYERS) == {n.split(":")[0] for n in seen
+                                      if ":" in n}
+    assert names.span_layer("Scaler#4") == names.NODE_SPAN_LAYER
+    assert names.span_layer("aten::mm") is None
+    assert names.span_layer("pipeline.fit") is None
 
 
 def test_the_port_imports_no_jax():
