@@ -180,10 +180,17 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.fused_cifar_featurize_f32.restype = i
         lib.fused_featurize_smem_bytes.argtypes = [i, i, i, i, i]
         lib.fused_featurize_smem_bytes.restype = ll
-        for fn in (lib.fused_featurize_run_cut,
-                   lib.fused_featurize_filter_tile):
-            fn.argtypes = []
-            fn.restype = i
+        lib.fused_featurize_image_pitch.argtypes = [i, i]
+        lib.fused_featurize_image_pitch.restype = i
+        lib.fused_featurize_geometry.argtypes = [ctypes.POINTER(i)] * 3
+        lib.fused_featurize_geometry.restype = None
+        geo = [i() for _ in range(3)]
+        lib.fused_featurize_geometry(*geo)
+        got = tuple(v.value for v in geo)
+        want = (FEATURIZE_TILE, FEATURIZE_CHUNK, FEATURIZE_KREG)
+        if got != want:
+            raise RuntimeError(f"fused_featurize: the library's geometry "
+                               f"{got} is not the wrapper's {want}")
     elif name == "gram_cross":
         lib.gram_cross_f32.argtypes = [p, p, p, p, i, i, i, ll, ll, p]
         lib.gram_cross_f32.restype = i
@@ -256,15 +263,28 @@ def fused_cifar_featurize_plain(imgs, filters, img_size=32, patch_size=6,
     return pooled.reshape(B, -1)
 
 
+#: the featurize kernel's filters a tile, patches a chunk and k-steps of 8
+#: depths held in registers (``csrc/fused_featurize.cu``; the library's
+#: ``fused_featurize_geometry`` is checked against them when it loads)
+FEATURIZE_TILE, FEATURIZE_CHUNK, FEATURIZE_KREG = 128, 64, 14
+
+#: launches of the featurize kernel's two instantiations: ``registers``
+#: (a patch depth up to 8 * FEATURIZE_KREG, every filter fragment held in
+#: registers: the main path's 6 x 6 x 3) and ``streamed`` (deeper
+#: patches, the further k-steps' fragments read from the plan each chunk);
+#: counted, like ``LAUNCHES``, outside graph capture
+FEATURIZE_VARIANTS: Dict[str, int] = {"registers": 0, "streamed": 0}
+
 #: (img_size, channels, patch_size, pool_stride, pool_size, device index)
-#: -> _FeaturizeEnds, the least recently used entry dropped beyond
-#: _ENDS_KEPT
-_ENDS: "OrderedDict[Tuple[int, ...], _FeaturizeEnds]" = OrderedDict()
-_ENDS_KEPT = 64
+#: -> _FeaturizeGeometry, the least recently used entry dropped beyond
+#: _GEOMETRIES_KEPT
+_GEOMETRIES: "OrderedDict[Tuple[int, ...], _FeaturizeGeometry]" = \
+    OrderedDict()
+_GEOMETRIES_KEPT = 64
 
 
-class _FeaturizeEnds(NamedTuple):
-    ends: torch.Tensor  # int32 (patches, 2)
+class _FeaturizeGeometry(NamedTuple):
+    cols: torch.Tensor  # int32 (staged columns, 4): featurize_columns
     nry: int            # regions along a row
     R: int              # regions
     hits: int           # patch memberships of the regions
@@ -285,42 +305,55 @@ def region_map(dim: int, pool_stride: int, pool_size: int):
     return first, count
 
 
-def featurize_ends(OH: int, OW: int, pool_stride: int, pool_size: int,
-                   cut: int) -> np.ndarray:
-    """The featurize kernel's run ends: the patches (row-major over the
-    OH x OW grid) cut into runs that lie in one row, in one stretch of
-    ``cut`` patches (the kernel's ``fused_featurize_run_cut``), and in the
-    same pooling regions, from the per-row and per-column region maps.
-    Two int32 a patch: ``(-1, 0)`` inside a run, and at a run's last
-    patch its row and column region sets, each packed as ``first | count
-    << 16`` (a count of 0: the run lies in no region)."""
+def featurize_columns(OH: int, OW: int, pool_stride: int, pool_size: int,
+                      row: int, channels: int,
+                      chunk: int = FEATURIZE_CHUNK) -> np.ndarray:
+    """The featurize kernel's column table: the order in which it stages
+    the patches (row-major over the OH x OW grid) and pools them. Patches
+    are sorted, stably, by their pooling class (the row and column region
+    sets from the per-row and per-column region maps, each packed as
+    ``first | count << 16``; a count of 0: in no region), so each class is
+    one run of columns, and padded with empty columns to a multiple of
+    ``chunk`` (a multiple of 32). Four int32 a column: the patch's offset
+    in an image whose rows are ``row`` values and pixels ``channels``
+    values (-1 for a padding column); at the class's last column its row
+    and column sets (elsewhere -1, 0); and at every 32nd column the bits
+    of the class ends among its 32 columns (bit i: column + i), else 0."""
     rows = region_map(OH, pool_stride, pool_size)
     cols = region_map(OW, pool_stride, pool_size)
     P = OH * OW
-    ends = np.zeros((P, 2), np.int32)
-    ends[:, 0] = -1
-    for p in range(P):
-        py, px = divmod(p, OW)
-        q = p + 1
-        if q % cut and q % OW and q < P and (
-                cols[0][q % OW], cols[1][q % OW]) == (cols[0][px],
-                                                      cols[1][px]):
-            continue
-        ends[p] = (rows[0][py] | rows[1][py] << 16,
-                   cols[0][px] | cols[1][px] << 16)
-    return ends
+    ry = rows[0] | rows[1] << 16
+    rx = cols[0] | cols[1] << 16
+    py, px = np.divmod(np.arange(P), OW)
+    # the class key of each patch, then the patch: a stable sort
+    order = np.lexsort((np.arange(P), rx[px], ry[py]))
+    Pp = -(-P // chunk) * chunk
+    table = np.zeros((Pp, 4), np.int32)
+    table[:, 0] = -1
+    table[:, 1] = -1
+    table[:P, 0] = py[order] * row + px[order] * channels
+    key_y, key_x = ry[py[order]], rx[px[order]]
+    last = np.ones(P, bool)
+    last[:-1] = (key_y[1:] != key_y[:-1]) | (key_x[1:] != key_x[:-1])
+    table[:P, 1] = np.where(last, key_y, -1)
+    table[:P, 2] = np.where(last, key_x, 0)
+    ends = np.zeros(Pp, np.int64)
+    ends[:P] = last
+    words = (ends.reshape(-1, 32) << np.arange(32)).sum(axis=1)
+    table[::32, 3] = words.astype(np.uint32).view(np.int32)
+    return table
 
 
-def _featurize_ends_on(img_size, channels, patch_size, pool_stride,
-                       pool_size, imgs):
-    """The run ends of a geometry on ``imgs``' device, cached per geometry
-    and device; raises where an image's staged form does not fit one
-    block's shared memory."""
+def _featurize_geometry_on(img_size, channels, patch_size, pool_stride,
+                           pool_size, imgs):
+    """The column table of a geometry on ``imgs``' device, cached per
+    geometry and device; raises where an image's staged form does not fit
+    one block's shared memory."""
     key = (img_size, channels, patch_size, pool_stride, pool_size,
            imgs.get_device())
-    hit = _ENDS.get(key)
+    hit = _GEOMETRIES.get(key)
     if hit is not None:
-        _ENDS.move_to_end(key)
+        _GEOMETRIES.move_to_end(key)
         return hit
     lib = _library("fused_featurize")
     out_dim = img_size - patch_size + 1
@@ -333,26 +366,72 @@ def _featurize_ends_on(img_size, channels, patch_size, pool_stride,
         raise ValueError(f"fused_cifar_featurize: the staged image needs "
                          f"{smem} bytes of shared memory, above the 227 KB "
                          "a block may use")
-    hit = _FeaturizeEnds(torch.as_tensor(
-        featurize_ends(out_dim, out_dim, pool_stride, pool_size,
-                       lib.fused_featurize_run_cut()), device=imgs.device),
-        nry, R, sum(hi - lo for lo, hi in ranges) ** 2)
-    _ENDS[key] = hit
-    if len(_ENDS) > _ENDS_KEPT:
-        _ENDS.popitem(last=False)
+    # the patches' offsets in the image as the kernel stages it, rows
+    # fused_featurize_image_pitch floats apart
+    pitch = lib.fused_featurize_image_pitch(img_size, channels)
+    hit = _FeaturizeGeometry(torch.as_tensor(
+        featurize_columns(out_dim, out_dim, pool_stride, pool_size, pitch,
+                          channels),
+        device=imgs.device), nry, R, sum(hi - lo for lo, hi in ranges) ** 2)
+    _GEOMETRIES[key] = hit
+    if len(_GEOMETRIES) > _GEOMETRIES_KEPT:
+        _GEOMETRIES.popitem(last=False)
     return hit
+
+
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 ``x`` ~ big + small, both TF32 (the low 13 mantissa bits
+    clear): big by truncation, small = x - big (exact) rounded to nearest,
+    ties away from zero, so |x - big - small| <= 2^-21 |x|."""
+    bits = x.contiguous().view(torch.int32)
+    big = (bits & -8192).view(torch.float32)
+    rest = (x - big).view(torch.int32)
+    small = ((rest + 0x1000) & -8192).view(torch.float32)
+    return big, small
+
+
+def featurize_ksteps(F: int) -> int:
+    """k-steps of 8 depths the featurize kernel's product takes for a
+    patch of F values: at least the FEATURIZE_KREG held in registers."""
+    return max(FEATURIZE_KREG, -(-F // 8))
+
+
+def featurize_fragments(filters: torch.Tensor) -> torch.Tensor:
+    """A filter bank (K, F) split into TF32 parts (:func:`split_tf32`) and
+    laid out as the featurize kernel's consumer threads hold their wgmma
+    A fragments: float32 (T, 2, ks, 4, 32, 8), T = ceil(K / 128) tiles of
+    two warpgroups, ks = :func:`featurize_ksteps` (F) k-steps, 4 warps, 32
+    lanes and, per lane (g = lane // 4, t = lane % 4), big then small of
+    a0 = (filter 64 wg + 16 warp + g, depth 8 k + t), a1 = (filter + 8,
+    the same depth), a2 = (filter, depth + 4), a3 = (filter + 8, depth +
+    4) within the tile; zero past K and past F."""
+    K, F = filters.shape
+    T = max(-(-K // FEATURIZE_TILE), 1)
+    ks = featurize_ksteps(F)
+    padded = torch.zeros((T * FEATURIZE_TILE, 8 * ks), dtype=torch.float32,
+                         device=filters.device)
+    padded[:K, :F] = filters
+    parts = []
+    for part in split_tf32(padded):
+        # filter = (((T, wg, warp, h, g)), depth = (k, d, t); a_i, i = 2 d + h
+        v = part.view(T, 2, 4, 2, 8, ks, 2, 4)
+        parts.append(v.permute(0, 1, 5, 2, 4, 7, 6, 3).reshape(
+            T, 2, ks, 4, 32, 4))
+    return torch.cat(parts, dim=-1).contiguous()
 
 
 class FeaturizePlan(NamedTuple):
     """A filter bank's terms as the featurize kernel reads them, made once
     per fitted model and device (on a CUDA device,
     ``FusedConvRectifyPool.apply_params`` holds this plan in the filters'
-    place, so the bank lives on the card once): the filters laid out
-    (F, Kp), K padded with zero filters to the kernel's filter tile, and
-    the bias of the whitener means padded the same way."""
-    filt: torch.Tensor
+    place, so the bank lives on the card once): the filters split into
+    TF32 parts in the kernel's fragment order (:func:`featurize_fragments`),
+    the bias of the whitener means padded with zeros to the fragments' Kp
+    filters, the filters' count K and their depth F."""
+    frags: torch.Tensor
     bias: torch.Tensor
     K: int
+    F: int = -1
 
 
 def featurize_plan(filters, whitener_means=None) -> Optional[FeaturizePlan]:
@@ -361,14 +440,12 @@ def featurize_plan(filters, whitener_means=None) -> Optional[FeaturizePlan]:
     if filters.device.type != "cuda":
         return None
     K, F = filters.shape
-    tile = _library("fused_featurize").fused_featurize_filter_tile()
-    Kp = max(-(-K // tile), 1) * tile
+    frags = featurize_fragments(filters.float())
     _, bias = _featurize_terms(filters, whitener_means)
-    terms = torch.zeros((F + 1, Kp), dtype=torch.float32,
-                        device=filters.device)
-    terms[:F, :K] = filters.T
-    terms[F, :K] = bias
-    return FeaturizePlan(terms[:F].contiguous(), terms[F].contiguous(), K)
+    padded = torch.zeros(frags.shape[0] * FEATURIZE_TILE,
+                         dtype=torch.float32, device=filters.device)
+    padded[:K] = bias
+    return FeaturizePlan(frags, padded, K, F)
 
 
 def fused_cifar_featurize(imgs, filters, img_size=32, patch_size=6,
@@ -379,8 +456,9 @@ def fused_cifar_featurize(imgs, filters, img_size=32, patch_size=6,
     vectorize over a batch of images (B, H, W, C) with filters
     (K, S*S*C): CUDA kernel for CUDA tensors, the plain version for CPU
     tensors. Every patch size, channel count and pooling geometry is
-    taken, up to an image whose staged form (the filter tile, a patch
-    chunk, the per-patch statistics and run ends, the region sums)
+    taken, up to an image whose staged form (a chunk buffer of split
+    patches, two copies of the image, its box sums and per-patch
+    statistics, the region sums)
     exceeds one block's shared memory. For CUDA images ``filters`` may
     be the bank's :class:`FeaturizePlan` instead (:func:`featurize_plan`,
     made once per model and device: the node's apply params there),
@@ -392,8 +470,8 @@ def fused_cifar_featurize(imgs, filters, img_size=32, patch_size=6,
         if whitener_means is not None:
             raise ValueError("fused_cifar_featurize: a FeaturizePlan holds "
                              "the whitener means' bias; pass no means")
-        if imgs.device.type != "cuda" or plan.filt.shape[0] != F \
-                or plan.filt.device != imgs.device:
+        if imgs.device.type != "cuda" or plan.F != F \
+                or plan.frags.device != imgs.device:
             raise ValueError("fused_cifar_featurize: the plan is not of (K, "
                              f"{F}) filters on the CUDA images' device")
     elif imgs.device.type in PLAIN_DEVICES:
@@ -419,8 +497,8 @@ def fused_cifar_featurize(imgs, filters, img_size=32, patch_size=6,
     if imgs.dtype != torch.float32 or not imgs.is_contiguous():
         raise ValueError("fused_cifar_featurize: images must be contiguous "
                          "float32")
-    geo = _featurize_ends_on(img_size, channels, patch_size, pool_stride,
-                             pool_size, imgs)
+    geo = _featurize_geometry_on(img_size, channels, patch_size,
+                                 pool_stride, pool_size, imgs)
     B, K = imgs.shape[0], plan.K
     out = torch.empty((B, geo.R * 2 * K), dtype=torch.float32,
                       device=imgs.device)
@@ -429,16 +507,20 @@ def fused_cifar_featurize(imgs, filters, img_size=32, patch_size=6,
     lib = _library("fused_featurize")
     with _on_device(imgs.device):
         rc = lib.fused_cifar_featurize_f32(
-            imgs.data_ptr(), plan.filt.data_ptr(), plan.bias.data_ptr(),
-            geo.ends.data_ptr(), out.data_ptr(), B, img_size, img_size,
-            channels, patch_size, K, plan.filt.shape[1], geo.nry, geo.R,
-            float(var_constant), float(alpha), _current_stream(imgs))
+            imgs.data_ptr(), plan.frags.data_ptr(), plan.bias.data_ptr(),
+            geo.cols.data_ptr(), out.data_ptr(), B, img_size, img_size,
+            channels, patch_size, K, plan.frags.shape[0] * FEATURIZE_TILE,
+            geo.nry, geo.R, float(var_constant), float(alpha),
+            _current_stream(imgs))
     if rc != 0:
         raise RuntimeError(f"fused_cifar_featurize: CUDA error {rc} at launch")
     product, rest, nbytes = work.featurize_work(
         B, K, P=(img_size - patch_size + 1) ** 2, F=F, R=geo.R,
         region_hits=geo.hits, pixels=img_size * img_size * channels)
     _count_launch("fused_cifar_featurize", product + rest, nbytes)
+    if not torch.cuda.is_current_stream_capturing():
+        FEATURIZE_VARIANTS["streamed" if featurize_ksteps(F) > FEATURIZE_KREG
+                           else "registers"] += 1
     return out
 
 

@@ -59,7 +59,8 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("B,K", [(7, 100), (2, 1024), (1, 64)])
+@pytest.mark.parametrize("B,K", [(7, 100), (2, 1024), (1, 64), (64, 1024),
+                                 (64, 100)])
 def test_cuda_kernel_matches_plain(cuda, B, K):
     imgs, filters, means = (torch.as_tensor(a, device=cuda)
                             for a in _inputs(B, K, seed=B + K))
@@ -101,6 +102,60 @@ def test_cuda_kernel_matches_plain_at_every_geometry(cuda, S, C, stride,
     _close(got.cpu().numpy(), want.cpu().numpy())
     # one thread sums each value in a fixed order: the same bits again
     assert torch.equal(got, kernels.fused_cifar_featurize(imgs, filters, **kw))
+
+
+#: the featurize kernel against the float64 plain version: no worse than
+#: this many times the float32 plain version's error (chip_smoke.py's
+#: FEATURIZE_F64_RATIO)
+FEATURIZE_F64_RATIO = 2.0
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_cuda_kernel_against_float64(cuda, seed):
+    """At B = 256, K = 1024, on chip_smoke.py's inputs (pixels in [0, 255),
+    filters of 0.1 randn, whitener means of 20 randn), the kernel's 3xTF32
+    product keeps the pooled features as close to float64 as the plain
+    float32 version within FEATURIZE_F64_RATIO, and a second launch
+    gives the same bits."""
+    rng = np.random.RandomState(100 + seed)
+    imgs = torch.as_tensor((rng.rand(256, 32, 32, 3) * 255).astype(
+        np.float32), device=cuda)
+    filters = torch.as_tensor((rng.randn(1024, 108) * 0.1).astype(
+        np.float32), device=cuda)
+    means = torch.as_tensor((rng.randn(108) * 20).astype(np.float32),
+                            device=cuda)
+    want = kernels.fused_cifar_featurize_plain(
+        imgs.double(), filters.double(), whitener_means=means.double())
+    got = kernels.fused_cifar_featurize(imgs, filters, whitener_means=means)
+    plain = kernels.fused_cifar_featurize_plain(imgs, filters,
+                                                whitener_means=means)
+    k_err = float((got.double() - want).abs().max())
+    p_err = float((plain.double() - want).abs().max())
+    assert k_err <= FEATURIZE_F64_RATIO * p_err, (k_err, p_err)
+    assert torch.equal(got, kernels.fused_cifar_featurize(
+        imgs, filters, whitener_means=means))
+
+
+@pytest.mark.parametrize("S,C,variant", [(6, 3, "registers"),
+                                         (5, 3, "registers"),
+                                         (6, 4, "streamed")])
+def test_cuda_kernel_takes_the_instantiation_of_its_depth(cuda, S, C,
+                                                          variant):
+    """A patch of up to 112 values (the main path's 6 x 6 x 3 = 108) runs
+    with every filter fragment in registers; a deeper one (6 x 6 x 4 =
+    144) streams its further k-steps from the plan. Each is counted in
+    its own FEATURIZE_VARIANTS entry and matches the plain version."""
+    imgs, filters, means = (torch.as_tensor(a, device=cuda)
+                            for a in _geometry_inputs(5, 130, S, C, seed=C))
+    kw = dict(patch_size=S, channels=C, whitener_means=means)
+    before = dict(kernels.FEATURIZE_VARIANTS)
+    got = kernels.fused_cifar_featurize(imgs, filters, **kw)
+    want = kernels.fused_cifar_featurize_plain(imgs, filters, **kw)
+    torch.cuda.synchronize()
+    after = dict(kernels.FEATURIZE_VARIANTS)
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == variant) for k in after}
+    _close(got.cpu().numpy(), want.cpu().numpy())
 
 
 def test_cuda_datum_path_launches_the_kernel(cuda):

@@ -219,17 +219,30 @@ def test_plain_matches_reference_at_other_geometries(mesh8, S, C, stride,
                                          (1, 2), (30, 2)])
 @pytest.mark.parametrize("cut", [32, 64])
 def test_run_ends_sum_every_region_membership_once(stride, size, cut):
-    """The card kernel's pooling walks each stretch of ``cut`` patches in
-    order and, at every run end of ``kernels.featurize_ends`` (built from
-    the per-row and per-column region maps), adds the run's sum to the
-    run's regions: that must give the plain pooling's region-membership
-    counts, with every run in one row and one stretch."""
+    """The card kernel stages the patches in the order of
+    ``kernels.featurize_columns`` (``cut`` patches a chunk) and pools
+    along it: a run of columns summed until a class end, then added to
+    the class's regions. That must give the plain pooling's
+    region-membership counts: every patch staged once, each class one run
+    of columns, the end bits marking exactly the class ends."""
     from keystone_tpu_torch.ops.image_ops import pool_regions
 
     OH = OW = 27
     P = OH * OW
-    ends = kernels.featurize_ends(OH, OW, stride, size, cut)
-    assert ends.shape == (P, 2)
+    row, C = 32 * 3, 3
+    table = kernels.featurize_columns(OH, OW, stride, size, row, C, cut)
+    Pp = -(-P // cut) * cut
+    assert table.shape == (Pp, 4) and table.dtype == np.int32
+    offs = table[:P, 0]
+    patches = (offs // row) * OW + (offs % row) // C
+    assert sorted(patches.tolist()) == list(range(P))
+    assert (offs == (patches // OW) * row + (patches % OW) * C).all()
+    assert (table[P:, 0] == -1).all() and (table[P:, 1] == -1).all()
+    ends = table[:, 1] >= 0
+    words = table[:, 3].view(np.uint32)
+    for g in range(0, Pp, 32):
+        assert words[g] == sum(int(ends[g + i]) << i for i in range(32))
+    assert (words[np.arange(Pp) % 32 != 0] == 0).all()
     ranges = pool_regions(OH, stride, size)
     nr = len(ranges)
     want = np.zeros((nr, nr, P), np.int64)
@@ -239,16 +252,99 @@ def test_run_ends_sum_every_region_membership_once(stride, size, cut):
                 want[rx, ry, py * OW + y0:py * OW + y1] = 1
     got = np.zeros_like(want)
     start = 0
-    for p in range(P):
-        if p % cut == 0:
-            assert start == p                # no run crosses a stretch
-        rows, cols = ends[p]
+    seen = set()
+    for j in range(P):
+        rows, cols = table[j, 1], table[j, 2]
         if rows < 0:
             continue
-        assert start // OW == p // OW       # nor a row
+        assert (rows, cols) not in seen         # each class one run
+        seen.add((rows, cols))
+        run = patches[start:j + 1]
         for rx in range(rows & 0xffff, (rows & 0xffff) + (rows >> 16)):
             for ry in range(cols & 0xffff, (cols & 0xffff) + (cols >> 16)):
-                got[rx, ry, start:p + 1] += 1
-        start = p + 1
+                got[rx, ry, run] += 1
+        start = j + 1
     assert start == P
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("S,C,stride,size", [
+    (6, 3, 13, 14), (6, 3, 7, 8), (5, 3, 4, 8), (9, 1, 13, 14)])
+def test_column_table_pools_like_the_plain_version(S, C, stride, size):
+    """The kernel's pooling in its own order on rectified values: per
+    staged column, sums carried along the class's run and added to its
+    regions at the class end (the end bits), then written region-major,
+    K pos then K neg. It gives the plain version's pooled features."""
+    rng = np.random.RandomState(S * 100 + stride)
+    H = 32
+    OH = H - S + 1
+    P = OH * OH
+    K = 5
+    conv = rng.randn(P, K).astype(np.float64) * 3
+    rect = np.concatenate([np.maximum(conv - 0.25, 0),
+                           np.maximum(-conv - 0.25, 0)], axis=1)
+    want = kernels.pool_image(torch.as_tensor(rect.reshape(OH, OH, 2 * K)),
+                              stride, size, "identity", "sum")
+    want = want.reshape(-1, 2 * K).numpy()
+    table = kernels.featurize_columns(OH, OH, stride, size, H * C, C)
+    nry = len(kernels.pool_regions(OH, stride, size))
+    got = np.zeros((nry * nry, 2 * K))
+    run = np.zeros(2 * K)
+    for g in range(0, table.shape[0], 32):
+        mask = int(table[g, 3].view(np.uint32))
+        for j in range(g, g + 32):
+            off = table[j, 0]
+            if off >= 0:
+                p = (off // (H * C)) * OH + (off % (H * C)) // C
+                run += rect[p]
+            if mask >> (j - g) & 1:
+                rows, cols = table[j, 1], table[j, 2]
+                for rx in range(rows & 0xffff,
+                                (rows & 0xffff) + (rows >> 16)):
+                    for ry in range(cols & 0xffff,
+                                    (cols & 0xffff) + (cols >> 16)):
+                        got[rx * nry + ry] += run
+                run = np.zeros(2 * K)
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-9)
+
+
+@pytest.mark.parametrize("K,F", [(1024, 108), (100, 108), (200, 144),
+                                 (1, 75)])
+def test_filter_split_and_fragment_layout(K, F):
+    """The plan's filter split, made once per model in torch: big has its
+    13 low mantissa bits clear, small too, and big + small gives the
+    filters within 2^-21 of each; laid out as the consumer threads hold
+    their wgmma A fragments (``csrc/fused_featurize.cu``'s note), zero past
+    K and past F."""
+    rng = np.random.RandomState(K + F)
+    filters = torch.as_tensor(rng.randn(K, F).astype(np.float32))
+    big, small = kernels.split_tf32(filters)
+    for part in (big, small):
+        assert int((part.view(torch.int32) & 0x1fff).abs().sum()) == 0
+    err = (big.double() + small.double() - filters.double()).abs()
+    assert bool((err <= filters.double().abs() * 2.0 ** -21).all())
+
+    frags = kernels.featurize_fragments(filters)
+    ks = kernels.featurize_ksteps(F)
+    T = -(-K // 128)
+    assert ks == max(14, -(-F // 8))
+    assert frags.shape == (T, 2, ks, 4, 32, 8)
+    assert frags.dtype == torch.float32 and frags.is_contiguous()
+    want = np.zeros((T * 128, 8 * ks, 2), np.float32)
+    want[:K, :F, 0] = big.numpy()
+    want[:K, :F, 1] = small.numpy()
+    got = frags.numpy()
+    for tile in range(T):
+        for wg in range(2):
+            for k in range(ks):
+                for warp in range(4):
+                    for lane in range(32):
+                        g, t = divmod(lane, 4)
+                        f = tile * 128 + 64 * wg + 16 * warp + g
+                        d = 8 * k + t
+                        frag = [(f, d), (f + 8, d), (f, d + 4),
+                                (f + 8, d + 4)]
+                        np.testing.assert_array_equal(
+                            got[tile, wg, k, warp, lane],
+                            [want[ff, dd, 0] for ff, dd in frag]
+                            + [want[ff, dd, 1] for ff, dd in frag])
